@@ -7,7 +7,8 @@ setup(
     packages=find_packages(exclude=("tests",)),
     package_data={"unirec_tpu": ["config/*.yaml", "config/model/*.yaml",
                                  "config/dataset/*.yaml",
-                                 "native/*.cc"]},
+                                 "native/*.cc"],
+                  "unirec_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "pandas", "pyyaml"],
     entry_points={"console_scripts": ["unirec-tpu = unirec_tpu.cli:main"]},
