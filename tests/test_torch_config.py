@@ -32,8 +32,9 @@ def test_model_defaults_equal_model_yaml(model):
 
 
 def test_every_key_the_slice_reads_has_a_default():
-    """Keys the serving slice reads from a freshly parsed config (not from a
-    checkpoint) come from the held defaults, as from the YAMLs."""
+    """Keys the serving and training slices read from a freshly parsed
+    config (not from a checkpoint) come from the held defaults, as from the
+    YAMLs."""
     cfg = torch_config.parse_arguments({"model": "SASRec"}, argv=[], device="cpu")
     ref = jax_config.parse_arguments({"model": "SASRec"}, argv=[])
     for key in ("embedding_size", "n_layers", "n_heads", "inner_size",
@@ -41,7 +42,17 @@ def test_every_key_the_slice_reads_has_a_default():
                 "init_std", "init_mean", "use_position_emb", "has_item_bias",
                 "has_user_bias", "test_batch_size", "batch_size", "tau",
                 "mesh_model", "compute_dtype", "fused_layer", "fused_lastq",
-                "use_pallas", "use_fused_ffn", "qkv_packed", "attn_head_stacked"):
+                "use_pallas", "use_fused_ffn", "qkv_packed", "attn_head_stacked",
+                # the training slice
+                "hidden_dropout_prob", "attn_dropout_prob", "dropout_bits", "epochs",
+                "learning_rate", "optimizer", "weight_decay", "grad_clip_value",
+                "scheduler", "scheduler_factor", "seed", "auto_resume", "enable_morec",
+                "mesh_data", "history_mask_mode", "seq_last", "loss_type", "group_size",
+                "ccl_w", "ccl_m", "score_clip_value", "neg_by_pop_alpha",
+                "neg_oversample_factor", "neg_membership_pallas",
+                "neg_membership_binary_search", "shard_embeddings",
+                "vmem_embedding_grad", "embedding_grad_f32", "scan_embedding_grad",
+                "expand_embedding_grad"):
         assert cfg[key] == ref[key], key
 
 

@@ -13,6 +13,7 @@ machine does not have.)
 """
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -169,3 +170,162 @@ def test_sasrec_kernels_agree_with_plain_path(cuda):
         b = plain.to(cuda).eval().user_emb({"item_seq": seq})
     assert LY.fused_last_query_layer.launches == before + 1
     assert float((a.float() - b.float()).abs().max()) <= 0.1
+
+
+# ------------------------------------------------------------ training slice
+# Backward tolerances are relative to the largest reference gradient: f32
+# 1e-4 (summation order: the kernels sum weight gradients per block, then
+# across blocks); bf16 5e-2 (the kernels and the plain versions round to
+# bf16 at the same points, but a different f32 summation order can flip
+# one rounding, which later roundings carry).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+
+
+def _drop(p=0.1, seed=1234):
+    return LY.drop_params(p, p, True, seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_forward_kernels_match_plain(cuda, dtype):
+    x, madd, params = _layer_case(cuda, dtype, B=16, seed=4)
+    xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
+    flat = LY._layer_weights(params, dtype)
+    y = LY._layer_fwd_cuda(xp, mp, flat, 2, "swish", 1e-10, True, _drop())
+    ref = LY._layer_fwd_plain(xp, mp, flat, 2, "swish", 1e-10, True, _drop())
+    assert float((y.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert float((y.float() - LY._layer_fwd_plain(xp, mp, flat, 2, "swish", 1e-10, True)
+                  .float()).abs().max()) > 10 * TOL[dtype]    # dropout really ran
+    fq = LY._lastq_weights(params, dtype)
+    yq = LY._lastq_fwd_cuda(xp, mp, fq, 9, 2, "swish", 1e-10, _drop())
+    rq = LY._lastq_fwd_plain(xp, mp, fq, 9, 2, "swish", 1e-10, _drop())
+    assert float((yq.float() - rq.float()).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("causal,act", [(True, "swish"), (False, "gelu"), (True, "relu")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_bwd_matches_plain(cuda, dtype, causal, act, p):
+    x, madd, params = _layer_case(cuda, dtype, B=40, seed=5)
+    xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
+    flat = LY._layer_weights(params, dtype)
+    dy = torch.randn(xp.shape, device=cuda).to(dtype)
+    args = (2, act, 1e-10, causal, _drop(p))
+    before = LY.layer_bwd.launches
+    dx, grads = LY.layer_bwd(xp, mp, flat, dy, *args)
+    assert LY.layer_bwd.launches == before + 1
+    rdx, rgrads = LY._layer_bwd_plain(xp, mp, flat, dy, *args)
+    assert _rel_err(dx, rdx) <= BWD_TOL[dtype]
+    for g, r, w in zip(grads, rgrads, flat):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lastq_bwd_matches_plain(cuda, dtype, p):
+    x, madd, params = _layer_case(cuda, dtype, B=40, seed=6)
+    xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
+    flat = LY._lastq_weights(params, dtype)
+    dy = torch.randn(xp.shape[0], xp.shape[2], device=cuda).to(dtype)
+    args = (9, 2, "swish", 1e-10, _drop(p))
+    before = LY.lastq_bwd.launches
+    dx, grads = LY.lastq_bwd(xp, mp, flat, dy, *args)
+    assert LY.lastq_bwd.launches == before + 1
+    rdx, rgrads = LY._lastq_bwd_plain(xp, mp, flat, dy, *args)
+    assert _rel_err(dx, rdx) <= BWD_TOL[dtype]
+    for g, r in zip(grads, rgrads):
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
+def test_backward_gates_match_the_kernels(cuda):
+    lb = _build.library("layer_bwd")
+    qb = _build.library("lastq_bwd")
+    lb.unirec_layer_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    qb.unirec_lastq_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lb.unirec_layer_bwd_slab_floats.argtypes = [ctypes.c_int] * 2
+    qb.unirec_lastq_bwd_slab_floats.argtypes = [ctypes.c_int] * 2
+    for Lp, D, F, nh in ((56, 64, 128, 2), (16, 32, 64, 2)):
+        assert lb.unirec_layer_bwd_smem_bytes(Lp, D, F, nh) == LY._layer_bwd_smem_bytes(Lp, D, F, nh)
+        assert qb.unirec_lastq_bwd_smem_bytes(Lp, D, F, nh) == LY._lastq_bwd_smem_bytes(Lp, D, F, nh)
+        x, madd, params = _layer_case(cuda, torch.float32, D=D, F=F)
+        assert lb.unirec_layer_bwd_slab_floats(D, F) == sum(
+            t.numel() for t in LY._layer_weights(params, torch.float32))
+        assert qb.unirec_lastq_bwd_slab_floats(D, F) == sum(
+            t.numel() for t in LY._lastq_weights(params, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_matches_plain_and_index_add(cuda, dtype):
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ids = torch.randint(0, 1003, (20011,), generator=g, device=cuda)
+    rows = torch.randn(20011, 64, generator=g, device=cuda).to(dtype)
+    before = SA.scatter_add_rows.launches
+    out = SA.scatter_add_rows(ids, rows, 1003)
+    out2 = SA.scatter_add_rows2(ids, rows, 1004)
+    assert SA.scatter_add_rows.launches == before + 2
+    ref = SA._scatter_plain(ids, rows, 1003)
+    lib = torch.zeros(1003, 64, device=cuda).index_add_(0, ids, rows.float()).to(dtype)
+    # f32 atomics in another order: 1e-4 abs on sums of ~20 unit rows in
+    # f32; one bf16 rounding (3.9e-3 relative) in bf16
+    tol = 1e-4 if dtype == torch.float32 else 8e-3 * float(ref.float().abs().max())
+    assert out.dtype == dtype and out.shape == (1003, 64)
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float((out.float() - lib.float()).abs().max()) <= tol
+    assert float((out2[:1003].float() - ref.float()).abs().max()) <= tol
+    assert float(out2[1003].abs().max()) == 0.0
+
+
+def test_member_matches_plain(cuda):
+    from unirec_tpu_torch.ops import member as MB
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rows = torch.randint(0, 60, (1001, 200), generator=g, device=cuda, dtype=torch.int32)
+    cand = torch.randint(0, 70, (1001, 36), generator=g, device=cuda, dtype=torch.int32)
+    before = MB.member_mask.launches
+    out = MB.member_mask(rows, cand)
+    assert MB.member_mask.launches == before + 1
+    assert torch.equal(out, MB._member_plain(rows, cand))
+
+
+def test_augmenter_membership_launches_the_kernel_at_an_odd_batch(cuda):
+    from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter
+    from unirec_tpu_torch.data.history import UserHistory
+    from unirec_tpu_torch.ops import member as MB
+    rng = np.random.default_rng(3)
+    items = rng.integers(1, 90, (1001, 40)).astype(np.int32)
+    cfg = dict(n_items=100, n_sample_neg_train=9, neg_oversample_factor=4,
+               max_seq_len=8, dataloader="SeqRecDataset", neg_membership_pallas=1)
+    aug = DeviceAugmenter(cfg, UserHistory(items, np.full(1001, 40, np.int32)),
+                          device=cuda)
+    rows = torch.from_numpy(items).to(cuda)
+    before = MB.member_mask.launches
+    negs = aug.sample_negatives(torch.Generator(device=cuda).manual_seed(0), rows,
+                                torch.ones(1001, 1, dtype=torch.int32, device=cuda))
+    assert MB.member_mask.launches == before + 1
+    hit = (negs[:, :, None] == rows[:, None, :]).any(-1) & (negs > 0)
+    assert negs.shape == (1001, 9) and not bool(hit.any())
+
+
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from unirec_tpu_torch.ops import member as MB
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    x, madd, params = _layer_case(cuda, torch.float16)
+    xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
+    flat = LY._layer_weights(params, torch.float16)
+    with pytest.raises(TypeError):
+        LY.layer_bwd(xp, mp, flat, torch.zeros_like(xp), 2, "swish", 1e-10, True)
+    with pytest.raises(TypeError):
+        LY.lastq_bwd(xp, mp, LY._lastq_weights(params, torch.float16),
+                     torch.zeros_like(xp[:, 0]), 9, 2, "swish", 1e-10)
+    with pytest.raises(TypeError):
+        SA.scatter_add_rows(torch.zeros(4, dtype=torch.long, device=cuda),
+                            torch.zeros(4, 8, dtype=torch.float16, device=cuda), 10)
+    with pytest.raises(TypeError):
+        MB.member_mask(torch.zeros(4, 8, device=cuda), torch.zeros(4, 3, device=cuda))
+    with pytest.raises(ValueError):
+        MB.member_mask(torch.zeros(4, 8000, dtype=torch.int32, device=cuda),
+                       torch.zeros(4, 3, dtype=torch.int32, device=cuda))

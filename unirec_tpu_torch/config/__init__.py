@@ -25,7 +25,7 @@ import json
 import os
 from typing import Any, Dict, Iterable, Optional
 
-# keys of unirec_tpu/config/base.yaml that the ported slice reads
+# keys of unirec_tpu/config/base.yaml that the ported slices read
 BASE_DEFAULTS: Dict[str, Any] = {
     "seed": 2022,
     "init_method": "normal",
@@ -56,6 +56,34 @@ BASE_DEFAULTS: Dict[str, Any] = {
     "fused_lastq": 0,
     "use_fused_ffn": 0,
     "use_pallas": True,
+    # training (facility/trainer.py, core/optim.py, data/device_pipeline.py)
+    "epochs": 200,
+    "learning_rate": 0.001,
+    "optimizer": "adam",
+    "weight_decay": 0.0,
+    "grad_clip_value": -1,
+    "scheduler": "reduce",
+    "scheduler_factor": 0.1,
+    "auto_resume": 0,
+    "enable_morec": 0,
+    "mesh_data": -1,
+    "dataloader": "BaseDataset",
+    "history_mask_mode": "unorder",
+    "seq_last": False,
+    "group_size": -1,
+    "ccl_w": 150,
+    "ccl_m": 0.4,
+    "score_clip_value": -1,
+    "neg_by_pop_alpha": 0,
+    "neg_oversample_factor": 4,
+    "neg_membership_pallas": 0,
+    "neg_membership_binary_search": 0,
+    "dropout_bits": 32,
+    "shard_embeddings": False,
+    "vmem_embedding_grad": 1,
+    "embedding_grad_f32": 0,
+    "scan_embedding_grad": 0,
+    "expand_embedding_grad": 0,
 }
 
 # config/model/<Model>.yaml of every model this package registers

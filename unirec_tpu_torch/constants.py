@@ -1,7 +1,10 @@
-"""Enumerations the serving slice reads (copy of unirec_tpu/constants.py)."""
+"""Constants and enumerations the ported slices read (copy of
+unirec_tpu/constants.py)."""
 from __future__ import annotations
 
 import enum
+
+EPS = 1e-8
 
 
 class DataFormat(str, enum.Enum):
@@ -31,3 +34,4 @@ class DistanceType(str, enum.Enum):
     DOT = "dot"
     COSINE = "cosine"
     MLP = "mlp"
+

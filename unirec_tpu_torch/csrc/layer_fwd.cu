@@ -1,9 +1,14 @@
-// layer_fwd: one whole post-LN transformer layer, eval mode.
+// layer_fwd: one whole post-LN transformer layer, with dropout in train mode.
 //
 // Replaces the TPU kernel unirec_tpu/ops/layer.py::_layer_fwd_kernel
 // (launched by _fused_layer_fwd_impl, public entry fused_transformer_layer):
 //   qkv = x Wqkv + b -> per head: softmax(q k^T / sqrt(hd) + mask) v
 //   -> out-proj -> +x -> LN1 -> dense1 -> act -> dense2 -> +x1 -> LN2
+// with dropout on the attention probabilities (site h = head), the
+// attention output (site nh) and the FFN output (site nh+1), as
+// ops/layer.py:304,335,349,387 number them; masks from common.cuh's
+// Philox keyed by (seed, site, example, element), element i*Lp+j for
+// probabilities and i*D+c for hidden values.
 // The mask is rebuilt as the TPU kernel builds it (ops/layer.py:204-216):
 // the additive key-pad row madd, elementwise MIN with the causal -1e4
 // triangle (so a row whose keys are all masked stays uniform, never -2e4),
@@ -44,7 +49,7 @@ layer_fwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
                  const T* __restrict__ w2, const T* __restrict__ b2,
                  const float* __restrict__ g2, const float* __restrict__ c2,
                  T* __restrict__ y, int Lp, int D, int F, int nh, int act,
-                 int causal, float eps) {
+                 int causal, float eps, Drop dr) {
   extern __shared__ float smem[];
   const int hd = D / nh;
   const int ldx = D + 1, ldq = 3 * D + 1, ldu = F + 1, lds = Lp + 1;
@@ -55,7 +60,8 @@ layer_fwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
   float* CTX = S + Lp * lds;     // [Lp, D]   attention output, later dense2
   float* X1 = CTX + Lp * ldx;    // [Lp, D]   out-proj -> residual -> LN1
   float* M = X1 + Lp * ldx;      // [Lp]      key-pad row
-  const size_t base = (size_t)blockIdx.x * Lp * D;
+  const int b = blockIdx.x;
+  const size_t base = (size_t)b * Lp * D;
 
   for (int i = threadIdx.x; i < Lp * D; i += blockDim.x)
     X[(i / D) * ldx + i % D] = to_f<T>(x[base + i]);
@@ -80,7 +86,13 @@ layer_fwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
       S[i * lds + j] = acc * scale + m;
     }
     __syncthreads();
-    softmax_rows<T>(S, lds, Lp, Lp);
+    softmax_rows(S, lds, Lp, Lp);
+    __syncthreads();
+    for (int w = threadIdx.x; w < Lp * Lp; w += blockDim.x) {
+      const int i = w / Lp, j = w % Lp;
+      const float p = S[i * lds + j];
+      S[i * lds + j] = rnd<T>(kept(dr.seed, dr.t_attn, h, b, w) ? p * dr.inv_attn : 0.0f);
+    }
     __syncthreads();
     for (int w = threadIdx.x; w < Lp * hd; w += blockDim.x) {
       const int i = w / hd, d = w % hd;
@@ -95,7 +107,7 @@ layer_fwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
   __syncthreads();
   for (int i = threadIdx.x; i < Lp * D; i += blockDim.x) {
     const int o = (i / D) * ldx + i % D;
-    X1[o] = rnd<T>(X1[o] + X[o]);
+    X1[o] = rnd<T>(drop_hidden<T>(X1[o], dr, nh, b, i) + X[o]);
   }
   __syncthreads();
   layer_norm_rows<T>(X1, ldx, Lp, D, g1, c1, eps);
@@ -114,7 +126,7 @@ layer_fwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
   __syncthreads();
   for (int i = threadIdx.x; i < Lp * D; i += blockDim.x) {
     const int o = (i / D) * ldx + i % D;
-    H2[o] = rnd<T>(H2[o] + X1[o]);
+    H2[o] = rnd<T>(drop_hidden<T>(H2[o], dr, nh + 1, b, i) + X1[o]);
   }
   __syncthreads();
   layer_norm_rows<T>(H2, ldx, Lp, D, g2, c2, eps);
@@ -128,7 +140,8 @@ int launch(const void* x, const float* madd, const void* wqkv, const void* bqkv,
            const void* wo, const void* bo, const float* g1, const float* c1,
            const void* w1, const void* b1, const void* w2, const void* b2,
            const float* g2, const float* c2, void* y, int B, int Lp, int D,
-           int F, int nh, int act, int causal, float eps, cudaStream_t stream) {
+           int F, int nh, int act, int causal, float eps, Drop dr,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * layer_smem_floats(Lp, D, F);
   cudaError_t err = cudaFuncSetAttribute(
       layer_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -136,7 +149,7 @@ int launch(const void* x, const float* madd, const void* wqkv, const void* bqkv,
   layer_fwd_kernel<T><<<B, kThreads, smem, stream>>>(
       (const T*)x, madd, (const T*)wqkv, (const T*)bqkv, (const T*)wo,
       (const T*)bo, g1, c1, (const T*)w1, (const T*)b1, (const T*)w2,
-      (const T*)b2, g2, c2, (T*)y, Lp, D, F, nh, act, causal, eps);
+      (const T*)b2, g2, c2, (T*)y, Lp, D, F, nh, act, causal, eps, dr);
   return (int)cudaGetLastError();
 }
 
@@ -150,22 +163,27 @@ int unirec_layer_fwd_smem_bytes(int Lp, int D, int F) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y, weights and biases); madd and
-// the LayerNorm parameters are float32. Returns a cudaError_t.
+// the LayerNorm parameters are float32. Dropout: seed, the keep thresholds
+// round(p * 2^32) of the attention and hidden sites (0: no dropout) and
+// their 1/(1-p). Returns a cudaError_t.
 int unirec_layer_fwd(int dtype, const void* x, const float* madd,
                      const void* wqkv, const void* bqkv, const void* wo,
                      const void* bo, const float* g1, const float* c1,
                      const void* w1, const void* b1, const void* w2,
                      const void* b2, const float* g2, const float* c2, void* y,
                      int B, int Lp, int D, int F, int nh, int act, int causal,
-                     float eps, void* stream) {
+                     float eps, unsigned seed, unsigned t_attn,
+                     unsigned t_hidden, float inv_attn, float inv_hidden,
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden};
   if (dtype == 0)
     return launch<float>(x, madd, wqkv, bqkv, wo, bo, g1, c1, w1, b1, w2, b2,
-                         g2, c2, y, B, Lp, D, F, nh, act, causal, eps, s);
+                         g2, c2, y, B, Lp, D, F, nh, act, causal, eps, dr, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, madd, wqkv, bqkv, wo, bo, g1, c1, w1, b1,
                                  w2, b2, g2, c2, y, B, Lp, D, F, nh, act,
-                                 causal, eps, s);
+                                 causal, eps, dr, s);
   return (int)cudaErrorInvalidValue;
 }
 

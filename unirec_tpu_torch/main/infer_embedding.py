@@ -16,6 +16,7 @@ import torch
 
 from unirec_tpu_torch import config as config_mod
 from unirec_tpu_torch.data.history import UserHistory
+from unirec_tpu_torch.utils import to_device
 from unirec_tpu_torch.utils.checkpoint import load_model_freely
 from unirec_tpu_torch.utils.logger import setup_logger
 
@@ -49,12 +50,6 @@ def iter_infer_batches(config, ids: np.ndarray, history: Optional[UserHistory],
         yield batch
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """Host batch -> int64 tensors on ``device`` (indices for gathers)."""
-    return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device, non_blocking=True)
-            for k, v in batch.items()}
-
-
 @torch.no_grad()
 def infer_embedding(config, model, ids: np.ndarray,
                     history: Optional[UserHistory],
@@ -64,7 +59,7 @@ def infer_embedding(config, model, ids: np.ndarray,
     pending, reals, out_ids = [], [], []
     for batch in iter_infer_batches(config, ids, history, is_seqrec, node_type):
         n_real = batch.pop("n_real")
-        tb = to_device(batch, model.device)
+        tb = to_device(batch, model.device, torch.int64)
         emb = model.user_emb(tb) if node_type == "user" \
             else model.item_emb(tb["item_id"])
         pending.append(emb)

@@ -27,8 +27,9 @@ import torch
 
 from unirec_tpu_torch import config as config_mod
 from unirec_tpu_torch.data.history import UserHistory
-from unirec_tpu_torch.main.infer_embedding import iter_infer_batches, to_device
+from unirec_tpu_torch.main.infer_embedding import iter_infer_batches
 from unirec_tpu_torch.ops import topk as topk_ops
+from unirec_tpu_torch.utils import to_device
 from unirec_tpu_torch.utils.checkpoint import load_model_freely
 from unirec_tpu_torch.utils.logger import setup_logger
 
@@ -80,7 +81,7 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
     pending, reals, metas = [], [], []
     for batch in iter_infer_batches(config, user_ids, history, model.is_seqrec):
         n_real = batch.pop("n_real")
-        tb = to_device(batch, dev)
+        tb = to_device(batch, dev, torch.int64)
         hist_items, hist_len = history.gather(batch["user_id"])
         if last_item > 0:
             target = hist_items[np.arange(len(hist_len)),
@@ -90,7 +91,7 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
         reals.append(n_real)
         metas.append((batch["user_id"][:n_real], target))
         h = to_device({"items": hist_items, "len": hist_len,
-                       "target": target}, dev)
+                       "target": target}, dev, torch.int64)
         if item_file:
             pending.append(topk_ops.full_catalog_scores(model, tb, item_emb, tau))
         elif fused:

@@ -17,8 +17,8 @@ from unirec_tpu_torch.utils.registry import register_model
 @register_model("SASRec")
 class SASRec(SeqRecBase):
     """Self-attentive sequential recommender (sasrec.py:10-77): item +
-    position embedding -> LN -> N post-LN transformer layers under the
-    causal -10000 mask -> hidden state at the last position."""
+    position embedding -> LN -> dropout -> N post-LN transformer layers
+    under the causal -10000 mask -> hidden state at the last position."""
 
     def __init__(self, cfg):
         super().__init__(cfg)
@@ -49,18 +49,29 @@ class SASRec(SeqRecBase):
             fused_ffn=bool(c.get("use_fused_ffn", 0)),
             fused_layer=bool(c.get("fused_layer", 0)),
             fused_causal=self.use_pos_emb,
-            fused_lastq=bool(c.get("fused_lastq", 0)))
+            fused_lastq=bool(c.get("fused_lastq", 0)),
+            hidden_dropout_prob=float(c.get("hidden_dropout_prob", 0.5)),
+            attn_dropout_prob=float(c.get("attn_dropout_prob", 0.5)),
+            bits8=self.bits8)
         self.LayerNorm = nn.LayerNorm(self.hidden_size, eps=eps)
 
-    def encode_sequence(self, item_seq: torch.Tensor) -> torch.Tensor:
+    @property
+    def bits8(self) -> bool:
+        return int(self.cfg.get("dropout_bits", 32)) == 8
+
+    def encode_sequence(self, item_seq: torch.Tensor, train: bool = False,
+                        rng=None) -> torch.Tensor:
         x = self.item_embedding_for_user(item_seq)
         if self.use_pos_emb:
             L = item_seq.shape[1]
             x = x + self._cast(self.position_embedding.weight[:L])[None]
         x = modules.layer_norm(self.LayerNorm, x, self.compute_dtype)
+        x = modules.apply_dropout(x, float(self.cfg.get("hidden_dropout_prob", 0.5)),
+                                  train, rng, self.bits8)
         mask = modules.causal_attention_mask(item_seq,
                                              bidirectional=not self.use_pos_emb)
-        return self.trm_encoder(x, mask)
+        return self.trm_encoder(x, mask, train, rng)
 
-    def forward_user_emb(self, user_id=None, item_seq=None, item_seq_len=None):
-        return self.encode_sequence(item_seq)[:, -1, :]
+    def forward_user_emb(self, user_id=None, item_seq=None, item_seq_len=None,
+                         train: bool = False, rng=None):
+        return self.encode_sequence(item_seq, train, rng)[:, -1, :]

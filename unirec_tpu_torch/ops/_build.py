@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("layer_fwd", "lastq_fwd", "blockmax")
+KERNEL_SOURCES = ("layer_fwd", "lastq_fwd", "blockmax", "layer_bwd", "lastq_bwd",
+                  "scatter_add", "member")
 
 
 def _nvcc() -> str:

@@ -6,8 +6,11 @@ parameter tree as nested dicts of numpy arrays. The JAX trainer also stores
 its optax ``opt_state``, whose pickle names optax classes; the loader maps
 every global of the ``jax``, ``flax`` and ``optax`` packages to an inert
 stub, so a checkpoint loads without them and serving reads only ``config``
-and ``params``. Only load checkpoints that this project wrote: unpickling
-runs code named by the file.
+and ``params``. The port's trainer stores its own ``opt_state`` as numpy
+(``opt_state_to_numpy``): scalars as 0-d arrays and every per-parameter
+list as a flax-layout tree, so the file holds no class of either
+framework. Only load checkpoints that this project wrote: unpickling runs
+code named by the file.
 """
 from __future__ import annotations
 
@@ -50,8 +53,9 @@ def save_checkpoint(path: str, state: Dict[str, Any]) -> None:
     renamed, so a reader never sees half a checkpoint."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = dict(state)
-    if payload.get("params") is not None:
-        payload["params"] = _to_numpy(payload["params"])
+    for key in ("params", "opt_state"):
+        if payload.get(key) is not None:
+            payload[key] = _to_numpy(payload[key])
     if payload.get("config") is not None:
         payload["config"] = {k: v for k, v in payload["config"].items()
                              if not k.startswith("_")}
@@ -59,6 +63,21 @@ def save_checkpoint(path: str, state: Dict[str, Any]) -> None:
     with open(tmp, "wb") as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
+
+
+def opt_state_to_numpy(model, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port optimizer's state (core/optim.py) as numpy: 0-d tensors as
+    arrays, per-parameter lists as flax-layout trees."""
+    from unirec_tpu_torch.utils.flax_bridge import to_flax_tree
+    return {k: to_flax_tree(model, v) if isinstance(v, list)
+            else v.detach().cpu().numpy() for k, v in opt_state.items()}
+
+
+def opt_state_from_numpy(model, state: Dict[str, Any], device) -> Dict[str, Any]:
+    """Inverse of opt_state_to_numpy, onto ``device``."""
+    from unirec_tpu_torch.utils.flax_bridge import from_flax_tree
+    return {k: [t.to(device) for t in from_flax_tree(model, v)] if isinstance(v, dict)
+            else torch.as_tensor(np.asarray(v), device=device) for k, v in state.items()}
 
 
 def _to_numpy(tree):

@@ -17,7 +17,7 @@ both. Values are copied bit for bit; a round trip is exact.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +40,17 @@ def _leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], nn.Parameter, b
 
 def to_flax_params(model: nn.Module) -> Dict:
     """The flax ``params`` tree (nested dicts of numpy arrays) of ``model``."""
+    return to_flax_tree(model, list(model.parameters()))
+
+
+def to_flax_tree(model: nn.Module, values: Sequence[torch.Tensor]) -> Dict:
+    """A flax-layout tree of per-parameter tensors ``values`` (in
+    ``model.parameters()`` order, each shaped like its parameter), such as
+    an optimizer's moments."""
+    index = {id(p): i for i, p in enumerate(model.parameters())}
     tree: Dict = {}
     for path, p, transposed in _leaves(model):
-        value = p.detach().cpu()
+        value = values[index[id(p)]].detach().cpu()
         value = value.t() if transposed else value
         node = tree
         for key in path[:-1]:
@@ -51,29 +59,52 @@ def to_flax_params(model: nn.Module) -> Dict:
     return tree
 
 
-def load_flax_params(model: nn.Module, params: Dict) -> None:
-    """Copy a flax ``params`` tree into ``model``. Every parameter of the
-    model must be present with its shape; leaves the model does not have
-    are an error too, so a checkpoint of another configuration cannot load
-    silently."""
+def from_flax_tree(model: nn.Module, tree: Dict) -> List[torch.Tensor]:
+    """Inverse of to_flax_tree: CPU tensors in ``model.parameters()`` order."""
+    index = {id(p): i for i, p in enumerate(model.parameters())}
+    out: List = [None] * len(index)
+    for path, p, transposed in _leaves(model):
+        value = torch.from_numpy(np.array(_node(tree, path), copy=True))
+        out[index[id(p)]] = value.t().contiguous() if transposed else value
+    return out
+
+
+def _node(tree: Dict, path: Tuple[str, ...]):
+    node = tree
+    for key in path:
+        if not isinstance(node, dict) or key not in node:
+            raise KeyError(f"checkpoint has no parameter {'/'.join(path)}")
+        node = node[key]
+    return node
+
+
+def load_flax_params(model: nn.Module, params: Dict, strict: bool = True) -> None:
+    """Copy a flax ``params`` tree into ``model``. Strict: every parameter
+    of the model must be present with its shape, and leaves the model does
+    not have are an error too, so a checkpoint of another configuration
+    cannot load silently. Not strict: copy the leaves whose path and shape
+    match and skip the rest (the JAX trainer's ``_merge_trees``)."""
     seen = set()
     with torch.no_grad():
         for path, p, transposed in _leaves(model):
-            node = params
-            for key in path:
-                if not isinstance(node, dict) or key not in node:
-                    raise KeyError(f"checkpoint has no parameter {'/'.join(path)}")
-                node = node[key]
+            try:
+                node = _node(params, path)
+            except KeyError:
+                if strict:
+                    raise
+                continue
             value = torch.from_numpy(np.array(node, copy=True))
             value = value.t() if transposed else value
             if tuple(value.shape) != tuple(p.shape):
+                if not strict:
+                    continue
                 raise ValueError(f"{'/'.join(path)}: checkpoint shape "
                                  f"{tuple(value.shape)} != model {tuple(p.shape)}")
             p.copy_(value.to(p.dtype))
             seen.add(path)
     extra = sorted("/".join(path) for path in _flat_paths(params)
                    if path not in seen)
-    if extra:
+    if extra and strict:
         raise KeyError(f"checkpoint parameters the model does not have: {extra}")
 
 
