@@ -5,7 +5,7 @@
 
 Phases, each of which must pass:
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from unirec_tpu_torch/csrc
+  2. build every CUDA kernel of every path from unirec_tpu_torch/csrc
      with nvcc for sm_90a, one nvcc process per source, all at once;
   3. each kernel at the serving shapes against its plain PyTorch version on
      the same inputs, with the tolerance stated in its line, and timed:
@@ -28,8 +28,23 @@ Phases, each of which must pass:
      Trainer.fit, 3 warm-up and 24 timed steps; the loss must stay finite
      and fall, and every training kernel must launch. Then one step from the
      same weights, batch and seeds through the kernels and through the plain
-     versions, loss and every gradient compared; then two traced steps.
-Then it prints one {"kernels": [...]} line and, last, {"ok": true, ...}.
+     versions, loss and every gradient compared; then two traced steps;
+  7. the fused attention kernels (forward, backward) at B=32,768, H=2, L=50,
+     head dim 32, bf16, at dropout 0 and 0.1, and with a per-head mask; the
+     fused FFN kernels at 1,638,400 and 32,768 tokens (d=64, inner 128,
+     swish) and over all six activations; each against its plain version;
+  8. the entry path: main.run(task=train) on sasrec_fusedattn_ffn (bench.py's
+     widths with use_fused_attention and use_fused_ffn in place of the fused
+     layers) over synthetic data at bench.py's scale written under build/,
+     2 epochs of 200 steps with one-vs-all validation before each and the
+     test after; the best validation's hit@10 must show that the model
+     learned, main.run(task=test) from the best checkpoint must give the
+     same metrics, and every kernel of the path must launch. Then one step
+     at dropout 0 and one eval batch through the kernels and the plain
+     versions (loss, gradients, each row's rank of the positive, metrics),
+     and a traced step and eval batch.
+Then it prints its wall time, the card, one {"kernels": [...]} line and,
+last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
 """
@@ -286,9 +301,13 @@ def write_checkpoint(torch, path: Path):
 @contextmanager
 def plain_versions():
     """Route every kernel wrapper to its plain version (on the card)."""
-    from unirec_tpu_torch.ops import layer as LY, member as MB, scatter_accum as SA, \
-        topk as TK
-    with mock.patch.object(LY, "_layer_fwd_cuda", LY._layer_fwd_plain), \
+    from unirec_tpu_torch.ops import attention as AT, ffn as FF, layer as LY, \
+        member as MB, scatter_accum as SA, topk as TK
+    with mock.patch.object(AT, "_fwd_cuda", AT._fwd_plain), \
+            mock.patch.object(AT, "_bwd_cuda", AT._bwd_plain), \
+            mock.patch.object(FF, "_fwd_cuda", FF._fwd_plain), \
+            mock.patch.object(FF, "_bwd_cuda", FF._bwd_plain), \
+            mock.patch.object(LY, "_layer_fwd_cuda", LY._layer_fwd_plain), \
             mock.patch.object(LY, "_lastq_fwd_cuda", LY._lastq_fwd_plain), \
             mock.patch.object(LY, "_layer_bwd_cuda", LY._layer_bwd_plain), \
             mock.patch.object(LY, "_lastq_bwd_cuda", LY._lastq_bwd_plain), \
@@ -299,9 +318,13 @@ def plain_versions():
 
 
 def _counters():
-    from unirec_tpu_torch.ops import layer as LY, member as MB, scatter_accum as SA, \
-        topk as TK
-    return {"layer_fwd": (LY.fused_transformer_layer, "launches"),
+    from unirec_tpu_torch.ops import attention as AT, ffn as FF, layer as LY, \
+        member as MB, scatter_accum as SA, topk as TK
+    return {"fused_attention": (AT.fused_attention, "launches"),
+            "fused_attention_bwd": (AT.fused_attention_bwd, "launches"),
+            "fused_ffn": (FF.fused_ffn, "launches"),
+            "fused_ffn_bwd": (FF.fused_ffn_bwd, "launches"),
+            "layer_fwd": (LY.fused_transformer_layer, "launches"),
             "lastq_fwd": (LY.fused_last_query_layer, "launches"),
             "blockmax": (TK.catalog_blockmax, "launches"),
             "blockmax_int8": (TK.catalog_blockmax, "launches_int8"),
@@ -314,6 +337,8 @@ def _counters():
 SERVING_KERNELS = ("layer_fwd", "lastq_fwd", "blockmax", "blockmax_int8")
 TRAINING_KERNELS = ("layer_fwd", "lastq_fwd", "layer_bwd", "lastq_bwd",
                     "scatter_add", "member")
+ENTRY_KERNELS = ("fused_attention", "fused_attention_bwd", "fused_ffn", "fused_ffn_bwd",
+                 "scatter_add", "member")
 
 
 def launch_counts(names):
@@ -743,6 +768,473 @@ def profile_train_path(torch, trainer, raw, card):
           "card": card})
 
 
+# ---------------------------------------- fused attention and FFN kernels
+ATT_TOL = 2.0 ** -6   # bf16 forward outputs: two ulps of the largest output
+
+
+def attention_inputs(torch, B, H=2, L=SEQ_LEN, hd=EMB // 2, mask_heads=1, seed=SEED + 30):
+    """q, k, v [B, H, L, hd] bf16 at unit scale; the model's additive mask
+    [B, mask_heads, L, L] (causal triangle, left padding of 10..L real
+    items per example and head)."""
+    from unirec_tpu_torch.models.modules import causal_attention_mask
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, H, L, hd, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    masks = []
+    for _ in range(mask_heads):
+        lens = torch.randint(10, L + 1, (B,), generator=g, device="cuda")
+        seq = (torch.arange(L, device="cuda")[None, :] >= L - lens[:, None]).long()
+        masks.append(causal_attention_mask(seq))
+    return q, k, v, torch.cat(masks, dim=1)
+
+
+def kernel_fused_attention(torch):
+    """Rows 10 and 11 at the slice's shape (B=32,768, H=2, L=50, hd=32,
+    bf16, mask [B,1,L,L]) at p=0 and p=0.1, each against its plain version
+    with the same dropout seed; then a per-head mask at B=64. Library:
+    F.scaled_dot_product_attention at p=0 with the same additive mask."""
+    import torch.nn.functional as F
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import layer as LY
+    q, k, v, mask = attention_inputs(torch, TRAIN_BATCH)
+    B, H, L, hd = q.shape
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 31),
+                     device="cuda").to(torch.bfloat16)
+    flops = 4 * B * H * L * L * hd               # QK^T and PV
+    rows = {}
+    for p in (0.0, P_DROP):
+        drop = LY.drop_params(p, 0.0, True, 777)
+        out = AT._fwd_cuda(q, k, v, mask, drop)
+        ref = AT._fwd_plain(q, k, v, mask, drop)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = ATT_TOL * float(ref.float().abs().max())
+        line = {"phase": "kernel", "name": "fused_attention", "p_drop": p,
+                "shape": [B, H, L, hd], "mask": list(mask.shape), "dtype": "bfloat16",
+                "max_abs_err": err, "tol": tol,
+                "tol_reason": "two bf16 ulps of the largest output",
+                "finite": bool(torch.isfinite(out).all()),
+                "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop)),
+                "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask, drop), iters=3,
+                                    warmup=1)}
+        mb = mask.to(torch.bfloat16)
+        line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mb)) if p == 0.0 else None
+        line["bound_ms"], line["bound_by"] = bound_ms(nbytes(q, k, v, mask, out), flops,
+                                                      "bfloat16")
+        emit(line)
+        if not (err <= tol and line["finite"]):
+            raise AssertionError(f"fused_attention disagrees with its plain version: {line}")
+        del out, ref
+        got = AT._bwd_cuda(q, k, v, mask, do, drop)
+        ref = AT._bwd_plain(q, k, v, mask, do, drop)
+        torch.cuda.synchronize()
+        errs, _ = leaf_errs(got, ref)
+        line_b = {"phase": "kernel", "name": "fused_attention_bwd", "p_drop": p,
+                  "shape": [B, H, L, hd], "dtype": "bfloat16",
+                  "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got, ref)),
+                  "max_rel_err": max(errs), "rel_errs": errs, "tol": BWD_TOL,
+                  "tol_reason": "dq, dk, dv each relative to its own largest value; "
+                                "bf16 roundings at the same points, f32 sums in "
+                                "another order",
+                  "finite": all(bool(torch.isfinite(t).all()) for t in got),
+                  "kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
+                                       iters=10),
+                  "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do, drop),
+                                      iters=2, warmup=1)}
+        if p == 0.0:
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+            def lib_fwd_bwd():
+                o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mb)
+                torch.autograd.grad(o, (qs, ks, vs), do)
+
+            with torch.enable_grad():
+                line_b["library_ms"] = cuda_ms(lib_fwd_bwd, iters=10)
+            line_b["library_note"] = "scaled_dot_product_attention forward plus backward"
+        else:
+            line_b["library_ms"] = None
+        # the backward recomputes S and reads dO: products QK^T, dO V^T,
+        # dV, dQ, dK
+        line_b["bound_ms"], line_b["bound_by"] = bound_ms(
+            nbytes(q, k, v, mask, do, *got), 5 * flops // 2, "bfloat16")
+        emit(line_b)
+        if not (line_b["max_rel_err"] <= BWD_TOL and line_b["finite"]):
+            raise AssertionError("fused_attention_bwd disagrees with its plain version")
+        rows[f"fused_attention_p{p}"], rows[f"fused_attention_bwd_p{p}"] = line, line_b
+        del got, ref
+    # a mask per head (the JAX kernel's other mask layout), small batch
+    q, k, v, mask = attention_inputs(torch, 64, mask_heads=2, seed=SEED + 32)
+    drop = LY.drop_params(P_DROP, 0.0, True, 778)
+    do = torch.randn_like(q.float()).to(torch.bfloat16)
+    e_f = float((AT._fwd_cuda(q, k, v, mask, drop).float()
+                 - AT._fwd_plain(q, k, v, mask, drop).float()).abs().max())
+    e_b, _ = leaf_errs(AT._bwd_cuda(q, k, v, mask, do, drop),
+                       AT._bwd_plain(q, k, v, mask, do, drop))
+    line = {"phase": "kernel", "name": "fused_attention_head_mask", "shape": list(q.shape),
+            "mask": list(mask.shape), "p_drop": P_DROP, "fwd_max_abs_err": e_f,
+            "bwd_max_rel_err": max(e_b), "tol_fwd": ATT_TOL * 4, "tol_bwd": BWD_TOL}
+    emit(line)
+    if not (e_f <= ATT_TOL * 4 and max(e_b) <= BWD_TOL):
+        raise AssertionError(f"per-head-mask attention disagrees: {line}")
+    # the kernels line takes p=0, where scaled_dot_product_attention computes
+    # the same function
+    return rows["fused_attention_p0.0"], rows["fused_attention_bwd_p0.0"]
+
+
+def kernel_fused_ffn(torch):
+    """Rows 12 and 13 at the slice's two token counts (layer 0's B*L and
+    layer 1's B), D=64, F=128, bf16, swish, against their plain versions;
+    then all six activations at a small T in f32 and bf16. No single PyTorch
+    call computes the FFN: library_ms is null, and addmm -> act -> addmm is
+    timed beside it for information."""
+    import torch.nn.functional as F
+    from unirec_tpu_torch.ops import ffn as FF
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    D, Fi = EMB, 2 * EMB
+    rn = lambda *s, std=1.0, dt=torch.bfloat16: (  # noqa: E731
+        torch.randn(*s, generator=g, device="cuda") * std).to(dt)
+    w1, b1, w2, b2 = rn(D, Fi, std=0.1), rn(Fi, std=0.02), rn(Fi, D, std=0.1), rn(D, std=0.02)
+    rows = {}
+    for T in (TRAIN_BATCH * SEQ_LEN, TRAIN_BATCH):
+        x, dy = rn(T, D), rn(T, D)
+        y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
+        ref = FF._fwd_plain(x, w1, b1, w2, b2, "swish")
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tol = ATT_TOL * float(ref.float().abs().max())
+        line = {"phase": "kernel", "name": "fused_ffn", "tokens": T, "dims": [D, Fi],
+                "act": "swish", "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
+                "tol_reason": "two bf16 ulps of the largest output",
+                "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish")),
+                "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish")),
+                "library_ms": None,
+                "addmm_act_addmm_ms": cuda_ms(lambda: torch.addmm(
+                    b2, F.silu(torch.addmm(b1, x, w1)), w2))}
+        line["bound_ms"], line["bound_by"] = bound_ms(nbytes(x, w1, b1, w2, b2, y),
+                                                      4 * T * D * Fi, "bfloat16")
+        emit(line)
+        if not err <= tol:
+            raise AssertionError(f"fused_ffn disagrees with its plain version: {line}")
+        got = FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish")
+        refb = FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")
+        torch.cuda.synchronize()
+        errs, _ = leaf_errs(got, refb)
+        line_b = {"phase": "kernel", "name": "fused_ffn_bwd", "tokens": T, "dims": [D, Fi],
+                  "act": "swish", "dtype": "bfloat16",
+                  "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got, refb)),
+                  "max_rel_err": max(errs), "rel_errs": errs, "tol": BWD_TOL,
+                  "tol_reason": "dx, dW1, db1, dW2, db2 each relative to its own largest "
+                                "value; f32 sums in another order",
+                  "kernel_ms": cuda_ms(lambda: FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"),
+                                       iters=10),
+                  "plain_ms": cuda_ms(lambda: FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"),
+                                      iters=5),
+                  "library_ms": None}
+        # recompute (x W1) plus dh, dx, dW1, dW2: five products of 2*T*D*F
+        line_b["bound_ms"], line_b["bound_by"] = bound_ms(
+            nbytes(x, dy, w1, b1, w2, b2, *got), 10 * T * D * Fi, "bfloat16")
+        emit(line_b)
+        if not line_b["max_rel_err"] <= BWD_TOL:
+            raise AssertionError("fused_ffn_bwd disagrees with its plain version")
+        rows.setdefault("fused_ffn", line)
+        rows.setdefault("fused_ffn_bwd", line_b)
+        del x, dy, y, ref, got, refb
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x, dy = rn(4099, D, dt=dt), rn(4099, D, dt=dt)
+        ws = [t.to(dt) for t in (w1, b1, w2, b2)]
+        for act in FF.ACTS:
+            e = max(leaf_errs((FF._fwd_cuda(x, *ws, act),
+                               *FF._bwd_cuda(x, *ws, dy, act)),
+                              (FF._fwd_plain(x, *ws, act),
+                               *FF._bwd_plain(x, *ws, dy, act)))[0])
+            worst[f"{act}_{str(dt)[6:]}"] = e
+    line = {"phase": "kernel", "name": "fused_ffn_activations", "tokens": 4099,
+            "max_rel_err": worst, "tol": {"float32": 1e-4, "bfloat16": BWD_TOL}}
+    emit(line)
+    if any(e > (1e-4 if k.endswith("float32") else BWD_TOL) for k, e in worst.items()):
+        raise AssertionError(f"fused_ffn disagrees for an activation: {line}")
+    return rows["fused_ffn"], rows["fused_ffn_bwd"]
+
+
+# --------------------------------------------------------------- entry path
+EVAL_USERS, EVAL_BATCH, ENTRY_STEPS, ENTRY_EPOCHS = 8192, 1024, 200, 2
+# chance is 10 / 50,000; the walk data below is learned to far above it
+LEARN_MIN_HIT10 = 0.1
+# the synthetic histories walk groups of WALK_GROUP consecutive item ids (more
+# than HIST_CAP + 2, so a walk never repeats an item); WALK_NOISE of the items
+# are uniform over the catalog instead
+WALK_GROUP, WALK_NOISE = 200, 0.1
+
+
+def write_slice_data(root: Path) -> None:
+    """tests/synth.py's on-disk layout at bench.py's scale: 100,000 users
+    (id 0 is padding) with 10..199 training items each over 50,000 items,
+    seed 0, then one valid and one test item per user. User u walks the
+    items of group u % 249 (WALK_GROUP consecutive ids) one id up at each
+    step from a random start, wrapping inside the group, and 10% of its
+    items are uniform over the catalog instead; so the next item follows
+    from the last one, which SASRec learns within the run's 200 steps per
+    epoch (at 40 it learned only the 1-in-10 base rate), so the
+    validations choose between scores that differ. train.pkl holds ENTRY_STEPS batches
+    of (user, item) pairs drawn from the histories; valid.pkl and test.pkl
+    8,192 users each; user_history.pkl (user_id, item_seq) the training
+    histories."""
+    import json
+
+    import pandas as pd
+    rng = np.random.default_rng(SEED)
+    users = np.arange(1, N_USERS)
+    n = rng.integers(10, HIST_CAP, size=len(users))
+    owner = np.repeat(users, n + 2)
+    starts = np.concatenate([[0], np.cumsum(n + 2)[:-1]])
+    pos = np.arange(len(owner)) - np.repeat(starts, n + 2)
+    start = np.repeat(rng.integers(0, WALK_GROUP, len(users)), n + 2)
+    walk = 1 + (owner % ((N_ITEMS - 1) // WALK_GROUP)) * WALK_GROUP \
+        + (start + pos) % WALK_GROUP
+    items = np.where(rng.random(len(owner)) < WALK_NOISE,
+                     rng.integers(1, N_ITEMS, len(owner)), walk)
+    is_train = pos < np.repeat(n, n + 2)
+    root.mkdir(parents=True, exist_ok=True)
+    seqs = np.split(items[is_train], np.cumsum(n)[:-1])
+    pd.DataFrame({"user_id": users, "item_seq": seqs}).to_pickle(root / "user_history.pkl")
+    pick = rng.choice(int(is_train.sum()), ENTRY_STEPS * TRAIN_BATCH, replace=False)
+    pd.DataFrame({"user_id": owner[is_train][pick],
+                  "item_id": items[is_train][pick]}).to_pickle(root / "train.pkl")
+    for name, off in (("valid", 0), ("test", 1)):
+        who = np.sort(rng.choice(len(users), EVAL_USERS, replace=False))
+        pd.DataFrame({"user_id": users[who],
+                      "item_id": items[starts[who] + n[who] + off]}).to_pickle(
+            root / f"{name}.pkl")
+    (root / "data.info").write_text(json.dumps({
+        "n_users": N_USERS, "n_items": N_ITEMS, "train_file_format": "user-item",
+        "valid_file_format": "user-item", "test_file_format": "user-item",
+        "user_history_file_format": "user-item_seq"}))
+
+
+def entry_args(data: Path, out: Path):
+    """sasrec_fusedattn_ffn: bench.py's widths and training options with the
+    fused attention and FFN kernels in place of the fused layers."""
+    return {"task": "train", "model": "SASRec", "dataloader": "SeqRecDataset",
+            "dataset_path": str(data), "output_path": str(out),
+            "exp_name": "sasrec_fusedattn_ffn", "user_history_filename": "user_history",
+            "max_seq_len": SEQ_LEN, "embedding_size": EMB, "hidden_size": EMB,
+            "inner_size": 2 * EMB, "n_layers": 2, "n_heads": 2, "hidden_act": "swish",
+            "loss_type": "bce", "n_sample_neg_train": N_NEG,
+            "history_mask_mode": "autoregressive", "hidden_dropout_prob": P_DROP,
+            "attn_dropout_prob": P_DROP, "dropout_bits": 8, "compute_dtype": "bfloat16",
+            "last_query_only": 1, "fused_layer": 0, "fused_lastq": 0,
+            "use_fused_attention": 1, "use_fused_ffn": 1, "vmem_embedding_grad": 1,
+            "neg_membership_pallas": 1, "batch_size": TRAIN_BATCH, "epochs": ENTRY_EPOCHS,
+            "learning_rate": 1e-3, "seed": SEED, "shuffle_train": 1,
+            "valid_protocol": "one_vs_all", "test_protocol": "one_vs_all",
+            "test_batch_size": EVAL_BATCH, "metrics": "['hit@10', 'ndcg@10', 'mrr', 'group_auc']",
+            "key_metric": "ndcg@10", "early_stop": 5}
+
+
+def entry_path(torch, card: str):
+    """main.run(task=train) on sasrec_fusedattn_ffn, then task=test from the
+    best checkpoint. Timed: epoch 2 (from the end of the validation before
+    it to the test evaluation after it) and each evaluation."""
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.main import main as main_mod
+    t0 = time.perf_counter()
+    data, out = ROOT / "build" / "chip_smoke" / "slice_data", ROOT / "build" / "chip_smoke" / "slice"
+    write_slice_data(data)
+    setup_s = time.perf_counter() - t0
+    seen = {"losses": [], "evals": [], "marks": []}
+    step, evaluate, fit = Trainer.train_step, Trainer.evaluate, Trainer.fit
+
+    def spy_step(self, batch):
+        seen["losses"].append(step(self, batch))
+        return seen["losses"][-1]
+
+    def spy_eval(self, data, load_best_model=True, model_file=None):
+        torch.cuda.synchronize()
+        seen["marks"].append(time.perf_counter())
+        res = evaluate(self, data, load_best_model, model_file)
+        torch.cuda.synchronize()
+        seen["marks"].append(time.perf_counter())
+        seen["evals"].append((res, seen["marks"][-1] - seen["marks"][-2], len(data.ds)))
+        return res
+
+    def spy_fit(self, train_data, valid_data=None, **kw):
+        seen["trainer"], seen["train_data"] = self, train_data
+        return fit(self, train_data, valid_data, **kw)
+
+    args = entry_args(data, out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with mock.patch.object(Trainer, "train_step", spy_step), \
+            mock.patch.object(Trainer, "evaluate", spy_eval), \
+            mock.patch.object(Trainer, "fit", spy_fit):
+        t0 = time.perf_counter()
+        result = main_mod.run(dict(args))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    counts = launch_counts(ENTRY_KERNELS + ("layer_fwd", "layer_bwd", "lastq_fwd",
+                                            "lastq_bwd"))
+    peak = torch.cuda.max_memory_allocated()
+    ckpt = out / "checkpoint" / "sasrec_fusedattn_ffn.pkl"
+    again = main_mod.run({"task": "test", "model_file": str(ckpt), "dataset_path": str(data),
+                          "output_path": str(out / "test")})
+    loss = torch.stack(seen["losses"]).float().cpu().numpy()
+    valid, (test_res, test_s, n_test) = seen["evals"][:-1], seen["evals"][-1]
+    # marks: [v0 start, v0 end, v1 start, v1 end, test start, test end]
+    epoch2_s = seen["marks"][4] - seen["marks"][3]
+    line = {"phase": "entry_path", "config": "sasrec_fusedattn_ffn", "batch": TRAIN_BATCH,
+            "steps": len(loss), "epochs": ENTRY_EPOCHS, "data_setup_s": setup_s,
+            "run_s": run_s, "examples_per_s": TRAIN_BATCH * ENTRY_STEPS / epoch2_s,
+            "ms_per_step": epoch2_s * 1e3 / ENTRY_STEPS,
+            "first_losses": loss[:3].tolist(), "last_losses": loss[-3:].tolist(),
+            "valid": [{"result": r, "seconds": s, "users_per_s": u / s} for r, s, u in valid],
+            "test": test_res, "test_users_per_s": n_test / test_s,
+            "test_from_checkpoint": again, "peak_mem_bytes": peak, "card": card}
+    emit(line)
+    emit({"phase": "entry_path_launches", **counts})
+    if len(loss) != ENTRY_STEPS * ENTRY_EPOCHS or not np.isfinite(loss).all() \
+            or not loss[-10:].mean() < loss[:10].mean():
+        raise AssertionError(f"training did not run as expected: {loss.tolist()}")
+    if len(valid) != ENTRY_EPOCHS or not all(np.isfinite(r["ndcg@10"]) for r, _, _ in valid):
+        raise AssertionError(f"a validation gave no key metric: {valid}")
+    if not max(r["hit@10"] for r, _, _ in valid) >= LEARN_MIN_HIT10:
+        raise AssertionError(f"the model learned nothing the validations show: {valid}")
+    if again != test_res or again != result:
+        raise AssertionError(f"test from the checkpoint {again} != the run's {result}")
+    missing = [k for k in ENTRY_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"entry path never launched {missing}: {counts}")
+    return counts, line, seen["trainer"], seen["train_data"]
+
+
+def check_entry_path(torch, trainer, train_data):
+    """One step at dropout 0 from the trained weights, through the kernels
+    and through the plain versions: loss and every gradient leaf. Then one
+    test batch's user embeddings, ranks and metrics both ways."""
+    from unirec_tpu_torch.facility.evaluation import OnePositiveEvaluator
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params
+    from unirec_tpu_torch.utils.registry import get_model_class
+    cfg = dict(trainer.config, hidden_dropout_prob=0.0, attn_dropout_prob=0.0)
+    model = get_model_class("SASRec")(cfg)
+    load_flax_params(model, to_flax_params(trainer.model))
+    model.to("cuda")
+    params = list(model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    batch = trainer._augmenter.augment(to_device(next(iter(train_data)), "cuda"), gen)
+
+    def loss_grads():
+        loss, _ = model(batch, train=True, rng=DropoutRNG(SEED + 51, "cuda"))
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_k, grads_k = loss_grads()
+    with plain_versions():
+        loss_p, grads_p = loss_grads()
+    names = [n for n, _ in model.named_parameters()]
+    zero_sum = {i: names.index(n.replace("key.bias", "query.bias"))
+                for i, n in enumerate(names) if n.endswith("key.bias")}
+    errs, zeros = leaf_errs(grads_k, grads_p, zero_sum)
+    errs = dict(zip(names, errs))
+    worst = max(errs, key=errs.get)
+    line = {"phase": "entry_path_check", "batch": TRAIN_BATCH, "p_drop": 0.0,
+            "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            "loss_tol": 2e-3, "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
+            "grad_worst_leaf": worst, "grad_tol": BWD_TOL,
+            "key_bias_grads": {names[i]: r for i, r in zeros.items()}}
+    ev = OnePositiveEvaluator(cfg, model, "cuda")
+    eval_batch = next(iter(trainer_test_batcher(trainer)))
+    line.update(eval_agreement(torch, trainer, model, ev, eval_batch))
+    emit(line)
+    if not (line["loss_rel_diff"] <= 2e-3 and errs[worst] <= BWD_TOL and len(zeros) == 2
+            and zero_sum_ok(zeros) and line["user_emb_max_abs_diff"] <= LN_TOL["bfloat16"]
+            and line["rank_agree_share"] >= RANK_AGREE_SHARE
+            and line["metric_max_rel_diff"] <= METRIC_REL_TOL):
+        raise AssertionError(f"entry path disagrees with the plain versions: {line}")
+    return ev, eval_batch
+
+
+# one eval batch, kernels against plain versions: a row's rank of the
+# positive agrees when the two differ by at most RANK_SLACK plus
+# RANK_REL_SLACK of the rank (bf16 user embeddings within LN_TOL move a
+# score by about 1e-2 of its spread, and with it the items packed around a
+# mid-catalog positive); RANK_AGREE_SHARE of the rows must agree, and each
+# metric must lie within METRIC_REL_TOL of its own plain value
+RANK_SLACK, RANK_REL_SLACK, RANK_AGREE_SHARE, METRIC_REL_TOL = 2, 0.05, 0.99, 0.02
+
+
+def eval_agreement(torch, trainer, model, ev, eval_batch):
+    """One test batch through the kernels and through the plain versions:
+    the user embeddings, each row's rank of the positive among the catalog
+    (evaluate_full's ranking, the same tie noise both ways), and the
+    batch's metrics."""
+    from unirec_tpu_torch.ops import metrics as M
+    from unirec_tpu_torch.ops.topk import full_catalog_scores
+    from unirec_tpu_torch.utils import to_device
+    history = trainer.user_history
+    tb = to_device(eval_batch, "cuda")
+    items, lens = history.gather(np.asarray(eval_batch["user_id"]))
+    h = to_device({"items": items, "len": lens}, "cuda")
+    real = torch.as_tensor(np.asarray(eval_batch["weight"]) > 0, device="cuda")
+
+    def one_way():
+        u = model.user_emb(tb).float()
+        scores = full_catalog_scores(model, tb, model.all_item_emb(), 1.0)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 202)
+        rank = M.onepos_rank_full_catalog(scores, tb["item_id"], h["items"], h["len"], gen)
+        return u, rank[real].long(), ev.evaluate_full([eval_batch], history)
+
+    with torch.no_grad():
+        u_k, r_k, m_k = one_way()
+        with plain_versions():
+            u_p, r_p, m_p = one_way()
+    gap = (r_k - r_p).abs()
+    agree = gap <= RANK_SLACK + RANK_REL_SLACK * r_p
+    return {"eval_batch": int(real.sum()),
+            "user_emb_max_abs_diff": float((u_k - u_p).abs().max()),
+            "user_emb_tol": LN_TOL["bfloat16"],
+            "rank_equal_share": float((gap == 0).float().mean()),
+            "rank_agree_share": float(agree.float().mean()),
+            "rank_agree_tol": [RANK_SLACK, RANK_REL_SLACK, RANK_AGREE_SHARE],
+            "rank_gap_quantiles_50_90_99": torch.quantile(
+                gap.float(), torch.tensor([0.5, 0.9, 0.99], device="cuda")).tolist(),
+            "rank_plain_median": float(r_p.float().median()),
+            "metrics_kernels": m_k, "metrics_plain": m_p,
+            # a metric that is 0 both ways is held to one row's step
+            "metric_max_rel_diff": max(abs(m_k[m] - m_p[m]) / max(abs(m_p[m]), 1.0 / len(r_p))
+                                       for m in m_p),
+            "metric_rel_tol": METRIC_REL_TOL}
+
+
+def trainer_test_batcher(trainer):
+    """The test table's eval batcher, as main.run builds it."""
+    from unirec_tpu_torch.data.datasets import get_dataset_class
+    from unirec_tpu_torch.data.pipeline import make_eval_batcher
+    from unirec_tpu_torch.main.main import _task_config
+    tcfg = _task_config(trainer.config, "test")
+    ds = get_dataset_class("SeqRecDataset")(tcfg, trainer.config["dataset_path"], "test")
+    return make_eval_batcher(ds, tcfg, trainer.user_history, task="test")
+
+
+def profile_entry_path(torch, trainer, train_data, ev, eval_batch, card):
+    from unirec_tpu_torch.utils import to_device
+    batch = to_device(next(iter(train_data)), "cuda")
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    emit({"phase": "entry_path_profile", "what": "one train step", "batch": TRAIN_BATCH,
+          **device_profile(torch, lambda: trainer.train_step(batch)), "card": card})
+    emit({"phase": "entry_path_profile", "what": "one eval batch (one_vs_all)",
+          "users": len(eval_batch["user_id"]), "items": N_ITEMS,
+          **device_profile(torch, lambda: ev.evaluate_full([eval_batch],
+                                                           trainer.user_history)),
+          "card": card})
+
+
 def main() -> int:
     try:
         import torch
@@ -762,6 +1254,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = smi_line()
     print(card, flush=True)
 
@@ -801,6 +1294,16 @@ def main() -> int:
     train_counts, _, trainer, raw, aug = train_path(torch, card)
     check_train_path(torch, trainer, raw, aug)
     profile_train_path(torch, trainer, raw, card)
+    del trainer, raw, aug
+
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        rows["fused_attention"], rows["fused_attention_bwd"] = kernel_fused_attention(torch)
+        rows["fused_ffn"], rows["fused_ffn_bwd"] = kernel_fused_ffn(torch)
+    torch.cuda.empty_cache()
+    entry_counts, _, trainer, train_data = entry_path(torch, card)
+    ev, eval_batch = check_entry_path(torch, trainer, train_data)
+    profile_entry_path(torch, trainer, train_data, ev, eval_batch, card)
 
     # the serving rows keep their serving-shape numbers; launches add up
     # both paths where a kernel runs on both
@@ -819,18 +1322,25 @@ def main() -> int:
                "scatter_add": ("unirec_tpu_torch/csrc/scatter_add.cu",
                                "unirec_tpu/ops/scatter_accum.py:44"),
                "member": ("unirec_tpu_torch/csrc/member.cu",
-                          "unirec_tpu/ops/member.py:32")}
+                          "unirec_tpu/ops/member.py:32"),
+               "fused_attention": ("unirec_tpu_torch/csrc/attention.cu",
+                                   "unirec_tpu/ops/attention.py:236"),
+               "fused_attention_bwd": ("unirec_tpu_torch/csrc/attention.cu",
+                                       "unirec_tpu/ops/attention.py:260"),
+               "fused_ffn": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:62"),
+               "fused_ffn_bwd": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:72")}
     kernels = []
     for name, (src, rep) in sources.items():
         r = rows[name]
+        by_path = {"serving": counts.get(name, 0), "training": train_counts.get(name, 0),
+                   "entry": entry_counts.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts.get(name, 0) + train_counts.get(name, 0),
-            "launches_by_path": {"serving": counts.get(name, 0),
-                                 "training": train_counts.get(name, 0)},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -140,6 +140,10 @@ names = [m.name for m in pkgutil.walk_packages(unirec_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401  (defines functions only)
+for name in ("unirec_tpu_torch.main.main", "unirec_tpu_torch.ops.attention",
+             "unirec_tpu_torch.ops.ffn", "unirec_tpu_torch.facility.evaluation",
+             "unirec_tpu_torch.ops.metrics", "unirec_tpu_torch.data.pipeline"):
+    assert name in sys.modules, name
 lazy = [m for m in ("pandas", "yaml") if m in sys.modules]
 assert not lazy, lazy
 print("imported", len(names))
@@ -169,3 +173,30 @@ def test_no_jax_import_anywhere_in_the_source(path):
         else:
             continue
         assert not set(roots) & set(BANNED), (path, node.lineno, roots)
+
+
+FFN_ARGS = dict(ARGS, use_fused_ffn=1, use_fused_attention=1, last_query_only=1)
+
+
+def test_fused_ffn_tree_round_trips_without_a_new_mapping():
+    """use_fused_ffn declares dense_1/dense_2 through _DenseParams with the
+    same kernel/bias names (unirec_tpu/models/modules.py:414-428): the
+    bridge maps the JAX tree of that configuration both ways exactly, and
+    the port's eval user embedding equals the JAX model's."""
+    cfg = jax_config.parse_arguments(dict(FFN_ARGS), argv=[])
+    jmodel = jax_model_class("SASRec")(cfg=cfg)
+    seq = np.array([[0, 0, 0, 5, 7, 9, 11, 13], [1, 2, 3, 4, 5, 6, 7, 8]], np.int32)
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(4), {"item_seq": jnp.asarray(seq), "user_id": jnp.zeros(2, jnp.int32),
+                                "item_id": jnp.zeros(2, jnp.int32), "label": jnp.zeros(2)},
+        train=False)["params"])
+    _, _, plain = _jax_model()
+    assert jax.tree_util.tree_structure(params) == jax.tree_util.tree_structure(plain)
+    model = torch_model_class("SASRec")(
+        torch_config.parse_arguments(dict(FFN_ARGS), argv=[], device="cpu"))
+    load_flax_params(model, params)
+    _assert_trees_identical(params, to_flax_params(model))
+    ref = jmodel.apply({"params": params}, {"item_seq": jnp.asarray(seq)}, method="user_emb")
+    with torch.no_grad():
+        got = model.user_emb({"item_seq": torch.from_numpy(seq)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)

@@ -52,7 +52,11 @@ def test_every_key_the_slice_reads_has_a_default():
                 "neg_oversample_factor", "neg_membership_pallas",
                 "neg_membership_binary_search", "shard_embeddings",
                 "vmem_embedding_grad", "embedding_grad_f32", "scan_embedding_grad",
-                "expand_embedding_grad"):
+                "expand_embedding_grad",
+                # main.run and evaluation
+                "state", "verbose", "load_pretrained_model", "early_stop",
+                "shuffle_train", "metrics", "key_metric", "test_protocol",
+                "valid_protocol", "pad_incomplete_batch", "user_history_capacity"):
         assert cfg[key] == ref[key], key
 
 

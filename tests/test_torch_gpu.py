@@ -135,9 +135,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         TK.catalog_blockmax(u, torch.zeros(32, 8, dtype=torch.int8, device=cuda))
 
 
-@pytest.mark.parametrize("flag,L", [("use_fused_ffn", 12),
-                                    ("use_fused_attention", 12),
-                                    ("use_pallas", 256)])
+@pytest.mark.parametrize("flag,L", [("use_pallas", 256)])
 def test_unported_kernel_flags_raise_on_cuda(cuda, flag, L):
     from unirec_tpu_torch import config as config_mod
     from unirec_tpu_torch.utils.registry import get_model_class
@@ -329,3 +327,121 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         MB.member_mask(torch.zeros(4, 8000, dtype=torch.int32, device=cuda),
                        torch.zeros(4, 3, dtype=torch.int32, device=cuda))
+
+
+# ------------------------------------------------ fused attention and FFN
+# Forward and backward against the plain versions on the same CUDA tensors:
+# f32 1e-5 of the largest output (summation order only); bf16 2^-6 of it
+# (two bf16 ulps: the two round at the same points, a sum's order can flip
+# one rounding). With dropout the masks are the same bits.
+ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _att_case(dev, dtype, B=6, H=2, L=10, hd=32, mask_heads=1, seed=0):
+    from unirec_tpu_torch.models.modules import causal_attention_mask
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, H, L, hd, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    masks = []
+    for _ in range(mask_heads):
+        seq = torch.randint(0, 3, (B, L), generator=g, device=dev)
+        seq[:, -2:] = 1
+        seq[0] = 0                                  # every key masked
+        masks.append(causal_attention_mask(seq))
+    return q, k, v, torch.cat(masks, dim=1)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("mask_heads", [1, 2])
+@pytest.mark.parametrize("L", [10, 50])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_matches_plain(cuda, dtype, L, mask_heads, p):
+    from unirec_tpu_torch.ops import attention as AT
+    q, k, v, mask = _att_case(cuda, dtype, L=L, mask_heads=mask_heads)
+    drop = LY.drop_params(p, 0.0, True, 4321)
+    before = AT.fused_attention.launches, AT.fused_attention_bwd.launches
+    out = AT._fwd_cuda(q, k, v, mask, drop)
+    assert AT.fused_attention.launches == before[0] + 1
+    assert _rel(out, AT._fwd_plain(q, k, v, mask, drop)) <= ATT_TOL[dtype]
+    do = torch.randn_like(q.float()).to(dtype)
+    got = AT.fused_attention_bwd(q, k, v, mask, do, drop)
+    assert AT.fused_attention_bwd.launches == before[1] + 1
+    for a, b in zip(got, AT._bwd_plain(q, k, v, mask, do, drop)):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert _rel(a, b) <= ATT_TOL[dtype]
+
+
+def test_fused_attention_gate_matches_the_kernels(cuda):
+    from unirec_tpu_torch.ops import attention as AT
+    lib = _build.library("attention")
+    fwd, bwd = lib.unirec_attention_fwd_smem_bytes, lib.unirec_attention_bwd_smem_bytes
+    fwd.argtypes = bwd.argtypes = [ctypes.c_int] * 2
+    for L, hd in ((50, 32), (10, 8), (285, 32), (286, 32), (512, 64)):
+        assert fwd(L, hd) == AT._fwd_smem_bytes(L, hd)
+        assert bwd(L, hd) == AT._bwd_smem_bytes(L, hd)
+    assert AT.kernels_take(285, 32) and not AT.kernels_take(286, 32)
+
+
+def test_fused_attention_dropout_mask_is_bit_identical(cuda):
+    """q = k = 0 and no mask: every probability is 1/L; v = identity makes
+    out[b, h, i, j] = keep[b, h, i, j] / L / (1 - p), exactly, in f32."""
+    from unirec_tpu_torch.ops import attention as AT
+    B, H, L = 5, 2, 16
+    z = torch.zeros(B, H, L, L, device=cuda)
+    v = torch.eye(L, device=cuda).expand(B, H, L, L).contiguous()
+    drop = LY.drop_params(0.3, 0.0, True, 99)
+    out = AT._fwd_cuda(z, z, v, torch.zeros(B, 1, L, L, device=cuda), drop)
+    assert torch.equal(out, AT._fwd_plain(z, z, v, torch.zeros(B, 1, L, L, device=cuda),
+                                           drop))
+    assert 0 < int((out == 0).sum()) < out.numel()
+
+
+@pytest.mark.parametrize("T", [1100, 33])
+@pytest.mark.parametrize("act", ["relu", "swish", "gelu", "tanh", "sigmoid", "leakyrelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_matches_plain(cuda, dtype, act, T):
+    from unirec_tpu_torch.ops import ffn as FF
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=cuda) * std).to(dtype)  # noqa: E731
+    x, w1, b1, w2, b2, dy = (rn(T, 64), rn(64, 128, std=0.2), rn(128, std=0.1),
+                             rn(128, 64, std=0.2), rn(64, std=0.1), rn(T, 64))
+    before = FF.fused_ffn.launches, FF.fused_ffn_bwd.launches
+    y = FF._fwd_cuda(x, w1, b1, w2, b2, act)
+    assert FF.fused_ffn.launches == before[0] + 1
+    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, act)) <= ATT_TOL[dtype]
+    got = FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, act)
+    assert FF.fused_ffn_bwd.launches == before[1] + 1
+    for a, b in zip(got, FF._bwd_plain(x, w1, b1, w2, b2, dy, act)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _rel(a, b) <= ATT_TOL[dtype]
+
+
+def test_fused_attention_and_ffn_flags_launch_their_kernels(cuda):
+    """use_fused_attention + use_fused_ffn on CUDA: a train-mode forward and
+    backward through the model launches all four kernels and no raise."""
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import ffn as FF
+    from unirec_tpu_torch.utils.registry import get_model_class
+    cfg = config_mod.parse_arguments({
+        "model": "SASRec", "n_users": 10, "n_items": 50, "embedding_size": 64,
+        "n_heads": 2, "inner_size": 128, "max_seq_len": 12, "last_query_only": 1,
+        "use_fused_attention": 1, "use_fused_ffn": 1, "hidden_dropout_prob": 0.1,
+        "attn_dropout_prob": 0.1})
+    model = get_model_class("SASRec")(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(cuda)
+    seq = torch.randint(1, 50, (4, 12), device=cuda)
+    before = [AT.fused_attention.launches, AT.fused_attention_bwd.launches,
+              FF.fused_ffn.launches, FF.fused_ffn_bwd.launches]
+    u = model.encode_sequence(seq, train=True, rng=DropoutRNG(0, cuda))
+    u.float().sum().backward()
+    after = [AT.fused_attention.launches, AT.fused_attention_bwd.launches,
+             FF.fused_ffn.launches, FF.fused_ffn_bwd.launches]
+    # one attention layer (layer 1 is last-query), FFN in both layers
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 2, 2]

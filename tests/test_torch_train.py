@@ -220,9 +220,9 @@ def test_unported_trainer_options_raise(tmp_path):
         _trainer(tmp_path, enable_morec=1)
     with pytest.raises(NotImplementedError, match="item 12"):
         _trainer(tmp_path, mesh_data=2)
-    tr, data = _trainer(tmp_path)
+    tr, _ = _trainer(tmp_path)
     with pytest.raises(NotImplementedError, match="item 5"):
-        tr.fit(data, valid_data=data)
+        tr.reset_evaluator("user-item-label-session", "session_aware")
 
 
 @pytest.mark.parametrize("bits8", [False, True])

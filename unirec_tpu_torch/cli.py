@@ -1,5 +1,7 @@
 """Command-line entry point of the port.
 
+    python -m unirec_tpu_torch.cli train --model SASRec --dataset_path ... [flags]
+    python -m unirec_tpu_torch.cli test --model_file ckpt.pkl --dataset_path ...
     python -m unirec_tpu_torch.cli reco-topk --model_file ckpt.pkl --dataset_path ... --topk 100
     python -m unirec_tpu_torch.cli infer-embedding --model_file ckpt.pkl --node_type user ...
 
@@ -14,7 +16,7 @@ import sys
 
 from unirec_tpu_torch import config as config_mod
 
-COMMANDS = ("infer-embedding", "reco-topk")
+COMMANDS = ("train", "test", "infer-embedding", "reco-topk")
 
 
 def main(argv=None) -> int:
@@ -27,6 +29,12 @@ def main(argv=None) -> int:
     if cmd not in COMMANDS:
         raise SystemExit(f"unknown command '{cmd}'. Available: {COMMANDS}")
     args = config_mod.parse_cmd_arguments(rest)
+    if cmd in ("train", "test"):
+        from unirec_tpu_torch.main import main as main_mod
+        result = main_mod.run(dict(args, task=cmd))
+        if result is not None:
+            print(result)
+        return 0
     if cmd == "infer-embedding":
         from unirec_tpu_torch.main import infer_embedding
         infer_embedding.run(args)

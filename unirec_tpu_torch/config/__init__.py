@@ -84,6 +84,18 @@ BASE_DEFAULTS: Dict[str, Any] = {
     "embedding_grad_f32": 0,
     "scan_embedding_grad": 0,
     "expand_embedding_grad": 0,
+    # main.run, validation and evaluation (main/main.py, facility/)
+    "state": "INFO",
+    "verbose": 2,
+    "load_pretrained_model": False,
+    "early_stop": 5,
+    "shuffle_train": False,
+    "metrics": "['group_auc', 'hit@1;3;5', 'ndcg@1;3;5', 'ndcg', 'mrr', 'mrr@1;3;5']",
+    "key_metric": "group_auc",
+    "test_protocol": "one_vs_k",
+    "valid_protocol": "one_vs_k",
+    "pad_incomplete_batch": True,
+    "user_history_capacity": -1,
 }
 
 # config/model/<Model>.yaml of every model this package registers

@@ -5,6 +5,27 @@ from __future__ import annotations
 import enum
 
 EPS = 1e-8
+# score of masked-out (already interacted) items in full-catalog evaluation
+# (reference evaluator_abc.py:46)
+NINF_SCORE = -9999.0
+
+
+class EvalProtocol(str, enum.Enum):
+    ONE_VS_ALL = "one_vs_all"
+    ONE_VS_K = "one_vs_k"
+    LABEL_AWARE = "label_aware"
+    SESSION_AWARE = "session_aware"
+
+
+class TaskType(str, enum.Enum):
+    TRAIN = "train"
+    TEST = "test"
+    INFER = "infer"
+
+
+class HistoryMaskMode(str, enum.Enum):
+    UNORDER = "unorder"
+    AUTOREGRESSIVE = "autoregressive"
 
 
 class DataFormat(str, enum.Enum):

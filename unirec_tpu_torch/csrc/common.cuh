@@ -33,8 +33,12 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
-// activation codes, in the order of ops/layer.py::SUPPORTED_ACTS
-enum Act { ACT_RELU = 0, ACT_SWISH = 1, ACT_GELU = 2, ACT_TANH = 3, ACT_SIGMOID = 4 };
+// activation codes, in the order of ops/layer.py::SUPPORTED_ACTS; leakyrelu
+// (slope 0.01) only in ops/ffn.py::ACTS
+enum Act {
+  ACT_RELU = 0, ACT_SWISH = 1, ACT_GELU = 2, ACT_TANH = 3, ACT_SIGMOID = 4,
+  ACT_LEAKYRELU = 5
+};
 
 __device__ __forceinline__ float activate(int act, float u) {
   switch (act) {
@@ -42,6 +46,7 @@ __device__ __forceinline__ float activate(int act, float u) {
     case ACT_SWISH: return u / (1.0f + expf(-u));
     case ACT_GELU: return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
     case ACT_TANH: return tanhf(u);
+    case ACT_LEAKYRELU: return u >= 0.0f ? u : 0.01f * u;
     default: return 1.0f / (1.0f + expf(-u));
   }
 }
@@ -297,6 +302,7 @@ __device__ __forceinline__ float activate_grad(int act, float u) {
       const float t = tanhf(u);
       return 1.0f - t * t;
     }
+    case ACT_LEAKYRELU: return u > 0.0f ? 1.0f : 0.01f;
     default: {
       const float s = 1.0f / (1.0f + expf(-u));
       return s * (1.0f - s);

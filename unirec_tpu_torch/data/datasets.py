@@ -1,0 +1,115 @@
+"""Column-oriented datasets (copy of unirec_tpu/data/datasets.py, the pandas
+path of BaseDataset and SeqRecDataset).
+
+Interactions are normalized at load time into numpy columns with static
+widths, so batch assembly is slicing and vectorized ops (basedataset.py):
+  - T5/T6 rows expand to one row per interaction for training and one-vs-k
+    evaluation (basedataset.py:41-45);
+  - rows with label 0 are dropped for the one_vs_all / one_vs_k protocols
+    on T2/T2_1 (basedataset.py:48-54);
+  - unlabeled formats get an implicit positive label at batch assembly.
+The other dataset classes of the JAX package are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import numpy as np
+
+from unirec_tpu_torch.constants import DataFormat, EvalProtocol
+from unirec_tpu_torch.utils import file_io
+
+_DATASETS: Dict[str, type] = {}
+_NOT_PORTED = {"AERecDataset": "Queue 1 item 7", "RankDataset": "Queue 1 item 8"}
+
+
+def register_dataset(name: str):
+    def deco(cls):
+        _DATASETS[name] = cls
+        return cls
+    return deco
+
+
+def get_dataset_class(name: str) -> type:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md "
+                                  f"{_NOT_PORTED[name]})")
+    if name not in _DATASETS:
+        raise ValueError(f"unknown dataset class '{name}'. Registered: {sorted(_DATASETS)}")
+    return _DATASETS[name]
+
+
+def _pad_group(arrs, dtype) -> np.ndarray:
+    """Ragged rows right-padded with 0 to the longest."""
+    out = np.zeros((len(arrs), max((len(a) for a in arrs), default=1)), dtype=dtype)
+    for i, a in enumerate(arrs):
+        out[i, :len(a)] = a
+    return out
+
+
+@register_dataset("BaseDataset")
+class BaseDataset:
+    """Normalized interaction columns: ``cols`` holds user_id, item_id
+    ([N] or [N, P] padded groups) and, by format, label, session_id,
+    rating, max_len; ``fmt`` is the format after normalization."""
+
+    is_sequential = False
+
+    def __init__(self, config: Dict[str, Any], path: str, filename: str):
+        self.config = config
+        self.task = config.get("data_loader_task", "train")
+        self.eval_protocol = config.get("eval_protocol")
+        self.fmt = config["data_format"]
+        self._normalize(file_io.load_table(os.path.join(path, filename)))
+
+    def _normalize(self, df):
+        fmt = self.fmt
+        cols: Dict[str, np.ndarray] = {}
+        if fmt in (DataFormat.T5.value, DataFormat.T6.value):
+            if self.task == "train" or self.eval_protocol == EvalProtocol.ONE_VS_K.value:
+                seqs = [np.asarray(s, dtype=np.int64) for s in df["item_seq"]]
+                users = df["user_id"].to_numpy(np.int64)
+                cols["user_id"] = np.repeat(users, [len(s) for s in seqs])
+                cols["item_id"] = (np.concatenate(seqs) if seqs
+                                   else np.zeros(0, np.int64))
+                self.fmt = DataFormat.T1.value
+            else:
+                cols["user_id"] = df["user_id"].to_numpy(np.int64)
+                cols["item_id"] = _pad_group(df["item_seq"].tolist(), np.int64)
+        elif fmt == DataFormat.T7.value:
+            raise NotImplementedError("T7 (libFM) rows are not ported yet "
+                                      "(ROADMAP.md Queue 1 item 8)")
+        elif fmt == DataFormat.T4.value:
+            cols["user_id"] = df["user_id"].to_numpy(np.int64)
+            cols["item_id"] = _pad_group(df["item_id_list"].tolist(), np.int64)
+            cols["label"] = _pad_group(df["label_list"].tolist(), np.float32)
+        else:
+            cols["user_id"] = df["user_id"].to_numpy(np.int64)
+            cols["item_id"] = df["item_id"].to_numpy(np.int64)
+            if fmt in (DataFormat.T2.value, DataFormat.T2_1.value) and "label" in df:
+                cols["label"] = df["label"].to_numpy(np.float32)
+            if fmt == DataFormat.T2_1.value and "session_id" in df:
+                cols["session_id"] = df["session_id"].to_numpy(np.int64)
+            if fmt == DataFormat.T3.value and "rating" in df:
+                cols["rating"] = df["rating"].to_numpy(np.float32)
+            if fmt == DataFormat.T1_1.value and "max_len" in df:
+                cols["max_len"] = df["max_len"].to_numpy(np.int64)
+        if self.eval_protocol in (EvalProtocol.ONE_VS_ALL.value, EvalProtocol.ONE_VS_K.value) \
+                and "label" in cols and cols["label"].ndim == 1 \
+                and self.fmt in (DataFormat.T2.value, DataFormat.T2_1.value):
+            keep = cols["label"] > 0
+            cols = {k: v[keep] for k, v in cols.items()}
+        self.cols = cols
+        self.n_rows = next(iter(cols.values())).shape[0] if cols else 0
+
+    def __len__(self) -> int:
+        return self.n_rows
+
+
+@register_dataset("SeqRecDataset")
+class SeqRecDataset(BaseDataset):
+    """Adds item_seq / item_seq_len at batch assembly (data/pipeline.py,
+    from the packed UserHistory)."""
+
+    is_sequential = True

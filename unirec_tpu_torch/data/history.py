@@ -1,16 +1,19 @@
-"""Packed user-history store (serving subset of unirec_tpu/data/history.py).
+"""Packed user-history store (copy of unirec_tpu/data/history.py without
+the time sequences, which are not ported).
 
 Histories live in one right-padded int32 matrix ``items[n_users, capacity]``
-plus ``lengths[n_users]``; gathering a batch's rows and building its
-left-padded windows are vectorized numpy ops with static shapes.
+plus ``lengths[n_users]``; gathering a batch's rows, membership tests for
+negative rejection and the left-padded windows (with the reference's
+unorder / autoregressive target masking) are vectorized numpy ops with
+static shapes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-from unirec_tpu_torch.constants import DataFormat
+from unirec_tpu_torch.constants import DataFormat, HistoryMaskMode
 
 
 class UserHistory:
@@ -20,6 +23,7 @@ class UserHistory:
                              f"expected, got {items.shape} and {lengths.shape}")
         self.items = items.astype(np.int32, copy=False)
         self.lengths = lengths.astype(np.int32, copy=False)
+        self._sorted = None  # sorted rows, built at the first membership test
 
     @property
     def n_users(self) -> int:
@@ -89,3 +93,75 @@ class UserHistory:
         gi = np.clip(grid, 0, max(rows.shape[1] - 1, 0))
         seq = np.take_along_axis(rows, gi, axis=1) * valid
         return seq.astype(np.int32), np.minimum(n, L).astype(np.int32)
+
+    def contains(self, user_ids: np.ndarray, item_ids: np.ndarray) -> np.ndarray:
+        """result[i, ...] = item_ids[i, ...] in history(user_ids[i]);
+        item_ids [B] or [B, K]; item 0 never counts."""
+        if self._sorted is None:
+            self._sorted = np.sort(self.items, axis=1)
+        rows = self._sorted[np.clip(user_ids, 0, self.n_users - 1)]
+        squeeze = item_ids.ndim == 1
+        q = item_ids[:, None] if squeeze else item_ids
+        idx = np.empty(q.shape, dtype=np.int64)
+        for b in range(0, rows.shape[0], 8192):   # chunks bound the temporaries
+            sl = slice(b, min(b + 8192, rows.shape[0]))
+            idx[sl] = _rowwise_searchsorted(rows[sl], q[sl])
+        idx = np.minimum(idx, rows.shape[1] - 1)
+        found = (np.take_along_axis(rows, idx, axis=1) == q) & (q > 0)
+        found &= ((user_ids >= 0) & (user_ids < self.n_users))[:, None]
+        return found[:, 0] if squeeze else found
+
+    def sequence_batch(self, user_ids: np.ndarray, target_items: np.ndarray,
+                       max_seq_len: int, mask_mode: str = HistoryMaskMode.UNORDER.value,
+                       seq_last: bool = False, rng: Optional[np.random.Generator] = None,
+                       explicit_max_len: Optional[np.ndarray] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """(item_seq [B, max_seq_len] left-padded, item_seq_len [B]) as
+        AddUserHistory + SeqRecDataset._padding build them:
+
+        - unorder: occurrences of the target(s) are zeroed in place
+          (adduserhistory.py:50-55);
+        - autoregressive: the history is cut before a random (or, with
+          ``seq_last``, the last) occurrence of the target
+          (adduserhistory.py:56-73), or at an explicit per-row max_len;
+        - the last ``max_seq_len`` items are right-aligned in a zero-padded
+          window; item_seq_len = min(prefix length, max_seq_len)."""
+        rows, lens = self.gather(user_ids)
+        tgt = target_items if target_items.ndim == 2 else target_items[:, None]
+        is_tgt = (rows[:, :, None] == tgt[:, None, :]).any(-1) & (rows > 0)
+        if mask_mode == HistoryMaskMode.UNORDER.value:
+            rows = np.where(is_tgt, 0, rows)
+            n = lens
+        elif mask_mode == HistoryMaskMode.AUTOREGRESSIVE.value:
+            if explicit_max_len is not None:
+                n = np.minimum(explicit_max_len.astype(np.int64), lens)
+            else:
+                pos_mask = is_tgt & (np.arange(rows.shape[1])[None, :] < lens[:, None])
+                counts = pos_mask.sum(1)
+                if seq_last:
+                    rev_first = rows.shape[1] - 1 - pos_mask[:, ::-1].argmax(1)
+                    n = np.where(counts > 0, rev_first, lens)
+                else:
+                    rng = rng or np.random.default_rng(0)
+                    r = rng.integers(0, np.maximum(counts, 1))
+                    sel = (np.cumsum(pos_mask, axis=1) > r[:, None]) & pos_mask
+                    n = np.where(counts > 0, sel.argmax(1), lens)
+        else:
+            raise ValueError(f"unknown history mask mode: {mask_mode}")
+        L = max_seq_len
+        grid = n[:, None] - L + np.arange(L)[None, :]
+        valid = grid >= 0
+        gi = np.clip(grid, 0, max(rows.shape[1] - 1, 0))
+        seq = np.take_along_axis(rows, gi, axis=1) * valid
+        return seq.astype(np.int32), np.minimum(n, L).astype(np.int32)
+
+
+def _rowwise_searchsorted(rows: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """Per-row searchsorted through one flat searchsorted over offset rows."""
+    B, C = rows.shape
+    span = max(int(rows.max(initial=0)), int(queries.max(initial=0))) + 2
+    offs = (np.arange(B, dtype=np.int64) * span)[:, None]
+    flat = (rows.astype(np.int64) + offs).ravel()
+    q = queries.astype(np.int64) + offs
+    idx = np.searchsorted(flat, q.ravel()).reshape(q.shape) - np.arange(B)[:, None] * C
+    return np.clip(idx, 0, C)

@@ -1,0 +1,137 @@
+"""Batchers (counterpart of unirec_tpu/data/pipeline.py).
+
+Evaluation reads static-shape host batches (``Batcher``, without item
+features and the prefetch thread): dicts of fixed-shape numpy arrays, with
+negative sampling, history windows and padding vectorized per batch; the
+final partial batch is padded to the full batch size and flagged by a
+per-row ``weight`` (1 real, 0 pad). Training runs on the device pipeline
+(data/device_pipeline.py): ``make_train_batcher`` returns the raw id
+batcher and the augmenter that the train step applies.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+
+from unirec_tpu_torch.constants import EvalProtocol, HistoryMaskMode
+from unirec_tpu_torch.data.datasets import BaseDataset
+from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter, RawIdBatcher
+from unirec_tpu_torch.data.history import UserHistory
+from unirec_tpu_torch.data.sampler import NegativeSampler
+
+
+class Batcher:
+    def __init__(self, dataset: BaseDataset, config: Dict[str, Any],
+                 history: Optional[UserHistory] = None,
+                 sampler: Optional[NegativeSampler] = None,
+                 batch_size: Optional[int] = None, seed: int = 2022):
+        self.ds = dataset
+        self.config = config
+        self.history = history
+        self.sampler = sampler
+        self.batch_size = int(batch_size or config.get("batch_size", 256))
+        # each __iter__ draws its negatives and autoregressive cuts from a
+        # fresh rng of (seed, epoch): every pass is deterministic on its own
+        self.seed = int(seed)
+        self._epoch = 0
+        self.max_seq_len = int(config.get("max_seq_len", 10))
+        self.mask_mode = config.get("history_mask_mode", HistoryMaskMode.UNORDER.value)
+        self.seq_last = bool(config.get("seq_last", 0))
+        self.pad_incomplete = bool(config.get("pad_incomplete_batch", True))
+
+    def __len__(self) -> int:
+        n, b = len(self.ds), self.batch_size
+        if n == 0:
+            return 0
+        return -(-n // b) if self.pad_incomplete or n < b else n // b
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng([self.seed, self._epoch])
+        self._epoch += 1
+        n, b = len(self.ds), self.batch_size
+        for start in range(0, n, b):
+            idx = np.arange(start, min(start + b, n))
+            pad = b - len(idx)
+            weight = np.ones(b, dtype=np.float32)
+            if pad > 0:
+                if not self.pad_incomplete and n >= b:
+                    break
+                weight[len(idx):] = 0.0
+                idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
+            yield self._assemble(idx, weight, rng)
+
+    def _assemble(self, idx: np.ndarray, weight: np.ndarray,
+                  rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        cols = self.ds.cols
+        user_id = cols["user_id"][idx].astype(np.int64)
+        item_id = cols["item_id"][idx]
+        label = cols.get("label")
+        label = None if label is None else label[idx]
+        if self.sampler is not None:
+            # dynamic negatives -> grouped items and labels, positives first
+            pos = item_id
+            negs = self.sampler(rng, user_id, pos)
+            item_id = np.concatenate([pos if pos.ndim == 2 else pos[:, None], negs], axis=1)
+            lab = np.zeros(item_id.shape, dtype=np.float32)
+            p = pos.shape[1] if pos.ndim == 2 else 1
+            if label is not None and label.ndim == 1:
+                lab[:, 0] = label
+            else:
+                lab[:, :p] = 1.0 if label is None else label
+            label = lab
+        elif label is None:
+            # implicit positive label (basedataset.py:138-148)
+            if item_id.ndim == 2:
+                label = np.zeros(item_id.shape, dtype=np.float32)
+                label[:, 0] = 1.0
+            else:
+                label = np.ones(len(idx), dtype=np.float32)
+        batch = {"weight": weight, "user_id": user_id.astype(np.int32),
+                 "item_id": item_id.astype(np.int32), "label": label.astype(np.float32)}
+        for k in ("session_id", "max_len"):
+            if k in cols:
+                batch[k] = cols[k][idx].astype(np.int64)
+        if self.ds.is_sequential and self.history is not None:
+            batch["item_seq"], batch["item_seq_len"] = self.history.sequence_batch(
+                user_id, cols["item_id"][idx], self.max_seq_len,
+                mask_mode=self.mask_mode, seq_last=self.seq_last, rng=rng,
+                explicit_max_len=batch.get("max_len"))
+        return batch
+
+
+def make_train_batcher(dataset: BaseDataset, config: Dict[str, Any], history: UserHistory,
+                       item_popularity=None, device=None
+                       ) -> Tuple[RawIdBatcher, DeviceAugmenter]:
+    """(raw id batcher, augmenter): the host yields the dataset's (user,
+    item) id columns; negative sampling and history windows run on the
+    device in the train step (``Trainer.set_device_augmenter``)."""
+    cols = dataset.cols
+    batcher = RawIdBatcher(cols["user_id"], cols["item_id"],
+                           int(config.get("batch_size", 256)),
+                           seed=int(config.get("seed", 2022)),
+                           shuffle=bool(config.get("shuffle_train", 0)),
+                           extra={k: cols[k] for k in ("label", "max_len") if k in cols})
+    return batcher, DeviceAugmenter(config, history, item_popularity, device=device)
+
+
+def make_eval_batcher(dataset: BaseDataset, config: Dict[str, Any],
+                      history: Optional[UserHistory], task: str = "test",
+                      item_popularity=None) -> Batcher:
+    """Unshuffled batches of ``{task}_batch_size`` (else test_batch_size,
+    else batch_size) rows; one_vs_k draws ``n_sample_neg_{task}`` negatives
+    per row, one_vs_all none."""
+    n_neg = int(config.get(f"n_sample_neg_{task}", 0) or 0)
+    if (config.get("eval_protocol") or config.get(f"{task}_protocol")) \
+            == EvalProtocol.ONE_VS_ALL.value:
+        n_neg = 0
+    sampler = None
+    if n_neg > 0:
+        pop = item_popularity if float(config.get("neg_by_pop_alpha", 0) or 0) > 0 else None
+        sampler = NegativeSampler(config["n_items"], n_neg, user_history=history,
+                                  item_popularity=pop,
+                                  oversample_factor=int(config.get("neg_oversample_factor", 4)))
+    bs = config.get(f"{task}_batch_size") or config.get("test_batch_size") \
+        or config.get("batch_size")
+    return Batcher(dataset, config, history=history, sampler=sampler, batch_size=bs,
+                   seed=int(config.get("seed", 2022)) + 17)

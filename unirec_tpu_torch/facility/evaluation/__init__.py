@@ -1,0 +1,5 @@
+from unirec_tpu_torch.facility.evaluation.evaluators import (  # noqa: F401
+    MultiPositiveEvaluator,
+    OnePositiveEvaluator,
+    build_evaluator,
+)

@@ -6,14 +6,16 @@ global_step), the JAX package's ``fold_in``; device-side augmentation
 fused layers and embedding gathers run the port's CUDA kernels on the
 card; the optimizer update (core/optim.py) under the NaN guard, a
 ``torch.where`` on ``isfinite(loss)`` that keeps the step on the device.
-``fit`` runs the epoch loop with the losses kept on the device and fetched
-once per epoch, and the ``auto_resume`` rolling ``.last`` checkpoint.
+``fit`` runs the epoch loop in the reference's order: validate (early
+stopping, best checkpoint, LR plateau step), then train, with the losses
+kept on the device and fetched once per epoch, and the ``auto_resume``
+rolling ``.last`` checkpoint. ``evaluate`` runs the evaluator of the
+protocol set by ``reset_evaluator``, from the best checkpoint on request.
 Checkpoints use the JAX package's pickle layout with ``params`` as a flax
 tree, so the port's ``reco-topk`` and the JAX package read them.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-item: validation during ``fit`` (Queue 1 item 5, evaluation), MoRec
-(item 11) and a mesh of more than one device (item 12).
+item: MoRec (Queue 1 item 11) and a mesh of more than one device (item 12).
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from unirec_tpu_torch.constants import EvalProtocol
 from unirec_tpu_torch.core.optim import (build_optimizer, build_scheduler,
-                                         get_learning_rate)
+                                         get_learning_rate, set_learning_rate)
+from unirec_tpu_torch.facility.evaluation import build_evaluator
 from unirec_tpu_torch.models.modules import DropoutRNG
 from unirec_tpu_torch.utils import checkpoint as ckpt_util
 from unirec_tpu_torch.utils import resolve_device, to_device
@@ -38,6 +42,18 @@ def step_seeds(seed: int, step: int):
     function of (seed, step), as the JAX trainer's fold_in(base_rng, step)."""
     a, b = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
     return int(a), int(b)
+
+
+def early_stopping(value, best, cur_step, max_step=4, bigger=True):
+    """The reference's Trainer.early_stopping (trainer.py:188-233), with its
+    >/>= asymmetry between the two modes: (best, cur_step, stop, update)."""
+    if max_step <= 0:
+        return best, cur_step, False, True
+    better = best is None or (value > best if bigger else value < best)
+    if better:
+        return value, 0, False, True
+    cur_step += 1
+    return best, cur_step, (cur_step > max_step if bigger else cur_step >= max_step), False
 
 
 class Trainer:
@@ -54,6 +70,8 @@ class Trainer:
         self.exp_name = config.get("exp_name", "unirec_tpu")
         self.logger = setup_logger(self.exp_name, config.get("output_path"))
         self.epochs = int(config.get("epochs", 0))
+        self.early_stop = int(config.get("early_stop", 5))
+        self.key_metric = config.get("key_metric", "group_auc")
         self.saved_model_file = os.path.join(
             config.get("output_path", "."), config.get("checkpoint_dir", "checkpoint"),
             f"{self.exp_name}.pkl")
@@ -68,8 +86,20 @@ class Trainer:
         self.best_valid_score = None
         self.best_valid_result = None
         self._global_step = 0
+        self.user_history = None
+        self.evaluator = None
+        self._eval_protocol = None
 
     # ------------------------------------------------------------------ setup
+    def set_user_history(self, history):
+        """The packed histories that one-vs-all evaluation masks."""
+        self.user_history = history
+
+    def reset_evaluator(self, data_format=None, eval_protocol=None):
+        self.evaluator = build_evaluator(self.config, self.model, eval_protocol,
+                                         data_format, self.device)
+        self._eval_protocol = eval_protocol
+
     def set_device_augmenter(self, augmenter):
         """Fuse negative sampling and history windowing into the train step;
         the batcher then yields raw id pairs."""
@@ -115,9 +145,6 @@ class Trainer:
     def fit(self, train_data, valid_data=None, save_model: bool = True,
             load_pretrained_model: bool = False, model_file: Optional[str] = None,
             verbose: int = 1):
-        if valid_data is not None:
-            raise NotImplementedError("validation during fit is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 5, evaluation)")
         # the JAX trainer peeks one batch to initialize; the peek consumes one
         # shuffle epoch of the batcher, so the port does the same and both
         # see the same data order
@@ -134,6 +161,9 @@ class Trainer:
             if hasattr(train_data, "set_epoch"):
                 train_data.set_epoch(self.cur_epoch + 1)
         for epoch_idx in range(self.cur_epoch, self.epochs):
+            if valid_data is not None and self._validate(valid_data, epoch_idx,
+                                                         save_model, verbose):
+                break
             t0 = time.time()
             losses = [self.train_step(to_device(b, self.device)) for b in train_data]
             # losses stay on the device until the epoch ends: one fetch
@@ -145,6 +175,56 @@ class Trainer:
                 self.save_model(last_file, epoch_idx + 1, quiet=True)
         self.cur_epoch = self.epochs
         return self.best_valid_result
+
+    def _validate(self, valid_data, epoch_idx: int, save_model: bool, verbose: int) -> bool:
+        """One validation before epoch ``epoch_idx`` trains (trainer.py:
+        311-341): early-stopping bookkeeping, the best checkpoint, the LR
+        plateau step. Returns whether training stops."""
+        t0 = time.time()
+        result = self.evaluate(valid_data, load_best_model=False)
+        score = result[self.key_metric]
+        self.best_valid_score, self.cur_step, stop, update = early_stopping(
+            score, self.best_valid_score, self.cur_step, max_step=self.early_stop)
+        self.logger.info("epoch %d evaluating [time: %.2fs, %s: %f]", epoch_idx,
+                         time.time() - t0, self.key_metric, score)
+        if verbose > 1:
+            self.logger.info("complete scores on valid set: %s", result)
+        if update:
+            if save_model:
+                self.save_model(self.saved_model_file, epoch_idx, result)
+            self.best_valid_result = result
+        else:
+            self.logger.info("No better score. Patience: %d / %d", self.cur_step,
+                             self.early_stop)
+        if stop:
+            self.logger.info("Finished training, best eval result in epoch %d",
+                             epoch_idx - self.cur_step)
+            return True
+        if self.scheduler is not None and epoch_idx > 0:
+            lr = get_learning_rate(self.opt_state)
+            new_lr = self.scheduler.step(score, lr)
+            if new_lr != lr:
+                self.opt_state = set_learning_rate(self.opt_state, new_lr)
+                self.logger.info("epoch %d: learning rate -> %g", epoch_idx, new_lr)
+        return False
+
+    # -------------------------------------------------------------- evaluate
+    def evaluate(self, eval_data, load_best_model: bool = True,
+                 model_file: Optional[str] = None) -> Optional[Dict[str, float]]:
+        """Metrics of ``eval_data`` under the evaluator's protocol, from the
+        best checkpoint when ``load_best_model``."""
+        if eval_data is None:
+            return None
+        if load_best_model:
+            self.load_model(model_file or self.saved_model_file)
+        self.init_params()
+        if self.evaluator is None:
+            raise ValueError("no evaluator: call reset_evaluator first")
+        if self._eval_protocol == EvalProtocol.ONE_VS_ALL.value:
+            if self.user_history is None:
+                raise ValueError("user_history must be set for one_vs_all evaluation")
+            return self.evaluator.evaluate_full(eval_data, self.user_history)
+        return self.evaluator.evaluate(eval_data)
 
     # ------------------------------------------------------------ checkpoint
     def save_model(self, filename: str, cur_epoch: int = -1,

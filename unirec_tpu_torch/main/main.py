@@ -1,0 +1,179 @@
+"""Config-driven train/test entry point (counterpart of
+unirec_tpu/main/main.py::run).
+
+``run(args)`` merges the config layers, loads the user histories and the
+train/valid/test tables, builds the model by registry name and the
+Trainer, and runs the task:
+
+  - train: ``Trainer.fit`` on the device pipeline (raw id columns, negative
+    sampling and history windows on the device), validating before every
+    epoch when a valid table exists; then the test table from the best
+    checkpoint. The checkpoint goes to
+    ``<output_path>/checkpoint/<exp_name>.pkl``.
+  - test: the test table from ``model_file``.
+
+It writes ``<exp_name>.result.tsv`` and a log beside it in
+``<output_path>`` and returns the test metrics. It runs on the CUDA card
+unless the caller passes ``device='cpu'`` (or another device), and never
+falls back to the CPU. Not ported yet, and raising NotImplementedError
+naming their ROADMAP.md item: the infer task (Queue 1 item 5), closed-form
+solver models (item 9), MoRec (item 11), a mesh of more than one device
+(item 12) and the profiler trace (item 5). On the card it also refuses,
+naming Queue 2 item 7, a ``use_fused_attention`` configuration whose
+sequences the JAX gate takes but csrc/attention.cu does not
+(``ops/attention.py::kernels_take``).
+"""
+from __future__ import annotations
+
+import copy
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from unirec_tpu_torch import config as config_mod
+from unirec_tpu_torch.constants import EvalProtocol, TaskType
+from unirec_tpu_torch.data import construct_item_popularity
+from unirec_tpu_torch.data.datasets import get_dataset_class
+from unirec_tpu_torch.data.history import UserHistory
+from unirec_tpu_torch.data.pipeline import make_eval_batcher, make_train_batcher
+from unirec_tpu_torch.facility.trainer import Trainer
+from unirec_tpu_torch.ops import attention as attn_ops
+from unirec_tpu_torch.utils import resolve_device
+from unirec_tpu_torch.utils.logger import setup_logger
+from unirec_tpu_torch.utils.registry import get_model_class
+
+_TABLE_EXTS = (".ftr", ".pkl", ".tsv", ".csv", ".txt")
+
+
+def need_user_history(config) -> bool:
+    """(reference main.py:206-216)"""
+    return (int(config.get("n_sample_neg_train", 0) or 0) > 0
+            or EvalProtocol.ONE_VS_ALL.value in (config.get("test_protocol"),
+                                                 config.get("valid_protocol"))
+            or config.get("dataloader") == "SeqRecDataset")
+
+
+def load_user_history(config) -> UserHistory:
+    return UserHistory.load(
+        os.path.join(config["dataset_path"], config.get("user_history_filename", "train")),
+        int(config["n_users"]),
+        config.get("user_history_file_format", config.get("train_file_format")),
+        capacity=int(config.get("user_history_capacity", -1) or -1))
+
+
+def _task_config(config, task: str) -> Dict[str, Any]:
+    c = copy.deepcopy(config)
+    c["data_loader_task"] = task
+    c["data_format"] = config[f"{task}_file_format"]
+    c["eval_protocol"] = config.get(f"{task}_protocol")
+    if c["eval_protocol"] == EvalProtocol.ONE_VS_ALL.value:
+        c[f"n_sample_neg_{task}"] = -1
+    return c
+
+
+def _exists_any(path, prefix) -> bool:
+    return any(os.path.exists(os.path.join(path, prefix + ext)) for ext in _TABLE_EXTS)
+
+
+def _refuse_unported(config, task: str, device):
+    if task == TaskType.INFER.value:
+        raise NotImplementedError("the infer task is not ported yet (ROADMAP.md "
+                                  "Queue 1 item 5)")
+    if task not in (TaskType.TRAIN.value, TaskType.TEST.value):
+        raise ValueError(f"unknown task: {task}")
+    if int(config.get("enable_morec", 0) or 0):
+        raise NotImplementedError("MoRec is not ported yet (ROADMAP.md Queue 1 item 11)")
+    if int(config.get("profile", 0) or 0):
+        raise NotImplementedError("profile=1 (the run-wide trace) is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 5)")
+    if device.type == "cuda" and int(config.get("use_fused_attention", 0) or 0) \
+            and config.get("max_seq_len") and config.get("n_heads"):
+        L = int(config["max_seq_len"])
+        hd = int(config["hidden_size"]) // int(config["n_heads"])
+        if L <= attn_ops.MAX_FUSED_SEQ_LEN and not attn_ops.kernels_take(L, hd):
+            raise NotImplementedError(
+                f"use_fused_attention at max_seq_len={L}, head width {hd}: the "
+                "CUDA kernels do not take sequences this long yet (ROADMAP.md "
+                "Queue 2 item 7); unset use_fused_attention or shorten max_seq_len")
+
+
+def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str, float]]:
+    """Run ``args['task']`` (train or test); returns the test metrics."""
+    args = dict(args)
+    dev = resolve_device(device or args.pop("device", None))
+    config = config_mod.parse_arguments(args, argv=[], device=dev.type)
+    task = config.get("task", TaskType.TRAIN.value)
+    # test from a checkpoint: its config defines the model, and the
+    # caller's args go on top (reference main.py:304-306)
+    if config.get("model_file") and (task == TaskType.TEST.value
+                                     or config.get("load_pretrained_model")):
+        from unirec_tpu_torch.utils.checkpoint import load_checkpoint
+        ckpt_cfg = load_checkpoint(config["model_file"]).get("config")
+        if ckpt_cfg:
+            config = {**ckpt_cfg, **args, "task": task}
+    _refuse_unported(config, task, dev)
+    exp_name = config.get("exp_name") or f"{config['model']}-{config.get('dataset', 'data')}"
+    config["exp_name"] = exp_name
+    out_path = config.get("output_path") or os.path.join(".", "output", exp_name)
+    config["output_path"] = out_path
+    os.makedirs(out_path, exist_ok=True)
+    logger = setup_logger(exp_name, out_path, config.get("state", "INFO"))
+    logger.info("task=%s model=%s dataset=%s device=%s", task, config["model"],
+                config.get("dataset"), dev)
+    np.random.seed(int(config.get("seed", 2022)))
+
+    ds_cls = get_dataset_class(config.get("dataloader", "BaseDataset"))
+    dpath = config["dataset_path"]
+    history = load_user_history(config) if need_user_history(config) else None
+    item_pop = None
+    if float(config.get("neg_by_pop_alpha", 0) or 0) > 0 and history is not None:
+        item_pop = construct_item_popularity(history, int(config["n_items"]))
+    model = get_model_class(config["model"])(config)
+    if not getattr(model, "optimized_by_sgd", True):
+        raise NotImplementedError("closed-form solver models are not ported yet "
+                                  "(ROADMAP.md Queue 1 item 9)")
+    trainer = Trainer(config, model, device=dev)
+    if history is not None:
+        trainer.set_user_history(history)
+
+    def eval_batcher(task_name: str):
+        tcfg = _task_config(config, task_name)
+        ds = ds_cls(tcfg, dpath, config.get(f"data_{task_name}_name", task_name))
+        trainer.reset_evaluator(tcfg["data_format"], tcfg["eval_protocol"])
+        return make_eval_batcher(ds, tcfg, history, task=task_name,
+                                 item_popularity=item_pop)
+
+    result = None
+    if task == TaskType.TRAIN.value:
+        if history is None:
+            raise ValueError("training needs the user histories (user_history_filename)")
+        tcfg = _task_config(config, "train")
+        train_batcher, augmenter = make_train_batcher(
+            ds_cls(tcfg, dpath, config.get("data_train_name", "train")), tcfg, history,
+            item_pop, device=dev)
+        trainer.set_device_augmenter(augmenter)
+        valid = eval_batcher("valid") if _exists_any(
+            dpath, config.get("data_valid_name", "valid")) else None
+        try:
+            trainer.fit(train_batcher, valid,
+                        load_pretrained_model=bool(config.get("load_pretrained_model")),
+                        model_file=config.get("model_file"),
+                        verbose=int(config.get("verbose", 1)))
+        except KeyboardInterrupt:
+            # reference main.py:376-377: Ctrl-C still evaluates the test set
+            logger.info("Keyboard interrupt: stopping the training and start "
+                        "evaluating on the test set.")
+        if _exists_any(dpath, config.get("data_test_name", "test")):
+            result = trainer.evaluate(eval_batcher("test"), load_best_model=valid is not None)
+    else:
+        if config.get("model_file"):
+            trainer.load_model(config["model_file"])
+        result = trainer.evaluate(eval_batcher("test"), load_best_model=False)
+    logger.info("test result: %s", result)
+    if result is not None:
+        with open(os.path.join(out_path, f"{exp_name}.result.tsv"), "w") as f:
+            f.write("\t".join(result.keys()) + "\n")
+            f.write("\t".join(f"{v:.6f}" for v in result.values()) + "\n")
+    return result
+

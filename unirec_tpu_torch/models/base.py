@@ -198,6 +198,13 @@ class BaseRecommender(nn.Module):
         return L.compute_loss(self.loss_type, scores, label, weight, self.cfg)
 
     # ------------------------------------------------------------ entrypoints
+    def predict(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Eval-mode scores of the batch's (user, item(s)) rows
+        (recommender.py:99-106)."""
+        return self._predict_layer(self._user_emb_from_batch(batch),
+                                   self.forward_item_emb(batch["item_id"]),
+                                   batch.get("user_id"), batch["item_id"])
+
     def user_emb(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self._user_emb_from_batch(batch)
 

@@ -14,13 +14,15 @@ generator (``dropout_bits=8`` draws one byte per element, as Dropout8), and
 each fused-kernel call takes a host-int seed from it, from which the kernel
 draws its own Philox masks (ops/layer.py).
 
-Kernel dispatch follows the JAX package's flags. ``fused_layer`` and
-``fused_lastq`` call ops/layer.py, whose wrappers launch the Hopper kernels
-on CUDA tensors and their plain versions on CPU tensors. The flags whose
-Pallas kernels are not ported yet (``use_fused_attention``,
-``use_fused_ffn``, and ``use_pallas`` at L >= 256) raise on CUDA, naming
-their ROADMAP item; on the CPU they run the plain math, as the JAX
-package's CPU path does.
+Kernel dispatch follows the JAX package's flags and gates. ``fused_layer``
+and ``fused_lastq`` call ops/layer.py, ``use_fused_attention`` calls
+ops/attention.py (layers that are neither last-query nor head-stacked, when
+``fused_supported``) and ``use_fused_ffn`` ops/ffn.py (the six activations
+of its kernel); each wrapper launches its Hopper kernel on CUDA tensors and
+its plain version on CPU tensors. ``use_pallas`` at L >= 256, whose Pallas
+kernel (flash attention) is not ported yet, raises on CUDA naming its
+ROADMAP item; on the CPU it runs the plain math, as the JAX package's CPU
+path does.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unirec_tpu_torch.ops import attention as attn_ops
+from unirec_tpu_torch.ops import ffn as ffn_ops
 from unirec_tpu_torch.ops import layer as layer_ops
 
 ACT2FN = {
@@ -43,7 +47,6 @@ ACT2FN = {
 
 MASK_VALUE = -10000.0
 MIN_FLASH_SEQ_LEN = 256   # unirec_tpu/ops/attention.py:119
-MAX_FUSED_SEQ_LEN = 512   # unirec_tpu/ops/attention.py:179
 
 
 def _not_ported(flag: str, item: str):
@@ -175,18 +178,22 @@ class MultiHeadAttention(nn.Module):
             return self._last_query_attention(x, attn_mask, train, rng)
         B, L, H = x.shape
         hd = H // self.n_heads
-        if x.is_cuda and self.use_fused and L <= MAX_FUSED_SEQ_LEN:
-            raise _not_ported("use_fused_attention", "Queue 2 item 7")
-        if x.is_cuda and self.use_flash and L >= MIN_FLASH_SEQ_LEN \
-                and L % 8 == 0 and hd % 8 == 0:
-            raise _not_ported("use_pallas", "Queue 2 item 6")
+        drop_on = train and self.p_attn > 0.0
         q = self._split(dense(self.query, x, self.dtype))
         k = self._split(dense(self.key, x, self.dtype))
         v = self._split(dense(self.value, x, self.dtype))
-        scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
-        probs = torch.softmax(scores + attn_mask.to(scores.dtype), dim=-1)
-        probs = self._drop(probs, self.p_attn, train, rng)
-        ctx = (probs @ v).transpose(1, 2).reshape(B, L, H)
+        if self.use_fused and attn_ops.fused_supported(q, attn_mask):
+            # modules.py:276-286: the kernels, with in-kernel dropout
+            ctx = attn_ops.short_attention(q, k, v, attn_mask, self.p_attn,
+                                           _need_rng(rng) if drop_on else None, train)
+        elif x.is_cuda and self.use_flash and L >= MIN_FLASH_SEQ_LEN \
+                and L % 8 == 0 and hd % 8 == 0 and not drop_on:
+            raise _not_ported("use_pallas", "Queue 2 item 6, the next slice")
+        else:
+            scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
+            probs = torch.softmax(scores + attn_mask.to(scores.dtype), dim=-1)
+            ctx = self._drop(probs, self.p_attn, train, rng) @ v
+        ctx = ctx.transpose(1, 2).reshape(B, L, H)
         out = self._drop(dense(self.dense, ctx, self.dtype), self.p_hidden, train, rng)
         return layer_norm(self.LayerNorm, out + x, self.dtype)
 
@@ -224,10 +231,18 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: DropoutRNG | None = None) -> torch.Tensor:
-        if x.is_cuda and self.fused:
-            raise _not_ported("use_fused_ffn", "Queue 2 item 8")
-        h = dense(self.dense_1, x, self.dtype)
-        h = dense(self.dense_2, ACT2FN[self.hidden_act](h), self.dtype)
+        if self.fused and self.hidden_act in ffn_ops.ACTS:
+            # modules.py:525-538: the weights cast to the compute dtype (f32
+            # when it is None), flax layout [in, out]
+            d1, d2 = self.dense_1, self.dense_2
+            dt = self.dtype or torch.promote_types(x.dtype, d1.weight.dtype)
+            y = ffn_ops.fused_ffn(x.reshape(-1, x.shape[-1]).to(dt), d1.weight.t().to(dt),
+                                  d1.bias.to(dt), d2.weight.t().to(dt), d2.bias.to(dt),
+                                  self.hidden_act)
+            h = y.reshape(*x.shape[:-1], y.shape[-1])
+        else:
+            h = dense(self.dense_1, x, self.dtype)
+            h = dense(self.dense_2, ACT2FN[self.hidden_act](h), self.dtype)
         h = apply_dropout(h, self.p_hidden, train, rng, self.bits8)
         return layer_norm(self.LayerNorm, h + x, self.dtype)
 
