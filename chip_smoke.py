@@ -42,9 +42,27 @@ Phases, each of which must pass:
      same metrics, and every kernel of the path must launch. Then one step
      at dropout 0 and one eval batch through the kernels and the plain
      versions (loss, gradients, each row's rank of the positive, metrics),
-     and a traced step and eval batch.
-Then it prints its wall time, the card, one {"kernels": [...]} line and,
-last, {"ok": true, ...}.
+     and a traced step and eval batch;
+  9. flash attention (row 9) at the long path's training shape (B=8,192,
+     H=2, L=256, hd=32) in bf16 and f32, at L=264 and L=1,024, and at the
+     serving shape, against its plain version; the plain backward's time
+     and peak memory; and the fused attention kernels' tiled pair at L=300
+     and L=512 (p=0 and 0.1);
+ 10. the long path: main.run(task=train) on sasrec_long256_flash (the entry
+     path's widths at max_seq_len 256 with use_pallas, attention dropout 0,
+     batch 8,192) over synthetic data with 64-767 training items per user,
+     2 epochs of 300 steps with one-vs-all validation before each: the best
+     validation's hit@10 must reach 0.1, task=test from the best checkpoint
+     must repeat the metrics, task=infer must write one finite score per
+     test row that agrees with model.predict through the plain versions, and
+     flash attention must launch in training, evaluation and infer (the
+     layer kernels and the fused attention kernels never). Then one step at
+     dropout 0 and one eval batch through the kernels and the plain
+     versions, a traced step and eval batch, and top-100 serving of 4,096
+     users from the long checkpoint (flash attention and blockmax launch;
+     the ids agree with the plain-version run).
+Then it prints its wall time (and each of phases 9-10), the card, one
+{"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
 """
@@ -77,6 +95,14 @@ BWD_TOL = 5e-2
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def emb_tol(u) -> float:
+    """Tolerance on bf16 user embeddings (LayerNorm outputs), kernels against
+    plain: LN_TOL or two bf16 ulps of the largest one, whichever is larger. A
+    rounding that flips moves an element by one ulp, and trained LN outputs
+    pass 4, where one ulp is 2^-5 > LN_TOL."""
+    return max(LN_TOL["bfloat16"], 2.0 ** -6 * float(u.abs().max()))
 
 
 def smi_line() -> str:
@@ -305,6 +331,7 @@ def plain_versions():
         member as MB, scatter_accum as SA, topk as TK
     with mock.patch.object(AT, "_fwd_cuda", AT._fwd_plain), \
             mock.patch.object(AT, "_bwd_cuda", AT._bwd_plain), \
+            mock.patch.object(AT, "_flash_fwd_cuda", AT._flash_fwd_plain), \
             mock.patch.object(FF, "_fwd_cuda", FF._fwd_plain), \
             mock.patch.object(FF, "_bwd_cuda", FF._bwd_plain), \
             mock.patch.object(LY, "_layer_fwd_cuda", LY._layer_fwd_plain), \
@@ -320,7 +347,8 @@ def plain_versions():
 def _counters():
     from unirec_tpu_torch.ops import attention as AT, ffn as FF, layer as LY, \
         member as MB, scatter_accum as SA, topk as TK
-    return {"fused_attention": (AT.fused_attention, "launches"),
+    return {"flash_attention": (AT.flash_attention, "launches"),
+            "fused_attention": (AT.fused_attention, "launches"),
             "fused_attention_bwd": (AT.fused_attention_bwd, "launches"),
             "fused_ffn": (FF.fused_ffn, "launches"),
             "fused_ffn_bwd": (FF.fused_ffn_bwd, "launches"),
@@ -339,6 +367,9 @@ TRAINING_KERNELS = ("layer_fwd", "lastq_fwd", "layer_bwd", "lastq_bwd",
                     "scatter_add", "member")
 ENTRY_KERNELS = ("fused_attention", "fused_attention_bwd", "fused_ffn", "fused_ffn_bwd",
                  "scatter_add", "member")
+LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_bwd", "scatter_add", "member")
+OFF_LONG_PATH = ("layer_fwd", "layer_bwd", "lastq_fwd", "lastq_bwd", "fused_attention",
+                 "fused_attention_bwd")
 
 
 def launch_counts(names):
@@ -393,7 +424,8 @@ def main_path(torch, card: str):
     return counts
 
 
-def check_main_path(torch, model, cfg, users, history, modes, results):
+def check_main_path(torch, model, cfg, users, history, modes, results,
+                    phase="main_path_check"):
     from unirec_tpu_torch.main.infer_embedding import iter_infer_batches
     from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
     from unirec_tpu_torch.ops import topk as TK
@@ -404,9 +436,10 @@ def check_main_path(torch, model, cfg, users, history, modes, results):
     item_emb = model.all_item_emb()
     q_items, q_scale = TK.quantize_catalog(item_emb)
     catalogs = {"bf16": item_emb.float(), "int8": q_items.float() * q_scale[:, None]}
-    du, checks = 0.0, {n: {"valid": True, "identical_rows": 0,
+    catalogs = {n: c for n, c in catalogs.items() if n in modes}
+    du, du_tol, checks = 0.0, 0.0, {n: {"valid": True, "identical_rows": 0,
                            "identical_to_plain_run": 0} for n in modes}
-    for start, batch in zip(range(0, SERVE_USERS, BATCH),
+    for start, batch in zip(range(0, len(users), BATCH),
                             iter_infer_batches(cfg, users, history, True)):
         n = batch.pop("n_real")
         tb = to_device(batch, "cuda", torch.int64)
@@ -414,6 +447,7 @@ def check_main_path(torch, model, cfg, users, history, modes, results):
         with plain_versions():
             u_p = model.user_emb(tb)[:n].float()
         du = max(du, float((u_k - u_p).abs().max()))
+        du_tol = max(du_tol, emb_tol(u_p))
         hist, hlen = history.gather(batch["user_id"][:n])
         h = torch.from_numpy(np.where(np.arange(hist.shape[1])[None] < hlen[:, None],
                                       hist, 0).astype(np.int64)).cuda()
@@ -431,9 +465,9 @@ def check_main_path(torch, model, cfg, users, history, modes, results):
             checks[name]["identical_rows"] += same
             checks[name]["identical_to_plain_run"] += int(
                 (pl.sort(1).values == ids.sort(1).values).all(1).sum())
-    emit({"phase": "main_path_check", "user_emb_max_abs_diff": du,
-          "user_emb_tol": LN_TOL["bfloat16"], **checks})
-    if du > LN_TOL["bfloat16"] or not all(c["valid"] for c in checks.values()):
+    emit({"phase": phase, "user_emb_max_abs_diff": du,
+          "user_emb_tol": du_tol, **checks})
+    if du > du_tol or not all(c["valid"] for c in checks.values()):
         raise AssertionError("main path disagrees with the plain versions")
 
 
@@ -878,9 +912,165 @@ def kernel_fused_attention(torch):
     emit(line)
     if not (e_f <= ATT_TOL * 4 and max(e_b) <= BWD_TOL):
         raise AssertionError(f"per-head-mask attention disagrees: {line}")
+    kernel_fused_attention_long(torch)
     # the kernels line takes p=0, where scaled_dot_product_attention computes
     # the same function
     return rows["fused_attention_p0.0"], rows["fused_attention_bwd_p0.0"]
+
+
+def kernel_fused_attention_long(torch):
+    """Rows 10 and 11 beyond the whole-sequence kernels' shared memory: the
+    tiled pair at L=300 and L=512 (H=2, hd=32, bf16, B=256), forward and
+    backward at p=0 and p=0.1, against the plain versions. Tolerances as at
+    L=50, but a fully padded example's rows are held to 2^-10 of their
+    largest value (scores near -1e4 keep f32 steps of 2^-10)."""
+    import torch.nn.functional as F
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import layer as LY
+    t0 = time.perf_counter()
+    for L in (300, 512):
+        q, k, v, mask = attention_inputs(torch, 256, L=L, seed=SEED + 33)
+        B, H, _, hd = q.shape
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(
+            SEED + 34), device="cuda").to(torch.bfloat16)
+        flops = 4 * B * H * L * L * hd
+        mb = mask.to(torch.bfloat16)
+        for p in (0.0, P_DROP):
+            drop = LY.drop_params(p, 0.0, True, 779)
+            out = AT._fwd_cuda(q, k, v, mask, drop)
+            ref = AT._fwd_plain(q, k, v, mask, drop)
+            got = AT._bwd_cuda(q, k, v, mask, do, drop)
+            refb = AT._bwd_plain(q, k, v, mask, do, drop)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = ATT_TOL * float(ref.float().abs().max())
+            errs, _ = leaf_errs(got, refb)
+            line = {"phase": "kernel", "name": "fused_attention", "tiled": AT._tiled(L, hd),
+                    "p_drop": p, "shape": [B, H, L, hd], "mask": list(mask.shape),
+                    "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
+                    "tol_reason": "two bf16 ulps of the largest output",
+                    "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop), iters=10),
+                    "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask, drop), iters=2,
+                                        warmup=1),
+                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mb)) if p == 0.0 else None}
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes(q, k, v, mask, out), flops,
+                                                          "bfloat16")
+            emit(line)
+            line_b = {"phase": "kernel", "name": "fused_attention_bwd",
+                      "tiled": AT._tiled(L, hd), "p_drop": p, "shape": [B, H, L, hd],
+                      "dtype": "bfloat16", "max_rel_err": max(errs), "rel_errs": errs,
+                      "tol": BWD_TOL,
+                      "kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
+                                           iters=5),
+                      "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do, drop),
+                                          iters=2, warmup=1),
+                      "library_ms": None}
+            line_b["bound_ms"], line_b["bound_by"] = bound_ms(
+                nbytes(q, k, v, mask, do, *got), 5 * flops // 2, "bfloat16")
+            emit(line_b)
+            if not (err <= tol and max(errs) <= BWD_TOL):
+                raise AssertionError(f"tiled fused attention disagrees at L={L}: {line}, "
+                                     f"{line_b}")
+            del out, ref, got, refb
+    emit({"phase": "kernel_fused_attention_long", "seconds": time.perf_counter() - t0})
+
+
+# --------------------------------------------------------- flash attention
+FLASH_TOL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -10}
+FLASH_TOL_REASON = ("bf16: two bf16 ulps of the largest output; f32: 2^-10 of it, the "
+                    "f32 step of a score near -1e4 (a fully padded example's rows, where "
+                    "a product summed in another order can move a probability by that)")
+LONG_LEN, LONG_BATCH = 256, 8192
+
+
+def flash_inputs(torch, B, L, dtype, hd=EMB // 2, seed=SEED + 60):
+    """q, k, v [B, 2, L, hd] at unit scale and the model's additive mask [B,
+    1, L, L] f32: causal triangle, left padding of 0..L real items (every
+    64th example all padding)."""
+    from unirec_tpu_torch.models.modules import causal_attention_mask
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, 2, L, hd, generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    lens = torch.randint(1, L + 1, (B,), generator=g, device="cuda")
+    lens[::64] = 0
+    seq = (torch.arange(L, device="cuda")[None, :] >= L - lens[:, None]).long()
+    return q, k, v, causal_attention_mask(seq)
+
+
+def kernel_flash_attention(torch):
+    """Row 9: csrc/flash_attention.cu against its plain version at the long
+    path's training shape (B=8,192, H=2, L=256, hd=32) in bf16 and f32, at
+    L=264 (ragged) and L=1,024 at a smaller batch, at the serving shape
+    (B=256); then the plain backward (torch ops, as the JAX package's XLA
+    backward) at the training shape, its time and peak memory. Library:
+    scaled_dot_product_attention with the same float mask."""
+    import torch.nn.functional as F
+    from unirec_tpu_torch.ops import attention as AT
+    t0 = time.perf_counter()
+    rows = {}
+    for B, L, dt in ((LONG_BATCH, LONG_LEN, "bfloat16"), (LONG_BATCH, LONG_LEN, "float32"),
+                     (512, 264, "bfloat16"), (128, 1024, "bfloat16"),
+                     (BATCH, LONG_LEN, "bfloat16")):
+        dtype = getattr(torch, dt)
+        q, k, v, mask = flash_inputs(torch, B, L, dtype)
+        out, lse = AT._flash_fwd_cuda(q, k, v, mask)
+        ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = FLASH_TOL[dt] * max(1.0, float(ref.float().abs().max()))
+        lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
+        hd = q.shape[-1]
+        line = {"phase": "kernel", "name": "flash_attention", "shape": [B, 2, L, hd],
+                "mask": list(mask.shape), "dtype": dt, "max_abs_err": err, "tol": tol,
+                "tol_reason": FLASH_TOL_REASON, "lse_max_rel_err": lse_err, "lse_tol": 1e-5,
+                "finite": bool(torch.isfinite(out).all()),
+                "kernel_ms": cuda_ms(lambda: AT._flash_fwd_cuda(q, k, v, mask), iters=10),
+                "plain_ms": cuda_ms(lambda: AT._flash_fwd_plain(q, k, v, mask), iters=3,
+                                    warmup=1)}
+        del ref, ref_lse
+        ml = mask.to(dtype)
+        line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=ml), iters=10)
+        line["library_note"] = "scaled_dot_product_attention, the same float mask"
+        line["bound_ms"], line["bound_by"] = bound_ms(
+            nbytes(q, k, v, mask, out, lse), 4 * B * 2 * L * L * hd, dt)
+        emit(line)
+        if not (err <= tol and lse_err <= 1e-5 and line["finite"]):
+            raise AssertionError(f"flash_attention disagrees with its plain version: {line}")
+        rows.setdefault(f"{dt}_{B}_{L}", line)
+        del q, k, v, mask, out, lse, ml
+    # the plain backward at the training shape: time and peak memory
+    q, k, v, mask = flash_inputs(torch, LONG_BATCH, LONG_LEN, torch.bfloat16)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 61),
+                    device="cuda").to(torch.bfloat16)
+    out, lse = AT._flash_fwd_cuda(q, k, v, mask)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    AT._flash_bwd(q, k, v, mask, out, lse, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    mb = mask.to(torch.bfloat16)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mb)
+        torch.autograd.grad(o, (qs, ks, vs), g)
+
+    with torch.enable_grad():
+        lib = cuda_ms(lib_fwd_bwd, iters=5)
+    line = {"phase": "kernel", "name": "flash_attention_bwd_plain",
+            "shape": list(q.shape), "dtype": "bfloat16", "kernel_ms": None,
+            "plain_ms": cuda_ms(lambda: AT._flash_bwd(q, k, v, mask, out, lse, g), iters=3,
+                                warmup=1),
+            "peak_mem_above_inputs_bytes": peak, "library_ms": lib,
+            "library_note": "scaled_dot_product_attention forward plus backward",
+            "note": "no kernel: the JAX package's backward is plain XLA (attention.py:143-162)"}
+    emit(line)
+    del q, k, v, mask, g, out, lse, qs, ks, vs, mb
+    emit({"phase": "kernel_flash_attention", "seconds": time.perf_counter() - t0})
+    return rows[f"bfloat16_{LONG_BATCH}_{LONG_LEN}"]
 
 
 def kernel_fused_ffn(torch):
@@ -970,38 +1160,39 @@ LEARN_MIN_HIT10 = 0.1
 WALK_GROUP, WALK_NOISE = 200, 0.1
 
 
-def write_slice_data(root: Path) -> None:
+def write_slice_data(root: Path, hist=(10, HIST_CAP), group=WALK_GROUP,
+                     rows=ENTRY_STEPS * TRAIN_BATCH) -> None:
     """tests/synth.py's on-disk layout at bench.py's scale: 100,000 users
-    (id 0 is padding) with 10..199 training items each over 50,000 items,
-    seed 0, then one valid and one test item per user. User u walks the
-    items of group u % 249 (WALK_GROUP consecutive ids) one id up at each
-    step from a random start, wrapping inside the group, and 10% of its
-    items are uniform over the catalog instead; so the next item follows
-    from the last one, which SASRec learns within the run's 200 steps per
-    epoch (at 40 it learned only the 1-in-10 base rate), so the
-    validations choose between scores that differ. train.pkl holds ENTRY_STEPS batches
-    of (user, item) pairs drawn from the histories; valid.pkl and test.pkl
-    8,192 users each; user_history.pkl (user_id, item_seq) the training
-    histories."""
+    (id 0 is padding) with hist[0]..hist[1]-1 training items each (10..199
+    for the entry path) over 50,000 items, seed 0, then one valid and one
+    test item per user. User u walks the items of group u % (49,999 //
+    group) (``group`` consecutive ids, more than a history, so a walk never
+    repeats an item) one id up at each step from a random start, wrapping
+    inside the group, and 10% of its items are uniform over the catalog
+    instead; so the next item follows from the last one, which SASRec
+    learns within the run's 200 steps per epoch (at 40 it learned only the
+    1-in-10 base rate), so the validations choose between scores that
+    differ. train.pkl holds ``rows`` (user, item) pairs drawn from the
+    histories; valid.pkl and test.pkl 8,192 users each; user_history.pkl
+    (user_id, item_seq) the training histories."""
     import json
 
     import pandas as pd
     rng = np.random.default_rng(SEED)
     users = np.arange(1, N_USERS)
-    n = rng.integers(10, HIST_CAP, size=len(users))
+    n = rng.integers(hist[0], hist[1], size=len(users))
     owner = np.repeat(users, n + 2)
     starts = np.concatenate([[0], np.cumsum(n + 2)[:-1]])
     pos = np.arange(len(owner)) - np.repeat(starts, n + 2)
-    start = np.repeat(rng.integers(0, WALK_GROUP, len(users)), n + 2)
-    walk = 1 + (owner % ((N_ITEMS - 1) // WALK_GROUP)) * WALK_GROUP \
-        + (start + pos) % WALK_GROUP
+    start = np.repeat(rng.integers(0, group, len(users)), n + 2)
+    walk = 1 + (owner % ((N_ITEMS - 1) // group)) * group + (start + pos) % group
     items = np.where(rng.random(len(owner)) < WALK_NOISE,
                      rng.integers(1, N_ITEMS, len(owner)), walk)
     is_train = pos < np.repeat(n, n + 2)
     root.mkdir(parents=True, exist_ok=True)
     seqs = np.split(items[is_train], np.cumsum(n)[:-1])
     pd.DataFrame({"user_id": users, "item_seq": seqs}).to_pickle(root / "user_history.pkl")
-    pick = rng.choice(int(is_train.sum()), ENTRY_STEPS * TRAIN_BATCH, replace=False)
+    pick = rng.choice(int(is_train.sum()), rows, replace=False)
     pd.DataFrame({"user_id": owner[is_train][pick],
                   "item_id": items[is_train][pick]}).to_pickle(root / "train.pkl")
     for name, off in (("valid", 0), ("test", 1)):
@@ -1052,10 +1243,10 @@ def entry_path(torch, card: str):
         seen["losses"].append(step(self, batch))
         return seen["losses"][-1]
 
-    def spy_eval(self, data, load_best_model=True, model_file=None):
+    def spy_eval(self, data, load_best_model=True, model_file=None, **kw):
         torch.cuda.synchronize()
         seen["marks"].append(time.perf_counter())
-        res = evaluate(self, data, load_best_model, model_file)
+        res = evaluate(self, data, load_best_model, model_file, **kw)
         torch.cuda.synchronize()
         seen["marks"].append(time.perf_counter())
         seen["evals"].append((res, seen["marks"][-1] - seen["marks"][-2], len(data.ds)))
@@ -1111,7 +1302,7 @@ def entry_path(torch, card: str):
     return counts, line, seen["trainer"], seen["train_data"]
 
 
-def check_entry_path(torch, trainer, train_data):
+def check_entry_path(torch, trainer, train_data, phase="entry_path_check"):
     """One step at dropout 0 from the trained weights, through the kernels
     and through the plain versions: loss and every gradient leaf. Then one
     test batch's user embeddings, ranks and metrics both ways."""
@@ -1141,7 +1332,7 @@ def check_entry_path(torch, trainer, train_data):
     errs, zeros = leaf_errs(grads_k, grads_p, zero_sum)
     errs = dict(zip(names, errs))
     worst = max(errs, key=errs.get)
-    line = {"phase": "entry_path_check", "batch": TRAIN_BATCH, "p_drop": 0.0,
+    line = {"phase": phase, "batch": len(batch["user_id"]), "p_drop": 0.0,
             "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
             "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
             "loss_tol": 2e-3, "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
@@ -1152,16 +1343,16 @@ def check_entry_path(torch, trainer, train_data):
     line.update(eval_agreement(torch, trainer, model, ev, eval_batch))
     emit(line)
     if not (line["loss_rel_diff"] <= 2e-3 and errs[worst] <= BWD_TOL and len(zeros) == 2
-            and zero_sum_ok(zeros) and line["user_emb_max_abs_diff"] <= LN_TOL["bfloat16"]
+            and zero_sum_ok(zeros) and line["user_emb_max_abs_diff"] <= line["user_emb_tol"]
             and line["rank_agree_share"] >= RANK_AGREE_SHARE
             and line["metric_max_rel_diff"] <= METRIC_REL_TOL):
-        raise AssertionError(f"entry path disagrees with the plain versions: {line}")
+        raise AssertionError(f"{phase}: kernels disagree with the plain versions: {line}")
     return ev, eval_batch
 
 
 # one eval batch, kernels against plain versions: a row's rank of the
 # positive agrees when the two differ by at most RANK_SLACK plus
-# RANK_REL_SLACK of the rank (bf16 user embeddings within LN_TOL move a
+# RANK_REL_SLACK of the rank (bf16 user embeddings within emb_tol move a
 # score by about 1e-2 of its spread, and with it the items packed around a
 # mid-catalog positive); RANK_AGREE_SHARE of the rows must agree, and each
 # metric must lie within METRIC_REL_TOL of its own plain value
@@ -1197,7 +1388,7 @@ def eval_agreement(torch, trainer, model, ev, eval_batch):
     agree = gap <= RANK_SLACK + RANK_REL_SLACK * r_p
     return {"eval_batch": int(real.sum()),
             "user_emb_max_abs_diff": float((u_k - u_p).abs().max()),
-            "user_emb_tol": LN_TOL["bfloat16"],
+            "user_emb_tol": emb_tol(u_p),
             "rank_equal_share": float((gap == 0).float().mean()),
             "rank_agree_share": float(agree.float().mean()),
             "rank_agree_tol": [RANK_SLACK, RANK_REL_SLACK, RANK_AGREE_SHARE],
@@ -1211,28 +1402,195 @@ def eval_agreement(torch, trainer, model, ev, eval_batch):
             "metric_rel_tol": METRIC_REL_TOL}
 
 
-def trainer_test_batcher(trainer):
+def trainer_test_batcher(trainer, config=None, history=None):
     """The test table's eval batcher, as main.run builds it."""
     from unirec_tpu_torch.data.datasets import get_dataset_class
     from unirec_tpu_torch.data.pipeline import make_eval_batcher
     from unirec_tpu_torch.main.main import _task_config
-    tcfg = _task_config(trainer.config, "test")
-    ds = get_dataset_class("SeqRecDataset")(tcfg, trainer.config["dataset_path"], "test")
-    return make_eval_batcher(ds, tcfg, trainer.user_history, task="test")
+    config = config or trainer.config
+    tcfg = _task_config(config, "test")
+    ds = get_dataset_class("SeqRecDataset")(tcfg, config["dataset_path"], "test")
+    return make_eval_batcher(ds, tcfg, history or trainer.user_history, task="test")
 
 
-def profile_entry_path(torch, trainer, train_data, ev, eval_batch, card):
+def profile_entry_path(torch, trainer, train_data, ev, eval_batch, card,
+                       phase="entry_path_profile"):
     from unirec_tpu_torch.utils import to_device
     batch = to_device(next(iter(train_data)), "cuda")
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    emit({"phase": "entry_path_profile", "what": "one train step", "batch": TRAIN_BATCH,
+    emit({"phase": phase, "what": "one train step", "batch": len(batch["user_id"]),
           **device_profile(torch, lambda: trainer.train_step(batch)), "card": card})
-    emit({"phase": "entry_path_profile", "what": "one eval batch (one_vs_all)",
+    emit({"phase": phase, "what": "one eval batch (one_vs_all)",
           "users": len(eval_batch["user_id"]), "items": N_ITEMS,
           **device_profile(torch, lambda: ev.evaluate_full([eval_batch],
                                                            trainer.user_history)),
           "card": card})
+
+
+# ---------------------------------------------------------------- long path
+LONG_HIST, LONG_GROUP, LONG_STEPS, LONG_EPOCHS = (64, 768), 800, 300, 2
+
+
+def long_args(data: Path, out: Path):
+    """sasrec_long256_flash: the entry path's widths and training options at
+    max_seq_len 256 with use_pallas (flash attention) in place of
+    use_fused_attention, attention dropout 0 (which lets training reach the
+    kernel), batch 8,192."""
+    return dict(entry_args(data, out), exp_name="sasrec_long256_flash",
+                max_seq_len=LONG_LEN, attn_dropout_prob=0.0, use_fused_attention=0,
+                use_pallas=1, batch_size=LONG_BATCH, epochs=LONG_EPOCHS)
+
+
+def long_path(torch, card: str):
+    """main.run(task=train) on sasrec_long256_flash with one-vs-all validation
+    before each epoch and the test after; then task=test and task=infer from
+    the best checkpoint. Launches are counted over the train run, over its
+    evaluations alone, and over the infer run."""
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.main import main as main_mod
+    from unirec_tpu_torch.ops import attention as AT
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    data, out = root / "long_data", root / "long"
+    write_slice_data(data, LONG_HIST, LONG_GROUP, LONG_STEPS * LONG_BATCH)
+    setup_s = time.perf_counter() - t0
+    seen = {"losses": [], "evals": [], "marks": [], "eval_flash": 0}
+    step, evaluate, fit = Trainer.train_step, Trainer.evaluate, Trainer.fit
+
+    def spy_step(self, batch):
+        seen["losses"].append(step(self, batch))
+        return seen["losses"][-1]
+
+    def spy_eval(self, data, load_best_model=True, model_file=None, **kw):
+        torch.cuda.synchronize()
+        seen["marks"].append(time.perf_counter())
+        n0 = AT.flash_attention.launches
+        res = evaluate(self, data, load_best_model, model_file, **kw)
+        torch.cuda.synchronize()
+        seen["eval_flash"] += AT.flash_attention.launches - n0
+        seen["marks"].append(time.perf_counter())
+        seen["evals"].append((res, seen["marks"][-1] - seen["marks"][-2], len(data.ds)))
+        return res
+
+    def spy_fit(self, train_data, valid_data=None, **kw):
+        seen["trainer"], seen["train_data"] = self, train_data
+        return fit(self, train_data, valid_data, **kw)
+
+    args = long_args(data, out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with mock.patch.object(Trainer, "train_step", spy_step), \
+            mock.patch.object(Trainer, "evaluate", spy_eval), \
+            mock.patch.object(Trainer, "fit", spy_fit):
+        t1 = time.perf_counter()
+        result = main_mod.run(dict(args))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+    counts = launch_counts(LONG_KERNELS + OFF_LONG_PATH)
+    peak = torch.cuda.max_memory_allocated()
+    ckpt = out / "checkpoint" / "sasrec_long256_flash.pkl"
+    again = main_mod.run({"task": "test", "model_file": str(ckpt), "dataset_path": str(data),
+                          "output_path": str(out / "test")})
+    reset_counts()
+    t1 = time.perf_counter()
+    main_mod.run({"task": "infer", "model_file": str(ckpt), "dataset_path": str(data),
+                  "output_path": str(out / "infer")})
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t1
+    infer_counts = launch_counts(("flash_attention",))
+    loss = torch.stack(seen["losses"]).float().cpu().numpy()
+    valid, (test_res, test_s, n_test) = seen["evals"][:-1], seen["evals"][-1]
+    epoch2_s = seen["marks"][4] - seen["marks"][3]
+    line = {"phase": "long_path", "config": "sasrec_long256_flash", "batch": LONG_BATCH,
+            "max_seq_len": LONG_LEN, "steps": len(loss), "epochs": LONG_EPOCHS,
+            "data_setup_s": setup_s, "run_s": run_s,
+            "examples_per_s": LONG_BATCH * LONG_STEPS / epoch2_s,
+            "ms_per_step": epoch2_s * 1e3 / LONG_STEPS,
+            "first_losses": loss[:3].tolist(), "last_losses": loss[-3:].tolist(),
+            "valid": [{"result": r, "seconds": s, "users_per_s": u / s} for r, s, u in valid],
+            "test": test_res, "test_users_per_s": n_test / test_s,
+            "test_from_checkpoint": again, "infer_s": infer_s, "peak_mem_bytes": peak,
+            "seconds": time.perf_counter() - t0, "card": card}
+    emit(line)
+    emit({"phase": "long_path_launches", **counts, "flash_attention_in_evaluations":
+          seen["eval_flash"], "infer": infer_counts})
+    if len(loss) != LONG_STEPS * LONG_EPOCHS or not np.isfinite(loss).all() \
+            or not loss[-10:].mean() < loss[:10].mean():
+        raise AssertionError(f"long training did not run as expected: {loss.tolist()}")
+    if len(valid) != LONG_EPOCHS or not all(np.isfinite(r["ndcg@10"]) for r, _, _ in valid):
+        raise AssertionError(f"a validation gave no key metric: {valid}")
+    if not max(r["hit@10"] for r, _, _ in valid) >= LEARN_MIN_HIT10:
+        raise AssertionError(f"the model learned nothing the validations show: {valid}")
+    if again != test_res or again != result:
+        raise AssertionError(f"test from the checkpoint {again} != the run's {result}")
+    missing = [k for k in LONG_KERNELS if counts[k] <= 0]
+    stray = [k for k in OFF_LONG_PATH if counts[k] != 0]
+    if missing or stray or seen["eval_flash"] <= 0 or infer_counts["flash_attention"] <= 0:
+        raise AssertionError(f"long path launches: missing {missing}, stray {stray}, "
+                             f"evaluations {seen['eval_flash']}, infer {infer_counts}")
+    check_infer_file(torch, out / "infer" / "sasrec_long256_flash.infer.txt", ckpt,
+                     seen["trainer"])
+    counts["long_infer"] = infer_counts["flash_attention"]
+    return counts, seen["trainer"], seen["train_data"], ckpt
+
+
+def check_infer_file(torch, path: Path, ckpt: Path, trainer):
+    """task=infer's file: one finite score per real test row, each within the
+    score error a user-embedding difference of LN_TOL can cause of
+    model.predict through the plain versions (the file keeps 6 decimals)."""
+    from unirec_tpu_torch.facility.evaluation import OnePositiveEvaluator
+    from unirec_tpu_torch.utils.checkpoint import load_model_freely
+    got = np.loadtxt(path)
+    model, cfg = load_model_freely(str(ckpt), "cuda")
+    batcher = trainer_test_batcher(trainer, dict(cfg, dataset_path=trainer.config[
+        "dataset_path"]))
+    with plain_versions():
+        ref = OnePositiveEvaluator(cfg, model, "cuda").predict_scores(batcher)
+    with torch.no_grad():
+        items = model.all_item_emb().float()
+    tol = LN_TOL["bfloat16"] * float(items.abs().sum(1).max()) + 1e-6
+    err = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+    line = {"phase": "long_infer_check", "rows": int(got.shape[0]), "test_rows": len(ref),
+            "finite": bool(np.isfinite(got).all()), "max_abs_diff_to_plain": err, "tol": tol,
+            "tol_reason": "LN_TOL on the user embedding times the largest item L1 norm"}
+    emit(line)
+    if not (line["finite"] and err <= tol):
+        raise AssertionError(f"infer file disagrees with the plain versions: {line}")
+
+
+def long_serve(torch, ckpt: Path, card: str):
+    """reco_topk from the long checkpoint: 4,096 users of the long data's
+    histories, batch 256, top-100, bf16 catalog; rows 5 and 9 launch; the
+    ids agree with the plain-version run as the serving path's check."""
+    from unirec_tpu_torch.data.history import UserHistory
+    from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
+    from unirec_tpu_torch.utils.checkpoint import load_model_freely
+    t0 = time.perf_counter()
+    history = UserHistory.load(str(ROOT / "build" / "chip_smoke" / "long_data" /
+                                   "user_history"), N_USERS, "user-item_seq")
+    model, cfg = load_model_freely(str(ckpt), "cuda")
+    cfg = dict(cfg, test_batch_size=BATCH)
+    users = np.arange(1, SERVE_USERS + 1, dtype=np.int64)
+    get_topk_recommendations(cfg, model, users[:BATCH], history, TOPK)   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    ids = get_topk_recommendations(cfg, model, users, history, TOPK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = launch_counts(("flash_attention", "blockmax"))
+    emit({"phase": "long_serve", "users": SERVE_USERS, "batch": BATCH, "topk": TOPK,
+          "max_seq_len": LONG_LEN, "users_per_s": SERVE_USERS / secs,
+          "ms_per_batch": secs * 1e3 / (SERVE_USERS // BATCH), **counts,
+          "seconds": time.perf_counter() - t0, "card": card})
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"long serving never launched a kernel: {counts}")
+    with torch.no_grad():
+        check_main_path(torch, model, cfg, users, history, {"bf16": cfg}, {"bf16": ids},
+                        phase="long_serve_check")
+    return counts
 
 
 def main() -> int:
@@ -1304,6 +1662,28 @@ def main() -> int:
     entry_counts, _, trainer, train_data = entry_path(torch, card)
     ev, eval_batch = check_entry_path(torch, trainer, train_data)
     profile_entry_path(torch, trainer, train_data, ev, eval_batch, card)
+    del trainer, train_data, ev, eval_batch
+
+    walls = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        rows["flash_attention"] = timed("kernel_flash_attention", kernel_flash_attention, torch)
+    torch.cuda.empty_cache()
+    long_counts, trainer, train_data, ckpt = timed("long_path", long_path, torch, card)
+    ev, eval_batch = timed("long_path_check", check_entry_path, torch, trainer, train_data,
+                           phase="long_path_check")
+    timed("long_path_profile", profile_entry_path, torch, trainer, train_data, ev,
+          eval_batch, card, phase="long_path_profile")
+    del trainer, train_data, ev, eval_batch
+    torch.cuda.empty_cache()
+    serve_counts = timed("long_serve", long_serve, torch, ckpt, card)
 
     # the serving rows keep their serving-shape numbers; launches add up
     # both paths where a kernel runs on both
@@ -1328,19 +1708,23 @@ def main() -> int:
                "fused_attention_bwd": ("unirec_tpu_torch/csrc/attention.cu",
                                        "unirec_tpu/ops/attention.py:260"),
                "fused_ffn": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:62"),
-               "fused_ffn_bwd": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:72")}
+               "fused_ffn_bwd": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:72"),
+               "flash_attention": ("unirec_tpu_torch/csrc/flash_attention.cu",
+                                   "unirec_tpu/ops/attention.py:44")}
     kernels = []
     for name, (src, rep) in sources.items():
         r = rows[name]
         by_path = {"serving": counts.get(name, 0), "training": train_counts.get(name, 0),
-                   "entry": entry_counts.get(name, 0)}
+                   "entry": entry_counts.get(name, 0), "long": long_counts.get(name, 0),
+                   "long_infer": long_counts["long_infer"] if name == "flash_attention" else 0,
+                   "long_serve": serve_counts.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start, "new_phases_s": walls})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

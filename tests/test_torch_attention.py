@@ -98,12 +98,16 @@ def test_gate():
     assert A.fused_supported(q, torch.zeros(2, H, 50, 50))
     assert not A.fused_supported(q, torch.zeros(2, 3, 50, 50))
     assert not A.fused_supported(torch.zeros(1, 1, 513, 8), torch.zeros(1, 1, 513, 513))
-    # the JAX gate takes L=500; the kernels' shared memory (K, V and their
-    # gradients of one head) does not, and their wrapper refuses it
+    # the JAX gate takes L=500; the tiled kernels take it at head width 64,
+    # while at head width 192 a query tile's score rows and its K, V tiles
+    # exceed a block's shared memory, and the wrapper refuses it
     big = torch.zeros(1, 1, 500, 64)
     assert A.fused_supported(big, torch.zeros(1, 1, 500, 500))
+    assert A._tiled(500, 64) and not A._tiled(50, 32)
+    A._operands(big, big, big, torch.zeros(1, 1, 500, 500))
+    wide = torch.zeros(1, 1, 500, 192)
     with pytest.raises(ValueError, match="shared memory"):
-        A._operands(big, big, big, torch.zeros(1, 1, 500, 500))
+        A._operands(wide, wide, wide, torch.zeros(1, 1, 500, 500))
     A._operands(q, q, q, torch.zeros(2, 1, 50, 50))             # the slice's shape
 
 

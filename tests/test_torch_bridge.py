@@ -200,3 +200,23 @@ def test_fused_ffn_tree_round_trips_without_a_new_mapping():
     with torch.no_grad():
         got = model.user_emb({"item_seq": torch.from_numpy(seq)})
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_attention_needs_no_new_mapping():
+    """Flash attention has no parameters: under use_pallas at L=256 (the
+    flash path) the JAX tree equals the plain configuration's, and the
+    bridge maps it both ways exactly."""
+    args = dict(ARGS, max_seq_len=256, use_pallas=1)
+    cfg = jax_config.parse_arguments(dict(args), argv=[])
+    jmodel = jax_model_class("SASRec")(cfg=cfg)
+    batch = {"item_seq": jnp.ones((2, 256), jnp.int32), "user_id": jnp.zeros(2, jnp.int32),
+             "item_id": jnp.zeros(2, jnp.int32), "label": jnp.zeros(2)}
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(5), batch, train=False)["params"])
+    _, _, plain = _jax_model()
+    plain_tree = jax.tree_util.tree_structure(plain)
+    assert jax.tree_util.tree_structure(params) == plain_tree
+    model = torch_model_class("SASRec")(
+        torch_config.parse_arguments(dict(args), argv=[], device="cpu"))
+    load_flax_params(model, params)
+    _assert_trees_identical(params, to_flax_params(model))

@@ -137,15 +137,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("flag,L", [("use_pallas", 256)])
 def test_unported_kernel_flags_raise_on_cuda(cuda, flag, L):
+    """The flag that raised before its kernel was ported: use_pallas at L=256
+    now launches flash attention in both layers, and the user embeddings
+    agree with the same model through the plain versions (bf16 LayerNorm
+    outputs, 3e-2)."""
+    from unittest import mock
+
     from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.utils.registry import get_model_class
     cfg = config_mod.parse_arguments({
         "model": "SASRec", "n_users": 10, "n_items": 50, "embedding_size": 16,
         "n_heads": 2, "inner_size": 32, "max_seq_len": L, "use_pallas": 0,
-        flag: 1})
-    model = get_model_class("SASRec")(cfg).to(cuda).eval()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.user_emb({"item_seq": torch.ones(2, L, dtype=torch.long, device=cuda)})
+        "compute_dtype": "bfloat16", flag: 1})
+    model = get_model_class("SASRec")(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(cuda).eval()
+    seq = torch.randint(1, 50, (4, L), device=cuda)
+    seq[0] = 0
+    seq[1, :200] = 0
+    before = AT.flash_attention.launches
+    with torch.no_grad():
+        u = model.user_emb({"item_seq": seq})
+        assert AT.flash_attention.launches == before + 2
+        with mock.patch.object(AT, "_flash_fwd_cuda", AT._flash_fwd_plain):
+            ref = model.user_emb({"item_seq": seq})
+    assert torch.isfinite(u).all() and float((u.float() - ref.float()).abs().max()) <= 3e-2
 
 
 def test_sasrec_kernels_agree_with_plain_path(cuda):
@@ -355,6 +372,15 @@ def _rel(a, b):
     return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
 
 
+def _masked_ok(a, b, tol):
+    """Examples 1.. within tol; example 0 of ``_att_case`` has every key
+    masked, so its scores sit near -1e4, where f32 keeps steps of 2^-10: a
+    product summed in another order can move one of them, and with it a
+    probability, by 2^-10 relative, which is its tolerance. (The L <= 50
+    cases hold it to tol: there no such step has been seen to flip.)"""
+    return _rel(a[1:], b[1:]) <= tol and _rel(a[:1], b[:1]) <= max(tol, 2.0 ** -10)
+
+
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("mask_heads", [1, 2])
 @pytest.mark.parametrize("L", [10, 50])
@@ -379,11 +405,92 @@ def test_fused_attention_gate_matches_the_kernels(cuda):
     from unirec_tpu_torch.ops import attention as AT
     lib = _build.library("attention")
     fwd, bwd = lib.unirec_attention_fwd_smem_bytes, lib.unirec_attention_bwd_smem_bytes
-    fwd.argtypes = bwd.argtypes = [ctypes.c_int] * 2
-    for L, hd in ((50, 32), (10, 8), (285, 32), (286, 32), (512, 64)):
+    fwd_t, bwd_t = (lib.unirec_attention_fwd_tiled_smem_bytes,
+                    lib.unirec_attention_bwd_tiled_smem_bytes)
+    fwd.argtypes = bwd.argtypes = fwd_t.argtypes = bwd_t.argtypes = [ctypes.c_int] * 2
+    for L, hd in ((50, 32), (10, 8), (285, 32), (286, 32), (512, 64), (512, 128)):
         assert fwd(L, hd) == AT._fwd_smem_bytes(L, hd)
         assert bwd(L, hd) == AT._bwd_smem_bytes(L, hd)
-    assert AT.kernels_take(285, 32) and not AT.kernels_take(286, 32)
+        assert fwd_t(L, hd) == AT._fwd_tiled_smem_bytes(L, hd)
+        assert bwd_t(L, hd) == AT._bwd_tiled_smem_bytes(L, hd)
+    # the whole-sequence kernels to L = 285 at head width 32, the tiled
+    # pair beyond: together every L of the JAX gate
+    assert not AT._tiled(285, 32) and AT._tiled(286, 32)
+    assert all(AT.kernels_take(L, hd) for L in range(1, AT.MAX_FUSED_SEQ_LEN + 1)
+               for hd in (8, 32, 64, 128))
+    flash = _build.library("flash_attention").unirec_flash_fwd_smem_bytes
+    flash.argtypes = [ctypes.c_int]
+    assert flash(128) <= LY._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [300, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_tiled_matches_plain(cuda, dtype, L, p):
+    """Beyond the whole-sequence kernels' shared memory (L > 285 at head
+    width 32) the tiled pair runs, with the same dropout mask replayed in
+    the backward; both directions against the plain versions (example 0,
+    every key masked, as ``_masked_ok`` says)."""
+    from unirec_tpu_torch.ops import attention as AT
+    assert AT._tiled(L, 32)
+    q, k, v, mask = _att_case(cuda, dtype, B=3, L=L)
+    drop = LY.drop_params(p, 0.0, True, 4322)
+    out = AT._fwd_cuda(q, k, v, mask, drop)
+    assert _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop), ATT_TOL[dtype])
+    do = torch.randn_like(q.float()).to(dtype)
+    for a, b in zip(AT._bwd_cuda(q, k, v, mask, do, drop),
+                    AT._bwd_plain(q, k, v, mask, do, drop)):
+        assert a.dtype == dtype and _masked_ok(a, b, ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("L", [300, 512])
+def test_fused_attention_tiled_dropout_mask_is_bit_identical(cuda, L):
+    """The tiled forward's mask is the plain version's bit for bit (q = k =
+    0, v = identity columns: out = keep / L / (1 - p) exactly)."""
+    from unirec_tpu_torch.ops import attention as AT
+    B, H = 2, 2
+    z = torch.zeros(B, H, L, 32, device=cuda)
+    v = torch.zeros(B, H, L, 32, device=cuda)
+    v[:, :, :32] = torch.eye(32, device=cuda)
+    drop = LY.drop_params(0.3, 0.0, True, 98)
+    m = torch.zeros(B, 1, L, L, device=cuda)
+    assert torch.equal(AT._fwd_cuda(z, z, v, m, drop), AT._fwd_plain(z, z, v, m, drop))
+
+
+# flash attention: out within one bf16 ulp (2^-7) of max(1, the largest
+# output) in bf16 and 1e-5 in f32 (the kernel's online softmax against the
+# plain two-pass one), gradients within two ulps or 1e-5; lse within 1e-5 of
+# each row's magnitude.
+@pytest.mark.parametrize("L,B,hd", [(256, 6, 32), (264, 4, 32), (1024, 2, 32), (256, 3, 128),
+                                    (264, 3, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, dtype, L, B, hd):
+    from unirec_tpu_torch.ops import attention as AT
+    q, k, v, mask = _att_case(cuda, dtype, B=B, L=L, hd=hd)
+    before = AT.flash_attention.launches
+    out, lse = AT._flash_fwd_cuda(q, k, v, mask)
+    assert AT.flash_attention.launches == before + 1
+    ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _masked_ok(out, ref, 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    assert bool(((lse - ref_lse).abs() <= 1e-5 * ref_lse.abs().clamp(min=1.0)).all())
+    # the autograd entry: forward through the kernel, backward as _flash_bwd
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    g = torch.randn_like(q.float()).to(dtype)
+    AT.flash_attention(qs, ks, vs, mask).backward(g)
+    refs = AT._flash_bwd(q, k, v, mask, ref, ref_lse, g)
+    for t, r in zip((qs, ks, vs), refs):
+        assert _masked_ok(t.grad, r, 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    from unirec_tpu_torch.ops import attention as AT
+    q, k, v, mask = _att_case(cuda, torch.float32, B=2, L=256, hd=136)
+    with pytest.raises(ValueError, match="head widths"):
+        AT._flash_fwd_cuda(q, k, v, mask)
+    q, k, v, mask = _att_case(cuda, torch.float16, B=2, L=256)
+    with pytest.raises(TypeError):
+        AT._flash_fwd_cuda(q, k, v, mask)
 
 
 def test_fused_attention_dropout_mask_is_bit_identical(cuda):

@@ -1,5 +1,5 @@
-"""The slice as a whole: the port's main.run and cli train/test, and one train
-step of the slice's configuration against the JAX package.
+"""The slice as a whole: the port's main.run and cli train/test/infer, and one
+train step of the slice's configuration against the JAX package.
 
 - main.run(task=train) on tests/synth.py's dataset (SASRec with
   use_fused_attention and use_fused_ffn, one-vs-all validation and test,
@@ -121,6 +121,10 @@ def test_cli_train_and_test(synth_dataset, tmp_path, capsys):
                      "--output_path", str(tmp_path / "t")]) == 0
     tested_out = capsys.readouterr().out
     assert "hit@10" in trained_out and trained_out.splitlines()[-1] == tested_out.splitlines()[-1]
+    assert cli.main(["infer", "--model_file", ckpt, "--dataset_path", root, "--device", "cpu",
+                     "--output_path", str(tmp_path / "i")]) == 0
+    scores = np.loadtxt(tmp_path / "i" / "cli.infer.txt")
+    assert scores.shape == (200,) and np.isfinite(scores).all()   # one per test row
 
 
 @pytest.mark.parametrize("bigger", [True, False])
@@ -238,18 +242,20 @@ def test_the_slice_flags_reach_the_fused_wrappers(monkeypatch):
 
 
 @pytest.mark.parametrize("L,device,refused", [
-    (50, "cuda", False), (285, "cuda", False), (300, "cuda", True), (512, "cuda", True),
+    (50, "cuda", False), (285, "cuda", False), (300, "cuda", False), (512, "cuda", False),
     (513, "cuda", False), (300, "cpu", False)])
 def test_fused_attention_lengths_the_kernels_do_not_take_are_refused_on_the_card(
         L, device, refused):
-    """Between the kernels' range (L <= 285 at head width 32) and the JAX
-    gate (L <= 512) main.run refuses use_fused_attention on the card at
-    startup; beyond the gate the model runs its plain attention, and on the
-    CPU the plain versions take any L. The check reads the config alone."""
+    """No sequence length is refused any more: csrc/attention.cu takes every
+    L the JAX gate takes (L <= 512; the tiled kernels beyond L = 285 at head
+    width 32), beyond the gate the model runs its plain attention, and on
+    the CPU the plain versions take any L. The check reads the config alone,
+    on any device, and the kernels' range is the gate's at head widths 8 to
+    128."""
     cfg = dict(SLICE, hidden_size=64, n_heads=2, max_seq_len=L)
-    if refused:
-        with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-            main._refuse_unported(cfg, "train", torch.device(device))
-    else:
-        main._refuse_unported(cfg, "train", torch.device(device))
-        main._refuse_unported(dict(cfg, use_fused_attention=0), "train", torch.device(device))
+    assert not refused and device in ("cuda", "cpu")
+    main._refuse_unported(cfg, "train")
+    main._refuse_unported(dict(cfg, use_fused_attention=0), "train")
+    for hd in (8, 32, 64, 128):
+        assert AT.kernels_take(L, hd) or L > AT.MAX_FUSED_SEQ_LEN
+    assert AT._tiled(L, 32) == (285 < L)

@@ -2,6 +2,7 @@
 
     python -m unirec_tpu_torch.cli train --model SASRec --dataset_path ... [flags]
     python -m unirec_tpu_torch.cli test --model_file ckpt.pkl --dataset_path ...
+    python -m unirec_tpu_torch.cli infer --model_file ckpt.pkl --dataset_path ...
     python -m unirec_tpu_torch.cli reco-topk --model_file ckpt.pkl --dataset_path ... --topk 100
     python -m unirec_tpu_torch.cli infer-embedding --model_file ckpt.pkl --node_type user ...
 
@@ -16,7 +17,7 @@ import sys
 
 from unirec_tpu_torch import config as config_mod
 
-COMMANDS = ("train", "test", "infer-embedding", "reco-topk")
+COMMANDS = ("train", "test", "infer", "infer-embedding", "reco-topk")
 
 
 def main(argv=None) -> int:
@@ -29,7 +30,7 @@ def main(argv=None) -> int:
     if cmd not in COMMANDS:
         raise SystemExit(f"unknown command '{cmd}'. Available: {COMMANDS}")
     args = config_mod.parse_cmd_arguments(rest)
-    if cmd in ("train", "test"):
+    if cmd in ("train", "test", "infer"):
         from unirec_tpu_torch.main import main as main_mod
         result = main_mod.run(dict(args, task=cmd))
         if result is not None:

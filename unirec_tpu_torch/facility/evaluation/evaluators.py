@@ -12,7 +12,9 @@ Tie noise draws from a ``torch.Generator`` on the device seeded as the JAX
 evaluators seed their keys (seed + 101 for one_vs_k, seed + 202 for
 one_vs_all), fresh for every evaluation, so an evaluation of the same
 weights repeats exactly. Metrics are weighted means over the real rows
-(``weight`` > 0) and match onepos.py. Not ported yet, and raising
+(``weight`` > 0) and match onepos.py. ``predict_scores`` serves the infer
+task under either protocol: ``model.predict`` of every batch, the real
+rows kept, fetched once after the sweep. Not ported yet, and raising
 NotImplementedError naming their ROADMAP item: one_vs_all with several
 positives per row (T5/T6 tables; its metrics are ported in
 ops/metrics.py::multipos_topk_and_metrics) and the session-wise protocol
@@ -93,6 +95,16 @@ class OnePositiveEvaluator:
             out["auc"] = M.roc_auc(np.concatenate([a.reshape(-1) for a in auc_labels]),
                                    np.concatenate([a.reshape(-1) for a in auc_scores]))
         return out
+
+    @torch.no_grad()
+    def predict_scores(self, batcher) -> np.ndarray:
+        """Raw scores of the real rows (evaluators.py:110-119), in f32: [rows]
+        without negatives, [rows, 1 + negatives] with them."""
+        pending, keeps = [], []
+        for batch in batcher:
+            pending.append(self.model.predict(to_device(batch, self.device)))
+            keeps.append(np.asarray(batch["weight"]) > 0)
+        return np.concatenate([s.float().cpu().numpy()[k] for s, k in zip(pending, keeps)])
 
     def evaluate_full(self, batcher, history) -> Dict[str, float]:
         n_items = int(self.config["n_items"])

@@ -10,7 +10,8 @@ card; the optimizer update (core/optim.py) under the NaN guard, a
 stopping, best checkpoint, LR plateau step), then train, with the losses
 kept on the device and fetched once per epoch, and the ``auto_resume``
 rolling ``.last`` checkpoint. ``evaluate`` runs the evaluator of the
-protocol set by ``reset_evaluator``, from the best checkpoint on request.
+protocol set by ``reset_evaluator``, from the best checkpoint on request,
+or returns the raw scores of the infer task (``predict_only``).
 Checkpoints use the JAX package's pickle layout with ``params`` as a flax
 tree, so the port's ``reco-topk`` and the JAX package read them.
 
@@ -210,9 +211,10 @@ class Trainer:
 
     # -------------------------------------------------------------- evaluate
     def evaluate(self, eval_data, load_best_model: bool = True,
-                 model_file: Optional[str] = None) -> Optional[Dict[str, float]]:
+                 model_file: Optional[str] = None, predict_only: bool = False):
         """Metrics of ``eval_data`` under the evaluator's protocol, from the
-        best checkpoint when ``load_best_model``."""
+        best checkpoint when ``load_best_model``; with ``predict_only`` the
+        real rows' raw scores instead (the infer task)."""
         if eval_data is None:
             return None
         if load_best_model:
@@ -220,6 +222,8 @@ class Trainer:
         self.init_params()
         if self.evaluator is None:
             raise ValueError("no evaluator: call reset_evaluator first")
+        if predict_only:
+            return self.evaluator.predict_scores(eval_data)
         if self._eval_protocol == EvalProtocol.ONE_VS_ALL.value:
             if self.user_history is None:
                 raise ValueError("user_history must be set for one_vs_all evaluation")

@@ -1,4 +1,4 @@
-"""Config-driven train/test entry point (counterpart of
+"""Config-driven train/test/infer entry point (counterpart of
 unirec_tpu/main/main.py::run).
 
 ``run(args)`` merges the config layers, loads the user histories and the
@@ -11,17 +11,17 @@ Trainer, and runs the task:
     checkpoint. The checkpoint goes to
     ``<output_path>/checkpoint/<exp_name>.pkl``.
   - test: the test table from ``model_file``.
+  - infer: the model's scores of the test table's real rows from
+    ``model_file`` (one_vs_k unless a test protocol is set), one row per
+    line in ``<exp_name>.infer.txt``; returns None.
 
-It writes ``<exp_name>.result.tsv`` and a log beside it in
-``<output_path>`` and returns the test metrics. It runs on the CUDA card
+Train and test write ``<exp_name>.result.tsv`` beside a log in
+``<output_path>`` and return the test metrics. It runs on the CUDA card
 unless the caller passes ``device='cpu'`` (or another device), and never
 falls back to the CPU. Not ported yet, and raising NotImplementedError
-naming their ROADMAP.md item: the infer task (Queue 1 item 5), closed-form
-solver models (item 9), MoRec (item 11), a mesh of more than one device
-(item 12) and the profiler trace (item 5). On the card it also refuses,
-naming Queue 2 item 7, a ``use_fused_attention`` configuration whose
-sequences the JAX gate takes but csrc/attention.cu does not
-(``ops/attention.py::kernels_take``).
+naming their ROADMAP.md item: closed-form solver models (item 9), MoRec
+(item 11), a mesh of more than one device (item 12) and the profiler trace
+(item 5).
 """
 from __future__ import annotations
 
@@ -38,7 +38,6 @@ from unirec_tpu_torch.data.datasets import get_dataset_class
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.data.pipeline import make_eval_batcher, make_train_batcher
 from unirec_tpu_torch.facility.trainer import Trainer
-from unirec_tpu_torch.ops import attention as attn_ops
 from unirec_tpu_torch.utils import resolve_device
 from unirec_tpu_torch.utils.logger import setup_logger
 from unirec_tpu_torch.utils.registry import get_model_class
@@ -76,43 +75,32 @@ def _exists_any(path, prefix) -> bool:
     return any(os.path.exists(os.path.join(path, prefix + ext)) for ext in _TABLE_EXTS)
 
 
-def _refuse_unported(config, task: str, device):
-    if task == TaskType.INFER.value:
-        raise NotImplementedError("the infer task is not ported yet (ROADMAP.md "
-                                  "Queue 1 item 5)")
-    if task not in (TaskType.TRAIN.value, TaskType.TEST.value):
+def _refuse_unported(config, task: str):
+    if task not in (TaskType.TRAIN.value, TaskType.TEST.value, TaskType.INFER.value):
         raise ValueError(f"unknown task: {task}")
     if int(config.get("enable_morec", 0) or 0):
         raise NotImplementedError("MoRec is not ported yet (ROADMAP.md Queue 1 item 11)")
     if int(config.get("profile", 0) or 0):
         raise NotImplementedError("profile=1 (the run-wide trace) is not ported yet "
                                   "(ROADMAP.md Queue 1 item 5)")
-    if device.type == "cuda" and int(config.get("use_fused_attention", 0) or 0) \
-            and config.get("max_seq_len") and config.get("n_heads"):
-        L = int(config["max_seq_len"])
-        hd = int(config["hidden_size"]) // int(config["n_heads"])
-        if L <= attn_ops.MAX_FUSED_SEQ_LEN and not attn_ops.kernels_take(L, hd):
-            raise NotImplementedError(
-                f"use_fused_attention at max_seq_len={L}, head width {hd}: the "
-                "CUDA kernels do not take sequences this long yet (ROADMAP.md "
-                "Queue 2 item 7); unset use_fused_attention or shorten max_seq_len")
 
 
 def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str, float]]:
-    """Run ``args['task']`` (train or test); returns the test metrics."""
+    """Run ``args['task']`` (train, test or infer); returns the test
+    metrics (None for infer)."""
     args = dict(args)
     dev = resolve_device(device or args.pop("device", None))
     config = config_mod.parse_arguments(args, argv=[], device=dev.type)
     task = config.get("task", TaskType.TRAIN.value)
-    # test from a checkpoint: its config defines the model, and the
-    # caller's args go on top (reference main.py:304-306)
-    if config.get("model_file") and (task == TaskType.TEST.value
+    # test/infer from a checkpoint: its config defines the model, and the
+    # caller's args go on top (reference main.py:304-306, 332-334)
+    if config.get("model_file") and (task in (TaskType.TEST.value, TaskType.INFER.value)
                                      or config.get("load_pretrained_model")):
         from unirec_tpu_torch.utils.checkpoint import load_checkpoint
         ckpt_cfg = load_checkpoint(config["model_file"]).get("config")
         if ckpt_cfg:
             config = {**ckpt_cfg, **args, "task": task}
-    _refuse_unported(config, task, dev)
+    _refuse_unported(config, task)
     exp_name = config.get("exp_name") or f"{config['model']}-{config.get('dataset', 'data')}"
     config["exp_name"] = exp_name
     out_path = config.get("output_path") or os.path.join(".", "output", exp_name)
@@ -137,10 +125,10 @@ def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str
     if history is not None:
         trainer.set_user_history(history)
 
-    def eval_batcher(task_name: str):
+    def eval_batcher(task_name: str, default_protocol: Optional[str] = None):
         tcfg = _task_config(config, task_name)
         ds = ds_cls(tcfg, dpath, config.get(f"data_{task_name}_name", task_name))
-        trainer.reset_evaluator(tcfg["data_format"], tcfg["eval_protocol"])
+        trainer.reset_evaluator(tcfg["data_format"], tcfg["eval_protocol"] or default_protocol)
         return make_eval_batcher(ds, tcfg, history, task=task_name,
                                  item_popularity=item_pop)
 
@@ -169,7 +157,16 @@ def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str
     else:
         if config.get("model_file"):
             trainer.load_model(config["model_file"])
-        result = trainer.evaluate(eval_batcher("test"), load_best_model=False)
+        if task == TaskType.TEST.value:
+            result = trainer.evaluate(eval_batcher("test"), load_best_model=False)
+        else:
+            # reference main.py:293-309: raw scores of the test table
+            scores = trainer.evaluate(eval_batcher("test", EvalProtocol.ONE_VS_K.value),
+                                      load_best_model=False, predict_only=True)
+            out_file = os.path.join(out_path, f"{exp_name}.infer.txt")
+            np.savetxt(out_file, scores.reshape(len(scores), -1), fmt="%.6f")
+            logger.info("wrote inference scores to %s", out_file)
+            return None
     logger.info("test result: %s", result)
     if result is not None:
         with open(os.path.join(out_path, f"{exp_name}.result.tsv"), "w") as f:

@@ -15,14 +15,15 @@ each fused-kernel call takes a host-int seed from it, from which the kernel
 draws its own Philox masks (ops/layer.py).
 
 Kernel dispatch follows the JAX package's flags and gates. ``fused_layer``
-and ``fused_lastq`` call ops/layer.py, ``use_fused_attention`` calls
-ops/attention.py (layers that are neither last-query nor head-stacked, when
-``fused_supported``) and ``use_fused_ffn`` ops/ffn.py (the six activations
-of its kernel); each wrapper launches its Hopper kernel on CUDA tensors and
-its plain version on CPU tensors. ``use_pallas`` at L >= 256, whose Pallas
-kernel (flash attention) is not ported yet, raises on CUDA naming its
-ROADMAP item; on the CPU it runs the plain math, as the JAX package's CPU
-path does.
+and ``fused_lastq`` call ops/layer.py and ``use_fused_ffn`` ops/ffn.py (the
+six activations of its kernel). In a layer that is neither last-query nor
+head-stacked, attention tries, in the JAX module's order,
+``use_fused_attention`` (ops/attention.py's fused kernels, when
+``fused_supported``), then ``use_pallas`` (flash attention, when
+``flash_supported``: L >= 256, L and the head width multiples of 8, and no
+attention dropout in train mode), then the plain math. Each wrapper
+launches its Hopper kernel on CUDA tensors and its plain version on CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -46,13 +47,6 @@ ACT2FN = {
 }
 
 MASK_VALUE = -10000.0
-MIN_FLASH_SEQ_LEN = 256   # unirec_tpu/ops/attention.py:119
-
-
-def _not_ported(flag: str, item: str):
-    return NotImplementedError(
-        f"{flag} selects a Pallas kernel that has no Hopper port yet "
-        f"(ROADMAP.md {item}); unset it to run the plain path")
 
 
 class DropoutRNG:
@@ -186,9 +180,9 @@ class MultiHeadAttention(nn.Module):
             # modules.py:276-286: the kernels, with in-kernel dropout
             ctx = attn_ops.short_attention(q, k, v, attn_mask, self.p_attn,
                                            _need_rng(rng) if drop_on else None, train)
-        elif x.is_cuda and self.use_flash and L >= MIN_FLASH_SEQ_LEN \
-                and L % 8 == 0 and hd % 8 == 0 and not drop_on:
-            raise _not_ported("use_pallas", "Queue 2 item 6, the next slice")
+        elif self.use_flash and attn_ops.flash_supported(q, attn_mask) and not drop_on:
+            # modules.py:287-289: flash attention (no dropout inside it)
+            ctx = attn_ops.causal_attention(q, k, v, attn_mask)
         else:
             scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
             probs = torch.softmax(scores + attn_mask.to(scores.dtype), dim=-1)

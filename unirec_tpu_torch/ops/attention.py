@@ -1,17 +1,24 @@
-"""Short-sequence fused attention, forward and backward.
+"""Attention: the short-sequence fused kernels and flash attention.
 
-Counterpart of unirec_tpu/ops/attention.py's fused short-sequence path:
-``fused_attention`` (q, k, v [B, H, L, hd], additive mask [B, 1 or H, L,
-L]) computes softmax(q k^T / sqrt(hd) + mask) with in-kernel dropout,
-times v, as the TPU's ``_fused_fwd_kernel``; its backward is the TPU's
-``_fused_bwd_kernel``. It is a ``torch.autograd.Function``: on CUDA tensors
-the two directions launch csrc/attention.cu, on CPU tensors they run their
-plain versions, ``_fwd_plain`` and ``_bwd_plain``, which round where the
-Pallas kernels round (products of input-dtype values summed in f32, the
-scale on the f32 scores, f32 softmax, the dropped probabilities cast to the
-input dtype before the product with v; in the backward z and ds cast before
-their products, dq and dk scaled after theirs). ``fused_attention.launches``
-and ``fused_attention_bwd.launches`` count kernel launches.
+Counterpart of unirec_tpu/ops/attention.py, whose two Pallas paths each
+have a Hopper kernel here.
+
+Fused short-sequence path. ``fused_attention`` (q, k, v [B, H, L, hd],
+additive mask [B, 1 or H, L, L]) computes softmax(q k^T / sqrt(hd) + mask)
+with in-kernel dropout, times v, as the TPU's ``_fused_fwd_kernel``; its
+backward is the TPU's ``_fused_bwd_kernel``. It is a
+``torch.autograd.Function``: on CUDA tensors the two directions launch
+csrc/attention.cu, on CPU tensors they run their plain versions,
+``_fwd_plain`` and ``_bwd_plain``, which round where the Pallas kernels
+round (products of input-dtype values summed in f32, the scale on the f32
+scores, f32 softmax, the dropped probabilities cast to the input dtype
+before the product with v; in the backward z and ds cast before their
+products, dq and dk scaled after theirs). ``fused_attention.launches`` and
+``fused_attention_bwd.launches`` count kernel launches. The kernels take
+every L the JAX gate takes (L <= 512) at head widths up to 157
+(``kernels_take``): while one head's K, V and their f32 gradients fit a
+block's shared memory (L <= 285 at head width 32) the whole-sequence
+kernels run, beyond that their tiled pair, with the same results.
 
 Padding: the JAX wrapper pads L to a multiple of 8 and gives the padded keys
 -1e30, which makes their probability exactly 0 and leaves every real row's
@@ -24,6 +31,18 @@ Dropout: the TPU kernels draw on the TPU's hardware PRNG. Here the element
 i * L + j) >= round(p * 2^32)`` (ops/layer.py), in the kernels and in the
 plain versions alike, so the card holds kernel against plain version with
 dropout on and the backward replays the forward's mask.
+
+Flash attention. ``flash_attention(q, k, v, mask)`` is the TPU's
+``_fwd_kernel`` (online softmax over key blocks, f32 products with the
+scale on f32 q, the output in q's dtype and the row logsumexp in f32); on
+CUDA tensors it launches csrc/flash_attention.cu, on CPU tensors its plain
+version ``_flash_fwd_plain``. Its backward is the JAX package's
+``_flash_bwd``, plain XLA there and plain torch ops here, recomputing the
+probabilities from the saved lse (the scale after the product, ``delta``
+from the rounded output). ``causal_attention`` is the JAX entry point:
+flash attention where ``flash_supported`` (the JAX device gate: L >= 256,
+L and hd multiples of 8) takes the shape, else ``xla_attention``.
+``flash_attention.launches`` counts kernel launches.
 
 ``xla_attention`` and ``xla_attention_probs`` are the JAX package's plain
 helpers. When ``fused_supported`` declines a shape, the caller
@@ -46,7 +65,10 @@ from unirec_tpu_torch.ops.layer import (_DTYPES, _SMEM_LIMIT, NO_DROP, Drop, _di
 
 MASK_VALUE = -1e4           # the reference additive mask (sasrec.py:56)
 MAX_FUSED_SEQ_LEN = 512     # unirec_tpu/ops/attention.py:179
+MIN_FLASH_SEQ_LEN = 256     # unirec_tpu/ops/attention.py:119
+FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu::kMaxHd
 _ROWS = 32                  # query rows per tile, csrc/attention.cu::kRows
+_KEYS = 32                  # key rows per tile of the tiled kernels, ::kKeys
 
 
 def xla_attention(q, k, v, mask):
@@ -71,20 +93,38 @@ def _bwd_smem_bytes(L: int, hd: int) -> int:
     return 4 * (4 * L * (hd + 1) + 2 * _ROWS * (hd + 1) + 2 * _ROWS * (L + 1))
 
 
+def _fwd_tiled_smem_bytes(L: int, hd: int) -> int:
+    """csrc/attention.cu::fwd_tiled_smem_floats, in bytes."""
+    return 4 * (2 * _ROWS * (hd + 1) + _ROWS * (L + 1) + _KEYS * (hd + 1))
+
+
+def _bwd_tiled_smem_bytes(L: int, hd: int) -> int:
+    """csrc/attention.cu::bwd_tiled_smem_floats, in bytes."""
+    return 4 * (3 * _ROWS * (hd + 1) + 2 * _ROWS * (L + 1) + 2 * _KEYS * (hd + 1))
+
+
 def fused_supported(q: torch.Tensor, mask: torch.Tensor) -> bool:
     """The JAX gate (L <= 512, attention.py:405-411) and the mask layouts
-    the kernels take, on any device. The kernels themselves take a
-    narrower range (``kernels_take``); main.run refuses a configuration
-    between the two on the card at startup."""
+    the kernels take, on any device."""
     B, H, L, hd = q.shape
     return L <= MAX_FUSED_SEQ_LEN and mask.dim() == 4 and mask.shape[1] in (1, H)
 
 
+def _tiled(L: int, hd: int) -> bool:
+    """Whether the tiled kernels run: one (example, head)'s K and V, and in
+    the backward their f32 gradients, exceed a block's shared memory (L >
+    285 at head width 32)."""
+    return max(_fwd_smem_bytes(L, hd), _bwd_smem_bytes(L, hd)) > _SMEM_LIMIT
+
+
 def kernels_take(L: int, hd: int) -> bool:
     """Whether csrc/attention.cu takes sequences of L rows at head width hd:
-    one (example, head)'s K and V, and in the backward their f32
-    gradients, fit in a block's shared memory (L <= 285 at head width 32)."""
-    return max(_fwd_smem_bytes(L, hd), _bwd_smem_bytes(L, hd)) <= _SMEM_LIMIT
+    the whole-sequence kernels or, beyond them, the tiled pair, whose query
+    tile's score rows fit a block's shared memory (every L <= 512 at head
+    widths up to 157)."""
+    if not _tiled(L, hd):
+        return True
+    return max(_fwd_tiled_smem_bytes(L, hd), _bwd_tiled_smem_bytes(L, hd)) <= _SMEM_LIMIT
 
 
 # ------------------------------------------------------------ plain versions
@@ -151,8 +191,8 @@ def _operands(q, k, v, mask):
         if t.device != q.device:
             raise ValueError(f"all operands must be on {q.device}, got {t.device}")
     if not kernels_take(L, hd):
-        raise ValueError(f"fused attention kernels do not take L={L}, hd={hd}: one "
-                         "head's K, V and their gradients exceed a block's shared memory")
+        raise ValueError(f"fused attention kernels do not take L={L}, hd={hd}: a query "
+                         "tile's score rows exceed a block's shared memory")
     if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = mask.float().expand(B, mask.shape[1], L, L).contiguous()
@@ -166,19 +206,19 @@ def _empty_out(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((B, L, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_QKV = [_P] * 3 + [_LL] * 3            # q, k, v and their shared strides
+_TAIL = [_I] * 4 + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+
+
 @functools.cache
 def _entry(name: str):
     fn = getattr(_build.library("attention"), f"unirec_attention_{name}")
-    n_ptr_strides = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 \
-        + [ctypes.c_void_p, ctypes.c_int]
-    if name == "fwd":
-        mid = [ctypes.c_void_p] + [ctypes.c_longlong] * 3
-    else:
-        mid = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3 \
-            + [ctypes.c_longlong] * 3
-    fn.argtypes = ([ctypes.c_int] + n_ptr_strides + mid + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-                      ctypes.c_void_p])
+    if name == "fwd":   # ..., mask, Hm, out + strides, B, H, L, hd, drop, tiled, stream
+        fn.argtypes = [_I] + _QKV + [_P, _I] + [_P] + [_LL] * 3 + _TAIL + [_I, _P]
+    else:               # ..., dout + strides, dq, dk, dv + strides, scratch, ..., stream
+        fn.argtypes = ([_I] + _QKV + [_P, _I] + [_P] + [_LL] * 3 + [_P] * 3 + [_LL] * 3
+                       + [_P] + _TAIL + [_P])
     fn.restype = ctypes.c_int
     return fn
 
@@ -191,7 +231,8 @@ def _fwd_cuda(q, k, v, mask, drop: Drop = NO_DROP) -> torch.Tensor:
     err = _entry("fwd")(_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), *_strides(q),
                         _ptr(mask), mask.shape[1], _ptr(out), *_strides(out),
                         B, H, L, hd, 1.0 / math.sqrt(hd), drop.seed, drop.t_attn,
-                        float(drop.inv_attn), _build.stream_handle(q.device))
+                        float(drop.inv_attn), int(_tiled(L, hd)),
+                        _build.stream_handle(q.device))
     _build.check(err, "attention forward launch")
     fused_attention.launches += 1
     return out
@@ -207,9 +248,13 @@ def _bwd_cuda(q, k, v, mask, do, drop: Drop = NO_DROP):
     if do.stride(-1) != 1:
         do = do.contiguous()
     dq, dk, dv = _empty_out(q), _empty_out(q), _empty_out(q)
+    # the tiled kernel sums dK and dV in f32 device memory of its own
+    scratch = torch.empty((2, B * H, L, hd), dtype=torch.float32,
+                          device=q.device) if _tiled(L, hd) else None
     err = _entry("bwd")(_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), *_strides(q),
                         _ptr(mask), mask.shape[1], _ptr(do), *_strides(do),
                         _ptr(dq), _ptr(dk), _ptr(dv), *_strides(dq),
+                        None if scratch is None else _ptr(scratch),
                         B, H, L, hd, 1.0 / math.sqrt(hd), drop.seed, drop.t_attn,
                         float(drop.inv_attn), _build.stream_handle(q.device))
     _build.check(err, "attention backward launch")
@@ -263,3 +308,125 @@ def short_attention(q, k, v, mask, p_drop: float = 0.0, rng=None,
     from the layer's ``DropoutRNG``) in train mode."""
     drop = float(p_drop) if train and rng is not None else 0.0
     return fused_attention(q, k, v, mask, drop, rng.seed() if drop > 0.0 else None)
+
+
+# ------------------------------------------------------------ flash attention
+def flash_supported(q: torch.Tensor, mask: torch.Tensor) -> bool:
+    """The JAX device gate (attention.py:122-129: L >= 256, L and hd
+    multiples of 8) and a mask that broadcasts to [B, H, L, L], on any
+    device."""
+    B, H, L, hd = q.shape
+    return (L >= MIN_FLASH_SEQ_LEN and L % 8 == 0 and hd % 8 == 0 and mask.dim() == 4
+            and mask.shape[1] in (1, H) and mask.shape[2] in (1, L) and mask.shape[3] == L)
+
+
+def _flash_fwd_plain(q, k, v, mask):
+    """Plain PyTorch version of the forward kernel: (out [B, H, L, hd] in q's
+    dtype, lse [B, H, L] f32). The scale multiplies f32 q before the
+    product, as in the Pallas kernel (attention.py:50)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() * scale) @ k.float().transpose(-1, -2) + mask.float()
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.softmax(s, dim=-1) @ v.float()
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, mask, out, lse, g):
+    """The JAX package's ``_flash_bwd`` (attention.py:143-162) line for line:
+    p rebuilt from the saved lse with the scale after the f32 product,
+    delta from the output rounded to its dtype; (dq, dk, dv) in the input
+    dtype. Its [B, H, L, L] f32 temporaries are the ones XLA materializes."""
+    # 1 / sqrt(d) computed in f32, as jnp does it, held as a host float
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]))))
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+    s = (q32 @ k32.transpose(-1, -2)) * scale + mask
+    p = torch.exp(s - lse[..., None])
+    del s
+    dv = p.transpose(-1, -2) @ g32
+    dp = g32 @ v32.transpose(-1, -2)
+    delta = (g32 * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    del p, dp
+    dq = (ds @ k32) * scale
+    dk = (ds.transpose(-1, -2) @ q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _flash_entry():
+    fn = _build.library("flash_attention").unirec_flash_fwd
+    # dtype, q, k, v + strides, mask + strides, out + strides, lse, B, H, L,
+    # hd, scale, stream
+    fn.argtypes = ([_I] + _QKV + [_P] + [_LL] * 3 + [_P] + [_LL] * 3 + [_P]
+                   + [_I] * 4 + [ctypes.c_float, _P])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_fwd_cuda(q, k, v, mask):
+    """Launch csrc/flash_attention.cu: (out, lse) as ``_flash_fwd_plain``.
+    q, k, v go by strides (copied only when they do not share one stride
+    set with a contiguous last axis); the mask by strides too, 0 on the
+    axes where it broadcasts, so [B, 1, L, L] is read as it is."""
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, H, L, hd = q.shape
+    if k.shape != q.shape or v.shape != q.shape or not flash_supported(q, mask):
+        raise ValueError(f"flash attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, mask {tuple(mask.shape)}")
+    if hd > FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernel takes head widths up to "
+                         f"{FLASH_MAX_HEAD_DIM}, got {hd}")
+    for t in (k, v, mask):
+        if t.device != q.device:
+            raise ValueError(f"all operands must be on {q.device}, got {t.device}")
+    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    m = mask.float()
+    if m.stride(-1) != 1:
+        m = m.contiguous()
+    m = m.expand(B, H, L, L)
+    out = _empty_out(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    err = _flash_entry()(_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), *_strides(q),
+                         _ptr(m), *_strides(m), _ptr(out), *_strides(out), _ptr(lse),
+                         B, H, L, hd, 1.0 / math.sqrt(hd), _build.stream_handle(q.device))
+    _build.check(err, "flash attention launch")
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Saves q, k, v, the mask as the caller gave it (not broadcast per
+    head), the output and lse; the backward recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        out, lse = _dispatch(q, _flash_fwd_cuda, _flash_fwd_plain, "flash attention")(
+            q, k, v, mask)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, mask.float(), out, lse, g), None)
+
+
+def flash_attention(q, k, v, mask) -> torch.Tensor:
+    """Differentiable masked attention for long sequences. q, k, v: [B, H,
+    L, hd] in float32 or bfloat16; mask: additive f32 [B, 1 or H, L or 1,
+    L]. Returns [B, H, L, hd] in q's dtype."""
+    return _FlashAttention.apply(q, k, v, mask)
+
+
+flash_attention.launches = 0
+
+
+def causal_attention(q, k, v, mask, use_pallas: bool = True) -> torch.Tensor:
+    """Masked attention entry point (attention.py:442-450): flash attention
+    when ``flash_supported`` takes the shape, ``xla_attention`` otherwise."""
+    if use_pallas and flash_supported(q, mask):
+        return flash_attention(q, k, v, mask)
+    return xla_attention(q, k, v, mask)
