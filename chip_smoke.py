@@ -30,7 +30,9 @@ Phases, each of which must pass:
      same weights, batch and seeds through the kernels and through the plain
      versions, loss and every gradient compared; then two traced steps;
   7. the fused attention kernels (forward, backward) at B=32,768, H=2, L=50,
-     head dim 32, bf16, at dropout 0 and 0.1, and with a per-head mask; the
+     head dim 32, bf16, at dropout 0 and 0.1, and with a per-head mask (the
+     backward in its bf16 tensor-core body, whose dropout mask is also held
+     to the forward's keying bit for bit); the
      fused FFN kernels at 1,638,400 and 32,768 tokens (d=64, inner 128,
      swish) and over all six activations; each against its plain version;
   8. the entry path: main.run(task=train) on sasrec_fusedattn_ffn (bench.py's
@@ -42,9 +44,11 @@ Phases, each of which must pass:
      same metrics, and every kernel of the path must launch. Then one step
      at dropout 0 and one eval batch through the kernels and the plain
      versions (loss, gradients, each row's rank of the positive, metrics),
-     and a traced step and eval batch;
+     and a traced step and eval batch; the backward's tensor-core body must
+     launch there;
   9. flash attention (row 9) at the long path's training shape (B=8,192,
-     H=2, L=256, hd=32) in bf16 and f32, at L=264 and L=1,024, and at the
+     H=2, L=256, hd=32) in bf16 (the tensor-core body) and f32 (the
+     CUDA-core body), at L=264 and L=1,024, and at the
      serving shape, against its plain version; the plain backward's time
      and peak memory; and the fused attention kernels' tiled pair at L=300
      and L=512 (p=0 and 0.1);
@@ -350,6 +354,7 @@ def _counters():
     return {"flash_attention": (AT.flash_attention, "launches"),
             "fused_attention": (AT.fused_attention, "launches"),
             "fused_attention_bwd": (AT.fused_attention_bwd, "launches"),
+            "fused_attention_bwd_mma": (AT.fused_attention_bwd, "launches_mma"),
             "fused_ffn": (FF.fused_ffn, "launches"),
             "fused_ffn_bwd": (FF.fused_ffn_bwd, "launches"),
             "layer_fwd": (LY.fused_transformer_layer, "launches"),
@@ -365,8 +370,9 @@ def _counters():
 SERVING_KERNELS = ("layer_fwd", "lastq_fwd", "blockmax", "blockmax_int8")
 TRAINING_KERNELS = ("layer_fwd", "lastq_fwd", "layer_bwd", "lastq_bwd",
                     "scatter_add", "member")
-ENTRY_KERNELS = ("fused_attention", "fused_attention_bwd", "fused_ffn", "fused_ffn_bwd",
-                 "scatter_add", "member")
+# fused_attention_bwd_mma: the backward's bf16 tensor-core body (L <= 64)
+ENTRY_KERNELS = ("fused_attention", "fused_attention_bwd", "fused_attention_bwd_mma",
+                 "fused_ffn", "fused_ffn_bwd", "scatter_add", "member")
 LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_bwd", "scatter_add", "member")
 OFF_LONG_PATH = ("layer_fwd", "layer_bwd", "lastq_fwd", "lastq_bwd", "fused_attention",
                  "fused_attention_bwd")
@@ -822,11 +828,38 @@ def attention_inputs(torch, B, H=2, L=SEQ_LEN, hd=EMB // 2, mask_heads=1, seed=S
     return q, k, v, torch.cat(masks, dim=1)
 
 
+def bwd_mask_replay(torch, B, L, hd):
+    """Mismatches between the dropout mask the backward applies and the
+    forward's keying (the plain keep mask), at p=0.1: q = k = 0 and no mask
+    make every probability 1/L, and dO rows one-hot (dO[i, i - c0] = 1 for
+    i in [c0, c0 + hd)) make dV[j, i - c0] = z[i, j] = rnd(keep / L / (1 -
+    p)) exactly, so dV shows every kept element."""
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import layer as LY
+    drop = LY.drop_params(P_DROP, 0.0, True, 780)
+    z = torch.zeros(B, 2, L, hd, dtype=torch.bfloat16, device="cuda")
+    m = torch.zeros(B, 1, L, L, device="cuda")
+    keep = AT._keep(drop, B, 2, L, "cuda")
+    want = torch.where(keep, torch.full(keep.shape, 1.0 / L, device="cuda") * drop.inv_attn,
+                       0.0).to(torch.bfloat16)
+    bad = 0
+    for c0 in range(0, L, hd):
+        n = min(hd, L - c0)
+        do = torch.zeros_like(z)
+        do[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
+        dv = AT._bwd_cuda(z, z, z, m, do, drop)[2]
+        bad += int((dv[..., :n].transpose(-1, -2) != want[:, :, c0:c0 + n]).sum())
+    return bad, int((~keep).sum())
+
+
 def kernel_fused_attention(torch):
     """Rows 10 and 11 at the slice's shape (B=32,768, H=2, L=50, hd=32,
     bf16, mask [B,1,L,L]) at p=0 and p=0.1, each against its plain version
-    with the same dropout seed; then a per-head mask at B=64. Library:
-    F.scaled_dot_product_attention at p=0 with the same additive mask."""
+    with the same dropout seed (row 11 in its bf16 tensor-core body, whose
+    dropout mask is also held to the forward's keying bit for bit); then a
+    per-head mask at B=64. Library: F.scaled_dot_product_attention at p=0
+    with the same additive mask (forward; forward plus backward for row
+    11, printed beside both of its lines)."""
     import torch.nn.functional as F
     from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.ops import layer as LY
@@ -835,6 +868,15 @@ def kernel_fused_attention(torch):
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 31),
                      device="cuda").to(torch.bfloat16)
     flops = 4 * B * H * L * L * hd               # QK^T and PV
+    mb = mask.to(torch.bfloat16)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mb)
+        torch.autograd.grad(o, (qs, ks, vs), do)
+
+    with torch.enable_grad():
+        lib_bwd_ms = cuda_ms(lib_fwd_bwd, iters=10)
     rows = {}
     for p in (0.0, P_DROP):
         drop = LY.drop_params(p, 0.0, True, 777)
@@ -851,7 +893,6 @@ def kernel_fused_attention(torch):
                 "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop)),
                 "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask, drop), iters=3,
                                     warmup=1)}
-        mb = mask.to(torch.bfloat16)
         line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mb)) if p == 0.0 else None
         line["bound_ms"], line["bound_by"] = bound_ms(nbytes(q, k, v, mask, out), flops,
@@ -866,6 +907,7 @@ def kernel_fused_attention(torch):
         errs, _ = leaf_errs(got, ref)
         line_b = {"phase": "kernel", "name": "fused_attention_bwd", "p_drop": p,
                   "shape": [B, H, L, hd], "dtype": "bfloat16",
+                  "body": AT._bwd_body(q.dtype, L, hd),
                   "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                      for a, b in zip(got, ref)),
                   "max_rel_err": max(errs), "rel_errs": errs, "tol": BWD_TOL,
@@ -876,25 +918,21 @@ def kernel_fused_attention(torch):
                   "kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
                                        iters=10),
                   "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do, drop),
-                                      iters=2, warmup=1)}
-        if p == 0.0:
-            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-            def lib_fwd_bwd():
-                o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mb)
-                torch.autograd.grad(o, (qs, ks, vs), do)
-
-            with torch.enable_grad():
-                line_b["library_ms"] = cuda_ms(lib_fwd_bwd, iters=10)
-            line_b["library_note"] = "scaled_dot_product_attention forward plus backward"
-        else:
-            line_b["library_ms"] = None
+                                      iters=2, warmup=1),
+                  "library_ms": lib_bwd_ms,
+                  "library_note": "scaled_dot_product_attention forward plus backward, "
+                                  "no dropout"}
+        if p > 0.0:
+            line_b["mask_replay_mismatches"], line_b["dropped"] = bwd_mask_replay(
+                torch, B, L, hd)
         # the backward recomputes S and reads dO: products QK^T, dO V^T,
         # dV, dQ, dK
         line_b["bound_ms"], line_b["bound_by"] = bound_ms(
             nbytes(q, k, v, mask, do, *got), 5 * flops // 2, "bfloat16")
         emit(line_b)
-        if not (line_b["max_rel_err"] <= BWD_TOL and line_b["finite"]):
+        if not (line_b["max_rel_err"] <= BWD_TOL and line_b["finite"]
+                and line_b.get("mask_replay_mismatches", 0) == 0
+                and line_b.get("dropped", 1) > 0):
             raise AssertionError("fused_attention_bwd disagrees with its plain version")
         rows[f"fused_attention_p{p}"], rows[f"fused_attention_bwd_p{p}"] = line, line_b
         del got, ref
@@ -1022,6 +1060,7 @@ def kernel_flash_attention(torch):
         lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
         hd = q.shape[-1]
         line = {"phase": "kernel", "name": "flash_attention", "shape": [B, 2, L, hd],
+                "body": "mma.sync" if dt == "bfloat16" else "cuda cores",
                 "mask": list(mask.shape), "dtype": dt, "max_abs_err": err, "tol": tol,
                 "tol_reason": FLASH_TOL_REASON, "lse_max_rel_err": lse_err, "lse_tol": 1e-5,
                 "finite": bool(torch.isfinite(out).all()),

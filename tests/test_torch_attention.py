@@ -111,6 +111,20 @@ def test_gate():
     A._operands(q, q, q, torch.zeros(2, 1, 50, 50))             # the slice's shape
 
 
+@pytest.mark.parametrize("dtype,L,hd,body", [
+    (torch.bfloat16, 50, 32, "mma"), (torch.bfloat16, 10, 32, "mma"),
+    (torch.bfloat16, 64, 64, "mma"), (torch.bfloat16, 1, 1, "mma"),
+    (torch.bfloat16, 65, 32, "whole"), (torch.bfloat16, 50, 72, "whole"),
+    (torch.bfloat16, 300, 32, "tiled"), (torch.float32, 50, 32, "whole"),
+    (torch.float32, 512, 64, "tiled")])
+def test_backward_body_selector(dtype, L, hd, body):
+    """csrc/attention.cu's rule for the backward: the bf16 tensor-core body
+    at L <= 64 and head width <= 64; f32 and longer or wider bf16 sequences
+    keep the CUDA-core bodies (whole-sequence, then tiled past L = 285 at
+    head width 32). tests/test_torch_gpu.py holds it against the C rule."""
+    assert A._bwd_body(dtype, L, hd) == body
+
+
 # ------------------------------------------------------------------ dropout
 @pytest.mark.parametrize("p", [0.1, 0.5])
 def test_keep_rate_and_scale(p):
@@ -179,3 +193,4 @@ def test_no_dropout_outside_train_or_without_rng():
     assert not torch.equal(A.short_attention(q, k, v, mask, 0.5, DropoutRNG(0, "cpu"),
                                              True), plain)
     assert A.fused_attention.launches == 0 and A.fused_attention_bwd.launches == 0
+    assert A.fused_attention_bwd.launches_mma == 0

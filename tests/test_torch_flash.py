@@ -110,6 +110,64 @@ def test_flash_forward_lse_and_gradients_match_the_pallas_kernel(interpret, L, h
     assert A.flash_attention.launches == 0
 
 
+def _tensor_core_flash(q, k, v, mask, split=True, blk=64):
+    """The bf16 body of csrc/flash_attention.cu in plain torch: bf16 q, k, v
+    (exact in f32), f32 sums, the scale on the f32 scores after Q K^T, an
+    online softmax over tiles of ``blk`` keys, and P V as p_hi V + p_lo V
+    with p_hi = bf16(p), p_lo = bf16(p - p_hi) (``split``; else one bf16
+    p). Returns (out in f32 before its rounding, lse)."""
+    B, H, L, hd = q.shape
+    scale = 1.0 / np.sqrt(hd)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((B, H, L), -torch.inf)
+    l = torch.zeros(B, H, L)
+    acc = torch.zeros(B, H, L, hd)
+    for c0 in range(0, L, blk):
+        s = (qf @ kf[:, :, c0:c0 + blk].transpose(-1, -2)) * scale + mask[..., c0:c0 + blk]
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        acc = acc * alpha[..., None] + hi @ vf[:, :, c0:c0 + blk] + lo @ vf[:, :, c0:c0 + blk]
+        l = l * alpha + p.sum(-1)
+        m = m_new
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("L", [256, 264])   # 264: a ragged last tile of 8 keys
+def test_tensor_core_arithmetic_matches_the_pallas_kernel(interpret, L):
+    """The card's bf16 flash body rounds in another order than the Pallas
+    kernel (scale after the product, p split into two bf16 halves for P V).
+    Emulated here, it stays within FLASH_TOL of the Pallas kernel in bf16
+    (two bf16 ulps of max(1, the largest output)) with lse within 1e-5
+    relative; against a float64 reference the split keeps p to about 16
+    bits, while a single bf16 p costs its 2^-9 per term."""
+    q, k, v, mask = _inputs(L, 32, seed=4)
+    jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    jout, jlse = jax_attn._pallas_fwd(jq, jk, jv, jnp.broadcast_to(jnp.asarray(mask),
+                                                                   (B, H, L, L)))
+    tq, tk, tv = (torch.tensor(t).bfloat16() for t in (q, k, v))
+    tmask = torch.from_numpy(mask)
+    out32, lse = _tensor_core_flash(tq, tk, tv, tmask)
+    ref = np.asarray(jout, np.float32)
+    err = float(np.abs(out32.bfloat16().float().numpy() - ref).max())
+    assert err <= 2.0 ** -6 * max(1.0, float(np.abs(ref).max())), err
+    ref_lse = np.asarray(jlse)[..., 0]
+    assert np.all(np.abs(lse.numpy() - ref_lse) <= 1e-5 * np.maximum(1.0, np.abs(ref_lse)))
+
+    # rows with every key masked score near -1e4, where f32 itself keeps
+    # steps of 2^-10: held above; here only rows that see a key
+    s64 = (tq.double() @ tk.double().transpose(-1, -2)) / np.sqrt(32) + tmask.double()
+    exact = torch.softmax(s64, -1) @ tv.double()
+    seen = (tmask.amax(-1) == 0).expand(B, H, L)
+    single, _ = _tensor_core_flash(tq, tk, tv, tmask, split=False)
+    err_split = float((out32.double() - exact)[seen].abs().max())
+    err_single = float((single.double() - exact)[seen].abs().max())
+    print(f"L={L}: f32 output error, hi/lo split {err_split:.3g}, one bf16 p {err_single:.3g}")
+    assert err_split <= 1e-5 and err_single > 20 * err_split
+
+
 def test_causal_attention_entry_matches_jax(interpret):
     """The JAX entry point broadcasts the mask and calls the kernel; the
     port's reads the [B, 1, L, L] mask as it is. Below the gate both run

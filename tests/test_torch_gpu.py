@@ -135,21 +135,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         TK.catalog_blockmax(u, torch.zeros(32, 8, dtype=torch.int8, device=cuda))
 
 
-@pytest.mark.parametrize("flag,L", [("use_pallas", 256)])
-def test_unported_kernel_flags_raise_on_cuda(cuda, flag, L):
-    """The flag that raised before its kernel was ported: use_pallas at L=256
-    now launches flash attention in both layers, and the user embeddings
-    agree with the same model through the plain versions (bf16 LayerNorm
-    outputs, 3e-2)."""
+def test_use_pallas_launches_flash_attention_in_both_layers(cuda):
+    """use_pallas at L=256 launches flash attention in both layers, and the
+    user embeddings agree with the same model through the plain versions
+    within emb_tol (chip_smoke.py): bf16 LayerNorm outputs, 3e-2 or two bf16
+    ulps of the largest embedding, since one rounding that flips moves an
+    element by one ulp, 2^-5 for an output in [4, 8)."""
     from unittest import mock
 
     from unirec_tpu_torch import config as config_mod
     from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.utils.registry import get_model_class
+    L = 256
     cfg = config_mod.parse_arguments({
         "model": "SASRec", "n_users": 10, "n_items": 50, "embedding_size": 16,
-        "n_heads": 2, "inner_size": 32, "max_seq_len": L, "use_pallas": 0,
-        "compute_dtype": "bfloat16", flag: 1})
+        "n_heads": 2, "inner_size": 32, "max_seq_len": L, "use_pallas": 1,
+        "compute_dtype": "bfloat16"})
     model = get_model_class("SASRec")(cfg)
     model.init_weights(torch.Generator().manual_seed(0))
     model.to(cuda).eval()
@@ -162,7 +163,8 @@ def test_unported_kernel_flags_raise_on_cuda(cuda, flag, L):
         assert AT.flash_attention.launches == before + 2
         with mock.patch.object(AT, "_flash_fwd_cuda", AT._flash_fwd_plain):
             ref = model.user_emb({"item_seq": seq})
-    assert torch.isfinite(u).all() and float((u.float() - ref.float()).abs().max()) <= 3e-2
+    tol = max(3e-2, 2.0 ** -6 * float(ref.float().abs().max()))
+    assert torch.isfinite(u).all() and float((u.float() - ref.float()).abs().max()) <= tol
 
 
 def test_sasrec_kernels_agree_with_plain_path(cuda):
@@ -383,7 +385,7 @@ def _masked_ok(a, b, tol):
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("mask_heads", [1, 2])
-@pytest.mark.parametrize("L", [10, 50])
+@pytest.mark.parametrize("L", [10, 17, 50, 64])   # bf16: the tensor-core backward
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attention_matches_plain(cuda, dtype, L, mask_heads, p):
     from unirec_tpu_torch.ops import attention as AT
@@ -399,6 +401,53 @@ def test_fused_attention_matches_plain(cuda, dtype, L, mask_heads, p):
     for a, b in zip(got, AT._bwd_plain(q, k, v, mask, do, drop)):
         assert a.dtype == dtype and a.shape == q.shape
         assert _rel(a, b) <= ATT_TOL[dtype]
+
+
+@pytest.mark.parametrize("L,hd,body", [(10, 32, "mma"), (50, 32, "mma"), (64, 64, "mma"),
+                                        (33, 8, "mma"), (100, 32, "whole"), (50, 72, "whole"),
+                                        (300, 32, "tiled")])
+def test_fused_attention_backward_body_selector(cuda, L, hd, body):
+    """The bf16 backward takes the tensor-core body at L <= 64 and head
+    width <= 64, the CUDA-core bodies beyond (f32 always): the selector
+    agrees with the C rule, and the per-body counter moves with it."""
+    from unirec_tpu_torch.ops import attention as AT
+    takes = _build.library("attention").unirec_attention_bwd_mma_takes
+    takes.argtypes = [ctypes.c_int] * 3
+    assert AT._bwd_body(torch.bfloat16, L, hd) == body
+    assert bool(takes(1, L, hd)) == (body == "mma")
+    assert AT._bwd_body(torch.float32, L, hd) != "mma" and not takes(0, L, hd)
+    q, k, v, mask = _att_case(cuda, torch.bfloat16, B=3, L=L, hd=hd)
+    drop = LY.drop_params(0.1, 0.0, True, 4323)
+    do = torch.randn_like(q.float()).to(torch.bfloat16)
+    before = AT.fused_attention_bwd.launches, AT.fused_attention_bwd.launches_mma
+    got = AT.fused_attention_bwd(q, k, v, mask, do, drop)
+    assert AT.fused_attention_bwd.launches == before[0] + 1
+    assert AT.fused_attention_bwd.launches_mma == before[1] + (body == "mma")
+    for a, b in zip(got, AT._bwd_plain(q, k, v, mask, do, drop)):
+        assert _masked_ok(a, b, BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("L", [16, 50])
+def test_fused_attention_bwd_replays_the_forward_dropout_mask(cuda, L):
+    """q = k = 0 and no mask make every probability 1/L, and dO with one-hot
+    rows (dO[i, i] = 1) makes dV[j, i] = z[i, j] = rnd(keep[i, j] / L /
+    (1 - p)) exactly: the tensor-core backward's dropout mask is the
+    forward's (the plain keep mask) bit for bit."""
+    from unirec_tpu_torch.ops import attention as AT
+    B, H, hd = 3, 2, 64
+    z = torch.zeros(B, H, L, hd, device=cuda, dtype=torch.bfloat16)
+    do = torch.zeros_like(z)
+    do[:, :, torch.arange(L), torch.arange(L)] = 1.0
+    drop = LY.drop_params(0.3, 0.0, True, 97)
+    m = torch.zeros(B, 1, L, L, device=cuda)
+    before = AT.fused_attention_bwd.launches_mma
+    _, _, dv = AT._bwd_cuda(z, z, z, m, do, drop)
+    assert AT.fused_attention_bwd.launches_mma == before + 1
+    keep = AT._keep(drop, B, H, L, cuda)
+    want = torch.where(keep, torch.full_like(keep, 1.0 / L, dtype=torch.float32)
+                       * drop.inv_attn, 0.0).to(torch.bfloat16)
+    assert torch.equal(dv[..., :L, :L].transpose(-1, -2), want)
+    assert 0 < int((want == 0).sum()) < want.numel()
 
 
 def test_fused_attention_gate_matches_the_kernels(cuda):
@@ -418,9 +467,17 @@ def test_fused_attention_gate_matches_the_kernels(cuda):
     assert not AT._tiled(285, 32) and AT._tiled(286, 32)
     assert all(AT.kernels_take(L, hd) for L in range(1, AT.MAX_FUSED_SEQ_LEN + 1)
                for hd in (8, 32, 64, 128))
+    mma = lib.unirec_attention_bwd_mma_smem_bytes
+    mma.argtypes = [ctypes.c_int] * 2
+    assert all(mma(L, hd) <= LY._SMEM_LIMIT for L in range(1, 65) for hd in range(1, 65))
     flash = _build.library("flash_attention").unirec_flash_fwd_smem_bytes
-    flash.argtypes = [ctypes.c_int]
-    assert flash(128) <= LY._SMEM_LIMIT
+    flash.argtypes = [ctypes.c_int] * 4
+    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for hd in range(8, AT.FLASH_MAX_HEAD_DIM + 1, 8):
+            for H in (1, 2, 3, 4, 8):
+                for heads in (0, 1):
+                    want = AT._flash_smem_bytes(dt, hd, H, bool(heads))
+                    assert flash(code, hd, H, heads) == want <= LY._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
@@ -446,7 +503,10 @@ def test_fused_attention_tiled_matches_plain(cuda, dtype, L, p):
 @pytest.mark.parametrize("L", [300, 512])
 def test_fused_attention_tiled_dropout_mask_is_bit_identical(cuda, L):
     """The tiled forward's mask is the plain version's bit for bit (q = k =
-    0, v = identity columns: out = keep / L / (1 - p) exactly)."""
+    0, v = identity columns: out = keep / L / (1 - p) exactly). Bit
+    equality of whole arithmetic holds between the two CUDA-core bodies
+    (whole-sequence and tiled); the bf16 tensor-core backward is held to
+    BWD_TOL, and its mask to the forward's bit for bit above."""
     from unirec_tpu_torch.ops import attention as AT
     B, H = 2, 2
     z = torch.zeros(B, H, L, 32, device=cuda)
@@ -461,18 +521,25 @@ def test_fused_attention_tiled_dropout_mask_is_bit_identical(cuda, L):
 # output) in bf16 and 1e-5 in f32 (the kernel's online softmax against the
 # plain two-pass one), gradients within two ulps or 1e-5; lse within 1e-5 of
 # each row's magnitude.
-@pytest.mark.parametrize("L,B,hd", [(256, 6, 32), (264, 4, 32), (1024, 2, 32), (256, 3, 128),
-                                    (264, 3, 8)])
+@pytest.mark.parametrize("L,B,hd,all_masked", [
+    (256, 6, 32, False), (264, 4, 32, False), (1024, 2, 32, False), (256, 3, 128, False),
+    (264, 3, 8, False), (256, 3, 64, False), (264, 3, 32, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_matches_plain(cuda, dtype, L, B, hd):
+def test_flash_attention_matches_plain(cuda, dtype, L, B, hd, all_masked):
+    """all_masked: every key of every row at -1e4 (rows attend uniformly),
+    so every example is held as ``_masked_ok`` holds example 0."""
     from unirec_tpu_torch.ops import attention as AT
     q, k, v, mask = _att_case(cuda, dtype, B=B, L=L, hd=hd)
+    ok = _masked_ok
+    if all_masked:
+        mask = torch.full_like(mask, AT.MASK_VALUE)
+        ok = lambda a, b, tol: _rel(a, b) <= max(tol, 2.0 ** -10)  # noqa: E731
     before = AT.flash_attention.launches
     out, lse = AT._flash_fwd_cuda(q, k, v, mask)
     assert AT.flash_attention.launches == before + 1
     ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
     assert out.dtype == dtype and out.shape == q.shape
-    assert _masked_ok(out, ref, 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    assert ok(out, ref, 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
     assert bool(((lse - ref_lse).abs() <= 1e-5 * ref_lse.abs().clamp(min=1.0)).all())
     # the autograd entry: forward through the kernel, backward as _flash_bwd
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -480,7 +547,7 @@ def test_flash_attention_matches_plain(cuda, dtype, L, B, hd):
     AT.flash_attention(qs, ks, vs, mask).backward(g)
     refs = AT._flash_bwd(q, k, v, mask, ref, ref_lse, g)
     for t, r in zip((qs, ks, vs), refs):
-        assert _masked_ok(t.grad, r, 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5)
+        assert ok(t.grad, r, 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):

@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""What holds the tensor-core attention kernels back, on one NVIDIA card.
+
+    python3 tools/kernel_ablations.py
+
+Builds scratch copies of unirec_tpu_torch/csrc/flash_attention.cu (row 9)
+and csrc/attention.cu (row 11) with one part of the bf16 body removed,
+each with the port's nvcc flags into build/ablations/, and times every
+copy against the unmodified kernel, in turns, at the shapes of the paths
+chip_smoke.py drives: flash attention at B=8,192, H=2, L=256, hd=32 with
+the long path's mask; the fused-attention backward at B=32,768, H=2, L=50,
+hd=32, at dropout 0 and 0.1. A copy computes wrong results by design; only
+its time means anything. Beside them it times a copy of the inputs (the
+bytes' floor on this card). Prints the card, then one JSON line per kernel
+with the median of each variant's times in ms.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "build" / "ablations"
+ROUNDS = 3
+
+# (name, source, [(text in the kernel, replacement)])
+VARIANTS = [
+    ("flash_no_lo", "flash_attention", [
+        ("mma_bf16(acc[2 * dp], lo, bv[0], bv[1]);", ""),
+        ("mma_bf16(acc[2 * dp + 1], lo, bv[2], bv[3]);", "")]),
+    ("flash_no_exp", "flash_attention", [
+        ("s[n][e] = exp2_fast((s[n][e] - m_use[e >> 1]) * kLog2e);",
+         "s[n][e] = s[n][e] - m_use[e >> 1];")]),
+    ("flash_no_mask_copy", "flash_attention", [
+        ("for (int w = threadIdx.x; w < nm * kMQ * ch; w += blockDim.x) {",
+         "for (int w = threadIdx.x; w < 0; w += blockDim.x) {")]),
+    ("flash_copies_only", "flash_attention", [
+        ("      if (active) {\n        const __nv_bfloat16* K",
+         "      if (false) {\n        const __nv_bfloat16* K")]),
+    ("bwd_no_transposed_products", "attention", [
+        ("  if (warp * 16 < Lp) {\n    const int j0", "  if (false) {\n    const int j0")]),
+]
+
+
+def build_variants():
+    sys.path.insert(0, str(ROOT))
+    from unirec_tpu_torch.ops import _build
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src, reps in VARIANTS:
+        text = (_build.CSRC / f"{src}.cu").read_text()
+        for old, new in reps:
+            if old not in text:
+                raise RuntimeError(f"{name}: the kernel no longer holds {old!r}")
+            text = text.replace(old, new)
+        path = OUT / f"{name}.cu"
+        path.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(OUT / f"lib{name}.so"), str(path)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc {name} failed:\n{log}")
+
+
+def cuda_ms(torch, fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed_variants(torch, lib_name, entry, names, fn):
+    """Median ms of fn with the kernel library swapped for each variant's,
+    in turns with the unmodified kernel ("kernel")."""
+    from unirec_tpu_torch.ops import _build
+    real = _build.library
+    times = {}
+    try:
+        for rnd in range(ROUNDS):
+            order = ["kernel", *names] if rnd % 2 == 0 else [*names, "kernel"]
+            for name in order:
+                entry.cache_clear()
+                _build.library = real if name == "kernel" else (
+                    lambda n, _p=str(OUT / f"lib{name}.so"): ctypes.CDLL(_p)
+                    if n == lib_name else real(n))
+                times.setdefault(name, []).append(cuda_ms(torch, fn))
+    finally:
+        _build.library = real
+        entry.cache_clear()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ablations: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import attention_inputs, flash_inputs, smi_line
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import layer as LY
+    print(smi_line(), flush=True)
+    build_variants()
+
+    q, k, v, mask = flash_inputs(torch, 8192, 256, torch.bfloat16)
+    names = [n for n, src, _ in VARIANTS if src == "flash_attention"]
+    line = timed_variants(torch, "flash_attention", AT._flash_entry, names,
+                          lambda: AT._flash_fwd_cuda(q, k, v, mask))
+    line["copy_of_q_k_v_mask"] = cuda_ms(torch, lambda: [t.clone() for t in (q, k, v, mask)])
+    print(json.dumps({"kernel": "flash_attention", "shape": list(q.shape), "ms": line}),
+          flush=True)
+    del q, k, v, mask
+
+    q, k, v, mask = attention_inputs(torch, 32768)
+    do = torch.randn_like(q.float()).to(torch.bfloat16)
+    names = [n for n, src, _ in VARIANTS if src == "attention"]
+    for p in (0.0, 0.1):
+        drop = LY.drop_params(p, 0.0, True, 777)
+        line = timed_variants(torch, "attention", AT._entry, names,
+                              lambda: AT._bwd_cuda(q, k, v, mask, do, drop))
+        line["copy_of_q_k_v_do_mask"] = cuda_ms(
+            torch, lambda: [t.clone() for t in (q, k, v, do, mask)])
+        print(json.dumps({"kernel": "fused_attention_bwd", "p_drop": p, "shape": list(q.shape),
+                          "ms": line}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

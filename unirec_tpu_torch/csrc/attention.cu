@@ -45,7 +45,27 @@
 // memory, and the backward sums dK and dV in an f32 scratch in device
 // memory that the block owns ([B*H, L, hd] each, zeroed by the block). Each
 // sum runs over the same terms in the same order as in the whole-sequence
-// kernels, so the two give bit-identical results where both fit.
+// kernels, so these two CUDA-core backwards give bit-identical results
+// where both fit.
+//
+// bf16 backward at L <= 64, hd <= 64 (attn_bwd_mma_kernel): the backward
+// above spends its time on five f32 CUDA-core products per (example, head)
+// (about 52 GFLOP at B=32,768, L=50) and 48 KB of f32 shared memory. Every
+// product of the Pallas backward takes bf16 operands with f32 sums (S, dZ,
+// rnd(z)^T dO, rnd(ds) K, rnd(ds)^T Q), which is what mma.sync m16n8k16
+// computes; only the order of the f32 sums differs. One block of four
+// warps per (example, head) holds Q, K, V, dO in bf16 shared memory with L
+// and hd padded to multiples of 16 by zeros (padded keys get y = 0 exactly,
+// padded query rows contribute nothing). Each warp owns a 16-row strip of
+// queries: S = Q K^T and dZ = dO V^T by MMA, the f32 softmax y in
+// registers (row max and sum over the quad), the keep bit drawn once per
+// element, dy, t = sum dy y, z = rnd(keep ? y/(1-p) : 0) and ds = rnd(y (dy
+// - t)); dQ = ds K * scale by MMA with ds straight from the registers. z
+// and ds go to shared memory as bf16, and the transposed products dV = z^T
+// dO and dK = ds^T Q * scale run by MMA with the warps split over key rows:
+// no atomics, one summation order. It is held to the plain version within
+// the backward tolerance, not bit for bit. f32 inputs and longer sequences
+// keep the CUDA-core bodies.
 #include "common.cuh"
 
 using namespace unirec;
@@ -416,6 +436,315 @@ attn_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------- bf16 tensor-core backward (L <= 64)
+// See the note at the top of this file.
+constexpr int kMmaMaxLen = 64;  // ops/attention.py::MMA_BWD_MAX_LEN
+constexpr int kMmaMaxHd = 64;   // ::MMA_BWD_MAX_HEAD_DIM
+
+__host__ __device__ inline bool mma_bwd_takes(int dtype, int L, int hd) {
+  return dtype == 1 && L >= 1 && L <= kMmaMaxLen && hd >= 1 && hd <= kMmaMaxHd;
+}
+
+// the f32 mask [L * L] (rounded up to 16 bytes), then Q, K, V, dO [Lp][hdp
+// + 8] and Z, dS [Lp][Lp + 8] bf16 (Lp, hdp: L and hd padded to multiples
+// of 16; the +8 keeps ldmatrix free of bank conflicts)
+__host__ __device__ inline int mma_mask_bytes(int L) { return (L * L + 3) / 4 * 16; }
+
+__host__ __device__ inline int mma_bwd_smem_bytes(int L, int hd) {
+  const int Lp = (L + 15) / 16 * 16, ldh = (hd + 15) / 16 * 16 + 8;
+  return mma_mask_bytes(L) + 2 * (4 * Lp * ldh + 2 * Lp * (Lp + 8));
+}
+
+// flags of attn_bwd_mma_kernel: which copies may move 16 bytes at a time
+constexpr int kVecOperands = 1;  // hd % 8 == 0, q/k/v/dO rows 16-byte aligned
+constexpr int kVecMask = 2;      // L * L % 4 == 0, the mask 16-byte aligned
+constexpr int kPairOut = 4;      // hd even, dq/dk/dv rows 4-byte aligned
+
+// one head's [L, hd] bf16 operand into dst [Lp][HDP + 8] with zeros past L
+// and hd: 16-byte cp.async copies when vec, else element loads
+template <int HDP>
+__device__ void stage_bf16(__nv_bfloat16* dst, int Lp, const __nv_bfloat16* __restrict__ src,
+                           const Strides& s, int b, int h, int L, int hd, bool vec) {
+  constexpr int ldh = HDP + 8, ch = HDP / 8;
+  if (vec) {
+    for (int w = threadIdx.x; w < Lp * ch; w += blockDim.x) {
+      const int i = w / ch, c = w % ch;
+      const bool in = i < L && c * 8 < hd;
+      cp_async16(dst + i * ldh + c * 8, src + at(s, b, h, in ? i : 0) + (in ? c * 8 : 0), in);
+    }
+    return;
+  }
+  for (int w = threadIdx.x; w < Lp * HDP; w += blockDim.x) {
+    const int i = w / HDP, d = w % HDP;
+    dst[i * ldh + d] = i < L && d < hd ? src[at(s, b, h, i) + d] : __float2bfloat16(0.0f);
+  }
+}
+
+template <int HD16>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, Strides sin,
+                    const float* __restrict__ mask, int Hm,
+                    const __nv_bfloat16* __restrict__ dout, Strides sdo,
+                    __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, Strides sout, int H, int L, int hd,
+                    float scale, uint32_t seed, uint32_t thresh, float inv, int flags) {
+  constexpr int LDH = HD16 * 16 + 8, NDT = HD16 * 2, NT = kMmaMaxLen / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Lp = (L + 15) / 16 * 16, ldz = Lp + 8, ntile = Lp / 8;
+  float* Ms = reinterpret_cast<float*>(smem_raw);  // [L, L] this head's mask
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + mma_mask_bytes(L));
+  __nv_bfloat16* Ks = Qs + Lp * LDH;
+  __nv_bfloat16* Vs = Ks + Lp * LDH;
+  __nv_bfloat16* DOs = Vs + Lp * LDH;
+  __nv_bfloat16* Zs = DOs + Lp * LDH;  // [Lp][ldz] rnd(z), query rows x keys
+  __nv_bfloat16* DSs = Zs + Lp * ldz;  // [Lp][ldz] rnd(ds)
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const float* mbase = mask + ((size_t)b * Hm + (Hm > 1 ? h : 0)) * L * L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  // row[c], row[c + 1] = rnd(x0), rnd(x1) for c < hd (c even); one 4-byte
+  // store where the output rows allow it
+  auto put2 = [hd, flags](__nv_bfloat16* row, int c, float x0, float x1) {
+    if (c >= hd) return;
+    if (flags & kPairOut) {
+      *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x0, x1);
+    } else {
+      row[c] = __float2bfloat16(x0);
+      if (c + 1 < hd) row[c + 1] = __float2bfloat16(x1);
+    }
+  };
+
+  // every copy of the block in flight at once, then one wait
+  const bool vec = flags & kVecOperands;
+  stage_bf16<HD16 * 16>(Qs, Lp, q, sin, b, h, L, hd, vec);
+  stage_bf16<HD16 * 16>(Ks, Lp, k, sin, b, h, L, hd, vec);
+  stage_bf16<HD16 * 16>(Vs, Lp, v, sin, b, h, L, hd, vec);
+  stage_bf16<HD16 * 16>(DOs, Lp, dout, sdo, b, h, L, hd, vec);
+  if (flags & kVecMask) {
+    for (int w = threadIdx.x; w < L * L / 4; w += blockDim.x)
+      cp_async16(Ms + 4 * w, mbase + 4 * w, true);
+  } else {
+    for (int w = threadIdx.x; w < L * L; w += blockDim.x) Ms[w] = mbase[w];
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // per 16-row strip of queries: S, dZ, y, the keep bits, z, ds and dQ
+  if (warp * 16 < Lp) {
+    const int i0 = warp * 16;
+    float s[NT][4], dz[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dz[n][e] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < HD16; ++kc) {
+      uint32_t qa[4], da[4];
+      ldmatrix_x4(qa, Qs + (i0 + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(da, DOs + (i0 + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= ntile) break;
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + kc * 16 +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, Ks + off);
+        ldmatrix_x4(bv, Vs + off);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+        mma_bf16(dz[2 * np], da, bv[0], bv[1]);
+        mma_bf16(dz[2 * np + 1], da, bv[2], bv[3]);
+      }
+    }
+    // the f32 softmax y of each real row; padded keys and rows get y = 0
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
+        s[n][e] = n < ntile && i < L && j < L ? s[n][e] * scale + Ms[i * L + j]
+                                              : -CUDART_INF_F;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = s[n][e] == -CUDART_INF_F ? 0.0f : expf(s[n][e] - mx[e >> 1]);
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    // dy = dropout(dZ) with the keep bit drawn once per element, t = sum dy y
+    uint32_t keep = 0u;
+    float tsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
+        const bool real = n < ntile && i < L && j < L;
+        if (real) s[n][e] /= sum[e >> 1];
+        const bool kp = real && kept(seed, thresh, h, b, i * L + j);
+        keep |= (uint32_t)kp << (n * 4 + e);
+        dz[n][e] = kp ? dz[n][e] * inv : 0.0f;
+        tsum[e >> 1] = fmaf(dz[n][e], s[n][e], tsum[e >> 1]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 1);
+      tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 2);
+    }
+    // z = rnd(keep ? y / (1 - p) : 0) and ds = rnd(y (dy - t)) into shared
+    // memory for the transposed products; ds stays in s for dQ
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n >= ntile) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + g + r * 8, j = n * 8 + 2 * t;
+        float z[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * r + c;
+          const float y = s[n][e];
+          z[c] = (keep >> (n * 4 + e)) & 1u ? y * inv : 0.0f;
+          s[n][e] = __bfloat162float(__float2bfloat16(y * (dz[n][e] - tsum[r])));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(Zs + i * ldz + j) = __floats2bfloat162_rn(z[0], z[1]);
+        *reinterpret_cast<__nv_bfloat162*>(DSs + i * ldz + j) =
+            __floats2bfloat162_rn(s[n][2 * r], s[n][2 * r + 1]);
+      }
+    }
+    // dQ = ds K * scale, ds straight from the registers as A fragments
+    float aq[NDT][4];
+#pragma unroll
+    for (int d = 0; d < NDT; ++d) aq[d][0] = aq[d][1] = aq[d][2] = aq[d][3] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      if (2 * kc >= ntile) break;
+      uint32_t a[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[r] = pack_bf16(s[2 * kc + r / 2][2 * (r & 1)], s[2 * kc + r / 2][2 * (r & 1) + 1]);
+#pragma unroll
+      for (int dp = 0; dp < HD16; ++dp) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, Ks + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(aq[2 * dp], a, bk[0], bk[1]);
+        mma_bf16(aq[2 * dp + 1], a, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < NDT; ++d)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + g + r * 8;
+        if (i < L)
+          put2(dq + at(sout, b, h, i), d * 8 + 2 * t, aq[d][2 * r] * scale,
+               aq[d][2 * r + 1] * scale);
+      }
+  }
+  __syncthreads();
+
+  // dV = z^T dO and dK = ds^T Q * scale: a warp per 16 key rows, summed over
+  // every query strip in one pass (no atomics, one order)
+  if (warp * 16 < Lp) {
+    const int j0 = warp * 16;
+    float av[NDT][4], ak[NDT][4];
+#pragma unroll
+    for (int d = 0; d < NDT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[d][e] = ak[d][e] = 0.0f;
+    for (int ic = 0; ic < Lp / 16; ++ic) {
+      uint32_t za[4], sa[4];
+      const int off = (ic * 16 + (lane & 7) + (lane >> 4) * 8) * ldz + j0 + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4_trans(za, Zs + off);
+      ldmatrix_x4_trans(sa, DSs + off);
+#pragma unroll
+      for (int dp = 0; dp < HD16; ++dp) {
+        const int offb = (ic * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + dp * 16 +
+                         (lane >> 4) * 8;
+        uint32_t bo[4], bq[4];
+        ldmatrix_x4_trans(bo, DOs + offb);
+        ldmatrix_x4_trans(bq, Qs + offb);
+        mma_bf16(av[2 * dp], za, bo[0], bo[1]);
+        mma_bf16(av[2 * dp + 1], za, bo[2], bo[3]);
+        mma_bf16(ak[2 * dp], sa, bq[0], bq[1]);
+        mma_bf16(ak[2 * dp + 1], sa, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < NDT; ++d)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = j0 + g + r * 8;
+        if (j < L) {
+          put2(dk + at(sout, b, h, j), d * 8 + 2 * t, ak[d][2 * r] * scale,
+               ak[d][2 * r + 1] * scale);
+          put2(dv + at(sout, b, h, j), d * 8 + 2 * t, av[d][2 * r], av[d][2 * r + 1]);
+        }
+      }
+  }
+}
+
+template <int HD16>
+int launch_bwd_mma_hd(const void* q, const void* k, const void* v, Strides sin,
+                      const float* mask, int Hm, const void* dout, Strides sdo, void* dq,
+                      void* dk, void* dv, Strides sout, int B, int H, int L, int hd,
+                      float scale, uint32_t seed, uint32_t thresh, float inv, int flags,
+                      cudaStream_t stream) {
+  const int smem = mma_bwd_smem_bytes(L, hd);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_mma_kernel<HD16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_mma_kernel<HD16><<<B * H, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, sin, mask,
+      Hm, (const __nv_bfloat16*)dout, sdo, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, sout, H, L, hd, scale, seed, thresh, inv, flags);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_mma(const void* q, const void* k, const void* v, Strides sin,
+                   const float* mask, int Hm, const void* dout, Strides sdo, void* dq,
+                   void* dk, void* dv, Strides sout, int B, int H, int L, int hd,
+                   float scale, uint32_t seed, uint32_t thresh, float inv,
+                   cudaStream_t stream) {
+  auto rows16 = [](const void* p, const Strides& s) {
+    return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.h % 8 == 0 && s.r % 8 == 0;
+  };
+  auto rows4 = [](const void* p, const Strides& s) {
+    return (uintptr_t)p % 4 == 0 && s.b % 2 == 0 && s.h % 2 == 0 && s.r % 2 == 0;
+  };
+  const int flags =
+      (hd % 8 == 0 && rows16(q, sin) && rows16(k, sin) && rows16(v, sin) && rows16(dout, sdo)
+           ? kVecOperands
+           : 0) |
+      ((uintptr_t)mask % 16 == 0 && L * L % 4 == 0 ? kVecMask : 0) |
+      (hd % 2 == 0 && rows4(dq, sout) && rows4(dk, sout) && rows4(dv, sout) ? kPairOut : 0);
+  switch ((hd + 15) / 16) {
+#define UNIREC_BWD_HD(n)                                                                  \
+  case n:                                                                                 \
+    return launch_bwd_mma_hd<n>(q, k, v, sin, mask, Hm, dout, sdo, dq, dk, dv, sout, B, H, \
+                                L, hd, scale, seed, thresh, inv, flags, stream);
+    UNIREC_BWD_HD(1) UNIREC_BWD_HD(2) UNIREC_BWD_HD(3) UNIREC_BWD_HD(4)
+#undef UNIREC_BWD_HD
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, Strides sin,
                const float* mask, int Hm, void* out, Strides sout, int B, int H,
@@ -503,9 +832,20 @@ int unirec_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// 1 when the backward runs the bf16 tensor-core body (dtype 1, L <= 64, hd
+// <= 64; ops/attention.py::_bwd_body holds a copy of the rule), and its
+// bytes of dynamic shared memory
+int unirec_attention_bwd_mma_takes(int dtype, int L, int hd) {
+  return (int)mma_bwd_takes(dtype, L, hd);
+}
+
+int unirec_attention_bwd_mma_smem_bytes(int L, int hd) { return mma_bwd_smem_bytes(L, hd); }
+
 // As unirec_attention_fwd, plus dout (strides s_d*) and the three outputs
-// dq, dk, dv (sharing the strides s_o*), each written whole. scratch: null
-// for the whole-sequence kernel, else [2, B*H, L, hd] f32 for the tiled one.
+// dq, dk, dv (sharing the strides s_o*), each written whole. The bf16
+// tensor-core body runs where unirec_attention_bwd_mma_takes says so (and
+// ignores scratch); otherwise scratch is null for the whole-sequence
+// kernel, else [2, B*H, L, hd] f32 for the tiled one.
 int unirec_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                          long long sib, long long sih, long long sir,
                          const float* mask, int Hm, const void* dout,
@@ -516,6 +856,9 @@ int unirec_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                          void* stream) {
   const Strides sin{sib, sih, sir}, sdo{sdb, sdh, sdr}, sout{sob, soh, sor};
   cudaStream_t s = (cudaStream_t)stream;
+  if (mma_bwd_takes(dtype, L, hd))
+    return launch_bwd_mma(q, k, v, sin, mask, Hm, dout, sdo, dq, dk, dv, sout, B, H, L, hd,
+                          scale, seed, thresh, inv, s);
   if (dtype == 0)
     return launch_bwd<float>(q, k, v, sin, mask, Hm, dout, sdo, dq, dk, dv, sout,
                              scratch, B, H, L, hd, scale, seed, thresh, inv, s);

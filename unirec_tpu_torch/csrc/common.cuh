@@ -285,6 +285,64 @@ __device__ void colsum(FB fb, int N, int rows, float* slab) {
   }
 }
 
+// ------------------------------------------------- tensor-core building blocks
+// mma.sync.m16n8k16 bf16 -> f32 fragments, per lane (g = lane / 4, t = lane
+// % 4): A (16 x 16, row) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g,
+// 2t+8..), a3 = (g+8, 2t+8..); B (16 x 8, col) b0 = (k 2t..2t+1, n g), b1 =
+// (k 2t+8.., n g); C (16 x 8) c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..).
+// Each 32-bit register holds two bf16, the lower column in the low half.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled (src not read)
+// when !pred. dst and src 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed on the way into the registers
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b, bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (nearest even) in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // Activation derivative act'(u) in f32 (unirec_tpu/ops/layer.py::_act_pair).
 __device__ __forceinline__ float activate_grad(int act, float u) {
   switch (act) {

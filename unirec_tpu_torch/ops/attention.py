@@ -18,7 +18,10 @@ products, dq and dk scaled after theirs). ``fused_attention.launches`` and
 every L the JAX gate takes (L <= 512) at head widths up to 157
 (``kernels_take``): while one head's K, V and their f32 gradients fit a
 block's shared memory (L <= 285 at head width 32) the whole-sequence
-kernels run, beyond that their tiled pair, with the same results.
+kernels run, beyond that their tiled pair, with the same results. A bf16
+backward at L <= 64 and head width <= 64 runs a third body on the tensor
+cores (``_bwd_body``; ``fused_attention_bwd.launches_mma`` counts it),
+held to the plain version within the backward tolerance.
 
 Padding: the JAX wrapper pads L to a multiple of 8 and gives the padded keys
 -1e30, which makes their probability exactly 0 and leaves every real row's
@@ -36,10 +39,11 @@ Flash attention. ``flash_attention(q, k, v, mask)`` is the TPU's
 ``_fwd_kernel`` (online softmax over key blocks, f32 products with the
 scale on f32 q, the output in q's dtype and the row logsumexp in f32); on
 CUDA tensors it launches csrc/flash_attention.cu, on CPU tensors its plain
-version ``_flash_fwd_plain``. Its backward is the JAX package's
-``_flash_bwd``, plain XLA there and plain torch ops here, recomputing the
-probabilities from the saved lse (the scale after the product, ``delta``
-from the rounded output). ``causal_attention`` is the JAX entry point:
+version ``_flash_fwd_plain``. bf16 runs on the tensor cores (the scale on
+the f32 scores, p as two bf16 halves for P V), f32 on the CUDA cores. Its
+backward is the JAX package's ``_flash_bwd``, plain XLA there and plain
+torch ops here, recomputing the probabilities from the saved lse (the
+scale after the product, ``delta`` from the rounded output). ``causal_attention`` is the JAX entry point:
 flash attention where ``flash_supported`` (the JAX device gate: L >= 256,
 L and hd multiples of 8) takes the shape, else ``xla_attention``.
 ``flash_attention.launches`` counts kernel launches.
@@ -69,6 +73,8 @@ MIN_FLASH_SEQ_LEN = 256     # unirec_tpu/ops/attention.py:119
 FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu::kMaxHd
 _ROWS = 32                  # query rows per tile, csrc/attention.cu::kRows
 _KEYS = 32                  # key rows per tile of the tiled kernels, ::kKeys
+MMA_BWD_MAX_LEN = 64        # the bf16 tensor-core backward, ::kMmaMaxLen
+MMA_BWD_MAX_HEAD_DIM = 64   # ::kMmaMaxHd
 
 
 def xla_attention(q, k, v, mask):
@@ -115,6 +121,16 @@ def _tiled(L: int, hd: int) -> bool:
     the backward their f32 gradients, exceed a block's shared memory (L >
     285 at head width 32)."""
     return max(_fwd_smem_bytes(L, hd), _bwd_smem_bytes(L, hd)) > _SMEM_LIMIT
+
+
+def _bwd_body(dtype: torch.dtype, L: int, hd: int) -> str:
+    """The body of csrc/attention.cu that runs the backward (its rule
+    ``mma_bwd_takes``, then ``_tiled``): "mma", the bf16 tensor-core body
+    (L <= 64, head width <= 64); else the CUDA-core "whole"-sequence body or
+    its "tiled" pair."""
+    if dtype == torch.bfloat16 and L <= MMA_BWD_MAX_LEN and hd <= MMA_BWD_MAX_HEAD_DIM:
+        return "mma"
+    return "tiled" if _tiled(L, hd) else "whole"
 
 
 def kernels_take(L: int, hd: int) -> bool:
@@ -248,9 +264,10 @@ def _bwd_cuda(q, k, v, mask, do, drop: Drop = NO_DROP):
     if do.stride(-1) != 1:
         do = do.contiguous()
     dq, dk, dv = _empty_out(q), _empty_out(q), _empty_out(q)
+    body = _bwd_body(q.dtype, L, hd)
     # the tiled kernel sums dK and dV in f32 device memory of its own
     scratch = torch.empty((2, B * H, L, hd), dtype=torch.float32,
-                          device=q.device) if _tiled(L, hd) else None
+                          device=q.device) if body == "tiled" else None
     err = _entry("bwd")(_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), *_strides(q),
                         _ptr(mask), mask.shape[1], _ptr(do), *_strides(do),
                         _ptr(dq), _ptr(dk), _ptr(dv), *_strides(dq),
@@ -259,6 +276,7 @@ def _bwd_cuda(q, k, v, mask, do, drop: Drop = NO_DROP):
                         float(drop.inv_attn), _build.stream_handle(q.device))
     _build.check(err, "attention backward launch")
     fused_attention_bwd.launches += 1
+    fused_attention_bwd.launches_mma += body == "mma"
     return dq, dk, dv
 
 
@@ -270,6 +288,7 @@ def fused_attention_bwd(q, k, v, mask, do, drop: Drop = NO_DROP):
 
 
 fused_attention_bwd.launches = 0
+fused_attention_bwd.launches_mma = 0   # of those, the bf16 tensor-core body's
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -352,6 +371,28 @@ def _flash_bwd(q, k, v, mask, out, lse, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_MQ, _MK = 64, 64   # csrc/flash_attention.cu::kMQ, kMK (bf16 body)
+
+
+def _flash_smem_bytes(dtype: torch.dtype, hd: int, H: int, mask_heads: bool) -> int:
+    """csrc/flash_attention.cu::unirec_flash_fwd_smem_bytes: the f32 body's
+    tiles, or the bf16 body's two stages of K, V and mask tiles for a group
+    of heads (at most 4 / ceil(hd / 16) of them)."""
+    if dtype == torch.float32:
+        return 4 * (2 * 32 * (hd + 1) + 2 * 32 * (hd + 1) + 32 * 33 + 3 * 32)
+    hd16 = -(-hd // 16)
+    G = min(1 if hd16 >= 4 else 4 // hd16, H)
+    return 2 * (2 * G * _MK * (16 * hd16 + 8) * 2 + (G if mask_heads else 1) * _MQ * _MK * 4)
+
+
+def _aligned(*ts, elems: int) -> bool:
+    """Whether each tensor starts on 16 bytes and its batch, head and row
+    strides are multiples of ``elems`` elements (16 bytes): the bf16 flash
+    body copies 16-byte chunks."""
+    return all(t.data_ptr() % 16 == 0 and all(s % elems == 0 for s in t.stride()[:3])
+               for t in ts)
+
+
 @functools.cache
 def _flash_entry():
     fn = _build.library("flash_attention").unirec_flash_fwd
@@ -381,10 +422,11 @@ def _flash_fwd_cuda(q, k, v, mask):
     for t in (k, v, mask):
         if t.device != q.device:
             raise ValueError(f"all operands must be on {q.device}, got {t.device}")
-    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
+    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+            and (q.dtype == torch.float32 or _aligned(q, k, v, elems=8))):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     m = mask.float()
-    if m.stride(-1) != 1:
+    if m.stride(-1) != 1 or (q.dtype == torch.bfloat16 and not _aligned(m, elems=4)):
         m = m.contiguous()
     m = m.expand(B, H, L, L)
     out = _empty_out(q)
