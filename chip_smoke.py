@@ -32,9 +32,11 @@ Phases, each of which must pass:
   7. the fused attention kernels (forward, backward) at B=32,768, H=2, L=50,
      head dim 32, bf16, at dropout 0 and 0.1, and with a per-head mask (the
      backward in its bf16 tensor-core body, whose dropout mask is also held
-     to the forward's keying bit for bit); the
-     fused FFN kernels at 1,638,400 and 32,768 tokens (d=64, inner 128,
-     swish) and over all six activations; each against its plain version;
+     to the forward's keying bit for bit; bf16 runs both directions on the
+     tensor cores); the fused FFN kernels at 1,638,400, 32,768 and
+     2,097,152 tokens (d=64, inner 128, swish; the bf16 backward on the
+     tensor cores) and over all six activations; each against its plain
+     version;
   8. the entry path: main.run(task=train) on sasrec_fusedattn_ffn (bench.py's
      widths with use_fused_attention and use_fused_ffn in place of the fused
      layers) over synthetic data at bench.py's scale written under build/,
@@ -51,7 +53,10 @@ Phases, each of which must pass:
      CUDA-core body), at L=264 and L=1,024, and at the
      serving shape, against its plain version; the plain backward's time
      and peak memory; and the fused attention kernels' tiled pair at L=300
-     and L=512 (p=0 and 0.1);
+     and L=512 (p=0 and 0.1); then (wide_widths) the widths the earlier
+     kernels refused: flash attention and the fused attention pair at head
+     widths 136 and 256, the fused FFN at (D, F) = (256, 1024) and (64,
+     2048), each against its plain version and timed;
  10. the long path: main.run(task=train) on sasrec_long256_flash (the entry
      path's widths at max_seq_len 256 with use_pallas, attention dropout 0,
      batch 8,192) over synthetic data with 64-767 training items per user,
@@ -353,10 +358,12 @@ def _counters():
         member as MB, scatter_accum as SA, topk as TK
     return {"flash_attention": (AT.flash_attention, "launches"),
             "fused_attention": (AT.fused_attention, "launches"),
+            "fused_attention_mma": (AT.fused_attention, "launches_mma"),
             "fused_attention_bwd": (AT.fused_attention_bwd, "launches"),
             "fused_attention_bwd_mma": (AT.fused_attention_bwd, "launches_mma"),
             "fused_ffn": (FF.fused_ffn, "launches"),
             "fused_ffn_bwd": (FF.fused_ffn_bwd, "launches"),
+            "fused_ffn_bwd_mma": (FF.fused_ffn_bwd, "launches_mma"),
             "layer_fwd": (LY.fused_transformer_layer, "launches"),
             "lastq_fwd": (LY.fused_last_query_layer, "launches"),
             "blockmax": (TK.catalog_blockmax, "launches"),
@@ -370,10 +377,12 @@ def _counters():
 SERVING_KERNELS = ("layer_fwd", "lastq_fwd", "blockmax", "blockmax_int8")
 TRAINING_KERNELS = ("layer_fwd", "lastq_fwd", "layer_bwd", "lastq_bwd",
                     "scatter_add", "member")
-# fused_attention_bwd_mma: the backward's bf16 tensor-core body (L <= 64)
-ENTRY_KERNELS = ("fused_attention", "fused_attention_bwd", "fused_attention_bwd_mma",
-                 "fused_ffn", "fused_ffn_bwd", "scatter_add", "member")
-LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_bwd", "scatter_add", "member")
+# *_mma: the bf16 tensor-core bodies of rows 10, 11 (L <= 64) and 13 (D <= 64)
+ENTRY_KERNELS = ("fused_attention", "fused_attention_mma", "fused_attention_bwd",
+                 "fused_attention_bwd_mma", "fused_ffn", "fused_ffn_bwd", "fused_ffn_bwd_mma",
+                 "scatter_add", "member")
+LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_bwd", "fused_ffn_bwd_mma",
+                "scatter_add", "member")
 OFF_LONG_PATH = ("layer_fwd", "layer_bwd", "lastq_fwd", "lastq_bwd", "fused_attention",
                  "fused_attention_bwd")
 
@@ -855,7 +864,7 @@ def bwd_mask_replay(torch, B, L, hd):
 def kernel_fused_attention(torch):
     """Rows 10 and 11 at the slice's shape (B=32,768, H=2, L=50, hd=32,
     bf16, mask [B,1,L,L]) at p=0 and p=0.1, each against its plain version
-    with the same dropout seed (row 11 in its bf16 tensor-core body, whose
+    with the same dropout seed (both in their bf16 tensor-core bodies; row 11's
     dropout mask is also held to the forward's keying bit for bit); then a
     per-head mask at B=64. Library: F.scaled_dot_product_attention at p=0
     with the same additive mask (forward; forward plus backward for row
@@ -886,6 +895,7 @@ def kernel_fused_attention(torch):
         err = float((out.float() - ref.float()).abs().max())
         tol = ATT_TOL * float(ref.float().abs().max())
         line = {"phase": "kernel", "name": "fused_attention", "p_drop": p,
+                "body": AT._fwd_body(q.dtype, L, hd),
                 "shape": [B, H, L, hd], "mask": list(mask.shape), "dtype": "bfloat16",
                 "max_abs_err": err, "tol": tol,
                 "tol_reason": "two bf16 ulps of the largest output",
@@ -1060,7 +1070,7 @@ def kernel_flash_attention(torch):
         lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
         hd = q.shape[-1]
         line = {"phase": "kernel", "name": "flash_attention", "shape": [B, 2, L, hd],
-                "body": "mma.sync" if dt == "bfloat16" else "cuda cores",
+                "body": AT._flash_body(dtype, hd),
                 "mask": list(mask.shape), "dtype": dt, "max_abs_err": err, "tol": tol,
                 "tol_reason": FLASH_TOL_REASON, "lse_max_rel_err": lse_err, "lse_tol": 1e-5,
                 "finite": bool(torch.isfinite(out).all()),
@@ -1113,8 +1123,10 @@ def kernel_flash_attention(torch):
 
 
 def kernel_fused_ffn(torch):
-    """Rows 12 and 13 at the slice's two token counts (layer 0's B*L and
-    layer 1's B), D=64, F=128, bf16, swish, against their plain versions;
+    """Rows 12 and 13 at the entry path's two token counts (layer 0's B*L
+    and layer 1's B) and the long path's layer 0 (8,192 x 256), D=64,
+    F=128, bf16, swish, against their plain versions (row 13 in its bf16
+    tensor-core body);
     then all six activations at a small T in f32 and bf16. No single PyTorch
     call computes the FFN: library_ms is null, and addmm -> act -> addmm is
     timed beside it for information."""
@@ -1126,7 +1138,7 @@ def kernel_fused_ffn(torch):
         torch.randn(*s, generator=g, device="cuda") * std).to(dt)
     w1, b1, w2, b2 = rn(D, Fi, std=0.1), rn(Fi, std=0.02), rn(Fi, D, std=0.1), rn(D, std=0.02)
     rows = {}
-    for T in (TRAIN_BATCH * SEQ_LEN, TRAIN_BATCH):
+    for T in (TRAIN_BATCH * SEQ_LEN, TRAIN_BATCH, LONG_BATCH * LONG_LEN):
         x, dy = rn(T, D), rn(T, D)
         y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
         ref = FF._fwd_plain(x, w1, b1, w2, b2, "swish")
@@ -1151,7 +1163,7 @@ def kernel_fused_ffn(torch):
         torch.cuda.synchronize()
         errs, _ = leaf_errs(got, refb)
         line_b = {"phase": "kernel", "name": "fused_ffn_bwd", "tokens": T, "dims": [D, Fi],
-                  "act": "swish", "dtype": "bfloat16",
+                  "act": "swish", "dtype": "bfloat16", "body": FF._bwd_body(x.dtype, D, Fi),
                   "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                      for a, b in zip(got, refb)),
                   "max_rel_err": max(errs), "rel_errs": errs, "tol": BWD_TOL,
@@ -1187,6 +1199,124 @@ def kernel_fused_ffn(torch):
     if any(e > (1e-4 if k.endswith("float32") else BWD_TOL) for k, e in worst.items()):
         raise AssertionError(f"fused_ffn disagrees for an activation: {line}")
     return rows["fused_ffn"], rows["fused_ffn_bwd"]
+
+
+# ------------------------------------------------------------- wide widths
+def wide_widths(torch):
+    """The widths the JAX gates take and the earlier kernels refused, each
+    against its plain version and timed: flash attention at head widths 136
+    and 256 (L=256, B=64, H=2, both dtypes: the CUDA-core body in column
+    chunks of 128); the fused attention pair at head widths 136 and 256, L=50
+    (B=256) and L=512 (B=32), p=0 and 0.1, bf16; the fused FFN at (D, F) =
+    (256, 1024) and (64, 2048), 65,536 tokens, both dtypes (the CUDA-core
+    bodies in F chunks of 128, and the bf16 backward at D=64 on the tensor
+    cores in 16 F chunks). Tolerances as at the paths' shapes."""
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import ffn as FF
+    from unirec_tpu_torch.ops import layer as LY
+    t0 = time.perf_counter()
+    bad = []
+
+    def report(line, ok):
+        emit(line)
+        if not ok:
+            bad.append(line)
+
+    for hd in (136, 256):
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            q, k, v, mask = flash_inputs(torch, 64, LONG_LEN, dtype, hd=hd)
+            out, lse = AT._flash_fwd_cuda(q, k, v, mask)
+            ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = FLASH_TOL[dt] * max(1.0, float(ref.float().abs().max()))
+            lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
+            B, H, L, _ = q.shape
+            line = {"phase": "wide_widths", "name": "flash_attention", "shape": list(q.shape),
+                    "dtype": dt, "body": AT._flash_body(dtype, hd), "max_abs_err": err,
+                    "tol": tol, "lse_max_rel_err": lse_err, "lse_tol": 1e-5,
+                    "kernel_ms": cuda_ms(lambda: AT._flash_fwd_cuda(q, k, v, mask), iters=5),
+                    "plain_ms": cuda_ms(lambda: AT._flash_fwd_plain(q, k, v, mask), iters=3,
+                                        warmup=1)}
+            line["bound_ms"], line["bound_by"] = bound_ms(
+                nbytes(q, k, v, mask, out, lse), 4 * B * H * L * L * hd, dt)
+            report(line, err <= tol and lse_err <= 1e-5)
+            del q, k, v, mask, out, lse, ref, ref_lse
+    for hd in (136, 256):
+        for L, B in ((SEQ_LEN, 256), (512, 32)):
+            q, k, v, mask = attention_inputs(torch, B, L=L, hd=hd, seed=SEED + 35)
+            do = torch.randn_like(q.float()).to(torch.bfloat16)
+            H = q.shape[1]
+            for p in (0.0, P_DROP):
+                drop = LY.drop_params(p, 0.0, True, 781)
+                out = AT._fwd_cuda(q, k, v, mask, drop)
+                ref = AT._fwd_plain(q, k, v, mask, drop)
+                got = AT._bwd_cuda(q, k, v, mask, do, drop)
+                refb = AT._bwd_plain(q, k, v, mask, do, drop)
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                tol = ATT_TOL * float(ref.float().abs().max())
+                errs, _ = leaf_errs(got, refb)
+                flops = 4 * B * H * L * L * hd
+                line = {"phase": "wide_widths", "name": "fused_attention", "shape": [B, H, L, hd],
+                        "p_drop": p, "dtype": "bfloat16", "body": AT._fwd_body(q.dtype, L, hd),
+                        "max_abs_err": err, "tol": tol, "bwd_max_rel_err": max(errs),
+                        "bwd_tol": BWD_TOL,
+                        "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop), iters=5),
+                        "bwd_kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
+                                                 iters=3, warmup=1),
+                        "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask, drop),
+                                            iters=2, warmup=1),
+                        "bwd_plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do, drop),
+                                                iters=2, warmup=1)}
+                line["bound_ms"], line["bound_by"] = bound_ms(nbytes(q, k, v, mask, out), flops,
+                                                              "bfloat16")
+                line["bwd_bound_ms"], _ = bound_ms(nbytes(q, k, v, mask, do, *got),
+                                                   5 * flops // 2, "bfloat16")
+                report(line, err <= tol and max(errs) <= BWD_TOL)
+                del out, ref, got, refb
+            del q, k, v, mask, do
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    T = 65_536
+    for D, Fi in ((256, 1024), (64, 2048)):
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            rn = lambda *sh, std=1.0: (torch.randn(*sh, generator=g, device="cuda")  # noqa: E731
+                                       * std).to(dtype)
+            x, dy = rn(T, D), rn(T, D)
+            w1, b1 = rn(D, Fi, std=(2 / D) ** 0.5), rn(Fi, std=0.02)
+            w2, b2 = rn(Fi, D, std=(1 / Fi) ** 0.5), rn(D, std=0.02)
+            y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
+            ref = FF._fwd_plain(x, w1, b1, w2, b2, "swish")
+            got = FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish")
+            refb = FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            tol = (ATT_TOL if dt == "bfloat16" else 1e-5) * float(ref.float().abs().max())
+            errs, _ = leaf_errs(got, refb)
+            btol = BWD_TOL if dt == "bfloat16" else 1e-4
+            line = {"phase": "wide_widths", "name": "fused_ffn", "tokens": T, "dims": [D, Fi],
+                    "dtype": dt, "rows": [FF._rows(False, D, Fi), FF._rows(True, D, Fi)],
+                    "bwd_body": FF._bwd_body(dtype, D, Fi), "max_abs_err": err, "tol": tol,
+                    "bwd_max_rel_err": max(errs), "bwd_tol": btol,
+                    "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish"),
+                                         iters=5),
+                    "bwd_kernel_ms": cuda_ms(lambda: FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"),
+                                             iters=3, warmup=1),
+                    "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish"),
+                                        iters=3),
+                    "bwd_plain_ms": cuda_ms(lambda: FF._bwd_plain(x, w1, b1, w2, b2, dy,
+                                                                  "swish"), iters=3)}
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes(x, w1, b1, w2, b2, y),
+                                                          4 * T * D * Fi, dt)
+            line["bwd_bound_ms"], _ = bound_ms(nbytes(x, dy, w1, b1, w2, b2, *got),
+                                               10 * T * D * Fi, dt)
+            report(line, err <= tol and max(errs) <= btol)
+            del x, dy, y, ref, got, refb
+    emit({"phase": "wide_widths", "seconds": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError(f"wide widths disagree with their plain versions: {bad}")
 
 
 # --------------------------------------------------------------- entry path
@@ -1661,7 +1791,7 @@ def main() -> int:
           "per_source_s": {k: v["seconds"] for k, v in logs.items()}})
     for name, v in logs.items():
         for ln in str(v["log"]).splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "Function properties" in ln:
                 print(f"ptxas {name}: {ln.strip()}", flush=True)
 
     rows = {}
@@ -1714,6 +1844,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.no_grad():
         rows["flash_attention"] = timed("kernel_flash_attention", kernel_flash_attention, torch)
+        timed("wide_widths", wide_widths, torch)
     torch.cuda.empty_cache()
     long_counts, trainer, train_data, ckpt = timed("long_path", long_path, torch, card)
     ev, eval_batch = timed("long_path_check", check_entry_path, torch, trainer, train_data,

@@ -29,12 +29,12 @@ def interpret(monkeypatch):
     monkeypatch.setattr(jax_attn, "_INTERPRET", True)
 
 
-def _inputs(L, mask_heads, seed=0):
-    """q, k, v [B, H, L, HD] and an additive mask [B, mask_heads, L, L]:
+def _inputs(L, mask_heads, seed=0, hd=HD):
+    """q, k, v [B, H, L, hd] and an additive mask [B, mask_heads, L, L]:
     causal -1e4 triangle plus padded keys; example 0's keys are all padded
     (a fully masked row attends uniformly over the real keys)."""
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=(B, H, L, HD)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.normal(size=(B, H, L, hd)).astype(np.float32) for _ in range(3))
     masks = []
     for _ in range(mask_heads):
         seq = rng.integers(0, 3, size=(B, L))
@@ -98,16 +98,19 @@ def test_gate():
     assert A.fused_supported(q, torch.zeros(2, H, 50, 50))
     assert not A.fused_supported(q, torch.zeros(2, 3, 50, 50))
     assert not A.fused_supported(torch.zeros(1, 1, 513, 8), torch.zeros(1, 1, 513, 513))
-    # the JAX gate takes L=500; the tiled kernels take it at head width 64,
-    # while at head width 192 a query tile's score rows and its K, V tiles
-    # exceed a block's shared memory, and the wrapper refuses it
+    # the JAX gate takes L=500 at any head width, and so do the kernels: the
+    # tiled pair at head width 64, and at head width 192 too, where it holds
+    # the head width in chunks of 128 columns
     big = torch.zeros(1, 1, 500, 64)
     assert A.fused_supported(big, torch.zeros(1, 1, 500, 500))
     assert A._tiled(500, 64) and not A._tiled(50, 32)
     A._operands(big, big, big, torch.zeros(1, 1, 500, 500))
     wide = torch.zeros(1, 1, 500, 192)
-    with pytest.raises(ValueError, match="shared memory"):
-        A._operands(wide, wide, wide, torch.zeros(1, 1, 500, 500))
+    A._operands(wide, wide, wide, torch.zeros(1, 1, 500, 500))
+    assert A._tiled(500, 192)
+    assert max(A._fwd_tiled_smem_bytes(500, 192), A._bwd_tiled_smem_bytes(500, 192)) \
+        == max(A._fwd_tiled_smem_bytes(500, 128), A._bwd_tiled_smem_bytes(500, 128)) \
+        <= LY._SMEM_LIMIT
     A._operands(q, q, q, torch.zeros(2, 1, 50, 50))             # the slice's shape
 
 
@@ -123,6 +126,34 @@ def test_backward_body_selector(dtype, L, hd, body):
     keep the CUDA-core bodies (whole-sequence, then tiled past L = 285 at
     head width 32). tests/test_torch_gpu.py holds it against the C rule."""
     assert A._bwd_body(dtype, L, hd) == body
+
+
+@pytest.mark.parametrize("dtype,L,hd,body", [
+    (torch.bfloat16, 50, 32, "mma"), (torch.bfloat16, 17, 64, "mma"),
+    (torch.bfloat16, 65, 32, "whole"), (torch.bfloat16, 50, 136, "whole"),
+    (torch.bfloat16, 50, 256, "tiled"),
+    (torch.float32, 10, 32, "whole"), (torch.float32, 512, 256, "tiled")])
+def test_forward_body_selector(dtype, L, hd, body):
+    """The forward takes the backward's rule: the bf16 tensor-core body at L
+    <= 64 and head width <= 64, else the CUDA-core whole-sequence body, or
+    its tiled pair where one head's K and V (and their gradients) exceed a
+    block's shared memory, at L = 50 from head width 256 on.
+    tests/test_torch_gpu.py holds the rule against the C side's."""
+    assert A._fwd_body(dtype, L, hd) == body == A._bwd_body(dtype, L, hd)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_wide_heads_match_jax(interpret, dtype):
+    """Head width 136 (the tiled pair's two column chunks on the card) at
+    L=16, mask per example, against the Pallas kernels."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v, mask = _inputs(16, 1, hd=136)
+    g = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    ref = _jax(q, k, v, mask, g, jdt)
+    got = _port(q, k, v, mask, g, tdt)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape == (B, H, 16, 136)
+        assert np.abs(a - b).max() <= tol * max(1.0, np.abs(b).max()), name
 
 
 # ------------------------------------------------------------------ dropout

@@ -17,16 +17,19 @@ import torch
 
 from unirec_tpu.ops import ffn as jax_ffn
 from unirec_tpu_torch.ops import ffn as FF
+from unirec_tpu_torch.ops import layer as LY
 
 T, D, F = 1100, 16, 32
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2.0 ** -6)}
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, T=T, D=D, F=F):
     rng = np.random.default_rng(seed)
     mk = lambda *s, std=1.0: (rng.normal(size=s) * std).astype(np.float32)  # noqa: E731
-    return (mk(T, D), mk(D, F, std=0.3), mk(F, std=0.3), mk(F, D, std=0.3),
+    # wider layers get smaller weights, so pre and y keep the 16 x 32 case's scale
+    w1, w2 = 0.3 * (16 / D) ** 0.5, 0.3 * (32 / F) ** 0.5
+    return (mk(T, D), mk(D, F, std=w1), mk(F, std=0.3), mk(F, D, std=w2),
             mk(D, std=0.3), mk(T, D))
 
 
@@ -60,6 +63,38 @@ def test_matches_jax_bf16(act):
                           _port(args, dy, act, torch.bfloat16),
                           _jax(args, dy, act, jnp.bfloat16)):
         assert np.abs(a - b).max() <= 2.0 ** -6 * max(1.0, np.abs(b).max()), (act, name)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_wide_matches_jax(dtype):
+    """(D, F) = (256, 1024) at 40 tokens: on the card the CUDA-core bodies'
+    F chunks and a shrunk row tile, in both dtypes; here the plain versions
+    against the Pallas kernels."""
+    jdt, tdt, tol = DTYPES[dtype]
+    *args, dy = _inputs(2, T=40, D=256, F=1024)
+    for name, a, b in zip(("y", "dx", "dw1", "db1", "dw2", "db2"),
+                          _port(args, dy, "swish", tdt), _jax(args, dy, "swish", jdt)):
+        assert np.abs(a - b).max() <= tol * max(1.0, np.abs(b).max()), (name, dtype)
+
+
+@pytest.mark.parametrize("D,Fi,rows_fwd,rows_bwd,body_bf16", [
+    (64, 128, 64, 32, "mma"), (64, 512, 64, 32, "mma"), (64, 2048, 64, 32, "mma"),
+    (256, 1024, 64, 32, "cuda"), (2048, 8192, 8, 8, "cuda"), (2048, 64, 16, 8, "cuda"),
+    (16, 32, 64, 32, "mma"), (72, 128, 64, 32, "cuda"), (64, 100, 64, 32, "cuda")])
+def test_body_and_tile_rules(D, Fi, rows_fwd, rows_bwd, body_bf16):
+    """csrc/ffn.cu's rules, held here in plain Python (tests/test_torch_gpu.py
+    holds them against the C side): the CUDA-core bodies' row tile halves
+    from 64 (forward) or 32 (backward) until the tile's shared memory fits a
+    block, which no longer grows with F; the bf16 backward takes the
+    tensor-core body at D a multiple of 16 up to 64 and F a multiple of 16;
+    f32 always the CUDA-core body."""
+    assert FF._rows(False, D, Fi) == rows_fwd and FF._rows(True, D, Fi) == rows_bwd
+    for bwd, r in ((False, rows_fwd), (True, rows_bwd)):
+        assert FF._smem_bytes(bwd, r, D, Fi) <= LY._SMEM_LIMIT
+        assert r == (64 if not bwd else 32) or FF._smem_bytes(bwd, 2 * r, D, Fi) > LY._SMEM_LIMIT
+    assert FF._smem_bytes(True, 8, 2048, 1 << 20) == FF._smem_bytes(True, 8, 2048, 256)
+    assert FF._bwd_body(torch.bfloat16, D, Fi) == body_bf16
+    assert FF._bwd_body(torch.float32, D, Fi) == "cuda"
 
 
 @pytest.mark.parametrize("act", FF.ACTS)

@@ -74,22 +74,28 @@ def _inputs(L, hd, seed=0):
 
 def _close(got, ref, tol, name):
     """Examples 1.. to tol, the fully masked example 0 to max(tol, 2^-10),
-    each relative to max(1, its largest reference value)."""
+    each relative to max(1, its largest reference value); a single example is
+    held to the first of the two."""
     assert got.shape == ref.shape, name
     for sl, t in ((slice(1, None), tol), (slice(0, 1), max(tol, 2.0 ** -10))):
+        if got[sl].size == 0:
+            continue
         err = float(np.abs(got[sl] - ref[sl]).max())
         assert err <= t * max(1.0, float(np.abs(ref[sl]).max())), (name, sl, err)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("hd", [8, 32])
-@pytest.mark.parametrize("L", [256, 264])   # 264: no power-of-two tile >= 16 divides it
+@pytest.mark.parametrize("L,hd", [   # 264: no power-of-two tile >= 16 divides it
+    (256, 8), (256, 32), (264, 8), (264, 32),
+    (256, 136)])                      # a head wider than 128: one example and head
 def test_flash_forward_lse_and_gradients_match_the_pallas_kernel(interpret, L, hd, dtype):
     jdt, tdt, tol_out, tol_grad = DTYPES[dtype]
     q, k, v, mask = _inputs(L, hd)
+    if hd > 128:   # example 1 (not all padding), head 0, so the interpret run stays short
+        q, k, v, mask = (t[1:2, :1] for t in (q, k, v, mask))
     g = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
     jq, jk, jv = (jnp.asarray(t, jdt) for t in (q, k, v))
-    jmask = jnp.broadcast_to(jnp.asarray(mask), (B, H, L, L))
+    jmask = jnp.broadcast_to(jnp.asarray(mask), (*q.shape[:2], L, L))
     jout, jlse = jax_attn._pallas_fwd(jq, jk, jv, jmask)
     _, vjp = jax.vjp(lambda a, b, c: jax_attn.flash_attention(a, b, c, jmask), jq, jk, jv)
     jgrads = vjp(jnp.asarray(g, jdt))

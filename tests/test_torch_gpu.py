@@ -385,15 +385,19 @@ def _masked_ok(a, b, tol):
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("mask_heads", [1, 2])
-@pytest.mark.parametrize("L", [10, 17, 50, 64])   # bf16: the tensor-core backward
+@pytest.mark.parametrize("L", [10, 17, 50, 64])   # bf16: the tensor-core bodies
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attention_matches_plain(cuda, dtype, L, mask_heads, p):
     from unirec_tpu_torch.ops import attention as AT
     q, k, v, mask = _att_case(cuda, dtype, L=L, mask_heads=mask_heads)
     drop = LY.drop_params(p, 0.0, True, 4321)
     before = AT.fused_attention.launches, AT.fused_attention_bwd.launches
+    mma = AT.fused_attention.launches_mma
     out = AT._fwd_cuda(q, k, v, mask, drop)
     assert AT.fused_attention.launches == before[0] + 1
+    # bf16 at these lengths: the tensor-core forward
+    assert (AT._fwd_body(dtype, L, 32) == "mma") == (dtype == torch.bfloat16)
+    assert AT.fused_attention.launches_mma == mma + (dtype == torch.bfloat16)
     assert _rel(out, AT._fwd_plain(q, k, v, mask, drop)) <= ATT_TOL[dtype]
     do = torch.randn_like(q.float()).to(dtype)
     got = AT.fused_attention_bwd(q, k, v, mask, do, drop)
@@ -427,6 +431,30 @@ def test_fused_attention_backward_body_selector(cuda, L, hd, body):
         assert _masked_ok(a, b, BWD_TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("L,hd,H,mask_heads,body", [
+    (10, 32, 2, 1, "mma"), (50, 32, 2, 1, "mma"), (64, 64, 2, 2, "mma"), (33, 8, 3, 1, "mma"),
+    (50, 64, 8, 1, "mma"), (64, 48, 5, 5, "mma"), (100, 32, 2, 1, "whole"),
+    (50, 72, 2, 1, "whole"), (300, 32, 2, 1, "tiled")])
+def test_fused_attention_forward_body_selector(cuda, L, hd, H, mask_heads, body):
+    """The bf16 forward takes the tensor-core body by the backward's rule;
+    its head groups (all heads of an example where a stage fits, 8 heads at
+    head width 64 do not) and per-head masks run through the persistent
+    grid; the per-body counter moves with the selector."""
+    from unirec_tpu_torch.ops import attention as AT
+    takes = _build.library("attention").unirec_attention_bwd_mma_takes
+    takes.argtypes = [ctypes.c_int] * 3
+    assert AT._fwd_body(torch.bfloat16, L, hd) == body
+    assert bool(takes(1, L, hd)) == (body == "mma")
+    q, k, v, mask = _att_case(cuda, torch.bfloat16, B=5, H=H, L=L, hd=hd,
+                              mask_heads=mask_heads)
+    drop = LY.drop_params(0.1, 0.0, True, 4324)
+    before = AT.fused_attention.launches, AT.fused_attention.launches_mma
+    out = AT._fwd_cuda(q, k, v, mask, drop)
+    assert AT.fused_attention.launches == before[0] + 1
+    assert AT.fused_attention.launches_mma == before[1] + (body == "mma")
+    assert _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop), ATT_TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("L", [16, 50])
 def test_fused_attention_bwd_replays_the_forward_dropout_mask(cuda, L):
     """q = k = 0 and no mask make every probability 1/L, and dO with one-hot
@@ -457,23 +485,32 @@ def test_fused_attention_gate_matches_the_kernels(cuda):
     fwd_t, bwd_t = (lib.unirec_attention_fwd_tiled_smem_bytes,
                     lib.unirec_attention_bwd_tiled_smem_bytes)
     fwd.argtypes = bwd.argtypes = fwd_t.argtypes = bwd_t.argtypes = [ctypes.c_int] * 2
-    for L, hd in ((50, 32), (10, 8), (285, 32), (286, 32), (512, 64), (512, 128)):
+    for L, hd in ((50, 32), (10, 8), (285, 32), (286, 32), (512, 64), (512, 128),
+                  (50, 136), (512, 136), (512, 256), (64, 1024)):
         assert fwd(L, hd) == AT._fwd_smem_bytes(L, hd)
         assert bwd(L, hd) == AT._bwd_smem_bytes(L, hd)
         assert fwd_t(L, hd) == AT._fwd_tiled_smem_bytes(L, hd)
         assert bwd_t(L, hd) == AT._bwd_tiled_smem_bytes(L, hd)
     # the whole-sequence kernels to L = 285 at head width 32, the tiled
-    # pair beyond: together every L of the JAX gate
+    # pair beyond, whose shared memory does not grow with the head width:
+    # together every L of the JAX gate at every head width
     assert not AT._tiled(285, 32) and AT._tiled(286, 32)
-    assert all(AT.kernels_take(L, hd) for L in range(1, AT.MAX_FUSED_SEQ_LEN + 1)
-               for hd in (8, 32, 64, 128))
-    mma = lib.unirec_attention_bwd_mma_smem_bytes
+    for hd in (8, 32, 64, 128, 136, 256):
+        for L in range(1, AT.MAX_FUSED_SEQ_LEN + 1):
+            if AT._tiled(L, hd):
+                assert max(fwd_t(L, hd), bwd_t(L, hd)) <= LY._SMEM_LIMIT
+            else:
+                assert max(fwd(L, hd), bwd(L, hd)) <= LY._SMEM_LIMIT
+    mma, mma_f = lib.unirec_attention_bwd_mma_smem_bytes, lib.unirec_attention_fwd_mma_smem_bytes
     mma.argtypes = [ctypes.c_int] * 2
+    mma_f.argtypes = [ctypes.c_int] * 4
     assert all(mma(L, hd) <= LY._SMEM_LIMIT for L in range(1, 65) for hd in range(1, 65))
+    assert all(mma_f(L, hd, H, heads) <= LY._SMEM_LIMIT for L in range(1, 65)
+               for hd in range(1, 65, 7) for H in (1, 2, 3, 8, 16) for heads in (0, 1))
     flash = _build.library("flash_attention").unirec_flash_fwd_smem_bytes
     flash.argtypes = [ctypes.c_int] * 4
     for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        for hd in range(8, AT.FLASH_MAX_HEAD_DIM + 1, 8):
+        for hd in list(range(8, 129, 8)) + [136, 256, 512]:
             for H in (1, 2, 3, 4, 8):
                 for heads in (0, 1):
                     want = AT._flash_smem_bytes(dt, hd, H, bool(heads))
@@ -517,13 +554,36 @@ def test_fused_attention_tiled_dropout_mask_is_bit_identical(cuda, L):
     assert torch.equal(AT._fwd_cuda(z, z, v, m, drop), AT._fwd_plain(z, z, v, m, drop))
 
 
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [50, 512])
+@pytest.mark.parametrize("hd", [136, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_wide_heads_match_plain(cuda, dtype, hd, L, p):
+    """Head widths the JAX gate takes beyond 128: the whole-sequence bodies
+    where they fit (L=50, hd=136), else the tiled pair in column chunks of
+    128, both directions against the plain versions with the same dropout
+    mask."""
+    from unirec_tpu_torch.ops import attention as AT
+    q, k, v, mask = _att_case(cuda, dtype, B=3, L=L, hd=hd)
+    assert AT._fwd_body(dtype, L, hd) == ("whole" if (L, hd) == (50, 136) else "tiled")
+    drop = LY.drop_params(p, 0.0, True, 4325)
+    out = AT._fwd_cuda(q, k, v, mask, drop)
+    assert out.dtype == dtype and _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop),
+                                             ATT_TOL[dtype])
+    do = torch.randn_like(q.float()).to(dtype)
+    for a, b in zip(AT._bwd_cuda(q, k, v, mask, do, drop),
+                    AT._bwd_plain(q, k, v, mask, do, drop)):
+        assert a.dtype == dtype and a.shape == q.shape and _masked_ok(a, b, ATT_TOL[dtype])
+
+
 # flash attention: out within one bf16 ulp (2^-7) of max(1, the largest
 # output) in bf16 and 1e-5 in f32 (the kernel's online softmax against the
 # plain two-pass one), gradients within two ulps or 1e-5; lse within 1e-5 of
 # each row's magnitude.
 @pytest.mark.parametrize("L,B,hd,all_masked", [
     (256, 6, 32, False), (264, 4, 32, False), (1024, 2, 32, False), (256, 3, 128, False),
-    (264, 3, 8, False), (256, 3, 64, False), (264, 3, 32, True)])
+    (264, 3, 8, False), (256, 3, 64, False), (264, 3, 32, True),
+    (256, 2, 136, False), (264, 2, 136, False), (256, 2, 256, False), (264, 2, 256, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda, dtype, L, B, hd, all_masked):
     """all_masked: every key of every row at -1e4 (rows attend uniformly),
@@ -551,10 +611,16 @@ def test_flash_attention_matches_plain(cuda, dtype, L, B, hd, all_masked):
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    """Head width 136, which the JAX gate takes, runs (the CUDA-core body in
+    column chunks of 128) and agrees with the plain version; fp16 is
+    refused."""
     from unirec_tpu_torch.ops import attention as AT
     q, k, v, mask = _att_case(cuda, torch.float32, B=2, L=256, hd=136)
-    with pytest.raises(ValueError, match="head widths"):
-        AT._flash_fwd_cuda(q, k, v, mask)
+    assert AT._flash_body(torch.float32, 136) == AT._flash_body(torch.bfloat16, 136) == "cuda"
+    out, lse = AT._flash_fwd_cuda(q, k, v, mask)
+    ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
+    assert _masked_ok(out, ref, 1e-5)
+    assert bool(((lse - ref_lse).abs() <= 1e-5 * ref_lse.abs().clamp(min=1.0)).all())
     q, k, v, mask = _att_case(cuda, torch.float16, B=2, L=256)
     with pytest.raises(TypeError):
         AT._flash_fwd_cuda(q, k, v, mask)
@@ -583,13 +649,71 @@ def test_fused_ffn_matches_plain(cuda, dtype, act, T):
     rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=cuda) * std).to(dtype)  # noqa: E731
     x, w1, b1, w2, b2, dy = (rn(T, 64), rn(64, 128, std=0.2), rn(128, std=0.1),
                              rn(128, 64, std=0.2), rn(64, std=0.1), rn(T, 64))
-    before = FF.fused_ffn.launches, FF.fused_ffn_bwd.launches
+    before = FF.fused_ffn.launches, FF.fused_ffn_bwd.launches, FF.fused_ffn_bwd.launches_mma
     y = FF._fwd_cuda(x, w1, b1, w2, b2, act)
     assert FF.fused_ffn.launches == before[0] + 1
     assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, act)) <= ATT_TOL[dtype]
     got = FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, act)
     assert FF.fused_ffn_bwd.launches == before[1] + 1
+    # bf16: the tensor-core backward (T=33: one ragged tile)
+    assert FF.fused_ffn_bwd.launches_mma == before[2] + (dtype == torch.bfloat16)
     for a, b in zip(got, FF._bwd_plain(x, w1, b1, w2, b2, dy, act)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _rel(a, b) <= ATT_TOL[dtype]
+
+
+@pytest.mark.parametrize("D,Fi", [(64, 128), (64, 512), (32, 48), (16, 2048), (48, 144),
+                                  (72, 128), (64, 100), (256, 1024)])
+def test_fused_ffn_body_selector(cuda, D, Fi):
+    """csrc/ffn.cu's rules against ops/ffn.py's copies: the bf16 backward's
+    body (the tensor cores at D a multiple of 16 up to 64 and F a multiple
+    of 16, F in chunks of 128), and the CUDA-core bodies' row tiles and
+    shared memory; each body against the plain backward, its counter moving
+    with the selector."""
+    from unirec_tpu_torch.ops import ffn as FF
+    lib = _build.library("ffn")
+    takes, rows, smem = lib.unirec_ffn_bwd_mma_takes, lib.unirec_ffn_rows, lib.unirec_ffn_smem_bytes
+    mma_smem = lib.unirec_ffn_bwd_mma_smem_bytes
+    takes.argtypes = rows.argtypes = [ctypes.c_int] * 3
+    smem.argtypes = [ctypes.c_int] * 4
+    mma_smem.argtypes = [ctypes.c_int] * 2
+    body = FF._bwd_body(torch.bfloat16, D, Fi)
+    assert bool(takes(1, D, Fi)) == (body == "mma") and not takes(0, D, Fi)
+    assert body == "cuda" or mma_smem(D, Fi) <= LY._SMEM_LIMIT
+    for bwd in (0, 1):
+        r = rows(bwd, D, Fi)
+        assert r == FF._rows(bool(bwd), D, Fi) > 0
+        assert smem(bwd, r, D, Fi) == FF._smem_bytes(bool(bwd), r, D, Fi) <= LY._SMEM_LIMIT
+    g = torch.Generator(device=cuda).manual_seed(10)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=cuda) * std).to(  # noqa: E731
+        torch.bfloat16)
+    T = 777
+    x, w1, b1, w2, b2, dy = (rn(T, D), rn(D, Fi, std=(2 / D) ** 0.5), rn(Fi, std=0.1),
+                             rn(Fi, D, std=(1 / Fi) ** 0.5), rn(D, std=0.1), rn(T, D))
+    before = FF.fused_ffn_bwd.launches_mma
+    got = FF._bwd_cuda(x, w1, b1, w2, b2, dy, "gelu")
+    assert FF.fused_ffn_bwd.launches_mma == before + (body == "mma")
+    for a, b in zip(got, FF._bwd_plain(x, w1, b1, w2, b2, dy, "gelu")):
+        assert _rel(a, b) <= ATT_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D,Fi", [(64, 2048), (256, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_wide_matches_plain(cuda, dtype, D, Fi):
+    """Widths whose whole [rows, F] activation no longer fits a block: the
+    CUDA-core bodies in F chunks of 128 (and a row tile of 8 to 64 tokens),
+    the bf16 backward at D=64 on the tensor cores in 16 F chunks whose dx
+    parts the wrapper sums."""
+    from unirec_tpu_torch.ops import ffn as FF
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=cuda) * std).to(dtype)  # noqa: E731
+    T = 1100
+    x, w1, b1, w2, b2, dy = (rn(T, D), rn(D, Fi, std=(2 / D) ** 0.5), rn(Fi, std=0.1),
+                             rn(Fi, D, std=(1 / Fi) ** 0.5), rn(D, std=0.1), rn(T, D))
+    y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
+    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[dtype]
+    for a, b in zip(FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"),
+                    FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert _rel(a, b) <= ATT_TOL[dtype]
 

@@ -44,6 +44,7 @@ from unirec_tpu_torch.facility.trainer import Trainer, early_stopping
 from unirec_tpu_torch.main import main
 from unirec_tpu_torch.models.modules import DropoutRNG
 from unirec_tpu_torch.ops import attention as AT
+from unirec_tpu_torch.ops import layer as LY
 from unirec_tpu_torch.ops import ffn as FF
 from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params, to_flax_tree
 from unirec_tpu_torch.utils.registry import get_model_class
@@ -250,12 +251,14 @@ def test_fused_attention_lengths_the_kernels_do_not_take_are_refused_on_the_card
     L the JAX gate takes (L <= 512; the tiled kernels beyond L = 285 at head
     width 32), beyond the gate the model runs its plain attention, and on
     the CPU the plain versions take any L. The check reads the config alone,
-    on any device, and the kernels' range is the gate's at head widths 8 to
-    128."""
+    on any device, and the kernels' range is the gate's at every head width
+    (the tiled pair's shared memory does not grow with it)."""
     cfg = dict(SLICE, hidden_size=64, n_heads=2, max_seq_len=L)
     assert not refused and device in ("cuda", "cpu")
     main._refuse_unported(cfg, "train")
     main._refuse_unported(dict(cfg, use_fused_attention=0), "train")
-    for hd in (8, 32, 64, 128):
-        assert AT.kernels_take(L, hd) or L > AT.MAX_FUSED_SEQ_LEN
+    if L <= AT.MAX_FUSED_SEQ_LEN:
+        for hd in (8, 32, 64, 128, 136, 256):
+            assert max(AT._fwd_tiled_smem_bytes(L, hd),
+                       AT._bwd_tiled_smem_bytes(L, hd)) <= LY._SMEM_LIMIT
     assert AT._tiled(L, 32) == (285 < L)

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""What holds the tensor-core attention kernels back, on one NVIDIA card.
+"""What holds the tensor-core kernels back, on one NVIDIA card.
 
     python3 tools/kernel_ablations.py
 
-Builds scratch copies of unirec_tpu_torch/csrc/flash_attention.cu (row 9)
-and csrc/attention.cu (row 11) with one part of the bf16 body removed,
-each with the port's nvcc flags into build/ablations/, and times every
-copy against the unmodified kernel, in turns, at the shapes of the paths
-chip_smoke.py drives: flash attention at B=8,192, H=2, L=256, hd=32 with
-the long path's mask; the fused-attention backward at B=32,768, H=2, L=50,
-hd=32, at dropout 0 and 0.1. A copy computes wrong results by design; only
-its time means anything. Beside them it times a copy of the inputs (the
-bytes' floor on this card). Prints the card, then one JSON line per kernel
-with the median of each variant's times in ms.
+Builds scratch copies of unirec_tpu_torch/csrc/flash_attention.cu (row 9),
+csrc/attention.cu (rows 10 and 11) and csrc/ffn.cu (row 13) with one part
+of the bf16 body removed, each with the port's nvcc flags into
+build/ablations/, and times every copy against the unmodified kernel, in
+turns, at the shapes of the paths chip_smoke.py drives: flash attention at
+B=8,192, H=2, L=256, hd=32 with the long path's mask; the fused-attention
+backward and forward at B=32,768, H=2, L=50, hd=32, at dropout 0 and 0.1;
+the FFN backward at 1,638,400 tokens, D=64, F=128, swish. A copy computes
+wrong results by design; only its time means anything. Beside them it
+times a copy of the inputs (the bytes' floor on this card). Prints the
+card, then one JSON line per kernel with the median of each variant's
+times in ms.
 """
 from __future__ import annotations
 
@@ -43,6 +45,30 @@ VARIANTS = [
          "      if (false) {\n        const __nv_bfloat16* K")]),
     ("bwd_no_transposed_products", "attention", [
         ("  if (warp * 16 < Lp) {\n    const int j0", "  if (false) {\n    const int j0")]),
+    ("fwd_no_keep_bits", "attention", [
+        ("const uint32_t keep = strip_keep(seed, thresh, h, b, i0, L, ntile, lane);\n"
+         "      float o[NDT][4];",
+         "const uint32_t keep = 0xffffffffu;\n      float o[NDT][4];")]),
+    ("fwd_no_pv", "attention", [
+        ("      strip_av<HD16>(o, [&](int kc, uint32_t a[4]) {\n#pragma unroll\n"
+         "        for (int r = 0; r < 4; ++r) {",
+         "      if (false) strip_av<HD16>(o, [&](int kc, uint32_t a[4]) {\n#pragma unroll\n"
+         "        for (int r = 0; r < 4; ++r) {")]),
+    ("fwd_copies_only", "attention", [
+        ("for (int u = warp; u < ng * nstrip; u += nwarps) {",
+         "for (int u = warp; u < 0; u += nwarps) {")]),
+    ("ffn_bwd_no_activation", "ffn", [
+        ("act_pair<A>(pre[n][e] + b1s[(half * 8 + n) * 8 + 2 * t + (e & 1)], h, d);",
+         "h = d = pre[n][e] + b1s[(half * 8 + n) * 8 + 2 * t + (e & 1)];")]),
+    ("ffn_bwd_no_weight_grads", "ffn", [
+        ("    if (strip < D16) {\n#pragma unroll\n      for (int kc", "    if (false) {\n#pragma unroll\n      for (int kc"),
+        ("    if (warp * 16 < fc) {\n#pragma unroll\n      for (int kc", "    if (false) {\n#pragma unroll\n      for (int kc")]),
+    ("ffn_bwd_copies_only", "ffn", [
+        ("    // pre = X W1 + b1 and dz = dY W2^T for this warp's strip and half chunk\n    {",
+         "    if (false) {"),
+        ("    // dx = rnd(dh) W1^T for this warp's strip and half of D\n    {", "    if (false) {"),
+        ("    if (strip < D16) {\n#pragma unroll\n      for (int kc", "    if (false) {\n#pragma unroll\n      for (int kc"),
+        ("    if (warp * 16 < fc) {\n#pragma unroll\n      for (int kc", "    if (false) {\n#pragma unroll\n      for (int kc")]),
 ]
 
 
@@ -111,6 +137,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import attention_inputs, flash_inputs, smi_line
     from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import ffn as FF
     from unirec_tpu_torch.ops import layer as LY
     print(smi_line(), flush=True)
     build_variants()
@@ -126,15 +153,31 @@ def main() -> int:
 
     q, k, v, mask = attention_inputs(torch, 32768)
     do = torch.randn_like(q.float()).to(torch.bfloat16)
-    names = [n for n, src, _ in VARIANTS if src == "attention"]
-    for p in (0.0, 0.1):
-        drop = LY.drop_params(p, 0.0, True, 777)
-        line = timed_variants(torch, "attention", AT._entry, names,
-                              lambda: AT._bwd_cuda(q, k, v, mask, do, drop))
-        line["copy_of_q_k_v_do_mask"] = cuda_ms(
-            torch, lambda: [t.clone() for t in (q, k, v, do, mask)])
-        print(json.dumps({"kernel": "fused_attention_bwd", "p_drop": p, "shape": list(q.shape),
-                          "ms": line}), flush=True)
+    for kind in ("bwd", "fwd"):
+        names = [n for n, src, _ in VARIANTS if src == "attention" and n.startswith(kind)]
+        for p in (0.0, 0.1):
+            drop = LY.drop_params(p, 0.0, True, 777)
+            fn = (lambda: AT._bwd_cuda(q, k, v, mask, do, drop)) if kind == "bwd" else (
+                lambda: AT._fwd_cuda(q, k, v, mask, drop))
+            line = timed_variants(torch, "attention", AT._entry, names, fn)
+            line["copy_of_inputs"] = cuda_ms(torch, lambda: [
+                t.clone() for t in ((q, k, v, do, mask) if kind == "bwd" else (q, k, v, mask))])
+            print(json.dumps({"kernel": f"fused_attention_{kind}", "p_drop": p,
+                              "shape": list(q.shape), "ms": line}), flush=True)
+    del q, k, v, mask, do
+
+    g = torch.Generator(device="cuda").manual_seed(40)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device="cuda") * std).to(  # noqa: E731
+        torch.bfloat16)
+    T = 32768 * 50
+    x, dy, w1, b1 = rn(T, 64), rn(T, 64), rn(64, 128, std=0.1), rn(128, std=0.02)
+    w2, b2 = rn(128, 64, std=0.1), rn(64, std=0.02)
+    names = [n for n, src, _ in VARIANTS if src == "ffn"]
+    line = timed_variants(torch, "ffn", FF._entry, names,
+                          lambda: FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"))
+    line["copy_of_x_dy"] = cuda_ms(torch, lambda: [t.clone() for t in (x, dy)])
+    print(json.dumps({"kernel": "fused_ffn_bwd", "tokens": T, "dims": [64, 128], "ms": line}),
+          flush=True)
     return 0
 
 

@@ -36,17 +36,41 @@
 // The backward keeps dK and dV as f32 sums in shared memory over the tiles
 // and writes each output once.
 //
-// Long sequences. Whole K and V (and their f32 gradients) fit a block's
-// shared memory only up to L = 285 at head width 32, while the JAX gate
-// takes L <= 512. Beyond the whole-sequence kernels' reach the tiled pair
-// runs instead: the query tile's score rows stay in shared memory as before
-// (so the softmax is the same exact two-pass one), but K and V stream
-// through a tile of kKeys rows, the output row accumulates in shared
-// memory, and the backward sums dK and dV in an f32 scratch in device
-// memory that the block owns ([B*H, L, hd] each, zeroed by the block). Each
+// Long sequences and wide heads. Whole K and V (and their f32 gradients)
+// fit a block's shared memory only up to L = 285 at head width 32, while
+// the JAX gate takes L <= 512 at any head width. Beyond the whole-sequence
+// kernels' reach the tiled pair runs instead: the query tile's score rows
+// stay in shared memory as before (so the softmax is the same exact
+// two-pass one), but K and V stream through a tile of kKeys rows, the
+// head width through chunks of at most kDc = 128 columns (Q, dO, the dQ
+// and output sums and the K, V tiles alike), the output row accumulates in
+// shared memory one column chunk at a time, and the backward sums dK and dV
+// in an f32 scratch in device memory that the block owns ([B*H, L, hd]
+// each, zeroed by the block). A score's f32 sum is carried across the
+// column chunks and takes the scale and mask after the last one, so each
 // sum runs over the same terms in the same order as in the whole-sequence
-// kernels, so these two CUDA-core backwards give bit-identical results
-// where both fit.
+// kernels, and these two CUDA-core bodies give bit-identical results where
+// both fit. Shared memory no longer grows with the head width: every L <=
+// 512 runs at every head width (213,888 bytes for the backward at L = 512).
+//
+// bf16 forward at L <= 64, hd <= 64 (attn_fwd_mma_kernel): the CUDA-core
+// forward above spent 4.0 ms at the path's shape (B=32,768, L=50) on scalar
+// f32 products behind synchronous loads, against a 0.35 ms bound of bytes,
+// and read a [B, 1, L, L] mask once per head. Every product of the Pallas
+// forward takes bf16 operands with f32 sums and the dropped probabilities
+// cast to bf16 before P V, which is what mma.sync m16n8k16 computes; only
+// the order of the f32 sums differs. A persistent grid walks work items of
+// one example and all its heads (as many as keep a stage within 48 KB), so
+// the shared mask crosses device memory once per example; each block holds
+// two stages, and the next item's q, k, v and mask copies (cp.async) are in
+// flight while this one computes. A warp takes a 16-row query strip of one
+// head, with L and hd padded to multiples of 16 by zeros: S = Q K^T by MMA,
+// the f32 softmax in registers, the keep bits drawn once per element by the
+// keying the backward replays, z = rnd(keep ? y / (1 - p) : 0) straight
+// from the registers as the A fragments of O = z V (V by ldmatrix.trans),
+// and rnd(O) out through the strip's own Q rows to 16-byte stores. The
+// strip code (strip_abt, strip_softmax, strip_keep, strip_av) is shared
+// with the backward, so the two cannot drift apart.
 //
 // bf16 backward at L <= 64, hd <= 64 (attn_bwd_mma_kernel): the backward
 // above spends its time on five f32 CUDA-core products per (example, head)
@@ -63,9 +87,10 @@
 // - t)); dQ = ds K * scale by MMA with ds straight from the registers. z
 // and ds go to shared memory as bf16, and the transposed products dV = z^T
 // dO and dK = ds^T Q * scale run by MMA with the warps split over key rows:
-// no atomics, one summation order. It is held to the plain version within
-// the backward tolerance, not bit for bit. f32 inputs and longer sequences
-// keep the CUDA-core bodies.
+// no atomics, one summation order. Both tensor-core bodies are held to the
+// plain versions within their tolerances, not bit for bit; their dropout
+// masks are the plain version's bit for bit. f32 inputs and longer or wider
+// sequences keep the CUDA-core bodies.
 #include "common.cuh"
 
 using namespace unirec;
@@ -75,6 +100,9 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kRows = 32;  // query rows per tile (ops/attention.py::_ROWS)
 constexpr int kKeys = 32;  // key rows per tile of the tiled kernels (_KEYS)
+constexpr int kDc = 128;   // head-width columns the tiled kernels hold at once (_DC)
+
+__host__ __device__ inline int cols(int hd) { return hd < kDc ? hd : kDc; }
 
 __host__ __device__ inline int fwd_smem_floats(int L, int hd) {
   return 2 * L * (hd + 1) + kRows * (hd + 1) + kRows * (L + 1);
@@ -84,14 +112,15 @@ __host__ __device__ inline int bwd_smem_floats(int L, int hd) {
   return 4 * L * (hd + 1) + 2 * kRows * (hd + 1) + 2 * kRows * (L + 1);
 }
 
-// tiled forward: Qt and Ot [kRows, hd], S [kRows, L], one K-or-V tile
+// tiled forward: Qt and Ot [kRows, dc], S [kRows, L], one K-or-V tile [kKeys,
+// dc] (dc = min(hd, kDc) columns of the head width)
 __host__ __device__ inline int fwd_tiled_smem_floats(int L, int hd) {
-  return 2 * kRows * (hd + 1) + kRows * (L + 1) + kKeys * (hd + 1);
+  return 2 * kRows * (cols(hd) + 1) + kRows * (L + 1) + kKeys * (cols(hd) + 1);
 }
 
-// tiled backward: Qt, DOt, DQt [kRows, hd], Y and G [kRows, L], K and V tiles
+// tiled backward: Qt, DOt, DQt [kRows, dc], Y and G [kRows, L], K and V tiles
 __host__ __device__ inline int bwd_tiled_smem_floats(int L, int hd) {
-  return 3 * kRows * (hd + 1) + 2 * kRows * (L + 1) + 2 * kKeys * (hd + 1);
+  return 3 * kRows * (cols(hd) + 1) + 2 * kRows * (L + 1) + 2 * kKeys * (cols(hd) + 1);
 }
 
 struct Strides {
@@ -102,14 +131,15 @@ __device__ __forceinline__ size_t at(const Strides& s, int b, int h, int r) {
   return (size_t)b * s.b + (size_t)h * s.h + (size_t)r * s.r;
 }
 
-// rows [0, n) of one head's [L, hd] operand into shared memory as f32
-// (leading dim hd + 1, so column walks do not collide on a bank)
+// columns [d0, d0 + nd) of rows [r0, r0 + n) of one head's [L, hd] operand
+// into shared memory as f32 (leading dim ld, one more than the columns held,
+// so column walks do not collide on a bank)
 template <typename T>
-__device__ void stage(float* dst, const T* __restrict__ src, const Strides& s,
-                      int b, int h, int r0, int n, int hd) {
-  for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-    const int i = w / hd, d = w % hd;
-    dst[i * (hd + 1) + d] = to_f<T>(src[at(s, b, h, r0 + i) + d]);
+__device__ void stage(float* dst, int ld, const T* __restrict__ src, const Strides& s,
+                      int b, int h, int r0, int n, int d0, int nd) {
+  for (int w = threadIdx.x; w < n * nd; w += blockDim.x) {
+    const int i = w / nd, d = w % nd;
+    dst[i * ld + d] = to_f<T>(src[at(s, b, h, r0 + i) + d0 + d]);
   }
 }
 
@@ -146,11 +176,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const float* mbase = mask + ((size_t)b * Hm + (Hm > 1 ? h : 0)) * L * L;
 
-  stage<T>(K, k, sin, b, h, 0, L, hd);
-  stage<T>(V, v, sin, b, h, 0, L, hd);
+  stage<T>(K, ldh, k, sin, b, h, 0, L, 0, hd);
+  stage<T>(V, ldh, v, sin, b, h, 0, L, 0, hd);
   for (int r0 = 0; r0 < L; r0 += kRows) {
     const int n = min(kRows, L - r0);
-    stage<T>(Qt, q, sin, b, h, r0, n, hd);
+    stage<T>(Qt, ldh, q, sin, b, h, r0, n, 0, hd);
     __syncthreads();
     scores_softmax(S, Qt, K, mbase + (size_t)r0 * L, n, L, hd, scale);
     for (int w = threadIdx.x; w < n * L; w += blockDim.x) {
@@ -192,13 +222,13 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const float* mbase = mask + ((size_t)b * Hm + (Hm > 1 ? h : 0)) * L * L;
 
-  stage<T>(K, k, sin, b, h, 0, L, hd);
-  stage<T>(V, v, sin, b, h, 0, L, hd);
+  stage<T>(K, ldh, k, sin, b, h, 0, L, 0, hd);
+  stage<T>(V, ldh, v, sin, b, h, 0, L, 0, hd);
   for (int w = threadIdx.x; w < L * ldh; w += blockDim.x) DK[w] = DV[w] = 0.0f;
   for (int r0 = 0; r0 < L; r0 += kRows) {
     const int n = min(kRows, L - r0);
-    stage<T>(Qt, q, sin, b, h, r0, n, hd);
-    stage<T>(DOt, dout, sdo, b, h, r0, n, hd);
+    stage<T>(Qt, ldh, q, sin, b, h, r0, n, 0, hd);
+    stage<T>(DOt, ldh, dout, sdo, b, h, r0, n, 0, hd);
     __syncthreads();
     scores_softmax(Y, Qt, K, mbase + (size_t)r0 * L, n, L, hd, scale);
     for (int w = threadIdx.x; w < n * L; w += blockDim.x) {
@@ -260,7 +290,8 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------- tiled pair
 // The whole-sequence kernels' arithmetic with K and V streamed in tiles of
-// kKeys rows (see the note at the top of this file).
+// kKeys rows and the head width in chunks of kDc columns (see the note at
+// the top of this file).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -269,27 +300,36 @@ attn_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       Strides sout, int H, int L, int hd, float scale,
                       uint32_t seed, uint32_t thresh, float inv) {
   extern __shared__ float smem[];
-  const int ldh = hd + 1, lds = L + 1;
-  float* Qt = smem;              // [kRows, hd]
-  float* Ot = Qt + kRows * ldh;  // [kRows, hd]  f32 output sums
+  const int ldh = cols(hd) + 1, lds = L + 1, nch = (hd + kDc - 1) / kDc;
+  float* Qt = smem;              // [kRows, dc]  a column chunk of the tile's queries
+  float* Ot = Qt + kRows * ldh;  // [kRows, dc]  f32 output sums of one column chunk
   float* S = Ot + kRows * ldh;   // [kRows, L]   scores -> probabilities
-  float* KV = S + kRows * lds;   // [kKeys, hd]  a K tile, then a V tile
+  float* KV = S + kRows * lds;   // [kKeys, dc]  a K tile, then a V tile
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const float* mbase = mask + ((size_t)b * Hm + (Hm > 1 ? h : 0)) * L * L;
 
   for (int r0 = 0; r0 < L; r0 += kRows) {
     const int n = min(kRows, L - r0);
-    stage<T>(Qt, q, sin, b, h, r0, n, hd);
+    if (nch == 1) stage<T>(Qt, ldh, q, sin, b, h, r0, n, 0, hd);
+    // scores: one f32 sum per score carried over the column chunks (each
+    // thread owns the same scores in every chunk), scale and mask after
+    // the last
     for (int c0 = 0; c0 < L; c0 += kKeys) {
       const int nk = min(kKeys, L - c0);
-      __syncthreads();
-      stage<T>(KV, k, sin, b, h, c0, nk, hd);
-      __syncthreads();
-      for (int w = threadIdx.x; w < n * nk; w += blockDim.x) {
-        const int i = w / nk, j = w % nk;
-        float acc = 0.0f;
-        for (int d = 0; d < hd; ++d) acc = fmaf(Qt[i * ldh + d], KV[j * ldh + d], acc);
-        S[i * lds + c0 + j] = acc * scale + mbase[(size_t)(r0 + i) * L + c0 + j];
+      for (int ch = 0; ch < nch; ++ch) {
+        const int d0 = ch * kDc, nd = min(kDc, hd - d0);
+        const bool last = ch == nch - 1;
+        __syncthreads();
+        if (nch > 1) stage<T>(Qt, ldh, q, sin, b, h, r0, n, d0, nd);
+        stage<T>(KV, ldh, k, sin, b, h, c0, nk, d0, nd);
+        __syncthreads();
+        for (int w = threadIdx.x; w < n * nk; w += blockDim.x) {
+          const int i = w / nk, j = w % nk;
+          float acc = ch == 0 ? 0.0f : S[i * lds + c0 + j];
+          for (int d = 0; d < nd; ++d) acc = fmaf(Qt[i * ldh + d], KV[j * ldh + d], acc);
+          S[i * lds + c0 + j] =
+              last ? acc * scale + mbase[(size_t)(r0 + i) * L + c0 + j] : acc;
+        }
       }
     }
     __syncthreads();
@@ -301,24 +341,28 @@ attn_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
       S[i * lds + j] =
           rnd<T>(kept(seed, thresh, h, b, (r0 + i) * L + j) ? y * inv : 0.0f);
     }
-    // each thread owns the same (i, d) outputs in every loop below
-    for (int w = threadIdx.x; w < n * hd; w += blockDim.x)
-      Ot[(w / hd) * ldh + w % hd] = 0.0f;
-    for (int c0 = 0; c0 < L; c0 += kKeys) {
-      const int nk = min(kKeys, L - c0);
-      __syncthreads();
-      stage<T>(KV, v, sin, b, h, c0, nk, hd);
-      __syncthreads();
-      for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-        const int i = w / hd, d = w % hd;
-        float acc = Ot[i * ldh + d];
-        for (int j = 0; j < nk; ++j) acc = fmaf(S[i * lds + c0 + j], KV[j * ldh + d], acc);
-        Ot[i * ldh + d] = acc;
+    // one output column chunk at a time; each thread owns the same (i, d)
+    // outputs in every loop of a chunk
+    for (int ch = 0; ch < nch; ++ch) {
+      const int d0 = ch * kDc, nd = min(kDc, hd - d0);
+      for (int w = threadIdx.x; w < n * nd; w += blockDim.x)
+        Ot[(w / nd) * ldh + w % nd] = 0.0f;
+      for (int c0 = 0; c0 < L; c0 += kKeys) {
+        const int nk = min(kKeys, L - c0);
+        __syncthreads();
+        stage<T>(KV, ldh, v, sin, b, h, c0, nk, d0, nd);
+        __syncthreads();
+        for (int w = threadIdx.x; w < n * nd; w += blockDim.x) {
+          const int i = w / nd, d = w % nd;
+          float acc = Ot[i * ldh + d];
+          for (int j = 0; j < nk; ++j) acc = fmaf(S[i * lds + c0 + j], KV[j * ldh + d], acc);
+          Ot[i * ldh + d] = acc;
+        }
       }
-    }
-    for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-      const int i = w / hd, d = w % hd;
-      out[at(sout, b, h, r0 + i) + d] = from_f<T>(Ot[i * ldh + d]);
+      for (int w = threadIdx.x; w < n * nd; w += blockDim.x) {
+        const int i = w / nd, d = w % nd;
+        out[at(sout, b, h, r0 + i) + d0 + d] = from_f<T>(Ot[i * ldh + d]);
+      }
     }
     __syncthreads();
   }
@@ -335,40 +379,52 @@ attn_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float* __restrict__ scratch, int B, int H, int L, int hd,
                       float scale, uint32_t seed, uint32_t thresh, float inv) {
   extern __shared__ float smem[];
-  const int ldh = hd + 1, lds = L + 1;
-  float* Qt = smem;                // [kRows, hd]
-  float* DOt = Qt + kRows * ldh;   // [kRows, hd]
-  float* DQt = DOt + kRows * ldh;  // [kRows, hd]  f32 dQ sums
+  const int ldh = cols(hd) + 1, lds = L + 1, nch = (hd + kDc - 1) / kDc;
+  float* Qt = smem;                // [kRows, dc]
+  float* DOt = Qt + kRows * ldh;   // [kRows, dc]
+  float* DQt = DOt + kRows * ldh;  // [kRows, dc]  f32 dQ sums of one column chunk
   float* Y = DQt + kRows * ldh;    // [kRows, L]   y, then rnd(z)
   float* G = Y + kRows * lds;      // [kRows, L]   dZ, then dy, then rnd(ds)
-  float* Kt = G + kRows * lds;     // [kKeys, hd]
-  float* Vt = Kt + kKeys * ldh;    // [kKeys, hd]
+  float* Kt = G + kRows * lds;     // [kKeys, dc]
+  float* Vt = Kt + kKeys * ldh;    // [kKeys, dc]
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const float* mbase = mask + ((size_t)b * Hm + (Hm > 1 ? h : 0)) * L * L;
   float* DK = scratch + (size_t)blockIdx.x * L * hd;       // [L, hd]
   float* DV = DK + (size_t)B * H * L * hd;                 // [L, hd]
 
-  // each thread owns the same (j, d) sums in every loop over L * hd
   for (int w = threadIdx.x; w < L * hd; w += blockDim.x) DK[w] = DV[w] = 0.0f;
   for (int r0 = 0; r0 < L; r0 += kRows) {
     const int n = min(kRows, L - r0);
-    stage<T>(Qt, q, sin, b, h, r0, n, hd);
-    stage<T>(DOt, dout, sdo, b, h, r0, n, hd);
+    if (nch == 1) {
+      stage<T>(Qt, ldh, q, sin, b, h, r0, n, 0, hd);
+      stage<T>(DOt, ldh, dout, sdo, b, h, r0, n, 0, hd);
+    }
+    // S and dZ, each one f32 sum carried over the column chunks
     for (int c0 = 0; c0 < L; c0 += kKeys) {
       const int nk = min(kKeys, L - c0);
-      __syncthreads();
-      stage<T>(Kt, k, sin, b, h, c0, nk, hd);
-      stage<T>(Vt, v, sin, b, h, c0, nk, hd);
-      __syncthreads();
-      for (int w = threadIdx.x; w < n * nk; w += blockDim.x) {
-        const int i = w / nk, j = w % nk;
-        float acc = 0.0f, az = 0.0f;
-        for (int d = 0; d < hd; ++d) {
-          acc = fmaf(Qt[i * ldh + d], Kt[j * ldh + d], acc);
-          az = fmaf(DOt[i * ldh + d], Vt[j * ldh + d], az);
+      for (int ch = 0; ch < nch; ++ch) {
+        const int d0 = ch * kDc, nd = min(kDc, hd - d0);
+        const bool last = ch == nch - 1;
+        __syncthreads();
+        if (nch > 1) {
+          stage<T>(Qt, ldh, q, sin, b, h, r0, n, d0, nd);
+          stage<T>(DOt, ldh, dout, sdo, b, h, r0, n, d0, nd);
         }
-        Y[i * lds + c0 + j] = acc * scale + mbase[(size_t)(r0 + i) * L + c0 + j];
-        G[i * lds + c0 + j] = az;
+        stage<T>(Kt, ldh, k, sin, b, h, c0, nk, d0, nd);
+        stage<T>(Vt, ldh, v, sin, b, h, c0, nk, d0, nd);
+        __syncthreads();
+        for (int w = threadIdx.x; w < n * nk; w += blockDim.x) {
+          const int i = w / nk, j = w % nk;
+          float acc = ch == 0 ? 0.0f : Y[i * lds + c0 + j];
+          float az = ch == 0 ? 0.0f : G[i * lds + c0 + j];
+          for (int d = 0; d < nd; ++d) {
+            acc = fmaf(Qt[i * ldh + d], Kt[j * ldh + d], acc);
+            az = fmaf(DOt[i * ldh + d], Vt[j * ldh + d], az);
+          }
+          Y[i * lds + c0 + j] =
+              last ? acc * scale + mbase[(size_t)(r0 + i) * L + c0 + j] : acc;
+          G[i * lds + c0 + j] = az;
+        }
       }
     }
     __syncthreads();
@@ -397,37 +453,46 @@ attn_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    // dV += z^T dO and dK += ds^T Q over this tile's rows
-    for (int w = threadIdx.x; w < L * hd; w += blockDim.x) {
-      const int j = w / hd, d = w % hd;
-      float av = 0.0f, ak = 0.0f;
-      for (int i = 0; i < n; ++i) {
-        av = fmaf(Y[i * lds + j], DOt[i * ldh + d], av);
-        ak = fmaf(G[i * lds + j], Qt[i * ldh + d], ak);
+    // per column chunk: dV += z^T dO and dK += ds^T Q over this tile's rows
+    // (each thread owns the same (j, d) sums in every tile), then dQ = ds K
+    // * scale for this tile's rows, K streamed again
+    for (int ch = 0; ch < nch; ++ch) {
+      const int d0 = ch * kDc, nd = min(kDc, hd - d0);
+      if (nch > 1) {
+        stage<T>(Qt, ldh, q, sin, b, h, r0, n, d0, nd);
+        stage<T>(DOt, ldh, dout, sdo, b, h, r0, n, d0, nd);
+        __syncthreads();
       }
-      DV[w] += av;
-      DK[w] += ak;
-    }
-    // dQ = ds K * scale for this tile's rows, K streamed again
-    for (int w = threadIdx.x; w < n * hd; w += blockDim.x)
-      DQt[(w / hd) * ldh + w % hd] = 0.0f;
-    for (int c0 = 0; c0 < L; c0 += kKeys) {
-      const int nk = min(kKeys, L - c0);
-      __syncthreads();
-      stage<T>(Kt, k, sin, b, h, c0, nk, hd);
-      __syncthreads();
-      for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-        const int i = w / hd, d = w % hd;
-        float acc = DQt[i * ldh + d];
-        for (int j = 0; j < nk; ++j) acc = fmaf(G[i * lds + c0 + j], Kt[j * ldh + d], acc);
-        DQt[i * ldh + d] = acc;
+      for (int w = threadIdx.x; w < L * nd; w += blockDim.x) {
+        const int j = w / nd, d = w % nd;
+        float av = 0.0f, ak = 0.0f;
+        for (int i = 0; i < n; ++i) {
+          av = fmaf(Y[i * lds + j], DOt[i * ldh + d], av);
+          ak = fmaf(G[i * lds + j], Qt[i * ldh + d], ak);
+        }
+        DV[j * hd + d0 + d] += av;
+        DK[j * hd + d0 + d] += ak;
       }
+      for (int w = threadIdx.x; w < n * nd; w += blockDim.x)
+        DQt[(w / nd) * ldh + w % nd] = 0.0f;
+      for (int c0 = 0; c0 < L; c0 += kKeys) {
+        const int nk = min(kKeys, L - c0);
+        __syncthreads();
+        stage<T>(Kt, ldh, k, sin, b, h, c0, nk, d0, nd);
+        __syncthreads();
+        for (int w = threadIdx.x; w < n * nd; w += blockDim.x) {
+          const int i = w / nd, d = w % nd;
+          float acc = DQt[i * ldh + d];
+          for (int j = 0; j < nk; ++j) acc = fmaf(G[i * lds + c0 + j], Kt[j * ldh + d], acc);
+          DQt[i * ldh + d] = acc;
+        }
+      }
+      for (int w = threadIdx.x; w < n * nd; w += blockDim.x) {
+        const int i = w / nd, d = w % nd;
+        dq[at(sout, b, h, r0 + i) + d0 + d] = from_f<T>(DQt[i * ldh + d] * scale);
+      }
+      __syncthreads();
     }
-    for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-      const int i = w / hd, d = w % hd;
-      dq[at(sout, b, h, r0 + i) + d] = from_f<T>(DQt[i * ldh + d] * scale);
-    }
-    __syncthreads();
   }
   for (int w = threadIdx.x; w < L * hd; w += blockDim.x) {
     const int j = w / hd, d = w % hd;
@@ -436,12 +501,15 @@ attn_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------- bf16 tensor-core backward (L <= 64)
-// See the note at the top of this file.
-constexpr int kMmaMaxLen = 64;  // ops/attention.py::MMA_BWD_MAX_LEN
-constexpr int kMmaMaxHd = 64;   // ::MMA_BWD_MAX_HEAD_DIM
+// ------------------------------- bf16 tensor-core bodies (L <= 64, hd <= 64)
+// See the notes at the top of this file.
+constexpr int kMmaMaxLen = 64;       // ops/attention.py::MMA_MAX_LEN
+constexpr int kMmaMaxHd = 64;        // ::MMA_MAX_HEAD_DIM
+constexpr int kNT = kMmaMaxLen / 8;  // key tiles of 8 that a strip's registers hold
+constexpr int kMmaWarps = 8;         // warps of a forward block, at most
+constexpr int kStageBudget = 48 * 1024;  // bytes of one forward stage, at most
 
-__host__ __device__ inline bool mma_bwd_takes(int dtype, int L, int hd) {
+__host__ __device__ inline bool mma_takes(int dtype, int L, int hd) {
   return dtype == 1 && L >= 1 && L <= kMmaMaxLen && hd >= 1 && hd <= kMmaMaxHd;
 }
 
@@ -455,10 +523,34 @@ __host__ __device__ inline int mma_bwd_smem_bytes(int L, int hd) {
   return mma_mask_bytes(L) + 2 * (4 * Lp * ldh + 2 * Lp * (Lp + 8));
 }
 
-// flags of attn_bwd_mma_kernel: which copies may move 16 bytes at a time
+// One stage of the forward: one (example, group of G heads) work item's f32
+// masks [MG][L * L] (MG = G for a mask per head, else 1), then Q, K, V
+// [3][G][Lp][hdp + 8] bf16 (every part a multiple of 16 bytes).
+__host__ __device__ inline int mma_fwd_stage_bytes(int L, int hd, int G, int MG) {
+  const int Lp = (L + 15) / 16 * 16, ldh = (hd + 15) / 16 * 16 + 8;
+  return MG * mma_mask_bytes(L) + 3 * G * Lp * ldh * 2;
+}
+
+// heads a forward work item takes: all H of the example where one stage
+// stays within kStageBudget (so a [B, 1, L, L] mask crosses device memory
+// once per example), else as many as fit (at least one: 44 KB at L = hd =
+// 64)
+__host__ __device__ inline int mma_fwd_group(int L, int hd, int H, bool mask_heads) {
+  int g = H;
+  while (g > 1 && mma_fwd_stage_bytes(L, hd, g, mask_heads ? g : 1) > kStageBudget) --g;
+  return g;
+}
+
+__host__ __device__ inline int mma_fwd_smem_bytes(int L, int hd, int H, bool mask_heads) {
+  const int G = mma_fwd_group(L, hd, H, mask_heads);
+  return 2 * mma_fwd_stage_bytes(L, hd, G, mask_heads ? G : 1);
+}
+
+// flags of the tensor-core bodies: which copies may move 16 bytes at a time
 constexpr int kVecOperands = 1;  // hd % 8 == 0, q/k/v/dO rows 16-byte aligned
 constexpr int kVecMask = 2;      // L * L % 4 == 0, the mask 16-byte aligned
 constexpr int kPairOut = 4;      // hd even, dq/dk/dv rows 4-byte aligned
+constexpr int kVecOut = 8;       // hd % 8 == 0, out rows 16-byte aligned
 
 // one head's [L, hd] bf16 operand into dst [Lp][HDP + 8] with zeros past L
 // and hd: 16-byte cp.async copies when vec, else element loads
@@ -480,6 +572,230 @@ __device__ void stage_bf16(__nv_bfloat16* dst, int Lp, const __nv_bfloat16* __re
   }
 }
 
+// one head's [L, L] f32 mask into dst: 16-byte cp.async copies when vec
+__device__ void stage_mask(float* dst, const float* __restrict__ src, int L, bool vec) {
+  if (vec) {
+    for (int w = threadIdx.x; w < L * L / 4; w += blockDim.x) cp_async16(dst + 4 * w, src + 4 * w, true);
+  } else {
+    for (int w = threadIdx.x; w < L * L; w += blockDim.x) dst[w] = src[w];
+  }
+}
+
+// Per 16-row strip of one head, in a warp's registers (lane = 4g + t): the
+// element (n, e) is row i0 + g + (e >> 1) * 8 and key n * 8 + 2t + (e & 1).
+//
+// acc = A B^T for the strip's rows of A and every key row of B, both [Lp][HD16
+// * 16 + 8] bf16 in shared memory (S = Q K^T, or dZ = dO V^T), f32 sums
+template <int HD16>
+__device__ __forceinline__ void strip_abt(float acc[kNT][4], const __nv_bfloat16* A,
+                                          const __nv_bfloat16* B, int i0, int ntile, int lane) {
+  constexpr int LDH = HD16 * 16 + 8;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+#pragma unroll
+  for (int kc = 0; kc < HD16; ++kc) {
+    uint32_t a[4];
+    ldmatrix_x4(a, A + (i0 + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      if (2 * np >= ntile) break;
+      uint32_t bk[4];
+      ldmatrix_x4(bk, B + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + kc * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * np], a, bk[0], bk[1]);
+      mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
+    }
+  }
+}
+
+// s: the strip's Q K^T -> the f32 softmax y of s * scale + mask over each
+// real row (M: this head's [L, L] f32 mask); padded keys and rows get y = 0
+__device__ __forceinline__ void strip_softmax(float s[kNT][4], const float* M, int i0, int L,
+                                              int ntile, float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
+      s[n][e] = n < ntile && i < L && j < L ? s[n][e] * scale + M[i * L + j] : -CUDART_INF_F;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = s[n][e] == -CUDART_INF_F ? 0.0f : expf(s[n][e] - mx[e >> 1]);
+      sum[e >> 1] += s[n][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (s[n][e] != 0.0f) s[n][e] /= sum[e >> 1];
+}
+
+// the strip's dropout keep bits, bit n * 4 + e: philox_bits(seed, h, b, i * L
+// + j) >= thresh, drawn once per real element (the forward's keying, which
+// the backward replays; thresh 0 keeps every one and draws nothing)
+__device__ __forceinline__ uint32_t strip_keep(uint32_t seed, uint32_t thresh, int h, int b,
+                                               int i0, int L, int ntile, int lane) {
+  // without dropout every bit is set: a padded element's y, dZ and z are 0
+  // whatever its bit
+  if (thresh == 0u) return 0xffffffffu;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t keep = 0u;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
+      const bool kp = n < ntile && i < L && j < L && kept(seed, thresh, h, b, i * L + j);
+      keep |= (uint32_t)kp << (n * 4 + e);
+    }
+  return keep;
+}
+
+// z = keep ? y / (1 - p) : 0 of element (n, e), in f32 (rounded to bf16 by
+// the caller)
+__device__ __forceinline__ float dropped(const float s[kNT][4], uint32_t keep, int n, int e,
+                                         float inv) {
+  return (keep >> (n * 4 + e)) & 1u ? s[n][e] * inv : 0.0f;
+}
+
+// acc[d] (16 x 8 output columns d) += A B for the strip, A (16 x Lp) given
+// as 16-key A fragments by afrag(kc, a), B = [Lp][HD16 * 16 + 8] bf16 rows
+// (O = z V, or dQ = ds K), through ldmatrix.trans
+template <int HD16, typename AF>
+__device__ __forceinline__ void strip_av(float acc[HD16 * 2][4], AF afrag,
+                                         const __nv_bfloat16* B, int ntile, int lane) {
+  constexpr int LDH = HD16 * 16 + 8;
+#pragma unroll
+  for (int kc = 0; kc < kNT / 2; ++kc) {
+    if (2 * kc >= ntile) break;
+    uint32_t a[4];
+    afrag(kc, a);
+#pragma unroll
+    for (int dp = 0; dp < HD16; ++dp) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, B + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + dp * 16 +
+                                (lane >> 4) * 8);
+      mma_bf16(acc[2 * dp], a, bv[0], bv[1]);
+      mma_bf16(acc[2 * dp + 1], a, bv[2], bv[3]);
+    }
+  }
+}
+
+// The forward (row 10). A persistent grid walks work items (example b, group
+// of G heads); two shared-memory stages hold one item's Q, K, V and mask
+// each, and the next item's copies are in flight (cp.async) while this one
+// computes. Each warp takes 16-row query strips of the item's heads: S by
+// MMA, the f32 softmax, the keep bits, z = rnd(keep ? y / (1 - p) : 0) from
+// the registers as the A fragments of O = z V by MMA, and out = rnd(O)
+// through the strip's own Q rows to 16-byte stores in [B, L, H, hd] order.
+template <int HD16>
+__global__ void __launch_bounds__(32 * kMmaWarps, 2)
+attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, Strides sin,
+                    const float* __restrict__ mask, int Hm, __nv_bfloat16* __restrict__ out,
+                    Strides sout, int H, int L, int hd, float scale, uint32_t seed,
+                    uint32_t thresh, float inv, int G, int nwork, int flags) {
+  constexpr int HDP = HD16 * 16, LDH = HDP + 8, NDT = HD16 * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Lp = (L + 15) / 16 * 16, ntile = Lp / 8, nstrip = Lp / 16;
+  const int MG = Hm > 1 ? G : 1, ngr = (H + G - 1) / G;
+  const int mask_floats = mma_mask_bytes(L) / 4, opnd = Lp * LDH;
+  const int stage_bytes = mma_fwd_stage_bytes(L, hd, G, MG);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int nwarps = blockDim.x / 32;
+  const bool vec = flags & kVecOperands;
+  auto Ms = [&](int st) { return reinterpret_cast<float*>(smem_raw + st * stage_bytes); };
+  // Q, K, V of head hh of the group: operand o's [Lp][LDH] at (o * G + hh)
+  auto Ops = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem_raw + st * stage_bytes + MG * mma_mask_bytes(L));
+  };
+  auto load = [&](int w, int st) {
+    const int b = w / ngr, h0 = (w % ngr) * G, ng = min(G, H - h0);
+    __nv_bfloat16* O = Ops(st);
+    for (int hh = 0; hh < ng; ++hh) {
+      stage_bf16<HDP>(O + hh * opnd, Lp, q, sin, b, h0 + hh, L, hd, vec);
+      stage_bf16<HDP>(O + (G + hh) * opnd, Lp, k, sin, b, h0 + hh, L, hd, vec);
+      stage_bf16<HDP>(O + (2 * G + hh) * opnd, Lp, v, sin, b, h0 + hh, L, hd, vec);
+    }
+    for (int mh = 0; mh < (Hm > 1 ? ng : 1); ++mh)
+      stage_mask(Ms(st) + mh * mask_floats,
+                 mask + ((size_t)b * Hm + (Hm > 1 ? h0 + mh : 0)) * L * L, L, flags & kVecMask);
+  };
+
+  if ((int)blockIdx.x < nwork) load(blockIdx.x, 0);
+  cp_async_commit();
+  int st = 0;
+  for (int w = blockIdx.x; w < nwork; w += gridDim.x, st ^= 1) {
+    if (w + (int)gridDim.x < nwork) load(w + gridDim.x, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this item's copies have landed
+    __syncthreads();
+    const int b = w / ngr, h0 = (w % ngr) * G, ng = min(G, H - h0);
+    for (int u = warp; u < ng * nstrip; u += nwarps) {
+      const int hh = u / nstrip, i0 = (u % nstrip) * 16, h = h0 + hh;
+      __nv_bfloat16* Qh = Ops(st) + hh * opnd;
+      const __nv_bfloat16* Vh = Ops(st) + (2 * G + hh) * opnd;
+      float s[kNT][4];
+      strip_abt<HD16>(s, Qh, Ops(st) + (G + hh) * opnd, i0, ntile, lane);
+      strip_softmax(s, Ms(st) + (Hm > 1 ? hh : 0) * mask_floats, i0, L, ntile, scale, lane);
+      const uint32_t keep = strip_keep(seed, thresh, h, b, i0, L, ntile, lane);
+      float o[NDT][4];
+#pragma unroll
+      for (int d = 0; d < NDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+      // A fragment r: key tile 2kc + r / 2, rows g (r even) or g + 8 (r odd)
+      strip_av<HD16>(o, [&](int kc, uint32_t a[4]) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 2 * kc + r / 2, e = 2 * (r & 1);
+          a[r] = pack_bf16(dropped(s, keep, n, e, inv), dropped(s, keep, n, e + 1, inv));
+        }
+      }, Vh, ntile, lane);
+      // out = rnd(O) through the strip's Q rows (this warp alone reads them)
+      __syncwarp();
+#pragma unroll
+      for (int d = 0; d < NDT; ++d)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<__nv_bfloat162*>(Qh + (i0 + g + r * 8) * LDH + d * 8 + 2 * t) =
+              __floats2bfloat162_rn(o[d][2 * r], o[d][2 * r + 1]);
+      __syncwarp();
+      if (flags & kVecOut) {
+        const int ch = hd / 8;
+        for (int c = lane; c < 16 * ch; c += 32) {
+          const int i = i0 + c / ch, cc = c % ch;
+          if (i < L)
+            *reinterpret_cast<uint4*>(out + at(sout, b, h, i) + cc * 8) =
+                *reinterpret_cast<const uint4*>(Qh + i * LDH + cc * 8);
+        }
+      } else {
+        for (int c = lane; c < 16 * hd; c += 32) {
+          const int i = i0 + c / hd, d = c % hd;
+          if (i < L) out[at(sout, b, h, i) + d] = Qh[i * LDH + d];
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next copy into it
+  }
+  cp_async_wait<0>();
+}
+
+// The backward (row 11): one block of four warps per (example, head).
 template <int HD16>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -490,7 +806,7 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, Strides sout, int H, int L, int hd,
                     float scale, uint32_t seed, uint32_t thresh, float inv, int flags) {
-  constexpr int LDH = HD16 * 16 + 8, NDT = HD16 * 2, NT = kMmaMaxLen / 8;
+  constexpr int LDH = HD16 * 16 + 8, NDT = HD16 * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Lp = (L + 15) / 16 * 16, ldz = Lp + 8, ntile = Lp / 8;
   float* Ms = reinterpret_cast<float*>(smem_raw);  // [L, L] this head's mask
@@ -521,12 +837,7 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   stage_bf16<HD16 * 16>(Ks, Lp, k, sin, b, h, L, hd, vec);
   stage_bf16<HD16 * 16>(Vs, Lp, v, sin, b, h, L, hd, vec);
   stage_bf16<HD16 * 16>(DOs, Lp, dout, sdo, b, h, L, hd, vec);
-  if (flags & kVecMask) {
-    for (int w = threadIdx.x; w < L * L / 4; w += blockDim.x)
-      cp_async16(Ms + 4 * w, mbase + 4 * w, true);
-  } else {
-    for (int w = threadIdx.x; w < L * L; w += blockDim.x) Ms[w] = mbase[w];
-  }
+  stage_mask(Ms, mbase, L, flags & kVecMask);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -534,71 +845,18 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // per 16-row strip of queries: S, dZ, y, the keep bits, z, ds and dQ
   if (warp * 16 < Lp) {
     const int i0 = warp * 16;
-    float s[NT][4], dz[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dz[n][e] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < HD16; ++kc) {
-      uint32_t qa[4], da[4];
-      ldmatrix_x4(qa, Qs + (i0 + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8);
-      ldmatrix_x4(da, DOs + (i0 + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        if (2 * np >= ntile) break;
-        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + kc * 16 +
-                        ((lane >> 3) & 1) * 8;
-        uint32_t bk[4], bv[4];
-        ldmatrix_x4(bk, Ks + off);
-        ldmatrix_x4(bv, Vs + off);
-        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
-        mma_bf16(dz[2 * np], da, bv[0], bv[1]);
-        mma_bf16(dz[2 * np + 1], da, bv[2], bv[3]);
-      }
-    }
-    // the f32 softmax y of each real row; padded keys and rows get y = 0
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
-        s[n][e] = n < ntile && i < L && j < L ? s[n][e] * scale + Ms[i * L + j]
-                                              : -CUDART_INF_F;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = s[n][e] == -CUDART_INF_F ? 0.0f : expf(s[n][e] - mx[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    }
-    // dy = dropout(dZ) with the keep bit drawn once per element, t = sum dy y
-    uint32_t keep = 0u;
+    float s[kNT][4], dz[kNT][4];
+    strip_abt<HD16>(s, Qs, Ks, i0, ntile, lane);
+    strip_abt<HD16>(dz, DOs, Vs, i0, ntile, lane);
+    strip_softmax(s, Ms, i0, L, ntile, scale, lane);
+    // dy = dropout(dZ) with the forward's keep bits, t = sum dy y
+    const uint32_t keep = strip_keep(seed, thresh, h, b, i0, L, ntile, lane);
     float tsum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
-        const bool real = n < ntile && i < L && j < L;
-        if (real) s[n][e] /= sum[e >> 1];
-        const bool kp = real && kept(seed, thresh, h, b, i * L + j);
-        keep |= (uint32_t)kp << (n * 4 + e);
-        dz[n][e] = kp ? dz[n][e] * inv : 0.0f;
+        dz[n][e] = (keep >> (n * 4 + e)) & 1u ? dz[n][e] * inv : 0.0f;
         tsum[e >> 1] = fmaf(dz[n][e], s[n][e], tsum[e >> 1]);
       }
 #pragma unroll
@@ -609,7 +867,7 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // z = rnd(keep ? y / (1 - p) : 0) and ds = rnd(y (dy - t)) into shared
     // memory for the transposed products; ds stays in s for dQ
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < kNT; ++n) {
       if (n >= ntile) break;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -618,9 +876,8 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int e = 2 * r + c;
-          const float y = s[n][e];
-          z[c] = (keep >> (n * 4 + e)) & 1u ? y * inv : 0.0f;
-          s[n][e] = __bfloat162float(__float2bfloat16(y * (dz[n][e] - tsum[r])));
+          z[c] = dropped(s, keep, n, e, inv);
+          s[n][e] = __bfloat162float(__float2bfloat16(s[n][e] * (dz[n][e] - tsum[r])));
         }
         *reinterpret_cast<__nv_bfloat162*>(Zs + i * ldz + j) = __floats2bfloat162_rn(z[0], z[1]);
         *reinterpret_cast<__nv_bfloat162*>(DSs + i * ldz + j) =
@@ -631,22 +888,11 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     float aq[NDT][4];
 #pragma unroll
     for (int d = 0; d < NDT; ++d) aq[d][0] = aq[d][1] = aq[d][2] = aq[d][3] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < NT / 2; ++kc) {
-      if (2 * kc >= ntile) break;
-      uint32_t a[4];
+    strip_av<HD16>(aq, [&](int kc, uint32_t a[4]) {
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         a[r] = pack_bf16(s[2 * kc + r / 2][2 * (r & 1)], s[2 * kc + r / 2][2 * (r & 1) + 1]);
-#pragma unroll
-      for (int dp = 0; dp < HD16; ++dp) {
-        uint32_t bk[4];
-        ldmatrix_x4_trans(bk, Ks + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(aq[2 * dp], a, bk[0], bk[1]);
-        mma_bf16(aq[2 * dp + 1], a, bk[2], bk[3]);
-      }
-    }
+    }, Ks, ntile, lane);
 #pragma unroll
     for (int d = 0; d < NDT; ++d)
 #pragma unroll
@@ -700,6 +946,63 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+bool rows16(const void* p, const Strides& s) {
+  return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.h % 8 == 0 && s.r % 8 == 0;
+}
+
+bool rows4(const void* p, const Strides& s) {
+  return (uintptr_t)p % 4 == 0 && s.b % 2 == 0 && s.h % 2 == 0 && s.r % 2 == 0;
+}
+
+int mask_flag(const float* mask, int L) {
+  return (uintptr_t)mask % 16 == 0 && L * L % 4 == 0 ? kVecMask : 0;
+}
+
+template <int HD16>
+int launch_fwd_mma_hd(const void* q, const void* k, const void* v, Strides sin,
+                      const float* mask, int Hm, void* out, Strides sout, int B, int H, int L,
+                      int hd, float scale, uint32_t seed, uint32_t thresh, float inv, int flags,
+                      cudaStream_t stream) {
+  const int G = mma_fwd_group(L, hd, H, Hm > 1);
+  const int smem = mma_fwd_smem_bytes(L, hd, H, Hm > 1);
+  const int Lp = (L + 15) / 16 * 16, threads = 32 * min(kMmaWarps, G * Lp / 16);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_mma_kernel<HD16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_fwd_mma_kernel<HD16>,
+                                                           threads, smem)) != cudaSuccess)
+    return (int)err;
+  const long long nwork = (long long)B * ((H + G - 1) / G);
+  if (nwork > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(nwork < resident ? nwork : resident);
+  attn_fwd_mma_kernel<HD16><<<grid, threads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, sin, mask, Hm,
+      (__nv_bfloat16*)out, sout, H, L, hd, scale, seed, thresh, inv, G, (int)nwork, flags);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_mma(const void* q, const void* k, const void* v, Strides sin, const float* mask,
+                   int Hm, void* out, Strides sout, int B, int H, int L, int hd, float scale,
+                   uint32_t seed, uint32_t thresh, float inv, cudaStream_t stream) {
+  const int flags =
+      (hd % 8 == 0 && rows16(q, sin) && rows16(k, sin) && rows16(v, sin) ? kVecOperands : 0) |
+      mask_flag(mask, L) | (hd % 8 == 0 && rows16(out, sout) ? kVecOut : 0);
+  switch ((hd + 15) / 16) {
+#define UNIREC_FWD_HD(n)                                                                      \
+  case n:                                                                                     \
+    return launch_fwd_mma_hd<n>(q, k, v, sin, mask, Hm, out, sout, B, H, L, hd, scale, seed, \
+                                thresh, inv, flags, stream);
+    UNIREC_FWD_HD(1) UNIREC_FWD_HD(2) UNIREC_FWD_HD(3) UNIREC_FWD_HD(4)
+#undef UNIREC_FWD_HD
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int HD16>
 int launch_bwd_mma_hd(const void* q, const void* k, const void* v, Strides sin,
                       const float* mask, int Hm, const void* dout, Strides sdo, void* dq,
@@ -722,17 +1025,11 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, Strides sin,
                    void* dk, void* dv, Strides sout, int B, int H, int L, int hd,
                    float scale, uint32_t seed, uint32_t thresh, float inv,
                    cudaStream_t stream) {
-  auto rows16 = [](const void* p, const Strides& s) {
-    return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.h % 8 == 0 && s.r % 8 == 0;
-  };
-  auto rows4 = [](const void* p, const Strides& s) {
-    return (uintptr_t)p % 4 == 0 && s.b % 2 == 0 && s.h % 2 == 0 && s.r % 2 == 0;
-  };
   const int flags =
       (hd % 8 == 0 && rows16(q, sin) && rows16(k, sin) && rows16(v, sin) && rows16(dout, sdo)
            ? kVecOperands
            : 0) |
-      ((uintptr_t)mask % 16 == 0 && L * L % 4 == 0 ? kVecMask : 0) |
+      mask_flag(mask, L) |
       (hd % 2 == 0 && rows4(dq, sout) && rows4(dk, sout) && rows4(dv, sout) ? kPairOut : 0);
   switch ((hd + 15) / 16) {
 #define UNIREC_BWD_HD(n)                                                                  \
@@ -792,8 +1089,9 @@ int launch_bwd(const void* q, const void* k, const void* v, Strides sin,
 
 extern "C" {
 
-// bytes of dynamic shared memory of one block (ops/attention.py::kernels_take
-// holds a copy; tests/test_torch_gpu.py holds the two together)
+// bytes of dynamic shared memory of one block of the CUDA-core bodies
+// (ops/attention.py::_tiled holds a copy; tests/test_torch_gpu.py holds the
+// two together)
 int unirec_attention_fwd_smem_bytes(int L, int hd) {
   return (int)sizeof(float) * fwd_smem_floats(L, hd);
 }
@@ -813,8 +1111,9 @@ int unirec_attention_bwd_tiled_smem_bytes(int L, int hd) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). s_*: element strides
 // (batch, head, row) of q/k/v (shared) and of out; the last axis is
 // contiguous. mask: [B, Hm, L, L] f32, contiguous. Dropout: seed, keep
-// threshold round(p * 2^32) (0: none) and 1/(1-p). tiled: 1 runs the tiled
-// kernel. Returns a cudaError_t.
+// threshold round(p * 2^32) (0: none) and 1/(1-p). The bf16 tensor-core
+// body runs where unirec_attention_bwd_mma_takes says so (and ignores
+// tiled); otherwise tiled: 1 runs the tiled kernel. Returns a cudaError_t.
 int unirec_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                          long long sib, long long sih, long long sir,
                          const float* mask, int Hm, void* out, long long sob,
@@ -823,6 +1122,9 @@ int unirec_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                          float inv, int tiled, void* stream) {
   const Strides sin{sib, sih, sir}, sout{sob, soh, sor};
   cudaStream_t s = (cudaStream_t)stream;
+  if (mma_takes(dtype, L, hd))
+    return launch_fwd_mma(q, k, v, sin, mask, Hm, out, sout, B, H, L, hd, scale, seed, thresh,
+                          inv, s);
   if (dtype == 0)
     return launch_fwd<float>(q, k, v, sin, mask, Hm, out, sout, B, H, L, hd,
                              scale, seed, thresh, inv, tiled, s);
@@ -832,14 +1134,19 @@ int unirec_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// 1 when the backward runs the bf16 tensor-core body (dtype 1, L <= 64, hd
-// <= 64; ops/attention.py::_bwd_body holds a copy of the rule), and its
-// bytes of dynamic shared memory
+// 1 when the forward and the backward run their bf16 tensor-core bodies
+// (dtype 1, L <= 64, hd <= 64; ops/attention.py::_bwd_body and _fwd_body
+// hold a copy of the rule), and their bytes of dynamic shared memory (the
+// forward's for H heads and a mask per head, mask_heads != 0, or shared)
 int unirec_attention_bwd_mma_takes(int dtype, int L, int hd) {
-  return (int)mma_bwd_takes(dtype, L, hd);
+  return (int)mma_takes(dtype, L, hd);
 }
 
 int unirec_attention_bwd_mma_smem_bytes(int L, int hd) { return mma_bwd_smem_bytes(L, hd); }
+
+int unirec_attention_fwd_mma_smem_bytes(int L, int hd, int H, int mask_heads) {
+  return mma_fwd_smem_bytes(L, hd, H, mask_heads != 0);
+}
 
 // As unirec_attention_fwd, plus dout (strides s_d*) and the three outputs
 // dq, dk, dv (sharing the strides s_o*), each written whole. The bf16
@@ -856,7 +1163,7 @@ int unirec_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                          void* stream) {
   const Strides sin{sib, sih, sir}, sdo{sdb, sdh, sdr}, sout{sob, soh, sor};
   cudaStream_t s = (cudaStream_t)stream;
-  if (mma_bwd_takes(dtype, L, hd))
+  if (mma_takes(dtype, L, hd))
     return launch_bwd_mma(q, k, v, sin, mask, Hm, dout, sdo, dq, dk, dv, sout, B, H, L, hd,
                           scale, seed, thresh, inv, s);
   if (dtype == 0)

@@ -337,6 +337,31 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Fragments of a 16-wide k step from bf16 arrays in shared memory (leading
+// dim ld, rows 16-byte aligned). A (16 x 16) of rows m0.. and columns k0..:
+// frag_a from an [m][k] array, frag_a_t from a [k][m] one (transposed on the
+// way in). B for two n-tiles (n0.. and n0 + 8..; b[0], b[1] the first, b[2],
+// b[3] the second): frag_b from an [n][k] array, frag_b_t from a [k][n] one.
+__device__ __forceinline__ void frag_a(uint32_t a[4], const __nv_bfloat16* p, int ld, int m0,
+                                       int k0, int lane) {
+  ldmatrix_x4(a, p + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void frag_a_t(uint32_t a[4], const __nv_bfloat16* p, int ld, int m0,
+                                         int k0, int lane) {
+  ldmatrix_x4_trans(a, p + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8);
+}
+
+__device__ __forceinline__ void frag_b(uint32_t b[4], const __nv_bfloat16* p, int ld, int n0,
+                                       int k0, int lane) {
+  ldmatrix_x4(b, p + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+__device__ __forceinline__ void frag_b_t(uint32_t b[4], const __nv_bfloat16* p, int ld, int n0,
+                                         int k0, int lane) {
+  ldmatrix_x4_trans(b, p + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+
 // two f32 rounded to bf16 (nearest even) in one register, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -365,6 +390,51 @@ __device__ __forceinline__ float activate_grad(int act, float u) {
       const float s = 1.0f / (1.0f + expf(-u));
       return s * (1.0f - s);
     }
+  }
+}
+
+// act(u) and act'(u) in f32 together, sharing their exponential or erf
+// (the same functions as activate and activate_grad); A a compile-time code
+template <int A>
+__device__ __forceinline__ void act_pair(float u, float& h, float& d) {
+  if (A == ACT_RELU) {
+    h = fmaxf(u, 0.0f);
+    d = u > 0.0f ? 1.0f : 0.0f;
+  } else if (A == ACT_SWISH) {
+    const float s = __frcp_rn(1.0f + expf(-u));
+    h = u * s;
+    d = s * (1.0f + u * (1.0f - s));
+  } else if (A == ACT_GELU) {
+    const float cdf = 0.5f * (1.0f + erff(u * 0.70710678118654752f));
+    h = u * cdf;
+    d = cdf + u * (expf(-0.5f * u * u) * 0.39894228040143268f);
+  } else if (A == ACT_TANH) {
+    h = tanhf(u);
+    d = 1.0f - h * h;
+  } else if (A == ACT_LEAKYRELU) {
+    h = u >= 0.0f ? u : 0.01f * u;
+    d = u > 0.0f ? 1.0f : 0.01f;
+  } else {
+    h = __frcp_rn(1.0f + expf(-u));
+    d = h * (1.0f - h);
+  }
+}
+
+template <int A> struct ActTag {
+  static constexpr int value = A;
+};
+
+// f(ActTag<act>{}) for a run-time activation code: the switch stays outside
+// f, whose loops then see one activation at compile time
+template <typename F>
+__device__ __forceinline__ void with_act(int act, F f) {
+  switch (act) {
+    case ACT_RELU: f(ActTag<ACT_RELU>{}); break;
+    case ACT_SWISH: f(ActTag<ACT_SWISH>{}); break;
+    case ACT_GELU: f(ActTag<ACT_GELU>{}); break;
+    case ACT_TANH: f(ActTag<ACT_TANH>{}); break;
+    case ACT_LEAKYRELU: f(ActTag<ACT_LEAKYRELU>{}); break;
+    default: f(ActTag<ACT_SIGMOID>{}); break;
   }
 }
 

@@ -31,9 +31,10 @@
 //
 // Two bodies.
 //
-// bf16 inputs (flash_fwd_mma_kernel): one block per (example, tile of kMQ
-// = 64 query rows) takes a group of heads of that example at once (all of
-// them at head width <= 32 and H <= 4/hd16), so a [B, 1, L, L] mask tile
+// bf16 inputs at head widths up to kMaxHd = 128 (flash_fwd_mma_kernel):
+// one block per (example, tile of kMQ = 64 query rows) takes a group of
+// heads of that example at once (all of them at head width <= 32 and H <=
+// 4/hd16), so a [B, 1, L, L] mask tile
 // crosses device memory once however many heads share it; a [B, H, L, L]
 // mask is read per head. Four warps serve each head of the group, a warp 16
 // query rows of it. Key tiles of kMK = 64 keys stream through a ring of two
@@ -56,11 +57,19 @@
 // output goes through shared memory to 16-byte stores in [B, L, H, hd]
 // order.
 //
-// f32 inputs, the reproducible path (flash_fwd_kernel), keep the CUDA-core
-// body of the first port: one block per (example, head, tile of kQ query
-// rows); the scaled query tile and the f32 accumulator stay in shared
-// memory while key/value tiles of kK rows stream through it; products in
-// f32 on the CUDA cores, as the TPU kernel computes them in f32.
+// f32 inputs, the reproducible path, and bf16 heads wider than 128
+// (flash_fwd_kernel) keep the CUDA-core body of the first port, templated
+// on the dtype: one block per (example, head, tile of kQ query rows); the
+// scaled query tile and the f32 accumulator stay in shared memory while
+// key/value tiles of kK rows stream through it; products in f32 on the CUDA
+// cores, as the TPU kernel computes them in f32. It holds at most kDc = 128
+// head-width columns at once, so its shared memory does not grow with the
+// head width: the scores sum over column chunks of Q and K (one f32 sum per
+// score carried across the chunks in the unchunked order, the mask added
+// after the last chunk), and a grid axis over output-column chunks has each
+// block produce kDc columns of the output, recomputing the scores; the
+// first chunk's blocks write lse. At head widths up to kDc it is the first
+// port's body unchanged.
 #include "common.cuh"
 
 using namespace unirec;
@@ -70,11 +79,13 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kQ = 32;       // query rows per block
 constexpr int kK = 32;       // keys per tile: one per lane of a warp
-constexpr int kMaxHd = 128;  // ops/attention.py::FLASH_MAX_HEAD_DIM
+constexpr int kDc = 128;     // head-width columns the CUDA-core body holds at once
+constexpr int kMaxHd = 128;  // the bf16 tensor-core body (ops/attention.py::_flash_body)
 
 __host__ __device__ inline int smem_floats(int hd) {
-  // Qs, O [kQ, hd+1]; K, V [kK, hd+1]; S [kQ, kK+1]; m, l, alpha [kQ]
-  return 2 * kQ * (hd + 1) + 2 * kK * (hd + 1) + kQ * (kK + 1) + 3 * kQ;
+  // Qs, O [kQ, dc+1]; K, V [kK, dc+1]; S [kQ, kK+1]; m, l, alpha [kQ]
+  const int dc = hd < kDc ? hd : kDc;
+  return 2 * kQ * (dc + 1) + 2 * kK * (dc + 1) + kQ * (kK + 1) + 3 * kQ;
 }
 
 struct Strides {
@@ -85,14 +96,15 @@ __device__ __forceinline__ size_t at(const Strides& s, int b, int h, int r) {
   return (size_t)b * s.b + (size_t)h * s.h + (size_t)r * s.r;
 }
 
-// rows [r0, r0 + n) of one head's [L, hd] operand into shared memory as f32
-// times mul (leading dim hd + 1: column walks do not collide on a bank)
+// columns [d0, d0 + nd) of rows [r0, r0 + n) of one head's [L, hd] operand
+// into shared memory as f32 times mul (leading dim ld = dc + 1: column
+// walks do not collide on a bank)
 template <typename T>
-__device__ void stage(float* dst, const T* __restrict__ src, const Strides& s,
-                      int b, int h, int r0, int n, int hd, float mul) {
-  for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-    const int i = w / hd, d = w % hd;
-    dst[i * (hd + 1) + d] = to_f<T>(src[at(s, b, h, r0 + i) + d]) * mul;
+__device__ void stage(float* dst, int ld, const T* __restrict__ src, const Strides& s,
+                      int b, int h, int r0, int n, int d0, int nd, float mul) {
+  for (int w = threadIdx.x; w < n * nd; w += blockDim.x) {
+    const int i = w / nd, d = w % nd;
+    dst[i * ld + d] = to_f<T>(src[at(s, b, h, r0 + i) + d0 + d]) * mul;
   }
 }
 
@@ -104,20 +116,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ out, Strides sout, float* __restrict__ lse,
                  int H, int L, int hd, float scale) {
   extern __shared__ float smem[];
-  const int ldh = hd + 1, lds = kK + 1;
-  float* Qs = smem;              // [kQ, hd]  f32(q) * scale
-  float* O = Qs + kQ * ldh;      // [kQ, hd]  f32 accumulator
-  float* K = O + kQ * ldh;       // [kK, hd]
-  float* V = K + kK * ldh;       // [kK, hd]
+  const int dc = min(hd, kDc), ldh = dc + 1, lds = kK + 1;
+  float* Qs = smem;              // [kQ, dc]  a column chunk of f32(q) * scale
+  float* O = Qs + kQ * ldh;      // [kQ, dc]  f32 accumulator of this block's columns
+  float* K = O + kQ * ldh;       // [kK, dc]
+  float* V = K + kK * ldh;       // [kK, dc]
   float* S = V + kK * ldh;       // [kQ, kK]  scores -> exp(s - m)
   float* M = S + kQ * lds;       // [kQ]      running max
   float* Lsum = M + kQ;          // [kQ]      running sum
   float* Alpha = Lsum + kQ;      // [kQ]      this tile's rescale
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int r0 = blockIdx.y * kQ, n = min(kQ, L - r0);
+  const int nch = (hd + kDc - 1) / kDc;                    // column chunks of the scores
+  const int o0 = blockIdx.z * kDc, no = min(kDc, hd - o0);  // this block's output columns
   const float* mbase = mask + (size_t)b * smask.b + (size_t)h * smask.h;
 
-  stage<T>(Qs, q, sin, b, h, r0, n, hd, scale);
+  if (nch == 1) stage<T>(Qs, ldh, q, sin, b, h, r0, n, 0, hd, scale);
   for (int w = threadIdx.x; w < kQ * ldh; w += blockDim.x) O[w] = 0.0f;
   for (int i = threadIdx.x; i < kQ; i += blockDim.x) {
     M[i] = -CUDART_INF_F;
@@ -126,21 +140,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int c0 = 0; c0 < L; c0 += kK) {
     const int nk = min(kK, L - c0);
-    __syncthreads();  // the previous tile's K, V and S are consumed
-    stage<T>(K, k, sin, b, h, c0, nk, hd, 1.0f);
-    stage<T>(V, v, sin, b, h, c0, nk, hd, 1.0f);
-    __syncthreads();
-    // a warp takes one query row, a lane one key: Qs broadcasts, K rows
-    // (stride hd + 1) hit distinct banks, the mask row reads coalesced
-    for (int w = threadIdx.x; w < kQ * kK; w += blockDim.x) {
-      const int i = w / kK, j = w % kK;
-      float s = -CUDART_INF_F;
-      if (i < n && j < nk) {
-        float acc = 0.0f;
-        for (int d = 0; d < hd; ++d) acc = fmaf(Qs[i * ldh + d], K[j * ldh + d], acc);
-        s = acc + mbase[(size_t)(r0 + i) * smask.r + c0 + j];
+    for (int ch = 0; ch < nch; ++ch) {
+      const int d0 = ch * kDc, nd = min(kDc, hd - d0);
+      const bool last = ch == nch - 1;
+      __syncthreads();  // the previous chunk's or tile's Qs, K, V and S are consumed
+      if (nch > 1) stage<T>(Qs, ldh, q, sin, b, h, r0, n, d0, nd, scale);
+      stage<T>(K, ldh, k, sin, b, h, c0, nk, d0, nd, 1.0f);
+      if (last) stage<T>(V, ldh, v, sin, b, h, c0, nk, o0, no, 1.0f);
+      __syncthreads();
+      // a warp takes one query row, a lane one key: Qs broadcasts, K rows
+      // (stride dc + 1) hit distinct banks, the mask row reads coalesced;
+      // each thread owns the same scores in every chunk
+      for (int w = threadIdx.x; w < kQ * kK; w += blockDim.x) {
+        const int i = w / kK, j = w % kK;
+        if (i < n && j < nk) {
+          float acc = ch == 0 ? 0.0f : S[i * lds + j];
+          for (int d = 0; d < nd; ++d) acc = fmaf(Qs[i * ldh + d], K[j * ldh + d], acc);
+          S[i * lds + j] = last ? acc + mbase[(size_t)(r0 + i) * smask.r + c0 + j] : acc;
+        } else if (last) {
+          S[i * lds + j] = -CUDART_INF_F;
+        }
       }
-      S[i * lds + j] = s;
     }
     __syncthreads();
     // online softmax, one warp per row and one key per lane
@@ -161,35 +181,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     // acc = acc * alpha + p V: a warp takes one row, a lane one column
-    for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-      const int i = w / hd, d = w % hd;
+    for (int w = threadIdx.x; w < n * no; w += blockDim.x) {
+      const int i = w / no, d = w % no;
       float acc = O[i * ldh + d] * Alpha[i];
       for (int j = 0; j < nk; ++j) acc = fmaf(S[i * lds + j], V[j * ldh + d], acc);
       O[i * ldh + d] = acc;
     }
   }
   __syncthreads();
-  for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
-    const int i = w / hd, d = w % hd;
-    out[at(sout, b, h, r0 + i) + d] = from_f<T>(O[i * ldh + d] / Lsum[i]);
+  for (int w = threadIdx.x; w < n * no; w += blockDim.x) {
+    const int i = w / no, d = w % no;
+    out[at(sout, b, h, r0 + i) + o0 + d] = from_f<T>(O[i * ldh + d] / Lsum[i]);
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    lse[(size_t)bh * L + r0 + i] = M[i] + logf(Lsum[i]);
+  if (blockIdx.z == 0)
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      lse[(size_t)bh * L + r0 + i] = M[i] + logf(Lsum[i]);
 }
 
-int launch_f32(const void* q, const void* k, const void* v, Strides sin,
-               const float* mask, Strides smask, void* out, Strides sout, float* lse,
-               int B, int H, int L, int hd, float scale, cudaStream_t stream) {
-  if (hd < 1 || hd > kMaxHd || L < 1 || (L + kQ - 1) / kQ > 65535)
+template <typename T>
+int launch_cuda_cores(const void* q, const void* k, const void* v, Strides sin,
+                      const float* mask, Strides smask, void* out, Strides sout, float* lse,
+                      int B, int H, int L, int hd, float scale, cudaStream_t stream) {
+  if (hd < 1 || L < 1 || (L + kQ - 1) / kQ > 65535 || (hd + kDc - 1) / kDc > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * smem_floats(hd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (L + kQ - 1) / kQ);
-  flash_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, sin, mask, smask, (float*)out,
-      sout, lse, H, L, hd, scale);
+  const dim3 grid(B * H, (L + kQ - 1) / kQ, (hd + kDc - 1) / kDc);
+  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, sin, mask, smask, (T*)out, sout, lse, H, L, hd,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -473,7 +495,10 @@ int launch_mma_hd(const void* q, const void* k, const void* v, Strides sin,
 int launch_bf16(const void* q, const void* k, const void* v, Strides sin,
                 const float* mask, Strides smask, void* out, Strides sout, float* lse,
                 int B, int H, int L, int hd, float scale, cudaStream_t stream) {
-  if (hd < 8 || hd > kMaxHd || hd % 8 || L < 1 || L % 4) return (int)cudaErrorInvalidValue;
+  if (hd > kMaxHd)
+    return launch_cuda_cores<__nv_bfloat16>(q, k, v, sin, mask, smask, out, sout, lse, B, H,
+                                            L, hd, scale, stream);
+  if (hd < 8 || hd % 8 || L < 1 || L % 4) return (int)cudaErrorInvalidValue;
   switch ((hd + 15) / 16) {
 #define UNIREC_FLASH_HD(n) \
   case n:                  \
@@ -489,19 +514,22 @@ int launch_bf16(const void* q, const void* k, const void* v, Strides sin,
 
 extern "C" {
 
-// bytes of dynamic shared memory of one block: dtype 0 (f32) at head width
-// hd, or 1 (bf16) at head width hd with H heads and a mask per head
-// (mask_heads != 0) or shared by the heads
+// bytes of dynamic shared memory of one block: the CUDA-core body's (f32,
+// and bf16 above head width kMaxHd) at head width hd, or the bf16
+// tensor-core body's at head width hd with H heads and a mask per head
+// (mask_heads != 0) or shared by the heads (ops/attention.py::_flash_body
+// and _flash_smem_bytes hold copies of the rule)
 int unirec_flash_fwd_smem_bytes(int dtype, int hd, int H, int mask_heads) {
-  return dtype == 0 ? (int)sizeof(float) * smem_floats(hd)
-                    : mma_smem_bytes(hd, H, mask_heads != 0);
+  return dtype == 0 || hd > kMaxHd ? (int)sizeof(float) * smem_floats(hd)
+                                   : mma_smem_bytes(hd, H, mask_heads != 0);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). s_i*: element strides
 // (batch, head, row) shared by q, k and v; s_m*: the f32 mask's (0 where it
 // broadcasts); s_o*: out's. The last axis of each is contiguous. lse: [B,
-// H, L] f32. scale multiplies f32(q) before the products (f32) or the f32
-// scores (bf16). Returns a cudaError_t.
+// H, L] f32. scale multiplies f32(q) before the products (the CUDA-core
+// body) or the f32 scores (the bf16 tensor-core body). Returns a
+// cudaError_t.
 int unirec_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                      long long sib, long long sih, long long sir, const float* mask,
                      long long smb, long long smh, long long smr, void* out,
@@ -510,7 +538,8 @@ int unirec_flash_fwd(int dtype, const void* q, const void* k, const void* v,
   const Strides sin{sib, sih, sir}, smask{smb, smh, smr}, sout{sob, soh, sor};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, sin, mask, smask, out, sout, lse, B, H, L, hd, scale, s);
+    return launch_cuda_cores<float>(q, k, v, sin, mask, smask, out, sout, lse, B, H, L, hd,
+                                    scale, s);
   if (dtype == 1)
     return launch_bf16(q, k, v, sin, mask, smask, out, sout, lse, B, H, L, hd, scale, s);
   return (int)cudaErrorInvalidValue;

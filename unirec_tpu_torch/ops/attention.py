@@ -15,13 +15,14 @@ scores, f32 softmax, the dropped probabilities cast to the input dtype
 before the product with v; in the backward z and ds cast before their
 products, dq and dk scaled after theirs). ``fused_attention.launches`` and
 ``fused_attention_bwd.launches`` count kernel launches. The kernels take
-every L the JAX gate takes (L <= 512) at head widths up to 157
-(``kernels_take``): while one head's K, V and their f32 gradients fit a
-block's shared memory (L <= 285 at head width 32) the whole-sequence
-kernels run, beyond that their tiled pair, with the same results. A bf16
-backward at L <= 64 and head width <= 64 runs a third body on the tensor
-cores (``_bwd_body``; ``fused_attention_bwd.launches_mma`` counts it),
-held to the plain version within the backward tolerance.
+every L the JAX gate takes (L <= 512) at every head width: while one
+head's K, V and their f32 gradients fit a block's shared memory (L <= 285
+at head width 32) the whole-sequence kernels run, beyond that their tiled
+pair, which holds at most 128 columns of the head width at once, with the
+same results. bf16 at L <= 64 and head width <= 64 runs a third body in
+each direction, on the tensor cores (``_fwd_body``, ``_bwd_body``;
+``fused_attention.launches_mma`` and ``fused_attention_bwd.launches_mma``
+count them), held to the plain versions within their tolerances.
 
 Padding: the JAX wrapper pads L to a multiple of 8 and gives the padded keys
 -1e30, which makes their probability exactly 0 and leaves every real row's
@@ -39,8 +40,9 @@ Flash attention. ``flash_attention(q, k, v, mask)`` is the TPU's
 ``_fwd_kernel`` (online softmax over key blocks, f32 products with the
 scale on f32 q, the output in q's dtype and the row logsumexp in f32); on
 CUDA tensors it launches csrc/flash_attention.cu, on CPU tensors its plain
-version ``_flash_fwd_plain``. bf16 runs on the tensor cores (the scale on
-the f32 scores, p as two bf16 halves for P V), f32 on the CUDA cores. Its
+version ``_flash_fwd_plain``. bf16 at head widths up to 128 runs on the
+tensor cores (the scale on the f32 scores, p as two bf16 halves for P V),
+f32 and wider bf16 heads on the CUDA cores (``_flash_body``). Its
 backward is the JAX package's ``_flash_bwd``, plain XLA there and plain
 torch ops here, recomputing the probabilities from the saved lse (the
 scale after the product, ``delta`` from the rounded output). ``causal_attention`` is the JAX entry point:
@@ -70,11 +72,13 @@ from unirec_tpu_torch.ops.layer import (_DTYPES, _SMEM_LIMIT, NO_DROP, Drop, _di
 MASK_VALUE = -1e4           # the reference additive mask (sasrec.py:56)
 MAX_FUSED_SEQ_LEN = 512     # unirec_tpu/ops/attention.py:179
 MIN_FLASH_SEQ_LEN = 256     # unirec_tpu/ops/attention.py:119
-FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu::kMaxHd
+FLASH_MMA_MAX_HEAD_DIM = 128  # the bf16 tensor-core flash body, csrc/flash_attention.cu::kMaxHd
+_FLASH_DC = 128             # head-width columns of the CUDA-core flash body, ::kDc
 _ROWS = 32                  # query rows per tile, csrc/attention.cu::kRows
 _KEYS = 32                  # key rows per tile of the tiled kernels, ::kKeys
-MMA_BWD_MAX_LEN = 64        # the bf16 tensor-core backward, ::kMmaMaxLen
-MMA_BWD_MAX_HEAD_DIM = 64   # ::kMmaMaxHd
+_DC = 128                   # head-width columns the tiled kernels hold at once, ::kDc
+MMA_MAX_LEN = 64            # the bf16 tensor-core bodies, ::kMmaMaxLen
+MMA_MAX_HEAD_DIM = 64       # ::kMmaMaxHd
 
 
 def xla_attention(q, k, v, mask):
@@ -100,13 +104,16 @@ def _bwd_smem_bytes(L: int, hd: int) -> int:
 
 
 def _fwd_tiled_smem_bytes(L: int, hd: int) -> int:
-    """csrc/attention.cu::fwd_tiled_smem_floats, in bytes."""
-    return 4 * (2 * _ROWS * (hd + 1) + _ROWS * (L + 1) + _KEYS * (hd + 1))
+    """csrc/attention.cu::fwd_tiled_smem_floats, in bytes (at most _DC
+    columns of the head width)."""
+    dc = min(hd, _DC)
+    return 4 * (2 * _ROWS * (dc + 1) + _ROWS * (L + 1) + _KEYS * (dc + 1))
 
 
 def _bwd_tiled_smem_bytes(L: int, hd: int) -> int:
     """csrc/attention.cu::bwd_tiled_smem_floats, in bytes."""
-    return 4 * (3 * _ROWS * (hd + 1) + 2 * _ROWS * (L + 1) + 2 * _KEYS * (hd + 1))
+    dc = min(hd, _DC)
+    return 4 * (3 * _ROWS * (dc + 1) + 2 * _ROWS * (L + 1) + 2 * _KEYS * (dc + 1))
 
 
 def fused_supported(q: torch.Tensor, mask: torch.Tensor) -> bool:
@@ -119,28 +126,27 @@ def fused_supported(q: torch.Tensor, mask: torch.Tensor) -> bool:
 def _tiled(L: int, hd: int) -> bool:
     """Whether the tiled kernels run: one (example, head)'s K and V, and in
     the backward their f32 gradients, exceed a block's shared memory (L >
-    285 at head width 32)."""
+    285 at head width 32). The tiled pair holds at most _DC columns of the
+    head width and a query tile's [32, L] score rows, which fit at every L
+    the gate takes."""
     return max(_fwd_smem_bytes(L, hd), _bwd_smem_bytes(L, hd)) > _SMEM_LIMIT
 
 
 def _bwd_body(dtype: torch.dtype, L: int, hd: int) -> str:
     """The body of csrc/attention.cu that runs the backward (its rule
-    ``mma_bwd_takes``, then ``_tiled``): "mma", the bf16 tensor-core body
+    ``mma_takes``, then ``_tiled``): "mma", the bf16 tensor-core body
     (L <= 64, head width <= 64); else the CUDA-core "whole"-sequence body or
     its "tiled" pair."""
-    if dtype == torch.bfloat16 and L <= MMA_BWD_MAX_LEN and hd <= MMA_BWD_MAX_HEAD_DIM:
+    if dtype == torch.bfloat16 and L <= MMA_MAX_LEN and hd <= MMA_MAX_HEAD_DIM:
         return "mma"
     return "tiled" if _tiled(L, hd) else "whole"
 
 
-def kernels_take(L: int, hd: int) -> bool:
-    """Whether csrc/attention.cu takes sequences of L rows at head width hd:
-    the whole-sequence kernels or, beyond them, the tiled pair, whose query
-    tile's score rows fit a block's shared memory (every L <= 512 at head
-    widths up to 157)."""
-    if not _tiled(L, hd):
-        return True
-    return max(_fwd_tiled_smem_bytes(L, hd), _bwd_tiled_smem_bytes(L, hd)) <= _SMEM_LIMIT
+def _fwd_body(dtype: torch.dtype, L: int, hd: int) -> str:
+    """The body of csrc/attention.cu that runs the forward, by the backward's
+    rule (``mma_takes``): "mma", the bf16 tensor-core body; else "whole" or
+    "tiled" on the CUDA cores."""
+    return _bwd_body(dtype, L, hd)
 
 
 # ------------------------------------------------------------ plain versions
@@ -206,9 +212,6 @@ def _operands(q, k, v, mask):
     for t in (k, v, mask):
         if t.device != q.device:
             raise ValueError(f"all operands must be on {q.device}, got {t.device}")
-    if not kernels_take(L, hd):
-        raise ValueError(f"fused attention kernels do not take L={L}, hd={hd}: a query "
-                         "tile's score rows exceed a block's shared memory")
     if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = mask.float().expand(B, mask.shape[1], L, L).contiguous()
@@ -251,6 +254,7 @@ def _fwd_cuda(q, k, v, mask, drop: Drop = NO_DROP) -> torch.Tensor:
                         _build.stream_handle(q.device))
     _build.check(err, "attention forward launch")
     fused_attention.launches += 1
+    fused_attention.launches_mma += _fwd_body(q.dtype, L, hd) == "mma"
     return out
 
 
@@ -318,6 +322,7 @@ def fused_attention(q, k, v, mask, p_drop: float = 0.0,
 
 
 fused_attention.launches = 0
+fused_attention.launches_mma = 0   # of those, the bf16 tensor-core body's
 
 
 def short_attention(q, k, v, mask, p_drop: float = 0.0, rng=None,
@@ -374,12 +379,22 @@ def _flash_bwd(q, k, v, mask, out, lse, g):
 _MQ, _MK = 64, 64   # csrc/flash_attention.cu::kMQ, kMK (bf16 body)
 
 
+def _flash_body(dtype: torch.dtype, hd: int) -> str:
+    """The body of csrc/flash_attention.cu that runs the forward: "mma", the
+    bf16 tensor-core body (head width <= 128); else "cuda", the CUDA-core
+    body (f32, and wider bf16 heads), which holds at most 128 head-width
+    columns at once."""
+    return "mma" if dtype == torch.bfloat16 and hd <= FLASH_MMA_MAX_HEAD_DIM else "cuda"
+
+
 def _flash_smem_bytes(dtype: torch.dtype, hd: int, H: int, mask_heads: bool) -> int:
-    """csrc/flash_attention.cu::unirec_flash_fwd_smem_bytes: the f32 body's
-    tiles, or the bf16 body's two stages of K, V and mask tiles for a group
-    of heads (at most 4 / ceil(hd / 16) of them)."""
-    if dtype == torch.float32:
-        return 4 * (2 * 32 * (hd + 1) + 2 * 32 * (hd + 1) + 32 * 33 + 3 * 32)
+    """csrc/flash_attention.cu::unirec_flash_fwd_smem_bytes: the CUDA-core
+    body's tiles (at most 128 columns of the head width), or the bf16 body's
+    two stages of K, V and mask tiles for a group of heads (at most 4 /
+    ceil(hd / 16) of them)."""
+    if _flash_body(dtype, hd) == "cuda":
+        dc = min(hd, _FLASH_DC)
+        return 4 * (2 * 32 * (dc + 1) + 2 * 32 * (dc + 1) + 32 * 33 + 3 * 32)
     hd16 = -(-hd // 16)
     G = min(1 if hd16 >= 4 else 4 // hd16, H)
     return 2 * (2 * G * _MK * (16 * hd16 + 8) * 2 + (G if mask_heads else 1) * _MQ * _MK * 4)
@@ -416,17 +431,15 @@ def _flash_fwd_cuda(q, k, v, mask):
     if k.shape != q.shape or v.shape != q.shape or not flash_supported(q, mask):
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, mask {tuple(mask.shape)}")
-    if hd > FLASH_MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernel takes head widths up to "
-                         f"{FLASH_MAX_HEAD_DIM}, got {hd}")
     for t in (k, v, mask):
         if t.device != q.device:
             raise ValueError(f"all operands must be on {q.device}, got {t.device}")
+    mma = _flash_body(q.dtype, hd) == "mma"
     if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
-            and (q.dtype == torch.float32 or _aligned(q, k, v, elems=8))):
+            and (not mma or _aligned(q, k, v, elems=8))):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     m = mask.float()
-    if m.stride(-1) != 1 or (q.dtype == torch.bfloat16 and not _aligned(m, elems=4)):
+    if m.stride(-1) != 1 or (mma and not _aligned(m, elems=4)):
         m = m.contiguous()
     m = m.expand(B, H, L, L)
     out = _empty_out(q)

@@ -14,6 +14,14 @@ products, db1 summed from the f32 dh and db2 from the f32 dy, the weight
 gradients summed in f32 and cast to each weight's dtype
 (ffn.py:62-101, :201-202). ``fused_ffn.launches`` and
 ``fused_ffn_bwd.launches`` count kernel launches.
+
+Bodies. The forward, and the backward in f32 or at widths the tensor cores
+do not take, run on the CUDA cores; they hold at most 128 columns of F at
+once and a row tile that shrinks as D grows (``_rows``), so every D <=
+2048 launches at any F. A bf16 backward with D a multiple of 16 up to 64
+and F a multiple of 16 runs on the tensor cores (``_bwd_body``;
+``fused_ffn_bwd.launches_mma`` counts it), held to the plain version within
+the backward tolerance.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from unirec_tpu_torch.ops import _build
-from unirec_tpu_torch.ops.layer import _DTYPES, _dispatch, _ptr
+from unirec_tpu_torch.ops.layer import _DTYPES, _SMEM_LIMIT, _dispatch, _ptr
 
 # activation codes of csrc/common.cuh (gelu is the erf form; leakyrelu's
 # slope is 0.01, as jax.nn.leaky_relu)
@@ -80,6 +88,43 @@ def _bwd_plain(x, w1, b1, w2, b2, dy, act: str):
 
 
 # ----------------------------------------------------------------- kernels
+_FWD_ROWS, _BWD_ROWS, _FC = 64, 32, 128   # csrc/ffn.cu::kFwdRows, kBwdRows, kFc
+MMA_MAX_D, _MMA_FC = 64, 128              # ::kMmaMaxD, kMmaFc
+
+
+def _smem_bytes(bwd: bool, rows: int, D: int, Fi: int) -> int:
+    """csrc/ffn.cu::fwd_smem_floats / bwd_smem_floats, in bytes: the CUDA-core
+    bodies' tile of ``rows`` tokens (f32 x and, in the backward, dy; at most
+    128 columns of F; the f32 y or dx sums when F has more than one chunk)."""
+    fc = min(Fi, _FC)
+    extra = rows * (D + 1) if Fi > _FC else 0
+    if bwd:
+        return 4 * (2 * rows * (D + 1) + 2 * rows * (fc + 1) + extra)
+    return 4 * (rows * (D + 1) + rows * (fc + 1) + extra)
+
+
+def _rows(bwd: bool, D: int, Fi: int) -> int:
+    """Tokens per tile of the CUDA-core forward or backward (csrc/ffn.cu::
+    ffn_rows): the most, halving from 64 (forward) or 32 (backward), whose
+    shared memory fits a block; 0 if none does."""
+    r = _BWD_ROWS if bwd else _FWD_ROWS
+    while r >= 1:
+        if _smem_bytes(bwd, r, D, Fi) <= _SMEM_LIMIT:
+            return r
+        r //= 2
+    return 0
+
+
+def _bwd_body(dtype: torch.dtype, D: int, Fi: int) -> str:
+    """The body of csrc/ffn.cu that runs the backward (its rule
+    ``mma_takes``): "mma", the bf16 tensor-core body (D a multiple of 16 up
+    to 64, F a multiple of 16); else "cuda", the CUDA-core body."""
+    if (dtype == torch.bfloat16 and 16 <= D <= MMA_MAX_D and D % 16 == 0
+            and Fi >= 16 and Fi % 16 == 0):
+        return "mma"
+    return "cuda"
+
+
 def _check(x, w1, b1, w2, b2, act: str):
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (w1, b1, w2, b2)):
         raise TypeError("fused ffn takes float32 or bfloat16 operands of one dtype")
@@ -105,7 +150,7 @@ def _entry(name: str):
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
     elif name == "bwd":
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
     else:
         fn.argtypes = [ctypes.c_int] * 4
@@ -121,9 +166,22 @@ def _bwd_blocks(dtype: int, T: int, D: int, Fi: int, device_index: int) -> int:
     return n
 
 
+def _refuse_width(D: int, Fi: int, bwd: bool):
+    if _rows(bwd, D, Fi) == 0:
+        raise ValueError(f"fused ffn kernels do not take D={D}: one token's f32 row "
+                         "exceeds a block's shared memory")
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t (contiguous) on a 16-byte boundary, copied if it is not: the
+    tensor-core backward moves 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fwd_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
     """Launch the forward kernel of csrc/ffn.cu."""
     T, D, Fi = _check(x, w1, b1, w2, b2, act)
+    _refuse_width(D, Fi, bwd=False)
     x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
     y = torch.empty_like(x)
     err = _entry("fwd")(_DTYPES[x.dtype], _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2),
@@ -137,18 +195,37 @@ def _fwd_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
 def _bwd_cuda(x, w1, b1, w2, b2, dy, act: str):
     """Launch the backward kernel of csrc/ffn.cu: (dx, dw1, db1, dw2, db2)."""
     T, D, Fi = _check(x, w1, b1, w2, b2, act)
-    x, w1, b1 = x.contiguous(), w1.contiguous(), b1.contiguous()
+    body = _bwd_body(x.dtype, D, Fi)
+    if body == "cuda":
+        _refuse_width(D, Fi, bwd=True)
+    x, w1, b1, w2 = x.contiguous(), w1.contiguous(), b1.contiguous(), w2.contiguous()
     dy = dy.to(x.dtype).contiguous()
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     nblk = _bwd_blocks(_DTYPES[x.dtype], T, D, Fi, x.device.index or 0)
-    slabs = torch.empty((nblk, 2 * D * Fi + Fi + D), dtype=torch.float32,
-                        device=x.device)
     dx = torch.empty_like(x)
-    err = _entry("bwd")(_DTYPES[x.dtype], _ptr(x), _ptr(dy), _ptr(w1), _ptr(b1),
-                        _ptr(w1t), _ptr(w2t), _ptr(dx), _ptr(slabs), nblk, T, D, Fi,
-                        ACTS.index(act), _build.stream_handle(x.device))
+    dxp = None
+    if body == "mma":
+        x, dy, w1, w2 = (_aligned16(t) for t in (x, dy, w1, w2))
+        w1t = w2t = None
+        # each block fills only its F chunk's entries; with several chunks
+        # each writes its f32 part of dx
+        slabs = torch.zeros((nblk, 2 * D * Fi + Fi + D), dtype=torch.float32,
+                            device=x.device)
+        nch = -(-Fi // _MMA_FC)
+        if nch > 1:
+            dxp = torch.empty((nch, T, D), dtype=torch.float32, device=x.device)
+    else:
+        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+        slabs = torch.empty((nblk, 2 * D * Fi + Fi + D), dtype=torch.float32,
+                            device=x.device)
+    opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
+    err = _entry("bwd")(_DTYPES[x.dtype], _ptr(x), _ptr(dy), _ptr(w1), _ptr(b1), _ptr(w2),
+                        opt(w1t), opt(w2t), _ptr(dx), opt(dxp), _ptr(slabs), nblk, T, D,
+                        Fi, ACTS.index(act), _build.stream_handle(x.device))
     _build.check(err, "ffn backward launch")
     fused_ffn_bwd.launches += 1
+    fused_ffn_bwd.launches_mma += body == "mma"
+    if dxp is not None:
+        dx = dxp.sum(0).to(x.dtype)
     tot = slabs.sum(0)
     dw1, db1, dw2, db2 = torch.split(tot, [D * Fi, Fi, Fi * D, D])
     return (dx, dw1.view(D, Fi).to(w1.dtype), db1.to(b1.dtype),
@@ -163,6 +240,7 @@ def fused_ffn_bwd(x, w1, b1, w2, b2, dy, act: str):
 
 
 fused_ffn_bwd.launches = 0
+fused_ffn_bwd.launches_mma = 0   # of those, the bf16 tensor-core body's
 
 
 class _FusedFFN(torch.autograd.Function):
