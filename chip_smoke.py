@@ -21,12 +21,16 @@ Phases, each of which must pass:
   5. the training kernels at bench.py's training shapes (B=32,768): the two
      forward layers with dropout 0.1, their backwards, the embedding-grad
      scatter-add and the negative-membership test, each against its plain
-     version with the same inputs and dropout seeds, and timed;
+     version with the same inputs and dropout seeds, and timed; the layer
+     backward in its bf16 tensor-core body, with its CUDA-core body timed
+     beside it (at least 5x slower), its key bias's zero-sum check and
+     another seed's masks (which must disagree);
   6. the training path: bench.py's workload (SASRec as above, BCE with 9
      rejection-sampled negatives, Adam, dropout 0.1, bf16, batch 32,768,
      with neg_membership_pallas on) trained through the port's
      Trainer.fit, 3 warm-up and 24 timed steps; the loss must stay finite
-     and fall, and every training kernel must launch. Then one step from the
+     and fall, and every training kernel must launch (the layer backward
+     in its tensor-core body). Then one step from the
      same weights, batch and seeds through the kernels and through the plain
      versions, loss and every gradient compared; then two traced steps;
   7. the fused attention kernels (forward, backward) at B=32,768, H=2, L=50,
@@ -34,9 +38,10 @@ Phases, each of which must pass:
      backward in its bf16 tensor-core body, whose dropout mask is also held
      to the forward's keying bit for bit; bf16 runs both directions on the
      tensor cores); the fused FFN kernels at 1,638,400, 32,768 and
-     2,097,152 tokens (d=64, inner 128, swish; the bf16 backward on the
-     tensor cores) and over all six activations; each against its plain
-     version;
+     2,097,152 tokens (d=64, inner 128, swish; bf16 both ways on the
+     tensor cores, the forward's CUDA-core body timed beside it and the
+     forward faster than addmm -> silu -> addmm at the two large counts)
+     and over all six activations; each against its plain version;
   8. the entry path: main.run(task=train) on sasrec_fusedattn_ffn (bench.py's
      widths with use_fused_attention and use_fused_ffn in place of the fused
      layers) over synthetic data at bench.py's scale written under build/,
@@ -46,8 +51,8 @@ Phases, each of which must pass:
      same metrics, and every kernel of the path must launch. Then one step
      at dropout 0 and one eval batch through the kernels and the plain
      versions (loss, gradients, each row's rank of the positive, metrics),
-     and a traced step and eval batch; the backward's tensor-core body must
-     launch there;
+     and a traced step and eval batch; the tensor-core bodies of the
+     attention pair and of both FFN directions must launch there;
   9. flash attention (row 9) at the long path's training shape (B=8,192,
      H=2, L=256, hd=32) in bf16 (the tensor-core body) and f32 (the
      CUDA-core body), at L=264 and L=1,024, and at the
@@ -64,8 +69,9 @@ Phases, each of which must pass:
      validation's hit@10 must reach 0.1, task=test from the best checkpoint
      must repeat the metrics, task=infer must write one finite score per
      test row that agrees with model.predict through the plain versions, and
-     flash attention must launch in training, evaluation and infer (the
-     layer kernels and the fused attention kernels never). Then one step at
+     flash attention must launch in training, evaluation and infer, and
+     both FFN directions' tensor-core bodies in training (the layer
+     kernels and the fused attention kernels never). Then one step at
      dropout 0 and one eval batch through the kernels and the plain
      versions, a traced step and eval batch, and top-100 serving of 4,096
      users from the long checkpoint (flash attention and blockmax launch;
@@ -362,6 +368,7 @@ def _counters():
             "fused_attention_bwd": (AT.fused_attention_bwd, "launches"),
             "fused_attention_bwd_mma": (AT.fused_attention_bwd, "launches_mma"),
             "fused_ffn": (FF.fused_ffn, "launches"),
+            "fused_ffn_mma": (FF.fused_ffn, "launches_mma"),
             "fused_ffn_bwd": (FF.fused_ffn_bwd, "launches"),
             "fused_ffn_bwd_mma": (FF.fused_ffn_bwd, "launches_mma"),
             "layer_fwd": (LY.fused_transformer_layer, "launches"),
@@ -369,20 +376,22 @@ def _counters():
             "blockmax": (TK.catalog_blockmax, "launches"),
             "blockmax_int8": (TK.catalog_blockmax, "launches_int8"),
             "layer_bwd": (LY.layer_bwd, "launches"),
+            "layer_bwd_mma": (LY.layer_bwd, "launches_mma"),
             "lastq_bwd": (LY.lastq_bwd, "launches"),
             "scatter_add": (SA.scatter_add_rows, "launches"),
             "member": (MB.member_mask, "launches")}
 
 
 SERVING_KERNELS = ("layer_fwd", "lastq_fwd", "blockmax", "blockmax_int8")
-TRAINING_KERNELS = ("layer_fwd", "lastq_fwd", "layer_bwd", "lastq_bwd",
+# layer_bwd_mma: row 2's bf16 tensor-core body
+TRAINING_KERNELS = ("layer_fwd", "lastq_fwd", "layer_bwd", "layer_bwd_mma", "lastq_bwd",
                     "scatter_add", "member")
-# *_mma: the bf16 tensor-core bodies of rows 10, 11 (L <= 64) and 13 (D <= 64)
+# *_mma: the bf16 tensor-core bodies of rows 10, 11 (L <= 64) and 12, 13 (D <= 64)
 ENTRY_KERNELS = ("fused_attention", "fused_attention_mma", "fused_attention_bwd",
-                 "fused_attention_bwd_mma", "fused_ffn", "fused_ffn_bwd", "fused_ffn_bwd_mma",
-                 "scatter_add", "member")
-LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_bwd", "fused_ffn_bwd_mma",
-                "scatter_add", "member")
+                 "fused_attention_bwd_mma", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
+                 "fused_ffn_bwd_mma", "scatter_add", "member")
+LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
+                "fused_ffn_bwd_mma", "scatter_add", "member")
 OFF_LONG_PATH = ("layer_fwd", "layer_bwd", "lastq_fwd", "lastq_bwd", "fused_attention",
                  "fused_attention_bwd")
 
@@ -603,12 +612,60 @@ def kernel_train_layers(torch):
                 "library_ms": None}
         line["bound_ms"], line["bound_by"] = bound_ms(
             nbytes(xp, mp, *flat, dy, dx, *grads), 3 * flops, name)
+        ok_extra = True
+        if which == "layer":
+            ok_extra, core = layer_bwd_bodies(torch, line, xp, mp, flat, dy, fargs,
+                                              dx, grads, rdx, rgrads)
+            rows["layer_bwd_cuda_core"] = core
         emit(line)
-        if not (line["max_rel_err"] <= BWD_TOL and line["finite"] and zero_sum_ok(zeros)):
+        if not (line["max_rel_err"] <= BWD_TOL and line["finite"] and zero_sum_ok(zeros)
+                and ok_extra):
             raise AssertionError(f"{which}_bwd disagrees with its plain version")
         rows[f"{which}_bwd"] = line
         del dx, grads, rdx, rgrads
     return rows
+
+
+def layer_bwd_bodies(torch, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgrads):
+    """Row 2's checks beyond the common ones, into its kernel line: which
+    body ran; the key bias's gradient (a slice of dbqkv, zero in exact
+    arithmetic) against the query bias's scale; the masks (the plain version
+    with another seed must disagree far beyond the tolerance, so the
+    kernel drew the forward's masks); and the CUDA-core body on the same
+    inputs, against the plain version and timed in this run, which the
+    tensor-core body must beat fivefold. Returns (ok, the CUDA-core body's
+    row)."""
+    from unirec_tpu_torch.ops import layer as LY
+    _, Lp, D = xp.shape
+    line["body"] = LY._layer_bwd_body(xp.dtype, Lp, D, flat[6].shape[1], fargs[0])
+    dbk, rdbk, rdbq = (t.float() for t in (grads[1][D:2 * D], rgrads[1][D:2 * D],
+                                            rgrads[1][:D]))
+    scale = float(rdbq.abs().max())
+    line["key_bias_grad"] = {"ref_max": float(rdbk.abs().max()),
+                             "kernel_max": float(dbk.abs().max()), "scale": scale,
+                             "err": float((dbk - rdbk).abs().max()) / max(scale, 1e-30)}
+    other = LY._layer_bwd_plain(xp, mp, flat, dy, *fargs[:-1],
+                                LY.drop_params(P_DROP, P_DROP, True, 12346))[0]
+    peak = float(rdx.float().abs().max())
+    line["other_seed_rel_err_dx"] = float((dx.float() - other.float()).abs().max()) / peak
+    del other
+    with mock.patch.object(LY, "_layer_bwd_body", lambda *a: "cuda"):
+        cdx, cgrads = LY._layer_bwd_cuda(xp, mp, flat, dy, *fargs)
+        cerrs, _ = leaf_errs((cdx, *cgrads), (rdx, *rgrads))
+        core = {"body": "cuda", "max_rel_err": max(cerrs),
+                "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                   for a, b in zip((cdx, *cgrads), (rdx, *rgrads))),
+                "kernel_ms": cuda_ms(lambda: LY._layer_bwd_cuda(xp, mp, flat, dy, *fargs),
+                                     iters=3, warmup=1),
+                "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+                "bound_by": line["bound_by"], "library_ms": None}
+    line["cuda_core"] = {k: core[k] for k in ("max_rel_err", "kernel_ms")}
+    line["cuda_core_over_mma"] = core["kernel_ms"] / line["kernel_ms"]
+    kb = line["key_bias_grad"]
+    ok = (line["body"] == "mma" and kb["ref_max"] <= BWD_TOL * scale and kb["err"] <= BWD_TOL
+          and line["other_seed_rel_err_dx"] > 4 * BWD_TOL and core["max_rel_err"] <= BWD_TOL
+          and 5 * line["kernel_ms"] <= core["kernel_ms"])
+    return ok, core
 
 
 def kernel_scatter(torch):
@@ -1145,19 +1202,32 @@ def kernel_fused_ffn(torch):
         torch.cuda.synchronize()
         err = float((y.float() - ref.float()).abs().max())
         tol = ATT_TOL * float(ref.float().abs().max())
+        chain = cuda_ms(lambda: torch.addmm(b2, F.silu(torch.addmm(b1, x, w1)), w2))
         line = {"phase": "kernel", "name": "fused_ffn", "tokens": T, "dims": [D, Fi],
-                "act": "swish", "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
+                "act": "swish", "dtype": "bfloat16", "body": FF._fwd_body(x.dtype, D, Fi),
+                "max_abs_err": err, "tol": tol,
                 "tol_reason": "two bf16 ulps of the largest output",
                 "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish")),
                 "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish")),
-                "library_ms": None,
-                "addmm_act_addmm_ms": cuda_ms(lambda: torch.addmm(
-                    b2, F.silu(torch.addmm(b1, x, w1)), w2))}
+                "library_ms": chain, "library_call": "addmm -> silu -> addmm (three calls)",
+                "addmm_act_addmm_ms": chain}
         line["bound_ms"], line["bound_by"] = bound_ms(nbytes(x, w1, b1, w2, b2, y),
                                                       4 * T * D * Fi, "bfloat16")
+        # the CUDA-core body on the same inputs, timed in this run
+        with mock.patch.object(FF, "_fwd_body", lambda *a: "cuda"):
+            core_err = float((FF._fwd_cuda(x, w1, b1, w2, b2, "swish").float()
+                              - ref.float()).abs().max())
+            core_ms = cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish"), iters=5)
+        line["cuda_core"] = {"max_abs_err": core_err, "kernel_ms": core_ms}
         emit(line)
-        if not err <= tol:
-            raise AssertionError(f"fused_ffn disagrees with its plain version: {line}")
+        # the tensor-core body must beat the three-call chain where the paths run it
+        slow = T >= TRAIN_BATCH * SEQ_LEN and not line["kernel_ms"] < chain
+        if not (err <= tol and core_err <= tol and line["body"] == "mma") or slow:
+            raise AssertionError(f"fused_ffn disagrees with its plain version or is slow: {line}")
+        rows.setdefault("fused_ffn_cuda_core", {
+            "body": "cuda", "max_abs_err": core_err, "kernel_ms": core_ms,
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": chain})
         got = FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish")
         refb = FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")
         torch.cuda.synchronize()
@@ -1183,22 +1253,25 @@ def kernel_fused_ffn(torch):
         rows.setdefault("fused_ffn", line)
         rows.setdefault("fused_ffn_bwd", line_b)
         del x, dy, y, ref, got, refb
-    worst = {}
+    worst, fwd = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         x, dy = rn(4099, D, dt=dt), rn(4099, D, dt=dt)
         ws = [t.to(dt) for t in (w1, b1, w2, b2)]
         for act in FF.ACTS:
-            e = max(leaf_errs((FF._fwd_cuda(x, *ws, act),
-                               *FF._bwd_cuda(x, *ws, dy, act)),
-                              (FF._fwd_plain(x, *ws, act),
-                               *FF._bwd_plain(x, *ws, dy, act)))[0])
-            worst[f"{act}_{str(dt)[6:]}"] = e
+            errs = leaf_errs((FF._fwd_cuda(x, *ws, act), *FF._bwd_cuda(x, *ws, dy, act)),
+                             (FF._fwd_plain(x, *ws, act), *FF._bwd_plain(x, *ws, dy, act)))[0]
+            worst[f"{act}_{str(dt)[6:]}"] = max(errs)
+            fwd[f"{act}_{str(dt)[6:]}"] = errs[0]
     line = {"phase": "kernel", "name": "fused_ffn_activations", "tokens": 4099,
-            "max_rel_err": worst, "tol": {"float32": 1e-4, "bfloat16": BWD_TOL}}
+            "max_rel_err": worst, "tol": {"float32": 1e-4, "bfloat16": BWD_TOL},
+            "fwd_rel_err": fwd, "fwd_tol_bfloat16": ATT_TOL,
+            "fwd_tol_reason": "the forward (bf16: the tensor-core body) within two bf16 ulps "
+                              "of its largest output"}
     emit(line)
-    if any(e > (1e-4 if k.endswith("float32") else BWD_TOL) for k, e in worst.items()):
+    if any(e > (1e-4 if k.endswith("float32") else BWD_TOL) for k, e in worst.items()) or \
+            any(e > ATT_TOL for k, e in fwd.items() if k.endswith("bfloat16")):
         raise AssertionError(f"fused_ffn disagrees for an activation: {line}")
-    return rows["fused_ffn"], rows["fused_ffn_bwd"]
+    return rows["fused_ffn"], rows["fused_ffn_bwd"], rows["fused_ffn_cuda_core"]
 
 
 # ------------------------------------------------------------- wide widths
@@ -1826,7 +1899,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.no_grad():
         rows["fused_attention"], rows["fused_attention_bwd"] = kernel_fused_attention(torch)
-        rows["fused_ffn"], rows["fused_ffn_bwd"] = kernel_fused_ffn(torch)
+        rows["fused_ffn"], rows["fused_ffn_bwd"], rows["fused_ffn_cuda_core"] = \
+            kernel_fused_ffn(torch)
     torch.cuda.empty_cache()
     entry_counts, _, trainer, train_data = entry_path(torch, card)
     ev, eval_batch = check_entry_path(torch, trainer, train_data)
@@ -1878,19 +1952,39 @@ def main() -> int:
                "fused_attention_bwd": ("unirec_tpu_torch/csrc/attention.cu",
                                        "unirec_tpu/ops/attention.py:260"),
                "fused_ffn": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:62"),
+               "fused_ffn_cuda_core": ("unirec_tpu_torch/csrc/ffn.cu",
+                                       "unirec_tpu/ops/ffn.py:62"),
+               "layer_bwd_cuda_core": ("unirec_tpu_torch/csrc/layer_bwd.cu",
+                                       "unirec_tpu/ops/layer.py:311"),
                "fused_ffn_bwd": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:72"),
                "flash_attention": ("unirec_tpu_torch/csrc/flash_attention.cu",
                                    "unirec_tpu/ops/attention.py:44")}
+    # the body each line times: rows 2 and 12 list their tensor-core body
+    # ("mma") and their CUDA-core body, whose launches are the rest of the
+    # kernel's; rows 9-11 and 13 name the body their path shape takes
+    bodies = {"layer_bwd": "mma", "fused_ffn": "mma", "fused_ffn_bwd": "mma",
+              "fused_attention": "mma", "fused_attention_bwd": "mma",
+              "flash_attention": "mma", "layer_bwd_cuda_core": "cuda",
+              "fused_ffn_cuda_core": "cuda"}
+    paths = {"serving": counts, "training": train_counts, "entry": entry_counts,
+             "long": long_counts, "long_serve": serve_counts}
+
+    def launched(name, path):
+        if name.endswith("_cuda_core"):
+            base = name[:-len("_cuda_core")]
+            return path.get(base, 0) - path.get(f"{base}_mma", 0)
+        if name in ("layer_bwd", "fused_ffn"):
+            return path.get(f"{name}_mma", 0)
+        return path.get(name, 0)
+
     kernels = []
     for name, (src, rep) in sources.items():
         r = rows[name]
-        by_path = {"serving": counts.get(name, 0), "training": train_counts.get(name, 0),
-                   "entry": entry_counts.get(name, 0), "long": long_counts.get(name, 0),
-                   "long_infer": long_counts["long_infer"] if name == "flash_attention" else 0,
-                   "long_serve": serve_counts.get(name, 0)}
+        by_path = {k: launched(name, v) for k, v in paths.items()}
+        by_path["long_infer"] = long_counts["long_infer"] if name == "flash_attention" else 0
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "name": name, "body": bodies.get(name, "cuda"), "route": "cuda", "source": src,
+            "replaces": rep, "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -116,3 +116,31 @@ def test_unsupported_operands_raise():
     with pytest.raises(ValueError):
         FF._check(t[0], t[1], t[2], t[3].T, t[4], "swish")
     assert FF.fused_ffn.launches == 0 and FF.fused_ffn_bwd.launches == 0
+
+
+@pytest.mark.parametrize("act", FF.ACTS)
+def test_forward_matches_jax_bf16_every_activation(act):
+    """The forward's plain version (what the card's bf16 tensor-core body is
+    held to) against the interpret-mode Pallas forward in bf16, for all six
+    activations: two bf16 ulps of the largest output."""
+    *args, _ = _inputs(3)
+    xs = [jnp.asarray(a, jnp.bfloat16) for a in args]
+    ref = np.asarray(jax_ffn.fused_ffn(*xs, act, 1024, True), np.float32)
+    y = FF.fused_ffn(*(torch.tensor(a, dtype=torch.bfloat16) for a in args), act)
+    assert y.dtype == torch.bfloat16
+    assert np.abs(y.float().numpy() - ref).max() <= 2.0 ** -6 * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype,D,Fi,body", [
+    (torch.bfloat16, 64, 128, "mma"), (torch.float32, 64, 128, "cuda"),
+    (torch.bfloat16, 80, 128, "cuda"), (torch.bfloat16, 64, 100, "cuda"),
+    (torch.bfloat16, 48, 144, "mma"), (torch.bfloat16, 16, 16, "mma")])
+def test_forward_body_rule(dtype, D, Fi, body):
+    """ops/ffn.py's copy of the forward's rule (the backward's: bf16, D a
+    multiple of 16 up to 64, F a multiple of 16) and of its shared memory:
+    W1, W2 of one chunk of at most 128 columns of F and two 128-token
+    stages of x, within a block at every D it takes, whatever F."""
+    assert FF._fwd_body(dtype, D, Fi) == body
+    assert FF._fwd_mma_smem_bytes(64, 128) == 73_216
+    assert FF._fwd_mma_smem_bytes(D, Fi) <= LY._SMEM_LIMIT
+    assert FF._fwd_mma_smem_bytes(64, 1 << 14) == FF._fwd_mma_smem_bytes(64, 128)

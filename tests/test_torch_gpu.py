@@ -275,6 +275,98 @@ def test_backward_gates_match_the_kernels(cuda):
             t.numel() for t in LY._lastq_weights(params, torch.float32))
 
 
+def _layer_bwd_path_case(dev, B, seed, causal=True, act="swish", p=0.1, dtype=torch.bfloat16):
+    """The training path's layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on B
+    examples, with dy on every real row, as the layer backward is called."""
+    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
+    xp, mp, _ = LY._pad_L(x, madd, 50)
+    flat = LY._layer_weights(params, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = LY._pad_L(torch.randn(x.shape, generator=g, device=dev).to(dtype), madd, 50)[0]
+    return xp, mp, flat, dy, (2, act, 1e-10, causal, _drop(p))
+
+
+def _hold_layer_bwd(got, ref, D=64):
+    """Every output within BWD_TOL of its own largest value; the key bias's
+    gradient, zero in exact arithmetic, against the query bias's scale."""
+    (dx, grads), (rdx, rgrads) = got, ref
+    assert _rel_err(dx, rdx) <= BWD_TOL[torch.bfloat16]
+    for gr, r in zip(grads, rgrads):
+        assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16]
+    dbk, rdbq = grads[1][D:2 * D].float(), rgrads[1][:D].float()
+    assert float(dbk.abs().max()) <= BWD_TOL[torch.bfloat16] * float(rdbq.abs().max())
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("act", LY.SUPPORTED_ACTS)
+def test_layer_bwd_tensor_core_body_matches_plain(cuda, act, causal, p):
+    """Row 2's bf16 tensor-core body at the path's widths (B=33: a ragged
+    persistent grid), every activation, both masks, dropout 0 and 0.1."""
+    xp, mp, flat, dy, args = _layer_bwd_path_case(cuda, 33, 20, causal, act, p)
+    assert LY._layer_bwd_body(torch.bfloat16, 56, 64, 128, 2) == "mma"
+    before = LY.layer_bwd.launches, LY.layer_bwd.launches_mma
+    got = LY.layer_bwd(xp, mp, flat, dy, *args)
+    assert (LY.layer_bwd.launches, LY.layer_bwd.launches_mma) == (before[0] + 1, before[1] + 1)
+    _hold_layer_bwd(got, LY._layer_bwd_plain(xp, mp, flat, dy, *args))
+
+
+@pytest.mark.parametrize("B", [1, 32767])
+def test_layer_bwd_tensor_core_body_ragged_batches(cuda, B):
+    xp, mp, flat, dy, args = _layer_bwd_path_case(cuda, B, 21)
+    got = LY._layer_bwd_cuda(xp, mp, flat, dy, *args)
+    _hold_layer_bwd(got, LY._layer_bwd_plain(xp, mp, flat, dy, *args))
+
+
+def test_layer_bwd_tensor_core_masks_are_the_forwards(cuda):
+    """The same seed gives the plain version's (and so row 1's forward's)
+    masks: another seed moves the gradients far outside the tolerance."""
+    xp, mp, flat, dy, args = _layer_bwd_path_case(cuda, 33, 22)
+    dx, _ = LY._layer_bwd_cuda(xp, mp, flat, dy, *args)
+    rdx, _ = LY._layer_bwd_plain(xp, mp, flat, dy, *args[:-1], _drop(0.1, seed=4321))
+    assert _rel_err(dx, rdx) > 4 * BWD_TOL[torch.bfloat16]
+
+
+def test_layer_bwd_f32_keeps_the_cuda_core_body(cuda):
+    xp, mp, flat, dy, args = _layer_bwd_path_case(cuda, 9, 23, dtype=torch.float32)
+    assert LY._layer_bwd_body(torch.float32, 56, 64, 128, 2) == "cuda"
+    before = LY.layer_bwd.launches, LY.layer_bwd.launches_mma
+    dx, grads = LY.layer_bwd(xp, mp, flat, dy, *args)
+    assert (LY.layer_bwd.launches, LY.layer_bwd.launches_mma) == (before[0] + 1, before[1])
+    rdx, rgrads = LY._layer_bwd_plain(xp, mp, flat, dy, *args)
+    for a, r in zip((dx, *grads), (rdx, *rgrads)):
+        assert _rel_err(a, r) <= BWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
+                                       (16, 32, 64, 2),
+                                       (72, 64, 128, 2), (56, 64, 144, 2), (56, 48, 96, 3),
+                                       (56, 64, 128, 8), (56, 80, 128, 2), (8, 16, 16, 1)])
+def test_layer_bwd_body_selector(cuda, Lp, D, F, nh):
+    """csrc/layer_bwd.cu's rule and shared memory against ops/layer.py's
+    copies; where the tensor cores take a shape, the body agrees with the
+    plain backward and moves its counter."""
+    lib = _build.library("layer_bwd")
+    takes, smem = lib.unirec_layer_bwd_mma_takes, lib.unirec_layer_bwd_mma_smem_bytes
+    takes.argtypes, smem.argtypes = [ctypes.c_int] * 5, [ctypes.c_int] * 3
+    body = LY._layer_bwd_body(torch.bfloat16, Lp, D, F, nh)
+    assert bool(takes(1, Lp, D, F, nh)) == (body == "mma") and not takes(0, Lp, D, F, nh)
+    assert smem(D, F, nh) == LY._layer_bwd_mma_smem_bytes(D, F, nh)
+    if body != "mma":
+        return
+    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=24)
+    xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
+    flat = LY._layer_weights(params, torch.bfloat16)
+    dy = torch.randn(xp.shape, device=cuda).to(torch.bfloat16)
+    args = (nh, "gelu", 1e-10, True, _drop(0.1))
+    before = LY.layer_bwd.launches_mma
+    dx, grads = LY._layer_bwd_cuda(xp, mp, flat, dy, *args)
+    assert LY.layer_bwd.launches_mma == before + 1
+    rdx, rgrads = LY._layer_bwd_plain(xp, mp, flat, dy, *args)
+    for a, b in zip((dx, *grads), (rdx, *rgrads)):
+        assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_add_matches_plain_and_index_add(cuda, dtype):
     from unirec_tpu_torch.ops import scatter_accum as SA
@@ -695,6 +787,52 @@ def test_fused_ffn_body_selector(cuda, D, Fi):
     assert FF.fused_ffn_bwd.launches_mma == before + (body == "mma")
     for a, b in zip(got, FF._bwd_plain(x, w1, b1, w2, b2, dy, "gelu")):
         assert _rel(a, b) <= ATT_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("T", [1, 33, 32767])
+@pytest.mark.parametrize("act", ["relu", "swish", "gelu", "tanh", "sigmoid", "leakyrelu"])
+def test_fused_ffn_forward_tensor_core_body_matches_plain(cuda, act, T):
+    """Row 12's bf16 tensor-core body at the path's widths (D=64, F=128) and
+    token counts that are not a multiple of its 128-token tile: within two
+    bf16 ulps of the largest output; its counter rises, and f32 keeps the
+    CUDA-core body."""
+    from unirec_tpu_torch.ops import ffn as FF
+    g = torch.Generator(device=cuda).manual_seed(12)
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=g, device=cuda) * std  # noqa: E731
+    ws = (rn(64, 128, std=0.2), rn(128, std=0.1), rn(128, 64, std=0.2), rn(64, std=0.1))
+    x = rn(T, 64)
+    for dt, body in ((torch.bfloat16, "mma"), (torch.float32, "cuda")):
+        args = (x.to(dt), *(w.to(dt) for w in ws), act)
+        assert FF._fwd_body(dt, 64, 128) == body
+        before = FF.fused_ffn.launches, FF.fused_ffn.launches_mma
+        y = FF._fwd_cuda(*args)
+        assert FF.fused_ffn.launches == before[0] + 1
+        assert FF.fused_ffn.launches_mma == before[1] + (body == "mma")
+        ref = FF._fwd_plain(*args)
+        assert y.dtype == dt and y.shape == (T, 64)
+        assert float((y.float() - ref.float()).abs().max()) <= \
+            ATT_TOL[dt] * max(1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("D,Fi", [(16, 16), (48, 144), (64, 512), (32, 2048)])
+def test_fused_ffn_forward_tensor_core_widths(cuda, D, Fi):
+    """The forward's tensor-core body at other widths its rule takes: F in
+    one chunk of at most 128 columns, or in chunks whose y sums stay in
+    registers; its shared memory matches ops/ffn.py's copy."""
+    from unirec_tpu_torch.ops import ffn as FF
+    lib = _build.library("ffn")
+    smem = lib.unirec_ffn_fwd_mma_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 2
+    assert smem(D, Fi) == FF._fwd_mma_smem_bytes(D, Fi) <= LY._SMEM_LIMIT
+    g = torch.Generator(device=cuda).manual_seed(13)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=cuda) * std).to(  # noqa: E731
+        torch.bfloat16)
+    x, w1, b1, w2, b2 = (rn(1001, D), rn(D, Fi, std=(2 / D) ** 0.5), rn(Fi, std=0.1),
+                         rn(Fi, D, std=(1 / Fi) ** 0.5), rn(D, std=0.1))
+    before = FF.fused_ffn.launches_mma
+    y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
+    assert FF.fused_ffn.launches_mma == before + 1
+    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("D,Fi", [(64, 2048), (256, 1024)])

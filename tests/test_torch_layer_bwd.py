@@ -218,3 +218,116 @@ def test_backward_gates_admit_the_bench_shape():
     assert LY.fused_layer_supported(torch.zeros(2, 50, 64), "swish", 2, 128)
     assert LY._layer_bwd_smem_bytes(56, 64, 128, 2) <= LY._SMEM_LIMIT
     assert LY._lastq_bwd_smem_bytes(56, 64, 128, 2) <= LY._SMEM_LIMIT
+
+
+# ------------------------------------------- the bench's length, the tensor-core body's rule
+def _case_bf16(L, seed, causal, B=3, D=32, F=64):
+    """The bench's sequence shape at small widths: madd from padded
+    sequences (example 0 fully padded), weights scaled so the bf16 layer
+    stays O(1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, L, D)).astype(np.float32)
+    seq = rng.integers(0, 3, size=(B, L))
+    seq[:, -3:] = 1
+    seq[0] = 0
+    mask = jax_modules.causal_attention_mask(jnp.asarray(seq), bidirectional=not causal)
+    madd = np.array(mask[:, 0, -1, :], np.float32)
+    lin = lambda i, o: (rng.normal(size=(i, o)).astype(np.float32) * (1.0 / i) ** 0.5,  # noqa: E731
+                        rng.normal(size=(o,)).astype(np.float32) * 0.05)
+    ln = lambda: ((1 + 0.1 * rng.normal(size=D)).astype(np.float32),  # noqa: E731
+                  (0.1 * rng.normal(size=D)).astype(np.float32))
+    params = (lin(D, D), lin(D, D), lin(D, D), lin(D, D), ln(), lin(D, F), lin(F, D), ln())
+    return x, madd, params
+
+
+def _rel_close(got, ref, tol):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    err = float(np.abs(got - ref).max())
+    assert err <= tol * max(float(np.abs(ref).max()), 1e-30), (err, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("act", ["swish", "gelu"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_layer_backward_matches_jax_at_the_bench_length_bf16(interpret, causal, act):
+    """L=50 (Lp=56, the shape the card's tensor-core body takes) in bf16,
+    dropout 0: the port's plain backward (what both card bodies are held
+    to) against jax.grad through the interpret-mode Pallas backward. Both
+    round to bf16 at the same points and sum in f32 in another order, so a
+    rounding can flip and later ones carry it: each output within 5e-2 of
+    its own largest value, the card's backward tolerance."""
+    D, Fi = 32, 64
+    x, madd, params = _case_bf16(50, 31 + causal, causal, D=D, F=Fi)
+    dy = np.random.default_rng(9).normal(size=x.shape).astype(np.float32)
+    kw = dict(n_heads=NH, inner_size=Fi, hidden_act=act, layer_norm_eps=EPS, causal=causal)
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    pt = tuple(tuple(torch.from_numpy(t.copy()).requires_grad_() for t in pair)
+               for pair in params)
+    y = LY.fused_transformer_layer(xt, torch.from_numpy(madd), pt, **kw)
+    assert y.dtype == torch.bfloat16
+    (y.float() * torch.from_numpy(dy)).sum().backward()
+    gp = [t.grad.float().numpy() for pair in pt for t in pair]
+
+    def loss(xx, pp):
+        pb = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), pp)
+        out = jax_layer.fused_transformer_layer(xx, jnp.asarray(madd), pb, p_attn=0.0,
+                                                p_hidden=0.0, train=False, **kw)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(dy))
+    jx, jp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x, jnp.bfloat16),
+                                             jax.tree_util.tree_map(jnp.asarray, params))
+    _rel_close(xt.grad.float().numpy(), np.asarray(jx, np.float32), 5e-2)
+    jp = [np.asarray(t, np.float32) for pair in jp for t in pair]
+    assert len(gp) == len(jp) == 16
+    for i, (g, j) in enumerate(zip(gp, jp)):
+        if i == 3:   # the key bias: zero in exact arithmetic, held to the query bias's scale
+            assert np.abs(g - j).max() <= 5e-2 * np.abs(jp[1]).max()
+        else:
+            _rel_close(g, j, 5e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_padding_to_64_rows_leaves_the_gradients_unchanged(causal):
+    """Pitfall 1 of the tensor-core backward, in the plain version: padding
+    an Lp=56 batch to the MMA tile's 64 rows with zero x and dy rows and
+    hard-banned (-1e30) keys leaves dx on the first 56 rows and every
+    weight gradient as they were, and gives dx = 0 exactly on the new rows
+    (f32, dropout 0: the masks' element index is counted in Lp)."""
+    x, madd, params = _case_bf16(50, 41 + causal, causal, B=4)
+    xp, mp, Lp = LY._pad_L(torch.from_numpy(x), torch.from_numpy(madd), 50)
+    assert Lp == 56
+    pt = tuple(tuple(torch.from_numpy(t) for t in pair) for pair in params)
+    flat = LY._layer_weights(pt, torch.float32)
+    dy = torch.randn(xp.shape, generator=torch.Generator().manual_seed(6))
+    dy[:, 50:] = 0.0
+    args = (NH, "swish", EPS, causal)
+    dx, grads = LY._layer_bwd_plain(xp, mp, flat, dy, *args)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 8))  # noqa: E731
+    dx64, grads64 = LY._layer_bwd_plain(pad(xp), torch.nn.functional.pad(
+        mp, (0, 8), value=LY.PAD_MASK), flat, pad(dy), *args)
+    assert torch.equal(dx64[:, 56:], torch.zeros_like(dx64[:, 56:]))
+    _close(dx64[:, :56].numpy(), dx.numpy())
+    for g64, g in zip(grads64, grads):
+        _close(g64.numpy(), g.numpy())
+
+
+@pytest.mark.parametrize("dtype,Lp,D,Fi,nh,body", [
+    (torch.bfloat16, 56, 64, 128, 2, "mma"),    # the training path's layer
+    (torch.float32, 56, 64, 128, 2, "cuda"),    # f32 stays on the CUDA cores
+    (torch.bfloat16, 64, 64, 128, 4, "mma"),    # Lp at the tile's 64, head width 16
+    (torch.bfloat16, 72, 64, 128, 2, "cuda"),   # Lp past one 64-row tile
+    (torch.bfloat16, 56, 48, 112, 3, "mma"),
+    (torch.bfloat16, 56, 80, 128, 2, "cuda"),   # D past 64 (head width 40)
+    (torch.bfloat16, 56, 64, 112, 2, "mma"),
+    (torch.bfloat16, 56, 64, 144, 2, "cuda"),   # its buffers pass a block's shared memory
+    (torch.bfloat16, 56, 64, 256, 2, "cuda"),
+    (torch.bfloat16, 56, 64, 128, 8, "cuda"),   # head width 8
+])
+def test_layer_bwd_body_rule(dtype, Lp, D, Fi, nh, body):
+    """ops/layer.py's copy of csrc/layer_bwd.cu's rule at its boundaries
+    (tests/test_torch_gpu.py holds the two together on the card): the
+    tensor-core body's shared memory fits a block wherever the rule takes
+    a shape, and is 226,304 bytes at the training path's widths."""
+    assert LY._layer_bwd_body(dtype, Lp, D, Fi, nh) == body
+    smem = LY._layer_bwd_mma_smem_bytes(D, Fi, nh)
+    assert (smem <= LY._SMEM_LIMIT) or body == "cuda"
+    assert LY._layer_bwd_mma_smem_bytes(64, 128, 2) == 226_304

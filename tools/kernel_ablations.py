@@ -4,13 +4,17 @@
     python3 tools/kernel_ablations.py
 
 Builds scratch copies of unirec_tpu_torch/csrc/flash_attention.cu (row 9),
-csrc/attention.cu (rows 10 and 11) and csrc/ffn.cu (row 13) with one part
-of the bf16 body removed, each with the port's nvcc flags into
+csrc/attention.cu (rows 10 and 11), csrc/ffn.cu (rows 12 and 13) and
+csrc/layer_bwd.cu (row 2) with one part of the bf16 body removed, each with the port's nvcc flags into
 build/ablations/, and times every copy against the unmodified kernel, in
 turns, at the shapes of the paths chip_smoke.py drives: flash attention at
 B=8,192, H=2, L=256, hd=32 with the long path's mask; the fused-attention
 backward and forward at B=32,768, H=2, L=50, hd=32, at dropout 0 and 0.1;
-the FFN backward at 1,638,400 tokens, D=64, F=128, swish. A copy computes
+the FFN backward and forward at 1,638,400 tokens, D=64, F=128, swish; the
+whole-layer backward at B=32,768, L=50 (Lp=56), D=64, 2 heads, F=128,
+dropout 0.1 (its variants: copies alone, no activation math, no Philox
+draws, no per-example weight-gradient flush into the block's slab, the cost
+of that design choice). A copy computes
 wrong results by design; only its time means anything. Beside them it
 times a copy of the inputs (the bytes' floor on this card). Prints the
 card, then one JSON line per kernel with the median of each variant's
@@ -69,6 +73,33 @@ VARIANTS = [
         ("    // dx = rnd(dh) W1^T for this warp's strip and half of D\n    {", "    if (false) {"),
         ("    if (strip < D16) {\n#pragma unroll\n      for (int kc", "    if (false) {\n#pragma unroll\n      for (int kc"),
         ("    if (warp * 16 < fc) {\n#pragma unroll\n      for (int kc", "    if (false) {\n#pragma unroll\n      for (int kc")]),
+    ("ffn_fwd_no_activation", "ffn", [
+        ("act_pair<A>(pre[n][e] + b1s[kc * 16 + n * 8 + 2 * t + (e & 1)], h[n][e], d);",
+         "h[n][e] = pre[n][e] + b1s[kc * 16 + n * 8 + 2 * t + (e & 1)]; d = 0.0f;")]),
+    ("ffn_fwd_copies_only", "ffn", [
+        ("    for (int ch = 0; ch < nch; ++ch) {\n      if (nch > 1) {  // every warp",
+         "    for (int ch = 0; ch < 0; ++ch) {\n      if (nch > 1) {  // every warp")]),
+    # row 2: the per-example weight-gradient flush into the block's slab
+    # (the weight-gradient products and their slab round trips), the design
+    # chosen because the 134 KB of f32 sums fit neither beside the weights
+    # and tiles in shared memory nor in registers. On an NVIDIA H100 80GB
+    # HBM3 at 700 W, B=32,768, dropout 0.1: 14.12 ms with it, 11.48 without.
+    ("layer_bwd_no_weight_flush", "layer_bwd", [
+        ("  for (int base = warp; base < tiles; base += kMmaWarps * kFlushBatch) {",
+         "  for (int base = warp; base < 0; base += kMmaWarps * kFlushBatch) {")]),
+    ("layer_bwd_no_philox", "layer_bwd", [
+        ("      eps, dr);\n  return (int)cudaGetLastError();",
+         "      eps, Drop{dr.seed, 0u, 0u, dr.inv_attn, dr.inv_hidden});\n"
+         "  return (int)cudaGetLastError();")]),
+    ("layer_bwd_no_activation", "layer_bwd", [
+        ("              act_pair<A>(u0, h0, d);\n              act_pair<A>(u1, h1, d);",
+         "              h0 = u0; h1 = u1; d = 0.0f;"),
+        ("              act_pair<A>(bfv(p), h, d0);\n              act_pair<A>(bfv(p + 1), h, d1);",
+         "              d0 = bfv(p); d1 = bfv(p + 1); h = 0.0f;")]),
+    ("layer_bwd_copies_only", "layer_bwd", [
+        ("  const bool active = i0 < Mp;", "  const bool active = false;"),
+        ("  for (int base = warp; base < tiles; base += kMmaWarps * kFlushBatch) {",
+         "  for (int base = warp; base < 0; base += kMmaWarps * kFlushBatch) {")]),
 ]
 
 
@@ -135,7 +166,7 @@ def main() -> int:
         print("kernel_ablations: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import attention_inputs, flash_inputs, smi_line
+    from chip_smoke import attention_inputs, flash_inputs, layer_inputs, smi_line
     from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.ops import ffn as FF
     from unirec_tpu_torch.ops import layer as LY
@@ -172,12 +203,33 @@ def main() -> int:
     T = 32768 * 50
     x, dy, w1, b1 = rn(T, 64), rn(T, 64), rn(64, 128, std=0.1), rn(128, std=0.02)
     w2, b2 = rn(128, 64, std=0.1), rn(64, std=0.02)
-    names = [n for n, src, _ in VARIANTS if src == "ffn"]
+    names = [n for n, src, _ in VARIANTS if src == "ffn" and n.startswith("ffn_bwd")]
     line = timed_variants(torch, "ffn", FF._entry, names,
                           lambda: FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"))
     line["copy_of_x_dy"] = cuda_ms(torch, lambda: [t.clone() for t in (x, dy)])
     print(json.dumps({"kernel": "fused_ffn_bwd", "tokens": T, "dims": [64, 128], "ms": line}),
           flush=True)
+    names = [n for n, src, _ in VARIANTS if src == "ffn" and n.startswith("ffn_fwd")]
+    line = timed_variants(torch, "ffn", FF._entry, names,
+                          lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish"))
+    line["copy_of_x"] = cuda_ms(torch, lambda: x.clone())
+    line["addmm_silu_addmm"] = cuda_ms(torch, lambda: torch.addmm(
+        b2, torch.nn.functional.silu(torch.addmm(b1, x, w1)), w2))
+    print(json.dumps({"kernel": "fused_ffn", "tokens": T, "dims": [64, 128], "ms": line}),
+          flush=True)
+    del x, dy
+
+    # row 2 at the training path's shape, dropout 0.1 on every site
+    xp, mp, params = layer_inputs(torch, torch.bfloat16, B=32768, seed=10)
+    flat = LY._layer_weights(params, torch.bfloat16)
+    dyl = torch.randn(xp.shape, generator=g, device="cuda").to(torch.bfloat16)
+    fargs = (2, "swish", 1e-10, True, LY.drop_params(0.1, 0.1, True, 12345))
+    names = [n for n, src, _ in VARIANTS if src == "layer_bwd"]
+    line = timed_variants(torch, "layer_bwd", LY._entry, names,
+                          lambda: LY._layer_bwd_cuda(xp, mp, flat, dyl, *fargs))
+    line["copy_of_x_dy"] = cuda_ms(torch, lambda: [t.clone() for t in (xp, dyl)])
+    print(json.dumps({"kernel": "layer_bwd", "shape": list(xp.shape), "p_drop": 0.1,
+                      "ms": line}), flush=True)
     return 0
 
 

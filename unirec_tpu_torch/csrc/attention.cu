@@ -69,8 +69,9 @@
 // keying the backward replays, z = rnd(keep ? y / (1 - p) : 0) straight
 // from the registers as the A fragments of O = z V (V by ldmatrix.trans),
 // and rnd(O) out through the strip's own Q rows to 16-byte stores. The
-// strip code (strip_abt, strip_softmax, strip_keep, strip_av) is shared
-// with the backward, so the two cannot drift apart.
+// strip code (csrc/strip.cuh: strip_abt, strip_softmax, strip_keep,
+// strip_av, key_strip_grads) is shared with the backward and with the
+// whole-layer backward (csrc/layer_bwd.cu), so they cannot drift apart.
 //
 // bf16 backward at L <= 64, hd <= 64 (attn_bwd_mma_kernel): the backward
 // above spends its time on five f32 CUDA-core products per (example, head)
@@ -91,7 +92,7 @@
 // plain versions within their tolerances, not bit for bit; their dropout
 // masks are the plain version's bit for bit. f32 inputs and longer or wider
 // sequences keep the CUDA-core bodies.
-#include "common.cuh"
+#include "strip.cuh"
 
 using namespace unirec;
 
@@ -505,7 +506,7 @@ attn_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // See the notes at the top of this file.
 constexpr int kMmaMaxLen = 64;       // ops/attention.py::MMA_MAX_LEN
 constexpr int kMmaMaxHd = 64;        // ::MMA_MAX_HEAD_DIM
-constexpr int kNT = kMmaMaxLen / 8;  // key tiles of 8 that a strip's registers hold
+static_assert(kNT * 8 == kMmaMaxLen, "a strip's registers hold every key");
 constexpr int kMmaWarps = 8;         // warps of a forward block, at most
 constexpr int kStageBudget = 48 * 1024;  // bytes of one forward stage, at most
 
@@ -581,122 +582,6 @@ __device__ void stage_mask(float* dst, const float* __restrict__ src, int L, boo
   }
 }
 
-// Per 16-row strip of one head, in a warp's registers (lane = 4g + t): the
-// element (n, e) is row i0 + g + (e >> 1) * 8 and key n * 8 + 2t + (e & 1).
-//
-// acc = A B^T for the strip's rows of A and every key row of B, both [Lp][HD16
-// * 16 + 8] bf16 in shared memory (S = Q K^T, or dZ = dO V^T), f32 sums
-template <int HD16>
-__device__ __forceinline__ void strip_abt(float acc[kNT][4], const __nv_bfloat16* A,
-                                          const __nv_bfloat16* B, int i0, int ntile, int lane) {
-  constexpr int LDH = HD16 * 16 + 8;
-#pragma unroll
-  for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-#pragma unroll
-  for (int kc = 0; kc < HD16; ++kc) {
-    uint32_t a[4];
-    ldmatrix_x4(a, A + (i0 + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      if (2 * np >= ntile) break;
-      uint32_t bk[4];
-      ldmatrix_x4(bk, B + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + kc * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * np], a, bk[0], bk[1]);
-      mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
-    }
-  }
-}
-
-// s: the strip's Q K^T -> the f32 softmax y of s * scale + mask over each
-// real row (M: this head's [L, L] f32 mask); padded keys and rows get y = 0
-__device__ __forceinline__ void strip_softmax(float s[kNT][4], const float* M, int i0, int L,
-                                              int ntile, float scale, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
-      s[n][e] = n < ntile && i < L && j < L ? s[n][e] * scale + M[i * L + j] : -CUDART_INF_F;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[n][e] = s[n][e] == -CUDART_INF_F ? 0.0f : expf(s[n][e] - mx[e >> 1]);
-      sum[e >> 1] += s[n][e];
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-  }
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (s[n][e] != 0.0f) s[n][e] /= sum[e >> 1];
-}
-
-// the strip's dropout keep bits, bit n * 4 + e: philox_bits(seed, h, b, i * L
-// + j) >= thresh, drawn once per real element (the forward's keying, which
-// the backward replays; thresh 0 keeps every one and draws nothing)
-__device__ __forceinline__ uint32_t strip_keep(uint32_t seed, uint32_t thresh, int h, int b,
-                                               int i0, int L, int ntile, int lane) {
-  // without dropout every bit is set: a padded element's y, dZ and z are 0
-  // whatever its bit
-  if (thresh == 0u) return 0xffffffffu;
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t keep = 0u;
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = i0 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
-      const bool kp = n < ntile && i < L && j < L && kept(seed, thresh, h, b, i * L + j);
-      keep |= (uint32_t)kp << (n * 4 + e);
-    }
-  return keep;
-}
-
-// z = keep ? y / (1 - p) : 0 of element (n, e), in f32 (rounded to bf16 by
-// the caller)
-__device__ __forceinline__ float dropped(const float s[kNT][4], uint32_t keep, int n, int e,
-                                         float inv) {
-  return (keep >> (n * 4 + e)) & 1u ? s[n][e] * inv : 0.0f;
-}
-
-// acc[d] (16 x 8 output columns d) += A B for the strip, A (16 x Lp) given
-// as 16-key A fragments by afrag(kc, a), B = [Lp][HD16 * 16 + 8] bf16 rows
-// (O = z V, or dQ = ds K), through ldmatrix.trans
-template <int HD16, typename AF>
-__device__ __forceinline__ void strip_av(float acc[HD16 * 2][4], AF afrag,
-                                         const __nv_bfloat16* B, int ntile, int lane) {
-  constexpr int LDH = HD16 * 16 + 8;
-#pragma unroll
-  for (int kc = 0; kc < kNT / 2; ++kc) {
-    if (2 * kc >= ntile) break;
-    uint32_t a[4];
-    afrag(kc, a);
-#pragma unroll
-    for (int dp = 0; dp < HD16; ++dp) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(bv, B + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + dp * 16 +
-                                (lane >> 4) * 8);
-      mma_bf16(acc[2 * dp], a, bv[0], bv[1]);
-      mma_bf16(acc[2 * dp + 1], a, bv[2], bv[3]);
-    }
-  }
-}
-
 // The forward (row 10). A persistent grid walks work items (example b, group
 // of G heads); two shared-memory stages hold one item's Q, K, V and mask
 // each, and the next item's copies are in flight (cp.async) while this one
@@ -752,8 +637,9 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       __nv_bfloat16* Qh = Ops(st) + hh * opnd;
       const __nv_bfloat16* Vh = Ops(st) + (2 * G + hh) * opnd;
       float s[kNT][4];
-      strip_abt<HD16>(s, Qh, Ops(st) + (G + hh) * opnd, i0, ntile, lane);
-      strip_softmax(s, Ms(st) + (Hm > 1 ? hh : 0) * mask_floats, i0, L, ntile, scale, lane);
+      strip_abt<HD16>(s, Qh, LDH, Ops(st) + (G + hh) * opnd, LDH, i0, ntile, lane);
+      const float* Mh = Ms(st) + (Hm > 1 ? hh : 0) * mask_floats;
+      strip_softmax(s, [&](int i, int j) { return Mh[i * L + j]; }, i0, L, ntile, scale, lane);
       const uint32_t keep = strip_keep(seed, thresh, h, b, i0, L, ntile, lane);
       float o[NDT][4];
 #pragma unroll
@@ -765,7 +651,7 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
           const int n = 2 * kc + r / 2, e = 2 * (r & 1);
           a[r] = pack_bf16(dropped(s, keep, n, e, inv), dropped(s, keep, n, e + 1, inv));
         }
-      }, Vh, ntile, lane);
+      }, Vh, LDH, ntile, lane);
       // out = rnd(O) through the strip's Q rows (this warp alone reads them)
       __syncwarp();
 #pragma unroll
@@ -846,9 +732,9 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   if (warp * 16 < Lp) {
     const int i0 = warp * 16;
     float s[kNT][4], dz[kNT][4];
-    strip_abt<HD16>(s, Qs, Ks, i0, ntile, lane);
-    strip_abt<HD16>(dz, DOs, Vs, i0, ntile, lane);
-    strip_softmax(s, Ms, i0, L, ntile, scale, lane);
+    strip_abt<HD16>(s, Qs, LDH, Ks, LDH, i0, ntile, lane);
+    strip_abt<HD16>(dz, DOs, LDH, Vs, LDH, i0, ntile, lane);
+    strip_softmax(s, [&](int i, int j) { return Ms[i * L + j]; }, i0, L, ntile, scale, lane);
     // dy = dropout(dZ) with the forward's keep bits, t = sum dy y
     const uint32_t keep = strip_keep(seed, thresh, h, b, i0, L, ntile, lane);
     float tsum[2] = {0.0f, 0.0f};
@@ -892,7 +778,7 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         a[r] = pack_bf16(s[2 * kc + r / 2][2 * (r & 1)], s[2 * kc + r / 2][2 * (r & 1) + 1]);
-    }, Ks, ntile, lane);
+    }, Ks, LDH, ntile, lane);
 #pragma unroll
     for (int d = 0; d < NDT; ++d)
 #pragma unroll
@@ -910,28 +796,7 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   if (warp * 16 < Lp) {
     const int j0 = warp * 16;
     float av[NDT][4], ak[NDT][4];
-#pragma unroll
-    for (int d = 0; d < NDT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) av[d][e] = ak[d][e] = 0.0f;
-    for (int ic = 0; ic < Lp / 16; ++ic) {
-      uint32_t za[4], sa[4];
-      const int off = (ic * 16 + (lane & 7) + (lane >> 4) * 8) * ldz + j0 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4_trans(za, Zs + off);
-      ldmatrix_x4_trans(sa, DSs + off);
-#pragma unroll
-      for (int dp = 0; dp < HD16; ++dp) {
-        const int offb = (ic * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + dp * 16 +
-                         (lane >> 4) * 8;
-        uint32_t bo[4], bq[4];
-        ldmatrix_x4_trans(bo, DOs + offb);
-        ldmatrix_x4_trans(bq, Qs + offb);
-        mma_bf16(av[2 * dp], za, bo[0], bo[1]);
-        mma_bf16(av[2 * dp + 1], za, bo[2], bo[3]);
-        mma_bf16(ak[2 * dp], sa, bq[0], bq[1]);
-        mma_bf16(ak[2 * dp + 1], sa, bq[2], bq[3]);
-      }
-    }
+    key_strip_grads<HD16>(av, ak, Zs, DSs, ldz, DOs, LDH, Qs, LDH, j0, Lp / 16, lane);
 #pragma unroll
     for (int d = 0; d < NDT; ++d)
 #pragma unroll

@@ -25,8 +25,8 @@
 // the backward reads x and dy and writes dx, 0.19 ms, against 134 GFLOP
 // (0.14 ms): bound by bytes too.
 //
-// CUDA-core bodies (the forward; the backward in f32 and at widths the
-// tensor-core body does not take). A block stages a tile of tokens in
+// CUDA-core bodies (both directions in f32 and at widths the tensor-core
+// bodies do not take). A block stages a tile of tokens in
 // shared memory as f32 and computes the tile's activation there, never
 // writing it out, reading the weights through L1/L2 (transposed copies for
 // the products with W^T, so a warp's loads stay coalesced). The products
@@ -55,6 +55,24 @@
 // a thread) for the block's life and are written once into its slab. With
 // one chunk the block writes dx in bf16; with several each writes its f32
 // part and the wrapper sums the parts.
+//
+// bf16 forward at D <= 64 (ffn_fwd_mma_kernel, the backward's rule): the
+// CUDA-core forward spends 4.75 ms at 1.64M tokens on an H100 (80GB HBM3,
+// 700 W), 38x its bound, on f32
+// scalar products with the weights read through L1/L2, an f32 token tile in
+// shared memory, two barriers per F chunk and the activation written to
+// shared memory and read back. Here a persistent grid of 8-warp blocks
+// keeps W1 and W2 (one chunk of at most 128 columns of F) in bf16 shared
+// memory for the block's life, and 128-token tiles of x arrive through a
+// two-stage cp.async ring. A warp owns 16 rows: its x stays in registers as
+// A fragments; for each 16 columns of F, pre = x W1 by MMA into f32
+// registers, + b1, h = act(pre) in f32 on the accumulator fragments
+// (act_pair), and the m16n8 accumulator pair is repacked in registers as
+// the A fragment of y += rnd(h) W2 (the layout of C tiles n and n+1 is the
+// layout of one 16-wide A tile), so h never touches shared memory. y's f32
+// sums stay in registers across the F chunks; + b2, rounded, out through
+// the strip's own x rows as 16-byte stores. The pre-activation is not
+// rounded before act, as ffn.py:66 (unlike the layer kernels' _dense).
 #include "common.cuh"
 
 using namespace unirec;
@@ -497,6 +515,177 @@ ffn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
     for (int c = threadIdx.x; c < D; c += blockDim.x) db2[c] = db2s[c];
 }
 
+// --------------------------------------- bf16 tensor-core forward (D <= 64)
+// See the note at the top of this file. Same rule as the backward
+// (mma_takes); the weights of one chunk of at most kMmaFc columns of F stay
+// in shared memory, loaded once when F has one chunk, and again for every
+// tile when it has several (widths no path runs).
+constexpr int kFwdMmaWarps = 8;
+constexpr int kFwdMmaRows = 16 * kFwdMmaWarps;  // tokens per tile: a strip a warp
+
+// W1 [D][fc + 8] and W2 [fc][D + 8] bf16 (fc = min(F, kMmaFc)); two stages
+// of X [128][D + 8] bf16; b1 of the chunk, f32 [kMmaFc]
+__host__ __device__ inline int fwd_mma_smem_bytes(int D, int F) {
+  const int fc = F < kMmaFc ? F : kMmaFc;
+  return 2 * (D * (fc + 8) + fc * (D + 8) + 2 * kFwdMmaRows * (D + 8)) + 4 * kMmaFc;
+}
+
+template <int D16>
+__global__ void __launch_bounds__(32 * kFwdMmaWarps, 2)
+ffn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
+                   const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
+                   const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ y, int Tn,
+                   int F, int act) {
+  constexpr int D = D16 * 16, LDX = D + 8, D8 = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int fcmax = min(F, kMmaFc), LDF = fcmax + 8, nch = mma_chunks(F);
+  __nv_bfloat16* W1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [D][LDF]
+  __nv_bfloat16* W2s = W1s + D * LDF;                                 // [fc][LDX]
+  __nv_bfloat16* Xr = W2s + fcmax * LDX;              // [2 stages][128][LDX]
+  float* b1s = reinterpret_cast<float*>(Xr + 2 * kFwdMmaRows * LDX);  // [kMmaFc]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int i0 = warp * 16;
+  const int tiles = (Tn + kFwdMmaRows - 1) / kFwdMmaRows;
+
+  auto load_tile = [&](int tile, int st) {
+    const int r0 = tile * kFwdMmaRows;
+    __nv_bfloat16* dst = Xr + st * kFwdMmaRows * LDX;
+    for (int w = threadIdx.x; w < kFwdMmaRows * D8; w += blockDim.x) {
+      const int i = w / D8, c = w % D8;
+      const bool in = r0 + i < Tn;
+      cp_async16(dst + i * LDX + c * 8, x + (size_t)(in ? r0 + i : 0) * D + c * 8, in);
+    }
+  };
+  // chunk ch's weights W1[:, f0:f0+fc], W2[f0:f0+fc, :] and b1[f0:f0+fc]
+  auto load_chunk = [&](int ch) {
+    const int f0 = ch * kMmaFc, fc = min(kMmaFc, F - f0);
+    for (int w = threadIdx.x; w < D * (fc / 8); w += blockDim.x) {
+      const int d = w / (fc / 8), c = w % (fc / 8);
+      cp_async16(W1s + d * LDF + c * 8, w1 + (size_t)d * F + f0 + c * 8, true);
+    }
+    for (int w = threadIdx.x; w < fc * D8; w += blockDim.x) {
+      const int f = w / D8, c = w % D8;
+      cp_async16(W2s + f * LDX + c * 8, w2 + (size_t)(f0 + f) * D + c * 8, true);
+    }
+    for (int i = threadIdx.x; i < kMmaFc; i += blockDim.x)
+      b1s[i] = i < fc ? __bfloat162float(b1[f0 + i]) : 0.0f;
+  };
+  // this thread's output columns' b2
+  float b2r[D8][2];
+#pragma unroll
+  for (int n = 0; n < D8; ++n) {
+    b2r[n][0] = __bfloat162float(b2[n * 8 + 2 * t]);
+    b2r[n][1] = __bfloat162float(b2[n * 8 + 2 * t + 1]);
+  }
+  if (nch == 1) load_chunk(0);
+  int tile = blockIdx.x;
+  if (tile < tiles) load_tile(tile, 0);
+  cp_async_commit();
+
+  for (int st = 0; tile < tiles; tile += gridDim.x, st ^= 1) {
+    if (tile + (int)gridDim.x < tiles) load_tile(tile + gridDim.x, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and, first, the weights) have landed
+    __syncthreads();
+    __nv_bfloat16* X = Xr + st * kFwdMmaRows * LDX;
+    // the strip's x as A fragments, held for every F column
+    uint32_t ax[D16][4];
+#pragma unroll
+    for (int kc = 0; kc < D16; ++kc) frag_a(ax[kc], X, LDX, i0, kc * 16, lane);
+    float acc[D8][4];
+#pragma unroll
+    for (int n = 0; n < D8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+    for (int ch = 0; ch < nch; ++ch) {
+      if (nch > 1) {  // every warp is past the previous chunk's weights
+        __syncthreads();
+        load_chunk(ch);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int fc = min(kMmaFc, F - ch * kMmaFc);
+      with_act(act, [&](auto tag) {
+        constexpr int A = decltype(tag)::value;
+        // 16 columns of F at a time: pre = x W1 + b1 in f32 registers, h =
+        // act(pre), rnd(h) repacked in registers as the A fragment of y += h W2
+        for (int kc = 0; kc < fc / 16; ++kc) {
+          float pre[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+          for (int kd = 0; kd < D16; ++kd) {
+            uint32_t bw[4];
+            frag_b_t(bw, W1s, LDF, kc * 16, kd * 16, lane);
+            mma_bf16(pre[0], ax[kd], bw[0], bw[1]);
+            mma_bf16(pre[1], ax[kd], bw[2], bw[3]);
+          }
+          float h[2][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float d;
+              act_pair<A>(pre[n][e] + b1s[kc * 16 + n * 8 + 2 * t + (e & 1)], h[n][e], d);
+            }
+          // A fragment: a0 = (g, 2t..), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),
+          // a3 = (g + 8, 2t + 8..): accumulator tile n = 0 gives columns
+          // 2t.., tile 1 columns 2t + 8..
+          const uint32_t ah[4] = {pack_bf16(h[0][0], h[0][1]), pack_bf16(h[0][2], h[0][3]),
+                                  pack_bf16(h[1][0], h[1][1]), pack_bf16(h[1][2], h[1][3])};
+#pragma unroll
+          for (int np = 0; np < D16; ++np) {
+            uint32_t b[4];
+            frag_b_t(b, W2s, LDX, np * 16, kc * 16, lane);
+            mma_bf16(acc[2 * np], ah, b[0], b[1]);
+            mma_bf16(acc[2 * np + 1], ah, b[2], b[3]);
+          }
+        }
+      });
+    }
+    // y = rnd(sum + b2) through the strip's own X rows (this warp alone
+    // reads them), then out as 16-byte stores
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < D8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<__nv_bfloat162*>(X + (i0 + g + r * 8) * LDX + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[n][2 * r] + b2r[n][0], acc[n][2 * r + 1] + b2r[n][1]);
+    __syncwarp();
+    const int r0 = tile * kFwdMmaRows + i0;
+    for (int c = lane; c < 16 * D8; c += 32) {
+      const int i = c / D8, cc = c % D8;
+      if (r0 + i < Tn)
+        *reinterpret_cast<uint4*>(y + (size_t)(r0 + i) * D + cc * 8) =
+            *reinterpret_cast<const uint4*>(X + (i0 + i) * LDX + cc * 8);
+    }
+    __syncthreads();  // this stage is consumed before the next copy into it
+  }
+  cp_async_wait<0>();
+}
+
+template <int D16>
+int launch_fwd_mma_d(const void* x, const void* w1, const void* b1, const void* w2,
+                     const void* b2, void* y, int Tn, int F, int act, cudaStream_t stream) {
+  const int smem = fwd_mma_smem_bytes(D16 * 16, F);
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_fwd_mma_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ffn_fwd_mma_kernel<D16>,
+                                                           32 * kFwdMmaWarps, smem)) != cudaSuccess)
+    return (int)err;
+  const int tiles = (Tn + kFwdMmaRows - 1) / kFwdMmaRows;
+  int grid = sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > tiles) grid = tiles;
+  if (grid < 1) return (int)cudaSuccess;  // no tokens
+  ffn_fwd_mma_kernel<D16><<<grid, 32 * kFwdMmaWarps, smem, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w1, (const __nv_bfloat16*)b1,
+      (const __nv_bfloat16*)w2, (const __nv_bfloat16*)b2, (__nv_bfloat16*)y, Tn, F, act);
+  return (int)cudaGetLastError();
+}
+
 template <int D16>
 int mma_blocks_d(int Tn, int F) {
   const int smem = mma_smem_bytes(D16 * 16, F);
@@ -605,6 +794,11 @@ int unirec_ffn_bwd_mma_takes(int dtype, int D, int F) { return (int)mma_takes(dt
 
 int unirec_ffn_bwd_mma_smem_bytes(int D, int F) { return mma_smem_bytes(D, F); }
 
+// the bf16 tensor-core forward's bytes of dynamic shared memory; it runs
+// where unirec_ffn_bwd_mma_takes says so (ops/ffn.py::_fwd_body and
+// _fwd_mma_smem_bytes hold copies)
+int unirec_ffn_fwd_mma_smem_bytes(int D, int F) { return fwd_mma_smem_bytes(D, F); }
+
 // The backward's persistent grid for Tn tokens, or minus a cudaError_t: the
 // CUDA-core body's (SMs x resident blocks per SM, at most one block per
 // tile), or, where unirec_ffn_bwd_mma_takes says so, the tensor-core body's
@@ -625,11 +819,24 @@ int unirec_ffn_bwd_blocks(int dtype, int Tn, int D, int F) {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y and the weights, all contiguous;
 // w1 [D, F], w2 [F, D] in the flax layout). act: an index of
-// ops/ffn.py::ACTS. Returns a cudaError_t.
+// ops/ffn.py::ACTS. mma 1 runs the bf16 tensor-core body, which takes only
+// what unirec_ffn_bwd_mma_takes admits (x, w1, w2 and y 16-byte aligned);
+// mma 0 the CUDA-core body, which takes every dtype and width. Returns a
+// cudaError_t.
 int unirec_ffn_fwd(int dtype, const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* y, int Tn, int D, int F,
-                   int act, void* stream) {
+                   int act, int mma, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (mma) {
+    if (!mma_takes(dtype, D, F)) return (int)cudaErrorInvalidValue;
+    switch (D / 16) {
+      case 1: return launch_fwd_mma_d<1>(x, w1, b1, w2, b2, y, Tn, F, act, s);
+      case 2: return launch_fwd_mma_d<2>(x, w1, b1, w2, b2, y, Tn, F, act, s);
+      case 3: return launch_fwd_mma_d<3>(x, w1, b1, w2, b2, y, Tn, F, act, s);
+      case 4: return launch_fwd_mma_d<4>(x, w1, b1, w2, b2, y, Tn, F, act, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0) return launch_fwd<float>(x, w1, b1, w2, b2, y, Tn, D, F, act, s);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(x, w1, b1, w2, b2, y, Tn, D, F, act, s);

@@ -15,13 +15,13 @@ gradients summed in f32 and cast to each weight's dtype
 (ffn.py:62-101, :201-202). ``fused_ffn.launches`` and
 ``fused_ffn_bwd.launches`` count kernel launches.
 
-Bodies. The forward, and the backward in f32 or at widths the tensor cores
-do not take, run on the CUDA cores; they hold at most 128 columns of F at
-once and a row tile that shrinks as D grows (``_rows``), so every D <=
-2048 launches at any F. A bf16 backward with D a multiple of 16 up to 64
-and F a multiple of 16 runs on the tensor cores (``_bwd_body``;
-``fused_ffn_bwd.launches_mma`` counts it), held to the plain version within
-the backward tolerance.
+Bodies. Both directions in f32 or at widths the tensor cores do not take
+run on the CUDA cores; they hold at most 128 columns of F at once and a row
+tile that shrinks as D grows (``_rows``), so every D <= 2048 launches at any
+F. In bf16 with D a multiple of 16 up to 64 and F a multiple of 16 both
+directions run on the tensor cores (``_fwd_body``, ``_bwd_body``; counted by
+``fused_ffn.launches_mma`` and ``fused_ffn_bwd.launches_mma``), held to the
+plain versions within their tolerances.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from unirec_tpu_torch.ops import _build
-from unirec_tpu_torch.ops.layer import _DTYPES, _SMEM_LIMIT, _dispatch, _ptr
+from unirec_tpu_torch.ops.layer import _DTYPES, _SMEM_LIMIT, _aligned16, _dispatch, _ptr
 
 # activation codes of csrc/common.cuh (gelu is the erf form; leakyrelu's
 # slope is 0.01, as jax.nn.leaky_relu)
@@ -125,6 +125,20 @@ def _bwd_body(dtype: torch.dtype, D: int, Fi: int) -> str:
     return "cuda"
 
 
+def _fwd_body(dtype: torch.dtype, D: int, Fi: int) -> str:
+    """The body of csrc/ffn.cu that runs the forward: the backward's rule
+    (``mma_takes``), "mma" for the bf16 tensor-core body, else "cuda"."""
+    return _bwd_body(dtype, D, Fi)
+
+
+def _fwd_mma_smem_bytes(D: int, Fi: int) -> int:
+    """csrc/ffn.cu::fwd_mma_smem_bytes: W1 and W2 of one chunk of at most
+    128 columns of F and two 128-token stages of x in bf16 (rows padded by
+    8), and the chunk's b1 in f32."""
+    fc = min(Fi, _MMA_FC)
+    return 2 * (D * (fc + 8) + fc * (D + 8) + 2 * 128 * (D + 8)) + 4 * _MMA_FC
+
+
 def _check(x, w1, b1, w2, b2, act: str):
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (w1, b1, w2, b2)):
         raise TypeError("fused ffn takes float32 or bfloat16 operands of one dtype")
@@ -147,7 +161,7 @@ def _entry(name: str):
     lib = _build.library("ffn")
     fn = getattr(lib, f"unirec_ffn_{name}")
     if name == "fwd":
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
     elif name == "bwd":
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
@@ -172,23 +186,22 @@ def _refuse_width(D: int, Fi: int, bwd: bool):
                          "exceeds a block's shared memory")
 
 
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """t (contiguous) on a 16-byte boundary, copied if it is not: the
-    tensor-core backward moves 16 bytes at a time."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _fwd_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
     """Launch the forward kernel of csrc/ffn.cu."""
     T, D, Fi = _check(x, w1, b1, w2, b2, act)
-    _refuse_width(D, Fi, bwd=False)
+    body = _fwd_body(x.dtype, D, Fi)
+    if body == "cuda":
+        _refuse_width(D, Fi, bwd=False)
     x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
+    if body == "mma":
+        x, w1, w2 = (_aligned16(t) for t in (x, w1, w2))
     y = torch.empty_like(x)
     err = _entry("fwd")(_DTYPES[x.dtype], _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2),
-                        _ptr(b2), _ptr(y), T, D, Fi, ACTS.index(act),
+                        _ptr(b2), _ptr(y), T, D, Fi, ACTS.index(act), int(body == "mma"),
                         _build.stream_handle(x.device))
     _build.check(err, "ffn forward launch")
     fused_ffn.launches += 1
+    fused_ffn.launches_mma += body == "mma"
     return y
 
 
@@ -266,4 +279,5 @@ def fused_ffn(x, w1, b1, w2, b2, act: str = "swish") -> torch.Tensor:
 
 
 fused_ffn.launches = 0
+fused_ffn.launches_mma = 0   # of those, the bf16 tensor-core body's
 

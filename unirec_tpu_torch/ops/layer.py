@@ -19,6 +19,9 @@ and both LayerNorms run in f32; the backward casts dh2, du, do, dctx, ds
 and dq|dk|dv to the input dtype where the Pallas kernel does). A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
 launches its kernel or raises. ``<wrapper>.launches`` counts launches.
+``layer_bwd`` has two bodies: in bf16 with Lp <= 64 and D and the head
+width multiples of 16 up to 64 the tensor cores' (``_layer_bwd_body``;
+``layer_bwd.launches_mma`` counts it), else the CUDA cores'.
 
 Dropout. The TPU kernels draw on the TPU's hardware PRNG, which no other
 machine reproduces. Here the masks come from Philox4x32-10 keyed by (seed,
@@ -241,6 +244,36 @@ def _lastq_bwd_smem_bytes(Lp: int, D: int, F_: int, nh: int) -> int:
                 + 3 * F_ + 2)
 
 
+_MMA_MAX_D = 64     # csrc/layer_bwd.cu::kMmaMaxD
+_MMA_ROWS = 64      # ::kMmaRows, the most rows (Lp rounded up to 16) a block takes
+
+
+def _layer_bwd_mma_smem_bytes(D: int, F_: int, nh: int) -> int:
+    """csrc/layer_bwd.cu::mma_smem_bytes: the tensor-core backward's bf16
+    weights, two stages of x, dy (and the f32 madd row), q|k|v, dctx and the
+    per-example tiles (or z and ds of two heads, the larger), rows padded by
+    8; then the f32 bias and LayerNorm sums of its four strips and the row
+    statistics their warp pairs exchange."""
+    ldd, ldq, ldf = D + 8, 3 * D + 8, F_ + 8
+    tiles = max(2 * _MMA_ROWS * (4 * ldd + 2 * ldf), min(nh, 2) * 2 * 2 * _MMA_ROWS * 72)
+    return (2 * (D * ldq + D * ldd + D * ldf + F_ * ldd)
+            + 2 * (2 * 2 * _MMA_ROWS * ldd + 4 * _MMA_ROWS)
+            + 2 * _MMA_ROWS * (ldq + ldd) + tiles + 4 * 4 * (9 * D + F_) + 4 * 4 * 32)
+
+
+def _layer_bwd_body(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> str:
+    """The body of csrc/layer_bwd.cu that runs the backward (its rule
+    ``mma_takes``): "mma", the bf16 tensor-core body (Lp <= 64, D and the
+    head width multiples of 16 up to 64, F a multiple of 16, its shared
+    memory within a block's); else "cuda", the CUDA-core body."""
+    if (dtype == torch.bfloat16 and 1 <= Lp <= _MMA_ROWS and Lp % 8 == 0
+            and 16 <= D <= _MMA_MAX_D and D % 16 == 0 and nh >= 1 and D % nh == 0
+            and (D // nh) % 16 == 0 and F_ >= 16 and F_ % 16 == 0
+            and _layer_bwd_mma_smem_bytes(D, F_, nh) <= _SMEM_LIMIT):
+        return "mma"
+    return "cuda"
+
+
 def fused_layer_supported(x: torch.Tensor, hidden_act: str, n_heads: int,
                           inner_size: int | None = None) -> bool:
     """Shape gate of the four kernels, in the role of the JAX package's
@@ -296,15 +329,22 @@ def _entry(name: str, n_ptr: int, n_int: int):
 
 @functools.cache
 def _bwd_blocks(lib: str, dtype: int, B: int, Lp: int, D: int, F_: int,
-                nh: int, device_index: int) -> int:
-    """Blocks of a backward kernel's persistent grid on this card."""
+                nh: int, device_index: int, *body: int) -> int:
+    """Blocks of a backward kernel's persistent grid on this card (``body``:
+    layer_bwd's 1 for its tensor-core body, 0 for its CUDA-core one)."""
     fn = getattr(_build.library(lib), f"unirec_{lib}_blocks")
-    fn.argtypes = [ctypes.c_int] * 6
+    fn.argtypes = [ctypes.c_int] * (6 + len(body))
     fn.restype = ctypes.c_int
-    n = fn(dtype, B, Lp, D, F_, nh)
+    n = fn(dtype, B, Lp, D, F_, nh, *body)
     if n <= 0:
         _build.check(-n if n < 0 else 1, f"{lib} occupancy query")
     return n
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t (contiguous) on a 16-byte boundary, copied if it is not: the
+    tensor-core bodies move 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _transposed(flat, idx):
@@ -468,26 +508,38 @@ def _layer_fwd_cuda(x, madd, flat, nh: int, act: str, eps: float,
 
 def _layer_bwd_cuda(x, madd, flat, dy, nh: int, act: str, eps: float,
                     causal: bool, drop: Drop = NO_DROP):
-    """Launch csrc/layer_bwd.cu: (dx [B, Lp, D], weight grads)."""
+    """Launch csrc/layer_bwd.cu, the body ``_layer_bwd_body`` names: (dx
+    [B, Lp, D], weight grads)."""
     B, Lp, D, F_ = _layer_shape_check(x, madd, flat, nh, backward=True)
+    body = _layer_bwd_body(x.dtype, Lp, D, F_, nh)
     x = x.contiguous()
     dy = dy.to(x.dtype).contiguous()
     madd = madd.to(torch.float32).contiguous()
     nblk = _bwd_blocks("layer_bwd", _DTYPES[x.dtype], B, Lp, D, F_, nh,
-                       x.device.index or 0)
-    slabs = torch.empty((nblk, sum(t.numel() for t in flat)),
-                        dtype=torch.float32, device=x.device)
+                       x.device.index or 0, int(body == "mma"))
+    nslab = sum(t.numel() for t in flat)
+    if body == "mma":
+        # 16-byte copies; each block adds into its own zeroed slab; the
+        # products with W^T read the weights through ldmatrix, untransposed
+        x, dy, madd = (_aligned16(t) for t in (x, dy, madd))
+        flat = tuple(_aligned16(t) if i in (0, 2, 6, 8) else t for i, t in enumerate(flat))
+        slabs = torch.zeros((nblk, nslab), dtype=torch.float32, device=x.device)
+        wt = [None] * 4
+    else:
+        slabs = torch.empty((nblk, nslab), dtype=torch.float32, device=x.device)
+        wt = _transposed(flat, (0, 2, 6, 8))
     dx = torch.empty_like(x)
-    wt = _transposed(flat, (0, 2, 6, 8))
-    err = _entry("layer_bwd", 21, 8)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
-                           *[_ptr(t) for t in flat], *[_ptr(t) for t in wt],
+    opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
+    err = _entry("layer_bwd", 21, 9)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
+                           *[_ptr(t) for t in flat], *[opt(t) for t in wt],
                            _ptr(dy), _ptr(dx),
                            _ptr(slabs), nblk, B, Lp, D, F_, nh,
                            SUPPORTED_ACTS.index(act), int(bool(causal)),
-                           float(eps), *_drop_args(drop),
+                           int(body == "mma"), float(eps), *_drop_args(drop),
                            _build.stream_handle(x.device))
     _build.check(err, "layer_bwd launch")
     layer_bwd.launches += 1
+    layer_bwd.launches_mma += body == "mma"
     return dx, _unflatten(slabs.sum(0), flat)
 
 
@@ -500,6 +552,7 @@ def layer_bwd(x, madd, flat, dy, nh: int, act: str, eps: float, causal: bool,
 
 
 layer_bwd.launches = 0
+layer_bwd.launches_mma = 0   # of those, the bf16 tensor-core body's
 
 
 class _Fused(torch.autograd.Function):
