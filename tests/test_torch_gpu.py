@@ -367,6 +367,190 @@ def test_layer_bwd_body_selector(cuda, Lp, D, F, nh):
         assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
 
 
+# ------------------------------------ rows 1 and 4 on the tensor cores
+def _ln_tol(ref):
+    """bf16 LayerNorm outputs: 3e-2, or two bf16 ulps of the largest output
+    where that is more (an output in [4, 8) has ulp 2^-5 > 3e-2), since one
+    rounding that flips moves an output by one ulp."""
+    return max(TOL[torch.bfloat16], 2.0 ** -6 * float(ref.float().abs().max()))
+
+
+def _layer_fwd_path_case(dev, B, seed, causal=True, act="swish", p=0.1, dtype=torch.bfloat16):
+    """The paths' whole layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on B
+    examples, as fused_transformer_layer calls its forward."""
+    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
+    xp, mp, _ = LY._pad_L(x, madd, 50)
+    return xp, mp, LY._layer_weights(params, dtype), (2, act, 1e-10, causal, _drop(p))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("act", ["swish", "gelu"])
+def test_layer_fwd_tensor_core_body_matches_plain(cuda, act, causal, p):
+    """Row 1's bf16 tensor-core forward at the paths' widths (B=33: the last
+    block's second group idle), both activations of the paths, both masks,
+    dropout 0 and 0.1."""
+    xp, mp, flat, args = _layer_fwd_path_case(cuda, 33, 30, causal, act, p)
+    assert LY._layer_fwd_body(torch.bfloat16, 56, 64, 128, 2) == "mma"
+    before = LY.fused_transformer_layer.launches, LY.fused_transformer_layer.launches_mma
+    y = LY._layer_fwd_cuda(xp, mp, flat, *args)
+    assert (LY.fused_transformer_layer.launches,
+            LY.fused_transformer_layer.launches_mma) == (before[0] + 1, before[1] + 1)
+    ref = LY._layer_fwd_plain(xp, mp, flat, *args)
+    assert torch.isfinite(y).all()
+    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+
+
+@pytest.mark.parametrize("B,p", [(1, 0.1), (37, 0.1), (1000, 0.1), (256, 0.0)])
+def test_layer_fwd_tensor_core_ragged_and_serving_batches(cuda, B, p):
+    """Batches that fill no grid evenly, and the serving call (B=256, eval:
+    no dropout), on the tensor-core forward."""
+    xp, mp, flat, args = _layer_fwd_path_case(cuda, B, 31, p=p)
+    if p == 0.0:
+        args = args[:-1] + (LY.drop_params(0.1, 0.1, False, None),)
+    before = LY.fused_transformer_layer.launches_mma
+    y = LY._layer_fwd_cuda(xp, mp, flat, *args)
+    assert LY.fused_transformer_layer.launches_mma == before + 1
+    ref = LY._layer_fwd_plain(xp, mp, flat, *args)
+    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+
+
+def test_layer_fwd_f32_keeps_the_cuda_core_body(cuda):
+    xp, mp, flat, args = _layer_fwd_path_case(cuda, 9, 32, dtype=torch.float32)
+    assert LY._layer_fwd_body(torch.float32, 56, 64, 128, 2) == "cuda"
+    before = LY.fused_transformer_layer.launches, LY.fused_transformer_layer.launches_mma
+    y = LY._layer_fwd_cuda(xp, mp, flat, *args)
+    assert (LY.fused_transformer_layer.launches,
+            LY.fused_transformer_layer.launches_mma) == (before[0] + 1, before[1])
+    ref = LY._layer_fwd_plain(xp, mp, flat, *args)
+    assert float((y - ref).abs().max()) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
+                                       (16, 32, 64, 2), (72, 64, 128, 2), (56, 64, 256, 2),
+                                       (56, 64, 272, 2), (56, 48, 96, 3), (56, 64, 128, 8),
+                                       (56, 80, 128, 2), (8, 16, 16, 1)])
+def test_layer_fwd_body_selector(cuda, Lp, D, F, nh):
+    """csrc/layer_fwd.cu's rule and shared memory against ops/layer.py's
+    copies; where the tensor cores take a shape, the body agrees with the
+    plain forward and moves its counter."""
+    lib = _build.library("layer_fwd")
+    takes, smem = lib.unirec_layer_fwd_mma_takes, lib.unirec_layer_fwd_mma_smem_bytes
+    takes.argtypes, smem.argtypes = [ctypes.c_int] * 5, [ctypes.c_int] * 2
+    body = LY._layer_fwd_body(torch.bfloat16, Lp, D, F, nh)
+    assert bool(takes(1, Lp, D, F, nh)) == (body == "mma") and not takes(0, Lp, D, F, nh)
+    assert smem(D, F) == LY._layer_fwd_mma_smem_bytes(D, F)
+    if body != "mma":
+        return
+    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=33)
+    xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
+    flat = LY._layer_weights(params, torch.bfloat16)
+    args = (nh, "gelu", 1e-10, True, _drop(0.1))
+    before = LY.fused_transformer_layer.launches_mma
+    y = LY._layer_fwd_cuda(xp, mp, flat, *args)
+    assert LY.fused_transformer_layer.launches_mma == before + 1
+    ref = LY._layer_fwd_plain(xp, mp, flat, *args)
+    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+
+
+def _lastq_bwd_path_case(dev, B, seed, act="swish", p=0.1, qi=49, dtype=torch.bfloat16):
+    """The paths' last-query layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on
+    B examples, query row qi, as its backward is called."""
+    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
+    xp, mp, _ = LY._pad_L(x, madd, 50)
+    flat = LY._lastq_weights(params, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn(B, 64, generator=g, device=dev).to(dtype)
+    return xp, mp, flat, dy, (qi, 2, act, 1e-10, _drop(p))
+
+
+def _hold_lastq_bwd(got, ref):
+    """Every output within BWD_TOL of its own largest value; the key bias's
+    gradient (flat leaf 3), zero in exact arithmetic, against the query
+    bias's scale (leaf 1)."""
+    (dx, grads), (rdx, rgrads) = got, ref
+    assert torch.isfinite(dx).all()
+    assert _rel_err(dx, rdx) <= BWD_TOL[torch.bfloat16]
+    for i, (gr, r) in enumerate(zip(grads, rgrads)):
+        if i == 3:
+            err = float((gr.float() - r.float()).abs().max())
+            assert err <= BWD_TOL[torch.bfloat16] * float(rgrads[1].float().abs().max())
+        else:
+            assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("qi", [49, 20])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("act", ["swish", "gelu"])
+def test_lastq_bwd_tensor_core_body_matches_plain(cuda, act, p, qi):
+    """Row 4's bf16 tensor-core backward at the paths' widths (B=33: a
+    ragged persistent grid and a partial group of 16), both activations of
+    the paths, dropout 0 and 0.1, the query at the last real row and inside
+    another strip."""
+    xp, mp, flat, dy, args = _lastq_bwd_path_case(cuda, 33, 40, act, p, qi)
+    assert LY._lastq_bwd_body(torch.bfloat16, 56, 64, 128, 2) == "mma"
+    before = LY.lastq_bwd.launches, LY.lastq_bwd.launches_mma
+    got = LY.lastq_bwd(xp, mp, flat, dy, *args)
+    assert (LY.lastq_bwd.launches, LY.lastq_bwd.launches_mma) == (before[0] + 1, before[1] + 1)
+    _hold_lastq_bwd(got, LY._lastq_bwd_plain(xp, mp, flat, dy, *args))
+
+
+@pytest.mark.parametrize("B", [1, 37, 1000])
+def test_lastq_bwd_tensor_core_body_ragged_batches(cuda, B):
+    xp, mp, flat, dy, args = _lastq_bwd_path_case(cuda, B, 41)
+    got = LY._lastq_bwd_cuda(xp, mp, flat, dy, *args)
+    _hold_lastq_bwd(got, LY._lastq_bwd_plain(xp, mp, flat, dy, *args))
+
+
+def test_lastq_bwd_tensor_core_masks_are_the_forwards(cuda):
+    """The same seed gives the plain version's (and so row 3's forward's)
+    masks: another seed moves the gradients far outside the tolerance."""
+    xp, mp, flat, dy, args = _lastq_bwd_path_case(cuda, 33, 42)
+    dx, _ = LY._lastq_bwd_cuda(xp, mp, flat, dy, *args)
+    rdx, _ = LY._lastq_bwd_plain(xp, mp, flat, dy, *args[:-1], _drop(0.1, seed=4321))
+    assert _rel_err(dx, rdx) > 4 * BWD_TOL[torch.bfloat16]
+
+
+def test_lastq_bwd_f32_keeps_the_cuda_core_body(cuda):
+    xp, mp, flat, dy, args = _lastq_bwd_path_case(cuda, 9, 43, dtype=torch.float32)
+    assert LY._lastq_bwd_body(torch.float32, 56, 64, 128, 2) == "cuda"
+    before = LY.lastq_bwd.launches, LY.lastq_bwd.launches_mma
+    dx, grads = LY.lastq_bwd(xp, mp, flat, dy, *args)
+    assert (LY.lastq_bwd.launches, LY.lastq_bwd.launches_mma) == (before[0] + 1, before[1])
+    rdx, rgrads = LY._lastq_bwd_plain(xp, mp, flat, dy, *args)
+    for a, r in zip((dx, *grads), (rdx, *rgrads)):
+        assert _rel_err(a, r) <= BWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
+                                       (16, 32, 64, 2), (72, 64, 128, 2), (56, 64, 256, 2),
+                                       (56, 48, 96, 3), (56, 64, 128, 8), (56, 80, 128, 2),
+                                       (8, 16, 16, 1)])
+def test_lastq_bwd_body_selector(cuda, Lp, D, F, nh):
+    """csrc/lastq_bwd.cu's rule and shared memory against ops/layer.py's
+    copies; where the tensor cores take a shape, the body agrees with the
+    plain backward and moves its counter."""
+    lib = _build.library("lastq_bwd")
+    takes, smem = lib.unirec_lastq_bwd_mma_takes, lib.unirec_lastq_bwd_mma_smem_bytes
+    takes.argtypes, smem.argtypes = [ctypes.c_int] * 5, [ctypes.c_int] * 3
+    body = LY._lastq_bwd_body(torch.bfloat16, Lp, D, F, nh)
+    assert bool(takes(1, Lp, D, F, nh)) == (body == "mma") and not takes(0, Lp, D, F, nh)
+    assert smem(D, F, nh) == LY._lastq_bwd_mma_smem_bytes(D, F, nh)
+    if body != "mma":
+        return
+    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=44)
+    xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
+    flat = LY._lastq_weights(params, torch.bfloat16)
+    dy = torch.randn(17, D, device=cuda).to(torch.bfloat16)
+    args = (Lp - 4, nh, "gelu", 1e-10, _drop(0.1))
+    before = LY.lastq_bwd.launches_mma
+    dx, grads = LY._lastq_bwd_cuda(xp, mp, flat, dy, *args)
+    assert LY.lastq_bwd.launches_mma == before + 1
+    rdx, rgrads = LY._lastq_bwd_plain(xp, mp, flat, dy, *args)
+    for a, b in zip((dx, *grads), (rdx, *rgrads)):
+        assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_add_matches_plain_and_index_add(cuda, dtype):
     from unirec_tpu_torch.ops import scatter_accum as SA

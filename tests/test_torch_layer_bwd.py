@@ -331,3 +331,133 @@ def test_layer_bwd_body_rule(dtype, Lp, D, Fi, nh, body):
     smem = LY._layer_bwd_mma_smem_bytes(D, Fi, nh)
     assert (smem <= LY._SMEM_LIMIT) or body == "cuda"
     assert LY._layer_bwd_mma_smem_bytes(64, 128, 2) == 226_304
+
+
+@pytest.mark.parametrize("dtype,Lp,D,Fi,nh,body", [
+    (torch.bfloat16, 56, 64, 128, 2, "mma"),    # the paths' layer (training and serving)
+    (torch.float32, 56, 64, 128, 2, "cuda"),    # f32 stays on the CUDA cores
+    (torch.bfloat16, 64, 64, 128, 4, "mma"),    # Lp at the tile's 64, head width 16
+    (torch.bfloat16, 72, 64, 128, 2, "cuda"),   # Lp past one 64-row tile
+    (torch.bfloat16, 56, 48, 112, 3, "mma"),
+    (torch.bfloat16, 56, 80, 128, 2, "cuda"),   # D past 64 (head width 40)
+    (torch.bfloat16, 56, 64, 120, 2, "cuda"),   # F not a multiple of 16
+    (torch.bfloat16, 56, 64, 256, 2, "mma"),    # its buffers fill a block exactly
+    (torch.bfloat16, 56, 64, 272, 2, "cuda"),   # and pass it
+    (torch.bfloat16, 56, 64, 128, 8, "cuda"),   # head width 8
+])
+def test_layer_fwd_body_rule(dtype, Lp, D, Fi, nh, body):
+    """ops/layer.py's copy of csrc/layer_fwd.cu's rule at its boundaries
+    (tests/test_torch_gpu.py holds the two together on the card): the
+    tensor-core forward's shared memory fits a block wherever the rule takes
+    a shape, and is 197,632 bytes at the paths' widths (the weights once and
+    two groups' buffers)."""
+    assert LY._layer_fwd_body(dtype, Lp, D, Fi, nh) == body
+    smem = LY._layer_fwd_mma_smem_bytes(D, Fi)
+    assert (smem <= LY._SMEM_LIMIT) or body == "cuda"
+    assert LY._layer_fwd_mma_smem_bytes(64, 128) == 197_632
+    assert LY._layer_fwd_mma_smem_bytes(64, 256) == LY._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype,Lp,D,Fi,nh,body", [
+    (torch.bfloat16, 56, 64, 128, 2, "mma"),    # the training path's last layer
+    (torch.float32, 56, 64, 128, 2, "cuda"),
+    (torch.bfloat16, 64, 64, 128, 4, "mma"),
+    (torch.bfloat16, 72, 64, 128, 2, "cuda"),
+    (torch.bfloat16, 56, 48, 112, 3, "mma"),
+    (torch.bfloat16, 56, 80, 128, 2, "cuda"),
+    (torch.bfloat16, 56, 64, 120, 2, "cuda"),
+    (torch.bfloat16, 56, 64, 384, 2, "mma"),    # the widest F whose buffers fit
+    (torch.bfloat16, 56, 64, 400, 2, "cuda"),
+    (torch.bfloat16, 56, 64, 128, 8, "cuda"),
+])
+def test_lastq_bwd_body_rule(dtype, Lp, D, Fi, nh, body):
+    """ops/layer.py's copy of csrc/lastq_bwd.cu's rule at its boundaries;
+    its shared memory is 140,040 bytes at the training path's widths."""
+    assert LY._lastq_bwd_body(dtype, Lp, D, Fi, nh) == body
+    smem = LY._lastq_bwd_mma_smem_bytes(D, Fi, nh)
+    assert (smem <= LY._SMEM_LIMIT) or body == "cuda"
+    assert LY._lastq_bwd_mma_smem_bytes(64, 128, 2) == 140_040
+
+
+@pytest.mark.parametrize("act", ["swish", "gelu"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_layer_forward_matches_jax_at_the_bench_length_bf16(interpret, causal, act):
+    """Row 1 at L=50 (Lp=56, the shape the card's tensor-core forward takes)
+    in bf16: the port's plain forward (what both card bodies are held to)
+    against the interpret-mode Pallas forward, from the same f32 parameters
+    (both cast the matmul weights to bf16 and keep the LayerNorm's in f32).
+    Both round to bf16 at the same points and sum in f32 in another order,
+    so a rounding can flip and later ones carry it: within two bf16 ulps of
+    the largest LayerNorm output (2^-6 of it)."""
+    D, Fi = 32, 64
+    x, madd, params = _case_bf16(50, 61 + causal, causal, D=D, F=Fi)
+    kw = dict(n_heads=NH, inner_size=Fi, hidden_act=act, layer_norm_eps=EPS, causal=causal)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    pt = tuple(tuple(torch.from_numpy(t) for t in pair) for pair in params)
+    y = LY.fused_transformer_layer(xb, torch.from_numpy(madd), pt, **kw)
+    assert y.dtype == torch.bfloat16 and y.shape == (3, 50, D)
+    jy = jax_layer.fused_transformer_layer(jnp.asarray(xb.float().numpy(), jnp.bfloat16),
+                                           jnp.asarray(madd), params, p_attn=0.0,
+                                           p_hidden=0.0, train=False, **kw)
+    jy = np.asarray(jy, np.float32)
+    err = float(np.abs(y.float().numpy() - jy).max())
+    assert err <= 2.0 ** -6 * float(np.abs(jy).max()), (err, float(np.abs(jy).max()))
+
+
+@pytest.mark.parametrize("act", ["swish", "gelu"])
+def test_last_query_backward_matches_jax_at_the_bench_length_bf16(interpret, act):
+    """Row 4 at L=50 (Lp=56, the shape the card's tensor-core body takes) in
+    bf16, dropout 0: the port's plain backward against jax.grad through the
+    interpret-mode Pallas last-query backward; each output within 5e-2 of its
+    own largest value (the key bias, zero in exact arithmetic, against the
+    query bias's), as the whole layer's test above."""
+    D, Fi = 32, 64
+    x, madd, params = _case_bf16(50, 71, True, D=D, F=Fi)
+    dy = np.random.default_rng(10).normal(size=(x.shape[0], D)).astype(np.float32)
+    kw = dict(n_heads=NH, inner_size=Fi, hidden_act=act, layer_norm_eps=EPS)
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    pt = tuple(tuple(torch.from_numpy(t.copy()).requires_grad_() for t in pair)
+               for pair in params)
+    y = LY.fused_last_query_layer(xt, torch.from_numpy(madd), pt, **kw)
+    assert y.dtype == torch.bfloat16 and y.shape == (3, D)
+    (y.float() * torch.from_numpy(dy)).sum().backward()
+    gp = [t.grad.float().numpy() for pair in pt for t in pair]
+
+    def loss(xx, pp):
+        pb = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), pp)
+        out = jax_layer.fused_last_query_layer(xx, jnp.asarray(madd), pb, p_attn=0.0,
+                                               p_hidden=0.0, train=False, **kw)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(dy))
+    jx, jp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x, jnp.bfloat16),
+                                             jax.tree_util.tree_map(jnp.asarray, params))
+    _rel_close(xt.grad.float().numpy(), np.asarray(jx, np.float32), 5e-2)
+    jp = [np.asarray(t, np.float32) for pair in jp for t in pair]
+    assert len(gp) == len(jp) == 16
+    for i, (g, j) in enumerate(zip(gp, jp)):
+        if i == 3:   # the key bias: zero in exact arithmetic, held to the query bias's scale
+            assert np.abs(g - j).max() <= 5e-2 * np.abs(jp[1]).max()
+        else:
+            _rel_close(g, j, 5e-2)
+
+
+@pytest.mark.parametrize("qi", [49, 20])
+def test_last_query_padding_to_64_rows_leaves_the_gradients_unchanged(qi):
+    """The last-query twin of the test above: padding an Lp=56 batch to the
+    MMA tile's 64 rows with zero x rows and hard-banned (-1e30) keys leaves
+    dx on the first 56 rows and every weight gradient as they were, and
+    gives dx = 0 exactly on the new rows (f32, dropout 0)."""
+    x, madd, params = _case_bf16(50, 51 + qi, True, B=4)
+    xp, mp, Lp = LY._pad_L(torch.from_numpy(x), torch.from_numpy(madd), 50)
+    assert Lp == 56
+    pt = tuple(tuple(torch.from_numpy(t) for t in pair) for pair in params)
+    flat = LY._lastq_weights(pt, torch.float32)
+    dy = torch.randn(4, x.shape[2], generator=torch.Generator().manual_seed(7))
+    args = (qi, NH, "swish", EPS)
+    dx, grads = LY._lastq_bwd_plain(xp, mp, flat, dy, *args)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 8))  # noqa: E731
+    dx64, grads64 = LY._lastq_bwd_plain(pad(xp), torch.nn.functional.pad(
+        mp, (0, 8), value=LY.PAD_MASK), flat, dy, *args)
+    assert torch.equal(dx64[:, 56:], torch.zeros_like(dx64[:, 56:]))
+    _close(dx64[:, :56].numpy(), dx.numpy())
+    for g64, g in zip(grads64, grads):
+        _close(g64.numpy(), g.numpy())

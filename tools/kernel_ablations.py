@@ -5,7 +5,9 @@
 
 Builds scratch copies of unirec_tpu_torch/csrc/flash_attention.cu (row 9),
 csrc/attention.cu (rows 10 and 11), csrc/ffn.cu (rows 12 and 13) and
-csrc/layer_bwd.cu (row 2) with one part of the bf16 body removed, each with the port's nvcc flags into
+csrc/layer_bwd.cu (row 2), csrc/layer_fwd.cu (row 1) and csrc/lastq_bwd.cu
+(row 4) with one part of the bf16 body removed (csrc/layer_strip.cuh written
+into the copy, so its helpers can be changed too), each with the port's nvcc flags into
 build/ablations/, and times every copy against the unmodified kernel, in
 turns, at the shapes of the paths chip_smoke.py drives: flash attention at
 B=8,192, H=2, L=256, hd=32 with the long path's mask; the fused-attention
@@ -14,7 +16,9 @@ the FFN backward and forward at 1,638,400 tokens, D=64, F=128, swish; the
 whole-layer backward at B=32,768, L=50 (Lp=56), D=64, 2 heads, F=128,
 dropout 0.1 (its variants: copies alone, no activation math, no Philox
 draws, no per-example weight-gradient flush into the block's slab, the cost
-of that design choice). A copy computes
+of that design choice); the whole-layer forward and the last-query backward
+at the same shape (copies alone, no Philox draws, no activation math and,
+for the backward, no weight-gradient products). A copy computes
 wrong results by design; only its time means anything. Beside them it
 times a copy of the inputs (the bytes' floor on this card). Prints the
 card, then one JSON line per kernel with the median of each variant's
@@ -100,7 +104,51 @@ VARIANTS = [
         ("  const bool active = i0 < Mp;", "  const bool active = false;"),
         ("  for (int base = warp; base < tiles; base += kMmaWarps * kFlushBatch) {",
          "  for (int base = warp; base < 0; base += kMmaWarps * kFlushBatch) {")]),
+    # row 1's tensor-core forward
+    ("layer_fwd_copies_only", "layer_fwd", [
+        ("  const bool active = i0 < Mp;", "  const bool active = false;")]),
+    ("layer_fwd_no_philox", "layer_fwd", [
+        ("(bf16*)y, B, Lp, F, act, causal, eps, dr);",
+         "(bf16*)y, B, Lp, F, act, causal, eps,\n"
+         "      Drop{dr.seed, 0u, 0u, dr.inv_attn, dr.inv_hidden});")]),
+    ("layer_fwd_no_activation", "layer_fwd", [
+        ("act_pair<A>(rb(rb(pre[n][e]) + bfv(b1 + f0 + n * 8 + 2 * t + (e & 1))), hh[n][e], d);",
+         "hh[n][e] = rb(rb(pre[n][e]) + bfv(b1 + f0 + n * 8 + 2 * t + (e & 1))); d = 0.0f;")]),
+    # row 4's tensor-core backward; no_weight_flush: neither the dWk|dWv MMAs
+    # into registers nor the rank-1 gradients' 16-deep MMAs into the slab
+    ("lastq_bwd_copies_only", "lastq_bwd", [
+        ("    const bf16* DY = DYs(st);\n",
+         "    const bf16* DY = DYs(st);\n    if (b >= 0) {\n      __syncthreads();\n"
+         "      continue;\n    }\n")]),
+    ("lastq_bwd_no_philox", "lastq_bwd", [
+        ("      eps, dr);\n  return (int)cudaGetLastError();",
+         "      eps, Drop{dr.seed, 0u, 0u, dr.inv_attn, dr.inv_hidden});\n"
+         "  return (int)cudaGetLastError();")]),
+    ("lastq_bwd_no_activation", "lastq_bwd", [
+        ("        act_pair<A>(uu, h, d);", "        h = uu; d = 0.0f;"),
+        ("        act_pair<A>(u[f], h, d);", "        h = 0.0f; d = u[f];")]),
+    ("lastq_bwd_no_weight_flush", "lastq_bwd", [
+        ("      flush_wgrad(XQg, LDD, D, DQg, LDD, D, 1, slab, warp, lane);\n"
+         "      flush_wgrad(CTg, LDD, D, DOg, LDD, D, 1, slab + o_wo, warp, lane);\n"
+         "      flush_wgrad(X1g, LDD, D, DUg, LDF, F, 1, slab + o_w1, warp, lane);\n"
+         "      flush_wgrad(HMg, LDF, F, DHg, LDD, D, 1, slab + o_w2, warp, lane);\n", ""),
+        ("    if (wkv_mine) {\n      for (int kc = 0;", "    if (false) {\n      for (int kc = 0;")]),
 ]
+
+
+def variant_source(src: str, reps) -> str:
+    """csrc/<src>.cu with csrc/layer_strip.cuh written into it (its helpers,
+    the flush among them, are then the copy's to change), each (old, new)
+    replaced; raises if the kernel no longer holds an old text."""
+    from unirec_tpu_torch.ops import _build
+    text = (_build.CSRC / f"{src}.cu").read_text()
+    strip = (_build.CSRC / "layer_strip.cuh").read_text().replace("#pragma once\n", "")
+    text = text.replace('#include "layer_strip.cuh"\n', strip)
+    for old, new in reps:
+        if old not in text:
+            raise RuntimeError(f"{src}: the kernel no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
 
 
 def build_variants():
@@ -109,13 +157,8 @@ def build_variants():
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src, reps in VARIANTS:
-        text = (_build.CSRC / f"{src}.cu").read_text()
-        for old, new in reps:
-            if old not in text:
-                raise RuntimeError(f"{name}: the kernel no longer holds {old!r}")
-            text = text.replace(old, new)
         path = OUT / f"{name}.cu"
-        path.write_text(text)
+        path.write_text(variant_source(src, reps))
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
              str(OUT / f"lib{name}.so"), str(path)], stdout=subprocess.PIPE,
@@ -229,6 +272,23 @@ def main() -> int:
                           lambda: LY._layer_bwd_cuda(xp, mp, flat, dyl, *fargs))
     line["copy_of_x_dy"] = cuda_ms(torch, lambda: [t.clone() for t in (xp, dyl)])
     print(json.dumps({"kernel": "layer_bwd", "shape": list(xp.shape), "p_drop": 0.1,
+                      "ms": line}), flush=True)
+
+    # rows 1 and 4 at the training path's shape, dropout 0.1 on every site
+    names = [n for n, src, _ in VARIANTS if src == "layer_fwd"]
+    line = timed_variants(torch, "layer_fwd", LY._entry, names,
+                          lambda: LY._layer_fwd_cuda(xp, mp, flat, *fargs))
+    line["copy_of_x"] = cuda_ms(torch, lambda: xp.clone())
+    print(json.dumps({"kernel": "layer_fwd", "shape": list(xp.shape), "p_drop": 0.1,
+                      "ms": line}), flush=True)
+    qflat = LY._lastq_weights(params, torch.bfloat16)
+    dyq = torch.randn(xp.shape[0], xp.shape[2], generator=g, device="cuda").to(torch.bfloat16)
+    qargs = (49, *fargs[:3], fargs[4])  # (q index, nh, act, eps, dropout)
+    names = [n for n, src, _ in VARIANTS if src == "lastq_bwd"]
+    line = timed_variants(torch, "lastq_bwd", LY._entry, names,
+                          lambda: LY._lastq_bwd_cuda(xp, mp, qflat, dyq, *qargs))
+    line["copy_of_x"] = cuda_ms(torch, lambda: xp.clone())
+    print(json.dumps({"kernel": "lastq_bwd", "shape": list(xp.shape), "p_drop": 0.1,
                       "ms": line}), flush=True)
     return 0
 

@@ -19,9 +19,13 @@ and both LayerNorms run in f32; the backward casts dh2, du, do, dctx, ds
 and dq|dk|dv to the input dtype where the Pallas kernel does). A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
 launches its kernel or raises. ``<wrapper>.launches`` counts launches.
-``layer_bwd`` has two bodies: in bf16 with Lp <= 64 and D and the head
-width multiples of 16 up to 64 the tensor cores' (``_layer_bwd_body``;
-``layer_bwd.launches_mma`` counts it), else the CUDA cores'.
+The whole-layer forward and backward and the last-query backward have two
+bodies each: in bf16 with Lp <= 64, D and the head width multiples of 16 up
+to 64 and F a multiple of 16 the tensor cores' (``_layer_fwd_body``,
+``_layer_bwd_body``, ``_lastq_bwd_body``; ``fused_transformer_layer.
+launches_mma``, ``layer_bwd.launches_mma`` and ``lastq_bwd.launches_mma``
+count them), else the CUDA cores'. The wrapper names the body to the C
+entry point, which refuses a tensor-core launch its own rule does not admit.
 
 Dropout. The TPU kernels draw on the TPU's hardware PRNG, which no other
 machine reproduces. Here the masks come from Philox4x32-10 keyed by (seed,
@@ -261,17 +265,65 @@ def _layer_bwd_mma_smem_bytes(D: int, F_: int, nh: int) -> int:
             + 2 * _MMA_ROWS * (ldq + ldd) + tiles + 4 * 4 * (9 * D + F_) + 4 * 4 * 32)
 
 
+def _layer_fwd_mma_smem_bytes(D: int, F_: int) -> int:
+    """csrc/layer_fwd.cu::fwd_mma_smem_bytes: the tensor-core forward's bf16
+    weights once, then for each of its two 8-warp groups two stages of x
+    (and the f32 madd row), q|k|v, ctx and x1 (rows padded by 8) and the row
+    statistics its strip pairs exchange."""
+    ldd, ldq, ldf = D + 8, 3 * D + 8, F_ + 8
+    group = (2 * (2 * _MMA_ROWS * ldd + 4 * _MMA_ROWS) + 2 * _MMA_ROWS * ldq
+             + 2 * 2 * _MMA_ROWS * ldd + 4 * 4 * 32)
+    return 2 * (D * ldq + D * ldd + D * ldf + F_ * ldd) + 2 * group
+
+
+def _lastq_bwd_mma_smem_bytes(D: int, F_: int, nh: int) -> int:
+    """csrc/lastq_bwd.cu::mma_smem_bytes: the tensor-core last-query
+    backward's bf16 weights (wq, wk|wv side by side, wo, w1, w2), two stages
+    of x, madd and dy, k|v (then dk|dv), the bf16 row vectors of a group of
+    16 examples, then f32: z and ds of every head, the row vectors of one
+    example, the bias and LayerNorm sums and the dbk|dbv partial sums."""
+    ldd, ldkv, ldf = D + 8, 2 * D + 8, F_ + 8
+    weights = 2 * (D * ldd + D * ldkv + D * ldd + D * ldf + F_ * ldd)
+    ring = 2 * (2 * _MMA_ROWS * ldd + 4 * _MMA_ROWS + 2 * D)
+    gather = 2 * 16 * (6 * ldd + 2 * ldf)
+    floats = 2 * nh * _MMA_ROWS + 13 * D + 3 * F_ + 2 + 7 * D + F_ + 256
+    return weights + ring + 2 * _MMA_ROWS * ldkv + gather + 4 * floats
+
+
+def _mma_widths_take(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> bool:
+    """The widths every bf16 tensor-core layer body takes (csrc/layer_*.cu's
+    rules before their shared-memory test): Lp <= 64 and a multiple of 8, D
+    and the head width multiples of 16 up to 64, F a multiple of 16."""
+    return (dtype == torch.bfloat16 and 1 <= Lp <= _MMA_ROWS and Lp % 8 == 0
+            and 16 <= D <= _MMA_MAX_D and D % 16 == 0 and nh >= 1 and D % nh == 0
+            and (D // nh) % 16 == 0 and F_ >= 16 and F_ % 16 == 0)
+
+
+def _layer_fwd_body(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> str:
+    """The body of csrc/layer_fwd.cu that runs the forward (its rule
+    ``fwd_mma_takes``): "mma", the bf16 tensor-core body (the widths of
+    ``_mma_widths_take``, its shared memory within a block's); else "cuda",
+    the CUDA-core body."""
+    return ("mma" if _mma_widths_take(dtype, Lp, D, F_, nh)
+            and _layer_fwd_mma_smem_bytes(D, F_) <= _SMEM_LIMIT else "cuda")
+
+
 def _layer_bwd_body(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> str:
     """The body of csrc/layer_bwd.cu that runs the backward (its rule
-    ``mma_takes``): "mma", the bf16 tensor-core body (Lp <= 64, D and the
-    head width multiples of 16 up to 64, F a multiple of 16, its shared
-    memory within a block's); else "cuda", the CUDA-core body."""
-    if (dtype == torch.bfloat16 and 1 <= Lp <= _MMA_ROWS and Lp % 8 == 0
-            and 16 <= D <= _MMA_MAX_D and D % 16 == 0 and nh >= 1 and D % nh == 0
-            and (D // nh) % 16 == 0 and F_ >= 16 and F_ % 16 == 0
-            and _layer_bwd_mma_smem_bytes(D, F_, nh) <= _SMEM_LIMIT):
-        return "mma"
-    return "cuda"
+    ``mma_takes``): "mma", the bf16 tensor-core body (the widths of
+    ``_mma_widths_take``, its shared memory within a block's); else "cuda",
+    the CUDA-core body."""
+    return ("mma" if _mma_widths_take(dtype, Lp, D, F_, nh)
+            and _layer_bwd_mma_smem_bytes(D, F_, nh) <= _SMEM_LIMIT else "cuda")
+
+
+def _lastq_bwd_body(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> str:
+    """The body of csrc/lastq_bwd.cu that runs the last-query backward (its
+    rule ``mma_takes``): "mma", the bf16 tensor-core body (the widths of
+    ``_mma_widths_take``, its shared memory within a block's); else "cuda",
+    the CUDA-core body."""
+    return ("mma" if _mma_widths_take(dtype, Lp, D, F_, nh)
+            and _lastq_bwd_mma_smem_bytes(D, F_, nh) <= _SMEM_LIMIT else "cuda")
 
 
 def fused_layer_supported(x: torch.Tensor, hidden_act: str, n_heads: int,
@@ -306,6 +358,10 @@ def _check_cuda_inputs(x, madd, flat):
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _opt_ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
+    return None if t is None else _ptr(t)
 
 
 def _drop_args(drop: Drop):
@@ -347,10 +403,21 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _transposed(flat, idx):
-    """Contiguous transposes of the matmul weights flat[i], i in idx: the
-    backward kernels' products with W^T read them coalesced."""
-    return [flat[i].t().contiguous() for i in idx]
+def _bwd_operands(body: str, x, dy, madd, flat, mats, nblk: int):
+    """(x, dy, madd, flat, slabs, transposes) for a backward kernel's body;
+    ``mats`` index the matmul weights in ``flat``. The tensor-core body moves
+    16 bytes at a time, adds into zeroed per-block slabs and reads the
+    weights untransposed through ldmatrix (no transposes: None each); the
+    CUDA-core body writes its slabs whole and reads contiguous transposes of
+    the weights, so its products with W^T read them coalesced."""
+    shape = (nblk, sum(t.numel() for t in flat))
+    if body == "mma":
+        x, dy, madd = (_aligned16(t) for t in (x, dy, madd))
+        flat = tuple(_aligned16(t) if i in mats else t for i, t in enumerate(flat))
+        return (x, dy, madd, flat, torch.zeros(shape, dtype=torch.float32, device=x.device),
+                [None] * len(mats))
+    return (x, dy, madd, flat, torch.empty(shape, dtype=torch.float32, device=x.device),
+            [flat[i].t().contiguous() for i in mats])
 
 
 def _unflatten(total: torch.Tensor, flat):
@@ -491,18 +558,24 @@ def _layer_shape_check(x, madd, flat, nh: int, backward: bool):
 
 def _layer_fwd_cuda(x, madd, flat, nh: int, act: str, eps: float,
                     causal: bool, drop: Drop = NO_DROP) -> torch.Tensor:
-    """Launch csrc/layer_fwd.cu on x [B, Lp, D] (Lp a multiple of 8)."""
+    """Launch csrc/layer_fwd.cu, the body ``_layer_fwd_body`` names, on x
+    [B, Lp, D] (Lp a multiple of 8)."""
     B, Lp, D, F_ = _layer_shape_check(x, madd, flat, nh, backward=False)
+    body = _layer_fwd_body(x.dtype, Lp, D, F_, nh)
     x = x.contiguous()
     madd = madd.to(torch.float32).contiguous()
+    if body == "mma":   # 16-byte copies of x, madd and the four matmul weights
+        x, madd = _aligned16(x), _aligned16(madd)
+        flat = tuple(_aligned16(t) if i in (0, 2, 6, 8) else t for i, t in enumerate(flat))
     y = torch.empty_like(x)
-    err = _entry("layer_fwd", 15, 7)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
+    err = _entry("layer_fwd", 15, 8)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
                            *[_ptr(t) for t in flat], _ptr(y), B, Lp, D, F_, nh,
                            SUPPORTED_ACTS.index(act), int(bool(causal)),
-                           float(eps), *_drop_args(drop),
+                           int(body == "mma"), float(eps), *_drop_args(drop),
                            _build.stream_handle(x.device))
     _build.check(err, "layer_fwd launch")
     fused_transformer_layer.launches += 1
+    fused_transformer_layer.launches_mma += body == "mma"
     return y
 
 
@@ -517,21 +590,10 @@ def _layer_bwd_cuda(x, madd, flat, dy, nh: int, act: str, eps: float,
     madd = madd.to(torch.float32).contiguous()
     nblk = _bwd_blocks("layer_bwd", _DTYPES[x.dtype], B, Lp, D, F_, nh,
                        x.device.index or 0, int(body == "mma"))
-    nslab = sum(t.numel() for t in flat)
-    if body == "mma":
-        # 16-byte copies; each block adds into its own zeroed slab; the
-        # products with W^T read the weights through ldmatrix, untransposed
-        x, dy, madd = (_aligned16(t) for t in (x, dy, madd))
-        flat = tuple(_aligned16(t) if i in (0, 2, 6, 8) else t for i, t in enumerate(flat))
-        slabs = torch.zeros((nblk, nslab), dtype=torch.float32, device=x.device)
-        wt = [None] * 4
-    else:
-        slabs = torch.empty((nblk, nslab), dtype=torch.float32, device=x.device)
-        wt = _transposed(flat, (0, 2, 6, 8))
+    x, dy, madd, flat, slabs, wt = _bwd_operands(body, x, dy, madd, flat, (0, 2, 6, 8), nblk)
     dx = torch.empty_like(x)
-    opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
     err = _entry("layer_bwd", 21, 9)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
-                           *[_ptr(t) for t in flat], *[opt(t) for t in wt],
+                           *[_ptr(t) for t in flat], *[_opt_ptr(t) for t in wt],
                            _ptr(dy), _ptr(dx),
                            _ptr(slabs), nblk, B, Lp, D, F_, nh,
                            SUPPORTED_ACTS.index(act), int(bool(causal)),
@@ -597,6 +659,7 @@ def fused_transformer_layer(x, madd, params, *, n_heads: int, inner_size: int,
 
 
 fused_transformer_layer.launches = 0
+fused_transformer_layer.launches_mma = 0   # of those, the bf16 tensor-core body's
 
 
 # --------------------------------------------------------- last-query kernel
@@ -724,25 +787,28 @@ def _lastq_fwd_cuda(x, madd, flat, qi: int, nh: int, act: str,
 
 def _lastq_bwd_cuda(x, madd, flat, dy, qi: int, nh: int, act: str,
                     eps: float, drop: Drop = NO_DROP):
-    """Launch csrc/lastq_bwd.cu: (dx [B, Lp, D], weight grads)."""
+    """Launch csrc/lastq_bwd.cu, the body ``_lastq_bwd_body`` names: (dx
+    [B, Lp, D], weight grads)."""
     B, Lp, D, F_ = _lastq_shape_check(x, madd, flat, qi, nh, backward=True)
+    body = _lastq_bwd_body(x.dtype, Lp, D, F_, nh)
     x = x.contiguous()
     dy = dy.to(x.dtype).contiguous()
     madd = madd.to(torch.float32).contiguous()
     nblk = _bwd_blocks("lastq_bwd", _DTYPES[x.dtype], B, Lp, D, F_, nh,
-                       x.device.index or 0)
-    slabs = torch.empty((nblk, sum(t.numel() for t in flat)),
-                        dtype=torch.float32, device=x.device)
+                       x.device.index or 0, int(body == "mma"))
+    x, dy, madd, flat, slabs, wt = _bwd_operands(body, x, dy, madd, flat,
+                                                 (0, 2, 4, 6, 10, 12), nblk)
     dx = torch.empty_like(x)
-    wt = _transposed(flat, (0, 2, 4, 6, 10, 12))
-    err = _entry("lastq_bwd", 27, 8)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
-                           *[_ptr(t) for t in flat], *[_ptr(t) for t in wt],
+    err = _entry("lastq_bwd", 27, 9)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
+                           *[_ptr(t) for t in flat], *[_opt_ptr(t) for t in wt],
                            _ptr(dy), _ptr(dx),
                            _ptr(slabs), nblk, B, Lp, D, F_, nh, int(qi),
-                           SUPPORTED_ACTS.index(act), float(eps),
-                           *_drop_args(drop), _build.stream_handle(x.device))
+                           SUPPORTED_ACTS.index(act), int(body == "mma"),
+                           float(eps), *_drop_args(drop),
+                           _build.stream_handle(x.device))
     _build.check(err, "lastq_bwd launch")
     lastq_bwd.launches += 1
+    lastq_bwd.launches_mma += body == "mma"
     return dx, _unflatten(slabs.sum(0), flat)
 
 
@@ -755,6 +821,7 @@ def lastq_bwd(x, madd, flat, dy, qi: int, nh: int, act: str, eps: float,
 
 
 lastq_bwd.launches = 0
+lastq_bwd.launches_mma = 0   # of those, the bf16 tensor-core body's
 
 
 def fused_last_query_layer(x, madd, params, *, n_heads: int, inner_size: int,
