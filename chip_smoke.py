@@ -14,22 +14,24 @@ Phases, each of which must pass:
      tensor-core body, with its CUDA-core body timed in turns with it (at
      least 3x slower) and nn.TransformerEncoderLayer on the same weights
      and mask as the yardstick (its agreement with the plain version
-     reported);
+     reported); the last-query layer likewise in its tensor-core body, its
+     CUDA-core body timed in turns beside it (no gate at this batch);
   4. the serving path: a bench-width SASRec (2 layers, d=64, 2 heads, inner
      128, L=50, 50,000 items; random weights from a seed, saved and loaded
      as a checkpoint) serves top-100 to a few thousand users of a synthetic
      100,000-user history through reco_topk.get_topk_recommendations, with
      a bf16 catalog and then an int8 one. Every serving kernel's launch
-     count must rise in that run (the whole layer in its tensor-core body),
+     count must rise in that run (both layers in their tensor-core bodies),
      and the ids must agree with the same model
      run through the plain versions on the card;
   5. the training kernels at bench.py's training shapes (B=32,768): the two
      forward layers with dropout 0.1, their backwards, the embedding-grad
-     scatter-add and the negative-membership test, each against its plain
-     version with the same inputs and dropout seeds, and timed; the whole
-     layer's forward and backward and the last-query backward in their bf16
+     scatter-add (on uniform ids at the paths' four shapes, its sorted-tile
+     body timed in turns with its per-row body) and the negative-membership
+     test, each against its plain version with the same inputs and dropout
+     seeds, and timed; both layers' forwards and backwards in their bf16
      tensor-core bodies, each with its CUDA-core body timed in turns with it
-     (at least 3x slower for the forward and the last-query backward, 5x
+     (at least 3x slower for the forwards and the last-query backward, 5x
      for the layer backward), the key biases' zero-sum checks and another seed's
      masks (which must disagree); nn.TransformerEncoderLayer's train-mode
      forward, and forward and backward, as the layer's yardsticks;
@@ -37,8 +39,9 @@ Phases, each of which must pass:
      rejection-sampled negatives, Adam, dropout 0.1, bf16, batch 32,768,
      with neg_membership_pallas on) trained through the port's
      Trainer.fit, 3 warm-up and 24 timed steps; the loss must stay finite
-     and fall, and every training kernel must launch (the layer forward and
-     backward and the last-query backward in their tensor-core bodies).
+     and fall, and every training kernel must launch (both layers' forwards
+     and backwards in their tensor-core bodies, the scatter-add in its
+     sorted-tile body).
      Then one step from the
      same weights, batch and seeds through the kernels and through the plain
      versions, loss and every gradient compared; then two traced steps;
@@ -60,8 +63,12 @@ Phases, each of which must pass:
      same metrics, and every kernel of the path must launch. Then one step
      at dropout 0 and one eval batch through the kernels and the plain
      versions (loss, gradients, each row's rank of the positive, metrics),
-     and a traced step and eval batch; the tensor-core bodies of the
-     attention pair and of both FFN directions must launch there;
+     whose two scatter-adds (the item_seq and the candidate gathers' ids and
+     gradient rows) are then timed as lines of their own: the sorted-tile
+     body at least 3x its per-row body on the item_seq ids, index_add_
+     beside them; and a traced step and eval batch; the tensor-core bodies
+     of the attention pair and of both FFN directions and the sorted-tile
+     scatter must launch there;
   9. flash attention (row 9) at the long path's training shape (B=8,192,
      H=2, L=256, hd=32) in bf16 (the tensor-core body) and f32 (the
      CUDA-core body), at L=264 and L=1,024, and at the
@@ -82,7 +89,8 @@ Phases, each of which must pass:
      both FFN directions' tensor-core bodies in training (the layer
      kernels and the fused attention kernels never). Then one step at
      dropout 0 and one eval batch through the kernels and the plain
-     versions, a traced step and eval batch, and top-100 serving of 4,096
+     versions (its scatter-adds timed as on the entry path, with the same
+     gate), a traced step and eval batch, and top-100 serving of 4,096
      users from the long checkpoint (flash attention and blockmax launch;
      the ids agree with the plain-version run).
 Then it prints its wall time (and each of phases 9-10), the card, one
@@ -207,52 +215,59 @@ def kernel_layer(torch, dtype_name, act="swish", causal=True, timed=True):
         if dtype_name == "bfloat16":
             lib = encoder_layer_yardstick(torch, xp, mp, flat, ref, *args, LY.NO_DROP)
             line.update(lib)
-            ok, _ = layer_fwd_bodies(torch, line, xp, mp, flat, args, ref)
+            ok, _ = fwd_bodies(torch, "layer", line, xp, mp, flat, args, ref)
     emit(line)
     if not (err <= tol and line["finite"] and ok):
         raise AssertionError(f"layer_fwd disagrees with its plain version: {line}")
     return line
 
 
-def bodies_in_turns(line, selector, run, mma_iters, rounds=3):
-    """The kernel's time in its own body and in its CUDA-core body, timed in
-    turns (own, CUDA-core, then CUDA-core, own, ...) so that both meet the
-    card at the same clocks. The own body's median goes to line["kernel_ms"],
-    every run's time to line["in_turns_ms"]; returns the CUDA-core body's
-    median. ``selector`` names the ops/layer.py function that picks the
-    body; ``run`` launches the kernel."""
-    from unirec_tpu_torch.ops import layer as LY
-    times = {"own": [], "cuda": []}
+def bodies_in_turns(line, selector, run, mma_iters, rounds=3, module=None, other="cuda",
+                    other_iters=3):
+    """The kernel's time in its own body and in its older body (the CUDA-core
+    one, or ``other``), timed in turns (own, other, then other, own, ...) so
+    that both meet the card at the same clocks. The own body's median goes
+    to line["kernel_ms"], every run's time to line["in_turns_ms"]; returns
+    the other body's median. ``selector`` names the function of ``module``
+    (ops/layer.py unless given) that picks the body; ``run`` launches the
+    kernel."""
+    if module is None:
+        from unirec_tpu_torch.ops import layer as module
+    times = {"own": [], other: []}
     for r in range(rounds):
-        for body in ("own", "cuda") if r % 2 == 0 else ("cuda", "own"):
-            with (mock.patch.object(LY, selector, lambda *a: "cuda") if body == "cuda"
+        for body in ("own", other) if r % 2 == 0 else (other, "own"):
+            with (mock.patch.object(module, selector, lambda *a: other) if body == other
                   else nullcontext()):
                 times[body].append(cuda_ms(run, iters=mma_iters) if body == "own"
-                                   else cuda_ms(run, iters=3, warmup=1))
+                                   else cuda_ms(run, iters=other_iters, warmup=1))
     line["kernel_ms"] = statistics.median(times["own"])
     line["in_turns_ms"] = times
-    return statistics.median(times["cuda"])
+    return statistics.median(times[other])
 
 
-def layer_fwd_bodies(torch, line, xp, mp, flat, args, ref):
-    """Row 1's checks beyond the common ones, into its kernel line: which
-    body ran, and the CUDA-core body on the same inputs, against the plain
-    version and timed in this run in turns with it ("cuda_core"), which the
-    tensor-core body must beat threefold. Returns (ok, the CUDA-core body's
-    row)."""
+def fwd_bodies(torch, which, line, xp, mp, flat, args, ref, gate=3):
+    """Rows 1 ("layer") and 3 ("lastq"): the checks beyond the common ones,
+    into the kernel line: which body ran, and the CUDA-core body on the same
+    inputs, against the plain version and timed in this run in turns with it
+    ("cuda_core"), which the tensor-core body must beat ``gate``-fold (no
+    gate when None). Returns (ok, the CUDA-core body's row)."""
     from unirec_tpu_torch.ops import layer as LY
     _, Lp, D = xp.shape
-    line["body"] = LY._layer_fwd_body(xp.dtype, Lp, D, flat[6].shape[1], args[0])
-    with mock.patch.object(LY, "_layer_fwd_body", lambda *a: "cuda"):
-        yc = LY._layer_fwd_cuda(xp, mp, flat, *args)
+    if which == "layer":
+        selector, kernel, F, nh = "_layer_fwd_body", LY._layer_fwd_cuda, flat[6].shape[1], args[0]
+    else:
+        selector, kernel, F, nh = "_lastq_fwd_body", LY._lastq_fwd_cuda, flat[10].shape[1], args[1]
+    line["body"] = getattr(LY, selector)(xp.dtype, Lp, D, F, nh)
+    with mock.patch.object(LY, selector, lambda *a: "cuda"):
+        yc = kernel(xp, mp, flat, *args)
     core = {"body": "cuda", "max_abs_err": float((yc.float() - ref.float()).abs().max()),
-            "kernel_ms": bodies_in_turns(line, "_layer_fwd_body",
-                                         lambda: LY._layer_fwd_cuda(xp, mp, flat, *args), 20),
+            "kernel_ms": bodies_in_turns(line, selector, lambda: kernel(xp, mp, flat, *args), 20),
             **{k: line[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")}}
     line["cuda_core"] = core
     line["cuda_core_over_mma"] = core["kernel_ms"] / line["kernel_ms"]
+    line["gate"] = gate
     ok = (line["body"] == "mma" and core["max_abs_err"] <= line["tol"]
-          and 3 * line["kernel_ms"] <= core["kernel_ms"])
+          and (gate is None or gate * line["kernel_ms"] <= core["kernel_ms"]))
     return ok, core
 
 
@@ -286,11 +301,12 @@ def encoder_mask(torch, mp, Lp, nh, causal, dtype):
 
 
 def encoder_layer_yardstick(torch, xp, mp, flat, ref, nh, act, eps, causal, drop,
-                            backward=False, dy=None):
+                            backward=False, dy=None, row=None):
     """The library call's time on the kernel's inputs (eval when the kernel
     ran without dropout, else train mode with the path's dropout; forward, or
     forward and backward), and in eval mode without dropout its agreement
-    with the plain version: two bf16 ulps of the largest LN output."""
+    with the plain version (its output's ``row`` alone when given): two bf16
+    ulps of the largest LN output."""
     assert act == "swish"
     _, Lp, _ = xp.shape
     mask = encoder_mask(torch, mp, Lp, nh, causal, xp.dtype)
@@ -300,6 +316,8 @@ def encoder_layer_yardstick(torch, xp, mp, flat, ref, nh, act, eps, causal, drop
     with torch.no_grad():
         m.eval()
         ev = m(xp, src_mask=mask)
+        if row is not None:
+            ev = ev[:, row]
         if ref is not None:
             err = float((ev.float() - ref.float()).abs().max())
             out["library_max_abs_err"] = err
@@ -319,8 +337,24 @@ def encoder_layer_yardstick(torch, xp, mp, flat, ref, nh, act, eps, causal, drop
             out["library_ms"] = cuda_ms(lambda: m(xp, src_mask=mask), iters=10)
     out["library"] = ("nn.TransformerEncoderLayer(batch_first, post-LN, F.silu, "
                       + ("train, dropout 0.1" if train else "eval") + ")"
-                      + (", forward + backward" if backward else ""))
+                      + (", forward + backward" if backward else "")
+                      + (f", row {row} of its output" if row is not None else ""))
     return out
+
+
+def lastq_yardstick(torch, xp, mp, flat, fargs):
+    """Row 3's library call: nn.TransformerEncoderLayer on the same inputs and
+    weights (wq|wk|wv as one in-projection) under the key-pad mask alone, so
+    that row qi of its output is the last-query layer's (it computes every
+    other row as well). Its agreement is held on row qi, in eval mode, with
+    the plain version without dropout."""
+    from unirec_tpu_torch.ops import layer as LY
+    qi, nh, act, eps = fargs[:4]
+    drop = fargs[4] if len(fargs) > 4 else LY.NO_DROP
+    wq, bq, wk, bk, wv, bv, *rest = flat
+    lflat = (torch.cat([wq, wk, wv], 1), torch.cat([bq, bk, bv]), *rest)
+    ref = LY._lastq_fwd_plain(xp, mp, flat, qi, nh, act, eps)
+    return encoder_layer_yardstick(torch, xp, mp, lflat, ref, nh, act, eps, False, drop, row=qi)
 
 
 def kernel_lastq(torch, dtype_name, act="swish", timed=True):
@@ -346,8 +380,13 @@ def kernel_lastq(torch, dtype_name, act="swish", timed=True):
         line["library_ms"] = None
         line["bound_ms"], line["bound_by"] = bound_ms(nbytes(xp, mp, *flat, y), flops,
                                                       dtype_name)
+    ok = True
+    if timed and dtype_name == "bfloat16":   # no gate at the serving batch
+        line.update(lastq_yardstick(torch, xp, mp, flat, args))
+        ok, _ = fwd_bodies(torch, "lastq", line, xp, mp, flat, args, ref, gate=None)
+        ok = ok and line["library_agrees"]
     emit(line)
-    if not (err <= tol and line["finite"]):
+    if not (err <= tol and line["finite"] and ok):
         raise AssertionError(f"lastq_fwd disagrees with its plain version: {line}")
     return line
 
@@ -497,6 +536,7 @@ def _counters():
             "layer_fwd": (LY.fused_transformer_layer, "launches"),
             "layer_fwd_mma": (LY.fused_transformer_layer, "launches_mma"),
             "lastq_fwd": (LY.fused_last_query_layer, "launches"),
+            "lastq_fwd_mma": (LY.fused_last_query_layer, "launches_mma"),
             "blockmax": (TK.catalog_blockmax, "launches"),
             "blockmax_int8": (TK.catalog_blockmax, "launches_int8"),
             "layer_bwd": (LY.layer_bwd, "launches"),
@@ -504,19 +544,23 @@ def _counters():
             "lastq_bwd": (LY.lastq_bwd, "launches"),
             "lastq_bwd_mma": (LY.lastq_bwd, "launches_mma"),
             "scatter_add": (SA.scatter_add_rows, "launches"),
+            "scatter_add_sorted": (SA.scatter_add_rows, "launches_sorted"),
             "member": (MB.member_mask, "launches")}
 
 
-# *_mma: the bf16 tensor-core bodies of rows 1, 2 and 4
-SERVING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "blockmax", "blockmax_int8")
-TRAINING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "layer_bwd", "layer_bwd_mma",
-                    "lastq_bwd", "lastq_bwd_mma", "scatter_add", "member")
+# *_mma: the bf16 tensor-core bodies of rows 1-4; scatter_add_sorted: row 6's
+# sorted-tile body
+SERVING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "blockmax",
+                   "blockmax_int8")
+TRAINING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "layer_bwd",
+                    "layer_bwd_mma", "lastq_bwd", "lastq_bwd_mma", "scatter_add",
+                    "scatter_add_sorted", "member")
 # *_mma: the bf16 tensor-core bodies of rows 10, 11 (L <= 64) and 12, 13 (D <= 64)
 ENTRY_KERNELS = ("fused_attention", "fused_attention_mma", "fused_attention_bwd",
                  "fused_attention_bwd_mma", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
-                 "fused_ffn_bwd_mma", "scatter_add", "member")
+                 "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member")
 LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
-                "fused_ffn_bwd_mma", "scatter_add", "member")
+                "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member")
 OFF_LONG_PATH = ("layer_fwd", "layer_bwd", "lastq_fwd", "lastq_bwd", "fused_attention",
                  "fused_attention_bwd")
 
@@ -713,8 +757,13 @@ def kernel_train_layers(torch):
         ok_fwd = True
         if which == "layer":
             line.update(encoder_layer_yardstick(torch, xp, mp, flat, None, *fargs))
-            ok_fwd, rows["layer_fwd_train_cuda_core"] = layer_fwd_bodies(
-                torch, line, xp, mp, flat, fargs, ref)
+            ok_fwd, rows["layer_fwd_train_cuda_core"] = fwd_bodies(
+                torch, "layer", line, xp, mp, flat, fargs, ref)
+        else:   # the training batch: the tensor-core body at least 3x its CUDA-core one
+            line.update(lastq_yardstick(torch, xp, mp, flat, fargs))
+            ok_fwd, rows["lastq_fwd_train_cuda_core"] = fwd_bodies(
+                torch, "lastq", line, xp, mp, flat, fargs, ref)
+            ok_fwd = ok_fwd and line["library_agrees"]
         emit(line)
         if not (line["max_abs_err"] <= line["tol"] and line["finite"] and ok_fwd):
             raise AssertionError(f"{which}_fwd (train) disagrees with its plain version")
@@ -805,41 +854,112 @@ def bwd_bodies(torch, which, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgra
     return ok, core
 
 
-def kernel_scatter(torch):
-    """The embedding-grad scatter-add at the training and entry step's two
-    shapes, the item_seq gather's [B*L, 64] and the candidates' [B*10, 64]
-    bf16 gradient rows into [50,000, 64], then at the long path's (batch
-    8,192 at L=256: 2,097,152 and 81,920 rows); index_add_ is the library
-    yardstick."""
+def scatter_line(torch, ids, rows, what, gate=None):
+    """One line of row 6: the sorted-tile body against the plain version and
+    timed in turns with the per-row body (which must agree as well), the plain
+    version and index_add_ (the library call) beside them, and the ids' share
+    of id 0 and largest multiplicity. Both bodies are held to the plain
+    version on the table's largest element and element by element
+    (``scatter_elementwise``). With ``gate`` the sorted body must beat the
+    per-row one that many times."""
     from unirec_tpu_torch.ops import scatter_accum as SA
+    M = ids.shape[0]
+    acc = SA._scatter_cuda(ids, rows, N_ITEMS)
+    ref = SA._scatter_plain(ids, rows, N_ITEMS)
+    with mock.patch.object(SA, "_scatter_body", lambda *a: "per_row"):
+        old = SA._scatter_cuda(ids, rows, N_ITEMS)
+    lib_ids = ids.long()
+    lib = lambda: torch.zeros(N_ITEMS, EMB, device="cuda").index_add_(  # noqa: E731
+        0, lib_ids, rows.float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((acc.float() - ref.float()).abs().max())
+    tol = 8e-3 * float(ref.float().abs().max())
+    valid = lib_ids[(lib_ids >= 0) & (lib_ids < N_ITEMS)]
+    line = {"phase": "kernel", "name": "scatter_add", "ids": what, "rows": M,
+            "table": [N_ITEMS, EMB], "dtype": "bfloat16",
+            "id0_share": float((ids == 0).float().mean()),
+            "max_id_multiplicity": int(torch.bincount(valid, minlength=N_ITEMS).max()),
+            "body": SA._scatter_body(rows.dtype, rows.shape[1], N_ITEMS),
+            "max_abs_err": err, "tol": tol,
+            "tol_reason": "f32 atomics in run-dependent order, one bf16 rounding "
+                          "of the sum (2^-7 relative, doubled)",
+            "plain_ms": cuda_ms(lambda: SA._scatter_plain(ids, rows, N_ITEMS)),
+            "library_ms": cuda_ms(lib)}
+    line["bound_ms"], line["bound_by"] = bound_ms(nbytes(ids, rows, acc), M * EMB, "float32")
+    per_row = bodies_in_turns(line, "_scatter_body", lambda: SA._scatter_cuda(ids, rows, N_ITEMS),
+                              20, module=SA, other="per_row", other_iters=5)
+    line["per_row"] = {"max_abs_err": float((old.float() - ref.float()).abs().max()),
+                       "kernel_ms": per_row}
+    line["per_row_over_sorted"] = per_row / line["kernel_ms"]
+    line["elementwise_worst"], line["per_row"]["elementwise_worst"] = scatter_elementwise(
+        torch, (acc, old), ids, rows)
+    line["gate"] = gate
+    emit(line)
+    if not (err <= tol and line["per_row"]["max_abs_err"] <= tol and line["body"] == "sorted"
+            and line["elementwise_worst"] <= 1.0
+            and line["per_row"]["elementwise_worst"] <= 1.0
+            and (gate is None or gate * line["kernel_ms"] <= per_row)):
+        raise AssertionError(f"scatter_add ({what}) failed its checks: {line}")
+    return line
+
+
+def scatter_elementwise(torch, outs, ids, rows):
+    """Each output against the plain version element by element, as the card
+    tests hold it: 1e-4 of the largest gradient element, plus 2e-5 of the sum
+    of the magnitudes added into the element (f32 sums in another order),
+    plus one bf16 rounding of the sum (2^-7 of it). Returns, for each output,
+    the worst element's error over its tolerance (at most 1 to pass)."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    ref = SA._scatter_plain(ids, rows, N_ITEMS).float()
+    mag = SA._scatter_plain(ids, rows.float().abs(), N_ITEMS)
+    tol = 1e-4 * float(rows.float().abs().max()) + 2e-5 * mag + 2.0 ** -7 * ref.abs()
+    return [float(((o.float() - ref).abs() / tol).max()) for o in outs]
+
+
+def kernel_scatter(torch):
+    """The embedding-grad scatter-add on uniform ids at the training and entry
+    step's two shapes, the item_seq gather's [B*L, 64] and the candidates'
+    [B*10, 64] bf16 gradient rows into [50,000, 64], then at the long path's
+    (batch 8,192 at L=256: 2,097,152 and 81,920 rows); last, at the first
+    shape, ids 80% of which are 0 under gradient rows that are not zero, so
+    that the sum on a hot id is held too (the paths send zero rows to id 0)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    out = None
     for M in (TRAIN_BATCH * SEQ_LEN, TRAIN_BATCH * (1 + N_NEG), LONG_BATCH * LONG_LEN,
               LONG_BATCH * (1 + N_NEG)):
         ids = torch.randint(0, N_ITEMS, (M,), generator=g, device="cuda", dtype=torch.int32)
         rows = (torch.randn(M, EMB, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
-        acc = SA._scatter_cuda(ids, rows, N_ITEMS)
-        ref = SA._scatter_plain(ids, rows, N_ITEMS)
-        lib_ids = ids.long()
-        lib = lambda: torch.zeros(N_ITEMS, EMB, device="cuda").index_add_(  # noqa: E731
-            0, lib_ids, rows.float()).to(torch.bfloat16)
-        torch.cuda.synchronize()
-        err = float((acc.float() - ref.float()).abs().max())
-        tol = 8e-3 * float(ref.float().abs().max())
-        line = {"phase": "kernel", "name": "scatter_add", "rows": M, "table": [N_ITEMS, EMB],
-                "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
-                "tol_reason": "f32 atomics in run-dependent order, one bf16 rounding "
-                              "of the sum (2^-7 relative, doubled)",
-                "kernel_ms": cuda_ms(lambda: SA._scatter_cuda(ids, rows, N_ITEMS)),
-                "plain_ms": cuda_ms(lambda: SA._scatter_plain(ids, rows, N_ITEMS)),
-                "library_ms": cuda_ms(lib)}
-        line["bound_ms"], line["bound_by"] = bound_ms(nbytes(ids, rows, acc), M * EMB,
-                                                      "float32")
-        emit(line)
-        if not err <= tol:
-            raise AssertionError("scatter_add disagrees with its plain version")
-        out = out or line  # the item_seq gather's, the larger of the two
-    return out
+        scatter_line(torch, ids, rows, "uniform")
+    M = TRAIN_BATCH * SEQ_LEN
+    ids = torch.randint(1, N_ITEMS, (M,), generator=g, device="cuda", dtype=torch.int32)
+    ids = torch.where(torch.rand(M, generator=g, device="cuda") < 0.8, 0, ids)
+    rows = (torch.randn(M, EMB, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    scatter_line(torch, ids, rows, "80% id 0")
+
+
+@contextmanager
+def scatter_capture(store):
+    """Record the ids and gradient rows of every scatter-add the kernels
+    launch inside (not the plain versions' calls)."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    real = SA._scatter_cuda
+
+    def spy(ids, g, n_rows):
+        store.append((ids.detach().clone(), g.detach().clone()))
+        return real(ids, g, n_rows)
+    with mock.patch.object(SA, "_scatter_cuda", spy):
+        yield
+
+
+def kernel_scatter_path(torch, path, store):
+    """Row 6 on the ids and gradient rows one real training batch of a path
+    scatters (captured in its *_check step): the item_seq gather's (gate: the
+    sorted body 3x the per-row one) and the candidates'."""
+    calls = sorted(store, key=lambda c: -c[0].numel())
+    if len(calls) != 2:
+        raise AssertionError(f"{path}: a step scattered {len(calls)} times, not 2")
+    return {what: scatter_line(torch, ids.to(torch.int32), g, f"{path} {what}",
+                               gate=3 if what == "item_seq" else None)
+            for (ids, g), what in zip(calls, ("item_seq", "candidates"))}
 
 
 def kernel_member(torch):
@@ -985,7 +1105,8 @@ def check_train_path(torch, trainer, raw, aug):
 
 
 def device_profile(torch, fn):
-    """Run fn under torch.profiler: (wall ms, device busy ms, top device ops)."""
+    """Run fn under torch.profiler: (wall ms, device busy ms, top device ops,
+    the port's kernels among them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -999,10 +1120,15 @@ def device_profile(torch, fn):
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(us for us, _, _ in ops) / 1e3
+    # the port's own kernels (csrc/*.cu, in an anonymous namespace), wherever
+    # they fall in the ranking
+    port = [{"op": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in ops
+            if k.startswith("void (anonymous namespace)::")]
     return {"traced_device_ops": len(ops), "wall_ms": wall * 1e3,
             "device_busy_ms": busy, "device_idle_share": 1 - busy / (wall * 1e3),
             "top_device_ops": [{"op": k[:90], "ms": us / 1e3, "calls": c}
-                               for us, k, c in ops[:14]]}
+                               for us, k, c in ops[:14]],
+            "port_kernels": port}
 
 
 def profile_train_path(torch, trainer, raw, card):
@@ -2018,6 +2144,7 @@ def main() -> int:
                 kernel_layer(torch, "float32", act, causal, timed=False)
         kernel_layer(torch, "bfloat16", "gelu", False, timed=False)
         rows["lastq_fwd"] = kernel_lastq(torch, "bfloat16")
+        rows["lastq_fwd_cuda_core"] = rows["lastq_fwd"]["cuda_core"]
         kernel_lastq(torch, "float32")
         kernel_lastq(torch, "float32", "gelu", timed=False)
         rows["blockmax"] = kernel_blockmax(torch, N_ITEMS, "bfloat16")
@@ -2030,7 +2157,7 @@ def main() -> int:
     counts = main_path(torch, card)
 
     rows.update(kernel_train_layers(torch))
-    rows["scatter_add"] = kernel_scatter(torch)
+    kernel_scatter(torch)
     rows["member"] = kernel_member(torch)
     torch.cuda.empty_cache()
     train_counts, _, trainer, raw, aug = train_path(torch, card)
@@ -2045,7 +2172,11 @@ def main() -> int:
             kernel_fused_ffn(torch)
     torch.cuda.empty_cache()
     entry_counts, _, trainer, train_data = entry_path(torch, card)
-    ev, eval_batch = check_entry_path(torch, trainer, train_data)
+    entry_scatter = []
+    with scatter_capture(entry_scatter):
+        ev, eval_batch = check_entry_path(torch, trainer, train_data)
+    scatter_entry = kernel_scatter_path(torch, "entry", entry_scatter)
+    del entry_scatter
     profile_entry_path(torch, trainer, train_data, ev, eval_batch, card)
     del trainer, train_data, ev, eval_batch
 
@@ -2063,14 +2194,24 @@ def main() -> int:
         timed("wide_widths", wide_widths, torch)
     torch.cuda.empty_cache()
     long_counts, trainer, train_data, ckpt = timed("long_path", long_path, torch, card)
-    ev, eval_batch = timed("long_path_check", check_entry_path, torch, trainer, train_data,
-                           phase="long_path_check")
+    long_scatter = []
+    with scatter_capture(long_scatter):
+        ev, eval_batch = timed("long_path_check", check_entry_path, torch, trainer, train_data,
+                               phase="long_path_check")
+    timed("scatter_long_ids", kernel_scatter_path, torch, "long", long_scatter)
+    del long_scatter
     timed("long_path_profile", profile_entry_path, torch, trainer, train_data, ev,
           eval_batch, card, phase="long_path_profile")
     del trainer, train_data, ev, eval_batch
     torch.cuda.empty_cache()
     serve_counts = timed("long_serve", long_serve, torch, ckpt, card)
 
+    # row 6's line is the entry path's item_seq ids, its per-row body's the
+    # same call's
+    sc = rows["scatter_add"] = scatter_entry["item_seq"]
+    rows["scatter_add_per_row"] = {**{k: sc[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")},
+                                   **sc["per_row"]}
     # the serving rows keep their serving-shape numbers; launches add up
     # both paths where a kernel runs on both
     sources = {"layer_fwd": ("unirec_tpu_torch/csrc/layer_fwd.cu",
@@ -2087,6 +2228,8 @@ def main() -> int:
                              "unirec_tpu/ops/layer.py:638"),
                "scatter_add": ("unirec_tpu_torch/csrc/scatter_add.cu",
                                "unirec_tpu/ops/scatter_accum.py:44"),
+               "scatter_add_per_row": ("unirec_tpu_torch/csrc/scatter_add.cu",
+                                       "unirec_tpu/ops/scatter_accum.py:44"),
                "member": ("unirec_tpu_torch/csrc/member.cu",
                           "unirec_tpu/ops/member.py:32"),
                "fused_attention": ("unirec_tpu_torch/csrc/attention.cu",
@@ -2102,25 +2245,31 @@ def main() -> int:
                                        "unirec_tpu/ops/layer.py:279"),
                "lastq_bwd_cuda_core": ("unirec_tpu_torch/csrc/lastq_bwd.cu",
                                        "unirec_tpu/ops/layer.py:638"),
+               "lastq_fwd_cuda_core": ("unirec_tpu_torch/csrc/lastq_fwd.cu",
+                                       "unirec_tpu/ops/layer.py:589"),
                "fused_ffn_bwd": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:72"),
                "flash_attention": ("unirec_tpu_torch/csrc/flash_attention.cu",
                                    "unirec_tpu/ops/attention.py:44")}
-    # the body each line times: rows 1, 2, 4 and 12 list their tensor-core
-    # body ("mma") and their CUDA-core body, whose launches are the rest of
-    # the kernel's; rows 9-11 and 13 name the body their path shape takes
-    split = ("layer_fwd", "layer_bwd", "lastq_bwd", "fused_ffn")
+    # the body each line times: rows 1-4 and 12 list their tensor-core body
+    # ("mma") and their CUDA-core body, row 6 its sorted-tile body and its
+    # per-row body, the older body's launches the rest of the kernel's; rows
+    # 9-11 and 13 name the body their path shape takes
+    split = {**{n: ("mma", "cuda_core") for n in ("layer_fwd", "layer_bwd", "lastq_fwd",
+                                                  "lastq_bwd", "fused_ffn")},
+             "scatter_add": ("sorted", "per_row")}
     bodies = {"fused_ffn_bwd": "mma", "fused_attention": "mma", "fused_attention_bwd": "mma",
-              "flash_attention": "mma", **{n: "mma" for n in split},
-              **{f"{n}_cuda_core": "cuda" for n in split}}
+              "flash_attention": "mma", **{n: new for n, (new, _) in split.items()},
+              **{f"{n}_{old}": "cuda" if old == "cuda_core" else old
+                 for n, (_, old) in split.items()}}
     paths = {"serving": counts, "training": train_counts, "entry": entry_counts,
              "long": long_counts, "long_serve": serve_counts}
 
     def launched(name, path):
-        if name.endswith("_cuda_core"):
-            base = name[:-len("_cuda_core")]
-            return path.get(base, 0) - path.get(f"{base}_mma", 0)
-        if name in split:
-            return path.get(f"{name}_mma", 0)
+        for base, (new, old) in split.items():
+            if name == f"{base}_{old}":
+                return path.get(base, 0) - path.get(f"{base}_{new}", 0)
+            if name == base:
+                return path.get(f"{base}_{new}", 0)
         return path.get(name, 0)
 
     kernels = []

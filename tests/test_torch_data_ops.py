@@ -54,6 +54,58 @@ def test_scatter_add_rows_matches_jax_and_numpy(interpret, M, N, D):
         np.testing.assert_allclose(got2, want, **TOL)
 
 
+def _skewed_ids(kind, M, N, rng):
+    """Ids of M rows that pile onto few table rows: 80% padding (id 0, what
+    the windows' left padding sends), all one id, or Zipf over the table."""
+    if kind == "zero80":
+        return np.where(rng.random(M) < 0.8, 0, rng.integers(1, N, M)).astype(np.int32)
+    if kind == "equal":
+        return np.full(M, N // 3, np.int32)
+    return ((rng.zipf(1.3, M) - 1) % N).astype(np.int32)
+
+
+@pytest.mark.parametrize("M", [3001, 1537])
+@pytest.mark.parametrize("kind", ["zero80", "equal", "zipf"])
+def test_scatter_add_rows_matches_jax_and_numpy_on_skewed_ids(interpret, kind, M):
+    """The ids the card's sorted-tile body combines (csrc/scatter_add.cu),
+    with a ragged row count: the plain version against np.add.at and the
+    interpret-mode JAX kernel; f32 within 1e-5 plus 1e-5 of the sum of the
+    magnitudes added at each element (sums of up to M unit rows in other
+    orders)."""
+    N, D = 500, 16
+    rng = np.random.default_rng(M + len(kind))
+    ids = _skewed_ids(kind, M, N, rng)
+    g = rng.normal(size=(M, D)).astype(np.float32)
+    want = np.zeros((N, D), np.float32)
+    np.add.at(want, ids, g)
+    mag = np.zeros((N, D), np.float32)
+    np.add.at(mag, ids, np.abs(g))
+    tol = 1e-5 + 1e-5 * mag
+    got = SA.scatter_add_rows(torch.from_numpy(ids), torch.from_numpy(g), N).numpy()
+    jax1 = np.asarray(jax_sa.scatter_add_rows(jnp.asarray(ids), jnp.asarray(g), N, block=512))
+    assert (np.abs(got - want) <= tol).all()
+    assert (np.abs(got - jax1) <= tol).all()
+
+
+@pytest.mark.parametrize("dtype,D,N,body", [
+    (torch.bfloat16, 64, 50_000, "sorted"),   # the paths' item-embedding gradient
+    (torch.float32, 64, 50_000, "sorted"),
+    (torch.bfloat16, 8, 10, "sorted"),        # two 4-column chunks: a walker of two lanes
+    (torch.bfloat16, 48, 10, "sorted"),       # 12 chunks: 16 lanes, four of them idle
+    (torch.float32, 1024, 10, "sorted"),      # 256 chunks: 32 lanes, eight passes
+    (torch.float32, 2048, 10, "sorted"),      # 512 chunks: 32 lanes, sixteen passes
+    (torch.bfloat16, 72, 10, "sorted"),       # 18 chunks: 32 lanes, a pass and a part
+    (torch.bfloat16, 18, 10, "per_row"),      # not whole 4-column chunks
+    (torch.bfloat16, 64, 2 ** 21 - 1, "sorted"),
+    (torch.bfloat16, 64, 2 ** 21, "per_row"),  # an id no longer fits its 21 bits of a key
+    (torch.float16, 64, 10, "per_row"),
+])
+def test_scatter_body_rule(dtype, D, N, body):
+    """ops/scatter_accum.py's copy of csrc/scatter_add.cu's rule at its
+    boundaries (tests/test_torch_gpu.py holds the two together on the card)."""
+    assert SA._scatter_body(dtype, D, N) == body
+
+
 def test_scatter_rows2_needs_an_even_table():
     with pytest.raises(ValueError):
         SA.scatter_add_rows2(torch.zeros(4, dtype=torch.long), torch.zeros(4, 8), 7)

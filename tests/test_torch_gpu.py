@@ -551,6 +551,123 @@ def test_lastq_bwd_body_selector(cuda, Lp, D, F, nh):
         assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
 
 
+# ------------------------------------ row 3 on the tensor cores
+def _lastq_fwd_path_case(dev, B, seed, act="swish", p=0.1, qi=49, dtype=torch.bfloat16):
+    """The paths' last-query layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on
+    B examples, query row qi, as fused_last_query_layer calls its forward."""
+    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
+    xp, mp, _ = LY._pad_L(x, madd, 50)
+    return xp, mp, LY._lastq_weights(params, dtype), (qi, 2, act, 1e-10, _drop(p))
+
+
+@pytest.mark.parametrize("qi", [49, 20])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("act", ["swish", "gelu"])
+def test_lastq_fwd_tensor_core_body_matches_plain(cuda, act, p, qi):
+    """Row 3's bf16 tensor-core forward at the paths' widths (B=33: a ragged
+    persistent grid and partial groups of 16), both activations of the
+    paths, dropout 0 and 0.1, the query at the last real row and inside
+    another strip."""
+    xp, mp, flat, args = _lastq_fwd_path_case(cuda, 33, 60, act, p, qi)
+    assert LY._lastq_fwd_body(torch.bfloat16, 56, 64, 128, 2) == "mma"
+    before = LY.fused_last_query_layer.launches, LY.fused_last_query_layer.launches_mma
+    y = LY._lastq_fwd_cuda(xp, mp, flat, *args)
+    assert (LY.fused_last_query_layer.launches,
+            LY.fused_last_query_layer.launches_mma) == (before[0] + 1, before[1] + 1)
+    ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
+    assert y.shape == (33, 64) and torch.isfinite(y).all()
+    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+
+
+@pytest.mark.parametrize("B,p", [(1, 0.1), (37, 0.1), (1000, 0.1), (256, 0.0)])
+def test_lastq_fwd_tensor_core_ragged_and_serving_batches(cuda, B, p):
+    """Batches that fill no grid or group of 16 evenly, and the serving
+    call (B=256, eval: no dropout), on the tensor-core forward."""
+    xp, mp, flat, args = _lastq_fwd_path_case(cuda, B, 61, p=p)
+    if p == 0.0:
+        args = args[:-1] + (LY.drop_params(0.1, 0.1, False, None),)
+    before = LY.fused_last_query_layer.launches_mma
+    y = LY._lastq_fwd_cuda(xp, mp, flat, *args)
+    assert LY.fused_last_query_layer.launches_mma == before + 1
+    ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
+    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+
+
+def test_lastq_fwd_tensor_core_masks_are_the_backwards(cuda):
+    """Through autograd with dropout 0.1 (train mode, a seed), the tensor-core
+    forward and the tensor-core backward, which replays its masks from the
+    seed, against the plain forward and backward: the output and every
+    gradient agree, and another seed's plain output does not."""
+    from unittest import mock
+    x, madd, params = _layer_case(cuda, torch.bfloat16, B=35, L=50, D=64, F=128, seed=62)
+    kw = dict(n_heads=2, inner_size=128, hidden_act="swish", layer_norm_eps=1e-10,
+              q_index=49, p_attn=0.1, p_hidden=0.1, train=True)
+    dy = torch.randn(35, 64, generator=torch.Generator(device=cuda).manual_seed(63),
+                     device=cuda)
+
+    def run(seed):
+        xg = x.detach().requires_grad_()
+        pg = tuple(tuple(t.detach().requires_grad_() for t in pair) for pair in params)
+        y = LY.fused_last_query_layer(xg, madd, pg, seed=seed, **kw)
+        (y.float() * dy).sum().backward()
+        return y.detach(), [xg.grad] + [t.grad for pair in pg for t in pair]
+
+    before = LY.fused_last_query_layer.launches_mma, LY.lastq_bwd.launches_mma
+    y, grads = run(5)
+    assert (LY.fused_last_query_layer.launches_mma, LY.lastq_bwd.launches_mma) == (
+        before[0] + 1, before[1] + 1)
+    with mock.patch.object(LY, "_lastq_fwd_cuda", LY._lastq_fwd_plain), \
+            mock.patch.object(LY, "_lastq_bwd_cuda", LY._lastq_bwd_plain):
+        ry, rgrads = run(5)
+        other, _ = run(6)
+    assert float((y.float() - ry.float()).abs().max()) <= _ln_tol(ry)
+    assert float((y.float() - other.float()).abs().max()) > 4 * _ln_tol(ry)
+    for i, (g, r) in enumerate(zip(grads, rgrads)):
+        if i == 4:   # the key bias: zero in exact arithmetic, held to the query bias's scale
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= BWD_TOL[torch.bfloat16] * float(rgrads[2].float().abs().max())
+        else:
+            assert _rel_err(g, r) <= BWD_TOL[torch.bfloat16]
+
+
+def test_lastq_fwd_f32_keeps_the_cuda_core_body(cuda):
+    xp, mp, flat, args = _lastq_fwd_path_case(cuda, 9, 64, dtype=torch.float32)
+    assert LY._lastq_fwd_body(torch.float32, 56, 64, 128, 2) == "cuda"
+    before = LY.fused_last_query_layer.launches, LY.fused_last_query_layer.launches_mma
+    y = LY._lastq_fwd_cuda(xp, mp, flat, *args)
+    assert (LY.fused_last_query_layer.launches,
+            LY.fused_last_query_layer.launches_mma) == (before[0] + 1, before[1])
+    ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
+    assert float((y - ref).abs().max()) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
+                                       (16, 32, 64, 2), (72, 64, 128, 2), (56, 64, 384, 2),
+                                       (56, 64, 400, 2), (56, 48, 96, 3), (56, 64, 128, 8),
+                                       (56, 80, 128, 2), (8, 16, 16, 1)])
+def test_lastq_fwd_body_selector(cuda, Lp, D, F, nh):
+    """csrc/lastq_fwd.cu's rule and shared memory against ops/layer.py's
+    copies; where the tensor cores take a shape, the body agrees with the
+    plain forward and moves its counter."""
+    lib = _build.library("lastq_fwd")
+    takes, smem = lib.unirec_lastq_fwd_mma_takes, lib.unirec_lastq_fwd_mma_smem_bytes
+    takes.argtypes, smem.argtypes = [ctypes.c_int] * 5, [ctypes.c_int] * 3
+    body = LY._lastq_fwd_body(torch.bfloat16, Lp, D, F, nh)
+    assert bool(takes(1, Lp, D, F, nh)) == (body == "mma") and not takes(0, Lp, D, F, nh)
+    assert smem(D, F, nh) == LY._lastq_fwd_mma_smem_bytes(D, F, nh)
+    if body != "mma":
+        return
+    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=65)
+    xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
+    flat = LY._lastq_weights(params, torch.bfloat16)
+    args = (Lp - 4, nh, "gelu", 1e-10, _drop(0.1))
+    before = LY.fused_last_query_layer.launches_mma
+    y = LY._lastq_fwd_cuda(xp, mp, flat, *args)
+    assert LY.fused_last_query_layer.launches_mma == before + 1
+    ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
+    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_add_matches_plain_and_index_add(cuda, dtype):
     from unirec_tpu_torch.ops import scatter_accum as SA
@@ -571,6 +688,105 @@ def test_scatter_add_matches_plain_and_index_add(cuda, dtype):
     assert float((out.float() - lib.float()).abs().max()) <= tol
     assert float((out2[:1003].float() - ref.float()).abs().max()) <= tol
     assert float(out2[1003].abs().max()) == 0.0
+
+
+# ------------------------------------ row 6: the sorted-tile body
+def _scatter_ids(kind, M, N, dev, seed=70):
+    """Ids of M gradient rows into N: all one id, 80% padding (id 0) as the
+    windows' left padding sends, Zipf-skewed over the catalog, or a quarter
+    outside [0, N)."""
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        ids = np.full(M, 17)
+    elif kind == "zero80":
+        ids = np.where(rng.random(M) < 0.8, 0, rng.integers(1, N, M))
+    elif kind == "zipf":
+        ids = (rng.zipf(1.3, M) - 1) % N
+    else:
+        ids = np.where(rng.random(M) < 0.25, rng.choice([-5, N, N + 100], M),
+                       rng.integers(0, N, M))
+    return torch.from_numpy(ids.astype(np.int64)).to(dev)
+
+
+def _scatter_close(out, ids, rows, N):
+    """Element by element: the f32 sums in another order (1e-4, plus 2e-5 of
+    the sum of the magnitudes added there), and in bf16 one rounding of the
+    sum (2^-7 of it)."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    ref = SA._scatter_plain(ids, rows, N).float()
+    mag = SA._scatter_plain(ids, rows.float().abs(), N).float()
+    tol = 1e-4 + 2e-5 * mag + (2.0 ** -7 * ref.abs() if rows.dtype == torch.bfloat16 else 0.0)
+    assert out.shape == ref.shape
+    assert bool(((out.float() - ref).abs() <= tol).all()), float((out.float() - ref).abs().max())
+
+
+@pytest.mark.parametrize("M", [20011, 1])
+@pytest.mark.parametrize("kind", ["equal", "zero80", "zipf", "out_of_range"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_sorted_body_combines_hot_ids(cuda, dtype, kind, M):
+    """Row 6's sorted-tile body on ids that pile onto few rows (what the
+    per-row body serialises on), and on ids the sum must skip; a ragged last
+    tile; scatter_add_rows2 through the same kernel."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    N = 1003
+    ids = _scatter_ids(kind, M, N, cuda)
+    rows = torch.randn(M, 64, generator=torch.Generator(device=cuda).manual_seed(71),
+                       device=cuda).to(dtype)
+    assert SA._scatter_body(dtype, 64, N) == "sorted"
+    before = SA.scatter_add_rows.launches, SA.scatter_add_rows.launches_sorted
+    out = SA.scatter_add_rows(ids, rows, N)
+    out2 = SA.scatter_add_rows2(ids, rows, N + 1)
+    assert (SA.scatter_add_rows.launches, SA.scatter_add_rows.launches_sorted) == (
+        before[0] + 2, before[1] + 2)
+    assert out.dtype == dtype
+    _scatter_close(out, ids, rows, N)
+    _scatter_close(out2[:N], ids, rows, N)
+    if kind != "out_of_range":
+        assert float(out2[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 18), (torch.float32, 30)])
+def test_scatter_add_per_row_body_takes_other_widths(cuda, dtype, D):
+    """A row width the sorted body does not take (not whole 4-column chunks)
+    runs the per-row body."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    ids = _scatter_ids("zero80", 5001, 300, cuda)
+    rows = torch.randn(5001, D, device=cuda).to(dtype)
+    assert SA._scatter_body(dtype, D, 300) == "per_row"
+    before = SA.scatter_add_rows.launches, SA.scatter_add_rows.launches_sorted
+    out = SA.scatter_add_rows(ids, rows, 300)
+    assert (SA.scatter_add_rows.launches, SA.scatter_add_rows.launches_sorted) == (
+        before[0] + 1, before[1])
+    _scatter_close(out, ids, rows, 300)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 8), (torch.bfloat16, 72),
+                                     (torch.float32, 36), (torch.float32, 2048)])
+def test_scatter_add_sorted_body_takes_any_whole_chunk_width(cuda, dtype, D):
+    """The sorted body's walkers at widths other than the paths' 64: fewer
+    chunks than lanes (some lanes idle) and more (a lane walks its span once
+    a chunk), on hot ids."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    ids = _scatter_ids("zero80", 5001, 300, cuda)
+    rows = torch.randn(5001, D, device=cuda).to(dtype)
+    assert SA._scatter_body(dtype, D, 300) == "sorted"
+    before = SA.scatter_add_rows.launches_sorted
+    out = SA.scatter_add_rows(ids, rows, 300)
+    assert SA.scatter_add_rows.launches_sorted == before + 1
+    _scatter_close(out, ids, rows, 300)
+
+
+@pytest.mark.parametrize("dtype,D,N", [(1, 64, 50000), (0, 64, 50000), (1, 8, 10), (1, 48, 10),
+                                       (1, 512, 10), (0, 1024, 10), (0, 2048, 10),
+                                       (1, 72, 10), (0, 36, 10), (1, 18, 10),
+                                       (1, 64, 2 ** 21 - 1), (1, 64, 2 ** 21), (0, 4, 10)])
+def test_scatter_add_body_selector(cuda, dtype, D, N):
+    """csrc/scatter_add.cu's rule against ops/scatter_accum.py's copy."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    takes = _build.library("scatter_add").unirec_scatter_add_sorted_takes
+    takes.argtypes = [ctypes.c_int] * 3
+    tdt = (torch.float32, torch.bfloat16)[dtype]
+    assert bool(takes(dtype, D, N)) == (SA._scatter_body(tdt, D, N) == "sorted")
 
 
 def test_member_matches_plain(cuda):

@@ -379,6 +379,60 @@ def test_lastq_bwd_body_rule(dtype, Lp, D, Fi, nh, body):
     assert LY._lastq_bwd_mma_smem_bytes(64, 128, 2) == 140_040
 
 
+@pytest.mark.parametrize("dtype,Lp,D,Fi,nh,body", [
+    (torch.bfloat16, 56, 64, 128, 2, "mma"),    # the paths' last layer (training and serving)
+    (torch.float32, 56, 64, 128, 2, "cuda"),    # f32 stays on the CUDA cores
+    (torch.bfloat16, 64, 64, 128, 4, "mma"),    # Lp at the tile's 64, head width 16
+    (torch.bfloat16, 72, 64, 128, 2, "cuda"),   # Lp past one 64-row tile
+    (torch.bfloat16, 56, 48, 112, 3, "mma"),
+    (torch.bfloat16, 56, 80, 128, 2, "cuda"),   # D past 64 (head width 40)
+    (torch.bfloat16, 56, 64, 120, 2, "cuda"),   # F not a multiple of 16
+    (torch.bfloat16, 56, 64, 384, 2, "mma"),    # the widest F whose buffers fit
+    (torch.bfloat16, 56, 64, 400, 2, "cuda"),
+    (torch.bfloat16, 56, 64, 128, 8, "cuda"),   # head width 8
+])
+def test_lastq_fwd_body_rule(dtype, Lp, D, Fi, nh, body):
+    """ops/layer.py's copy of csrc/lastq_fwd.cu's rule at its boundaries
+    (tests/test_torch_gpu.py holds the two together on the card): the
+    tensor-core forward's shared memory fits a block wherever the rule takes
+    a shape, and is 155,264 bytes at the paths' widths (the weights once and
+    two groups' buffers)."""
+    assert LY._lastq_fwd_body(dtype, Lp, D, Fi, nh) == body
+    smem = LY._lastq_fwd_mma_smem_bytes(D, Fi, nh)
+    assert (smem <= LY._SMEM_LIMIT) or body == "cuda"
+    assert LY._lastq_fwd_mma_smem_bytes(64, 128, 2) == 155_264
+
+
+@pytest.mark.parametrize("act", ["swish", "gelu"])
+def test_last_query_forward_matches_jax_at_the_bench_length_bf16(interpret, act):
+    """Row 3 at L=50 (Lp=56, which the card's tensor-core forward pads to
+    64 rows) in bf16: the port's plain forward (what both card bodies are
+    held to) against the interpret-mode Pallas forward, from the same f32
+    parameters, within two bf16 ulps of the largest LayerNorm output (2^-6
+    of it), as the whole layer's test below. Padding the 56 rows to 64 with
+    zero x rows and hard-banned keys leaves the output bit for bit."""
+    D, Fi = 32, 64
+    x, madd, params = _case_bf16(50, 81, True, D=D, F=Fi)
+    kw = dict(n_heads=NH, inner_size=Fi, hidden_act=act, layer_norm_eps=EPS)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    pt = tuple(tuple(torch.from_numpy(t) for t in pair) for pair in params)
+    y = LY.fused_last_query_layer(xb, torch.from_numpy(madd), pt, **kw)
+    assert y.dtype == torch.bfloat16 and y.shape == (3, D)
+    jy = jax_layer.fused_last_query_layer(jnp.asarray(xb.float().numpy(), jnp.bfloat16),
+                                          jnp.asarray(madd), params, p_attn=0.0,
+                                          p_hidden=0.0, train=False, **kw)
+    jy = np.asarray(jy, np.float32)
+    err = float(np.abs(y.float().numpy() - jy).max())
+    assert err <= 2.0 ** -6 * float(np.abs(jy).max()), (err, float(np.abs(jy).max()))
+    xp, mp, Lp = LY._pad_L(xb, torch.from_numpy(madd), 50)
+    assert Lp == 56
+    flat = LY._lastq_weights(pt, torch.bfloat16)
+    y64 = LY._lastq_fwd_plain(torch.nn.functional.pad(xp, (0, 0, 0, 8)),
+                              torch.nn.functional.pad(mp, (0, 8), value=LY.PAD_MASK),
+                              flat, 49, NH, act, EPS)
+    assert torch.equal(y64, y)
+
+
 @pytest.mark.parametrize("act", ["swish", "gelu"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_layer_forward_matches_jax_at_the_bench_length_bf16(interpret, causal, act):

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""What holds the tensor-core kernels back, on one NVIDIA card.
+"""What holds the redesigned kernels back, on one NVIDIA card.
 
-    python3 tools/kernel_ablations.py
+    python3 tools/kernel_ablations.py [source ...]
 
 Builds scratch copies of unirec_tpu_torch/csrc/flash_attention.cu (row 9),
 csrc/attention.cu (rows 10 and 11), csrc/ffn.cu (rows 12 and 13) and
-csrc/layer_bwd.cu (row 2), csrc/layer_fwd.cu (row 1) and csrc/lastq_bwd.cu
-(row 4) with one part of the bf16 body removed (csrc/layer_strip.cuh written
+csrc/layer_bwd.cu (row 2), csrc/layer_fwd.cu (row 1), csrc/lastq_bwd.cu
+(row 4), csrc/lastq_fwd.cu (row 3) and csrc/scatter_add.cu (row 6) with one
+part of the new body removed (csrc/layer_strip.cuh written
 into the copy, so its helpers can be changed too), each with the port's nvcc flags into
 build/ablations/, and times every copy against the unmodified kernel, in
 turns, at the shapes of the paths chip_smoke.py drives: flash attention at
@@ -18,7 +19,13 @@ dropout 0.1 (its variants: copies alone, no activation math, no Philox
 draws, no per-example weight-gradient flush into the block's slab, the cost
 of that design choice); the whole-layer forward and the last-query backward
 at the same shape (copies alone, no Philox draws, no activation math and,
-for the backward, no weight-gradient products). A copy computes
+for the backward, no weight-gradient products); the last-query forward at
+the same shape (copies alone, no Philox draws, no activation math, no
+attention, no batched row phase); the scatter-add's sorted-tile body at the
+entry path's 1,638,400 rows on uniform ids and on ids 40% of which are the
+padding id 0 (no sort, no reductions, no row loads, and reductions only:
+neither sort nor loads). Naming sources (``lastq_fwd scatter_add``) runs
+those kernels' variants alone. A copy computes
 wrong results by design; only its time means anything. Beside them it
 times a copy of the inputs (the bytes' floor on this card). Prints the
 card, then one JSON line per kernel with the median of each variant's
@@ -133,6 +140,39 @@ VARIANTS = [
          "      flush_wgrad(X1g, LDD, D, DUg, LDF, F, 1, slab + o_w1, warp, lane);\n"
          "      flush_wgrad(HMg, LDF, F, DHg, LDD, D, 1, slab + o_w2, warp, lane);\n", ""),
         ("    if (wkv_mine) {\n      for (int kc = 0;", "    if (false) {\n      for (int kc = 0;")]),
+    # row 3's tensor-core forward; no_row_phase: neither the batched
+    # out-projection and FFN products nor the LayerNorms (y is never written)
+    ("lastq_fwd_copies_only", "lastq_fwd", [
+        ("    const bf16* X = Xs(st);\n    const float* M = Ms(st);\n",
+         "    const bf16* X = Xs(st);\n    const float* M = Ms(st);\n    if (b >= 0) continue;\n")]),
+    ("lastq_fwd_no_philox", "lastq_fwd", [
+        ("(bf16*)y, B, Lp, F, qi, act, eps, dr);",
+         "(bf16*)y, B, Lp, F, qi, act, eps,\n"
+         "      Drop{dr.seed, 0u, 0u, dr.inv_attn, dr.inv_hidden});")]),
+    ("lastq_fwd_no_activation", "lastq_fwd", [
+        ("            act_pair<A>(rb(rb(acc[n2][2 * r]) + ba), h0, d);\n"
+         "            act_pair<A>(rb(rb(acc[n2][2 * r + 1]) + bb), h1, d);",
+         "            h0 = rb(rb(acc[n2][2 * r]) + ba);\n"
+         "            h1 = rb(rb(acc[n2][2 * r + 1]) + bb);\n            d = 0.0f;")]),
+    ("lastq_fwd_no_attention", "lastq_fwd", [
+        ("    if (gw < NH) {\n      const int h = gw;\n      float sc[2], p[2];",
+         "    if (false) {\n      const int h = gw;\n      float sc[2], p[2];")]),
+    ("lastq_fwd_no_row_phase", "lastq_fwd", [
+        ("      row_phase(slot);\n", "")]),
+    # row 6's sorted-tile body; atomics_only: the keys staged, then every
+    # row's (or run's) reductions of zeros, neither sorted nor loaded
+    ("scatter_no_sort", "scatter_add", [("  bitonic_sort(keys, tile);\n", "")]),
+    ("scatter_no_reductions", "scatter_add", [
+        ("      atomicAdd(reinterpret_cast<float4*>(acc + (size_t)cur * D + 4 * c),\n"
+         "                make_float4(s[0], s[1], s[2], s[3]));",
+         "      if (s[0] == 1234.5f) acc[(size_t)cur * D + 4 * c] = s[1] + s[2] + s[3];")]),
+    ("scatter_no_loads", "scatter_add", [
+        ("v[u] = __ldg(reinterpret_cast<const V*>(gt + (size_t)(k[u] & (kMaxTile - 1)) * D));",
+         "v[u] = V{};")]),
+    ("scatter_atomics_only", "scatter_add", [
+        ("  bitonic_sort(keys, tile);\n", ""),
+        ("v[u] = __ldg(reinterpret_cast<const V*>(gt + (size_t)(k[u] & (kMaxTile - 1)) * D));",
+         "v[u] = V{};")]),
 ]
 
 
@@ -151,12 +191,14 @@ def variant_source(src: str, reps) -> str:
     return text
 
 
-def build_variants():
+def build_variants(sources):
     sys.path.insert(0, str(ROOT))
     from unirec_tpu_torch.ops import _build
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src, reps in VARIANTS:
+        if src not in sources:
+            continue
         path = OUT / f"{name}.cu"
         path.write_text(variant_source(src, reps))
         procs[name] = subprocess.Popen(
@@ -203,19 +245,43 @@ def timed_variants(torch, lib_name, entry, names, fn):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def main() -> int:
+SOURCES = ("flash_attention", "attention", "ffn", "layer_bwd", "layer_fwd", "lastq_bwd",
+           "lastq_fwd", "scatter_add")
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_ablations: no CUDA device", file=sys.stderr)
         return 2
+    sources = set(argv) or set(SOURCES)
+    if not sources <= set(SOURCES):
+        print(f"kernel_ablations: sources are {SOURCES}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import attention_inputs, flash_inputs, layer_inputs, smi_line
-    from unirec_tpu_torch.ops import attention as AT
-    from unirec_tpu_torch.ops import ffn as FF
+    from chip_smoke import layer_inputs, smi_line
     from unirec_tpu_torch.ops import layer as LY
     print(smi_line(), flush=True)
-    build_variants()
+    build_variants(sources)
+    if "flash_attention" in sources:
+        flash_variants(torch)
+    if "attention" in sources:
+        attention_variants(torch)
+    if "ffn" in sources:
+        ffn_variants(torch)
+    if sources & {"layer_bwd", "layer_fwd", "lastq_bwd", "lastq_fwd"}:
+        # rows 1-4 at the training path's shape, dropout 0.1 on every site
+        xp, mp, params = layer_inputs(torch, torch.bfloat16, B=32768, seed=10)
+        fargs = (2, "swish", 1e-10, True, LY.drop_params(0.1, 0.1, True, 12345))
+        layer_variants(torch, sources, xp, mp, params, fargs)
+    if "scatter_add" in sources:
+        scatter_variants(torch)
+    return 0
 
+
+def flash_variants(torch):
+    from chip_smoke import flash_inputs
+    from unirec_tpu_torch.ops import attention as AT
     q, k, v, mask = flash_inputs(torch, 8192, 256, torch.bfloat16)
     names = [n for n, src, _ in VARIANTS if src == "flash_attention"]
     line = timed_variants(torch, "flash_attention", AT._flash_entry, names,
@@ -223,8 +289,12 @@ def main() -> int:
     line["copy_of_q_k_v_mask"] = cuda_ms(torch, lambda: [t.clone() for t in (q, k, v, mask)])
     print(json.dumps({"kernel": "flash_attention", "shape": list(q.shape), "ms": line}),
           flush=True)
-    del q, k, v, mask
 
+
+def attention_variants(torch):
+    from chip_smoke import attention_inputs
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import layer as LY
     q, k, v, mask = attention_inputs(torch, 32768)
     do = torch.randn_like(q.float()).to(torch.bfloat16)
     for kind in ("bwd", "fwd"):
@@ -238,8 +308,10 @@ def main() -> int:
                 t.clone() for t in ((q, k, v, do, mask) if kind == "bwd" else (q, k, v, mask))])
             print(json.dumps({"kernel": f"fused_attention_{kind}", "p_drop": p,
                               "shape": list(q.shape), "ms": line}), flush=True)
-    del q, k, v, mask, do
 
+
+def ffn_variants(torch):
+    from unirec_tpu_torch.ops import ffn as FF
     g = torch.Generator(device="cuda").manual_seed(40)
     rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device="cuda") * std).to(  # noqa: E731
         torch.bfloat16)
@@ -260,38 +332,55 @@ def main() -> int:
         b2, torch.nn.functional.silu(torch.addmm(b1, x, w1)), w2))
     print(json.dumps({"kernel": "fused_ffn", "tokens": T, "dims": [64, 128], "ms": line}),
           flush=True)
-    del x, dy
 
-    # row 2 at the training path's shape, dropout 0.1 on every site
-    xp, mp, params = layer_inputs(torch, torch.bfloat16, B=32768, seed=10)
+
+def layer_variants(torch, sources, xp, mp, params, fargs):
+    from unirec_tpu_torch.ops import layer as LY
+    g = torch.Generator(device="cuda").manual_seed(40)
     flat = LY._layer_weights(params, torch.bfloat16)
-    dyl = torch.randn(xp.shape, generator=g, device="cuda").to(torch.bfloat16)
-    fargs = (2, "swish", 1e-10, True, LY.drop_params(0.1, 0.1, True, 12345))
-    names = [n for n, src, _ in VARIANTS if src == "layer_bwd"]
-    line = timed_variants(torch, "layer_bwd", LY._entry, names,
-                          lambda: LY._layer_bwd_cuda(xp, mp, flat, dyl, *fargs))
-    line["copy_of_x_dy"] = cuda_ms(torch, lambda: [t.clone() for t in (xp, dyl)])
-    print(json.dumps({"kernel": "layer_bwd", "shape": list(xp.shape), "p_drop": 0.1,
-                      "ms": line}), flush=True)
-
-    # rows 1 and 4 at the training path's shape, dropout 0.1 on every site
-    names = [n for n, src, _ in VARIANTS if src == "layer_fwd"]
-    line = timed_variants(torch, "layer_fwd", LY._entry, names,
-                          lambda: LY._layer_fwd_cuda(xp, mp, flat, *fargs))
-    line["copy_of_x"] = cuda_ms(torch, lambda: xp.clone())
-    print(json.dumps({"kernel": "layer_fwd", "shape": list(xp.shape), "p_drop": 0.1,
-                      "ms": line}), flush=True)
     qflat = LY._lastq_weights(params, torch.bfloat16)
-    dyq = torch.randn(xp.shape[0], xp.shape[2], generator=g, device="cuda").to(torch.bfloat16)
     qargs = (49, *fargs[:3], fargs[4])  # (q index, nh, act, eps, dropout)
-    names = [n for n, src, _ in VARIANTS if src == "lastq_bwd"]
-    line = timed_variants(torch, "lastq_bwd", LY._entry, names,
-                          lambda: LY._lastq_bwd_cuda(xp, mp, qflat, dyq, *qargs))
-    line["copy_of_x"] = cuda_ms(torch, lambda: xp.clone())
-    print(json.dumps({"kernel": "lastq_bwd", "shape": list(xp.shape), "p_drop": 0.1,
-                      "ms": line}), flush=True)
-    return 0
+    if "layer_bwd" in sources:
+        dyl = torch.randn(xp.shape, generator=g, device="cuda").to(torch.bfloat16)
+        names = [n for n, src, _ in VARIANTS if src == "layer_bwd"]
+        line = timed_variants(torch, "layer_bwd", LY._entry, names,
+                              lambda: LY._layer_bwd_cuda(xp, mp, flat, dyl, *fargs))
+        line["copy_of_x_dy"] = cuda_ms(torch, lambda: [t.clone() for t in (xp, dyl)])
+        print(json.dumps({"kernel": "layer_bwd", "shape": list(xp.shape), "p_drop": 0.1,
+                          "ms": line}), flush=True)
+        del dyl
+    runs = {"layer_fwd": lambda: LY._layer_fwd_cuda(xp, mp, flat, *fargs),
+            "lastq_fwd": lambda: LY._lastq_fwd_cuda(xp, mp, qflat, *qargs)}
+    if "lastq_bwd" in sources:
+        dyq = torch.randn(xp.shape[0], xp.shape[2], generator=g, device="cuda").to(torch.bfloat16)
+        runs["lastq_bwd"] = lambda: LY._lastq_bwd_cuda(xp, mp, qflat, dyq, *qargs)
+    for src in ("layer_fwd", "lastq_bwd", "lastq_fwd"):
+        if src not in sources:
+            continue
+        names = [n for n, s, _ in VARIANTS if s == src]
+        line = timed_variants(torch, src, LY._entry, names, runs[src])
+        line["copy_of_x"] = cuda_ms(torch, lambda: xp.clone())
+        print(json.dumps({"kernel": src, "shape": list(xp.shape), "p_drop": 0.1, "ms": line}),
+              flush=True)
+
+
+def scatter_variants(torch):
+    """Row 6 at the entry path's item_seq shape on uniform ids and on ids 40%
+    of which are the padding id 0."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    g = torch.Generator(device="cuda").manual_seed(41)
+    M, N = 1_638_400, 50_000
+    rows = (torch.randn(M, 64, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    uniform = torch.randint(0, N, (M,), generator=g, device="cuda", dtype=torch.int32)
+    pad = torch.rand(M, generator=g, device="cuda") < 0.4
+    names = [n for n, src, _ in VARIANTS if src == "scatter_add"]
+    for what, ids in (("uniform", uniform), ("40% id 0", torch.where(pad, 0, uniform))):
+        line = timed_variants(torch, "scatter_add", SA._lib, names,
+                              lambda: SA._scatter_cuda(ids, rows, N))
+        line["copy_of_rows"] = cuda_ms(torch, lambda: rows.clone())
+        print(json.dumps({"kernel": "scatter_add", "ids": what, "rows": M, "table": [N, 64],
+                          "ms": line}), flush=True)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -19,13 +19,14 @@ and both LayerNorms run in f32; the backward casts dh2, du, do, dctx, ds
 and dq|dk|dv to the input dtype where the Pallas kernel does). A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
 launches its kernel or raises. ``<wrapper>.launches`` counts launches.
-The whole-layer forward and backward and the last-query backward have two
-bodies each: in bf16 with Lp <= 64, D and the head width multiples of 16 up
-to 64 and F a multiple of 16 the tensor cores' (``_layer_fwd_body``,
-``_layer_bwd_body``, ``_lastq_bwd_body``; ``fused_transformer_layer.
-launches_mma``, ``layer_bwd.launches_mma`` and ``lastq_bwd.launches_mma``
-count them), else the CUDA cores'. The wrapper names the body to the C
-entry point, which refuses a tensor-core launch its own rule does not admit.
+All four kernels have two bodies each: in bf16 with Lp <= 64, D and the
+head width multiples of 16 up to 64 and F a multiple of 16 the tensor
+cores' (``_layer_fwd_body``, ``_layer_bwd_body``, ``_lastq_fwd_body``,
+``_lastq_bwd_body``; ``fused_transformer_layer.launches_mma``,
+``layer_bwd.launches_mma``, ``fused_last_query_layer.launches_mma`` and
+``lastq_bwd.launches_mma`` count them), else the CUDA cores'. The wrapper
+names the body to the C entry point, which refuses a tensor-core launch its
+own rule does not admit.
 
 Dropout. The TPU kernels draw on the TPU's hardware PRNG, which no other
 machine reproduces. Here the masks come from Philox4x32-10 keyed by (seed,
@@ -290,6 +291,20 @@ def _lastq_bwd_mma_smem_bytes(D: int, F_: int, nh: int) -> int:
     return weights + ring + 2 * _MMA_ROWS * ldkv + gather + 4 * floats
 
 
+def _lastq_fwd_mma_smem_bytes(D: int, F_: int, nh: int) -> int:
+    """csrc/lastq_fwd.cu::mma_smem_bytes: the tensor-core last-query
+    forward's bf16 weights (wq, wk|wv side by side, wo, w1, w2) once, then
+    for each of its two 8-warp groups two stages of x and the f32 madd row,
+    the room k|v and the row phase share (k|v, or x1, hm and the f32
+    pre-LayerNorm rows of 16 examples), the gathered x[qi] and ctx rows, f32
+    q and z, and the 16 rows' example indices."""
+    ldd, ldkv, ldf = D + 8, 2 * D + 8, F_ + 8
+    room = max(2 * _MMA_ROWS * ldkv, 2 * 16 * (ldd + ldf) + 4 * 16 * D)
+    group = (2 * (2 * _MMA_ROWS * ldd + 4 * _MMA_ROWS) + room + 2 * 2 * 16 * ldd
+             + 4 * (D + nh * _MMA_ROWS) + 4 * 16)
+    return 2 * (D * ldd + D * ldkv + D * ldd + D * ldf + F_ * ldd) + 2 * group
+
+
 def _mma_widths_take(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> bool:
     """The widths every bf16 tensor-core layer body takes (csrc/layer_*.cu's
     rules before their shared-memory test): Lp <= 64 and a multiple of 8, D
@@ -315,6 +330,15 @@ def _layer_bwd_body(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> st
     the CUDA-core body."""
     return ("mma" if _mma_widths_take(dtype, Lp, D, F_, nh)
             and _layer_bwd_mma_smem_bytes(D, F_, nh) <= _SMEM_LIMIT else "cuda")
+
+
+def _lastq_fwd_body(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> str:
+    """The body of csrc/lastq_fwd.cu that runs the last-query forward (its
+    rule ``mma_takes``): "mma", the bf16 tensor-core body (the widths of
+    ``_mma_widths_take``, its shared memory within a block's); else "cuda",
+    the CUDA-core body."""
+    return ("mma" if _mma_widths_take(dtype, Lp, D, F_, nh)
+            and _lastq_fwd_mma_smem_bytes(D, F_, nh) <= _SMEM_LIMIT else "cuda")
 
 
 def _lastq_bwd_body(dtype: torch.dtype, Lp: int, D: int, F_: int, nh: int) -> str:
@@ -771,17 +795,24 @@ def _lastq_shape_check(x, madd, flat, qi: int, nh: int, backward: bool):
 
 def _lastq_fwd_cuda(x, madd, flat, qi: int, nh: int, act: str,
                     eps: float, drop: Drop = NO_DROP) -> torch.Tensor:
-    """Launch csrc/lastq_fwd.cu on x [B, Lp, D]; returns [B, D]."""
+    """Launch csrc/lastq_fwd.cu, the body ``_lastq_fwd_body`` names, on x
+    [B, Lp, D]; returns [B, D]."""
     B, Lp, D, F_ = _lastq_shape_check(x, madd, flat, qi, nh, backward=False)
+    body = _lastq_fwd_body(x.dtype, Lp, D, F_, nh)
     x = x.contiguous()
     madd = madd.to(torch.float32).contiguous()
+    if body == "mma":   # 16-byte copies of x, madd and the six matmul weights
+        x, madd = _aligned16(x), _aligned16(madd)
+        flat = tuple(_aligned16(t) if i in (0, 2, 4, 6, 10, 12) else t
+                     for i, t in enumerate(flat))
     y = torch.empty((B, D), dtype=x.dtype, device=x.device)
-    err = _entry("lastq_fwd", 19, 7)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
+    err = _entry("lastq_fwd", 19, 8)(_DTYPES[x.dtype], _ptr(x), _ptr(madd),
                            *[_ptr(t) for t in flat], _ptr(y), B, Lp, D, F_, nh,
-                           int(qi), SUPPORTED_ACTS.index(act), float(eps),
-                           *_drop_args(drop), _build.stream_handle(x.device))
+                           int(qi), SUPPORTED_ACTS.index(act), int(body == "mma"),
+                           float(eps), *_drop_args(drop), _build.stream_handle(x.device))
     _build.check(err, "lastq_fwd launch")
     fused_last_query_layer.launches += 1
+    fused_last_query_layer.launches_mma += body == "mma"
     return y
 
 
@@ -845,3 +876,4 @@ def fused_last_query_layer(x, madd, params, *, n_heads: int, inner_size: int,
 
 
 fused_last_query_layer.launches = 0
+fused_last_query_layer.launches_mma = 0   # of those, the bf16 tensor-core body's
