@@ -15,7 +15,11 @@ Phases, each of which must pass:
      least 3x slower) and nn.TransformerEncoderLayer on the same weights
      and mask as the yardstick (its agreement with the plain version
      reported); the last-query layer likewise in its tensor-core body, its
-     CUDA-core body timed in turns beside it (no gate at this batch);
+     CUDA-core body timed in turns beside it (no gate at this batch); the
+     catalog block-max (rows 5, 5q) over 50,000 and 1,000,000 items, bf16
+     and int8, in its tensor-core body, its CUDA-core body timed in turns
+     by the card's clock (traced_kernel_ms: these calls take microseconds,
+     where CUDA events read the host's launch pace), at least 1.5x slower;
   4. the serving path: a bench-width SASRec (2 layers, d=64, 2 heads, inner
      128, L=50, 50,000 items; random weights from a seed, saved and loaded
      as a checkpoint) serves top-100 to a few thousand users of a synthetic
@@ -28,8 +32,9 @@ Phases, each of which must pass:
      forward layers with dropout 0.1, their backwards, the embedding-grad
      scatter-add (on uniform ids at the paths' four shapes, its sorted-tile
      body timed in turns with its per-row body) and the negative-membership
-     test, each against its plain version with the same inputs and dropout
-     seeds, and timed; both layers' forwards and backwards in their bf16
+     test (its warp body against its block body, in turns by the card's
+     clock, at least 1.5x faster), each against its plain version with the
+     same inputs and dropout seeds, and timed; both layers' forwards and backwards in their bf16
      tensor-core bodies, each with its CUDA-core body timed in turns with it
      (at least 3x slower for the forwards and the last-query backward, 5x
      for the layer backward), the key biases' zero-sum checks and another seed's
@@ -66,9 +71,11 @@ Phases, each of which must pass:
      whose two scatter-adds (the item_seq and the candidate gathers' ids and
      gradient rows) are then timed as lines of their own: the sorted-tile
      body at least 3x its per-row body on the item_seq ids, index_add_
-     beside them; and a traced step and eval batch; the tensor-core bodies
-     of the attention pair and of both FFN directions and the sorted-tile
-     scatter must launch there;
+     beside them; row 7 (scatter_add_rows2) on the item_seq ids; the
+     membership test on that step's own (rows, cand), its warp body against
+     its block body as above; and a traced step and eval batch; the
+     tensor-core bodies of the attention pair and of both FFN directions,
+     the sorted-tile scatter and the warp membership body must launch there;
   9. flash attention (row 9) at the long path's training shape (B=8,192,
      H=2, L=256, hd=32) in bf16 (the tensor-core body) and f32 (the
      CUDA-core body), at L=264 and L=1,024, and at the
@@ -93,7 +100,9 @@ Phases, each of which must pass:
      gate), a traced step and eval batch, and top-100 serving of 4,096
      users from the long checkpoint (flash attention and blockmax launch;
      the ids agree with the plain-version run).
-Then it prints its wall time (and each of phases 9-10), the card, one
+Every launch of rows 5, 5q and 8 on the serving, training, entry, long
+and long-serving paths must be on the new bodies (NEW_BODIES). Then it
+prints its wall time (and each of phases 9-10), the card, one
 {"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
@@ -160,6 +169,45 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def traced_kernel_ms(fn, kernel: str, iters: int = 50, warmup: int = 3,
+                     attempts: int = 3) -> float:
+    """The device time of one launch of the port's kernel ``kernel`` (its
+    function's name in csrc/) inside fn, by the card's own clock: fn runs
+    ``iters`` times under torch.profiler, and the kernel's summed device time
+    is divided by its launches there (one a call). The tracer now and then
+    drops records, some or all of a window's: a window that holds fewer than
+    half of them is traced again, up to ``attempts`` windows. CUDA events
+    around back-to-back calls of a kernel of some microseconds read the
+    host's pace of launching them instead (cuda_ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    marks = (f"::{kernel}<", f"::{kernel}(")
+    seen = []
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and any(m in e.key for m in marks)]
+        calls = sum(e.count for e in hits)
+        seen.append(calls)
+        if iters // 2 <= calls <= iters:
+            return sum(float(e.self_device_time_total) for e in hits) / calls / 1e3
+    raise AssertionError(f"{kernel}: {seen} traced launches in windows of {iters} calls")
+
+
+def traced_timer(kernels):
+    """A ``timer`` for bodies_in_turns: each body's kernel (``kernels`` maps
+    "own" and the other body's name to their csrc/ function names) timed by
+    traced_kernel_ms."""
+    return lambda body, fn, iters, warmup: traced_kernel_ms(fn, kernels[body], iters, warmup)
+
+
 def bound_ms(nbytes: int, flops: int, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -223,23 +271,26 @@ def kernel_layer(torch, dtype_name, act="swish", causal=True, timed=True):
 
 
 def bodies_in_turns(line, selector, run, mma_iters, rounds=3, module=None, other="cuda",
-                    other_iters=3):
+                    other_iters=3, timer=None):
     """The kernel's time in its own body and in its older body (the CUDA-core
     one, or ``other``), timed in turns (own, other, then other, own, ...) so
     that both meet the card at the same clocks. The own body's median goes
     to line["kernel_ms"], every run's time to line["in_turns_ms"]; returns
     the other body's median. ``selector`` names the function of ``module``
     (ops/layer.py unless given) that picks the body; ``run`` launches the
-    kernel."""
+    kernel; ``timer(body, fn, iters, warmup)`` times it ("own" or ``other``;
+    CUDA events unless given, traced_timer for calls of some microseconds)."""
     if module is None:
         from unirec_tpu_torch.ops import layer as module
+    if timer is None:
+        timer = lambda body, fn, iters, warmup: cuda_ms(fn, iters, warmup)  # noqa: E731
     times = {"own": [], other: []}
     for r in range(rounds):
         for body in ("own", other) if r % 2 == 0 else (other, "own"):
             with (mock.patch.object(module, selector, lambda *a: other) if body == other
                   else nullcontext()):
-                times[body].append(cuda_ms(run, iters=mma_iters) if body == "own"
-                                   else cuda_ms(run, iters=other_iters, warmup=1))
+                times[body].append(timer(body, run, mma_iters, 3) if body == "own"
+                                   else timer(body, run, other_iters, 1))
     line["kernel_ms"] = statistics.median(times["own"])
     line["in_turns_ms"] = times
     return statistics.median(times[other])
@@ -399,14 +450,30 @@ def catalog(torch, n_items, dtype_name, seed):
     return u, it.to(getattr(torch, dtype_name))
 
 
+# the csrc/ functions of each body, for traced_kernel_ms
+BLOCKMAX_KERNELS = {"own": "blockmax_mma_kernel", "cuda": "blockmax_kernel"}
+MEMBER_KERNELS = {"own": "member_warp_kernel", "block": "member_kernel"}
+NEW_BODY_GATE = 1.5   # rows 5, 5q and 8: the new body at least this much faster
+
+
 def kernel_blockmax(torch, n_items, dtype_name, int8=False):
+    """Rows 5 and 5q at the serving batch: the body the path takes against
+    the plain version; on bf16 users (the tensor-core body) the CUDA-core
+    body too, both timed by the card's clock in turns (the new body at least
+    NEW_BODY_GATE times faster), the events' time beside them."""
     from unirec_tpu_torch.ops import topk as TK
     u, it = catalog(torch, n_items, dtype_name, SEED + 2)
     scale = None
     if int8:
         it, scale = TK.quantize_catalog(it)
-    bm = TK._blockmax_cuda(u, it, scale)
+    run = lambda: TK._blockmax_cuda(u, it, scale)  # noqa: E731
+    bm = run()
     ref = TK._blockmax_plain(u, it, scale)
+    body = TK._blockmax_body(u.dtype, it.dtype, u.shape[1])
+    old = None
+    if body == "mma":
+        with mock.patch.object(TK, "_blockmax_body", lambda *a: "cuda"):
+            old = run()
     torch.cuda.synchronize()
     err = float((bm - ref).abs().max())
     tol = 1e-3 * float(ref.abs().max())
@@ -421,16 +488,34 @@ def kernel_blockmax(torch, n_items, dtype_name, int8=False):
         peak = dtype_name
     line = {"phase": "kernel", "name": name, "users": B, "items": n_items, "dim": D,
             "dtype": dtype_name, "item_dtype": str(it.dtype).replace("torch.", ""),
-            "max_abs_err": err, "tol": tol,
-            "kernel_ms": cuda_ms(lambda: TK._blockmax_cuda(u, it, scale)),
+            "body": body, "max_abs_err": err, "tol": tol,
             "plain_ms": cuda_ms(lambda: TK._blockmax_plain(u, it, scale)),
             "library_ms": cuda_ms(lib)}
     line["bound_ms"], line["bound_by"] = bound_ms(
         nbytes(u, it, bm, *([scale] if int8 else [])), flops, peak)
+    ok = err <= tol
+    if old is None:
+        line["kernel_ms"] = cuda_ms(run)
+    else:
+        line["event_ms"] = cuda_ms(run)
+        core = bodies_in_turns(line, "_blockmax_body", run, 50, module=TK, other="cuda",
+                               other_iters=20, timer=traced_timer(BLOCKMAX_KERNELS))
+        line["cuda_core"] = {"max_abs_err": float((old - ref).abs().max()), "kernel_ms": core}
+        line["cuda_core_over_mma"] = core / line["kernel_ms"]
+        line["gate"] = NEW_BODY_GATE
+        ok = (ok and line["cuda_core"]["max_abs_err"] <= tol
+              and NEW_BODY_GATE * line["kernel_ms"] <= core)
     emit(line)
-    if not err <= tol:
-        raise AssertionError(f"{name} disagrees with its plain version: {line}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version or is slow: {line}")
     return line
+
+
+def older_body_row(line, key, body):
+    """The kernels-line row of a line's older body (``line[key]``): its own
+    error and time beside the line's plain, bound and library numbers."""
+    return {"body": body, **{k: line[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")}, **line[key]}
 
 
 def topk_agrees(ids, ref_scores, k, tol):
@@ -539,28 +624,37 @@ def _counters():
             "lastq_fwd_mma": (LY.fused_last_query_layer, "launches_mma"),
             "blockmax": (TK.catalog_blockmax, "launches"),
             "blockmax_int8": (TK.catalog_blockmax, "launches_int8"),
+            "blockmax_mma": (TK.catalog_blockmax, "launches_mma"),
+            "blockmax_int8_mma": (TK.catalog_blockmax, "launches_int8_mma"),
             "layer_bwd": (LY.layer_bwd, "launches"),
             "layer_bwd_mma": (LY.layer_bwd, "launches_mma"),
             "lastq_bwd": (LY.lastq_bwd, "launches"),
             "lastq_bwd_mma": (LY.lastq_bwd, "launches_mma"),
             "scatter_add": (SA.scatter_add_rows, "launches"),
             "scatter_add_sorted": (SA.scatter_add_rows, "launches_sorted"),
-            "member": (MB.member_mask, "launches")}
+            "member": (MB.member_mask, "launches"),
+            "member_warp": (MB.member_mask, "launches_warp")}
 
 
-# *_mma: the bf16 tensor-core bodies of rows 1-4; scatter_add_sorted: row 6's
-# sorted-tile body
+# *_mma: the bf16 tensor-core bodies of rows 1-5q; scatter_add_sorted: row 6's
+# sorted-tile body; member_warp: row 8's warp body
 SERVING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "blockmax",
-                   "blockmax_int8")
+                   "blockmax_int8", "blockmax_mma", "blockmax_int8_mma")
 TRAINING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "layer_bwd",
                     "layer_bwd_mma", "lastq_bwd", "lastq_bwd_mma", "scatter_add",
-                    "scatter_add_sorted", "member")
+                    "scatter_add_sorted", "member", "member_warp")
 # *_mma: the bf16 tensor-core bodies of rows 10, 11 (L <= 64) and 12, 13 (D <= 64)
 ENTRY_KERNELS = ("fused_attention", "fused_attention_mma", "fused_attention_bwd",
                  "fused_attention_bwd_mma", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
-                 "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member")
+                 "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member",
+                 "member_warp")
 LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
-                "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member")
+                "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member",
+                "member_warp")
+# (kernel, its new body's counter): every launch of rows 5, 5q and 8 on the
+# paths must be on the new body
+NEW_BODIES = (("blockmax", "blockmax_mma"), ("blockmax_int8", "blockmax_int8_mma"),
+              ("member", "member_warp"))
 OFF_LONG_PATH = ("layer_fwd", "layer_bwd", "lastq_fwd", "lastq_bwd", "fused_attention",
                  "fused_attention_bwd")
 
@@ -572,6 +666,15 @@ def launch_counts(names):
 def reset_counts():
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
+
+
+def on_new_bodies(path, counts):
+    """Raise unless every launch of a NEW_BODIES kernel in ``counts`` was on
+    its new body."""
+    off = {k: (counts[k], counts[n]) for k, n in NEW_BODIES
+           if k in counts and counts[k] != counts.get(n)}
+    if off:
+        raise AssertionError(f"{path}: launches (all, new body) off the new bodies: {off}")
 
 
 def main_path(torch, card: str):
@@ -609,6 +712,7 @@ def main_path(torch, card: str):
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}: {counts}")
+    on_new_bodies("main path", counts)
 
     # correctness: shape/range/history, and agreement with the plain versions
     with torch.no_grad():
@@ -903,15 +1007,15 @@ def scatter_line(torch, ids, rows, what, gate=None):
     return line
 
 
-def scatter_elementwise(torch, outs, ids, rows):
+def scatter_elementwise(torch, outs, ids, rows, n_rows=N_ITEMS):
     """Each output against the plain version element by element, as the card
     tests hold it: 1e-4 of the largest gradient element, plus 2e-5 of the sum
     of the magnitudes added into the element (f32 sums in another order),
     plus one bf16 rounding of the sum (2^-7 of it). Returns, for each output,
     the worst element's error over its tolerance (at most 1 to pass)."""
     from unirec_tpu_torch.ops import scatter_accum as SA
-    ref = SA._scatter_plain(ids, rows, N_ITEMS).float()
-    mag = SA._scatter_plain(ids, rows.float().abs(), N_ITEMS)
+    ref = SA._scatter_plain(ids, rows, n_rows).float()
+    mag = SA._scatter_plain(ids, rows.float().abs(), n_rows)
     tol = 1e-4 * float(rows.float().abs().max()) + 2e-5 * mag + 2.0 ** -7 * ref.abs()
     return [float(((o.float() - ref).abs() / tol).max()) for o in outs]
 
@@ -937,16 +1041,16 @@ def kernel_scatter(torch):
 
 
 @contextmanager
-def scatter_capture(store):
-    """Record the ids and gradient rows of every scatter-add the kernels
-    launch inside (not the plain versions' calls)."""
-    from unirec_tpu_torch.ops import scatter_accum as SA
-    real = SA._scatter_cuda
+def call_capture(module, name, store):
+    """Record the tensor arguments of every call of module.<name> (a kernel
+    wrapper such as scatter_accum._scatter_cuda or member._member_cuda; not
+    the plain versions' calls) made inside, as detached copies."""
+    real = getattr(module, name)
 
-    def spy(ids, g, n_rows):
-        store.append((ids.detach().clone(), g.detach().clone()))
-        return real(ids, g, n_rows)
-    with mock.patch.object(SA, "_scatter_cuda", spy):
+    def spy(*args):
+        store.append(tuple(a.detach().clone() if hasattr(a, "detach") else a for a in args))
+        return real(*args)
+    with mock.patch.object(module, name, spy):
         yield
 
 
@@ -959,36 +1063,93 @@ def kernel_scatter_path(torch, path, store):
         raise AssertionError(f"{path}: a step scattered {len(calls)} times, not 2")
     return {what: scatter_line(torch, ids.to(torch.int32), g, f"{path} {what}",
                                gate=3 if what == "item_seq" else None)
-            for (ids, g), what in zip(calls, ("item_seq", "candidates"))}
+            for (ids, g, _), what in zip(calls, ("item_seq", "candidates"))}
+
+
+def kernel_scatter2(torch, ids, rows):
+    """Row 7: scatter_add_rows2 (the JAX package's two-accumulator entry,
+    through row 6's kernel) on the entry path's item_seq ids and gradient
+    rows into an even table (N_ITEMS + 1 rounded up to even), against the
+    plain version on the table's largest element and element by element
+    (``scatter_elementwise``); the call must launch the kernel once.
+    index_add_ is the library call."""
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    n = N_ITEMS + 1 + (N_ITEMS + 1) % 2
+    ids = ids.to(torch.int32)
+    before = SA.scatter_add_rows.launches
+    acc = SA.scatter_add_rows2(ids, rows, n)
+    launched = SA.scatter_add_rows.launches - before
+    ref = SA._scatter_plain(ids, rows, n)
+    torch.cuda.synchronize()
+    lib_ids = ids.long()
+    lib = lambda: torch.zeros(n, EMB, device="cuda").index_add_(  # noqa: E731
+        0, lib_ids, rows.float()).to(torch.bfloat16)
+    err = float((acc.float() - ref.float()).abs().max())
+    tol = 8e-3 * float(ref.float().abs().max())
+    line = {"phase": "kernel", "name": "scatter_add2", "ids": "entry item_seq",
+            "rows": ids.shape[0], "table": [n, EMB], "dtype": "bfloat16",
+            "launches_in_call": launched, "max_abs_err": err, "tol": tol,
+            "tol_reason": "as row 6's lines",
+            "elementwise_worst": scatter_elementwise(torch, (acc,), ids, rows, n)[0],
+            "kernel_ms": cuda_ms(lambda: SA.scatter_add_rows2(ids, rows, n)),
+            "plain_ms": cuda_ms(lambda: SA._scatter_plain(ids, rows, n)),
+            "library_ms": cuda_ms(lib)}
+    line["bound_ms"], line["bound_by"] = bound_ms(nbytes(ids, rows, acc), ids.shape[0] * EMB,
+                                                  "float32")
+    emit(line)
+    if not (launched == 1 and err <= tol and line["elementwise_worst"] <= 1.0):
+        raise AssertionError(f"scatter_add_rows2 failed its checks: {line}")
+    return line
+
+
+def member_line(torch, rows, cand, what):
+    """One line of row 8: the warp body against the plain version, exact,
+    and timed by the card's clock in turns with the block body (which must
+    agree as well; the warp body at least NEW_BODY_GATE times faster), the
+    events' time beside them; the share of candidates found in their
+    history (hit_share) and of padding ids in the histories (zero_share)."""
+    from unirec_tpu_torch.ops import member as MB
+    run = lambda: MB._member_cuda(rows, cand)  # noqa: E731
+    out = run()
+    ref = MB._member_plain(rows, cand)
+    with mock.patch.object(MB, "_member_body", lambda *a: "block"):
+        old = run()
+    torch.cuda.synchronize()
+    line = {"phase": "kernel", "name": "member", "ids": what, "rows": list(rows.shape),
+            "cand": list(cand.shape), "body": MB._member_body(rows.shape[1], cand.shape[1]),
+            "mismatches": int((out != ref).sum()),
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "tol": 0.0, "tol_reason": "exact", "hit_share": float(ref.float().mean()),
+            "zero_share": float((rows == 0).float().mean()), "event_ms": cuda_ms(run),
+            "plain_ms": cuda_ms(lambda: MB._member_plain(rows, cand)), "library_ms": None}
+    # compares counted at the f32 CUDA-core rate
+    line["bound_ms"], line["bound_by"] = bound_ms(
+        nbytes(rows, cand, out), rows.numel() * cand.shape[1], "float32")
+    block = bodies_in_turns(line, "_member_body", run, 50, module=MB, other="block",
+                            other_iters=20, timer=traced_timer(MEMBER_KERNELS))
+    line["block"] = {"mismatches": int((old != ref).sum()),
+                     "max_abs_err": float((old.float() - ref.float()).abs().max()),
+                     "kernel_ms": block}
+    line["block_over_warp"] = block / line["kernel_ms"]
+    line["gate"] = NEW_BODY_GATE
+    emit(line)
+    if not (line["mismatches"] == 0 and line["block"]["mismatches"] == 0
+            and line["body"] == "warp" and NEW_BODY_GATE * line["kernel_ms"] <= block):
+        raise AssertionError(f"member ({what}) failed its checks: {line}")
+    return line
 
 
 def kernel_member(torch):
-    """Negative-rejection membership at bench shapes: [B, 200] histories,
-    [B, 36] candidates (9 negatives x oversample 4); exact."""
-    from unirec_tpu_torch.ops import member as MB
+    """Negative-rejection membership at bench shapes on synthetic ids:
+    [B, 200] uniform histories without padding, [B, 36] candidates (9
+    negatives x oversample 4), a third of them in the history."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
     rows = torch.randint(0, N_ITEMS, (TRAIN_BATCH, HIST_CAP), generator=g,
                          device="cuda", dtype=torch.int32)
     cand = torch.randint(1, N_ITEMS, (TRAIN_BATCH, 4 * N_NEG), generator=g,
                          device="cuda", dtype=torch.int32)
     cand[:, ::3] = rows[:, :12]  # a third of the candidates are in the history
-    out = MB._member_cuda(rows, cand)
-    ref = MB._member_plain(rows, cand)
-    torch.cuda.synchronize()
-    line = {"phase": "kernel", "name": "member", "rows": list(rows.shape),
-            "cand": list(cand.shape), "mismatches": int((out != ref).sum()),
-            "max_abs_err": float((out.float() - ref.float()).abs().max()),
-            "tol": 0.0, "tol_reason": "exact", "hits": int(out.sum()),
-            "kernel_ms": cuda_ms(lambda: MB._member_cuda(rows, cand)),
-            "plain_ms": cuda_ms(lambda: MB._member_plain(rows, cand)),
-            "library_ms": None}
-    # compares counted at the f32 CUDA-core rate
-    line["bound_ms"], line["bound_by"] = bound_ms(
-        nbytes(rows, cand, out), rows.numel() * cand.shape[1], "float32")
-    emit(line)
-    if line["mismatches"]:
-        raise AssertionError("member disagrees with its plain version")
-    return line
+    return member_line(torch, rows, cand, "synthetic")
 
 
 # ------------------------------------------------------------ training path
@@ -1062,6 +1223,7 @@ def train_path(torch, card: str):
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise AssertionError(f"train path never launched {missing}: {counts}")
+    on_new_bodies("train path", counts)
     trainer.train_step = step
     return counts, line, trainer, raw, aug
 
@@ -1807,6 +1969,7 @@ def entry_path(torch, card: str):
     missing = [k for k in ENTRY_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"entry path never launched {missing}: {counts}")
+    on_new_bodies("entry path", counts)
     return counts, line, seen["trainer"], seen["train_data"]
 
 
@@ -2038,6 +2201,7 @@ def long_path(torch, card: str):
     if missing or stray or seen["eval_flash"] <= 0 or infer_counts["flash_attention"] <= 0:
         raise AssertionError(f"long path launches: missing {missing}, stray {stray}, "
                              f"evaluations {seen['eval_flash']}, infer {infer_counts}")
+    on_new_bodies("long path", counts)
     check_infer_file(torch, out / "infer" / "sasrec_long256_flash.infer.txt", ckpt,
                      seen["trainer"])
     counts["long_infer"] = infer_counts["flash_attention"]
@@ -2088,13 +2252,14 @@ def long_serve(torch, ckpt: Path, card: str):
     ids = get_topk_recommendations(cfg, model, users, history, TOPK)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t1
-    counts = launch_counts(("flash_attention", "blockmax"))
+    counts = launch_counts(("flash_attention", "blockmax", "blockmax_mma"))
     emit({"phase": "long_serve", "users": SERVE_USERS, "batch": BATCH, "topk": TOPK,
           "max_seq_len": LONG_LEN, "users_per_s": SERVE_USERS / secs,
           "ms_per_batch": secs * 1e3 / (SERVE_USERS // BATCH), **counts,
           "seconds": time.perf_counter() - t0, "card": card})
     if min(counts.values()) <= 0:
         raise AssertionError(f"long serving never launched a kernel: {counts}")
+    on_new_bodies("long serve", counts)
     with torch.no_grad():
         check_main_path(torch, model, cfg, users, history, {"bf16": cfg}, {"bf16": ids},
                         phase="long_serve_check")
@@ -2147,18 +2312,18 @@ def main() -> int:
         rows["lastq_fwd_cuda_core"] = rows["lastq_fwd"]["cuda_core"]
         kernel_lastq(torch, "float32")
         kernel_lastq(torch, "float32", "gelu", timed=False)
-        rows["blockmax"] = kernel_blockmax(torch, N_ITEMS, "bfloat16")
-        kernel_blockmax(torch, 1_000_000, "bfloat16")
+        for name, int8 in (("blockmax", False), ("blockmax_int8", True)):
+            rows[name] = kernel_blockmax(torch, N_ITEMS, "bfloat16", int8)
+            rows[f"{name}_cuda_core"] = older_body_row(rows[name], "cuda_core", "cuda")
+            kernel_blockmax(torch, 1_000_000, "bfloat16", int8)
         kernel_blockmax(torch, N_ITEMS, "float32")
-        rows["blockmax_int8"] = kernel_blockmax(torch, N_ITEMS, "bfloat16", int8=True)
-        kernel_blockmax(torch, 1_000_000, "bfloat16", int8=True)
         kernel_fused_topk(torch)
 
     counts = main_path(torch, card)
 
     rows.update(kernel_train_layers(torch))
     kernel_scatter(torch)
-    rows["member"] = kernel_member(torch)
+    kernel_member(torch)
     torch.cuda.empty_cache()
     train_counts, _, trainer, raw, aug = train_path(torch, card)
     check_train_path(torch, trainer, raw, aug)
@@ -2172,11 +2337,18 @@ def main() -> int:
             kernel_fused_ffn(torch)
     torch.cuda.empty_cache()
     entry_counts, _, trainer, train_data = entry_path(torch, card)
-    entry_scatter = []
-    with scatter_capture(entry_scatter):
+    from unirec_tpu_torch.ops import member as MB, scatter_accum as SA
+    entry_scatter, entry_member = [], []
+    with call_capture(SA, "_scatter_cuda", entry_scatter), \
+            call_capture(MB, "_member_cuda", entry_member):
         ev, eval_batch = check_entry_path(torch, trainer, train_data)
     scatter_entry = kernel_scatter_path(torch, "entry", entry_scatter)
-    del entry_scatter
+    ids, grads, _ = max(entry_scatter, key=lambda c: c[0].numel())   # the item_seq call
+    rows["scatter_add2"] = kernel_scatter2(torch, ids, grads)
+    # row 8's line is one real batch of the entry path's (rows, cand)
+    rows["member"] = member_line(torch, *entry_member[0], "entry path")
+    rows["member_block"] = older_body_row(rows["member"], "block", "block")
+    del entry_scatter, entry_member, ids, grads
     profile_entry_path(torch, trainer, train_data, ev, eval_batch, card)
     del trainer, train_data, ev, eval_batch
 
@@ -2195,7 +2367,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     long_counts, trainer, train_data, ckpt = timed("long_path", long_path, torch, card)
     long_scatter = []
-    with scatter_capture(long_scatter):
+    with call_capture(SA, "_scatter_cuda", long_scatter):
         ev, eval_batch = timed("long_path_check", check_entry_path, torch, trainer, train_data,
                                phase="long_path_check")
     timed("scatter_long_ids", kernel_scatter_path, torch, "long", long_scatter)
@@ -2209,9 +2381,7 @@ def main() -> int:
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
     sc = rows["scatter_add"] = scatter_entry["item_seq"]
-    rows["scatter_add_per_row"] = {**{k: sc[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                                          "library_ms")},
-                                   **sc["per_row"]}
+    rows["scatter_add_per_row"] = older_body_row(sc, "per_row", "per_row")
     # the serving rows keep their serving-shape numbers; launches add up
     # both paths where a kernel runs on both
     sources = {"layer_fwd": ("unirec_tpu_torch/csrc/layer_fwd.cu",
@@ -2222,6 +2392,10 @@ def main() -> int:
                             "unirec_tpu/ops/topk.py:225"),
                "blockmax_int8": ("unirec_tpu_torch/csrc/blockmax.cu",
                                  "unirec_tpu/ops/topk.py:236"),
+               "blockmax_cuda_core": ("unirec_tpu_torch/csrc/blockmax.cu",
+                                      "unirec_tpu/ops/topk.py:225"),
+               "blockmax_int8_cuda_core": ("unirec_tpu_torch/csrc/blockmax.cu",
+                                           "unirec_tpu/ops/topk.py:236"),
                "layer_bwd": ("unirec_tpu_torch/csrc/layer_bwd.cu",
                              "unirec_tpu/ops/layer.py:311"),
                "lastq_bwd": ("unirec_tpu_torch/csrc/lastq_bwd.cu",
@@ -2230,8 +2404,12 @@ def main() -> int:
                                "unirec_tpu/ops/scatter_accum.py:44"),
                "scatter_add_per_row": ("unirec_tpu_torch/csrc/scatter_add.cu",
                                        "unirec_tpu/ops/scatter_accum.py:44"),
+               "scatter_add2": ("unirec_tpu_torch/csrc/scatter_add.cu",
+                                "unirec_tpu/ops/scatter_accum.py:146"),
                "member": ("unirec_tpu_torch/csrc/member.cu",
                           "unirec_tpu/ops/member.py:32"),
+               "member_block": ("unirec_tpu_torch/csrc/member.cu",
+                                "unirec_tpu/ops/member.py:32"),
                "fused_attention": ("unirec_tpu_torch/csrc/attention.cu",
                                    "unirec_tpu/ops/attention.py:236"),
                "fused_attention_bwd": ("unirec_tpu_torch/csrc/attention.cu",
@@ -2250,15 +2428,18 @@ def main() -> int:
                "fused_ffn_bwd": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:72"),
                "flash_attention": ("unirec_tpu_torch/csrc/flash_attention.cu",
                                    "unirec_tpu/ops/attention.py:44")}
-    # the body each line times: rows 1-4 and 12 list their tensor-core body
+    # the body each line times: rows 1-5q and 12 list their tensor-core body
     # ("mma") and their CUDA-core body, row 6 its sorted-tile body and its
-    # per-row body, the older body's launches the rest of the kernel's; rows
-    # 9-11 and 13 name the body their path shape takes
+    # per-row body, row 8 its warp body and its block body, the older body's
+    # launches the rest of the kernel's; rows 9-11 and 13 name the body their
+    # path shape takes; row 7 (not wired, as in JAX) launches row 6's kernel
     split = {**{n: ("mma", "cuda_core") for n in ("layer_fwd", "layer_bwd", "lastq_fwd",
-                                                  "lastq_bwd", "fused_ffn")},
-             "scatter_add": ("sorted", "per_row")}
+                                                  "lastq_bwd", "fused_ffn", "blockmax",
+                                                  "blockmax_int8")},
+             "scatter_add": ("sorted", "per_row"), "member": ("warp", "block")}
     bodies = {"fused_ffn_bwd": "mma", "fused_attention": "mma", "fused_attention_bwd": "mma",
-              "flash_attention": "mma", **{n: new for n, (new, _) in split.items()},
+              "flash_attention": "mma", "scatter_add2": "sorted",
+              **{n: new for n, (new, _) in split.items()},
               **{f"{n}_{old}": "cuda" if old == "cuda_core" else old
                  for n, (_, old) in split.items()}}
     paths = {"serving": counts, "training": train_counts, "entry": entry_counts,

@@ -144,6 +144,43 @@ def test_member_mask_matches_jax_exactly(interpret):
     assert got.any() and not got.all() and not got[:, 0].any()
 
 
+@pytest.mark.parametrize("B,C", [(37, 200), (37, 13)])
+def test_member_mask_matches_jax_on_padded_histories(interpret, B, C):
+    """The paths' data: histories left-padded with 0 before their 0..C
+    items, candidates drawn partly from the history (its padding among
+    them) and partly at or below 0; an odd batch, and a history width the
+    card's warp body loads in one pass (200) or that is not a multiple of 4
+    (13). Exact against the interpret-mode JAX kernel."""
+    rng = np.random.default_rng(C)
+    lens = rng.integers(0, C + 1, B)
+    lens[:2] = (0, C)
+    rows = np.zeros((B, C), np.int32)
+    for b in range(B):
+        rows[b, C - lens[b]:] = rng.integers(1, 60, lens[b])
+    cand = rng.integers(-3, 60, (B, 36)).astype(np.int32)
+    cand[:, ::3] = rows[np.arange(B)[:, None], rng.integers(0, C, (B, 12))]
+    got = MB.member_mask(torch.from_numpy(rows), torch.from_numpy(cand)).numpy()
+    ref = np.asarray(jax_member.member_mask(jnp.asarray(rows), jnp.asarray(cand)))
+    np.testing.assert_array_equal(got, ref)
+    assert got.any() and not got[cand <= 0].any() and (cand <= 0).any()
+    assert not got[0].any()                      # an empty history holds nothing
+
+
+@pytest.mark.parametrize("C,K,body", [
+    (200, 36, "warp"),     # the paths: 9 negatives x oversample 4
+    (13, 36, "warp"),
+    (7264, 64, "warp"),    # any history length, in passes of 256 ids
+    (20_000, 1, "warp"),
+    (200, 0, "warp"),
+    (200, 65, "block"),    # more than two candidates a lane
+    (13, 400, "block"),
+])
+def test_member_body_rule(C, K, body):
+    """ops/member.py's copy of csrc/member.cu's rule at its boundaries
+    (tests/test_torch_gpu.py holds the two together on the card)."""
+    assert MB._member_body(C, K) == body
+
+
 def test_member_gate_is_the_kernels_shared_memory():
     """The gate holds what csrc/member.cu needs (8 histories staged in
     shared memory), not the TPU's row-block rule and VMEM budget."""

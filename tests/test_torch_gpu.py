@@ -98,6 +98,92 @@ def test_blockmax_matches_plain(cuda, udt, idt, N):
     assert float((bm - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
 
 
+def _catalog(dev, B, N, D, idt, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
+    items = torch.randn(N, D, generator=g, device=dev) * 0.05
+    if idt == torch.int8:
+        return (u, *TK.quantize_catalog(items))
+    return u, items.to(idt), None
+
+
+def _hold_blockmax(bm, u, items, scale):
+    ref = TK._blockmax_plain(u, items, scale)
+    assert bm.shape == ref.shape
+    assert float((bm - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("idt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("N", [1000, 50_000])
+@pytest.mark.parametrize("D", [64, 65, 128])
+@pytest.mark.parametrize("B", [1, 100, 256])
+def test_blockmax_tensor_core_body_matches_plain(cuda, B, D, N, idt):
+    u, items, scale = _catalog(cuda, B, N, D, idt)
+    assert TK._blockmax_body(u.dtype, items.dtype, D) == "mma"
+    name = "launches_int8" if idt == torch.int8 else "launches"
+    before = (getattr(TK.catalog_blockmax, name), getattr(TK.catalog_blockmax, f"{name}_mma"))
+    bm = TK.catalog_blockmax(u, items, item_scale=scale)
+    assert (getattr(TK.catalog_blockmax, name),
+            getattr(TK.catalog_blockmax, f"{name}_mma")) == (before[0] + 1, before[1] + 1)
+    _hold_blockmax(bm, u, items, scale)
+
+
+@pytest.mark.parametrize("idt", [torch.bfloat16, torch.int8])
+def test_blockmax_tensor_core_body_ragged_negative_chunk(cuda, idt):
+    """A ragged last chunk whose every score is negative keeps its own max
+    (an item past N must not enter it as a zero score); users above 256 take
+    a second group, and a view at an odd offset is copied to 16 bytes."""
+    u, items, scale = _catalog(cuda, 300, 1000 * 16 + 3, 64, idt, seed=5)
+    u = u.abs()
+    items[-3:] = -items[-3:].abs()
+    bm = TK.catalog_blockmax(u, items, item_scale=scale)
+    assert bool((bm[:, -1] < 0).all())
+    _hold_blockmax(bm, u, items, scale)
+    buf = items.new_empty(items.numel() + 1)
+    buf[1:] = items.view(-1)
+    odd = buf[1:].view(items.shape)             # 1 or 2 bytes past an aligned address
+    assert odd.data_ptr() % 16
+    _hold_blockmax(TK.catalog_blockmax(u, odd, item_scale=scale), u, items, scale)
+
+
+def test_blockmax_tensor_core_body_takes_catalogs_past_the_old_grid(cuda):
+    """N just past 65,535 x 256 items, which the CUDA-core body's grid
+    refuses: the tensor-core body's grid comes from the SM count."""
+    N = 65535 * 256 + 17
+    u, items, _ = _catalog(cuda, 1, N, 64, torch.bfloat16, seed=6)
+    assert TK._blockmax_body(u.dtype, items.dtype, 64) == "mma"
+    _hold_blockmax(TK.catalog_blockmax(u, items), u, items, None)
+    with pytest.raises(ValueError):
+        TK.catalog_blockmax(u.float(), items)     # f32 users: the CUDA-core body
+
+
+@pytest.mark.parametrize("udt,idt,D", [(1, 1, 64), (1, 2, 64), (1, 1, 65), (1, 2, 1),
+                                       (1, 1, 128), (1, 1, 129), (1, 1, 0), (0, 1, 64),
+                                       (0, 2, 64), (1, 0, 64), (0, 0, 64)])
+def test_blockmax_body_selector(cuda, udt, idt, D):
+    """csrc/blockmax.cu's rule against ops/topk.py's copy."""
+    takes = _build.library("blockmax").unirec_blockmax_mma_takes
+    takes.argtypes = [ctypes.c_int] * 3
+    dts = (torch.float32, torch.bfloat16, torch.int8)
+    assert bool(takes(udt, idt, D)) == (TK._blockmax_body(dts[udt], dts[idt], D) == "mma")
+
+
+def test_serving_launches_the_tensor_core_blockmax(cuda):
+    """fused_catalog_topk on bf16 users (the serving path's pass 1) with a
+    bf16 and an int8 catalog: both new counters move, and the ids equal the
+    dense top-k of the same scores."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    u = torch.randn(64, 64, generator=g, device=cuda).to(torch.bfloat16)
+    items = (torch.randn(20000, 64, generator=g, device=cuda) * 0.05).to(torch.bfloat16)
+    q, scale = TK.quantize_catalog(items)
+    for it, sc, name in ((items, None, "launches_mma"), (q, scale, "launches_int8_mma")):
+        before = getattr(TK.catalog_blockmax, name)
+        _, ids = TK.fused_catalog_topk(u, it, 50, item_scale=sc)
+        assert getattr(TK.catalog_blockmax, name) == before + 1
+        dense = u.float() @ it.float().T * (1.0 if sc is None else sc[None, :])
+        assert torch.equal(ids.sort(1).values, torch.topk(dense, 50).indices.sort(1).values)
+
+
 def test_fused_topk_equals_dense_top_k(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     u = torch.randn(64, 64, generator=g, device=cuda)
@@ -800,6 +886,54 @@ def test_member_matches_plain(cuda):
     assert torch.equal(out, MB._member_plain(rows, cand))
 
 
+def _member_case(dev, B, C, K, seed=9):
+    """Histories left-padded with 0 before 0..C ids of 1..99, candidates in
+    -2..99, a third of them from the history (its padding among them)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(0, C + 1, (B,), generator=g, device=dev)
+    rows = torch.randint(1, 100, (B, C), generator=g, device=dev, dtype=torch.int32)
+    rows = torch.where(torch.arange(C, device=dev)[None] >= C - lens[:, None], rows, 0)
+    cand = torch.randint(-2, 100, (B, K), generator=g, device=dev, dtype=torch.int32)
+    pick = torch.randint(0, C, (B, K), generator=g, device=dev)
+    return rows, torch.where(torch.arange(K, device=dev)[None] % 3 == 0,
+                             rows.gather(1, pick), cand)
+
+
+@pytest.mark.parametrize("C", [13, 200, 1000])   # 1000: four passes of 256 ids
+@pytest.mark.parametrize("B", [1, 1001, 32768])
+def test_member_warp_body_matches_plain(cuda, B, C):
+    from unirec_tpu_torch.ops import member as MB
+    rows, cand = _member_case(cuda, B, C, 36)
+    assert MB._member_body(C, 36) == "warp"
+    before = (MB.member_mask.launches, MB.member_mask.launches_warp)
+    out = MB.member_mask(rows, cand)
+    assert (MB.member_mask.launches, MB.member_mask.launches_warp) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert torch.equal(out, MB._member_plain(rows, cand))
+
+
+@pytest.mark.parametrize("C,K", [(200, 1), (200, 33), (200, 64), (31, 64), (200, 65), (13, 100)])
+def test_member_bodies_take_every_candidate_count(cuda, C, K):
+    """The warp body at K up to 64 (one or two candidates a lane), the block
+    body above."""
+    from unirec_tpu_torch.ops import member as MB
+    rows, cand = _member_case(cuda, 517, C, K, seed=10)
+    before = MB.member_mask.launches_warp
+    out = MB.member_mask(rows, cand)
+    assert MB.member_mask.launches_warp == before + (K <= 64)
+    assert torch.equal(out, MB._member_plain(rows, cand))
+
+
+@pytest.mark.parametrize("C,K", [(200, 36), (13, 36), (7264, 64), (20000, 1), (200, 0),
+                                 (200, 65), (13, 400)])
+def test_member_body_selector(cuda, C, K):
+    """csrc/member.cu's rule against ops/member.py's copy."""
+    from unirec_tpu_torch.ops import member as MB
+    takes = _build.library("member").unirec_member_warp_takes
+    takes.argtypes = [ctypes.c_int] * 2
+    assert bool(takes(C, K)) == (MB._member_body(C, K) == "warp")
+
+
 def test_augmenter_membership_launches_the_kernel_at_an_odd_batch(cuda):
     from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter
     from unirec_tpu_torch.data.history import UserHistory
@@ -811,10 +945,11 @@ def test_augmenter_membership_launches_the_kernel_at_an_odd_batch(cuda):
     aug = DeviceAugmenter(cfg, UserHistory(items, np.full(1001, 40, np.int32)),
                           device=cuda)
     rows = torch.from_numpy(items).to(cuda)
-    before = MB.member_mask.launches
+    before = (MB.member_mask.launches, MB.member_mask.launches_warp)
     negs = aug.sample_negatives(torch.Generator(device=cuda).manual_seed(0), rows,
                                 torch.ones(1001, 1, dtype=torch.int32, device=cuda))
-    assert MB.member_mask.launches == before + 1
+    assert (MB.member_mask.launches, MB.member_mask.launches_warp) == (before[0] + 1,
+                                                                      before[1] + 1)
     hit = (negs[:, :, None] == rows[:, None, :]).any(-1) & (negs > 0)
     assert negs.shape == (1001, 9) and not bool(hit.any())
 

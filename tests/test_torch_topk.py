@@ -47,6 +47,57 @@ def test_catalog_blockmax_ragged_chunk_takes_real_items_only():
     np.testing.assert_allclose(got[:, 3].numpy(), scores[:, 48:].max(1), rtol=1e-6)
 
 
+@pytest.mark.parametrize("D", [64, 65])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_catalog_blockmax_matches_jax_with_a_negative_ragged_chunk(kind, D):
+    """The serving catalogs (bf16 or int8 items, D=64, or 65 with the item
+    bias column) with a ragged last chunk whose every score is negative: the
+    chunk's max is over its real items (a zero padding row would win with
+    0). Held within 1e-3 of the largest block max against the interpret-mode
+    JAX kernel, whose catalog is padded with copies of the last item (which
+    leave every chunk's max unchanged)."""
+    rng = np.random.default_rng(D)
+    Bu, N = 5, 16 * 20 + 5
+    u = torch.from_numpy(np.abs(rng.normal(size=(Bu, D))).astype(np.float32)).to(torch.bfloat16)
+    items = rng.normal(size=(N, D)).astype(np.float32) * 0.05
+    items[-5:] = -np.abs(items[-5:])             # the last chunk scores < 0 for every user
+    it = torch.from_numpy(items).to(torch.bfloat16)
+    scale = None
+    if kind == "int8":
+        it, scale = torch_topk.quantize_catalog(it)
+    pad = 384 - N
+    it_np = it.float().numpy() if kind == "bf16" else it.numpy()
+    it_pad = np.concatenate([it_np, np.repeat(it_np[-1:], pad, 0)])
+    j_items = jnp.asarray(it_pad, jnp.bfloat16) if kind == "bf16" else jnp.asarray(it_pad)
+    j_scale = None if scale is None else jnp.asarray(
+        np.concatenate([scale.numpy(), np.repeat(scale.numpy()[-1:], pad)]))
+    ref = np.asarray(jax_topk.catalog_blockmax(
+        jnp.asarray(u.float().numpy(), jnp.bfloat16), j_items, 16, 64, interpret=True,
+        item_scale_padded=j_scale))[:, :-(-N // 16)]
+    got = torch_topk.catalog_blockmax(u, it, item_scale=scale).numpy()
+    assert got.shape == (Bu, 21) and (ref[:, -1] < 0).all() and (got[:, -1] < 0).all()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("udt,idt,D,body", [
+    (torch.bfloat16, torch.bfloat16, 64, "mma"),   # serving, bf16 catalog
+    (torch.bfloat16, torch.int8, 64, "mma"),       # serving, int8 catalog
+    (torch.bfloat16, torch.bfloat16, 65, "mma"),   # with the item bias column
+    (torch.bfloat16, torch.int8, 1, "mma"),
+    (torch.bfloat16, torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, torch.bfloat16, 129, "cuda"),
+    (torch.bfloat16, torch.bfloat16, 0, "cuda"),
+    (torch.float32, torch.bfloat16, 64, "cuda"),
+    (torch.float32, torch.int8, 64, "cuda"),
+    (torch.bfloat16, torch.float32, 64, "cuda"),
+    (torch.float16, torch.float16, 64, "cuda"),
+])
+def test_blockmax_body_rule(udt, idt, D, body):
+    """ops/topk.py's copy of csrc/blockmax.cu's rule at its boundaries
+    (tests/test_torch_gpu.py holds the two together on the card)."""
+    assert torch_topk._blockmax_body(udt, idt, D) == body
+
+
 def test_quantize_catalog_bit_equal():
     _, items = _factors(300, seed=3)
     items[7] = 0.0                   # an all-zero row keeps scale 1

@@ -6,7 +6,8 @@
 Builds scratch copies of unirec_tpu_torch/csrc/flash_attention.cu (row 9),
 csrc/attention.cu (rows 10 and 11), csrc/ffn.cu (rows 12 and 13) and
 csrc/layer_bwd.cu (row 2), csrc/layer_fwd.cu (row 1), csrc/lastq_bwd.cu
-(row 4), csrc/lastq_fwd.cu (row 3) and csrc/scatter_add.cu (row 6) with one
+(row 4), csrc/lastq_fwd.cu (row 3), csrc/scatter_add.cu (row 6),
+csrc/member.cu (row 8) and csrc/blockmax.cu (rows 5 and 5q) with one
 part of the new body removed (csrc/layer_strip.cuh written
 into the copy, so its helpers can be changed too), each with the port's nvcc flags into
 build/ablations/, and times every copy against the unmodified kernel, in
@@ -24,8 +25,17 @@ the same shape (copies alone, no Philox draws, no activation math, no
 attention, no batched row phase); the scatter-add's sorted-tile body at the
 entry path's 1,638,400 rows on uniform ids and on ids 40% of which are the
 padding id 0 (no sort, no reductions, no row loads, and reductions only:
-neither sort nor loads). Naming sources (``lastq_fwd scatter_add``) runs
-those kernels' variants alone. A copy computes
+neither sort nor loads); the membership test's warp body at B=32,768,
+C=200, K=36 on uniform ids (no history loads: the lanes hold register
+values; no filter: no bits set, so nothing is flagged or compared; no
+compares: the flagged candidates are not verified); the catalog
+block-max's tensor-core body at B=256, D=64 over 50,000 and 1,000,000
+items, bf16 and int8 (no MMA, no cross-lane maxima, neither, no next-tile
+loads, no output write). Those two kernels take
+some microseconds a call, so they are timed by the card's clock
+(chip_smoke.py::traced_kernel_ms), the others by CUDA events. Naming
+sources (``lastq_fwd scatter_add``) runs those kernels' variants alone. A
+copy computes
 wrong results by design; only its time means anything. Beside them it
 times a copy of the inputs (the bytes' floor on this card). Prints the
 card, then one JSON line per kernel with the median of each variant's
@@ -173,6 +183,29 @@ VARIANTS = [
         ("  bitonic_sort(keys, tile);\n", ""),
         ("v[u] = __ldg(reinterpret_cast<const V*>(gt + (size_t)(k[u] & (kMaxTile - 1)) * D));",
          "v[u] = V{};")]),
+    # row 8's warp body; no_filter: no bits set, so nothing is flagged or
+    # compared; no_compares: the flagged candidates are not verified
+    ("member_no_history_loads", "member", [
+        ("h[s] = j < C ? __ldg(hrow + j) : 0;", "h[s] = j < C ? j + 1 : 0;")]),
+    ("member_no_filter", "member", [
+        ("        atomicOr(filt + (x >> 5), 1u << (x & 31u));\n", "")]),
+    ("member_no_compares", "member", [("  if (m0 | m1) {\n", "  if (false) {\n")]),
+    # rows 5 and 5q's tensor-core body; no_maxima: no cross-lane reduction;
+    # no_compute: neither products nor maxima (the tiles still load and the
+    # staged maxima still leave)
+    ("blockmax_no_mma", "blockmax", [
+        ("            if (nt < nact) mma_bf16(acc[nt], a, bfr[nt][ks][0], bfr[nt][ks][1]);",
+         "            ;")]),
+    ("blockmax_no_maxima", "blockmax", [
+        ("        Os[r * kOsLd + m] = max_over_rows(x, lane);",
+         "        if (x[0] == 1234.5f) Os[r * kOsLd + m] = x[1];")]),
+    ("blockmax_no_compute", "blockmax", [("    if (nact > 0) {\n", "    if (false) {\n")]),
+    ("blockmax_no_prefetch", "blockmax", [
+        ("    if (jn < ntiles) prefetch(jn);", "    if (false) prefetch(jn);")]),
+    ("blockmax_no_output_write", "blockmax", [
+        ("if (r < nu && c0 + c < nb) out[(size_t)(u0 + r) * nb + c0 + c] = Os[r * kOsLd + c];",
+         "if (r < nu && c0 + c < nb && Os[r * kOsLd + c] == 1234.5f)\n"
+         "        out[(size_t)(u0 + r) * nb + c0 + c] = 0;")]),
 ]
 
 
@@ -224,9 +257,11 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def timed_variants(torch, lib_name, entry, names, fn):
+def timed_variants(torch, lib_name, entry, names, fn, timer=None):
     """Median ms of fn with the kernel library swapped for each variant's,
-    in turns with the unmodified kernel ("kernel")."""
+    in turns with the unmodified kernel ("kernel"); ``timer(fn)`` times it
+    (CUDA events unless given)."""
+    timer = timer or (lambda f: cuda_ms(torch, f))
     from unirec_tpu_torch.ops import _build
     real = _build.library
     times = {}
@@ -238,7 +273,7 @@ def timed_variants(torch, lib_name, entry, names, fn):
                 _build.library = real if name == "kernel" else (
                     lambda n, _p=str(OUT / f"lib{name}.so"): ctypes.CDLL(_p)
                     if n == lib_name else real(n))
-                times.setdefault(name, []).append(cuda_ms(torch, fn))
+                times.setdefault(name, []).append(timer(fn))
     finally:
         _build.library = real
         entry.cache_clear()
@@ -246,7 +281,7 @@ def timed_variants(torch, lib_name, entry, names, fn):
 
 
 SOURCES = ("flash_attention", "attention", "ffn", "layer_bwd", "layer_fwd", "lastq_bwd",
-           "lastq_fwd", "scatter_add")
+           "lastq_fwd", "scatter_add", "member", "blockmax")
 
 
 def main(argv) -> int:
@@ -276,6 +311,10 @@ def main(argv) -> int:
         layer_variants(torch, sources, xp, mp, params, fargs)
     if "scatter_add" in sources:
         scatter_variants(torch)
+    if "member" in sources:
+        member_variants(torch)
+    if "blockmax" in sources:
+        blockmax_variants(torch)
     return 0
 
 
@@ -380,6 +419,40 @@ def scatter_variants(torch):
         line["copy_of_rows"] = cuda_ms(torch, lambda: rows.clone())
         print(json.dumps({"kernel": "scatter_add", "ids": what, "rows": M, "table": [N, 64],
                           "ms": line}), flush=True)
+
+
+def member_variants(torch):
+    """Row 8's warp body at the training shape on uniform ids (a third of the
+    candidates from the history), by the card's clock."""
+    from chip_smoke import traced_kernel_ms
+    from unirec_tpu_torch.ops import member as MB
+    g = torch.Generator(device="cuda").manual_seed(42)
+    rows = torch.randint(0, 50_000, (32768, 200), generator=g, device="cuda", dtype=torch.int32)
+    cand = torch.randint(1, 50_000, (32768, 36), generator=g, device="cuda", dtype=torch.int32)
+    cand[:, ::3] = rows[:, :12]
+    names = [n for n, src, _ in VARIANTS if src == "member"]
+    line = timed_variants(torch, "member", MB._lib, names, lambda: MB._member_cuda(rows, cand),
+                          lambda f: traced_kernel_ms(f, "member_warp_kernel"))
+    print(json.dumps({"kernel": "member", "rows": [32768, 200], "cand": [32768, 36],
+                      "timer": "traced", "ms": line}), flush=True)
+
+
+def blockmax_variants(torch):
+    """Rows 5 and 5q's tensor-core body at the serving batch, by the card's
+    clock."""
+    from chip_smoke import traced_kernel_ms
+    from unirec_tpu_torch.ops import topk as TK
+    g = torch.Generator(device="cuda").manual_seed(43)
+    u = torch.randn(256, 64, generator=g, device="cuda").to(torch.bfloat16)
+    names = [n for n, src, _ in VARIANTS if src == "blockmax"]
+    for n_items in (50_000, 1_000_000):
+        it = (torch.randn(n_items, 64, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+        for kind, (items, scale) in (("bf16", (it, None)), ("int8", TK.quantize_catalog(it))):
+            line = timed_variants(torch, "blockmax", TK._blockmax_lib, names,
+                                  lambda: TK._blockmax_cuda(u, items, scale),
+                                  lambda f: traced_kernel_ms(f, "blockmax_mma_kernel"))
+            print(json.dumps({"kernel": "blockmax", "users": 256, "items": n_items, "dim": 64,
+                              "item_dtype": kind, "timer": "traced", "ms": line}), flush=True)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,15 @@ pass of ``fused_catalog_topk`` is ``catalog_blockmax``: per 16-item chunk,
 the max of user . item, [B, ceil(N/16)], without writing the [B, N] score
 matrix. On CUDA tensors it launches csrc/blockmax.cu (the TPU's
 ``_blockmax_kernel`` / ``_blockmax_kernel_q``); on CPU tensors it runs its
-plain PyTorch version. ``catalog_blockmax.launches`` counts launches of the
-float bodies, ``catalog_blockmax.launches_int8`` those of the int8 body.
+plain PyTorch version. ``catalog_blockmax.launches`` counts launches on
+float items, ``catalog_blockmax.launches_int8`` those on int8 items.
+
+The kernel has two bodies (``_blockmax_body`` picks one; the wrapper names
+it to the C entry point, which refuses a tensor-core launch its own rule
+does not admit): "mma", bf16 users against bf16 or int8 items of width at
+most 128 on the tensor cores, over a grid sized by the card, not by N
+(``launches_mma`` and ``launches_int8_mma`` count it); "cuda", the CUDA-core
+body, for f32 users or items and wider factors, at most 65,535 x 256 items.
 
 The row-sharded paths (``sharded_catalog_topk``, ``masked_sharded_topk``)
 and approximate selection (``lax.approx_max_k``) are not ported yet
@@ -25,6 +32,7 @@ from unirec_tpu_torch.ops import _build
 CHUNK = 16  # items per block-max chunk (csrc/blockmax.cu::kChunk)
 _USER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_MMA_MAX_D = 128  # csrc/blockmax.cu::kMmaMaxD
 
 
 def full_catalog_scores(model, batch, item_emb: torch.Tensor,
@@ -71,11 +79,19 @@ def _blockmax_plain(user_emb, item_emb, item_scale=None) -> torch.Tensor:
     return s.view(B, nb, CHUNK).amax(dim=-1)
 
 
+def _blockmax_body(udt, idt, D: int) -> str:
+    """The body of csrc/blockmax.cu that runs the call (its rule
+    ``mma_takes``): "mma" for bf16 users against bf16 or int8 items of width
+    1-128 (padded to a multiple of 16 on the tensor cores); else "cuda"."""
+    ok = udt == torch.bfloat16 and idt in (torch.bfloat16, torch.int8) and 1 <= D <= _MMA_MAX_D
+    return "mma" if ok else "cuda"
+
+
 @functools.cache
 def _blockmax_lib():
     fn = _build.library("blockmax").unirec_blockmax
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,23 +109,30 @@ def _blockmax_cuda(user_emb, item_emb, item_scale=None) -> torch.Tensor:
     if item_emb.shape[1] != D or item_emb.device != user_emb.device:
         raise ValueError(f"users {tuple(user_emb.shape)} on {user_emb.device} and "
                          f"items {tuple(item_emb.shape)} on {item_emb.device} do not match")
-    if -(-N // 256) > 65535:
-        raise ValueError(f"blockmax grid takes at most {65535 * 256} items, got {N}")
+    body = _blockmax_body(user_emb.dtype, item_emb.dtype, D)
+    if body == "cuda" and -(-N // 256) > 65535:
+        raise ValueError(f"the CUDA-core blockmax grid takes at most {65535 * 256} items, "
+                         f"got {N}")
     u = user_emb.contiguous()
     it = item_emb.contiguous()
+    if body == "mma":   # it reads both in 16-byte words
+        u = u if u.data_ptr() % 16 == 0 else u.clone()
+        it = it if it.data_ptr() % 16 == 0 else it.clone()
     sc = item_scale.to(torch.float32).contiguous() if quantized else None
     out = torch.empty((B, -(-N // CHUNK)), dtype=torch.float32, device=u.device)
     err = _blockmax_lib()(_USER_DTYPES[u.dtype], _ITEM_DTYPES[it.dtype],
                           ctypes.c_void_p(u.data_ptr()),
                           ctypes.c_void_p(it.data_ptr()),
                           ctypes.c_void_p(sc.data_ptr() if quantized else 0),
-                          ctypes.c_void_p(out.data_ptr()), B, N, D,
+                          ctypes.c_void_p(out.data_ptr()), B, N, D, int(body == "mma"),
                           _build.stream_handle(u.device))
     _build.check(err, "blockmax launch")
     if quantized:
         catalog_blockmax.launches_int8 += 1
+        catalog_blockmax.launches_int8_mma += body == "mma"
     else:
         catalog_blockmax.launches += 1
+        catalog_blockmax.launches_mma += body == "mma"
     return out
 
 
@@ -131,6 +154,8 @@ def catalog_blockmax(user_emb: torch.Tensor, item_emb: torch.Tensor,
 
 catalog_blockmax.launches = 0
 catalog_blockmax.launches_int8 = 0
+catalog_blockmax.launches_mma = 0        # of launches, the tensor-core body's
+catalog_blockmax.launches_int8_mma = 0   # of launches_int8, the tensor-core body's
 
 
 # ---------------------------------------------------------- two-pass top-k
