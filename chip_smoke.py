@@ -100,9 +100,29 @@ Phases, each of which must pass:
      gate), a traced step and eval batch, and top-100 serving of 4,096
      users from the long checkpoint (flash attention and blockmax launch;
      the ids agree with the plain-version run).
+ 11. the popularity and session path (pop_session_path): main.run(task=train)
+     on bench.py's training configuration (phase 6's options, batch 32,768)
+     with popularity negatives (neg_by_pop_alpha 1, the alias table on the
+     device), multi-positive one-vs-all validation (T5 rows, each user's
+     next 3 items), a session-wise test (T2_1: 8,192 sessions of the next
+     item and 9 popularity-drawn negatives) and TensorBoard, over synthetic
+     data at the entry path's scale whose walk groups are drawn by a Zipf
+     law (skewed popularity); 2 epochs of 200 steps: the loss falls, the
+     best validation's hit@10 reaches 0.1, task=test from the best
+     checkpoint under profile=1 repeats the metrics, the TensorBoard
+     events hold train/loss and valid/<key metric> at every epoch and the
+     trace names rows 1 and 3's kernels; rows 1-4, 6 and 8 launch in
+     training and rows 1 and 3 in the evaluations, every launch on its
+     tensor-core, sorted or warp body (POP_BODIES). Then
+     (pop_session_check) the share of negative slots left at 0 in one
+     batch, the augmenter's popularity draws against its alias table's
+     probabilities (total variation under 0.02), one validation batch
+     through the kernels and the plain versions (as entry_path_check's
+     eval batch), row 8 on the batch's own (rows, cand), and a traced
+     step and validation batch (pop_session_profile).
 Every launch of rows 5, 5q and 8 on the serving, training, entry, long
 and long-serving paths must be on the new bodies (NEW_BODIES). Then it
-prints its wall time (and each of phases 9-10), the card, one
+prints its wall time (and each of phases 9-11), the card, one
 {"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
@@ -110,6 +130,7 @@ card is visible, or when run outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -668,10 +689,11 @@ def reset_counts():
         setattr(fn, attr, 0)
 
 
-def on_new_bodies(path, counts):
-    """Raise unless every launch of a NEW_BODIES kernel in ``counts`` was on
-    its new body."""
-    off = {k: (counts[k], counts[n]) for k, n in NEW_BODIES
+def on_new_bodies(path, counts, pairs=NEW_BODIES):
+    """Raise unless every launch of a kernel of ``pairs`` (kernel, its new
+    body's counter; NEW_BODIES unless given) in ``counts`` was on its new
+    body."""
+    off = {k: (counts[k], counts[n]) for k, n in pairs
            if k in counts and counts[k] != counts.get(n)}
     if off:
         raise AssertionError(f"{path}: launches (all, new body) off the new bodies: {off}")
@@ -1830,50 +1852,71 @@ LEARN_MIN_HIT10 = 0.1
 WALK_GROUP, WALK_NOISE = 200, 0.1
 
 
-def write_slice_data(root: Path, hist=(10, HIST_CAP), group=WALK_GROUP,
-                     rows=ENTRY_STEPS * TRAIN_BATCH) -> None:
-    """tests/synth.py's on-disk layout at bench.py's scale: 100,000 users
-    (id 0 is padding) with hist[0]..hist[1]-1 training items each (10..199
-    for the entry path) over 50,000 items, seed 0, then one valid and one
-    test item per user. User u walks the items of group u % (49,999 //
-    group) (``group`` consecutive ids, more than a history, so a walk never
-    repeats an item) one id up at each step from a random start, wrapping
-    inside the group, and 10% of its items are uniform over the catalog
-    instead; so the next item follows from the last one, which SASRec
-    learns within the run's 200 steps per epoch (at 40 it learned only the
-    1-in-10 base rate), so the validations choose between scores that
-    differ. train.pkl holds ``rows`` (user, item) pairs drawn from the
-    histories; valid.pkl and test.pkl 8,192 users each; user_history.pkl
-    (user_id, item_seq) the training histories."""
+def slice_walks(rng, hist, group, extra, group_of=None):
+    """Walk histories of users 1..99,999 over 50,000 items: user u has
+    hist[0]..hist[1]-1 training items and ``extra`` held-out ones after
+    them, walking the items of group ``group_of[u - 1]`` (u % (49,999 //
+    group) when None; ``group`` consecutive ids, more than a history, so a
+    walk never repeats an item) one id up at each step from a random start,
+    wrapping inside the group; WALK_NOISE of the items are uniform over the
+    catalog instead. Returns (users, n, starts, owner, items, is_train),
+    each user's items at starts[u - 1] onwards."""
+    users = np.arange(1, N_USERS)
+    n = rng.integers(hist[0], hist[1], size=len(users))
+    owner = np.repeat(users, n + extra)
+    starts = np.concatenate([[0], np.cumsum(n + extra)[:-1]])
+    pos = np.arange(len(owner)) - np.repeat(starts, n + extra)
+    start = np.repeat(rng.integers(0, group, len(users)), n + extra)
+    gid = owner % ((N_ITEMS - 1) // group) if group_of is None \
+        else np.repeat(group_of, n + extra)
+    walk = 1 + gid * group + (start + pos) % group
+    items = np.where(rng.random(len(owner)) < WALK_NOISE,
+                     rng.integers(1, N_ITEMS, len(owner)), walk)
+    return users, n, starts, owner, items, pos < np.repeat(n, n + extra)
+
+
+def write_train_tables(root: Path, rng, users, n, owner, items, is_train, rows,
+                       formats) -> None:
+    """user_history.pkl (user_id, item_seq: the training histories),
+    train.pkl (``rows`` (user, item) pairs drawn from them) and data.info
+    with the valid and test tables' ``formats``."""
     import json
 
     import pandas as pd
-    rng = np.random.default_rng(SEED)
-    users = np.arange(1, N_USERS)
-    n = rng.integers(hist[0], hist[1], size=len(users))
-    owner = np.repeat(users, n + 2)
-    starts = np.concatenate([[0], np.cumsum(n + 2)[:-1]])
-    pos = np.arange(len(owner)) - np.repeat(starts, n + 2)
-    start = np.repeat(rng.integers(0, group, len(users)), n + 2)
-    walk = 1 + (owner % ((N_ITEMS - 1) // group)) * group + (start + pos) % group
-    items = np.where(rng.random(len(owner)) < WALK_NOISE,
-                     rng.integers(1, N_ITEMS, len(owner)), walk)
-    is_train = pos < np.repeat(n, n + 2)
     root.mkdir(parents=True, exist_ok=True)
     seqs = np.split(items[is_train], np.cumsum(n)[:-1])
     pd.DataFrame({"user_id": users, "item_seq": seqs}).to_pickle(root / "user_history.pkl")
     pick = rng.choice(int(is_train.sum()), rows, replace=False)
     pd.DataFrame({"user_id": owner[is_train][pick],
                   "item_id": items[is_train][pick]}).to_pickle(root / "train.pkl")
+    (root / "data.info").write_text(json.dumps({
+        "n_users": N_USERS, "n_items": N_ITEMS, "train_file_format": "user-item",
+        "valid_file_format": formats[0], "test_file_format": formats[1],
+        "user_history_file_format": "user-item_seq"}))
+
+
+def write_slice_data(root: Path, hist=(10, HIST_CAP), group=WALK_GROUP,
+                     rows=ENTRY_STEPS * TRAIN_BATCH) -> None:
+    """tests/synth.py's on-disk layout at bench.py's scale: 100,000 users
+    (id 0 is padding) with hist[0]..hist[1]-1 training items each (10..199
+    for the entry path) over 50,000 items, seed 0, then one valid and one
+    test item per user, the walks of ``slice_walks`` (user u on group u %
+    (49,999 // group)): the next item follows from the last one, which
+    SASRec learns within the run's 200 steps per epoch (at 40 it learned
+    only the 1-in-10 base rate), so the validations choose between scores
+    that differ. train.pkl holds ``rows`` (user, item) pairs drawn from the
+    histories; valid.pkl and test.pkl 8,192 users each; user_history.pkl
+    (user_id, item_seq) the training histories."""
+    import pandas as pd
+    rng = np.random.default_rng(SEED)
+    users, n, starts, owner, items, is_train = slice_walks(rng, hist, group, 2)
+    write_train_tables(root, rng, users, n, owner, items, is_train, rows,
+                       ("user-item", "user-item"))
     for name, off in (("valid", 0), ("test", 1)):
         who = np.sort(rng.choice(len(users), EVAL_USERS, replace=False))
         pd.DataFrame({"user_id": users[who],
                       "item_id": items[starts[who] + n[who] + off]}).to_pickle(
             root / f"{name}.pkl")
-    (root / "data.info").write_text(json.dumps({
-        "n_users": N_USERS, "n_items": N_ITEMS, "train_file_format": "user-item",
-        "valid_file_format": "user-item", "test_file_format": "user-item",
-        "user_history_file_format": "user-item_seq"}))
 
 
 def entry_args(data: Path, out: Path):
@@ -2032,9 +2075,9 @@ RANK_SLACK, RANK_REL_SLACK, RANK_AGREE_SHARE, METRIC_REL_TOL = 2, 0.05, 0.99, 0.
 
 def eval_agreement(torch, trainer, model, ev, eval_batch):
     """One test batch through the kernels and through the plain versions:
-    the user embeddings, each row's rank of the positive among the catalog
-    (evaluate_full's ranking, the same tie noise both ways), and the
-    batch's metrics."""
+    the user embeddings, each row's rank of the positive (of T5 rows, the
+    first one) among the catalog (the one-positive evaluate_full's ranking,
+    the same tie noise both ways), and the batch's metrics under ``ev``."""
     from unirec_tpu_torch.ops import metrics as M
     from unirec_tpu_torch.ops.topk import full_catalog_scores
     from unirec_tpu_torch.utils import to_device
@@ -2048,7 +2091,8 @@ def eval_agreement(torch, trainer, model, ev, eval_batch):
         u = model.user_emb(tb).float()
         scores = full_catalog_scores(model, tb, model.all_item_emb(), 1.0)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 202)
-        rank = M.onepos_rank_full_catalog(scores, tb["item_id"], h["items"], h["len"], gen)
+        pos = tb["item_id"] if tb["item_id"].dim() == 1 else tb["item_id"][:, 0]
+        rank = M.onepos_rank_full_catalog(scores, pos, h["items"], h["len"], gen)
         return u, rank[real].long(), ev.evaluate_full([eval_batch], history)
 
     with torch.no_grad():
@@ -2092,7 +2136,7 @@ def profile_entry_path(torch, trainer, train_data, ev, eval_batch, card,
     torch.cuda.synchronize()
     emit({"phase": phase, "what": "one train step", "batch": len(batch["user_id"]),
           **device_profile(torch, lambda: trainer.train_step(batch)), "card": card})
-    emit({"phase": phase, "what": "one eval batch (one_vs_all)",
+    emit({"phase": phase, "what": f"one eval batch (one_vs_all, {type(ev).__name__})",
           "users": len(eval_batch["user_id"]), "items": N_ITEMS,
           **device_profile(torch, lambda: ev.evaluate_full([eval_batch],
                                                            trainer.user_history)),
@@ -2266,6 +2310,270 @@ def long_serve(torch, ckpt: Path, card: str):
     return counts
 
 
+# --------------------------------- popularity negatives and sessions path
+# each user's walk group is drawn with probability rank^-ZIPF_S over a
+# random permutation of the groups (tests/synth.py:176's exponent), so the
+# catalog's popularity is skewed while the next item still follows the last
+ZIPF_S, POP_STEPS, POP_EPOCHS, POP_POSITIVES, SESSION_NEGS = 0.9, 200, 2, 3, 9
+# draws whose histogram is held to the alias table: one batch's 1.18M
+# candidates over 50,000 items read about 0.07 from sampling alone, so
+# POP_TV_BATCHES of the augmenter's batches of draws are counted
+POP_TV_BATCHES, POP_TV_MAX = 100, 0.02
+# rows 1-4, 6 and 8 on the path, each with its new body's counter
+POP_BODIES = (("layer_fwd", "layer_fwd_mma"), ("layer_bwd", "layer_bwd_mma"),
+              ("lastq_fwd", "lastq_fwd_mma"), ("lastq_bwd", "lastq_bwd_mma"),
+              ("scatter_add", "scatter_add_sorted"), ("member", "member_warp"))
+POP_EVAL_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma")
+
+
+def write_pop_session_data(root: Path, rows=POP_STEPS * TRAIN_BATCH) -> None:
+    """The entry path's scale and walks (``slice_walks``, 10..199 training
+    items a user, groups of 200 ids), seed SEED + 7, with each user's group
+    drawn by a Zipf law (ZIPF_S) over a random permutation of the 249
+    groups. valid.pkl is T5 (user_id, item_seq): 8,192 users' next
+    POP_POSITIVES items; test.pkl is T2_1 (user_id, item_id, label,
+    session_id): 8,192 sessions, each a user's next item (label 1) and
+    SESSION_NEGS items drawn by training-history popularity (label 0)."""
+    import pandas as pd
+    rng = np.random.default_rng(SEED + 7)
+    n_groups = (N_ITEMS - 1) // WALK_GROUP
+    p = 1.0 / np.arange(1, n_groups + 1) ** ZIPF_S
+    group_of = rng.permutation(n_groups)[rng.choice(n_groups, N_USERS - 1, p=p / p.sum())]
+    users, n, starts, owner, items, is_train = slice_walks(
+        rng, (10, HIST_CAP), WALK_GROUP, POP_POSITIVES, group_of)
+    write_train_tables(root, rng, users, n, owner, items, is_train, rows,
+                       ("user-item_seq", "user-item-label-session"))
+    who = np.sort(rng.choice(len(users), EVAL_USERS, replace=False))
+    nxt = starts[who] + n[who]
+    pd.DataFrame({"user_id": users[who],
+                  "item_seq": list(items[nxt[:, None] + np.arange(POP_POSITIVES)])}).to_pickle(
+        root / "valid.pkl")
+    who = np.sort(rng.choice(len(users), EVAL_USERS, replace=False))
+    pop = np.bincount(items[is_train], minlength=N_ITEMS).astype(np.float64)
+    negs = rng.choice(N_ITEMS, (EVAL_USERS, SESSION_NEGS), p=pop / pop.sum())
+    cand = np.concatenate([items[starts[who] + n[who]][:, None], negs], axis=1)
+    k = SESSION_NEGS + 1
+    pd.DataFrame({"user_id": np.repeat(users[who], k), "item_id": cand.reshape(-1),
+                  "label": np.tile(np.r_[1, np.zeros(SESSION_NEGS, np.int64)], EVAL_USERS),
+                  "session_id": np.repeat(np.arange(EVAL_USERS), k)}).to_pickle(
+        root / "test.pkl")
+
+
+def pop_session_args(data: Path, out: Path):
+    """bench.py's training configuration (``train_config``) through
+    main.run, with popularity negatives (alpha 1), multi-positive one-vs-all
+    validation, a session-wise test and TensorBoard."""
+    return {"task": "train", "model": "SASRec", "dataloader": "SeqRecDataset",
+            "dataset_path": str(data), "output_path": str(out), "exp_name": "sasrec_pop_session",
+            "user_history_filename": "user_history", "max_seq_len": SEQ_LEN,
+            "embedding_size": EMB, "hidden_size": EMB, "inner_size": 2 * EMB, "n_layers": 2,
+            "n_heads": 2, "hidden_act": "swish", "loss_type": "bce",
+            "n_sample_neg_train": N_NEG, "neg_by_pop_alpha": 1.0,
+            "history_mask_mode": "autoregressive", "hidden_dropout_prob": P_DROP,
+            "attn_dropout_prob": P_DROP, "dropout_bits": 8, "compute_dtype": "bfloat16",
+            "last_query_only": 1, "fused_layer": 1, "fused_lastq": 1,
+            "vmem_embedding_grad": 1, "neg_membership_pallas": 1, "batch_size": TRAIN_BATCH,
+            "epochs": POP_EPOCHS, "learning_rate": 1e-3, "seed": SEED, "shuffle_train": 1,
+            "valid_protocol": "one_vs_all", "test_protocol": "session_aware",
+            "test_batch_size": EVAL_BATCH,
+            "metrics": "['hit@1;10', 'ndcg@10', 'mrr@10', 'group_auc']",
+            "key_metric": "ndcg@10", "early_stop": 5, "use_tensorboard": 1}
+
+
+def alias_tv(torch, aug, batches=POP_TV_BATCHES):
+    """The total-variation distance between the augmenter's own draws (the
+    candidates before rejection, ``batches`` batches of [32,768, 36]) and
+    the alias table's probabilities over the catalog, with the distance
+    sampling alone gives on average (sum of sqrt(2 p / (pi N)) / 2) and one
+    batch's distance beside it."""
+    thresh = aug.state["alias_thresh"].double()
+    probs = thresh.clone().index_add_(0, aug.state["alias_alias"].long(), 1.0 - thresh)
+    probs /= len(thresh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    counts = torch.zeros_like(probs)
+    shape = (TRAIN_BATCH, N_NEG * aug.oversample)
+    tv = lambda c, n: 0.5 * float((c / n - probs).abs().sum())  # noqa: E731
+    for i in range(batches):
+        d = aug._draw(gen, shape).long().reshape(-1)
+        counts += torch.bincount(d, minlength=len(probs)).double()
+        if i == 0:
+            one = tv(counts, d.numel())
+    n = batches * shape[0] * shape[1]
+    return {"draws": n, "tv": tv(counts, n), "tv_tol": POP_TV_MAX,
+            "tv_sampling_mean": 0.5 * float((2 * probs / (np.pi * n)).sqrt().sum()),
+            "tv_one_batch": one, "item0_draws": int(counts[0])}
+
+
+def pop_session_path(torch, card: str):
+    """main.run(task=train) on bench.py's configuration with popularity
+    negatives, multi-positive validation before each epoch and the
+    session-wise test after; then task=test from the best checkpoint under
+    profile=1. Launches are counted over the train run and over its
+    evaluations alone."""
+    from unirec_tpu_torch.facility.evaluation import SessionWiseEvaluator
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.main import main as main_mod
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    data, out = root / "pop_data", root / "pop"
+    shutil.rmtree(out, ignore_errors=True)   # events and traces of this run alone
+    write_pop_session_data(data)
+    setup_s = time.perf_counter() - t0
+    seen = {"losses": [], "evals": [], "marks": [], "reduce_s": [],
+            "eval_counts": dict.fromkeys(POP_EVAL_KERNELS, 0)}
+    step, evaluate, fit = Trainer.train_step, Trainer.evaluate, Trainer.fit
+    reduce = SessionWiseEvaluator.evaluate_with_scores
+
+    def spy_step(self, batch):
+        seen["losses"].append(step(self, batch))
+        return seen["losses"][-1]
+
+    def spy_eval(self, data, load_best_model=True, model_file=None, **kw):
+        torch.cuda.synchronize()
+        seen["marks"].append(time.perf_counter())
+        n0 = launch_counts(POP_EVAL_KERNELS)
+        res = evaluate(self, data, load_best_model, model_file, **kw)
+        torch.cuda.synchronize()
+        for k, v in launch_counts(POP_EVAL_KERNELS).items():
+            seen["eval_counts"][k] += v - n0[k]
+        seen["marks"].append(time.perf_counter())
+        seen["evals"].append((res, seen["marks"][-1] - seen["marks"][-2], len(data.ds)))
+        return res
+
+    def spy_reduce(self, *a, **kw):
+        t1 = time.perf_counter()
+        res = reduce(self, *a, **kw)
+        seen["reduce_s"].append(time.perf_counter() - t1)
+        return res
+
+    def spy_fit(self, train_data, valid_data=None, **kw):
+        seen["trainer"], seen["train_data"] = self, train_data
+        return fit(self, train_data, valid_data, **kw)
+
+    args = pop_session_args(data, out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with mock.patch.object(Trainer, "train_step", spy_step), \
+            mock.patch.object(Trainer, "evaluate", spy_eval), \
+            mock.patch.object(Trainer, "fit", spy_fit), \
+            mock.patch.object(SessionWiseEvaluator, "evaluate_with_scores", spy_reduce):
+        t1 = time.perf_counter()
+        result = main_mod.run(dict(args))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+    counts = launch_counts(TRAINING_KERNELS)
+    train_counts = {k: v - seen["eval_counts"].get(k, 0) for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ckpt = out / "checkpoint" / "sasrec_pop_session.pkl"
+    t1 = time.perf_counter()
+    again = main_mod.run({"task": "test", "model_file": str(ckpt), "dataset_path": str(data),
+                          "output_path": str(out / "test"), "profile": 1})
+    torch.cuda.synchronize()
+    profiled_test_s = time.perf_counter() - t1
+    loss = torch.stack(seen["losses"]).float().cpu().numpy()
+    valid, (test_res, test_s, n_test) = seen["evals"][:-1], seen["evals"][-1]
+    # marks: [v0 start, v0 end, v1 start, v1 end, test start, test end]
+    epoch2_s = seen["marks"][4] - seen["marks"][3]
+    line = {"phase": "pop_session_path", "config": "sasrec_pop_session", "batch": TRAIN_BATCH,
+            "steps": len(loss), "epochs": POP_EPOCHS, "data_setup_s": setup_s,
+            "run_s": run_s, "examples_per_s": TRAIN_BATCH * POP_STEPS / epoch2_s,
+            "ms_per_step": epoch2_s * 1e3 / POP_STEPS,
+            "first_losses": loss[:3].tolist(), "last_losses": loss[-3:].tolist(),
+            "valid": [{"result": r, "seconds": s, "users_per_s": u / s} for r, s, u in valid],
+            "test": test_res, "test_rows": n_test, "test_rows_per_s": n_test / test_s,
+            "session_reduce_s": seen["reduce_s"], "test_from_checkpoint": again,
+            "profiled_test_s": profiled_test_s, "peak_mem_bytes": peak, "card": card}
+    emit(line)
+    emit({"phase": "pop_session_path_launches", "training": train_counts,
+          "evaluations": seen["eval_counts"]})
+    if len(loss) != POP_STEPS * POP_EPOCHS or not np.isfinite(loss).all() \
+            or not loss[-10:].mean() < loss[:10].mean():
+        raise AssertionError(f"training did not run as expected: {loss.tolist()}")
+    if len(valid) != POP_EPOCHS or not all(np.isfinite(r["ndcg@10"]) for r, _, _ in valid):
+        raise AssertionError(f"a validation gave no key metric: {valid}")
+    if not max(r["hit@10"] for r, _, _ in valid) >= LEARN_MIN_HIT10:
+        raise AssertionError(f"the model learned nothing the validations show: {valid}")
+    if again != test_res or again != result:
+        raise AssertionError(f"test from the checkpoint {again} != the run's {result}")
+    missing = [k for k, _ in POP_BODIES if train_counts[k] <= 0] + \
+        [k for k in ("layer_fwd", "lastq_fwd") if seen["eval_counts"][k] <= 0]
+    if missing:
+        raise AssertionError(f"pop_session path never launched {missing}: {line}")
+    on_new_bodies("pop_session path", counts, POP_BODIES)
+    check_pop_session_outputs(out, args["key_metric"])
+    return counts, seen["trainer"], seen["train_data"]
+
+
+def check_pop_session_outputs(out: Path, key_metric: str):
+    """The run's TensorBoard events hold train/loss and valid/<key_metric>
+    at every epoch, and the profiled test's trace names rows 1 and 3's
+    tensor-core kernels."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    acc = EventAccumulator(str(out / "tensorboard"))
+    acc.Reload()
+    steps = {t: [e.step for e in acc.Scalars(t)] for t in acc.Tags()["scalars"]}
+    traces = sorted((out / "test" / "profile").glob("*.pt.trace.json"))
+    names = set()
+    if traces:
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+    kernels = {k: sum(k in n for n in names) for k in ("layer_fwd_mma_kernel",
+                                                       "lastq_fwd_mma_kernel")}
+    line = {"phase": "pop_session_outputs", "tensorboard_steps": steps,
+            "trace": str(traces[0].relative_to(ROOT)) if traces else None,
+            "trace_bytes": traces[0].stat().st_size if traces else 0,
+            "trace_kernel_names": len(names), "rows_1_3_in_trace": kernels}
+    emit(line)
+    if steps.get("train/loss") != list(range(1, POP_EPOCHS + 1)) \
+            or steps.get(f"valid/{key_metric}") != list(range(POP_EPOCHS)):
+        raise AssertionError(f"TensorBoard events are not the run's: {steps}")
+    if not all(kernels.values()):
+        raise AssertionError(f"the profiled test's trace misses rows 1 and 3: {line}")
+
+
+def check_pop_session(torch, trainer, train_data, card):
+    """One training batch of the path: the share of negative slots left at
+    0, the alias table against the augmenter's draws, and row 8 on this
+    batch's own (rows, cand); then one validation batch (T5, three
+    positives a row) through the kernels and through the plain versions;
+    then a traced step and validation batch."""
+    from unirec_tpu_torch.data.datasets import get_dataset_class
+    from unirec_tpu_torch.data.pipeline import make_eval_batcher
+    from unirec_tpu_torch.facility.evaluation import MultiPositiveEvaluator
+    from unirec_tpu_torch.main.main import _task_config
+    from unirec_tpu_torch.ops import member as MB
+    from unirec_tpu_torch.utils import to_device
+    aug = trainer._augmenter
+    store = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    with torch.no_grad(), call_capture(MB, "_member_cuda", store):
+        batch = aug.augment(to_device(next(iter(train_data)), "cuda"), gen)
+    negs = batch["item_id"][:, 1:]
+    line = {"phase": "pop_session_check", "alias_table": aug.use_alias,
+            "zero_slot_share": float((negs == 0).float().mean()),
+            **alias_tv(torch, aug)}
+    cfg = trainer.config
+    vcfg = _task_config(cfg, "valid")
+    ds = get_dataset_class("SeqRecDataset")(vcfg, cfg["dataset_path"], "valid")
+    eval_batch = next(iter(make_eval_batcher(ds, vcfg, trainer.user_history, task="valid")))
+    ev = MultiPositiveEvaluator(cfg, trainer.model, "cuda")
+    line.update(eval_agreement(torch, trainer, trainer.model, ev, eval_batch))
+    emit(line)
+    if not (aug.use_alias and line["tv"] <= POP_TV_MAX and line["item0_draws"] == 0
+            and line["user_emb_max_abs_diff"] <= line["user_emb_tol"]
+            and line["rank_agree_share"] >= RANK_AGREE_SHARE
+            and line["metric_max_rel_diff"] <= METRIC_REL_TOL):
+        raise AssertionError(f"pop_session check failed: {line}")
+    if len(store) != 1:
+        raise AssertionError(f"one batch called the membership kernel {len(store)} times")
+    member = member_line(torch, *store[0], "pop_session path")
+    profile_entry_path(torch, trainer, train_data, ev, eval_batch, card,
+                       phase="pop_session_profile")
+    return member
+
+
 def main() -> int:
     try:
         import torch
@@ -2377,6 +2685,10 @@ def main() -> int:
     del trainer, train_data, ev, eval_batch
     torch.cuda.empty_cache()
     serve_counts = timed("long_serve", long_serve, torch, ckpt, card)
+    torch.cuda.empty_cache()
+    pop_counts, trainer, train_data = timed("pop_session_path", pop_session_path, torch, card)
+    timed("pop_session_check", check_pop_session, torch, trainer, train_data, card)
+    del trainer, train_data
 
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
@@ -2443,7 +2755,7 @@ def main() -> int:
               **{f"{n}_{old}": "cuda" if old == "cuda_core" else old
                  for n, (_, old) in split.items()}}
     paths = {"serving": counts, "training": train_counts, "entry": entry_counts,
-             "long": long_counts, "long_serve": serve_counts}
+             "long": long_counts, "long_serve": serve_counts, "pop_session": pop_counts}
 
     def launched(name, path):
         for base, (new, old) in split.items():

@@ -56,7 +56,8 @@ def test_every_key_the_slice_reads_has_a_default():
                 # main.run and evaluation
                 "state", "verbose", "load_pretrained_model", "early_stop",
                 "shuffle_train", "metrics", "key_metric", "test_protocol",
-                "valid_protocol", "pad_incomplete_batch", "user_history_capacity"):
+                "valid_protocol", "pad_incomplete_batch", "user_history_capacity",
+                "use_pre_item_emb", "checkpoint_backend", "use_tensorboard", "use_wandb"):
         assert cfg[key] == ref[key], key
 
 

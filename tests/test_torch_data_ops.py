@@ -9,6 +9,10 @@
 - data/device_pipeline.py: history_window equal to the JAX augmenter's for
   the same rows, lengths and targets; sampled negatives held to their
   invariants (the two frameworks draw different random numbers).
+- popularity negatives (data/sampler.py's alias table, on the device in the
+  augmenter): the table equal to JAX's, the draws' frequencies against its
+  probabilities, and the first-survivor rule on skewed histories, in the
+  device pipeline and in the host sampler of one-vs-k evaluation.
 """
 import jax
 import jax.numpy as jnp
@@ -20,8 +24,11 @@ import unirec_tpu.ops.member as jax_member
 import unirec_tpu.ops.scatter_accum as jax_sa
 from unirec_tpu.data.device_pipeline import DeviceAugmenter as JaxAugmenter
 from unirec_tpu.data.history import UserHistory as JaxHistory
+from unirec_tpu.data.sampler import AliasTable as JaxAliasTable
+from unirec_tpu.data.sampler import NegativeSampler as JaxNegativeSampler
 from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter, RawIdBatcher
 from unirec_tpu_torch.data.history import UserHistory
+from unirec_tpu_torch.data.sampler import AliasTable, NegativeSampler
 from unirec_tpu_torch.ops import member as MB
 from unirec_tpu_torch.ops import scatter_accum as SA
 
@@ -288,7 +295,117 @@ def test_raw_batcher_matches_jax_order():
 def test_unported_sampling_options_raise():
     items, lens = _history()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceAugmenter(_cfg(neg_by_pop_alpha=0.5), UserHistory(items, lens),
-                        item_popularity=np.ones(40), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeviceAugmenter(_cfg(), UserHistory(items, lens), aerec=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeviceAugmenter(_cfg(), UserHistory(items, lens), features=np.ones((40, 2)),
+                        device="cpu")
+
+
+# ---------------------------------------------------- popularity negatives
+def _popularity(n_items, seed=0):
+    """Zipf-like interaction counts over a shuffled catalog; item 0 none."""
+    rng = np.random.default_rng(seed)
+    pop = np.floor(5000.0 / rng.permutation(np.arange(1, n_items + 1)) ** 0.9)
+    pop[0] = 0
+    return pop.astype(np.int64)
+
+
+@pytest.mark.parametrize("kind", ["zipf", "with_zeros", "one_heavy"])
+def test_alias_table_equals_jax(kind):
+    rng = np.random.default_rng(7)
+    w = {"zipf": _popularity(300).astype(np.float64) ** 0.75,
+         "with_zeros": np.where(rng.random(257) < 0.3, 0.0, rng.random(257)),
+         "one_heavy": np.r_[1000.0, np.ones(99)]}[kind]
+    got, ref = AliasTable(w), JaxAliasTable(w)
+    np.testing.assert_array_equal(got.thresh, ref.thresh)
+    np.testing.assert_array_equal(got.alias, ref.alias)
+    p = got.thresh.copy()                  # each index's probability under sample()
+    np.add.at(p, got.alias, 1.0 - got.thresh)
+    np.testing.assert_allclose(p / len(w), w / w.sum(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("alpha", [0.5, 1.0])
+def test_device_draws_follow_the_alias_table(alpha):
+    """The augmenter's device table is JAX's (f32 thresholds, int32
+    aliases, the same values), and 10^6 draws from it match the table's
+    probabilities (popularity ** alpha, item 0 never) within a total
+    variation distance of 0.01 (about 0.005 is expected from sampling)."""
+    n, pop = 200, _popularity(200)
+    items, lens = _history(U=4, n_items=n)
+    cfg = _cfg(n_items=n, neg_by_pop_alpha=alpha)
+    aug = DeviceAugmenter(cfg, UserHistory(items, lens), item_popularity=pop, device="cpu")
+    ref = JaxAugmenter(cfg, JaxHistory(items, lens), item_popularity=pop).state
+    for k in ("alias_thresh", "alias_alias"):
+        np.testing.assert_array_equal(aug.state[k].numpy(), np.asarray(ref[k]))
+    assert aug.state["alias_thresh"].dtype == torch.float32
+    assert aug.state["alias_alias"].dtype == torch.int32
+    draws = aug._draw(torch.Generator().manual_seed(0), (1000, 1000))
+    assert draws.dtype == torch.int32 and int(draws.min()) >= 1
+    freq = np.bincount(draws.numpy().ravel(), minlength=n) / draws.numel()
+    p = pop.astype(np.float64) ** alpha
+    assert 0.5 * np.abs(freq - p / p.sum()).sum() < 0.01
+
+
+def _popular_history(n_items, pop, U=64, C=24, seed=3):
+    """Histories drawn by popularity, so popularity draws hit them often."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, C + 1, U).astype(np.int32)
+    items = np.zeros((U, C), np.int32)
+    m = np.arange(C)[None] < lens[:, None]
+    items[m] = rng.choice(n_items, int(m.sum()), p=pop / pop.sum())
+    return items, lens
+
+
+def _hold_first_survivor(negs, cand, items, lens, pos, n_neg, over):
+    """Each slot is its first proposal that is neither in the history nor
+    the positive, and 0 exactly when every proposal failed."""
+    zeros = 0
+    for b in range(len(negs)):
+        bad = set(items[b, :lens[b]].tolist()) | {int(pos[b])}
+        for j in range(n_neg):
+            ok = [c for c in cand[b, j * over:(j + 1) * over] if c not in bad]
+            assert negs[b, j] == (ok[0] if ok else 0), (b, j)
+            zeros += not ok
+    return zeros
+
+
+@pytest.mark.parametrize("membership", ["pallas", "compare"])
+def test_popularity_negatives_obey_the_invariants(membership):
+    n = 60
+    pop = _popularity(n, seed=2)
+    items, lens = _popular_history(n, pop)
+    flags = {"pallas": dict(neg_membership_pallas=1), "compare": {}}[membership]
+    cfg = _cfg(n_items=n, n_sample_neg_train=6, neg_by_pop_alpha=1.0, **flags)
+    aug = DeviceAugmenter(cfg, UserHistory(items, lens), item_popularity=pop, device="cpu")
+    drawn, draw = [], aug._draw
+    aug._draw = lambda gen, shape: drawn.append(draw(gen, shape)) or drawn[-1]
+    uid = torch.arange(64, dtype=torch.int32)
+    pos = torch.from_numpy(np.where(lens > 0, items[:, 0], 1).astype(np.int32))
+    batch = aug.augment(aug.with_state({"user_id": uid, "item_id": pos,
+                                        "weight": torch.ones(64)}),
+                        torch.Generator().manual_seed(4))
+    negs = batch["item_id"][:, 1:].numpy()
+    assert batch["item_id"].shape == (64, 7) and (batch["item_id"][:, 0] == pos).all()
+    zeros = _hold_first_survivor(negs, drawn[0].numpy(), items, lens, pos.numpy(), 6, 4)
+    assert 0 < zeros < negs.size // 2      # popular histories exhaust some slots
+
+
+def test_host_sampler_popularity_negatives_obey_the_invariants():
+    """The one-vs-k eval sampler with item_popularity: draws from the same
+    alias table, the same first-survivor rule."""
+    n = 60
+    pop = _popularity(n, seed=2)
+    items, lens = _popular_history(n, pop)
+    sampler = NegativeSampler(n, 6, user_history=UserHistory(items, lens),
+                              item_popularity=pop, neg_by_pop_alpha=1.0)
+    ref = JaxNegativeSampler(n, 6, item_popularity=pop, neg_by_pop_alpha=1.0).alias
+    np.testing.assert_array_equal(sampler.alias.thresh, ref.thresh)
+    np.testing.assert_array_equal(sampler.alias.alias, ref.alias)
+    drawn, draw = [], sampler._draw
+    sampler._draw = lambda rng, shape: drawn.append(draw(rng, shape)) or drawn[-1]
+    uid = np.arange(64)
+    pos = np.where(lens > 0, items[:, 0], 1)
+    negs = sampler(np.random.default_rng(5), uid, pos)
+    assert negs.shape == (64, 6) and negs.dtype == np.int32 and (drawn[0] > 0).all()
+    zeros = _hold_first_survivor(negs, drawn[0], items, lens, pos, 6, 4)
+    assert 0 < zeros < negs.size // 2

@@ -1,4 +1,5 @@
-"""The port's datasets, eval batchers and evaluators against the JAX package.
+"""The port's datasets, eval batchers and evaluators against the JAX package
+(one_vs_k, one_vs_all with one and with several positives, session_aware).
 
 The synthetic dataset of tests/synth.py, a small SASRec in the slice's
 configuration (use_fused_attention, use_fused_ffn, last_query_only) at f32
@@ -7,7 +8,9 @@ built with the same numpy generators, so they must be identical, sampled
 negatives included. Metrics: the tie noise of the two frameworks differs,
 but the f32 scores are continuous and the noise (1e-8) breaks no rank
 between them, so each metric must agree to 1e-5 (an f32 score difference
-flipping one rank would move a metric by 1/200).
+flipping one rank would move a metric by 1/200). The session-wise
+reduction is numpy in both packages, the same noise from the same seed, so
+its metrics agree to 1e-6.
 """
 import copy
 
@@ -23,13 +26,15 @@ from unirec_tpu.data.datasets import SeqRecDataset as JaxSeqRecDataset
 from unirec_tpu.data.history import UserHistory as JaxHistory
 from unirec_tpu.data.pipeline import make_eval_batcher as jax_eval_batcher
 from unirec_tpu.facility.evaluation import build_evaluator as jax_build_evaluator
+from unirec_tpu.facility.evaluation.evaluators import SessionWiseEvaluator as JaxSessionWise
 from unirec_tpu.main.main import _task_config as jax_task_config
 from unirec_tpu.utils.registry import get_model_class as jax_model_class
 from unirec_tpu_torch import config as torch_config
 from unirec_tpu_torch.data.datasets import SeqRecDataset, get_dataset_class
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.data.pipeline import make_eval_batcher
-from unirec_tpu_torch.facility.evaluation import build_evaluator
+from unirec_tpu_torch.facility.evaluation import (MultiPositiveEvaluator, SessionWiseEvaluator,
+                                                  build_evaluator)
 from unirec_tpu_torch.main.main import _task_config
 from unirec_tpu_torch.utils.flax_bridge import load_flax_params
 from unirec_tpu_torch.utils.registry import get_model_class
@@ -105,20 +110,77 @@ def test_evaluator_matches_jax(pair, protocol):
     assert 0.0 < got["group_auc"] < 1.0
 
 
-def test_multi_positive_evaluator_matches_jax(pair):
+MULTIPOS_METRICS = {"slice": ARGS["metrics"],
+                    "recall": "['group_auc', 'hit@3', 'recall@1;5;20', 'ndcg@20', 'mrr@20']"}
+
+
+@pytest.mark.parametrize("metrics", sorted(MULTIPOS_METRICS))
+def test_multi_positive_evaluator_matches_jax(pair, metrics):
     """test_multipos (T5 rows, two positives per user) under one_vs_all: the
-    port builds the same eval batches as the JAX package, and its evaluator
-    refuses them, naming its ROADMAP item (the metrics themselves are held
-    against JAX in tests/test_torch_metrics.py)."""
-    tcfg, tmodel, *_ = pair
-    (tb, _, _), (jb, _, _) = _batchers(pair, "test", "one_vs_all", "test_multipos",
-                                       "user-item_seq")
+    port builds the same eval batches as the JAX package, and its
+    multi-positive evaluator gives JAX evaluate_full's metrics (the @k ones
+    and group_auc) within 1e-5."""
+    tcfg, tmodel, jcfg, jmodel, params, _ = pair
+    spec = MULTIPOS_METRICS[metrics]
+    tcfg, jcfg = dict(tcfg, metrics=spec), dict(jcfg, metrics=spec)
+    (tb, _, th), (jb, _, jh) = _batchers(pair, "test", "one_vs_all", "test_multipos",
+                                         "user-item_seq")
     for a, b in zip(tb, jb):
         assert a["item_id"].ndim == 2
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build_evaluator(tcfg, tmodel, "one_vs_all", "user-item_seq", "cpu")
+    tev = build_evaluator(tcfg, tmodel, "one_vs_all", "user-item_seq", "cpu")
+    assert isinstance(tev, MultiPositiveEvaluator)
+    got = tev.evaluate_full(tb, th)
+    ref = jax_build_evaluator(jcfg, jmodel, "one_vs_all", "user-item_seq").evaluate_full(
+        jb, params, jh)
+    assert set(got) == set(ref) and "group_auc" in got and "mrr" not in got
+    for m in ref:
+        assert abs(got[m] - ref[m]) <= 1e-5, (m, got[m], ref[m])
+    assert 0.0 < got["group_auc"] < 1.0
+
+
+def _session_table(seed, n_sessions=40):
+    """Ragged sessions (1-9 rows, ids out of order), some all positive or
+    all negative, scores with exact ties inside sessions."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 10, n_sessions)
+    sid = np.repeat(rng.permutation(n_sessions) * 7 + 3, sizes)
+    labels = (rng.random(len(sid)) < 0.35).astype(np.float32)
+    scores = np.round(rng.normal(size=len(sid)), 1).astype(np.float32)
+    order = rng.permutation(len(sid))
+    return scores[order], labels[order], sid[order]
+
+
+SESSION_METRICS = "['group_auc', 'ndcg', 'mrr', 'hit@1;3', 'recall@2;5', 'ndcg@3;5', 'mrr@3']"
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_session_wise_metrics_match_jax_on_given_scores(seed):
+    cfg = {"metrics": SESSION_METRICS, "seed": 5, "n_items": 10}
+    scores, labels, sid = _session_table(seed)
+    got = SessionWiseEvaluator(cfg, None, "cpu").evaluate_with_scores(scores, labels, sid)
+    ref = JaxSessionWise(cfg, None).evaluate_with_scores(scores, labels, sid)
+    assert set(got) == set(ref) and len(got) == 10
+    for m in ref:
+        assert abs(got[m] - ref[m]) <= 1e-6, (m, got[m], ref[m])
+
+
+def test_session_wise_evaluator_matches_jax_through_predict(pair):
+    """test_session (T2_1: one positive and four random negatives a user's
+    session) under session_aware: scores from model.predict, grouped by
+    session; the port's metrics equal JAX's within 1e-6."""
+    tcfg, tmodel, jcfg, jmodel, params, _ = pair
+    tcfg, jcfg = dict(tcfg, metrics=SESSION_METRICS), dict(jcfg, metrics=SESSION_METRICS)
+    (tb, _, _), (jb, _, _) = _batchers(pair, "test", "session_aware", "test_session",
+                                       "user-item-label-session")
+    assert tb.ds.cols["session_id"].shape == tb.ds.cols["label"].shape == (1000,)
+    got = build_evaluator(tcfg, tmodel, "session_aware", None, "cpu").evaluate(tb)
+    ref = jax_build_evaluator(jcfg, jmodel, "session_aware", None).evaluate(jb, params)
+    assert set(got) == set(ref) and len(got) == 10
+    for m in ref:
+        assert abs(got[m] - ref[m]) <= 1e-6, (m, got[m], ref[m])
+    assert 0.0 < got["group_auc"] < 1.0
 
 
 def test_global_auc_matches_jax(pair):
@@ -146,10 +208,12 @@ def test_evaluation_repeats_exactly(pair):
 
 def test_unported_protocols_and_metrics_raise(pair):
     tcfg, tmodel, *_ = pair
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_evaluator(tcfg, tmodel, "session_aware", "user-item-label-session", "cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         build_evaluator(dict(tcfg, metrics="['rhit@5']"), tmodel, "one_vs_all", None, "cpu")
+    for m in ("rhit@5", "rrecall@5", "rndcg"):   # the price-weighted session metrics
+        with pytest.raises(NotImplementedError, match="item 11"):
+            build_evaluator(dict(tcfg, metrics=f"['{m}']"), tmodel, "session_aware",
+                            "user-item-label-session", "cpu")
     with pytest.raises(ValueError):
         build_evaluator(tcfg, tmodel, "bogus", None, "cpu")
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -1416,3 +1416,86 @@ def test_fused_attention_and_ffn_flags_launch_their_kernels(cuda):
              FF.fused_ffn.launches, FF.fused_ffn_bwd.launches]
     # one attention layer (layer 1 is last-query), FFN in both layers
     assert [a - b for a, b in zip(after, before)] == [1, 1, 2, 2]
+
+
+# ------------------------------------------------- popularity negatives
+def _pop_augmenter(dev, n=5000, U=2048, C=200, seed=11):
+    """A device augmenter with popularity negatives (alpha 1) over a Zipf
+    catalog, and histories drawn by the same popularity (many members)."""
+    from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter
+    from unirec_tpu_torch.data.history import UserHistory
+    rng = np.random.default_rng(seed)
+    pop = np.floor(1e5 / rng.permutation(np.arange(1, n + 1)) ** 0.9)
+    pop[0] = 0
+    lens = rng.integers(10, C + 1, U).astype(np.int32)
+    items = np.zeros((U, C), np.int32)
+    m = np.arange(C)[None] < lens[:, None]
+    items[m] = rng.choice(n, int(m.sum()), p=pop / pop.sum())
+    cfg = {"n_items": n, "n_sample_neg_train": 9, "neg_oversample_factor": 4,
+           "max_seq_len": 50, "dataloader": "SeqRecDataset", "neg_by_pop_alpha": 1.0,
+           "history_mask_mode": "autoregressive", "neg_membership_pallas": 1}
+    return DeviceAugmenter(cfg, UserHistory(items, lens), item_popularity=pop, device=dev), pop
+
+
+def test_popularity_draws_on_a_cuda_generator_follow_the_alias_table(cuda):
+    """10^7 draws on the card: its alias table is the CPU's, bit for bit,
+    and the draws' frequencies are within 0.01 total variation of the
+    table's probabilities (about 0.006 is expected from sampling)."""
+    from unirec_tpu_torch.data.sampler import AliasTable
+    aug, pop = _pop_augmenter(cuda)
+    table = AliasTable.of_popularity(pop, 1.0)
+    assert torch.equal(aug.state["alias_thresh"].cpu(),
+                       torch.as_tensor(table.thresh, dtype=torch.float32))
+    assert torch.equal(aug.state["alias_alias"].cpu(), torch.as_tensor(table.alias).int())
+    draws = aug._draw(torch.Generator(device=cuda).manual_seed(0), (10_000, 1000))
+    assert draws.is_cuda and draws.dtype == torch.int32 and int(draws.min()) >= 1
+    freq = torch.bincount(draws.reshape(-1).long(), minlength=len(pop)).double().cpu().numpy()
+    p = pop / pop.sum()
+    assert 0.5 * np.abs(freq / draws.numel() - p).sum() < 0.01
+
+
+def test_member_matches_plain_on_popularity_candidates(cuda):
+    """Row 8's warp body on the candidates a popularity draw proposes
+    against histories drawn by the same popularity, exact; and the
+    augmenter's negatives keep the first-survivor rule."""
+    from unirec_tpu_torch.ops import member as MB
+    aug, _ = _pop_augmenter(cuda)
+    uid = torch.arange(2048, device=cuda)
+    rows = aug.state["hist_items"][uid]
+    cand = aug._draw(torch.Generator(device=cuda).manual_seed(1), (2048, 36))
+    before = (MB.member_mask.launches, MB.member_mask.launches_warp)
+    out = MB.member_mask(rows, cand)
+    assert (MB.member_mask.launches, MB.member_mask.launches_warp) == (before[0] + 1,
+                                                                      before[1] + 1)
+    ref = MB._member_plain(rows, cand)
+    assert torch.equal(out, ref) and 0.01 < float(ref.float().mean()) < 0.9
+    pos = rows[:, -1:]
+    negs = aug.sample_negatives(torch.Generator(device=cuda).manual_seed(2), rows, pos)
+    ok = ~((negs[:, :, None] == rows[:, None, :]).any(-1) | (negs == pos))
+    assert bool((ok | (negs == 0)).all())
+
+
+def test_multi_positive_metrics_on_the_card_match_the_cpu(cuda):
+    """ops/metrics.py::multipos_topk_and_metrics on one batch, on the card
+    and on the CPU, from the same scores (spaced 1e-3 apart, so the 1e-8
+    tie noise of either generator reorders nothing), positives and
+    histories."""
+    from unirec_tpu_torch.ops import metrics as M
+    g = torch.Generator().manual_seed(3)
+    B, N = 512, 50_000
+    scores = torch.stack([torch.randperm(N, generator=g) for _ in range(B)]).float() * 1e-3
+    pos = torch.randint(0, N, (B, 3), generator=g)
+    pos[:, 2][::4] = 0                                   # rows with two positives
+    hist = torch.randint(1, N, (B, 200), generator=g)
+    hlen = torch.randint(0, 201, (B,), generator=g)
+    names = ["group_auc", "hit@1", "hit@10", "recall@10", "ndcg@10", "mrr@10", "ndcg@50"]
+
+    def run(dev):
+        out = M.multipos_topk_and_metrics(scores.to(dev), pos.to(dev), hist.to(dev),
+                                          hlen.to(dev), names, 50,
+                                          torch.Generator(device=dev).manual_seed(4))
+        return {k: v.cpu() for k, v in out.items()}
+
+    got, ref = run(cuda), run("cpu")
+    for k in names:
+        torch.testing.assert_close(got[k], ref[k], atol=1e-6, rtol=1e-6, msg=k)

@@ -16,8 +16,10 @@ train step of the slice's configuration against the JAX package.
 """
 import copy
 import glob
+import json
 import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +35,10 @@ from tests.synth import BASE_CONF
 from tests.test_torch_train import BENCH_MINI, _batch, _flat
 from unirec_tpu import config as jax_config
 from unirec_tpu.core import optim as jax_optim
+from unirec_tpu.facility.trainer import Trainer as JaxTrainer
 from unirec_tpu.facility.trainer import early_stopping as jax_early_stopping
 from unirec_tpu.main import main as jax_main
+from unirec_tpu.utils import file_io as jax_file_io
 from unirec_tpu.utils.registry import get_model_class as jax_model_class
 from unirec_tpu_torch import cli
 from unirec_tpu_torch import config as torch_config
@@ -46,6 +50,7 @@ from unirec_tpu_torch.models.modules import DropoutRNG
 from unirec_tpu_torch.ops import attention as AT
 from unirec_tpu_torch.ops import layer as LY
 from unirec_tpu_torch.ops import ffn as FF
+from unirec_tpu_torch.utils.checkpoint import save_checkpoint
 from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params, to_flax_tree
 from unirec_tpu_torch.utils.registry import get_model_class
 
@@ -143,8 +148,9 @@ def test_early_stopping_matches_jax(bigger, max_step):
 def _trainer(tmp_path, **over):
     from tests.test_torch_train import _history
     from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter
-    cfg = torch_config.parse_arguments(dict(BENCH_MINI, **SLICE, epochs=6, output_path=str(tmp_path),
-                                            exp_name="v", **over), argv=[], device="cpu")
+    cfg = torch_config.parse_arguments(dict(dict(BENCH_MINI, **SLICE, epochs=6,
+                                                 output_path=str(tmp_path), exp_name="v"),
+                                            **over), argv=[], device="cpu")
     tr = Trainer(cfg, get_model_class("SASRec")(cfg), device="cpu")
     tr.set_device_augmenter(DeviceAugmenter(cfg, _history(), device="cpu"))
     rng = np.random.default_rng(8)
@@ -262,3 +268,223 @@ def test_fused_attention_lengths_the_kernels_do_not_take_are_refused_on_the_card
             assert max(AT._fwd_tiled_smem_bytes(L, hd),
                        AT._bwd_tiled_smem_bytes(L, hd)) <= LY._SMEM_LIMIT
     assert AT._tiled(L, 32) == (285 < L)
+
+
+# ------------------------------------- repairs: freeze, use_pre_item_emb, orbax
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_freeze_holds_the_loaded_parameters_as_jax_does(tmp_path, wd):
+    """A pretrained checkpoint with the item and position embeddings, loaded
+    under freeze: the port marks the parameters the JAX trainer's
+    _frozen_mask marks; after an epoch (2 steps) they are bit-identical
+    without weight decay, and with it equal JAX's optax chain on zero
+    gradients (the decayed-weight term moves them); the rest move."""
+    tr, data = _trainer(tmp_path, freeze=1, weight_decay=wd, epochs=1)
+    tr.init_params()
+    full = jax.tree_util.tree_map(np.array, to_flax_params(tr.model))   # copies
+    pre = {k: full[k] for k in ("item_embedding", "position_embedding")}
+    path = str(tmp_path / "pre.pkl")
+    save_checkpoint(path, {"config": {}, "params": pre})
+    tr.fit(data, load_pretrained_model=True, model_file=path)
+    assert tr._global_step == 2
+    frozen = dict(_flat(to_flax_tree(tr.model, [torch.full(p.shape, float(f))
+                                                for p, f in zip(tr.params, tr._frozen)])))
+    jcfg = jax_config.parse_arguments(dict(tr.config), argv=[])
+    jtr = JaxTrainer(jcfg, jax_model_class("SASRec")(cfg=jcfg))
+    jtr.params = jax.tree_util.tree_map(jnp.asarray, full)
+    jtr.load_model(path)
+    jmask = dict(_flat(jtr._frozen_mask()))
+    assert set(jmask) == set(frozen) and sum(map(bool, jmask.values())) == 2
+    assert all(bool(jmask[k]) == bool(frozen[k].all()) == bool(frozen[k].any())
+               for k in jmask)
+    tx = jax_optim.build_optimizer(jcfg)
+    p = jax.tree_util.tree_map(jnp.asarray, pre)
+    state = tx.init(p)
+    for _ in range(2):
+        upd, state = tx.update(jax.tree_util.tree_map(jnp.zeros_like, p), state, p)
+        p = optax.apply_updates(p, upd)
+    after = dict(_flat(to_flax_params(tr.model)))
+    for k, v in _flat(pre):
+        if wd == 0:
+            np.testing.assert_array_equal(after[k], v, err_msg=str(k))
+        else:
+            assert not np.array_equal(after[k], v)
+        np.testing.assert_allclose(after[k], dict(_flat(p))[k], atol=1e-6, rtol=0,
+                                   err_msg=str(k))
+    moved = [k for k, v in _flat(full) if not jmask[k] and not np.array_equal(after[k], v)]
+    assert len(moved) == len(jmask) - 2
+
+
+def _write_item_emb(path, n_items, d, seed=0):
+    """``id<TAB>v1,...`` lines for items 1..n_items-1 in shuffled order."""
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n_items - 1, d)).astype(np.float32)
+    with open(path, "w") as f:
+        for i in rng.permutation(n_items - 1):
+            f.write(f"{i + 1}\t" + ",".join(repr(float(x)) for x in emb[i]) + "\n")
+    return emb
+
+
+def test_pre_item_emb_starts_the_item_table_from_the_file(synth_dataset, tmp_path):
+    """main.run with use_pre_item_emb and item_emb_path: the port's item
+    table starts as the file's rows under a zero padding row, equal to the
+    JAX model's initial table from the same file."""
+    root, _ = synth_dataset
+    emb_path = str(tmp_path / "item_emb.txt")
+    emb = _write_item_emb(emb_path, 301, 16)
+    seen, fit = {}, Trainer.fit
+
+    def spy(self, *a, **k):
+        out = fit(self, *a, **k)
+        seen["table"] = self.model.item_embedding.weight.detach().numpy().copy()
+        return out
+
+    args = dict(BASE_CONF, **SLICE, dataset_path=root, output_path=str(tmp_path / "out"),
+                exp_name="pre_emb", epochs=0, data_valid_name="none", use_pre_item_emb=1,
+                item_emb_path=emb_path, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Trainer, "fit", spy)
+        main.run(dict(args))
+    padded = np.concatenate([np.zeros((1, 16), np.float32), emb])
+    np.testing.assert_array_equal(main._padded_emb(main.file_io.load_pre_item_emb(emb_path)),
+                                  padded)
+    np.testing.assert_array_equal(seen["table"], padded)
+    jcfg = jax_config.parse_arguments({k: v for k, v in args.items() if k != "device"},
+                                      argv=[])
+    jcfg["_pre_item_emb"] = jax_main._padded_emb(jax_file_io.load_pre_item_emb(emb_path))
+    jb = {"item_seq": jnp.ones((2, 10), jnp.int32), "user_id": jnp.ones(2, jnp.int32),
+          "item_id": jnp.ones(2, jnp.int32), "label": jnp.ones(2)}
+    jparams = jax_model_class("SASRec")(cfg=jcfg).init(jax.random.PRNGKey(0), jb,
+                                                         train=False)["params"]
+    np.testing.assert_array_equal(np.asarray(jparams["item_embedding"]["embedding"]), padded)
+
+
+def test_orbax_checkpoints_are_refused(synth_dataset, tmp_path):
+    root, _ = synth_dataset
+    with pytest.raises(NotImplementedError, match="item 12"):
+        main.run(dict(BASE_CONF, **SLICE, dataset_path=root, output_path=str(tmp_path),
+                      checkpoint_backend="orbax", device="cpu"))
+
+
+# ----------------------------------------------------------- observability
+def _scalars(event_dir):
+    """{tag: [steps]} of the scalar events under ``event_dir``."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    acc = EventAccumulator(event_dir)
+    acc.Reload()
+    return {t: [e.step for e in acc.Scalars(t)] for t in acc.Tags()["scalars"]}
+
+
+def test_tensorboard_writes_the_jax_tags_at_the_jax_steps(synth_dataset, tmp_path, monkeypatch):
+    """Two epochs with validation under use_tensorboard: the port's events
+    hold the tags and steps of the JAX trainer's (whose writer is flushed
+    here after each write, as the port's writer flushes itself)."""
+    root, _ = synth_dataset
+    args = dict(BASE_CONF, model="SASRec", dataloader="SeqRecDataset", embedding_size=8,
+                hidden_size=8, n_heads=2, inner_size=16, epochs=2, n_sample_neg_train=3,
+                dataset_path=root, exp_name="tb", use_tensorboard=1)
+    main.run(dict(args, output_path=str(tmp_path / "port"), device="cpu"))
+    log = JaxTrainer._log_scalars
+    monkeypatch.setattr(JaxTrainer, "_log_scalars",
+                        lambda self, *a: (log(self, *a), self._tb.flush()))
+    jax_main.run(dict(args, output_path=str(tmp_path / "jax")))
+    got = _scalars(str(tmp_path / "port" / "tensorboard"))
+    ref = _scalars(str(tmp_path / "jax" / "tensorboard"))
+    assert got == ref
+    assert got["train/loss"] == [1, 2] and got["valid/ndcg@5"] == [0, 1]
+    assert set(got) == {"train/loss", "train/epoch_seconds", "valid/hit@5", "valid/hit@10",
+                        "valid/ndcg@5", "valid/ndcg@10"}
+
+
+def test_use_wandb_warns_and_disables_without_the_package(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "wandb", None)     # import wandb raises ImportError
+    tr, _ = _trainer(tmp_path, use_wandb=1, exp_name="wandb_off")
+    assert tr._wandb is None and tr._tb is None
+    tr._log_scalars({"train/loss": 1.0}, 1)
+    logs = glob.glob(str(tmp_path / "wandb_off.*.log"))
+    assert logs and "wandb unavailable; disabling" in open(logs[0]).read()
+
+
+@pytest.mark.parametrize("outcome", ["returns", "raises"])
+def test_profile_writes_a_trace_and_leaves_no_profiler_running(trained, tmp_path, outcome):
+    """profile=1 on task=test from the slice's checkpoint: a Chrome trace
+    under <output_path>/profile that holds the evaluation's ops, and no
+    profiler left running; when run raises (no test table), the profiler
+    stops too and no trace is written."""
+    args, result, out, _ = trained
+    data = args["dataset_path"] if outcome == "returns" else str(tmp_path / "empty")
+    run = {"task": "test", "model_file": os.path.join(out, "checkpoint", "slice.pkl"),
+           "dataset_path": data, "output_path": str(tmp_path), "profile": 1, "device": "cpu"}
+    if outcome == "raises":
+        with pytest.raises(FileNotFoundError):
+            main.run(run)
+    else:
+        assert main.run(run) == result
+    assert not torch.autograd._profiler_enabled()
+    traces = glob.glob(str(tmp_path / "profile" / "*.pt.trace.json"))
+    if outcome == "raises":
+        assert traces == []
+        return
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("addmm" in e.get("name", "") or "matmul" in e.get("name", "") for e in events)
+
+
+# ------------- the slice's path: popularity negatives, T5 validation, sessions
+POP_SESSION = dict(neg_by_pop_alpha=1.0, data_valid_name="test_multipos",
+                   valid_file_format="user-item_seq", data_test_name="test_session",
+                   test_file_format="user-item-label-session", test_protocol="session_aware",
+                   metrics="['group_auc', 'hit@5;10', 'ndcg@5']", key_metric="hit@10")
+
+
+@pytest.fixture(scope="module")
+def pop_session(synth_dataset, tmp_path_factory):
+    """main.run(task=train) with popularity negatives, multi-positive
+    one-vs-all validation and a session-wise test, on the CPU."""
+    root, _ = synth_dataset
+    out = str(tmp_path_factory.mktemp("pop_session"))
+    args = dict(BASE_CONF, **SLICE, **POP_SESSION, dataset_path=root, output_path=out,
+                exp_name="pop", epochs=2, learning_rate=0.01, device="cpu")
+    seen = {"losses": [], "valid": []}
+    step, validate = Trainer.train_step, Trainer._validate
+
+    def spy_step(self, batch):
+        seen["alias"] = self._augmenter.use_alias
+        seen["losses"].append(float(step(self, batch)))
+        return torch.tensor(seen["losses"][-1])
+
+    def spy_validate(self, data, *a, **k):
+        seen["valid"].append(type(self.evaluator).__name__)
+        return validate(self, data, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Trainer, "train_step", spy_step)
+        mp.setattr(Trainer, "_validate", spy_validate)
+        result = main.run(copy.deepcopy(args))
+    return args, result, out, seen
+
+
+def test_pop_session_path_trains_and_evaluates(pop_session):
+    args, result, out, seen = pop_session
+    assert seen["alias"] and seen["valid"] == ["MultiPositiveEvaluator"] * 2
+    assert set(result) == {"group_auc", "hit@5", "hit@10", "ndcg@5"}
+    assert all(0.0 <= v <= 1.0 for v in result.values()) and 0.0 < result["group_auc"] < 1.0
+    n = len(seen["losses"]) // 2
+    assert np.isfinite(seen["losses"]).all()
+    assert np.mean(seen["losses"][n:]) < np.mean(seen["losses"][:n])
+    with open(os.path.join(out, "checkpoint", "pop.pkl"), "rb") as f:
+        best = pickle.load(f)["best_valid_result"]
+    assert set(best) == {"group_auc", "hit@5", "hit@10", "ndcg@5"}
+
+
+def test_pop_session_test_from_the_checkpoint_repeats_and_matches_jax(pop_session):
+    """task=test from the best checkpoint repeats the session metrics
+    exactly; the JAX package's task=test on the port's checkpoint gives them
+    within 1e-6 (the same noise on f32 scores that agree to about 1e-7)."""
+    args, result, out, _ = pop_session
+    run = {"task": "test", "model_file": os.path.join(out, "checkpoint", "pop.pkl"),
+           "dataset_path": args["dataset_path"]}
+    assert main.run(dict(run, output_path=out + "_test", device="cpu")) == result
+    ref = jax_main.run(dict(run, output_path=out + "_jax"))
+    assert set(ref) == set(result)
+    for m in result:
+        assert abs(result[m] - ref[m]) <= 1e-6, (m, result[m], ref[m])

@@ -220,8 +220,8 @@ def test_unported_trainer_options_raise(tmp_path):
         _trainer(tmp_path, enable_morec=1)
     with pytest.raises(NotImplementedError, match="item 12"):
         _trainer(tmp_path, mesh_data=2)
-    tr, _ = _trainer(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    tr, _ = _trainer(tmp_path, metrics="['rhit@5']")   # a price-weighted session metric
+    with pytest.raises(NotImplementedError, match="item 11"):
         tr.reset_evaluator("user-item-label-session", "session_aware")
 
 

@@ -96,6 +96,11 @@ BASE_DEFAULTS: Dict[str, Any] = {
     "valid_protocol": "one_vs_k",
     "pad_incomplete_batch": True,
     "user_history_capacity": -1,
+    "use_pre_item_emb": 0,
+    "checkpoint_backend": "pickle",
+    # observability (facility/trainer.py)
+    "use_tensorboard": False,
+    "use_wandb": False,
 }
 
 # config/model/<Model>.yaml of every model this package registers

@@ -4,10 +4,13 @@ unirec_tpu/data/device_pipeline.py).
 The host feeds raw id columns; negative sampling with user-history
 rejection and the left-padded history windows run as torch ops on tensors
 resident on the device. Semantics are the JAX package's: oversampled
-uniform negatives, rejected when in the user's history or equal to a
-positive, the first valid proposal kept and 0 when every proposal fails
-(:141-160); the unorder / autoregressive truncation rules, ``seq_last`` and
-an explicit per-row ``max_len`` (:162-216).
+negatives, uniform over [1, n_items) or, with ``neg_by_pop_alpha`` > 0 and
+the item popularity, drawn from the Walker alias table of popularity **
+alpha kept on the device (f32 thresholds, int32 aliases; :89-105),
+rejected when in the user's history or equal to a positive, the first
+valid proposal kept and 0 when every proposal fails (:141-160); the
+unorder / autoregressive truncation rules, ``seq_last`` and an explicit
+per-row ``max_len`` (:162-216).
 
 Randomness comes from an explicit ``torch.Generator`` on the state's device
 (the JAX package's ``key``); the two frameworks draw different numbers from
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from unirec_tpu_torch.data.history import UserHistory
+from unirec_tpu_torch.data.sampler import AliasTable
 from unirec_tpu_torch.ops import member as member_ops
 
 
@@ -38,9 +42,6 @@ class DeviceAugmenter:
                  features: Optional[np.ndarray] = None, aerec: bool = False,
                  device=None):
         c = config
-        if float(c.get("neg_by_pop_alpha", 0) or 0) > 0 and item_popularity is not None:
-            raise NotImplementedError("popularity (alias-table) negatives are not "
-                                      "ported yet (ROADMAP.md Queue 1 item 3)")
         if aerec:
             raise NotImplementedError("AERec training rows are not ported yet "
                                       "(ROADMAP.md Queue 1 item 7)")
@@ -64,11 +65,24 @@ class DeviceAugmenter:
             "hist_lens": torch.as_tensor(history.lengths, dtype=torch.int32,
                                          device=self.device),
         }
+        alpha = float(c.get("neg_by_pop_alpha", 0) or 0)
+        self.use_alias = item_popularity is not None and alpha > 0
+        if self.use_alias:
+            table = AliasTable.of_popularity(item_popularity, alpha)
+            self.state["alias_thresh"] = torch.as_tensor(table.thresh, dtype=torch.float32,
+                                                         device=self.device)
+            self.state["alias_alias"] = torch.as_tensor(table.alias, dtype=torch.int32,
+                                                        device=self.device)
 
     # ------------------------------------------------------------------
     def _draw(self, gen: torch.Generator, shape) -> torch.Tensor:
-        return torch.randint(1, self.n_items, shape, generator=gen,
-                             device=self.device, dtype=torch.int32)
+        if not self.use_alias:
+            return torch.randint(1, self.n_items, shape, generator=gen,
+                                 device=self.device, dtype=torch.int32)
+        thresh, alias = self.state["alias_thresh"], self.state["alias_alias"]
+        idx = torch.randint(0, thresh.shape[0], shape, generator=gen, device=self.device)
+        frac = torch.rand(shape, generator=gen, device=self.device)
+        return torch.where(frac < thresh[idx], idx.to(torch.int32), alias[idx])
 
     def _membership(self, rows, cand) -> torch.Tensor:
         """cand[b, k] > 0 and in rows[b, :] -- [B, K] bool."""

@@ -130,6 +130,7 @@ def make_eval_batcher(dataset: BaseDataset, config: Dict[str, Any],
         pop = item_popularity if float(config.get("neg_by_pop_alpha", 0) or 0) > 0 else None
         sampler = NegativeSampler(config["n_items"], n_neg, user_history=history,
                                   item_popularity=pop,
+                                  neg_by_pop_alpha=float(config.get("neg_by_pop_alpha", 1.0) or 1.0),
                                   oversample_factor=int(config.get("neg_oversample_factor", 4)))
     bs = config.get(f"{task}_batch_size") or config.get("test_batch_size") \
         or config.get("batch_size")

@@ -1,5 +1,4 @@
-"""Evaluators of the one-positive protocols (counterpart of
-unirec_tpu/facility/evaluation/evaluators.py).
+"""Evaluators (counterpart of unirec_tpu/facility/evaluation/evaluators.py).
 
   - one_vs_k: grouped scores from ``model.predict`` (the positive in column
     0, sampled negatives after it), tie noise, rank within the row.
@@ -7,18 +6,24 @@ unirec_tpu/facility/evaluation/evaluators.py).
     (``ops/topk.py::full_catalog_scores``, a ``torch.matmul``), history
     masking, tie noise and the rank of the positive, on the device; only
     per-row metric vectors come back, fetched once after the sweep.
+  - one_vs_all with several positives per row (T5/T6 tables): the same
+    sweep through ``ops/metrics.py::multipos_topk_and_metrics`` (the @k
+    metrics and group_auc).
+  - session_aware: ``model.predict`` scores on the device, fetched once
+    after the sweep; grouped by session (or user) and reduced per session
+    on the host, a numpy copy of the JAX package's ``evaluate_with_scores``.
 
 Tie noise draws from a ``torch.Generator`` on the device seeded as the JAX
 evaluators seed their keys (seed + 101 for one_vs_k, seed + 202 for
-one_vs_all), fresh for every evaluation, so an evaluation of the same
-weights repeats exactly. Metrics are weighted means over the real rows
-(``weight`` > 0) and match onepos.py. ``predict_scores`` serves the infer
-task under either protocol: ``model.predict`` of every batch, the real
-rows kept, fetched once after the sweep. Not ported yet, and raising
-NotImplementedError naming their ROADMAP item: one_vs_all with several
-positives per row (T5/T6 tables; its metrics are ported in
-ops/metrics.py::multipos_topk_and_metrics) and the session-wise protocol
-(Queue 1 item 5), and the MoRec metric family (Queue 1 item 11).
+one_vs_all, seed + 303 for its multi-positive form), fresh for every
+evaluation, so an evaluation of the same weights repeats exactly; the
+session protocol draws its noise from numpy at seed + 404, as JAX does.
+Metrics are weighted means over the real rows (``weight`` > 0) and match
+onepos.py, multipos.py and sessionwise.py. ``predict_scores`` serves the
+infer task under every protocol: ``model.predict`` of every batch, the real
+rows kept, fetched once after the sweep. The MoRec metric family, the
+session protocol's price-weighted rhit/rrecall/rndcg among them, is not
+ported yet and raises NotImplementedError naming ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -35,10 +40,7 @@ from unirec_tpu_torch.utils import to_device
 _MOREC_PREFIXES = ("rhit", "rndcg", "rrecall", "pop-kl", "least-misery")
 
 
-class OnePositiveEvaluator:
-    """One positive per row: one-vs-k (grouped scores) and one-vs-all (full
-    catalog)."""
-
+class _EvaluatorBase:
     def __init__(self, config: Dict[str, Any], model, device=None):
         self.config = config
         self.model = model
@@ -49,6 +51,24 @@ class OnePositiveEvaluator:
         if morec:
             raise NotImplementedError(f"the MoRec metrics {morec} are not ported yet "
                                       "(ROADMAP.md Queue 1 item 11)")
+
+    @torch.no_grad()
+    def predict_scores(self, batcher) -> np.ndarray:
+        """Raw scores of the real rows (evaluators.py:110-119), in f32: [rows]
+        without negatives, [rows, 1 + negatives] with them."""
+        pending, keeps = [], []
+        for batch in batcher:
+            pending.append(self.model.predict(to_device(batch, self.device)))
+            keeps.append(np.asarray(batch["weight"]) > 0)
+        return np.concatenate([s.float().cpu().numpy()[k] for s, k in zip(pending, keeps)])
+
+
+class OnePositiveEvaluator(_EvaluatorBase):
+    """One positive per row: one-vs-k (grouped scores) and one-vs-all (full
+    catalog)."""
+
+    def __init__(self, config: Dict[str, Any], model, device=None):
+        super().__init__(config, model, device)
         # 'auc' is one global ROC-AUC over every (score, label) pair of the
         # one-vs-k sweep (onepos.py:136-137)
         self.base_names = [m for m in self.metric_names if m != "auc"]
@@ -96,16 +116,6 @@ class OnePositiveEvaluator:
                                    np.concatenate([a.reshape(-1) for a in auc_scores]))
         return out
 
-    @torch.no_grad()
-    def predict_scores(self, batcher) -> np.ndarray:
-        """Raw scores of the real rows (evaluators.py:110-119), in f32: [rows]
-        without negatives, [rows, 1 + negatives] with them."""
-        pending, keeps = [], []
-        for batch in batcher:
-            pending.append(self.model.predict(to_device(batch, self.device)))
-            keeps.append(np.asarray(batch["weight"]) > 0)
-        return np.concatenate([s.float().cpu().numpy()[k] for s, k in zip(pending, keeps)])
-
     def evaluate_full(self, batcher, history) -> Dict[str, float]:
         n_items = int(self.config["n_items"])
 
@@ -139,20 +149,97 @@ class OnePositiveEvaluator:
         return self.merge(rows, weights)
 
 
-class MultiPositiveEvaluator:
-    """One-vs-all with several positives per user (T5/T6 rows)."""
+class MultiPositiveEvaluator(OnePositiveEvaluator):
+    """One-vs-all with several positives per user (T5/T6 rows): the @k
+    metrics and the per-row group_auc (multipos.py:184-191)."""
 
     def __init__(self, config, model, device=None):
-        raise NotImplementedError("one_vs_all with several positives per row (T5/T6 "
-                                  "tables) is not ported yet (ROADMAP.md Queue 1 item 5)")
+        super().__init__(config, model, device)
+        self.base_names = [m for m in self.metric_names if "@" in m or m == "group_auc"]
+        ks = [int(m.split("@")[1]) for m in self.metric_names if "@" in m]
+        self.max_k = max(ks) if ks else 10
+
+    def evaluate_full(self, batcher, history) -> Dict[str, float]:
+        def metrics(scores, pos, hist_items, hist_len, gen):
+            return M.multipos_topk_and_metrics(scores, pos, hist_items, hist_len,
+                                               self.base_names, self.max_k, gen)
+
+        return self._full_sweep(batcher, history, 303, self.base_names, metrics)
+
+
+class SessionWiseEvaluator(_EvaluatorBase):
+    """Session-grouped metrics (sessionwise.py): scores from
+    ``model.predict`` on the device, fetched once after the sweep, then
+    grouped by ``session_id`` (``user_id`` when the table has none) and
+    reduced per session on the host. Sessions that are all positive or all
+    negative are dropped (sessionwise.py:104-115)."""
+
+    @torch.no_grad()
+    def evaluate(self, batcher) -> Dict[str, float]:
+        pending, labels, sessions = [], [], []
+        for batch in batcher:
+            w = np.asarray(batch["weight"])
+            pending.append((w, self.model.predict(to_device(batch, self.device))))
+            labels.append(np.asarray(batch["label"]).reshape(-1))
+            sessions.append(np.asarray(batch["session_id"] if "session_id" in batch
+                                       else batch["user_id"]).reshape(-1))
+        scores = []
+        for i, (w, s_dev) in enumerate(pending):
+            s = s_dev.float().cpu().numpy().reshape(-1)
+            keep = np.repeat(w > 0, s.shape[0] // len(w))
+            scores.append(s[keep])
+            labels[i], sessions[i] = labels[i][keep], sessions[i][keep]
+        return self.evaluate_with_scores(np.concatenate(scores), np.concatenate(labels),
+                                         np.concatenate(sessions))
+
+    def evaluate_with_scores(self, scores: np.ndarray, labels: np.ndarray,
+                             session_ids: np.ndarray) -> Dict[str, float]:
+        """Per-session metrics averaged over the sessions (the JAX package's
+        ``evaluate_with_scores`` without its price-weighted metrics)."""
+        rng = np.random.default_rng(self.seed + 404)
+        scores = scores + rng.uniform(-1e-8, 1e-8, size=scores.shape)
+        order = np.argsort(session_ids, kind="stable")
+        s, l, g = scores[order], labels[order], session_ids[order]
+        bounds = np.flatnonzero(np.r_[True, g[1:] != g[:-1], True])
+        res: Dict[str, List[float]] = {m: [] for m in self.metric_names}
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            gs, gl = s[a:b], l[a:b]
+            n_pos = gl.sum()
+            if n_pos <= 0 or n_pos == len(gl):
+                continue
+            ranks_full = np.empty(len(gs), dtype=np.int64)
+            ranks_full[np.argsort(-gs, kind="stable")] = np.arange(len(gs))
+            ranks = np.sort(ranks_full[gl > 0])
+            n = len(gs)
+            ndcg_w = 1.0 / np.log2(np.arange(2, n + 2))
+            mrr_w = 1.0 / np.arange(1, n + 1)
+            for m in self.metric_names:
+                if m == "group_auc":
+                    res[m].append(M.roc_auc(gl, gs))
+                elif m == "ndcg":
+                    res[m].append(ndcg_w[ranks].sum() / ndcg_w[: len(ranks)].sum())
+                elif m == "mrr":
+                    res[m].append(mrr_w[ranks].sum() / len(ranks))
+                elif "@" in m:
+                    name, k = m.split("@")
+                    k = int(k)
+                    if name == "ndcg":
+                        res[m].append(ndcg_w[ranks[ranks < k]].sum()
+                                      / ndcg_w[:min(k, len(ranks))].sum())
+                    elif name == "hit":
+                        res[m].append(1.0 if ranks[0] < k else 0.0)
+                    elif name == "recall":
+                        res[m].append((ranks < k).sum() / len(ranks))
+                    elif name == "mrr":
+                        res[m].append(mrr_w[ranks[ranks < k]].sum() / min(k, len(ranks)))
+        return {m: float(np.mean(v)) if v else 0.0 for m, v in res.items()}
 
 
 def build_evaluator(config: Dict[str, Any], model, protocol: str,
                     data_format=None, device=None):
     """Protocol x format dispatch (trainer.py:100-131)."""
     if protocol == EvalProtocol.SESSION_AWARE.value:
-        raise NotImplementedError("the session_aware protocol is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 5)")
+        return SessionWiseEvaluator(config, model, device)
     if protocol == EvalProtocol.ONE_VS_ALL.value and data_format in (
             DataFormat.T5.value, DataFormat.T6.value):
         return MultiPositiveEvaluator(config, model, device)

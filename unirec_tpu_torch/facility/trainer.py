@@ -13,7 +13,16 @@ rolling ``.last`` checkpoint. ``evaluate`` runs the evaluator of the
 protocol set by ``reset_evaluator``, from the best checkpoint on request,
 or returns the raw scores of the infer task (``predict_only``).
 Checkpoints use the JAX package's pickle layout with ``params`` as a flax
-tree, so the port's ``reco-topk`` and the JAX package read them.
+tree, so the port's ``reco-topk`` and the JAX package read them. With
+``freeze`` the parameters ``load_model`` loaded get zero gradients before
+the optimizer (trainer.py:380-386); Adam then leaves them exactly as they
+are unless ``weight_decay`` adds its term, as it does in the JAX chain.
+Observability (reference trainer.py:78-84, 284-290, 356-365):
+``use_tensorboard`` writes ``train/loss`` and ``train/epoch_seconds`` at
+step epoch + 1 and ``valid/<metric>`` at the epoch index through
+``torch.utils.tensorboard`` into ``<output_path>/tensorboard``;
+``use_wandb`` logs the same when ``wandb`` imports; either warns and stays
+off when its package does not import.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 item: MoRec (Queue 1 item 11) and a mesh of more than one device (item 12).
@@ -34,7 +43,7 @@ from unirec_tpu_torch.facility.evaluation import build_evaluator
 from unirec_tpu_torch.models.modules import DropoutRNG
 from unirec_tpu_torch.utils import checkpoint as ckpt_util
 from unirec_tpu_torch.utils import resolve_device, to_device
-from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params
+from unirec_tpu_torch.utils.flax_bridge import load_flax_params, loaded_mask, to_flax_params
 from unirec_tpu_torch.utils.logger import setup_logger
 
 
@@ -90,6 +99,27 @@ class Trainer:
         self.user_history = None
         self.evaluator = None
         self._eval_protocol = None
+        self._loaded = None          # per parameter: loaded by load_model
+        self._tb = self._wandb = None
+        if int(config.get("use_tensorboard", 0) or 0):
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                self.logger.warning("tensorboard unavailable; disabling")
+            else:
+                self._tb = SummaryWriter(os.path.join(config.get("output_path", "."),
+                                                      "tensorboard"))
+        if int(config.get("use_wandb", 0) or 0):
+            try:
+                import wandb
+            except ImportError:
+                self.logger.warning("wandb unavailable; disabling")
+            else:
+                self._wandb = wandb
+                if wandb.run is None:
+                    wandb.init(project=config.get("wandb_project", "unirec_tpu"),
+                               name=self.exp_name,
+                               config={k: v for k, v in config.items() if not k.startswith("_")})
 
     # ------------------------------------------------------------------ setup
     def set_user_history(self, history):
@@ -129,7 +159,9 @@ class Trainer:
             batch = self._augmenter.augment(batch, gen)
         loss, _ = self.model(batch, train=True, rng=DropoutRNG(drop_seed, self.device))
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+        frozen = self._frozen
+        grads = [torch.zeros_like(p) if g is None or f else g
+                 for g, p, f in zip(grads, self.params, frozen)]
         with torch.no_grad():
             # NaN guard (trainer.py:229-237): keep params and state when the
             # loss is not finite
@@ -141,6 +173,22 @@ class Trainer:
                               for k, v in new_state.items()}
         self._global_step += 1
         return loss.detach()
+
+    @property
+    def _frozen(self):
+        """Per parameter, whether ``freeze`` holds it: loaded by load_model
+        from a pretrained checkpoint (reference trainer.py:380-386)."""
+        if not int(self.config.get("freeze", 0) or 0) or self._loaded is None:
+            return [False] * len(self.params)
+        return self._loaded
+
+    def _log_scalars(self, scalars: Dict[str, float], step: int):
+        if self._tb is not None:
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, float(v), step)
+            self._tb.flush()
+        if self._wandb is not None:
+            self._wandb.log(dict(scalars), step=step)
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_data, valid_data=None, save_model: bool = True,
@@ -155,6 +203,9 @@ class Trainer:
             if model_file is None:
                 raise ValueError("`model_file` required with load_pretrained_model")
             self.load_model(model_file)
+            if int(self.config.get("freeze", 0) or 0):
+                self.logger.info("Freezing %d/%d pretrained parameters",
+                                 sum(self._frozen), len(self.params))
         auto_resume = bool(int(self.config.get("auto_resume", 0) or 0))
         last_file = self.saved_model_file + ".last" if auto_resume else None
         if auto_resume and os.path.exists(last_file):
@@ -171,6 +222,8 @@ class Trainer:
             total_loss = float(torch.stack(losses).double().sum()) if losses else 0.0
             self.logger.info("epoch %d training [time: %.2fs, train loss: %.4f]",
                              epoch_idx + 1, time.time() - t0, total_loss)
+            self._log_scalars({"train/loss": total_loss,
+                               "train/epoch_seconds": time.time() - t0}, epoch_idx + 1)
             if auto_resume:
                 self.cur_epoch = epoch_idx + 1
                 self.save_model(last_file, epoch_idx + 1, quiet=True)
@@ -188,6 +241,7 @@ class Trainer:
             score, self.best_valid_score, self.cur_step, max_step=self.early_stop)
         self.logger.info("epoch %d evaluating [time: %.2fs, %s: %f]", epoch_idx,
                          time.time() - t0, self.key_metric, score)
+        self._log_scalars({f"valid/{k}": v for k, v in result.items()}, epoch_idx)
         if verbose > 1:
             self.logger.info("complete scores on valid set: %s", result)
         if update:
@@ -273,6 +327,7 @@ class Trainer:
         ckpt = ckpt_util.load_checkpoint(filename)
         self.init_params()
         load_flax_params(self.model, ckpt["params"], strict=False)
+        self._loaded = loaded_mask(self.model, ckpt["params"])
         opt = ckpt.get("opt_state")
         if restore_optimizer and isinstance(opt, dict) and "learning_rate" in opt:
             self.opt_state = ckpt_util.opt_state_from_numpy(self.model, opt, self.device)

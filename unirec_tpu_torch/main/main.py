@@ -16,17 +16,23 @@ Trainer, and runs the task:
     line in ``<exp_name>.infer.txt``; returns None.
 
 Train and test write ``<exp_name>.result.tsv`` beside a log in
-``<output_path>`` and return the test metrics. It runs on the CUDA card
-unless the caller passes ``device='cpu'`` (or another device), and never
-falls back to the CPU. Not ported yet, and raising NotImplementedError
-naming their ROADMAP.md item: closed-form solver models (item 9), MoRec
-(item 11), a mesh of more than one device (item 12) and the profiler trace
-(item 5).
+``<output_path>`` and return the test metrics. With ``use_pre_item_emb``
+and ``item_emb_path`` the item table starts from the file's rows. With
+``profile=1`` a ``torch.profiler`` trace (CPU and, on the card, CUDA
+activities) runs from the parsed config to every return of ``run`` and is
+written as ``<output_path>/profile/<exp_name>.pt.trace.json``, torch's
+Chrome-trace format where the JAX package writes an xplane; it stops when
+``run`` raises too. It runs on the CUDA card unless the caller passes
+``device='cpu'`` (or another device), and never falls back to the CPU. Not
+ported yet, and raising NotImplementedError naming their ROADMAP.md item:
+closed-form solver models (item 9), MoRec (item 11), a mesh of more than
+one device and ``checkpoint_backend=orbax`` (item 12).
 """
 from __future__ import annotations
 
 import copy
 import os
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -38,7 +44,7 @@ from unirec_tpu_torch.data.datasets import get_dataset_class
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.data.pipeline import make_eval_batcher, make_train_batcher
 from unirec_tpu_torch.facility.trainer import Trainer
-from unirec_tpu_torch.utils import resolve_device
+from unirec_tpu_torch.utils import file_io, resolve_device
 from unirec_tpu_torch.utils.logger import setup_logger
 from unirec_tpu_torch.utils.registry import get_model_class
 
@@ -80,9 +86,37 @@ def _refuse_unported(config, task: str):
         raise ValueError(f"unknown task: {task}")
     if int(config.get("enable_morec", 0) or 0):
         raise NotImplementedError("MoRec is not ported yet (ROADMAP.md Queue 1 item 11)")
-    if int(config.get("profile", 0) or 0):
-        raise NotImplementedError("profile=1 (the run-wide trace) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 5)")
+    if config.get("checkpoint_backend", "pickle") == "orbax":
+        raise NotImplementedError("checkpoint_backend=orbax is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 12)")
+
+
+def _padded_emb(emb: np.ndarray) -> np.ndarray:
+    """Prepend the zero row for padding item 0 (reco_abc.py:193-195)."""
+    return np.concatenate([np.zeros((1, emb.shape[1]), emb.dtype), emb], axis=0)
+
+
+@contextmanager
+def _run_trace(config, dev, logger):
+    """profile=1: trace the enclosed work with torch.profiler and write its
+    Chrome trace under <output_path>/profile (the JAX package's
+    jax.profiler trace, main.py:124-128, :300-315); the profiler stops on
+    every exit, and the trace is written when the work returned."""
+    if not int(config.get("profile", 0) or 0):
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    trace_dir = os.path.join(config["output_path"], "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    logger.info("torch profiler tracing to %s", trace_dir)
+    try:
+        yield
+    finally:
+        prof.stop()
+    prof.export_chrome_trace(os.path.join(trace_dir, f"{config['exp_name']}.pt.trace.json"))
 
 
 def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str, float]]:
@@ -110,13 +144,20 @@ def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str
     logger.info("task=%s model=%s dataset=%s device=%s", task, config["model"],
                 config.get("dataset"), dev)
     np.random.seed(int(config.get("seed", 2022)))
+    with _run_trace(config, dev, logger):
+        return _run_task(config, task, dev, logger)
 
+
+def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
+    exp_name, out_path = config["exp_name"], config["output_path"]
     ds_cls = get_dataset_class(config.get("dataloader", "BaseDataset"))
     dpath = config["dataset_path"]
     history = load_user_history(config) if need_user_history(config) else None
     item_pop = None
     if float(config.get("neg_by_pop_alpha", 0) or 0) > 0 and history is not None:
         item_pop = construct_item_popularity(history, int(config["n_items"]))
+    if config.get("use_pre_item_emb") and config.get("item_emb_path"):
+        config["_pre_item_emb"] = _padded_emb(file_io.load_pre_item_emb(config["item_emb_path"]))
     model = get_model_class(config["model"])(config)
     if not getattr(model, "optimized_by_sgd", True):
         raise NotImplementedError("closed-form solver models are not ported yet "

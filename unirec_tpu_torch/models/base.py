@@ -91,7 +91,9 @@ class BaseRecommender(nn.Module):
         (modules.make_initializer): Embedding tables and Linear kernels
         from the configured initializer, padding row 0 of the user/item
         tables zeroed, zero biases, LayerNorm scale 1 and bias 0, user and
-        item bias terms normal(0.1)."""
+        item bias terms normal(0.1). With ``use_pre_item_emb`` the item table
+        is the pretrained rows main.run put under ``_pre_item_emb`` (row 0
+        the padding item's zeros), as unirec_tpu/models/base.py:89-93 does."""
         method = self.cfg.get("init_method", "normal")
         mean = float(self.cfg.get("init_mean", 0.0))
         std = float(self.cfg.get("init_std", 0.02))
@@ -120,6 +122,10 @@ class BaseRecommender(nn.Module):
                 if hasattr(self, name):
                     nn.init.normal_(getattr(self, name), 0.0, 0.1,
                                     generator=generator)
+            pre_item = self.cfg.get("_pre_item_emb")
+            if self.cfg.get("use_pre_item_emb") and pre_item is not None:
+                w = self.item_embedding.weight
+                w.copy_(torch.as_tensor(pre_item, dtype=w.dtype).reshape(w.shape))
 
     # ------------------------------------------------------------- embeddings
     def _cast(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""Table readers for the formats the serving slice consumes (subset of
-unirec_tpu/utils/file_io.py). pandas is imported only inside the readers
-that build DataFrames, so the card path needs it only when it reads one."""
+"""Table readers for the formats the port consumes, and the pretrained
+item-embedding reader (subset of unirec_tpu/utils/file_io.py). pandas is
+imported only inside the readers that build DataFrames, so the card path
+needs it only when it reads one."""
 from __future__ import annotations
 
 import ast
 import os
 import pickle
-from typing import Any
+from typing import Any, List
 
 import numpy as np
 
@@ -56,3 +57,26 @@ def load_table(path_prefix: str):
         if os.path.exists(path_prefix + ext):
             return load_txt_table(path_prefix + ext)
     raise FileNotFoundError(f"no data file found for prefix: {path_prefix}")
+
+
+def load_pre_item_emb(path: str) -> np.ndarray:
+    """Pretrained item embeddings: text lines of ``id<TAB>v1,v2,...`` (rows
+    put in id order) or of whitespace-separated floats (reference
+    file_io.load_pre_item_emb)."""
+    rows: List[np.ndarray] = []
+    ids: List[int] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if "\t" in line:
+                iid, vec = line.split("\t", 1)
+                ids.append(int(iid))
+                rows.append(_parse_list(vec, np.float32))
+            else:
+                rows.append(np.asarray(line.split(), dtype=np.float32))
+    emb = np.stack(rows)
+    if ids:
+        emb = emb[np.argsort(ids)]
+    return emb

@@ -108,6 +108,15 @@ def load_flax_params(model: nn.Module, params: Dict, strict: bool = True) -> Non
         raise KeyError(f"checkpoint parameters the model does not have: {extra}")
 
 
+def loaded_mask(model: nn.Module, params: Dict) -> List[bool]:
+    """Per parameter of ``model`` (``model.parameters()`` order): whether
+    the flax tree ``params`` holds its path, as the JAX trainer marks the
+    parameters a checkpoint loaded (trainer.py:547-552)."""
+    paths = set(_flat_paths(params))
+    flags = {id(p): path in paths for path, p, _ in _leaves(model)}
+    return [flags[id(p)] for p in model.parameters()]
+
+
 def _flat_paths(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
