@@ -120,9 +120,37 @@ Phases, each of which must pass:
      through the kernels and the plain versions (as entry_path_check's
      eval batch), row 8 on the batch's own (rows, cand), and a traced
      step and validation batch (pop_session_profile).
+ 12. the sequential family (seq_family_path): main.run(task=train) of GRU,
+     AvgHist, AttHist, SVDPlusPlus, ConvFormer and FASTConvFormer at
+     examples/more-examples/run_seq_benchmark.sh's options (d=256, L=50,
+     BCE with 19 negatives, autoregressive histories, each model's YAML
+     keys) in f32 at batch 400 on the entry path's data, 12 epochs of 50
+     steps at learning rate 3e-3 (AttHist 1e-2), 2,048 validation and test
+     users: the loss is finite and falls (the BCE stays finite where the
+     sigmoid rounds to 1.0, ops/losses.py::bce_loss), the best hit@10
+     reaches ten times chance, task=test from the best checkpoint
+     repeats the metrics, row 6 launches once for each table gather of
+     every step on its sorted body (two a step; SVD++ three, its user and
+     second item tables); one step's loss and gradients through the
+     kernels against the plain versions (seq_family_check, ConvFormer's
+     dropout by its keep rate), then row 6 on that SVD++ step's three
+     calls at d=256 f32 (traced, index_add_ beside it);
+ 13. the item side inputs (side_inputs_path): bench.py's training options
+     (phase 11's, uniform negatives) with two categorical feature fields
+     (64 and 16 ids, a .tsv), 768-wide frozen text rows (a text file of
+     50,000 rows, its write and load timed apart) and 64 time buckets on T6
+     histories, through main.run for 2 epochs of 200 steps with one-vs-all
+     validation and test: the pop_session gates, rows 1-4, 6 and 8 in
+     training on their new bodies; then reco-topk (do_topk_reco, fused,
+     bf16 catalog) of 4,096 users from the best checkpoint: rows 1, 3 and 5
+     launch, every row valid and the ids against the plain versions
+     (side_serve_check); then (mlp_scorer_check) Trainer.fit for 20 steps
+     with distance_type mlp and one-vs-k validation and test (19
+     negatives): the loss falls, one batch's scores against the plain
+     versions.
 Every launch of rows 5, 5q and 8 on the serving, training, entry, long
 and long-serving paths must be on the new bodies (NEW_BODIES). Then it
-prints its wall time (and each of phases 9-11), the card, one
+prints its wall time (and each of phases 9-13), the card, one
 {"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
@@ -190,14 +218,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+class TraceDropped(AssertionError):
+    """traced_kernel_ms saw fewer than half of a window's launches in every
+    window it traced."""
+
+
 def traced_kernel_ms(fn, kernel: str, iters: int = 50, warmup: int = 3,
-                     attempts: int = 3) -> float:
+                     attempts: int = 4) -> float:
     """The device time of one launch of the port's kernel ``kernel`` (its
     function's name in csrc/) inside fn, by the card's own clock: fn runs
     ``iters`` times under torch.profiler, and the kernel's summed device time
     is divided by its launches there (one a call). The tracer now and then
     drops records, some or all of a window's: a window that holds fewer than
-    half of them is traced again, up to ``attempts`` windows. CUDA events
+    half of them is traced again, up to ``attempts`` windows, each retry
+    twice as long as the last and opened by a millisecond's device sleep
+    (a kernel of another name) before the first counted call. CUDA events
     around back-to-back calls of a kernel of some microseconds read the
     host's pace of launching them instead (cuda_ms)."""
     import torch
@@ -207,19 +242,22 @@ def traced_kernel_ms(fn, kernel: str, iters: int = 50, warmup: int = 3,
         fn()
     marks = (f"::{kernel}<", f"::{kernel}(")
     seen = []
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        n = iters << attempt
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            if attempt and hasattr(torch.cuda, "_sleep"):
+                torch.cuda._sleep(2_000_000)
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and any(m in e.key for m in marks)]
         calls = sum(e.count for e in hits)
-        seen.append(calls)
-        if iters // 2 <= calls <= iters:
+        seen.append((calls, n))
+        if n // 2 <= calls <= n:
             return sum(float(e.self_device_time_total) for e in hits) / calls / 1e3
-    raise AssertionError(f"{kernel}: {seen} traced launches in windows of {iters} calls")
+    raise TraceDropped(f"{kernel}: (traced launches, calls) in each window: {seen}")
 
 
 def traced_timer(kernels):
@@ -980,45 +1018,61 @@ def bwd_bodies(torch, which, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgra
     return ok, core
 
 
-def scatter_line(torch, ids, rows, what, gate=None):
+def scatter_line(torch, ids, rows, what, gate=None, n_rows=N_ITEMS, traced=False):
     """One line of row 6: the sorted-tile body against the plain version and
     timed in turns with the per-row body (which must agree as well), the plain
     version and index_add_ (the library call) beside them, and the ids' share
     of id 0 and largest multiplicity. Both bodies are held to the plain
     version on the table's largest element and element by element
     (``scatter_elementwise``). With ``gate`` the sorted body must beat the
-    per-row one that many times."""
+    per-row one that many times. The table is [n_rows, rows' width] in the
+    rows' dtype; ``traced``: both bodies timed by the card's clock (calls of
+    some microseconds), or by events where the tracer keeps dropping the
+    records (``trace_dropped`` in the line)."""
     from unirec_tpu_torch.ops import scatter_accum as SA
-    M = ids.shape[0]
-    acc = SA._scatter_cuda(ids, rows, N_ITEMS)
-    ref = SA._scatter_plain(ids, rows, N_ITEMS)
+    M, D = ids.shape[0], rows.shape[1]
+    acc = SA._scatter_cuda(ids, rows, n_rows)
+    ref = SA._scatter_plain(ids, rows, n_rows)
     with mock.patch.object(SA, "_scatter_body", lambda *a: "per_row"):
-        old = SA._scatter_cuda(ids, rows, N_ITEMS)
+        old = SA._scatter_cuda(ids, rows, n_rows)
     lib_ids = ids.long()
-    lib = lambda: torch.zeros(N_ITEMS, EMB, device="cuda").index_add_(  # noqa: E731
-        0, lib_ids, rows.float()).to(torch.bfloat16)
+    lib = lambda: torch.zeros(n_rows, D, device="cuda").index_add_(  # noqa: E731
+        0, lib_ids, rows.float()).to(rows.dtype)
     torch.cuda.synchronize()
     err = float((acc.float() - ref.float()).abs().max())
     tol = 8e-3 * float(ref.float().abs().max())
-    valid = lib_ids[(lib_ids >= 0) & (lib_ids < N_ITEMS)]
+    valid = lib_ids[(lib_ids >= 0) & (lib_ids < n_rows)]
     line = {"phase": "kernel", "name": "scatter_add", "ids": what, "rows": M,
-            "table": [N_ITEMS, EMB], "dtype": "bfloat16",
+            "table": [n_rows, D], "dtype": str(rows.dtype).replace("torch.", ""),
             "id0_share": float((ids == 0).float().mean()),
-            "max_id_multiplicity": int(torch.bincount(valid, minlength=N_ITEMS).max()),
-            "body": SA._scatter_body(rows.dtype, rows.shape[1], N_ITEMS),
+            "max_id_multiplicity": int(torch.bincount(valid, minlength=n_rows).max()),
+            "body": SA._scatter_body(rows.dtype, D, n_rows),
             "max_abs_err": err, "tol": tol,
             "tol_reason": "f32 atomics in run-dependent order, one bf16 rounding "
-                          "of the sum (2^-7 relative, doubled)",
-            "plain_ms": cuda_ms(lambda: SA._scatter_plain(ids, rows, N_ITEMS)),
+                          "of the sum for bf16 rows (2^-7 relative, doubled)",
+            "plain_ms": cuda_ms(lambda: SA._scatter_plain(ids, rows, n_rows)),
             "library_ms": cuda_ms(lib)}
-    line["bound_ms"], line["bound_by"] = bound_ms(nbytes(ids, rows, acc), M * EMB, "float32")
-    per_row = bodies_in_turns(line, "_scatter_body", lambda: SA._scatter_cuda(ids, rows, N_ITEMS),
-                              20, module=SA, other="per_row", other_iters=5)
+    line["bound_ms"], line["bound_by"] = bound_ms(nbytes(ids, rows, acc), M * D, "float32")
+
+    def in_turns(timer, other_iters):
+        return bodies_in_turns(line, "_scatter_body", lambda: SA._scatter_cuda(ids, rows, n_rows),
+                               20, module=SA, other="per_row", other_iters=other_iters,
+                               timer=timer)
+
+    line["timed_by"] = "events"
+    if traced:
+        try:
+            per_row = in_turns(traced_timer(SCATTER_KERNELS), 20)
+            line["timed_by"] = "trace"
+        except TraceDropped as e:     # timed by events, and said so
+            line["trace_dropped"] = str(e)
+    if line["timed_by"] == "events":
+        per_row = in_turns(None, 5)
     line["per_row"] = {"max_abs_err": float((old.float() - ref.float()).abs().max()),
                        "kernel_ms": per_row}
     line["per_row_over_sorted"] = per_row / line["kernel_ms"]
     line["elementwise_worst"], line["per_row"]["elementwise_worst"] = scatter_elementwise(
-        torch, (acc, old), ids, rows)
+        torch, (acc, old), ids, rows, n_rows)
     line["gate"] = gate
     emit(line)
     if not (err <= tol and line["per_row"]["max_abs_err"] <= tol and line["body"] == "sorted"
@@ -1027,6 +1081,10 @@ def scatter_line(torch, ids, rows, what, gate=None):
             and (gate is None or gate * line["kernel_ms"] <= per_row)):
         raise AssertionError(f"scatter_add ({what}) failed its checks: {line}")
     return line
+
+
+# csrc/scatter_add.cu's functions of the two bodies, for traced timing
+SCATTER_KERNELS = {"own": "scatter_sorted_kernel", "per_row": "scatter_add_kernel"}
 
 
 def scatter_elementwise(torch, outs, ids, rows, n_rows=N_ITEMS):
@@ -2574,6 +2632,512 @@ def check_pop_session(torch, trainer, train_data, card):
     return member
 
 
+# ------------------------------------------------ the sequential family
+# examples/more-examples/run_seq_benchmark.sh's options (d=256, L=50, BCE
+# with 19 negatives, autoregressive histories, the device pipeline) in f32 at
+# base.yaml's batch of 400, each model's YAML keys as they are, on the entry
+# path's data; cut to FAMILY_EPOCHS epochs of FAMILY_STEPS steps and
+# FAMILY_EVAL_USERS validation and test users. The script's learning rate,
+# 1e-3, trains up to 200 epochs; in 1,250 steps GRU and AttHist learn
+# nothing at it, so the cut runs FAMILY_LR: 3e-3, and 1e-2 for AttHist,
+# which learns nothing in 750 steps at 3e-3 (PERF.md §4). GRU and AttHist
+# score positives above 16.6 after 364-529 steps, where the sigmoid is 1.0 in
+# f32: the port's BCE stays finite there (ops/losses.py::bce_loss), so every
+# step's loss must be finite.
+# The script's early_stop of 10 validations, one every 50 steps.
+FAMILY = ("GRU", "AvgHist", "AttHist", "SVDPlusPlus", "ConvFormer", "FASTConvFormer")
+FAMILY_EMB, FAMILY_BATCH, FAMILY_NEG = 256, 400, 19
+FAMILY_STEPS, FAMILY_EPOCHS, FAMILY_EVAL_USERS = 50, 12, 2048
+FAMILY_LR = {"AttHist": 1e-2}     # 3e-3 for the others
+FAMILY_MIN_HIT10 = 10 * 10 / N_ITEMS        # ten times chance
+# the tables whose gathers a train step scatters, in call order (the
+# candidates', then the user side's); the others gather the item table twice
+FAMILY_TABLES = {"AvgHist": ("item_embedding", "item_dst_embedding"),
+                 "SVDPlusPlus": ("item_embedding", "user_embedding", "item_dst_embedding")}
+FAMILY_GRAD_TOL = 1e-4     # f32 gradients, row 6 against its plain version: summation order
+# a step's scatter calls by their ids per example: the history, the candidates, the user
+FAMILY_SCATTER_IDS = {SEQ_LEN: "item_seq (item_dst_embedding)",
+                      1 + FAMILY_NEG: "candidates (item_embedding)",
+                      1: "user_id (user_embedding)"}
+
+
+def write_family_tables(data: Path) -> None:
+    """The entry path's data (written when absent) cut for the family:
+    FAMILY_STEPS batches of training rows drawn from its train table, its
+    first FAMILY_EVAL_USERS validation and test users."""
+    import pandas as pd
+    if not (data / "train.pkl").exists():
+        write_slice_data(data)
+    rng = np.random.default_rng(SEED + 8)
+    train = pd.read_pickle(data / "train.pkl")
+    pick = np.sort(rng.choice(len(train), FAMILY_STEPS * FAMILY_BATCH, replace=False))
+    train.iloc[pick].reset_index(drop=True).to_pickle(data / "train_family.pkl")
+    for name in ("valid", "test"):
+        pd.read_pickle(data / f"{name}.pkl").iloc[:FAMILY_EVAL_USERS].to_pickle(
+            data / f"{name}_family.pkl")
+
+
+def family_args(name: str, data: Path, out: Path):
+    return {"task": "train", "model": name, "dataloader": "SeqRecDataset",
+            "dataset_path": str(data), "output_path": str(out / name), "exp_name": name,
+            "user_history_filename": "user_history", "data_train_name": "train_family",
+            "data_valid_name": "valid_family", "data_test_name": "test_family",
+            "max_seq_len": SEQ_LEN, "embedding_size": FAMILY_EMB, "loss_type": "bce",
+            "n_sample_neg_train": FAMILY_NEG, "history_mask_mode": "autoregressive",
+            "device_pipeline": 1, "compute_dtype": "float32", "batch_size": FAMILY_BATCH,
+            "epochs": FAMILY_EPOCHS, "learning_rate": FAMILY_LR.get(name, 3e-3), "seed": SEED,
+            "shuffle_train": 1,
+            "valid_protocol": "one_vs_all", "test_protocol": "one_vs_all",
+            "test_batch_size": EVAL_BATCH,
+            "metrics": "['hit@10', 'ndcg@10', 'mrr', 'group_auc']", "key_metric": "ndcg@10",
+            "early_stop": 10}
+
+
+def run_spied(torch, args, eval_counts=()):
+    """main.run(args) with the train steps' losses, each evaluation's result,
+    seconds and (for ``eval_counts``) launches, and the trainer and train
+    batcher recorded; the counts reset just before."""
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.main import main as main_mod
+    seen = {"losses": [], "evals": [], "marks": [],
+            "eval_counts": dict.fromkeys(eval_counts, 0)}
+    step, evaluate, fit = Trainer.train_step, Trainer.evaluate, Trainer.fit
+
+    def spy_step(self, batch):
+        seen["losses"].append(step(self, batch))
+        return seen["losses"][-1]
+
+    def spy_eval(self, data, load_best_model=True, model_file=None, **kw):
+        torch.cuda.synchronize()
+        seen["marks"].append(time.perf_counter())
+        n0 = launch_counts(eval_counts)
+        res = evaluate(self, data, load_best_model, model_file, **kw)
+        torch.cuda.synchronize()
+        for k, v in launch_counts(eval_counts).items():
+            seen["eval_counts"][k] += v - n0[k]
+        seen["marks"].append(time.perf_counter())
+        seen["evals"].append((res, seen["marks"][-1] - seen["marks"][-2], len(data.ds)))
+        return res
+
+    def spy_fit(self, train_data, valid_data=None, **kw):
+        seen["trainer"], seen["train_data"] = self, train_data
+        return fit(self, train_data, valid_data, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with mock.patch.object(Trainer, "train_step", spy_step), \
+            mock.patch.object(Trainer, "evaluate", spy_eval), \
+            mock.patch.object(Trainer, "fit", spy_fit):
+        t0 = time.perf_counter()
+        seen["result"] = main_mod.run(dict(args))
+        torch.cuda.synchronize()
+        seen["run_s"] = time.perf_counter() - t0
+    seen["peak"] = torch.cuda.max_memory_allocated()
+    seen["loss"] = torch.stack(seen["losses"]).float().cpu().numpy()
+    return seen
+
+
+def learned_and_repeated(seen, args, phase, steps, min_hit10):
+    """The gates every main.run path of the script shares: the loss finite
+    and falling, every validation's key metric, the best hit@10 at least
+    ``min_hit10``, and task=test from the best checkpoint (run here) equal
+    to the run's test metrics. Returns that test's metrics."""
+    from unirec_tpu_torch.main import main as main_mod
+    loss, valid = seen["loss"], seen["evals"][:-1]
+    ckpt = Path(args["output_path"]) / "checkpoint" / f"{args['exp_name']}.pkl"
+    again = main_mod.run({"task": "test", "model_file": str(ckpt),
+                          "dataset_path": args["dataset_path"],
+                          "output_path": str(Path(args["output_path"]) / "test")})
+    if len(loss) != steps * args["epochs"] or not np.isfinite(loss).all() \
+            or not loss[-10:].mean() < loss[:10].mean():
+        raise AssertionError(f"{phase}: training did not run as expected: {loss.tolist()}")
+    if len(valid) != args["epochs"] or not all(np.isfinite(r[args["key_metric"]])
+                                               for r, _, _ in valid):
+        raise AssertionError(f"{phase}: a validation gave no key metric: {valid}")
+    if not max(r["hit@10"] for r, _, _ in valid) >= min_hit10:
+        raise AssertionError(f"{phase}: the model learned nothing the validations show: {valid}")
+    if again != seen["evals"][-1][0] or again != seen["result"]:
+        raise AssertionError(f"{phase}: test from the checkpoint {again} != the run's "
+                             f"{seen['result']}")
+    return again
+
+
+def seq_family_path(torch, card: str):
+    """main.run(task=train) of each of the six models at run_seq_benchmark.sh's
+    options, then task=test from its best checkpoint; row 6's launches
+    counted over each run; then one step from the trained weights at dropout
+    0 through the kernels and through the plain versions (check_family).
+    Returns (the launches summed over the six runs, SVD++'s captured
+    scatter calls)."""
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    data, out = root / "slice_data", root / "family"
+    shutil.rmtree(out, ignore_errors=True)
+    write_family_tables(data)
+    emit({"phase": "seq_family_data", "seconds": time.perf_counter() - t0})
+    total, captured, failed = dict.fromkeys(("scatter_add", "scatter_add_sorted"), 0), None, []
+    for name in FAMILY:
+        args = family_args(name, data, out)
+        seen = run_spied(torch, args)
+        counts = launch_counts(("scatter_add", "scatter_add_sorted", "member"))
+        try:
+            test = learned_and_repeated(seen, args, f"seq_family_path {name}", FAMILY_STEPS,
+                                        FAMILY_MIN_HIT10)
+        except AssertionError as e:     # the other models still run and print
+            failed.append(str(e))
+            test = None
+        # marks: [v0 start, v0 end, ..., last valid end, test start, test end]:
+        # the last epoch runs between the last two
+        last_s = seen["marks"][-2] - seen["marks"][-3]
+        per_step = len(FAMILY_TABLES.get(name, ("item_embedding",) * 2))
+        valid = seen["evals"][:-1]
+        line = {"phase": "seq_family_path", "model": name, "batch": FAMILY_BATCH,
+                "d": FAMILY_EMB, "hidden_size": seen["trainer"].model.hidden_size,
+                "learning_rate": args["learning_rate"],
+                "steps": len(seen["loss"]), "epochs": FAMILY_EPOCHS,
+                "examples_per_s": FAMILY_BATCH * FAMILY_STEPS / last_s,
+                "ms_per_step": last_s * 1e3 / FAMILY_STEPS, "run_s": seen["run_s"],
+                "first_losses": seen["loss"][:3].tolist(), "last_losses": seen["loss"][-3:].tolist(),
+                "valid": [{"result": r, "seconds": s} for r, s, _ in valid],
+                "test": test, "launches": counts, "scatter_per_step": per_step,
+                "peak_mem_bytes": seen["peak"], "card": card}
+        emit(line)
+        steps = len(seen["loss"])
+        if counts["scatter_add"] != per_step * steps \
+                or counts["scatter_add_sorted"] != counts["scatter_add"]:
+            failed.append(f"seq_family_path {name}: row 6 launched {counts}, not "
+                          f"{per_step} a step on its sorted body over {steps} steps")
+        for k in total:
+            total[k] += counts[k]
+        profile_step(torch, seen["trainer"], seen["train_data"], "seq_family_profile", card,
+                     model=name)
+        try:
+            calls = check_family(torch, name, seen["trainer"], seen["train_data"])
+        except AssertionError as e:
+            failed.append(str(e))
+            calls = None
+        if name == "SVDPlusPlus":
+            captured = calls
+        del seen
+        torch.cuda.empty_cache()
+    emit({"phase": "seq_family_path_launches", **total,
+          "seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return total, captured
+
+
+def profile_step(torch, trainer, train_data, phase, card, **extra):
+    """One traced train step of a trained path (after a warm one)."""
+    from unirec_tpu_torch.utils import to_device
+    batch = to_device(next(iter(train_data)), "cuda")
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    emit({"phase": phase, "what": "one train step", **extra, "batch": len(batch["user_id"]),
+          **device_profile(torch, lambda: trainer.train_step(batch)), "card": card})
+
+
+def check_family(torch, name, trainer, train_data):
+    """One training batch from the trained weights at dropout 0, through
+    the kernels (row 6 alone on this path) and through the plain versions:
+    the loss and every gradient leaf; the tables the step's gathers
+    scatter into, one launch each; ConvFormer's hidden dropout by its keep
+    rate on the card. Returns the step's scatter calls (ids, rows,
+    n_rows)."""
+    from unirec_tpu_torch.models.modules import DropoutRNG, apply_dropout
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params
+    from unirec_tpu_torch.utils.registry import get_model_class
+    cfg = dict(trainer.config, hidden_dropout_prob=0.0, dropout_prob=0.0)
+    model = get_model_class(name)(cfg)
+    load_flax_params(model, to_flax_params(trainer.model))
+    model.to("cuda")
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    batch = trainer._augmenter.augment(to_device(next(iter(train_data)), "cuda"), gen)
+    with torch.no_grad():     # the scores whose sigmoid is 1.0 in f32 (finite BCE there)
+        scores = model._predict_layer(model._user_emb_from_batch(batch), model.forward_item_emb(
+            batch["item_id"]), batch.get("user_id"), batch["item_id"])
+        saturated = float((torch.sigmoid(scores.float()) == 1.0).float().mean())
+    tables, calls, gather = [], [], SA.gather_vmem
+    by_ptr = {p.data_ptr(): n.rsplit(".", 1)[0] for n, p in model.named_parameters()}
+
+    def spy_gather(table, ids):
+        tables.append(by_ptr.get(table.data_ptr(), "?"))
+        return gather(table, ids)
+
+    def loss_grads():
+        loss, _ = model(batch, train=True, rng=DropoutRNG(SEED + 81, "cuda"))
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    with mock.patch.object(SA, "gather_vmem", spy_gather), \
+            call_capture(SA, "_scatter_cuda", calls):
+        loss_k, grads_k = loss_grads()
+    with plain_versions():
+        loss_p, grads_p = loss_grads()
+    errs, _ = leaf_errs(grads_k, grads_p)
+    errs = dict(zip(names, errs))
+    worst = max(errs, key=errs.get)
+    want = FAMILY_TABLES.get(name, ("item_embedding",) * 2)
+    line = {"phase": "seq_family_check", "model": name, "batch": len(batch["user_id"]),
+            "saturated_score_share": saturated,
+            "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
+            "grad_worst_leaf": worst, "grad_tol": FAMILY_GRAD_TOL,
+            "tables_gathered": tables, "scatter_calls": len(calls),
+            "scatter_rows": [int(c[0].numel()) for c in calls]}
+    if name == "ConvFormer":
+        p = float(trainer.config["hidden_dropout_prob"])
+        x = torch.ones(4096, FAMILY_EMB, device="cuda")
+        y = apply_dropout(x, p, True, DropoutRNG(SEED + 82, "cuda"))
+        keep = float((y != 0).float().mean())
+        line["dropout"] = {"p": p, "keep_rate": keep, "kept_value": float(y.max()),
+                           "keep_tol": 4 * (p * (1 - p) / x.numel()) ** 0.5}
+        if not (abs(keep - (1 - p)) <= line["dropout"]["keep_tol"]
+                and abs(float(y[y != 0].min()) - 1 / (1 - p)) < 1e-6
+                and abs(float(y.max()) - 1 / (1 - p)) < 1e-6):
+            raise AssertionError(f"ConvFormer's dropout keeps the wrong share: {line}")
+    emit(line)
+    if not (line["loss_rel_diff"] <= 1e-6 and errs[worst] <= FAMILY_GRAD_TOL
+            and tuple(tables) == tuple(want) and len(calls) == len(want)):
+        raise AssertionError(f"seq_family_check {name}: {line}")
+    return calls
+
+
+# ------------------------------------------------ the item side inputs
+# bench.py's training options (pop_session_args, uniform negatives) with
+# two categorical fields (64 and 16 ids), 768-wide frozen text rows and
+# TIME_BUCKETS time buckets on T6 histories, at the entry path's scale
+SIDE_SHAPE, TEXT_DIM, TIME_BUCKETS, SIDE_STEPS, SIDE_EPOCHS = [64, 16], 768, 64, 200, 2
+MLP_STEPS, MLP_NEG = 20, 19
+
+
+def write_side_data(root: Path, rows=SIDE_STEPS * TRAIN_BATCH) -> dict:
+    """The entry path's walks (seed SEED + 9) with T6 histories (each
+    user's k-th item in time bucket 1 + k % 63), one-positive valid and
+    test tables of 8,192 users, the feature file item_features.tsv (field
+    one: the item's walk group mod 63, ids 1-63; field two: 64 + 1 + item
+    mod 15, ids 65-79, so 0 stays the padding id of the 80-row table) and
+    text_emb.tsv (``id<TAB>v1,...,v768``, normal(0, 1) at 4 decimals).
+    Returns the seconds of each part."""
+    import pandas as pd
+    secs, t0 = {}, time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    users, n, starts, owner, items, is_train = slice_walks(rng, (10, HIST_CAP), WALK_GROUP, 2)
+    write_train_tables(root, rng, users, n, owner, items, is_train, rows,
+                       ("user-item", "user-item"))
+    seqs = np.split(items[is_train], np.cumsum(n)[:-1])
+    pd.DataFrame({"user_id": users, "item_seq": seqs,
+                  "time_seq": [1 + np.arange(len(s)) % (TIME_BUCKETS - 1) for s in seqs]}
+                 ).to_pickle(root / "user_history.pkl")
+    info = json.loads((root / "data.info").read_text())
+    info["user_history_file_format"] = "user-item_seq-time_seq"
+    (root / "data.info").write_text(json.dumps(info))
+    for name, off in (("valid", 0), ("test", 1)):
+        who = np.sort(rng.choice(len(users), EVAL_USERS, replace=False))
+        pd.DataFrame({"user_id": users[who],
+                      "item_id": items[starts[who] + n[who] + off]}).to_pickle(
+            root / f"{name}.pkl")
+    ids = np.arange(1, N_ITEMS)
+    with open(root / "item_features.tsv", "w") as f:
+        f.write("item_id\tfeatures\n")
+        f.writelines(f"{i}\t{1 + ((i - 1) // WALK_GROUP) % 63},{65 + i % 15}\n" for i in ids)
+    secs["tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text = rng.standard_normal((N_ITEMS - 1, TEXT_DIM), dtype=np.float32)
+    with open(root / "text_emb.tsv", "w") as f:
+        np.savetxt(f, np.column_stack([ids, text]),
+                   fmt="%d\t" + ",".join(["%.4f"] * TEXT_DIM))
+    secs["text_write_s"] = time.perf_counter() - t0
+    secs["text_bytes"] = (root / "text_emb.tsv").stat().st_size
+    return secs
+
+
+def side_args(data: Path, out: Path):
+    args = pop_session_args(data, out)
+    for k in ("neg_by_pop_alpha", "use_tensorboard"):
+        args.pop(k)
+    args.update({"exp_name": "sasrec_side_inputs", "epochs": SIDE_EPOCHS,
+                 "use_features": 1, "features_shape": SIDE_SHAPE,
+                 "features_filepath": str(data / "item_features.tsv"),
+                 "use_text_emb": 1, "text_emb_size": TEXT_DIM,
+                 "text_emb_path": str(data / "text_emb.tsv"), "time_seq": TIME_BUCKETS,
+                 "valid_protocol": "one_vs_all", "test_protocol": "one_vs_all",
+                 "metrics": "['hit@10', 'ndcg@10', 'mrr', 'group_auc']"})
+    return args
+
+
+def side_inputs_path(torch, card: str):
+    """main.run(task=train) on bench.py's training options with every item
+    side input, then task=test from the best checkpoint, then reco-topk of
+    4,096 users from it (fused, bf16 catalog). Launches: rows 1-4, 6 and 8
+    over the training, rows 1 and 3 in its evaluations, rows 1, 3 and 5
+    over the serving. Returns (the run's launches, the serving's, the
+    trainer, its train batcher)."""
+    from unirec_tpu_torch.utils import file_io
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    data, out = root / "side_data", root / "side"
+    shutil.rmtree(out, ignore_errors=True)
+    setup = write_side_data(data)
+    args = side_args(data, out)
+    loads, load = [], file_io.load_pre_item_emb
+
+    def timed_load(path):     # main.run's reads of the text file, timed apart
+        t1 = time.perf_counter()
+        rows = load(path)
+        loads.append({"seconds": time.perf_counter() - t1, "rows": list(rows.shape)})
+        return rows
+
+    with mock.patch.object(file_io, "load_pre_item_emb", timed_load):
+        seen = run_spied(torch, args, POP_EVAL_KERNELS)
+        counts = launch_counts(TRAINING_KERNELS)
+        train_counts = {k: v - seen["eval_counts"].get(k, 0) for k, v in counts.items()}
+        test = learned_and_repeated(seen, args, "side_inputs_path", SIDE_STEPS,
+                                    LEARN_MIN_HIT10)
+    setup["text_loads"] = loads
+    epoch2_s = seen["marks"][4] - seen["marks"][3]
+    line = {"phase": "side_inputs_path", "config": "sasrec_side_inputs", "batch": TRAIN_BATCH,
+            "features_shape": SIDE_SHAPE, "text_emb_size": TEXT_DIM, "time_seq": TIME_BUCKETS,
+            "steps": len(seen["loss"]), "epochs": SIDE_EPOCHS, "data_setup": setup,
+            "run_s": seen["run_s"], "examples_per_s": TRAIN_BATCH * SIDE_STEPS / epoch2_s,
+            "ms_per_step": epoch2_s * 1e3 / SIDE_STEPS,
+            "first_losses": seen["loss"][:3].tolist(), "last_losses": seen["loss"][-3:].tolist(),
+            "valid": [{"result": r, "seconds": s, "users_per_s": u / s}
+                      for r, s, u in seen["evals"][:-1]],
+            "test": test, "peak_mem_bytes": seen["peak"], "card": card}
+    emit(line)
+    emit({"phase": "side_inputs_path_launches", "training": train_counts,
+          "evaluations": seen["eval_counts"]})
+    missing = [k for k, _ in POP_BODIES if train_counts[k] <= 0] + \
+        [k for k in ("layer_fwd", "lastq_fwd") if seen["eval_counts"][k] <= 0]
+    if missing:
+        raise AssertionError(f"side_inputs_path never launched {missing}: {line}")
+    on_new_bodies("side_inputs path", counts, POP_BODIES)
+    trainer, train_data = seen["trainer"], seen["train_data"]
+    del seen
+    profile_step(torch, trainer, train_data, "side_inputs_profile", card)
+    torch.cuda.empty_cache()
+    serve_counts = side_serve(torch, out, data, card)
+    return counts, serve_counts, trainer, train_data
+
+
+def side_serve(torch, out: Path, data: Path, card: str):
+    """reco-topk (do_topk_reco, the CLI's entry) of 4,096 users from the
+    side-input checkpoint, fused over the bf16 catalog whose rows hold the
+    features and text the checkpoint's constants carry: rows 1, 3 and 5
+    launch, on their tensor-core bodies, every served row is valid and the
+    ids agree with the plain versions as the serving path's check. Users/s
+    are timed around get_topk_recommendations on the loaded model, as the
+    serving path times them; the entry's seconds (checkpoint and history
+    loads included) beside them."""
+    from unirec_tpu_torch.data.history import UserHistory
+    from unirec_tpu_torch.main.reco_topk import do_topk_reco, get_topk_recommendations
+    from unirec_tpu_torch.utils.checkpoint import load_model_freely
+    ckpt = out / "checkpoint" / "sasrec_side_inputs.pkl"
+    users = np.arange(1, SERVE_USERS + 1, dtype=np.int64)
+    np.savetxt(out / "serve_users.txt", users, fmt="%d")
+    conf = {"model_file": str(ckpt), "dataset_path": str(data),
+            "dataset_name": str(out / "serve_users.txt"), "topk": TOPK,
+            "test_batch_size": BATCH, "output_path": str(out / "topk.csv")}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = do_topk_reco(dict(conf))
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    counts = launch_counts(SERVING_KERNELS)
+    model, cfg = load_model_freely(str(ckpt), "cuda")
+    cfg = dict(cfg, test_batch_size=BATCH)
+    history = UserHistory.load(str(data / "user_history"), N_USERS, "user-item_seq-time_seq")
+    get_topk_recommendations(cfg, model, users[:BATCH], history, TOPK)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = get_topk_recommendations(cfg, model, users, history, TOPK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    emit({"phase": "side_serve", "users": SERVE_USERS, "batch": BATCH, "topk": TOPK,
+          "users_per_s": SERVE_USERS / secs, "entry_s": entry_s,
+          "entry_equals_timed_run": bool(np.array_equal(ids, again)),
+          "catalog_dtype": str(model.all_item_emb().dtype).replace("torch.", ""),
+          **counts, "card": card})
+    need = ("layer_fwd_mma", "lastq_fwd_mma", "blockmax_mma")
+    if min(counts[k] for k in need) <= 0:
+        raise AssertionError(f"side-input serving never launched {need}: {counts}")
+    on_new_bodies("side serve", counts)
+    with torch.no_grad():
+        check_main_path(torch, model, cfg, users, history, {"bf16": cfg}, {"bf16": ids},
+                        phase="side_serve_check")
+    return counts
+
+
+def mlp_scorer_check(torch, side_trainer, card: str):
+    """Trainer.fit for MLP_STEPS steps on the side-input configuration (its
+    histories, features and text rows) with distance_type mlp, one-vs-k
+    validation before the epoch and test after it (MLP_NEG negatives); the
+    loss finite and falling; one test batch's predict scores through the
+    kernels against the plain versions."""
+    from unirec_tpu_torch.data.datasets import get_dataset_class
+    from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter, RawIdBatcher
+    from unirec_tpu_torch.data.pipeline import make_eval_batcher
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.main.main import _task_config
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.registry import get_model_class
+    t0 = time.perf_counter()
+    side = side_trainer.config
+    cfg = dict(side, distance_type="mlp", epochs=1, valid_protocol="one_vs_k",
+               test_protocol="one_vs_k", n_sample_neg_valid=MLP_NEG,
+               n_sample_neg_test=MLP_NEG, exp_name="sasrec_side_mlp",
+               output_path=str(Path(side["output_path"]) / "mlp"),
+               metrics="['hit@1;5', 'ndcg@5', 'group_auc']", key_metric="group_auc")
+    history, feats = side_trainer.user_history, side["_item2features"]
+    trainer = Trainer(cfg, get_model_class("SASRec")(cfg), device="cuda")
+    trainer.set_user_history(history)
+    ds_cls = get_dataset_class("SeqRecDataset")
+    cols = ds_cls(_task_config(cfg, "train"), cfg["dataset_path"], "train").cols
+    n = MLP_STEPS * TRAIN_BATCH
+    batcher = RawIdBatcher(cols["user_id"][:n], cols["item_id"][:n], TRAIN_BATCH, seed=SEED)
+    trainer.set_device_augmenter(DeviceAugmenter(_task_config(cfg, "train"), history,
+                                                 features=feats, device="cuda"))
+
+    def eval_batcher(task):
+        ecfg = _task_config(cfg, task)
+        trainer.reset_evaluator(ecfg["data_format"], ecfg["eval_protocol"])
+        return make_eval_batcher(ds_cls(ecfg, cfg["dataset_path"], task), ecfg, history,
+                                 task=task, features=feats)
+
+    losses, step = [], trainer.train_step
+    trainer.train_step = lambda b: losses.append(step(b)) or losses[-1]
+    trainer.fit(batcher, eval_batcher("valid"))
+    test_batcher = eval_batcher("test")
+    test = trainer.evaluate(test_batcher, load_best_model=False)
+    loss = torch.stack(losses).float().cpu().numpy()
+    batch = to_device(next(iter(test_batcher)), "cuda")
+    with torch.no_grad():
+        s_k = trainer.model.predict(batch).float()
+        with plain_versions():
+            s_p = trainer.model.predict(batch).float()
+    tol = max(LN_TOL["bfloat16"], 2.0 ** -6 * float(s_p.abs().max()))
+    line = {"phase": "mlp_scorer_check", "steps": len(loss), "batch": TRAIN_BATCH,
+            "first_losses": loss[:3].tolist(), "last_losses": loss[-3:].tolist(),
+            "test": test, "scores": list(s_k.shape),
+            "score_max_abs_diff": float((s_k - s_p).abs().max()), "score_tol": tol,
+            "score_tol_reason": "two bf16 ulps of the largest score, or LN_TOL",
+            "seconds": time.perf_counter() - t0, "card": card}
+    emit(line)
+    if len(loss) != MLP_STEPS or not np.isfinite(loss).all() \
+            or not loss[-5:].mean() < loss[:5].mean():
+        raise AssertionError(f"mlp_scorer_check: training did not run as expected: {line}")
+    if not (tuple(s_k.shape) == (len(batch["user_id"]), 1 + MLP_NEG)
+            and line["score_max_abs_diff"] <= tol):
+        raise AssertionError(f"mlp_scorer_check: kernels disagree with the plain versions: {line}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2689,6 +3253,18 @@ def main() -> int:
     pop_counts, trainer, train_data = timed("pop_session_path", pop_session_path, torch, card)
     timed("pop_session_check", check_pop_session, torch, trainer, train_data, card)
     del trainer, train_data
+    torch.cuda.empty_cache()
+    family_counts, svd_calls = timed("seq_family_path", seq_family_path, torch, card)
+    for ids, g, n_rows in svd_calls:     # row 6 on one SVD++ step's three tables
+        what = FAMILY_SCATTER_IDS.get(ids.numel() // FAMILY_BATCH, "?")
+        scatter_line(torch, ids.to(torch.int32), g, f"seq_family SVDPlusPlus {what}",
+                     n_rows=n_rows, traced=True)
+    del svd_calls
+    torch.cuda.empty_cache()
+    side_counts, side_serve_counts, trainer, _ = timed("side_inputs_path", side_inputs_path,
+                                                       torch, card)
+    timed("mlp_scorer_check", mlp_scorer_check, torch, trainer, card)
+    del trainer
 
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
@@ -2755,7 +3331,9 @@ def main() -> int:
               **{f"{n}_{old}": "cuda" if old == "cuda_core" else old
                  for n, (_, old) in split.items()}}
     paths = {"serving": counts, "training": train_counts, "entry": entry_counts,
-             "long": long_counts, "long_serve": serve_counts, "pop_session": pop_counts}
+             "long": long_counts, "long_serve": serve_counts, "pop_session": pop_counts,
+             "seq_family": family_counts, "side_inputs": side_counts,
+             "side_serve": side_serve_counts}
 
     def launched(name, path):
         for base, (new, old) in split.items():

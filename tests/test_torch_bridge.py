@@ -142,8 +142,15 @@ for name in names:
 import chip_smoke  # noqa: F401  (defines functions only)
 for name in ("unirec_tpu_torch.main.main", "unirec_tpu_torch.ops.attention",
              "unirec_tpu_torch.ops.ffn", "unirec_tpu_torch.facility.evaluation",
-             "unirec_tpu_torch.ops.metrics", "unirec_tpu_torch.data.pipeline"):
+             "unirec_tpu_torch.ops.metrics", "unirec_tpu_torch.data.pipeline",
+             "unirec_tpu_torch.models.sequential", "unirec_tpu_torch.models.modules",
+             "unirec_tpu_torch.utils.file_io", "unirec_tpu_torch.data.history",
+             "unirec_tpu_torch.main.infer_embedding"):
     assert name in sys.modules, name
+from unirec_tpu_torch.utils.registry import get_model_class
+for model in ("SASRec", "GRU", "AvgHist", "AttHist", "SVDPlusPlus", "ConvFormer",
+              "FASTConvFormer"):
+    get_model_class(model)
 lazy = [m for m in ("pandas", "yaml") if m in sys.modules]
 assert not lazy, lazy
 print("imported", len(names))

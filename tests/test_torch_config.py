@@ -61,6 +61,20 @@ def test_every_key_the_slice_reads_has_a_default():
         assert cfg[key] == ref[key], key
 
 
+@pytest.mark.parametrize("model", ["GRU", "AvgHist", "AttHist", "SVDPlusPlus", "ConvFormer",
+                                   "FASTConvFormer"])
+def test_every_key_the_sequential_family_reads_has_a_default(model):
+    """The family's model keys and the item side inputs' base keys come out
+    of a freshly parsed config as from the JAX package's YAMLs."""
+    cfg = torch_config.parse_arguments({"model": model}, argv=[], device="cpu")
+    ref = jax_config.parse_arguments({"model": model}, argv=[])
+    for key in sorted(set(_yaml("model", f"{model}.yaml"))
+                      | {"embedding_size", "max_seq_len", "dropout_prob", "text_emb_size",
+                         "time_seq", "use_features", "use_text_emb", "distance_type",
+                         "has_user_emb", "inner_size", "init_std", "init_method"}):
+        assert cfg[key] == ref[key] and type(cfg[key]) is type(ref[key]), key
+
+
 def test_merge_matches_jax_with_dataset_and_cli(synth_dataset):
     root, _ = synth_dataset
     args = {"model": "SASRec", "dataset_path": root, "n_heads": 2}

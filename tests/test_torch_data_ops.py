@@ -241,9 +241,10 @@ def test_history_window_matches_jax(mode, seq_last, explicit):
                                         explicit_max_len=None if max_len is None
                                         else jnp.asarray(max_len))
     aug = DeviceAugmenter(cfg, UserHistory(items, lens), device="cpu")
-    seq, slen = aug.history_window(torch.Generator().manual_seed(0), torch.from_numpy(rows),
-                                   torch.from_numpy(ln), torch.from_numpy(tgt),
-                                   None if max_len is None else torch.from_numpy(max_len))
+    seq, slen, _ = aug.history_window(
+        torch.Generator().manual_seed(0), torch.from_numpy(rows), torch.from_numpy(ln),
+        torch.from_numpy(tgt),
+        explicit_max_len=None if max_len is None else torch.from_numpy(max_len))
     np.testing.assert_array_equal(seq.numpy(), np.asarray(jseq))
     np.testing.assert_array_equal(slen.numpy(), np.asarray(jlen))
 
@@ -296,9 +297,6 @@ def test_unported_sampling_options_raise():
     items, lens = _history()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeviceAugmenter(_cfg(), UserHistory(items, lens), aerec=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceAugmenter(_cfg(), UserHistory(items, lens), features=np.ones((40, 2)),
-                        device="cpu")
 
 
 # ---------------------------------------------------- popularity negatives

@@ -1499,3 +1499,166 @@ def test_multi_positive_metrics_on_the_card_match_the_cpu(cuda):
     got, ref = run(cuda), run("cpu")
     for k in names:
         torch.testing.assert_close(got[k], ref[k], atol=1e-6, rtol=1e-6, msg=k)
+
+
+# ------------------------------------- the sequential family, side inputs
+FAMILY = ("GRU", "AvgHist", "AttHist", "SVDPlusPlus", "ConvFormer", "FASTConvFormer")
+
+
+def _family_model(name, dev, **over):
+    """A small model of the family at f32, dropout 0, its weights drawn on
+    the CPU from seed 0, on ``dev``."""
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.utils.registry import get_model_class
+    cfg = config_mod.parse_arguments(dict({
+        "model": name, "n_users": 40, "n_items": 300, "embedding_size": 32,
+        "max_seq_len": 12, "conv_size": 4, "inner_size": 48, "n_layers": 2,
+        "hidden_size": 48 if name == "GRU" else 32, "compute_dtype": "float32",
+        "hidden_dropout_prob": 0.0, "dropout_prob": 0.0, "loss_type": "bce",
+        "vmem_embedding_grad": 1}, **over), argv=[], device="cpu")
+    model = get_model_class(name)(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+def _family_batch(dev, B=16, L=12, n_items=300, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    seq = torch.randint(1, n_items, (B, L), generator=g)
+    lens = torch.randint(0, L + 1, (B,), generator=g)
+    seq = torch.where(torch.arange(L)[None] >= L - lens[:, None], seq, 0)
+    item = torch.randint(1, n_items, (B, 5), generator=g)
+    label = torch.zeros(B, 5)
+    label[:, 0] = 1.0
+    return {k: v.to(dev) for k, v in {
+        "item_seq": seq, "item_seq_len": lens, "user_id": torch.randint(1, 40, (B,), generator=g),
+        "item_id": item, "label": label, "weight": torch.ones(B)}.items()}
+
+
+@pytest.mark.parametrize("name", FAMILY)
+def test_sequential_family_on_the_card_matches_the_cpu(cuda, name):
+    """Each new model's forward and backward on the card against the same
+    model on the CPU: user embeddings and the loss within 1e-4 abs (f32,
+    summation order only), every gradient within 1e-4 of its own largest
+    element; the card's backward scatters through row 6."""
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    outs = {}
+    for dev in ("cpu", cuda):
+        model = _family_model(name, dev)
+        batch = _family_batch(dev)
+        before = SA.scatter_add_rows.launches
+        loss, _ = model(batch, train=True, rng=DropoutRNG(0, dev))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        launched = SA.scatter_add_rows.launches - before
+        with torch.no_grad():
+            outs[str(dev)] = (model.user_emb(batch).cpu(), loss.detach().cpu(),
+                              [g.cpu() for g in grads], launched)
+    (u0, l0, g0, n0), (u1, l1, g1, n1) = outs["cpu"], outs[str(cuda)]
+    assert n0 == 0 and n1 == (3 if name == "SVDPlusPlus" else 2)
+    assert float((u0 - u1).abs().max()) <= 1e-4 and abs(float(l0 - l1)) <= 1e-4
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-6)
+
+
+@pytest.mark.parametrize("name", ["AvgHist", "SVDPlusPlus"])
+def test_scatter_add_at_d256_f32_on_both_tables(cuda, name):
+    """Row 6 at run_seq_benchmark.sh's width (d=256, f32) on AvgHist's and
+    SVD++'s own tables: each gather of a table (item_dst_embedding for the
+    history, item_embedding for the candidates, SVD++'s user_embedding too)
+    launches the sorted-tile body once, and each table's gradient matches
+    the plain scatter's element by element (1e-5 of its largest, f32
+    atomics in another order)."""
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    grads = {}
+    for plain in (False, True):
+        model = _family_model(name, cuda, embedding_size=256, max_seq_len=50,
+                              n_items=5000, asymmetric=True)
+        batch = _family_batch(cuda, B=400, L=50, n_items=5000, seed=1)
+        tables = {n: p for n, p in model.named_parameters() if n.endswith("embedding.weight")}
+        before = (SA.scatter_add_rows.launches, SA.scatter_add_rows.launches_sorted)
+        with pytest.MonkeyPatch.context() as mp:
+            if plain:
+                mp.setattr(SA, "_scatter_cuda", SA._scatter_plain)
+            loss, _ = model(batch, train=True, rng=DropoutRNG(0, cuda))
+            got = torch.autograd.grad(loss, list(tables.values()))
+        launched = (SA.scatter_add_rows.launches - before[0],
+                    SA.scatter_add_rows.launches_sorted - before[1])
+        grads[plain] = (dict(zip(tables, got)), launched)
+    (k, nk), (p, npl) = grads[False], grads[True]
+    want = {"AvgHist": 2, "SVDPlusPlus": 3}[name]
+    assert nk == (want, want) and npl[0] == 0
+    assert {"item_dst_embedding.weight", "item_embedding.weight"} <= set(k)
+    for n in k:
+        assert k[n].dtype == torch.float32 and float(k[n].abs().max()) > 0
+        assert float((k[n] - p[n]).abs().max()) <= 1e-5 * float(p[n].abs().max()), n
+
+
+def test_member_matches_plain_on_walk_histories(cuda):
+    """Row 8's warp body on side_inputs_path's kind of ids: histories of
+    10..199 items walking groups of 200 consecutive ids over 50,000 items,
+    uniform candidates (9 negatives, 4 proposals each), exact."""
+    from unirec_tpu_torch.ops import member as MB
+    rng = np.random.default_rng(12)
+    B, C, N = 4096, 199, 50_000
+    lens = rng.integers(10, C + 1, B)
+    start = rng.integers(0, 200, B)[:, None] + np.arange(C)[None]
+    group = rng.integers(0, (N - 1) // 200, B)[:, None]
+    rows = np.where(np.arange(C)[None] < lens[:, None], 1 + group * 200 + start % 200, 0)
+    rows = torch.as_tensor(rows, dtype=torch.int32, device=cuda)
+    cand = torch.randint(1, N, (B, 36), device=cuda, dtype=torch.int32)
+    cand[:, :4] = rows[:, :4]                          # some members
+    before = MB.member_mask.launches_warp
+    out = MB.member_mask(rows, cand)
+    assert MB.member_mask.launches_warp == before + 1
+    assert torch.equal(out, MB._member_plain(rows, cand))
+    assert bool(out[:, :4][rows[:, :4] > 0].all())
+
+
+def test_side_inputs_launch_the_training_kernels(cuda):
+    """SASRec at bench widths with features, text and time buckets, the
+    fused layers and the scatter gather: one train-mode forward and
+    backward on the card launches rows 1-4, and row 6 for the item table,
+    the feature table and the projected text rows (the history's and the
+    candidates' each) and the time table, and its loss matches the plain
+    versions'."""
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    from unirec_tpu_torch.utils.registry import get_model_class
+    rng = np.random.default_rng(0)
+    feats = np.stack([rng.integers(1, 64, 500), 64 + rng.integers(1, 16, 500)], 1)
+    feats[0] = 0
+    cfg = config_mod.parse_arguments({
+        "model": "SASRec", "n_users": 10, "n_items": 500, "embedding_size": 64,
+        "hidden_size": 64, "n_heads": 2, "inner_size": 128, "max_seq_len": 50,
+        "last_query_only": 1, "fused_layer": 1, "fused_lastq": 1, "hidden_act": "swish",
+        "compute_dtype": "bfloat16", "hidden_dropout_prob": 0.0, "attn_dropout_prob": 0.0,
+        "use_features": 1, "features_shape": [64, 16], "_item2features": feats,
+        "use_text_emb": 1, "text_emb_size": 768,
+        "_text_emb": rng.normal(size=(500, 768)).astype(np.float32), "time_seq": 64})
+    model = get_model_class("SASRec")(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(cuda)
+    B, L = 64, 50
+    seq = torch.randint(1, 500, (B, L), device=cuda)
+    item = torch.randint(1, 500, (B, 10), device=cuda)
+    f = torch.as_tensor(feats, device=cuda)
+    batch = {"item_seq": seq, "time_seq": torch.randint(1, 64, (B, L), device=cuda),
+             "item_seq_features": f[seq], "item_id": item, "item_features": f[item],
+             "label": torch.cat([torch.ones(B, 1), torch.zeros(B, 9)], 1).to(cuda),
+             "weight": torch.ones(B, device=cuda)}
+    before = (LY.fused_transformer_layer.launches, LY.fused_last_query_layer.launches,
+              LY.layer_bwd.launches, LY.lastq_bwd.launches, SA.scatter_add_rows.launches)
+    loss, _ = model(batch, train=True, rng=DropoutRNG(0, cuda))
+    loss.backward()
+    after = (LY.fused_transformer_layer.launches, LY.fused_last_query_layer.launches,
+             LY.layer_bwd.launches, LY.lastq_bwd.launches, SA.scatter_add_rows.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 7]
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("_layer_fwd", "_lastq_fwd", "_layer_bwd", "_lastq_bwd"):
+            mp.setattr(LY, f"{name}_cuda", getattr(LY, f"{name}_plain"))
+        mp.setattr(SA, "_scatter_cuda", SA._scatter_plain)
+        with torch.no_grad():
+            ref, _ = model(batch, train=False)
+    assert abs(float(loss.detach()) - float(ref)) <= 2e-3 * abs(float(ref))

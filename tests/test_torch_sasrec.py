@@ -98,6 +98,6 @@ def test_layer_norm_eps_string_from_config():
 
 
 def test_unported_options_raise():
-    for extra in (dict(qkv_packed=1), dict(use_text_emb=1), dict(time_seq=5)):
+    for extra in (dict(qkv_packed=1), dict(scan_embedding_grad=1)):
         with pytest.raises(NotImplementedError):
             torch_model_class("SASRec")(dict(SMALL, **extra))

@@ -37,9 +37,11 @@ BASE_DEFAULTS: Dict[str, Any] = {
     "has_item_bias": False,
     "use_features": False,
     "use_text_emb": False,
+    "text_emb_size": 768,
     "use_position_emb": True,
     "embedding_size": 32,
     "inner_size": 128,
+    "dropout_prob": 0.0,
     "batch_size": 400,
     "loss_type": "bce",
     "distance_type": "dot",
@@ -113,6 +115,36 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         "attn_dropout_prob": 0.5,
         "hidden_act": "swish",
         "layer_norm_eps": "1e-10",
+    },
+    "GRU": {"embedding_size": 64, "max_seq_len": 10, "hidden_size": 768},
+    "AvgHist": {"embedding_size": 64, "asymmetric": True, "user_sequence_alpha": 0.5,
+                "max_seq_len": 10},
+    "AttHist": {"embedding_size": 64, "max_seq_len": 10},
+    "SVDPlusPlus": {"embedding_size": 64, "user_sequence_alpha": 0.5, "max_seq_len": 10,
+                    "has_user_emb": True},
+    "ConvFormer": {
+        "n_layers": 2,
+        "conv_size": 10,
+        "inner_size": 256,
+        "hidden_dropout_prob": 0.5,
+        "padding_mode": "circular",
+        "hidden_act": "gelu",
+        "layer_norm_eps": "1e-9",
+        "seq_decay": -0.3,
+        "seq_merge": False,
+        "init_ratio": 0.005,
+    },
+    "FASTConvFormer": {
+        "n_layers": 2,
+        "conv_size": 10,
+        "inner_size": 256,
+        "hidden_dropout_prob": 0.5,
+        "padding_mode": "constant",
+        "hidden_act": "gelu",
+        "layer_norm_eps": "1e-9",
+        "seq_decay": -0.3,
+        "seq_merge": False,
+        "init_ratio": 0.005,
     },
 }
 

@@ -4,7 +4,8 @@ path of BaseDataset and SeqRecDataset).
 Interactions are normalized at load time into numpy columns with static
 widths, so batch assembly is slicing and vectorized ops (basedataset.py):
   - T5/T6 rows expand to one row per interaction for training and one-vs-k
-    evaluation (basedataset.py:41-45);
+    evaluation (basedataset.py:41-45), else keep their padded item groups
+    (T6 also its padded ``time_seq_raw``);
   - rows with label 0 are dropped for the one_vs_all / one_vs_k protocols
     on T2/T2_1 (basedataset.py:48-54);
   - unlabeled formats get an implicit positive label at batch assembly.
@@ -77,6 +78,8 @@ class BaseDataset:
             else:
                 cols["user_id"] = df["user_id"].to_numpy(np.int64)
                 cols["item_id"] = _pad_group(df["item_seq"].tolist(), np.int64)
+                if fmt == DataFormat.T6.value and "time_seq" in df:
+                    cols["time_seq_raw"] = _pad_group(df["time_seq"].tolist(), np.int64)
         elif fmt == DataFormat.T7.value:
             raise NotImplementedError("T7 (libFM) rows are not ported yet "
                                       "(ROADMAP.md Queue 1 item 8)")

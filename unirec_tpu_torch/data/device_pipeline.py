@@ -10,7 +10,10 @@ alpha kept on the device (f32 thresholds, int32 aliases; :89-105),
 rejected when in the user's history or equal to a positive, the first
 valid proposal kept and 0 when every proposal fails (:141-160); the
 unorder / autoregressive truncation rules, ``seq_last`` and an explicit
-per-row ``max_len`` (:162-216).
+per-row ``max_len`` (:162-216); the item-feature table kept on the device
+and gathered at the candidates and at the history window
+(``item_features``, ``item_seq_features``), and the T6 time rows windowed
+with the items (``time_seq``) (:61, 164, 244, 278-288).
 
 Randomness comes from an explicit ``torch.Generator`` on the state's device
 (the JAX package's ``key``); the two frameworks draw different numbers from
@@ -45,9 +48,6 @@ class DeviceAugmenter:
         if aerec:
             raise NotImplementedError("AERec training rows are not ported yet "
                                       "(ROADMAP.md Queue 1 item 7)")
-        if features is not None:
-            raise NotImplementedError("categorical item features are not ported "
-                                      "yet (ROADMAP.md Queue 1)")
         self.device = torch.device(device or "cuda")
         self.n_items = int(c["n_items"])
         self.n_neg = int(c.get("n_sample_neg_train", 0) or 0)
@@ -59,12 +59,20 @@ class DeviceAugmenter:
         self.seq_last = bool(c.get("seq_last", 0))
         self.is_sequential = c.get("dataloader") in ("SeqRecDataset",)
         self.use_pallas_membership = bool(int(c.get("neg_membership_pallas", 0) or 0))
+        self.with_time = bool(int(c.get("time_seq", 0) or 0)) and history.times is not None
+        self.use_features = features is not None
         self.state: Dict[str, torch.Tensor] = {
             "hist_items": torch.as_tensor(history.items, dtype=torch.int32,
                                           device=self.device),
             "hist_lens": torch.as_tensor(history.lengths, dtype=torch.int32,
                                          device=self.device),
         }
+        if self.with_time:
+            self.state["hist_times"] = torch.as_tensor(history.times, dtype=torch.int32,
+                                                       device=self.device)
+        if self.use_features:
+            self.state["features"] = torch.as_tensor(np.asarray(features, np.int32),
+                                                     device=self.device)
         alpha = float(c.get("neg_by_pop_alpha", 0) or 0)
         self.use_alias = item_popularity is not None and alpha > 0
         if self.use_alias:
@@ -104,9 +112,10 @@ class DeviceAugmenter:
         chosen = cand.gather(-1, first)[..., 0]
         return torch.where(ok.any(-1), chosen, torch.zeros_like(chosen))
 
-    def history_window(self, gen, rows, lens, tgt2d, explicit_max_len=None):
-        """(item_seq [B, L], item_seq_len [B]) with the host pipeline's
-        unorder / autoregressive semantics; tgt2d: [B, P] positive items."""
+    def history_window(self, gen, rows, lens, tgt2d, trows=None, explicit_max_len=None):
+        """(item_seq [B, L], item_seq_len [B], time_seq [B, L] or None) with
+        the host pipeline's unorder / autoregressive semantics; tgt2d: [B,
+        P] positive items; ``trows``: the rows' time buckets, windowed alike."""
         B, C = rows.shape
         L = self.max_seq_len
         lens = lens.long()
@@ -115,6 +124,8 @@ class DeviceAugmenter:
             n = torch.minimum(explicit_max_len.long(), lens)
         elif self.mask_mode == "unorder":
             rows = torch.where(is_tgt, torch.zeros_like(rows), rows)
+            if trows is not None:
+                trows = torch.where(is_tgt, torch.zeros_like(trows), trows)
             n = lens
         else:  # autoregressive
             pos = torch.arange(C, device=rows.device)
@@ -131,8 +142,10 @@ class DeviceAugmenter:
                 n = torch.where(counts > 0, sel.to(torch.int8).argmax(-1), lens)
         grid = n[:, None] - L + torch.arange(L, device=rows.device)[None, :]
         valid = grid >= 0
-        seq = rows.gather(1, grid.clamp(0, C - 1)) * valid
-        return seq.to(torch.int32), torch.clamp(n, max=L).to(torch.int32)
+        gi = grid.clamp(0, C - 1)
+        seq = rows.gather(1, gi) * valid
+        tseq = None if trows is None else (trows.gather(1, gi) * valid).to(torch.int32)
+        return seq.to(torch.int32), torch.clamp(n, max=L).to(torch.int32), tseq
 
     # ------------------------------------------------------------------
     def with_state(self, raw: Dict[str, Any]) -> Dict[str, Any]:
@@ -176,11 +189,18 @@ class DeviceAugmenter:
                 label = torch.ones(pos.shape, dtype=torch.float32, device=pos.device)
         batch["item_id"] = item_id
         batch["label"] = label
+        if self.use_features:
+            batch["item_features"] = state["features"][item_id.long()]
         if self.is_sequential:
-            seq, seq_len = self.history_window(gen, rows, lens, pos2d,
-                                               explicit_max_len=raw.get("max_len"))
+            trows = state["hist_times"][uid] if self.with_time else None
+            seq, seq_len, tseq = self.history_window(gen, rows, lens, pos2d, trows=trows,
+                                                     explicit_max_len=raw.get("max_len"))
             batch["item_seq"] = seq
             batch["item_seq_len"] = seq_len
+            if tseq is not None:
+                batch["time_seq"] = tseq
+            if self.use_features:
+                batch["item_seq_features"] = state["features"][seq.long()]
         return batch
 
 

@@ -1,11 +1,12 @@
-"""Packed user-history store (copy of unirec_tpu/data/history.py without
-the time sequences, which are not ported).
+"""Packed user-history store (copy of unirec_tpu/data/history.py).
 
 Histories live in one right-padded int32 matrix ``items[n_users, capacity]``
-plus ``lengths[n_users]``; gathering a batch's rows, membership tests for
-negative rejection and the left-padded windows (with the reference's
-unorder / autoregressive target masking) are vectorized numpy ops with
-static shapes.
+plus ``lengths[n_users]`` and, with ``with_time``, the matching time
+buckets ``times[n_users, capacity]`` (T6's ``time_seq`` column, T3's
+``rating``); gathering a batch's rows, membership tests for negative
+rejection and the left-padded windows (with the reference's unorder /
+autoregressive target masking, the time rows windowed alike) are
+vectorized numpy ops with static shapes.
 """
 from __future__ import annotations
 
@@ -17,12 +18,14 @@ from unirec_tpu_torch.constants import DataFormat, HistoryMaskMode
 
 
 class UserHistory:
-    def __init__(self, items: np.ndarray, lengths: np.ndarray):
+    def __init__(self, items: np.ndarray, lengths: np.ndarray,
+                 times: Optional[np.ndarray] = None):
         if items.ndim != 2 or lengths.shape != (items.shape[0],):
             raise ValueError(f"items [n_users, capacity] and lengths [n_users] "
                              f"expected, got {items.shape} and {lengths.shape}")
         self.items = items.astype(np.int32, copy=False)
         self.lengths = lengths.astype(np.int32, copy=False)
+        self.times = None if times is None else times.astype(np.int32, copy=False)
         self._sorted = None  # sorted rows, built at the first membership test
 
     @property
@@ -34,30 +37,39 @@ class UserHistory:
         return self.items.shape[1]
 
     @staticmethod
-    def load(path_prefix: str, n_users: int, fmt: str,
-             capacity: int = -1) -> "UserHistory":
+    def load(path_prefix: str, n_users: int, fmt: str, capacity: int = -1,
+             with_time: bool = False) -> "UserHistory":
         """Load from ``<prefix>.{ftr,pkl,tsv,csv,txt}``."""
         from unirec_tpu_torch.utils.file_io import load_table
         return UserHistory.from_dataframe(load_table(path_prefix), n_users,
-                                          fmt, capacity=capacity)
+                                          fmt, capacity=capacity, with_time=with_time)
 
     @staticmethod
-    def from_dataframe(df, n_users: int, fmt: str,
-                       capacity: int = -1) -> "UserHistory":
+    def from_dataframe(df, n_users: int, fmt: str, capacity: int = -1,
+                       with_time: bool = False) -> "UserHistory":
         """Build from a T1/T3 (one row per interaction) or T5/T6 (item_seq
         column) table; keeps the LAST ``capacity`` items per user and, for
-        duplicate user rows, the later row."""
+        duplicate user rows, the later row. ``with_time``: also the time
+        rows, from T6's time_seq or T3's rating (zeros for other formats)."""
         seqs = [None] * n_users
+        tseqs = [None] * n_users
         if fmt in (DataFormat.T5.value, DataFormat.T6.value,
                    DataFormat.T5_1.value):
-            for uid, seq in zip(df["user_id"].to_numpy(), df["item_seq"]):
+            times = df["time_seq"] if with_time and fmt == DataFormat.T6.value \
+                else [None] * len(df)
+            for uid, seq, t in zip(df["user_id"].to_numpy(), df["item_seq"], times):
                 if 0 <= int(uid) < n_users:
                     seqs[int(uid)] = np.asarray(seq, dtype=np.int64)
+                    tseqs[int(uid)] = None if t is None else np.asarray(t, dtype=np.int64)
         elif fmt in (DataFormat.T1.value, DataFormat.T3.value):
             grouped = df.groupby("user_id")["item_id"].apply(np.asarray)
             for uid, items in grouped.items():
                 if 0 <= uid < n_users:
                     seqs[uid] = items
+            if with_time and fmt == DataFormat.T3.value:
+                for uid, t in df.groupby("user_id")["rating"].apply(np.asarray).items():
+                    if 0 <= uid < n_users:
+                        tseqs[uid] = t
         else:
             raise ValueError(f"unsupported user history format: {fmt}")
         max_len = max((len(s) for s in seqs if s is not None), default=1)
@@ -65,13 +77,17 @@ class UserHistory:
             max_len = min(max_len, capacity)
         items = np.zeros((n_users, max(max_len, 1)), dtype=np.int32)
         lengths = np.zeros(n_users, dtype=np.int32)
+        times = np.zeros_like(items) if with_time else None
         for uid, s in enumerate(seqs):
             if s is None or len(s) == 0:
                 continue
             s = s[-max_len:]
             items[uid, :len(s)] = s
             lengths[uid] = len(s)
-        return UserHistory(items, lengths)
+            if with_time and tseqs[uid] is not None:
+                t = tseqs[uid][-max_len:]
+                times[uid, :len(t)] = t
+        return UserHistory(items, lengths, times)
 
     def gather(self, user_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Raw packed rows + lengths for a batch of users (out-of-range ids
@@ -114,10 +130,13 @@ class UserHistory:
     def sequence_batch(self, user_ids: np.ndarray, target_items: np.ndarray,
                        max_seq_len: int, mask_mode: str = HistoryMaskMode.UNORDER.value,
                        seq_last: bool = False, rng: Optional[np.random.Generator] = None,
-                       explicit_max_len: Optional[np.ndarray] = None
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """(item_seq [B, max_seq_len] left-padded, item_seq_len [B]) as
-        AddUserHistory + SeqRecDataset._padding build them:
+                       explicit_max_len: Optional[np.ndarray] = None,
+                       with_time: bool = False
+                       ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+        """(item_seq [B, max_seq_len] left-padded, item_seq_len [B],
+        time_seq: the same window of the time rows with ``with_time`` and
+        times, else None) as AddUserHistory + SeqRecDataset._padding build
+        them:
 
         - unorder: occurrences of the target(s) are zeroed in place
           (adduserhistory.py:50-55);
@@ -127,10 +146,14 @@ class UserHistory:
         - the last ``max_seq_len`` items are right-aligned in a zero-padded
           window; item_seq_len = min(prefix length, max_seq_len)."""
         rows, lens = self.gather(user_ids)
+        trows = self.times[np.clip(user_ids, 0, self.n_users - 1)] \
+            if with_time and self.times is not None else None
         tgt = target_items if target_items.ndim == 2 else target_items[:, None]
         is_tgt = (rows[:, :, None] == tgt[:, None, :]).any(-1) & (rows > 0)
         if mask_mode == HistoryMaskMode.UNORDER.value:
             rows = np.where(is_tgt, 0, rows)
+            if trows is not None:
+                trows = np.where(is_tgt, 0, trows)
             n = lens
         elif mask_mode == HistoryMaskMode.AUTOREGRESSIVE.value:
             if explicit_max_len is not None:
@@ -153,7 +176,8 @@ class UserHistory:
         valid = grid >= 0
         gi = np.clip(grid, 0, max(rows.shape[1] - 1, 0))
         seq = np.take_along_axis(rows, gi, axis=1) * valid
-        return seq.astype(np.int32), np.minimum(n, L).astype(np.int32)
+        tseq = None if trows is None else np.take_along_axis(trows, gi, axis=1) * valid
+        return seq.astype(np.int32), np.minimum(n, L).astype(np.int32), tseq
 
 
 def _rowwise_searchsorted(rows: np.ndarray, queries: np.ndarray) -> np.ndarray:

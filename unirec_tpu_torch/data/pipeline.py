@@ -1,8 +1,9 @@
 """Batchers (counterpart of unirec_tpu/data/pipeline.py).
 
-Evaluation reads static-shape host batches (``Batcher``, without item
-features and the prefetch thread): dicts of fixed-shape numpy arrays, with
-negative sampling, history windows and padding vectorized per batch; the
+Evaluation reads static-shape host batches (``Batcher``, without the
+prefetch thread): dicts of fixed-shape numpy arrays, with negative
+sampling, history windows (and their T6 time windows under ``time_seq``),
+the item-feature gathers and padding vectorized per batch; the
 final partial batch is padded to the full batch size and flagged by a
 per-row ``weight`` (1 real, 0 pad). Training runs on the device pipeline
 (data/device_pipeline.py): ``make_train_batcher`` returns the raw id
@@ -25,8 +26,10 @@ class Batcher:
     def __init__(self, dataset: BaseDataset, config: Dict[str, Any],
                  history: Optional[UserHistory] = None,
                  sampler: Optional[NegativeSampler] = None,
-                 batch_size: Optional[int] = None, seed: int = 2022):
+                 batch_size: Optional[int] = None, seed: int = 2022,
+                 features: Optional[np.ndarray] = None):
         self.ds = dataset
+        self.features = features
         self.config = config
         self.history = history
         self.sampler = sampler
@@ -38,6 +41,7 @@ class Batcher:
         self.max_seq_len = int(config.get("max_seq_len", 10))
         self.mask_mode = config.get("history_mask_mode", HistoryMaskMode.UNORDER.value)
         self.seq_last = bool(config.get("seq_last", 0))
+        self.with_time = bool(config.get("time_seq", 0))
         self.pad_incomplete = bool(config.get("pad_incomplete_batch", True))
 
     def __len__(self) -> int:
@@ -92,16 +96,23 @@ class Batcher:
         for k in ("session_id", "max_len"):
             if k in cols:
                 batch[k] = cols[k][idx].astype(np.int64)
+        if self.features is not None:
+            batch["item_features"] = self.features[batch["item_id"]]
         if self.ds.is_sequential and self.history is not None:
-            batch["item_seq"], batch["item_seq_len"] = self.history.sequence_batch(
+            seq, batch["item_seq_len"], tseq = self.history.sequence_batch(
                 user_id, cols["item_id"][idx], self.max_seq_len,
                 mask_mode=self.mask_mode, seq_last=self.seq_last, rng=rng,
-                explicit_max_len=batch.get("max_len"))
+                explicit_max_len=batch.get("max_len"), with_time=self.with_time)
+            batch["item_seq"] = seq
+            if tseq is not None:
+                batch["time_seq"] = tseq
+            if self.features is not None:
+                batch["item_seq_features"] = self.features[seq]
         return batch
 
 
 def make_train_batcher(dataset: BaseDataset, config: Dict[str, Any], history: UserHistory,
-                       item_popularity=None, device=None
+                       item_popularity=None, device=None, features=None
                        ) -> Tuple[RawIdBatcher, DeviceAugmenter]:
     """(raw id batcher, augmenter): the host yields the dataset's (user,
     item) id columns; negative sampling and history windows run on the
@@ -112,12 +123,13 @@ def make_train_batcher(dataset: BaseDataset, config: Dict[str, Any], history: Us
                            seed=int(config.get("seed", 2022)),
                            shuffle=bool(config.get("shuffle_train", 0)),
                            extra={k: cols[k] for k in ("label", "max_len") if k in cols})
-    return batcher, DeviceAugmenter(config, history, item_popularity, device=device)
+    return batcher, DeviceAugmenter(config, history, item_popularity, features=features,
+                                    device=device)
 
 
 def make_eval_batcher(dataset: BaseDataset, config: Dict[str, Any],
                       history: Optional[UserHistory], task: str = "test",
-                      item_popularity=None) -> Batcher:
+                      item_popularity=None, features=None) -> Batcher:
     """Unshuffled batches of ``{task}_batch_size`` (else test_batch_size,
     else batch_size) rows; one_vs_k draws ``n_sample_neg_{task}`` negatives
     per row, one_vs_all none."""
@@ -135,4 +147,4 @@ def make_eval_batcher(dataset: BaseDataset, config: Dict[str, Any],
     bs = config.get(f"{task}_batch_size") or config.get("test_batch_size") \
         or config.get("batch_size")
     return Batcher(dataset, config, history=history, sampler=sampler, batch_size=bs,
-                   seed=int(config.get("seed", 2022)) + 17)
+                   seed=int(config.get("seed", 2022)) + 17, features=features)

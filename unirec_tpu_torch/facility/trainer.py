@@ -13,7 +13,8 @@ rolling ``.last`` checkpoint. ``evaluate`` runs the evaluator of the
 protocol set by ``reset_evaluator``, from the best checkpoint on request,
 or returns the raw scores of the infer task (``predict_only``).
 Checkpoints use the JAX package's pickle layout with ``params`` as a flax
-tree, so the port's ``reco-topk`` and the JAX package read them. With
+tree and the model's frozen item inputs as ``constants``, so the port's
+``reco-topk`` and the JAX package read them. With
 ``freeze`` the parameters ``load_model`` loaded get zero gradients before
 the optimizer (trainer.py:380-386); Adam then leaves them exactly as they
 are unless ``weight_decay`` adds its term, as it does in the JAX chain.
@@ -298,7 +299,7 @@ class Trainer:
             "scheduler_state": (self.scheduler.state_dict()
                                 if self.scheduler is not None else None),
             "params": to_flax_params(self.model),
-            "constants": None,
+            "constants": self.model.constants(),
             "opt_state": ckpt_util.opt_state_to_numpy(self.model, self.opt_state),
         })
         if not quiet:
@@ -327,6 +328,7 @@ class Trainer:
         ckpt = ckpt_util.load_checkpoint(filename)
         self.init_params()
         load_flax_params(self.model, ckpt["params"], strict=False)
+        self.model.load_constants(ckpt.get("constants"))
         self._loaded = loaded_mask(self.model, ckpt["params"])
         opt = ckpt.get("opt_state")
         if restore_optimizer and isinstance(opt, dict) and "learning_rate" in opt:

@@ -3,7 +3,11 @@
 Counterpart of unirec_tpu/main/infer_embedding.py: load a checkpoint
 (model rebuilt from its embedded config), encode every requested id in
 fixed-shape batches on the device, and write ``id\\tv1,v2,...`` lines.
-Batches are queued without a host round-trip and copied back once.
+Batches are queued without a host round-trip and copied back once. With
+``use_features`` the item -> feature table of ``features_filepath`` rides
+along: the history windows' features on the user side, the items' on the
+item side (unirec_tpu/main/infer_embedding.py:54-58, 132-137); text rows
+come from the checkpoint's constants.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ import torch
 
 from unirec_tpu_torch import config as config_mod
 from unirec_tpu_torch.data.history import UserHistory
-from unirec_tpu_torch.utils import to_device
+from unirec_tpu_torch.models.base import features_shape
+from unirec_tpu_torch.utils import file_io, to_device
 from unirec_tpu_torch.utils.checkpoint import load_model_freely
 from unirec_tpu_torch.utils.logger import setup_logger
 
@@ -28,10 +33,12 @@ def _pad_to(arr: np.ndarray, size: int) -> np.ndarray:
 
 
 def iter_infer_batches(config, ids: np.ndarray, history: Optional[UserHistory],
-                       is_seqrec: bool, node_type: str = "user"):
+                       is_seqrec: bool, features: Optional[np.ndarray] = None,
+                       node_type: str = "user"):
     """Fixed-shape id batches (the last one padded by repeating its final
     id) with left-padded history windows for sequential models
-    (inferdataset.py:9-67). Each batch also carries ``n_real``."""
+    (inferdataset.py:9-67) and, given ``features``, their feature rows.
+    Each batch also carries ``n_real``."""
     bs = int(config.get("test_batch_size") or config.get("batch_size", 512))
     L = int(config.get("max_seq_len", 10))
     last_item = int(config.get("last_item", 0))
@@ -45,23 +52,27 @@ def iter_infer_batches(config, ids: np.ndarray, history: Optional[UserHistory],
                 seq, seq_len = history.window(chunk, L, drop_last=last_item)
                 batch["item_seq"] = seq
                 batch["item_seq_len"] = seq_len
+                if features is not None:
+                    batch["item_seq_features"] = features[seq]
         else:
             batch["item_id"] = chunk.astype(np.int32)
+            if features is not None:
+                batch["item_features"] = features[chunk]
         yield batch
 
 
 @torch.no_grad()
 def infer_embedding(config, model, ids: np.ndarray,
-                    history: Optional[UserHistory],
-                    is_seqrec: bool) -> Tuple[np.ndarray, np.ndarray]:
+                    history: Optional[UserHistory], is_seqrec: bool,
+                    features: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
     node_type = config.get("node_type", "user")
     key = "user_id" if node_type == "user" else "item_id"
     pending, reals, out_ids = [], [], []
-    for batch in iter_infer_batches(config, ids, history, is_seqrec, node_type):
+    for batch in iter_infer_batches(config, ids, history, is_seqrec, features, node_type):
         n_real = batch.pop("n_real")
         tb = to_device(batch, model.device, torch.int64)
         emb = model.user_emb(tb) if node_type == "user" \
-            else model.item_emb(tb["item_id"])
+            else model.item_emb(tb["item_id"], tb.get("item_features"))
         pending.append(emb)
         reals.append(n_real)
         out_ids.append(batch[key][:n_real])
@@ -99,7 +110,11 @@ def run(args: Optional[Dict] = None, device: Optional[str] = None
         history = UserHistory.load(os.path.join(dpath, fname),
                                    int(config["n_users"]), fmt)
 
-    ids, emb = infer_embedding(config, model, ids, history, is_seqrec)
+    features = None
+    if config.get("use_features") and config.get("features_filepath"):
+        features = file_io.load_features(config["features_filepath"], int(config["n_items"]),
+                                         len(features_shape(config)))
+    ids, emb = infer_embedding(config, model, ids, history, is_seqrec, features)
     logger.info("saving inferred embeddings to %s", out_file)
     with open(out_file, "w") as f:
         for i, e in zip(ids, emb):

@@ -17,7 +17,13 @@ Trainer, and runs the task:
 
 Train and test write ``<exp_name>.result.tsv`` beside a log in
 ``<output_path>`` and return the test metrics. With ``use_pre_item_emb``
-and ``item_emb_path`` the item table starts from the file's rows. With
+and ``item_emb_path`` the item table starts from the file's rows. The item
+side inputs load here as in the JAX package (main.py:54, 65-74, 176-179):
+``use_features`` reads ``features_filepath`` (one row of
+len(features_shape) categorical ids an item) for the model's constant and
+every batcher, ``use_text_emb`` the frozen rows of ``text_emb_path``
+(padding row 0 prepended), and ``time_seq`` > 0 loads the histories with
+their time rows. With
 ``profile=1`` a ``torch.profiler`` trace (CPU and, on the card, CUDA
 activities) runs from the parsed config to every return of ``run`` and is
 written as ``<output_path>/profile/<exp_name>.pt.trace.json``, torch's
@@ -44,6 +50,7 @@ from unirec_tpu_torch.data.datasets import get_dataset_class
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.data.pipeline import make_eval_batcher, make_train_batcher
 from unirec_tpu_torch.facility.trainer import Trainer
+from unirec_tpu_torch.models.base import features_shape
 from unirec_tpu_torch.utils import file_io, resolve_device
 from unirec_tpu_torch.utils.logger import setup_logger
 from unirec_tpu_torch.utils.registry import get_model_class
@@ -64,7 +71,17 @@ def load_user_history(config) -> UserHistory:
         os.path.join(config["dataset_path"], config.get("user_history_filename", "train")),
         int(config["n_users"]),
         config.get("user_history_file_format", config.get("train_file_format")),
-        capacity=int(config.get("user_history_capacity", -1) or -1))
+        capacity=int(config.get("user_history_capacity", -1) or -1),
+        with_time=bool(config.get("time_seq", 0)))
+
+
+def load_item_features(config) -> Optional[np.ndarray]:
+    """The item -> categorical-feature table of ``features_filepath``
+    under ``use_features``, else None."""
+    if not config.get("use_features"):
+        return None
+    return file_io.load_features(config["features_filepath"], int(config["n_items"]),
+                                 len(features_shape(config)))
 
 
 def _task_config(config, task: str) -> Dict[str, Any]:
@@ -156,6 +173,11 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
     item_pop = None
     if float(config.get("neg_by_pop_alpha", 0) or 0) > 0 and history is not None:
         item_pop = construct_item_popularity(history, int(config["n_items"]))
+    features = load_item_features(config)
+    if features is not None:
+        config["_item2features"] = features
+    if config.get("use_text_emb") and config.get("text_emb_path"):
+        config["_text_emb"] = _padded_emb(file_io.load_pre_item_emb(config["text_emb_path"]))
     if config.get("use_pre_item_emb") and config.get("item_emb_path"):
         config["_pre_item_emb"] = _padded_emb(file_io.load_pre_item_emb(config["item_emb_path"]))
     model = get_model_class(config["model"])(config)
@@ -171,7 +193,7 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
         ds = ds_cls(tcfg, dpath, config.get(f"data_{task_name}_name", task_name))
         trainer.reset_evaluator(tcfg["data_format"], tcfg["eval_protocol"] or default_protocol)
         return make_eval_batcher(ds, tcfg, history, task=task_name,
-                                 item_popularity=item_pop)
+                                 item_popularity=item_pop, features=features)
 
     result = None
     if task == TaskType.TRAIN.value:
@@ -180,7 +202,7 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
         tcfg = _task_config(config, "train")
         train_batcher, augmenter = make_train_batcher(
             ds_cls(tcfg, dpath, config.get("data_train_name", "train")), tcfg, history,
-            item_pop, device=dev)
+            item_pop, device=dev, features=features)
         trainer.set_device_augmenter(augmenter)
         valid = eval_batcher("valid") if _exists_any(
             dpath, config.get("data_valid_name", "valid")) else None

@@ -12,6 +12,9 @@ Score paths, as in the JAX package:
     kernel; the item bias folds into an extra factor column;
   - fused int8 (``catalog_int8=1``): the same over a per-row int8 catalog;
   - ``item_file``: per-(user, item) score lines with a held-out label.
+The catalog's item side takes the model's constants (the feature table and
+the text rows the checkpoint carries); the user side reads the history
+windows alone, as the JAX package's does.
 The row-sharded path (``mesh_model > 1``) and approximate selection
 (``topk_recall_target``) are not ported yet and raise.
 """

@@ -1,6 +1,14 @@
-"""Shared NN blocks: scorers and the post-LN transformer encoder.
+"""Shared NN blocks: scorers, the post-LN transformer encoder and the
+other sequential models' blocks.
 
-Counterpart of unirec_tpu/models/modules.py, in eval and train mode.
+Counterpart of unirec_tpu/models/modules.py, in eval and train mode, plus
+the blocks unirec_tpu/models/sequential.py defines for its models: the
+MLP scorer, attention pooling (AttHist), flax's GRU cell and its scan
+(GRU), ConvFormer's FFN and its depthwise and spectral token mixers. These
+are XLA in the JAX package, not Pallas, so they are plain torch ops here;
+each computes in the dtype flax's ``dtype=None`` promotion gives (f32
+against the f32 parameters) and draws its JAX initializers in
+``jax_init``.
 Submodules carry the flax modules' names
 (``multi_head_attention.query``, ``feed_forward.dense_1``, ``layer_0``), so
 utils/flax_bridge.py maps parameters by path. As in the JAX package,
@@ -104,7 +112,10 @@ def cosine_scores(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-6) -> torch.
 
 def inner_product_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Dim-dispatching dot scorer (modules.py:45-67): [B,D]x[B,D]->[B];
-    [B,D]x[M,D]->[B,M]; [B,G,D]x[B,D]->[B,G]; [B,D]x[B,G,D]->[B,G]."""
+    [B,D]x[M,D]->[B,M]; [B,G,D]x[B,D]->[B,G]; [B,D]x[B,G,D]->[B,G]; in
+    the promoted dtype (an f32 user against bf16 items scores in f32)."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    x, y = x.to(dt), y.to(dt)
     if x.dim() == y.dim():
         if x.shape == y.shape:
             return (x * y).sum(-1)
@@ -366,3 +377,228 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers():
             x = layer(x, attn_mask, train, rng)
         return x
+
+
+# ------------------------------------------------- scorers and poolers
+def _broadcast_pair(x: torch.Tensor, y: torch.Tensor):
+    """MLPScorer's three broadcast rules (modules.py:163-169): [B,D] x [M,D]
+    -> both [B,M,D]; [B,G,D] x [B,D] and [B,D] x [B,G,D] -> both [B,G,D]."""
+    if x.dim() == y.dim():
+        if x.shape != y.shape:
+            x = x[:, None, :].expand(x.shape[0], y.shape[0], x.shape[-1])
+            y = y[None, :, :].expand(x.shape)
+    elif x.dim() > y.dim():
+        y = y[..., None, :].expand(x.shape)
+    else:
+        x = x[..., None, :].expand(y.shape)
+    return x, y
+
+
+class MLPScorer(nn.Module):
+    """2-layer MLP over [user, item] (modules.py:150-177): dropout, dense,
+    ``act_f``, dense to one score. flax's compact names ``Dense_0`` and
+    ``Dense_1``; the denses compute in the promoted dtype (f32 for bf16
+    inputs), as flax's dtype=None does."""
+
+    def __init__(self, embed_dim: int, hidden_dim: int, dropout_prob: float = 0.0,
+                 act_f: str = "tanh"):
+        super().__init__()
+        self.p, self.act = float(dropout_prob), ACT2FN[act_f]
+        self.Dense_0 = nn.Linear(2 * embed_dim, hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, 1)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        x, y = _broadcast_pair(x, y)
+        dt = torch.promote_types(x.dtype, y.dtype)
+        h = apply_dropout(torch.cat([x.to(dt), y.to(dt)], dim=-1), self.p, train, rng)
+        h = dense(self.Dense_1, self.act(dense(self.Dense_0, h, None)), None)
+        return h[..., 0]
+
+
+class AttentionMergeLayer(nn.Module):
+    """Learned attention pooling over the sequence (modules.py:985-1000):
+    a dense layer, a softmax over every position (padding included, no
+    mask, as in JAX) of its product with the vector ``h``, the weighted sum
+    of the dense outputs, dropout. ``h`` is drawn from normal(1.0)."""
+
+    def __init__(self, input_size: int, dropout: float = 0.0):
+        super().__init__()
+        self.p = float(dropout)
+        self.dense = nn.Linear(input_size, input_size)
+        self.h = nn.Parameter(torch.empty(input_size, 1))
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.h, 0.0, 1.0, generator=generator)
+
+    def forward(self, seq_emb: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        h = dense(self.dense, seq_emb, None)
+        scores = torch.softmax((h @ self.h.to(h.dtype))[..., 0], dim=-1)
+        return apply_dropout(torch.einsum("bl,bld->bd", scores, h), self.p, train, rng)
+
+
+# ------------------------------------------------------------------ GRU
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel init on a torch [out, in] weight: a normal
+    truncated at two standard deviations, of variance 1 / fan_in."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class GRUCell(nn.Module):
+    """flax's GRUCell (linen/recurrent.py) with its six named denses: the
+    input ones ``ir``, ``iz``, ``in`` with biases, the recurrent ``hr``,
+    ``hz`` without and ``hn`` with one; sigmoid gates, tanh candidate,
+    h' = (1 - z) n + z h."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.features = features
+        for name in ("ir", "iz", "in"):
+            self.add_module(name, nn.Linear(in_features, features))
+        for name, bias in (("hr", False), ("hz", False), ("hn", True)):
+            self.add_module(name, nn.Linear(features, features, bias=bias))
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        """flax's defaults, which the JAX GRU keeps (sequential.py:116):
+        lecun-normal input kernels, orthogonal recurrent kernels, zero
+        biases."""
+        for name in ("ir", "iz", "in"):
+            lecun_normal_(getattr(self, name).weight, generator)
+            getattr(self, name).bias.zero_()
+        for name in ("hr", "hz", "hn"):
+            nn.init.orthogonal_(getattr(self, name).weight, generator=generator)
+        self.hn.bias.zero_()
+
+
+class RNN(nn.Module):
+    """flax nn.RNN over a GRUCell from a zero f32 carry: the input products
+    of all L steps in one matmul, then one recurrent matmul a step. The
+    cell computes in the promoted dtype (f32 for bf16 inputs), as flax's
+    dtype=None does. Returns every step's hidden state [B, L, H]."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.cell = GRUCell(in_features, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cell
+        gi = [getattr(c, n) for n in ("ir", "iz", "in")]
+        dt = torch.promote_types(x.dtype, c.ir.weight.dtype)
+        w_i = torch.cat([g.weight for g in gi]).to(dt)
+        b_i = torch.cat([g.bias for g in gi]).to(dt)
+        w_h = torch.cat([c.hr.weight, c.hz.weight, c.hn.weight]).to(dt)
+        b_hn = c.hn.bias.to(dt)
+        # one [B, 3H] slab a step: a slice of the whole [B, L, 3H] product
+        # would make each step's backward fill a tensor of that size
+        steps = F.linear(x.to(dt), w_i, b_i).unbind(1)
+        H = c.features
+        h = torch.zeros(x.shape[0], H, dtype=dt, device=x.device)
+        out = []
+        for xt in steps:
+            xr, xz, xn = xt.split(H, dim=-1)
+            hr, hz, hn = (h @ w_h.T).split(H, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * (hn + b_hn))
+            h = (1.0 - z) * n + z * h
+            out.append(h)
+        return torch.stack(out, dim=1)
+
+
+# ------------------------------------------------------- ConvFormer blocks
+class ConvFFN(nn.Module):
+    """ConvFormer's FFN (sequential.py:201-219): Dense_0 -> act -> Dense_1
+    -> dropout -> LayerNorm_0(h + x), flax's compact names, in the promoted
+    dtype."""
+
+    def __init__(self, hidden_size: int, inner_size: int, hidden_act: str,
+                 hidden_dropout_prob: float, layer_norm_eps: float):
+        super().__init__()
+        self.act, self.p = ACT2FN[hidden_act], float(hidden_dropout_prob)
+        self.Dense_0 = nn.Linear(hidden_size, inner_size)
+        self.Dense_1 = nn.Linear(inner_size, hidden_size)
+        self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        h = dense(self.Dense_1, self.act(dense(self.Dense_0, x, None)), None)
+        h = apply_dropout(h, self.p, train, rng)
+        return layer_norm(self.LayerNorm_0, h + x, None)
+
+
+class DepthwiseConvLayer(nn.Module):
+    """Depthwise Conv1d token mixer (sequential.py:222-252): the sequence
+    left-padded by conv_size - 1 rows (``circular``: its last rows;
+    ``reflect``: its last rows reversed; ``constant``: zeros), a valid
+    depthwise convolution with ``conv_kernel`` [K, H] plus ``conv_bias``,
+    dropout, LayerNorm_0(h + x). Window indices past the padded sequence
+    clamp to its last row, as the JAX gather does. Both parameters are
+    drawn from normal(init_ratio)."""
+
+    def __init__(self, conv_size: int, padding_mode: str, hidden_dropout_prob: float,
+                 hidden_size: int, layer_norm_eps: float, init_ratio: float):
+        super().__init__()
+        self.K, self.mode = int(conv_size), padding_mode
+        self.p, self.init_ratio = float(hidden_dropout_prob), float(init_ratio)
+        self.conv_kernel = nn.Parameter(torch.empty(self.K, hidden_size))
+        self.conv_bias = nn.Parameter(torch.empty(hidden_size))
+        self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        for w in (self.conv_kernel, self.conv_bias):
+            nn.init.normal_(w, 0.0, self.init_ratio, generator=generator)
+
+    def _padded(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.K - 1
+        if not pad:
+            return x
+        if self.mode == "circular":
+            return torch.cat([x[:, -pad:], x], dim=1)
+        if self.mode == "reflect":
+            return torch.cat([x.flip(1)[:, :pad], x], dim=1)
+        return F.pad(x, (0, 0, pad, 0))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        L = x.shape[1]
+        dt = torch.promote_types(x.dtype, self.conv_kernel.dtype)
+        xp = self._padded(x).to(dt)
+        kernel = self.conv_kernel.to(dt)
+        h = self.conv_bias.to(dt).expand(x.shape[0], L, -1)
+        pos = torch.arange(L, device=x.device)
+        for k in range(self.K):
+            h = h + xp.index_select(1, (pos + k).clamp(max=xp.shape[1] - 1)) * kernel[k]
+        h = apply_dropout(h, self.p, train, rng)
+        return layer_norm(self.LayerNorm_0, h + x, None)
+
+
+class SpectralConvLayer(nn.Module):
+    """FASTConvFormer's mixer (sequential.py:255-282): the filter
+    ``conv_weight`` [1, K, H], zero-padded to max_seq_len rows and cut to
+    the sequence's L, multiplied with the sequence in the rfft domain
+    (norm="ortho" both ways), irfft back to L rows in x's dtype, dropout,
+    LayerNorm_0(h + x). The transforms run in f32 (torch's CUDA rfft takes
+    no bf16). ``conv_weight`` is drawn from normal(0.02)."""
+
+    def __init__(self, conv_size: int, hidden_dropout_prob: float, hidden_size: int,
+                 layer_norm_eps: float, max_seq_len: int):
+        super().__init__()
+        self.K, self.max_seq_len = int(conv_size), int(max_seq_len)
+        self.p = float(hidden_dropout_prob)
+        self.conv_weight = nn.Parameter(torch.empty(1, self.K, hidden_size))
+        self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.conv_weight, 0.0, 0.02, generator=generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        L = x.shape[1]
+        w = F.pad(self.conv_weight.float(), (0, 0, 0, self.max_seq_len - self.K))[:, :L]
+        xf = torch.fft.rfft(x.float(), dim=1, norm="ortho")
+        wf = torch.fft.rfft(w, dim=1, norm="ortho")
+        h = torch.fft.irfft(xf * wf, n=L, dim=1, norm="ortho").to(x.dtype)
+        h = apply_dropout(h, self.p, train, rng)
+        return layer_norm(self.LayerNorm_0, h + x, None)

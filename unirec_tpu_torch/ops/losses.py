@@ -20,9 +20,19 @@ def _weighted_mean(per_row: torch.Tensor, weight: torch.Tensor):
 
 def bce_loss(scores, labels, weight):
     """BCE over sigmoid probabilities, the probability clipped like the
-    reference's torch.clamp(sigmoid, max=1-EPS) (reco_abc.py:249)."""
+    reference's torch.clamp(sigmoid, max=1-EPS) (reco_abc.py:249).
+
+    1 - EPS rounds to 1.0 in f32, so that clamp leaves 1 - p at 0 for a
+    score above about 16.6: log(0) = -inf on a negative, 0 * log(0) = NaN on
+    a positive. Where 1 - p is 0, the complement is taken as sigmoid(-s)
+    clamped at EPS, which is what the clamp gives in exact arithmetic.
+    Wherever 1 - p > 0 this is the JAX package's formula
+    (unirec_tpu/ops/losses.py:24-30) bit for bit; where it is 0 the JAX
+    package's loss is not finite and its trainer skips the step."""
     p = torch.clamp(torch.sigmoid(scores), EPS, 1.0 - EPS)
-    l = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))  # noqa: E741
+    q = 1.0 - p
+    q = torch.where(q > 0, q, torch.clamp(torch.sigmoid(-scores), min=EPS))
+    l = -(labels * torch.log(p) + (1.0 - labels) * torch.log(q))  # noqa: E741
     per_row = l.mean(-1) if l.dim() > 1 else l
     return _weighted_mean(per_row, weight), per_row
 

@@ -1,8 +1,10 @@
 """Checkpoint pickles shared with the JAX package.
 
 Counterpart of unirec_tpu/utils/checkpoint.py. A checkpoint is a pickled
-dict {config, params, ...}: ``config`` a plain dict and ``params`` the flax
-parameter tree as nested dicts of numpy arrays. The JAX trainer also stores
+dict {config, params, constants, ...}: ``config`` a plain dict, ``params``
+the flax parameter tree as nested dicts of numpy arrays and ``constants``
+the frozen item inputs ({"item2features", "text_embedding"} as numpy, or
+None), the JAX package's 'constants' collection. The JAX trainer also stores
 its optax ``opt_state``, whose pickle names optax classes; the loader maps
 every global of the ``jax``, ``flax`` and ``optax`` packages to an inert
 stub, so a checkpoint loads without them and serving reads only ``config``
@@ -53,7 +55,7 @@ def save_checkpoint(path: str, state: Dict[str, Any]) -> None:
     renamed, so a reader never sees half a checkpoint."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = dict(state)
-    for key in ("params", "opt_state"):
+    for key in ("params", "constants", "opt_state"):
         if payload.get(key) is not None:
             payload[key] = _to_numpy(payload[key])
     if payload.get("config") is not None:
@@ -91,7 +93,8 @@ def _to_numpy(tree):
 def load_model_freely(path: str, device: Optional[str] = None):
     """Rebuild a model from the config embedded in its checkpoint
     (reference general.py:208-230) and load its weights through the flax
-    bridge. Returns (model on ``device`` in eval mode, config)."""
+    bridge, and its constants. Returns (model on ``device`` in eval mode,
+    config)."""
     from unirec_tpu_torch.utils import resolve_device
     from unirec_tpu_torch.utils.flax_bridge import load_flax_params
     from unirec_tpu_torch.utils.registry import get_model_class
@@ -101,4 +104,5 @@ def load_model_freely(path: str, device: Optional[str] = None):
     cfg = ckpt["config"]
     model = get_model_class(cfg["model"])(cfg)
     load_flax_params(model, ckpt["params"])
+    model.load_constants(ckpt.get("constants"))
     return model.to(dev).eval(), cfg

@@ -1,10 +1,12 @@
-"""Table readers for the formats the port consumes, and the pretrained
-item-embedding reader (subset of unirec_tpu/utils/file_io.py). pandas is
-imported only inside the readers that build DataFrames, so the card path
-needs it only when it reads one."""
+"""Table readers for the formats the port consumes, the pretrained
+item-embedding reader and the item-feature reader (subset of
+unirec_tpu/utils/file_io.py). pandas is imported only inside the readers
+that build DataFrames, so the card path needs it only when it reads one;
+``load_features`` reads text files with the csv module alone."""
 from __future__ import annotations
 
 import ast
+import csv
 import os
 import pickle
 from typing import Any, List
@@ -80,3 +82,45 @@ def load_pre_item_emb(path: str) -> np.ndarray:
     if ids:
         emb = emb[np.argsort(ids)]
     return emb
+
+
+def load_features(path: str, n_items: int, n_features: int) -> np.ndarray:
+    """Item -> categorical-feature table, int32 [n_items, n_features], the
+    ids as the file holds them; row 0 (the padding item) and items the
+    file does not name stay all zeros (unirec_tpu/utils/file_io.py:
+    149-168). The file has an ``item_id`` column and the feature lists in
+    the first other column (``3,67``, ``3 67`` or ``[3, 67]``); a path
+    that does not exist is read as ``<stem>.{ftr,pkl,tsv,csv,txt}``.
+    ``.tsv``/``.txt`` (tab) and ``.csv`` files are read without pandas;
+    ``.pkl`` and ``.ftr`` DataFrames import it."""
+    res = np.zeros((n_items, n_features), dtype=np.int32)
+    if not os.path.exists(path):
+        ids, cells = _feature_columns(load_table(os.path.splitext(path)[0]))
+    elif path.endswith((".tsv", ".csv", ".txt")):
+        with open(path, newline="") as f:
+            rows = csv.reader(f, delimiter="," if path.endswith(".csv") else "\t")
+            header = next(rows)
+            i_id = header.index("item_id")
+            i_feat = next(i for i, c in enumerate(header) if c != "item_id")
+            body = [r for r in rows if r]
+        ids = [int(r[i_id]) for r in body]
+        cells = [r[i_feat] for r in body]
+    elif path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            ids, cells = _feature_columns(pickle.load(f))
+    elif path.endswith(".ftr"):
+        import pandas as pd
+        ids, cells = _feature_columns(pd.read_feather(path))
+    else:
+        raise ValueError(f"unsupported feature file: {path}")
+    for iid, cell in zip(ids, cells):
+        arr = _parse_list(cell, np.int64)[:n_features]
+        if 0 <= iid < n_items:
+            res[iid, :len(arr)] = arr
+    return res
+
+
+def _feature_columns(df):
+    """(item ids, feature cells) of a feature DataFrame."""
+    col = [c for c in df.columns if c != "item_id"][0]
+    return [int(i) for i in df["item_id"].to_numpy()], list(df[col])
