@@ -148,9 +148,40 @@ Phases, each of which must pass:
      with distance_type mlp and one-vs-k validation and test (19
      negatives): the loss falls, one batch's scores against the plain
      versions.
+ 14. the CF models (cf_path): synthetic walks at amazon-book.yaml's scale
+     (52,644 users, 91,600 items, 4,096 validation and test users); MF by
+     train_mf_bpr.sh (BPR, 19 negatives, d=64, batch 2,048, the device
+     pipeline with neg_membership_pallas; 2 epochs of 100 steps), then
+     reco-topk of 4,096 users from its best checkpoint over the fused
+     bf16 and int8 catalogs (mf_serve, mf_serve_check); MultiVAE at
+     MultiVAE.yaml's widths by train_cf_model.sh (AERecDataset, full
+     softmax, batch 1,024, 5 evaluation draws; 2 epochs of 52 steps); each
+     through main.run with the shared gates (finite falling loss, best
+     validation hit@10 at least ten times chance, task=test from the best
+     checkpoint equal), one step through the kernels against the plain
+     versions (cf_path_check) and a traced step (cf_path_profile); rows 6
+     and 8 launch in MF's training (8 on its block body: 76 candidates an
+     example), 5 and 5q in its serving, 6 in MultiVAE's;
+ 15. rows 10-13 at BST's shape (8,400 sequences of L = 21, 4 heads of 16,
+     the [N, 1, 1, L] key-padding mask; the FFN at d = 64, inner 128) in
+     f32 and bf16 against their plain versions, timed beside their bounds
+     and scaled_dot_product_attention (addmm -> silu -> addmm for row 12);
+ 16. the ranking models (rank_path): prepare-adaranker through the port's
+     CLI (with item2vec) on a synthetic raw file at ml-10m-adaranker.yaml's
+     catalog, then AdaRanker's three stages (Base, Ada-Ranker, Ada-Ranker
+     fine-tuned from the Base checkpoint) by run_adaranker_pipeline.sh; BST
+     by run_bst_beauty_rank.sh at Beauty-rank.yaml's scale with
+     use_fused_attention and use_fused_ffn, then task=infer; FM by
+     run_fm_beauty_libfm.sh on T7 rows at Beauty-libfm.yaml's 46,557
+     features; each through main.run with the shared gates (best
+     validation auc at least 0.65), a step
+     against the plain versions (rank_path_check) and a traced step
+     (rank_path_profile); row 6 launches in AdaRanker and BST, rows 10-13
+     (tensor-core bodies) in BST's training and infer, no kernel in FM.
 Every launch of rows 5, 5q and 8 on the serving, training, entry, long
-and long-serving paths must be on the new bodies (NEW_BODIES). Then it
-prints its wall time (and each of phases 9-13), the card, one
+and long-serving paths must be on the new bodies (NEW_BODIES), and of rows
+5 and 5q on the CF path. Then it
+prints its wall time (and each of phases 9-16), the card, one
 {"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
@@ -782,7 +813,7 @@ def main_path(torch, card: str):
 
 
 def check_main_path(torch, model, cfg, users, history, modes, results,
-                    phase="main_path_check"):
+                    phase="main_path_check", n_items=N_ITEMS, is_seqrec=True):
     from unirec_tpu_torch.main.infer_embedding import iter_infer_batches
     from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
     from unirec_tpu_torch.ops import topk as TK
@@ -797,7 +828,7 @@ def check_main_path(torch, model, cfg, users, history, modes, results,
     du, du_tol, checks = 0.0, 0.0, {n: {"valid": True, "identical_rows": 0,
                            "identical_to_plain_run": 0} for n in modes}
     for start, batch in zip(range(0, len(users), BATCH),
-                            iter_infer_batches(cfg, users, history, True)):
+                            iter_infer_batches(cfg, users, history, is_seqrec)):
         n = batch.pop("n_real")
         tb = to_device(batch, "cuda", torch.int64)
         u_k = model.user_emb(tb)[:n].float()
@@ -810,7 +841,7 @@ def check_main_path(torch, model, cfg, users, history, modes, results,
                                       hist, 0).astype(np.int64)).cuda()
         for name, items in catalogs.items():
             ids = torch.from_numpy(results[name][start:start + n]).cuda()
-            if ids.shape != (n, TOPK) or int(ids.min()) < 1 or int(ids.max()) >= N_ITEMS:
+            if ids.shape != (n, TOPK) or int(ids.min()) < 1 or int(ids.max()) >= n_items:
                 raise AssertionError(f"{name}: ids out of shape or range")
             # the score error a user-embedding difference du can cause
             tol = 2 * max(du, 1e-6) * float(items.abs().sum(1).max())
@@ -1183,21 +1214,21 @@ def kernel_scatter2(torch, ids, rows):
 
 
 def member_line(torch, rows, cand, what):
-    """One line of row 8: the warp body against the plain version, exact,
-    and timed by the card's clock in turns with the block body (which must
-    agree as well; the warp body at least NEW_BODY_GATE times faster), the
-    events' time beside them; the share of candidates found in their
-    history (hit_share) and of padding ids in the histories (zero_share)."""
+    """One line of row 8 on (rows, cand): the body the call takes against
+    the plain version, exact, timed by the card's clock beside the events'
+    time; the share of candidates found in their history (hit_share) and of
+    padding ids in the histories (zero_share). Up to 64 candidates an
+    example the warp body runs, timed in turns with the block body (which
+    must agree as well; the warp body at least NEW_BODY_GATE times faster);
+    more, and the block body runs, the only one that takes them."""
     from unirec_tpu_torch.ops import member as MB
     run = lambda: MB._member_cuda(rows, cand)  # noqa: E731
     out = run()
     ref = MB._member_plain(rows, cand)
-    with mock.patch.object(MB, "_member_body", lambda *a: "block"):
-        old = run()
+    body = MB._member_body(rows.shape[1], cand.shape[1])
     torch.cuda.synchronize()
     line = {"phase": "kernel", "name": "member", "ids": what, "rows": list(rows.shape),
-            "cand": list(cand.shape), "body": MB._member_body(rows.shape[1], cand.shape[1]),
-            "mismatches": int((out != ref).sum()),
+            "cand": list(cand.shape), "body": body, "mismatches": int((out != ref).sum()),
             "max_abs_err": float((out.float() - ref.float()).abs().max()),
             "tol": 0.0, "tol_reason": "exact", "hit_share": float(ref.float().mean()),
             "zero_share": float((rows == 0).float().mean()), "event_ms": cuda_ms(run),
@@ -1205,6 +1236,14 @@ def member_line(torch, rows, cand, what):
     # compares counted at the f32 CUDA-core rate
     line["bound_ms"], line["bound_by"] = bound_ms(
         nbytes(rows, cand, out), rows.numel() * cand.shape[1], "float32")
+    if body == "block":
+        line["kernel_ms"] = traced_kernel_ms(run, MEMBER_KERNELS["block"], iters=20, warmup=1)
+        emit(line)
+        if line["mismatches"] != 0:
+            raise AssertionError(f"member ({what}) failed its checks: {line}")
+        return line
+    with mock.patch.object(MB, "_member_body", lambda *a: "block"):
+        old = run()
     block = bodies_in_turns(line, "_member_body", run, 50, module=MB, other="block",
                             other_iters=20, timer=traced_timer(MEMBER_KERNELS))
     line["block"] = {"mismatches": int((old != ref).sum()),
@@ -1214,7 +1253,7 @@ def member_line(torch, rows, cand, what):
     line["gate"] = NEW_BODY_GATE
     emit(line)
     if not (line["mismatches"] == 0 and line["block"]["mismatches"] == 0
-            and line["body"] == "warp" and NEW_BODY_GATE * line["kernel_ms"] <= block):
+            and NEW_BODY_GATE * line["kernel_ms"] <= block):
         raise AssertionError(f"member ({what}) failed its checks: {line}")
     return line
 
@@ -1910,31 +1949,31 @@ LEARN_MIN_HIT10 = 0.1
 WALK_GROUP, WALK_NOISE = 200, 0.1
 
 
-def slice_walks(rng, hist, group, extra, group_of=None):
-    """Walk histories of users 1..99,999 over 50,000 items: user u has
-    hist[0]..hist[1]-1 training items and ``extra`` held-out ones after
-    them, walking the items of group ``group_of[u - 1]`` (u % (49,999 //
-    group) when None; ``group`` consecutive ids, more than a history, so a
+def slice_walks(rng, hist, group, extra, group_of=None, n_users=N_USERS, n_items=N_ITEMS):
+    """Walk histories of users 1..n_users - 1 over n_items items (99,999
+    and 50,000 unless given): user u has hist[0]..hist[1]-1 training items
+    and ``extra`` held-out ones after them, walking the items of group
+    ``group_of[u - 1]`` (u % ((n_items - 1) // group) when None; ``group`` consecutive ids, more than a history, so a
     walk never repeats an item) one id up at each step from a random start,
     wrapping inside the group; WALK_NOISE of the items are uniform over the
     catalog instead. Returns (users, n, starts, owner, items, is_train),
     each user's items at starts[u - 1] onwards."""
-    users = np.arange(1, N_USERS)
+    users = np.arange(1, n_users)
     n = rng.integers(hist[0], hist[1], size=len(users))
     owner = np.repeat(users, n + extra)
     starts = np.concatenate([[0], np.cumsum(n + extra)[:-1]])
     pos = np.arange(len(owner)) - np.repeat(starts, n + extra)
     start = np.repeat(rng.integers(0, group, len(users)), n + extra)
-    gid = owner % ((N_ITEMS - 1) // group) if group_of is None \
+    gid = owner % ((n_items - 1) // group) if group_of is None \
         else np.repeat(group_of, n + extra)
     walk = 1 + gid * group + (start + pos) % group
     items = np.where(rng.random(len(owner)) < WALK_NOISE,
-                     rng.integers(1, N_ITEMS, len(owner)), walk)
+                     rng.integers(1, n_items, len(owner)), walk)
     return users, n, starts, owner, items, pos < np.repeat(n, n + extra)
 
 
 def write_train_tables(root: Path, rng, users, n, owner, items, is_train, rows,
-                       formats) -> None:
+                       formats, n_users=N_USERS, n_items=N_ITEMS) -> None:
     """user_history.pkl (user_id, item_seq: the training histories),
     train.pkl (``rows`` (user, item) pairs drawn from them) and data.info
     with the valid and test tables' ``formats``."""
@@ -1948,7 +1987,7 @@ def write_train_tables(root: Path, rng, users, n, owner, items, is_train, rows,
     pd.DataFrame({"user_id": owner[is_train][pick],
                   "item_id": items[is_train][pick]}).to_pickle(root / "train.pkl")
     (root / "data.info").write_text(json.dumps({
-        "n_users": N_USERS, "n_items": N_ITEMS, "train_file_format": "user-item",
+        "n_users": n_users, "n_items": n_items, "train_file_format": "user-item",
         "valid_file_format": formats[0], "test_file_format": formats[1],
         "user_history_file_format": "user-item_seq"}))
 
@@ -2654,7 +2693,6 @@ FAMILY_MIN_HIT10 = 10 * 10 / N_ITEMS        # ten times chance
 # candidates', then the user side's); the others gather the item table twice
 FAMILY_TABLES = {"AvgHist": ("item_embedding", "item_dst_embedding"),
                  "SVDPlusPlus": ("item_embedding", "user_embedding", "item_dst_embedding")}
-FAMILY_GRAD_TOL = 1e-4     # f32 gradients, row 6 against its plain version: summation order
 # a step's scatter calls by their ids per example: the history, the candidates, the user
 FAMILY_SCATTER_IDS = {SEQ_LEN: "item_seq (item_dst_embedding)",
                       1 + FAMILY_NEG: "candidates (item_embedding)",
@@ -2738,11 +2776,12 @@ def run_spied(torch, args, eval_counts=()):
     return seen
 
 
-def learned_and_repeated(seen, args, phase, steps, min_hit10):
+def learned_and_repeated(seen, args, phase, steps, min_hit10, metric="hit@10"):
     """The gates every main.run path of the script shares: the loss finite
-    and falling, every validation's key metric, the best hit@10 at least
-    ``min_hit10``, and task=test from the best checkpoint (run here) equal
-    to the run's test metrics. Returns that test's metrics."""
+    and falling, every validation's key metric, the best ``metric`` (hit@10
+    unless given) at least ``min_hit10``, and task=test from the best
+    checkpoint (run here) equal to the run's test metrics. Returns that
+    test's metrics."""
     from unirec_tpu_torch.main import main as main_mod
     loss, valid = seen["loss"], seen["evals"][:-1]
     ckpt = Path(args["output_path"]) / "checkpoint" / f"{args['exp_name']}.pkl"
@@ -2755,7 +2794,7 @@ def learned_and_repeated(seen, args, phase, steps, min_hit10):
     if len(valid) != args["epochs"] or not all(np.isfinite(r[args["key_metric"]])
                                                for r, _, _ in valid):
         raise AssertionError(f"{phase}: a validation gave no key metric: {valid}")
-    if not max(r["hit@10"] for r, _, _ in valid) >= min_hit10:
+    if not max(r[metric] for r, _, _ in valid) >= min_hit10:
         raise AssertionError(f"{phase}: the model learned nothing the validations show: {valid}")
     if again != seen["evals"][-1][0] or again != seen["result"]:
         raise AssertionError(f"{phase}: test from the checkpoint {again} != the run's "
@@ -2763,11 +2802,136 @@ def learned_and_repeated(seen, args, phase, steps, min_hit10):
     return again
 
 
+# a step through the kernels against the plain versions, (loss, gradient
+# leaf) of each leaf's largest: f32 apart by summation order alone
+STEP_TOL = {"float32": (1e-6, 1e-4), "bfloat16": (2e-3, BWD_TOL)}   # (loss, gradient leaf)
+
+
+def check_model_step(torch, phase, trainer, train_data, tables=None, **extra):
+    """One training batch from the trained weights at dropout 0, through the
+    kernels and through the plain versions: the loss, every gradient leaf
+    (STEP_TOL of each leaf's largest; a key bias of its query bias's), and
+    the batch's scores (MultiVAE: its user embeddings) within 1e-4 of the
+    largest (f32) or emb_tol (bf16). With ``tables`` (the tables a step's
+    gathers scatter into, in call order), the step's gathers must be those
+    and row 6 must scatter once for each. Returns (the line, the kernels'
+    scatter calls (ids, rows, n_rows), empty without ``tables``)."""
+    from unirec_tpu_torch.facility.trainer import kl_anneal
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params
+    from unirec_tpu_torch.utils.registry import get_model_class
+    cfg = dict(trainer.config, hidden_dropout_prob=0.0, attn_dropout_prob=0.0, dropout_prob=0.0)
+    model = get_model_class(cfg["model"])(cfg)
+    load_flax_params(model, to_flax_params(trainer.model))
+    model.to("cuda")
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    batch = to_device(next(iter(train_data)), "cuda")
+    if trainer._augmenter is not None:
+        batch = trainer._augmenter.augment(batch, torch.Generator(device="cuda").manual_seed(
+            SEED + 90))
+    if trainer._anneal_sched is not None:
+        batch["anneal"] = kl_anneal(trainer._global_step, *trainer._anneal_sched)
+    dtype = "bfloat16" if model.compute_dtype is not None else "float32"
+    gathered, calls, gather = [], [], SA.gather_vmem
+    by_ptr = {p.data_ptr(): n.rsplit(".", 1)[0] for n, p in model.named_parameters()}
+
+    def spy_gather(table, ids):
+        gathered.append(by_ptr.get(table.data_ptr(), "?"))
+        return gather(table, ids)
+
+    def run():
+        loss, _ = model(batch, train=True, rng=DropoutRNG(SEED + 91, "cuda"))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with torch.no_grad():
+            out = model.user_emb(batch) if cfg["model"] == "MultiVAE" else model.predict(batch)
+        return (loss.detach(), [torch.zeros_like(p) if g is None else g
+                                for g, p in zip(grads, params)], out.float())
+
+    with (mock.patch.object(SA, "gather_vmem", spy_gather) if tables else nullcontext()), \
+            (call_capture(SA, "_scatter_cuda", calls) if tables else nullcontext()):
+        loss_k, grads_k, out_k = run()
+    with plain_versions():
+        loss_p, grads_p, out_p = run()
+    # a key bias's exact gradient is zero: it takes its query bias's scale
+    zero_sum = {i: names.index(n.replace("key.bias", "query.bias"))
+                for i, n in enumerate(names) if n.endswith("key.bias")}
+    errs, zeros = leaf_errs(grads_k, grads_p, zero_sum)
+    errs = dict(zip(names, errs))
+    worst = max(errs, key=errs.get)
+    loss_tol, grad_tol = STEP_TOL[dtype]
+    out_tol = emb_tol(out_p) if dtype == "bfloat16" else 1e-4 * float(out_p.abs().max())
+    line = {"phase": phase, **extra, "dtype": dtype, "batch": len(batch["weight"]),
+            "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            "loss_tol": loss_tol, "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
+            "grad_worst_leaf": worst, "grad_tol": grad_tol,
+            "key_bias_grads": {names[i]: r for i, r in zeros.items()}, "scores": list(out_k.shape),
+            "score_max_abs_diff": float((out_k - out_p).abs().max()), "score_tol": out_tol,
+            "finite": bool(torch.isfinite(out_k).all())}
+    if tables:
+        line.update(tables_gathered=gathered, scatter_calls=len(calls),
+                    scatter_rows=[int(c[0].numel()) for c in calls])
+    emit(line)
+    if not (line["loss_rel_diff"] <= loss_tol and errs[worst] <= grad_tol and line["finite"]
+            and line["score_max_abs_diff"] <= out_tol and zero_sum_ok(zeros)):
+        raise AssertionError(f"{phase}: kernels disagree with the plain versions: {line}")
+    if tables and not (tuple(gathered) == tuple(tables) and len(calls) == len(tables)):
+        raise AssertionError(f"{phase}: the step gathered {gathered} and scattered "
+                             f"{len(calls)} times, not {tables} once each")
+    return line, calls
+
+
+def run_and_gate(torch, args, phase, steps, min_value, card, metric="hit@10",
+                 want=(), none=(), exact=None, new_bodies=NEW_BODIES, failed=None, **extra):
+    """main.run(args) under run_spied and learned_and_repeated's gates; the
+    run's launches of CF_KERNELS and RANK_KERNELS (each of ``want`` above 0,
+    each of ``none`` 0, each of ``exact`` its count, ``new_bodies`` as
+    on_new_bodies's pairs); a line with its ms a step (the last epoch: from
+    the end of its validation to the test), examples/s, validation users/s
+    and peak memory. A gate that fails raises, or with ``failed`` (a list)
+    adds its message there. Returns (seen, the launches)."""
+    seen = run_spied(torch, args)
+    counts = launch_counts(sorted(set(CF_KERNELS + RANK_KERNELS)))
+    errors = []
+    try:
+        test = learned_and_repeated(seen, args, phase, steps, min_value, metric)
+    except AssertionError as e:
+        test = None
+        errors.append(str(e))
+    last_s = seen["marks"][-2] - seen["marks"][-3]
+    valid = seen["evals"][:-1]
+    batch = int(args["batch_size"])
+    emit({"phase": phase, **extra, "batch": batch, "learning_rate": args["learning_rate"],
+          "steps": len(seen["loss"]), "epochs": args["epochs"],
+          "ms_per_step": last_s * 1e3 / steps, "examples_per_s": batch * steps / last_s,
+          "run_s": seen["run_s"],
+          "first_losses": seen["loss"][:3].tolist(), "last_losses": seen["loss"][-3:].tolist(),
+          "valid": [{"result": r, "seconds": s, "rows_per_s": n / s} for r, s, n in valid],
+          "test": test, "launches": counts, "peak_mem_bytes": seen["peak"], "card": card})
+    bad = [k for k in want if counts[k] <= 0] + [k for k in none if counts[k] != 0] \
+        + [k for k, n in (exact or {}).items() if counts[k] != n]
+    if bad:
+        errors.append(f"{phase}: launches {counts}, wrong for {bad}")
+    try:
+        on_new_bodies(phase, counts, new_bodies)
+    except AssertionError as e:
+        errors.append(str(e))
+    if errors and failed is None:
+        raise AssertionError("; ".join(errors))
+    if errors:
+        failed.extend(errors)
+    return seen, counts
+
+
 def seq_family_path(torch, card: str):
     """main.run(task=train) of each of the six models at run_seq_benchmark.sh's
-    options, then task=test from its best checkpoint; row 6's launches
-    counted over each run; then one step from the trained weights at dropout
-    0 through the kernels and through the plain versions (check_family).
+    options, then task=test from its best checkpoint, under run_and_gate
+    (row 6 launched once a step for each table the step gathers, on its
+    sorted body); then one step from the trained weights at dropout 0
+    through the kernels and through the plain versions (check_family).
     Returns (the launches summed over the six runs, SVD++'s captured
     scatter calls)."""
     t0 = time.perf_counter()
@@ -2779,35 +2943,11 @@ def seq_family_path(torch, card: str):
     total, captured, failed = dict.fromkeys(("scatter_add", "scatter_add_sorted"), 0), None, []
     for name in FAMILY:
         args = family_args(name, data, out)
-        seen = run_spied(torch, args)
-        counts = launch_counts(("scatter_add", "scatter_add_sorted", "member"))
-        try:
-            test = learned_and_repeated(seen, args, f"seq_family_path {name}", FAMILY_STEPS,
-                                        FAMILY_MIN_HIT10)
-        except AssertionError as e:     # the other models still run and print
-            failed.append(str(e))
-            test = None
-        # marks: [v0 start, v0 end, ..., last valid end, test start, test end]:
-        # the last epoch runs between the last two
-        last_s = seen["marks"][-2] - seen["marks"][-3]
-        per_step = len(FAMILY_TABLES.get(name, ("item_embedding",) * 2))
-        valid = seen["evals"][:-1]
-        line = {"phase": "seq_family_path", "model": name, "batch": FAMILY_BATCH,
-                "d": FAMILY_EMB, "hidden_size": seen["trainer"].model.hidden_size,
-                "learning_rate": args["learning_rate"],
-                "steps": len(seen["loss"]), "epochs": FAMILY_EPOCHS,
-                "examples_per_s": FAMILY_BATCH * FAMILY_STEPS / last_s,
-                "ms_per_step": last_s * 1e3 / FAMILY_STEPS, "run_s": seen["run_s"],
-                "first_losses": seen["loss"][:3].tolist(), "last_losses": seen["loss"][-3:].tolist(),
-                "valid": [{"result": r, "seconds": s} for r, s, _ in valid],
-                "test": test, "launches": counts, "scatter_per_step": per_step,
-                "peak_mem_bytes": seen["peak"], "card": card}
-        emit(line)
-        steps = len(seen["loss"])
-        if counts["scatter_add"] != per_step * steps \
-                or counts["scatter_add_sorted"] != counts["scatter_add"]:
-            failed.append(f"seq_family_path {name}: row 6 launched {counts}, not "
-                          f"{per_step} a step on its sorted body over {steps} steps")
+        n = len(FAMILY_TABLES.get(name, ("item_embedding",) * 2)) * FAMILY_STEPS * FAMILY_EPOCHS
+        seen, counts = run_and_gate(torch, args, "seq_family_path", FAMILY_STEPS,
+                                    FAMILY_MIN_HIT10, card, exact={"scatter_add": n,
+                                                                   "scatter_add_sorted": n},
+                                    failed=failed, model=name, d=FAMILY_EMB)
         for k in total:
             total[k] += counts[k]
         profile_step(torch, seen["trainer"], seen["train_data"], "seq_family_profile", card,
@@ -2834,77 +2974,32 @@ def profile_step(torch, trainer, train_data, phase, card, **extra):
     batch = to_device(next(iter(train_data)), "cuda")
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    emit({"phase": phase, "what": "one train step", **extra, "batch": len(batch["user_id"]),
+    emit({"phase": phase, "what": "one train step", **extra, "batch": len(batch["weight"]),
           **device_profile(torch, lambda: trainer.train_step(batch)), "card": card})
 
 
 def check_family(torch, name, trainer, train_data):
-    """One training batch from the trained weights at dropout 0, through
-    the kernels (row 6 alone on this path) and through the plain versions:
-    the loss and every gradient leaf; the tables the step's gathers
-    scatter into, one launch each; ConvFormer's hidden dropout by its keep
-    rate on the card. Returns the step's scatter calls (ids, rows,
-    n_rows)."""
+    """check_model_step on one training batch, with the tables the step's
+    gathers scatter into (row 6 alone on this path), one launch each; then
+    ConvFormer's hidden dropout by its keep rate on the card. Returns the
+    step's scatter calls (ids, rows, n_rows)."""
     from unirec_tpu_torch.models.modules import DropoutRNG, apply_dropout
-    from unirec_tpu_torch.ops import scatter_accum as SA
-    from unirec_tpu_torch.utils import to_device
-    from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params
-    from unirec_tpu_torch.utils.registry import get_model_class
-    cfg = dict(trainer.config, hidden_dropout_prob=0.0, dropout_prob=0.0)
-    model = get_model_class(name)(cfg)
-    load_flax_params(model, to_flax_params(trainer.model))
-    model.to("cuda")
-    params = list(model.parameters())
-    names = [n for n, _ in model.named_parameters()]
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
-    batch = trainer._augmenter.augment(to_device(next(iter(train_data)), "cuda"), gen)
-    with torch.no_grad():     # the scores whose sigmoid is 1.0 in f32 (finite BCE there)
-        scores = model._predict_layer(model._user_emb_from_batch(batch), model.forward_item_emb(
-            batch["item_id"]), batch.get("user_id"), batch["item_id"])
-        saturated = float((torch.sigmoid(scores.float()) == 1.0).float().mean())
-    tables, calls, gather = [], [], SA.gather_vmem
-    by_ptr = {p.data_ptr(): n.rsplit(".", 1)[0] for n, p in model.named_parameters()}
-
-    def spy_gather(table, ids):
-        tables.append(by_ptr.get(table.data_ptr(), "?"))
-        return gather(table, ids)
-
-    def loss_grads():
-        loss, _ = model(batch, train=True, rng=DropoutRNG(SEED + 81, "cuda"))
-        return loss.detach(), torch.autograd.grad(loss, params)
-
-    with mock.patch.object(SA, "gather_vmem", spy_gather), \
-            call_capture(SA, "_scatter_cuda", calls):
-        loss_k, grads_k = loss_grads()
-    with plain_versions():
-        loss_p, grads_p = loss_grads()
-    errs, _ = leaf_errs(grads_k, grads_p)
-    errs = dict(zip(names, errs))
-    worst = max(errs, key=errs.get)
-    want = FAMILY_TABLES.get(name, ("item_embedding",) * 2)
-    line = {"phase": "seq_family_check", "model": name, "batch": len(batch["user_id"]),
-            "saturated_score_share": saturated,
-            "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
-            "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
-            "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
-            "grad_worst_leaf": worst, "grad_tol": FAMILY_GRAD_TOL,
-            "tables_gathered": tables, "scatter_calls": len(calls),
-            "scatter_rows": [int(c[0].numel()) for c in calls]}
+    _, calls = check_model_step(torch, "seq_family_check", trainer, train_data,
+                                tables=FAMILY_TABLES.get(name, ("item_embedding",) * 2),
+                                model=name)
     if name == "ConvFormer":
         p = float(trainer.config["hidden_dropout_prob"])
         x = torch.ones(4096, FAMILY_EMB, device="cuda")
         y = apply_dropout(x, p, True, DropoutRNG(SEED + 82, "cuda"))
         keep = float((y != 0).float().mean())
-        line["dropout"] = {"p": p, "keep_rate": keep, "kept_value": float(y.max()),
-                           "keep_tol": 4 * (p * (1 - p) / x.numel()) ** 0.5}
+        line = {"phase": "seq_family_check", "model": name, "dropout": {
+            "p": p, "keep_rate": keep, "kept_value": float(y.max()),
+            "keep_tol": 4 * (p * (1 - p) / x.numel()) ** 0.5}}
+        emit(line)
         if not (abs(keep - (1 - p)) <= line["dropout"]["keep_tol"]
                 and abs(float(y[y != 0].min()) - 1 / (1 - p)) < 1e-6
                 and abs(float(y.max()) - 1 / (1 - p)) < 1e-6):
             raise AssertionError(f"ConvFormer's dropout keeps the wrong share: {line}")
-    emit(line)
-    if not (line["loss_rel_diff"] <= 1e-6 and errs[worst] <= FAMILY_GRAD_TOL
-            and tuple(tables) == tuple(want) and len(calls) == len(want)):
-        raise AssertionError(f"seq_family_check {name}: {line}")
     return calls
 
 
@@ -3138,6 +3233,553 @@ def mlp_scorer_check(torch, side_trainer, card: str):
         raise AssertionError(f"mlp_scorer_check: kernels disagree with the plain versions: {line}")
 
 
+# ------------------------------------------------------------ the CF models
+# amazon-book.yaml's catalog: 52,644 users, 91,600 items (id 0 the padding of
+# both). Each user walks a group of CF_GROUP consecutive item ids for
+# CF_HIST[0]..CF_HIST[1]-1 training items, then one valid and one test item;
+# CF_EVAL_USERS users a split. MF: train_mf_bpr.sh's options, CF_STEPS batches
+# of 2,048 of the training pairs an epoch; MultiVAE: MultiVAE.yaml's widths and
+# train_cf_model.sh's options over every user's grouped history (52 batches
+# of 1,024). Chance at hit@10 is 10 / 91,600. Both train at the scripts' lr
+# 1e-3 for CF_EPOCHS epochs in place of 2: MF's hit@10 leaves chance in its
+# third (0.0032, then 0.03), MultiVAE's in its fifth (0.023, then 0.14;
+# PERF.md §4).
+CF_USERS, CF_ITEMS, CF_GROUP, CF_HIST, CF_EVAL_USERS = 52_644, 91_600, 200, (4, 13), 4096
+CF_STEPS, MF_BATCH, MF_NEG, VAE_BATCH = 100, 2048, 19, 1024
+CF_EPOCHS = {"MF": 4, "MultiVAE": 6}
+CF_MIN_HIT10 = 10 * 10 / CF_ITEMS            # ten times chance
+CF_KERNELS = ("scatter_add", "scatter_add_sorted", "member", "member_warp", "blockmax",
+              "blockmax_int8", "blockmax_mma", "blockmax_int8_mma")
+
+
+def write_cf_data(root: Path) -> dict:
+    """The walks of ``slice_walks`` at amazon-book's scale (seed SEED + 13):
+    user_history.pkl and train.pkl (every training pair), train_mf.pkl (MF's
+    CF_STEPS x MF_BATCH of them), valid.pkl and test.pkl (CF_EVAL_USERS users,
+    the next item of the walk). T1 tables where the yaml names T5 ones: one
+    held-out item a user."""
+    import pandas as pd
+    rng = np.random.default_rng(SEED + 13)
+    users, n, starts, owner, items, is_train = slice_walks(rng, CF_HIST, CF_GROUP, 2,
+                                                           n_users=CF_USERS, n_items=CF_ITEMS)
+    n_train = int(is_train.sum())
+    write_train_tables(root, rng, users, n, owner, items, is_train, n_train,
+                       ("user-item", "user-item"), n_users=CF_USERS, n_items=CF_ITEMS)
+    pd.read_pickle(root / "train.pkl").iloc[:CF_STEPS * MF_BATCH].to_pickle(root / "train_mf.pkl")
+    for name, off in (("valid", 0), ("test", 1)):
+        who = np.sort(rng.choice(len(users), CF_EVAL_USERS, replace=False))
+        pd.DataFrame({"user_id": users[who],
+                      "item_id": items[starts[who] + n[who] + off]}).to_pickle(root / f"{name}.pkl")
+    return {"users": len(users), "train_pairs": n_train}
+
+
+def cf_args(name: str, data: Path, out: Path):
+    """MF: examples/training/train_mf_bpr.sh (BPR, 19 negatives, the user
+    table, d=64, batch 2,048, lr 1e-3) with device_pipeline and
+    neg_membership_pallas; MultiVAE: train_cf_model.sh (AERecDataset, full
+    softmax, batch 1,024, lr 1e-3) at MultiVAE.yaml's widths (d=400, [200],
+    [200], anneal_cap 0.2 over 2,000,000 steps, 5 evaluation draws). Both
+    one-vs-all, evaluated 1,024 users a batch."""
+    common = {"task": "train", "model": name, "dataset_path": str(data),
+              "output_path": str(out / name), "exp_name": name, "seed": SEED,
+              "user_history_filename": "user_history", "valid_protocol": "one_vs_all",
+              "test_protocol": "one_vs_all", "learning_rate": 1e-3,
+              "epochs": CF_EPOCHS[name],
+              "early_stop": 10, "test_batch_size": EVAL_BATCH}
+    if name == "MF":
+        return {**common, "dataloader": "BaseDataset", "data_train_name": "train_mf",
+                "loss_type": "bpr", "n_sample_neg_train": MF_NEG, "has_user_emb": 1,
+                "metrics": "['hit@5;10', 'ndcg@5;10']", "key_metric": "ndcg@5",
+                "embedding_size": 64, "batch_size": MF_BATCH, "shuffle_train": 1,
+                "device_pipeline": 1, "neg_membership_pallas": 1}
+    return {**common, "dataloader": "AERecDataset", "loss_type": "fullsoftmax",
+            "n_sample_neg_train": 0, "metrics": "['hit@5;10;20', 'ndcg@5;10;20']",
+            "key_metric": "ndcg@5", "batch_size": VAE_BATCH, "embedding_size": 400,
+            "encoder_dims": [200], "decoder_dims": [200], "anneal_cap": 0.2,
+            "total_anneal_steps": 2_000_000, "eval_reparameter_sampling_times": 5}
+
+
+def mf_serve(torch, args, data: Path, card: str):
+    """reco-topk of CF_EVAL_USERS users (top-100) from MF's best checkpoint
+    through do_topk_reco, then timed through get_topk_recommendations with
+    the fused bf16 and int8 catalogs (rows 5, 5q); every served row valid and
+    the ids against the plain versions (mf_serve_check). Returns the
+    launches."""
+    from unirec_tpu_torch.data.history import UserHistory
+    from unirec_tpu_torch.main.reco_topk import do_topk_reco, get_topk_recommendations
+    from unirec_tpu_torch.utils.checkpoint import load_model_freely
+    out = Path(args["output_path"])
+    ckpt = out / "checkpoint" / "MF.pkl"
+    users = np.arange(1, CF_EVAL_USERS + 1, dtype=np.int64)
+    np.savetxt(out / "serve_users.txt", users, fmt="%d")
+    history = UserHistory.load(str(data / "user_history"), CF_USERS, "user-item_seq")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = do_topk_reco({"model_file": str(ckpt), "dataset_path": str(data),
+                        "dataset_name": str(out / "serve_users.txt"), "topk": TOPK,
+                        "test_batch_size": BATCH, "output_path": str(out / "topk.csv")})
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    model, cfg = load_model_freely(str(ckpt), "cuda")
+    modes = {"bf16": dict(cfg, test_batch_size=BATCH),
+             "int8": dict(cfg, test_batch_size=BATCH, catalog_int8=1)}
+    results, secs = {}, {}
+    for name, c in modes.items():
+        get_topk_recommendations(c, model, users[:BATCH], history, TOPK)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = get_topk_recommendations(c, model, users, history, TOPK)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    counts = launch_counts(CF_KERNELS)
+    emit({"phase": "mf_serve", "users": CF_EVAL_USERS, "items": CF_ITEMS, "topk": TOPK,
+          "batch": BATCH, "users_per_s": {k: CF_EVAL_USERS / v for k, v in secs.items()},
+          "entry_s": entry_s, "entry_equals_timed_run": bool(np.array_equal(ids, results["bf16"])),
+          "launches": counts, "card": card})
+    if min(counts[k] for k in ("blockmax_mma", "blockmax_int8_mma")) <= 0:
+        raise AssertionError(f"mf_serve never launched rows 5 and 5q: {counts}")
+    on_new_bodies("mf_serve", counts)
+    with torch.no_grad():
+        check_main_path(torch, model, modes["bf16"], users, history, modes, results,
+                        phase="mf_serve_check", n_items=CF_ITEMS, is_seqrec=False)
+    return counts
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def cf_path(torch, card: str):
+    """MF and MultiVAE through main.run on amazon-book-scale walks, each
+    with the shared gates (falling finite loss, best validation hit@10 at
+    least ten times chance, test from the best checkpoint equal), a step
+    through the kernels against the plain versions and a traced step; MF
+    then served from its checkpoint. Rows 6 and 8 in MF's training (8 on
+    its block body), 5 and 5q in its serving, 6 in MultiVAE's (its history
+    and every catalog row); row 8's line on one MF batch's (history,
+    candidates). Returns (the path's launches, that line)."""
+    from unirec_tpu_torch.ops import member as MB
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    data, out = root / "cf_data", root / "cf"
+    shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "cf_data", **write_cf_data(data), "seconds": time.perf_counter() - t0})
+    total = {}
+    args = cf_args("MF", data, out)
+    # MF's 19 negatives, 4 proposals each, are 76 candidates an example:
+    # row 8 runs its block body (its warp body takes at most 64)
+    seen, counts = run_and_gate(torch, args, "cf_path", CF_STEPS, CF_MIN_HIT10, card,
+                                want=("scatter_add", "scatter_add_sorted", "member"),
+                                none=("member_warp",), new_bodies=NEW_BODIES[:2], model="MF")
+    add_counts(total, counts)
+    store = []     # the step's one membership call: MF's (history, 76 candidates)
+    with call_capture(MB, "_member_cuda", store):
+        check_model_step(torch, "cf_path_check", seen["trainer"], seen["train_data"], model="MF")
+    if len(store) != 1:
+        raise AssertionError(f"cf_path: one MF batch called row 8 {len(store)} times, not once")
+    member = member_line(torch, *store[0], "cf_path MF")
+    del store
+    profile_step(torch, seen["trainer"], seen["train_data"], "cf_path_profile", card, model="MF")
+    del seen
+    add_counts(total, mf_serve(torch, args, data, card))
+    args = cf_args("MultiVAE", data, out)
+    vae_steps = -(-(CF_USERS - 1) // VAE_BATCH)
+    seen, counts = run_and_gate(torch, args, "cf_path", vae_steps, CF_MIN_HIT10, card,
+                                want=("scatter_add", "scatter_add_sorted"), none=("member",),
+                                model="MultiVAE")
+    add_counts(total, counts)
+    check_model_step(torch, "cf_path_check", seen["trainer"], seen["train_data"],
+                     model="MultiVAE")
+    profile_step(torch, seen["trainer"], seen["train_data"], "cf_path_profile", card,
+                 model="MultiVAE")
+    del seen
+    torch.cuda.empty_cache()
+    emit({"phase": "cf_path_launches", **total, "seconds": time.perf_counter() - t0})
+    return total, member
+
+
+# ------------------------------------------------------- the ranking models
+# prepare-adaranker on ml-10m-adaranker.yaml's catalog (9,175 items, id 0 the
+# padding), cut to ADA_USERS of its 69,584 users (the builder draws each
+# request's negatives in a Python loop, about 1 ms a user on this host class):
+# each user walks ADA_GROUP consecutive ids of the item's group for 6-10
+# items, one category an item (18 of them); then AdaRanker by
+# run_adaranker_pipeline.sh, RANK_STEPS batches of 256 of the training
+# groups an epoch, RANK_EVAL_ROWS validation and test groups. BST at
+# Beauty-rank.yaml's scale (22,364 users, 12,102 items) and FM at
+# Beauty-libfm.yaml's (46,557 features), groups of 1 positive from the
+# user's walk group and 20 negatives from outside it. The users' walk groups
+# are drawn by a Zipf law (RANK_ZIPF_S): with uniform groups neither
+# AdaRanker nor BST leaves chance in 100 steps (in both packages). Each model
+# trains at its script's settings (lr 1e-3, BST 5e-4; BST.yaml's dropout 0.5)
+# for RANK_EPOCHS epochs in place of 2: AdaRanker Base's best auc is 0.64 in
+# 3, 0.83 in 4; BST's 0.60 in 8, 0.996 in 9 (PERF.md §4).
+ADA_USERS, ADA_ITEMS, ADA_GROUP, ADA_CATES, ADA_NEG = 8192, 9176, 25, 18, 19
+BEAUTY_USERS, BEAUTY_ITEMS, BEAUTY_FEATS, BEAUTY_GROUP, RANK_NEG = 22_364, 12_102, 46_557, 50, 20
+RANK_STEPS, RANK_EVAL_ROWS, RANK_BATCH = 100, 4096, 400
+RANK_EPOCHS = {"ada": 4, "BST": 10, "FM": 2}
+RANK_MIN_AUC = 0.65                 # tests/test_rank_models.py's gate
+RANK_ZIPF_S = 2.0                   # the skew of the users' walk groups
+RANK_KERNELS = ("scatter_add", "scatter_add_sorted", "fused_attention", "fused_attention_mma",
+                "fused_attention_bwd", "fused_attention_bwd_mma", "fused_ffn", "fused_ffn_mma",
+                "fused_ffn_bwd", "fused_ffn_bwd_mma", "member")
+BST_KERNELS = ("scatter_add", "scatter_add_sorted") + RANK_KERNELS[2:10]
+
+
+def write_adaranker_raw(root: Path):
+    """'user item item ...' lines and an item -> [category] JSON (item %
+    ADA_CATES + 1): each user walks 6-10 consecutive ids of one group of
+    ADA_GROUP, from a random offset, 10% of the items uniform; the first 3
+    users of each group walk 10 items from offsets 0, 9 and 18 (so every
+    item is walked), the others' groups are drawn by a Zipf law (RANK_ZIPF_S)
+    over a random permutation of the groups (skewed popularity)."""
+    import json
+    rng = np.random.default_rng(SEED + 14)
+    root.mkdir(parents=True, exist_ok=True)
+    n_groups = (ADA_ITEMS - 1) // ADA_GROUP
+    p = 1.0 / np.arange(1, n_groups + 1) ** RANK_ZIPF_S
+    group_of = np.concatenate([np.repeat(np.arange(n_groups), 3), rng.permutation(n_groups)[
+        rng.choice(n_groups, ADA_USERS - 3 * n_groups, p=p / p.sum())]])
+    with open(root / "raw.txt", "w") as f:
+        for u in range(1, ADA_USERS + 1):
+            cover = u <= 3 * n_groups
+            n = 10 if cover else int(rng.integers(6, 11))
+            s = 9 * ((u - 1) % 3) if cover else int(rng.integers(0, ADA_GROUP))
+            items = 1 + group_of[u - 1] * ADA_GROUP + (s + np.arange(n)) % ADA_GROUP
+            noise = rng.random(n) < (0.0 if cover else 0.1)
+            items[noise] = rng.integers(1, ADA_ITEMS, int(noise.sum()))
+            f.write(f"{u} " + " ".join(map(str, items)) + "\n")
+    (root / "item2cate.json").write_text(json.dumps(
+        {str(i): [i % ADA_CATES + 1] for i in range(1, ADA_ITEMS)}))
+
+
+def cut_rank_tables(data: Path, train_rows: int) -> None:
+    """train_cut.pkl: ``train_rows`` of train.pkl (seed SEED + 15); valid_cut
+    and test_cut: their first RANK_EVAL_ROWS rows."""
+    import pandas as pd
+    rng = np.random.default_rng(SEED + 15)
+    train = pd.read_pickle(data / "train.pkl")
+    pick = np.sort(rng.choice(len(train), min(train_rows, len(train)), replace=False))
+    train.iloc[pick].reset_index(drop=True).to_pickle(data / "train_cut.pkl")
+    for name in ("valid", "test"):
+        pd.read_pickle(data / f"{name}.pkl").iloc[:RANK_EVAL_ROWS].to_pickle(
+            data / f"{name}_cut.pkl")
+
+
+def beauty_groups(rng, n_rows):
+    """``n_rows`` ranking groups over Beauty-rank's catalog: user u walks
+    BEAUTY_GROUP consecutive ids of group ``beauty_group_of`` (Zipf-drawn);
+    a group's positive is an item of the user's walk group, its RANK_NEG
+    negatives uniform over the other groups' items. Returns (users, items
+    [n_rows, 1 + RANK_NEG], the users' walk groups, n_groups)."""
+    n_groups = (BEAUTY_ITEMS - 1) // BEAUTY_GROUP
+    users = rng.integers(1, BEAUTY_USERS, n_rows)
+    ug = beauty_group_of(n_groups)[users]
+    pos = 1 + ug * BEAUTY_GROUP + rng.integers(0, BEAUTY_GROUP, n_rows)
+    negs = rng.integers(1, (n_groups - 1) * BEAUTY_GROUP + 1, (n_rows, RANK_NEG))
+    negs = np.where((negs - 1) // BEAUTY_GROUP >= ug[:, None], negs + BEAUTY_GROUP, negs)
+    return users, np.concatenate([pos[:, None], negs], 1), ug, n_groups
+
+
+def beauty_group_of(n_groups):
+    """Each Beauty user's walk group (index 0 unused): a Zipf law (RANK_ZIPF_S)
+    over a random permutation of the groups, seed SEED + 18."""
+    rng = np.random.default_rng(SEED + 18)
+    p = 1.0 / np.arange(1, n_groups + 1) ** RANK_ZIPF_S
+    return rng.permutation(n_groups)[rng.choice(n_groups, BEAUTY_USERS, p=p / p.sum())]
+
+
+def write_bst_data(root: Path) -> None:
+    """Beauty-rank's layout: user_history.pkl (every user's walk, 10-29
+    items) and T4 train/valid/test tables of groups (beauty_groups):
+    RANK_STEPS x RANK_BATCH training groups, RANK_EVAL_ROWS a held-out
+    split."""
+    import json
+
+    import pandas as pd
+    rng = np.random.default_rng(SEED + 16)
+    root.mkdir(parents=True, exist_ok=True)
+    n_groups = (BEAUTY_ITEMS - 1) // BEAUTY_GROUP
+    users = np.arange(1, BEAUTY_USERS)
+    lens = rng.integers(10, 30, len(users))
+    group_of = beauty_group_of(n_groups)
+    seqs = [1 + group_of[u] * BEAUTY_GROUP + (s + np.arange(n)) % BEAUTY_GROUP
+            for u, n, s in zip(users, lens, rng.integers(0, BEAUTY_GROUP, len(users)))]
+    pd.DataFrame({"user_id": users, "item_seq": seqs}).to_pickle(root / "user_history.pkl")
+    label = np.zeros(1 + RANK_NEG, np.float32)
+    label[0] = 1.0
+    for name, rows in (("train", RANK_STEPS * RANK_BATCH), ("valid", RANK_EVAL_ROWS),
+                       ("test", RANK_EVAL_ROWS)):
+        u, items, _, _ = beauty_groups(rng, rows)
+        pd.DataFrame({"user_id": u, "item_id_list": list(items),
+                      "label_list": [label] * rows}).to_pickle(root / f"{name}.pkl")
+    fmt = "user-item_group-label_group"
+    (root / "data.info").write_text(json.dumps({
+        "n_users": BEAUTY_USERS, "n_items": BEAUTY_ITEMS, "train_file_format": fmt,
+        "valid_file_format": fmt, "test_file_format": fmt,
+        "user_history_file_format": "user-item_seq"}))
+
+
+def write_fm_data(root: Path) -> None:
+    """Beauty-libfm's layout: T7 rows of three features each (the user's
+    walk group, the item, the item's group; 1.0 values; BEAUTY_FEATS
+    features in all), the groups of beauty_groups flattened positive first,
+    RANK_STEPS x RANK_BATCH groups to train on, RANK_EVAL_ROWS a held-out
+    split."""
+    import json
+
+    import pandas as pd
+    rng = np.random.default_rng(SEED + 17)
+    root.mkdir(parents=True, exist_ok=True)
+    for name, rows in (("train", RANK_STEPS * RANK_BATCH), ("valid", RANK_EVAL_ROWS),
+                       ("test", RANK_EVAL_ROWS)):
+        _, items, ug, n_groups = beauty_groups(rng, rows)
+        items = items.reshape(-1)
+        idx = np.stack([1 + np.repeat(ug, 1 + RANK_NEG), 1 + n_groups + items,
+                        1 + n_groups + BEAUTY_ITEMS + (items - 1) // BEAUTY_GROUP], 1)
+        label = np.zeros((rows, 1 + RANK_NEG), np.float32)
+        label[:, 0] = 1.0
+        pd.DataFrame({"label": label.reshape(-1), "index_list": list(idx),
+                      "value_list": list(np.ones(idx.shape, np.float32))}).to_pickle(
+            root / f"{name}.pkl")
+    fmt = "label-index_group-value_group"
+    (root / "data.info").write_text(json.dumps({
+        "n_users": BEAUTY_USERS, "n_items": BEAUTY_ITEMS, "n_feats": BEAUTY_FEATS,
+        "train_file_format": fmt, "valid_file_format": fmt, "test_file_format": fmt}))
+
+
+def rank_args(name: str, data: Path, out: Path, **over):
+    """AdaRanker: run_adaranker_pipeline.sh (GRU base, d=64, L=10, dropout
+    0.6, batch 256, lr 1e-3, one-vs-k, auc/group_auc); BST:
+    run_bst_beauty_rank.sh (d=64, 2 layers, 4 heads, inner 128, L=20, lr
+    5e-4, device_pipeline, key metric auc; BST.yaml's dropout 0.5) with
+    use_fused_attention and use_fused_ffn; FM: run_fm_beauty_libfm.sh
+    (RankDataset, group_size 21, d=64, lr 1e-3, auc). RANK_EPOCHS epochs;
+    evaluated 400 groups a batch."""
+    common = {"task": "train", "dataset_path": str(data), "output_path": str(out / name),
+              "exp_name": name, "seed": SEED, "learning_rate": 1e-3,
+              "valid_protocol": "one_vs_k", "test_protocol": "one_vs_k",
+              "metrics": "['auc', 'group_auc']", "key_metric": "auc",
+              "test_batch_size": RANK_BATCH, "embedding_size": 64, "n_sample_neg_train": 0}
+    if name.startswith("ada"):
+        return {**common, "model": "AdaRanker", "dataloader": "SeqRecDataset",
+                "user_history_filename": "user_history", "data_train_name": "train_cut",
+                "data_valid_name": "valid_cut", "data_test_name": "test_cut",
+                "epochs": RANK_EPOCHS["ada"], "early_stop": 15, "batch_size": 256,
+                "max_seq_len": 10,
+                "dropout_prob": 0.6, "key_metric": "group_auc", "base_model": "GRU", **over}
+    if name == "BST":
+        return {**common, "model": "BST", "dataloader": "SeqRecDataset", "dataset": "Beauty-rank",
+                "user_history_filename": "user_history", "n_layers": 2, "n_heads": 4,
+                "inner_size": 128, "max_seq_len": 20, "learning_rate": 5e-4,
+                "epochs": RANK_EPOCHS["BST"], "device_pipeline": 1,
+                "use_fused_attention": 1, "use_fused_ffn": 1, "batch_size": RANK_BATCH}
+    return {**common, "model": "FM", "dataloader": "RankDataset", "dataset": "Beauty-libfm",
+            "group_size": 1 + RANK_NEG, "epochs": RANK_EPOCHS["FM"], "batch_size": RANK_BATCH}
+
+
+def check_infer_rows(torch, args, rows: int):
+    """task=infer from the best checkpoint: one line of 1 + RANK_NEG finite
+    scores a test group."""
+    from unirec_tpu_torch.main import main as main_mod
+    out = Path(args["output_path"]) / "infer"
+    t0 = time.perf_counter()
+    main_mod.run({"task": "infer", "model_file": str(Path(args["output_path"]) / "checkpoint"
+                                                     / f"{args['exp_name']}.pkl"),
+                  "dataset_path": args["dataset_path"], "output_path": str(out),
+                  "exp_name": "infer"})
+    scores = np.loadtxt(out / "infer.infer.txt", ndmin=2)
+    line = {"phase": "rank_infer", "model": args["model"], "rows": int(scores.shape[0]),
+            "width": int(scores.shape[1]), "finite": bool(np.isfinite(scores).all()),
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if scores.shape != (rows, 1 + RANK_NEG) or not line["finite"]:
+        raise AssertionError(f"rank_infer: {line}")
+
+
+def rank_path(torch, card: str):
+    """prepare-adaranker through the port's CLI, then AdaRanker's three
+    stages (Base, Ada-Ranker, Ada-Ranker fine-tuned from the Base
+    checkpoint), BST (then task=infer) and FM through main.run, each with the
+    shared gates (best validation auc at least RANK_MIN_AUC), a step through
+    the kernels against the plain versions and a traced step. Row 6 in
+    AdaRanker and BST, rows 10-13 in BST, no kernel in FM. Returns the
+    path's launches."""
+    from unirec_tpu_torch import cli
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    raw, ada, out = root / "ada_raw", root / "ada_data", root / "rank"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(ada, ignore_errors=True)
+    write_adaranker_raw(raw)
+    t1 = time.perf_counter()
+    if cli.main(["prepare-adaranker", "--infile", str(raw / "raw.txt"), "--item2cate_file",
+                 str(raw / "item2cate.json"), "--out_dir", str(ada), "--n_neg_k", str(ADA_NEG),
+                 "--pretrain_item_emb", "1", "--embedding_size", "64"]) != 0:
+        raise AssertionError("prepare-adaranker failed")
+    prep_s = time.perf_counter() - t1
+    cut_rank_tables(ada, RANK_STEPS * 256)
+    info = __import__("json").loads((ada / "data.info").read_text())
+    emit({"phase": "rank_data", "adaranker": info, "prepare_adaranker_s": prep_s,
+          "item_emb_rows": sum(1 for _ in open(ada / "item_emb_64.txt")),
+          "seconds": time.perf_counter() - t0})
+    if info["n_items"] != ADA_ITEMS:
+        raise AssertionError(f"prepare-adaranker: {info}")
+    total = {}
+    stages = (("ada_base", {"train_type": "Base"}), ("ada_ranker", {"train_type": "Ada-Ranker"}),
+              ("ada_finetune", {"train_type": "Ada-Ranker", "load_pretrained_model": 1,
+                                "model_file": str(out / "ada_base" / "checkpoint"
+                                                  / "ada_base.pkl")}))
+    for name, over in stages:
+        args = rank_args(name, ada, out, **over)
+        seen, counts = run_and_gate(torch, args, "rank_path", RANK_STEPS, RANK_MIN_AUC, card,
+                                    metric="auc", want=("scatter_add", "scatter_add_sorted"),
+                                    none=BST_KERNELS[2:] + ("member",), model=name)
+        add_counts(total, counts)
+        check_model_step(torch, "rank_path_check", seen["trainer"], seen["train_data"],
+                         model=name)
+        if name == "ada_ranker":
+            profile_step(torch, seen["trainer"], seen["train_data"], "rank_path_profile", card,
+                         model=name)
+        del seen
+    t1 = time.perf_counter()
+    bst, fm = root / "bst_data", root / "fm_data"
+    write_bst_data(bst)
+    write_fm_data(fm)
+    emit({"phase": "rank_data", "beauty_s": time.perf_counter() - t1})
+    args = rank_args("BST", bst, out)
+    seen, counts = run_and_gate(torch, args, "rank_path", RANK_STEPS, RANK_MIN_AUC, card,
+                                metric="auc", want=BST_KERNELS, none=("member",), model="BST")
+    add_counts(total, counts)
+    check_model_step(torch, "rank_path_check", seen["trainer"], seen["train_data"], model="BST")
+    profile_step(torch, seen["trainer"], seen["train_data"], "rank_path_profile", card,
+                 model="BST")
+    del seen
+    reset_counts()
+    check_infer_rows(torch, args, RANK_EVAL_ROWS)
+    infer_counts = launch_counts(RANK_KERNELS)
+    if infer_counts["fused_attention_mma"] <= 0 or infer_counts["fused_ffn_mma"] <= 0:
+        raise AssertionError(f"BST's infer never launched rows 10 and 12: {infer_counts}")
+    add_counts(total, infer_counts)
+    args = rank_args("FM", fm, out)
+    seen, counts = run_and_gate(torch, args, "rank_path", RANK_STEPS, RANK_MIN_AUC, card,
+                                metric="auc", none=tuple(sorted(set(CF_KERNELS + RANK_KERNELS))),
+                                model="FM")
+    check_model_step(torch, "rank_path_check", seen["trainer"], seen["train_data"], model="FM")
+    profile_step(torch, seen["trainer"], seen["train_data"], "rank_path_profile", card,
+                 model="FM")
+    del seen
+    torch.cuda.empty_cache()
+    emit({"phase": "rank_path_launches", **total, "seconds": time.perf_counter() - t0})
+    return total
+
+
+def kernel_bst_shape(torch):
+    """Rows 10-13 at BST's training shape: 400 groups of 21 candidates =
+    8,400 sequences of L = 21 (the history of 20 and the candidate), 4 heads
+    of 16, the key-padding mask [N, 1, 1, L]; the FFN over their 176,400
+    tokens at d = 64, inner 128, swish; each in f32 and bf16, each against
+    its plain version, timed, with its bound and the library call
+    (scaled_dot_product_attention, forward and forward + backward;
+    addmm -> silu -> addmm for row 12). Returns the bf16 lines by row."""
+    import torch.nn.functional as F
+    from unirec_tpu_torch.models.modules import causal_attention_mask
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import ffn as FF
+    g = torch.Generator(device="cuda").manual_seed(SEED + 95)
+    N, H, L, hd, D, Fi = RANK_BATCH * (1 + RANK_NEG), 4, 21, 16, 64, 128
+    seq = torch.randint(0, 4, (N, L), generator=g, device="cuda")
+    seq[:, -1] = 1
+    mask = causal_attention_mask(seq, bidirectional=True)
+    rows = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        tol = ATT_TOL if dt == "bfloat16" else 1e-5
+        q, k, v, do = (torch.randn(N, H, L, hd, generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lib_mask = mask.to(dtype)
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lib_mask)
+            torch.autograd.grad(o, (qs, ks, vs), do)
+
+        with torch.enable_grad():
+            lib_bwd = cuda_ms(lib_fwd_bwd, iters=10)
+        out, ref = AT._fwd_cuda(q, k, v, mask), AT._fwd_plain(q, k, v, mask)
+        flops = 4 * N * H * L * L * hd
+        line = {"phase": "kernel", "name": "fused_attention", "what": "BST", "dtype": dt,
+                "body": AT._fwd_body(dtype, L, hd), "shape": [N, H, L, hd],
+                "mask": list(mask.shape),
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                "tol": tol * float(ref.float().abs().max()),
+                "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask)),
+                "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask), iters=5),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=lib_mask))}
+        line["bound_ms"], line["bound_by"] = bound_ms(nbytes(q, k, v, mask, out), flops, dt)
+        got, refb = AT._bwd_cuda(q, k, v, mask, do), AT._bwd_plain(q, k, v, mask, do)
+        errs, _ = leaf_errs(got, refb)
+        line_b = {"phase": "kernel", "name": "fused_attention_bwd", "what": "BST", "dtype": dt,
+                  "body": AT._bwd_body(dtype, L, hd), "shape": [N, H, L, hd],
+                  "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got, refb)),
+                  "max_rel_err": max(errs), "tol": BWD_TOL if dt == "bfloat16" else 1e-4,
+                  "kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do), iters=10),
+                  "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do), iters=3),
+                  "library_ms": lib_bwd,
+                  "library_note": "scaled_dot_product_attention forward plus backward"}
+        line_b["bound_ms"], line_b["bound_by"] = bound_ms(nbytes(q, k, v, mask, do, *got),
+                                                          5 * flops // 2, dt)
+        del q, k, v, do, qs, ks, vs, out, ref, got, refb
+        rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device="cuda") * std).to(dtype)  # noqa: E731
+        T = N * L
+        x, w1, b1, w2, b2, dy = (rn(T, D), rn(D, Fi, std=0.2), rn(Fi, std=0.1),
+                                 rn(Fi, D, std=0.2), rn(D, std=0.1), rn(T, D))
+        y, yr = FF._fwd_cuda(x, w1, b1, w2, b2, "swish"), FF._fwd_plain(x, w1, b1, w2, b2, "swish")
+        fl = 4 * T * D * Fi
+        line_f = {"phase": "kernel", "name": "fused_ffn", "what": "BST", "dtype": dt,
+                  "body": FF._fwd_body(dtype, D, Fi), "tokens": T, "d": D, "inner": Fi,
+                  "max_abs_err": float((y.float() - yr.float()).abs().max()),
+                  "tol": tol * float(yr.float().abs().max()),
+                  "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish")),
+                  "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish"), iters=5),
+                  "library_ms": cuda_ms(lambda: torch.addmm(b2, F.silu(torch.addmm(b1, x, w1)),
+                                                            w2)),
+                  "library_note": "addmm -> silu -> addmm, three calls"}
+        line_f["bound_ms"], line_f["bound_by"] = bound_ms(nbytes(x, w1, b1, w2, b2, y), fl, dt)
+        gb, gr = FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish"), \
+            FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")
+        errs, _ = leaf_errs(gb, gr)
+        line_fb = {"phase": "kernel", "name": "fused_ffn_bwd", "what": "BST", "dtype": dt,
+                   "body": FF._bwd_body(dtype, D, Fi), "tokens": T,
+                   "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                      for a, b in zip(gb, gr)),
+                   "max_rel_err": max(errs), "tol": BWD_TOL if dt == "bfloat16" else 1e-4,
+                   "kernel_ms": cuda_ms(lambda: FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish"),
+                                        iters=10),
+                   "plain_ms": cuda_ms(lambda: FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"),
+                                       iters=3),
+                   "library_ms": None}
+        line_fb["bound_ms"], line_fb["bound_by"] = bound_ms(
+            nbytes(x, w1, b1, w2, b2, dy, *gb), 3 * fl, dt)
+        bad = []
+        for ln in (line, line_b, line_f, line_fb):
+            emit(ln)
+            err = ln.get("max_rel_err", ln["max_abs_err"])
+            if not err <= ln["tol"]:
+                bad.append(ln["name"] + " " + dt)
+        if bad:
+            raise AssertionError(f"rows 10-13 at BST's shape disagree: {bad}")
+        rows[dt] = {"fused_attention": line, "fused_attention_bwd": line_b,
+                    "fused_ffn": line_f, "fused_ffn_bwd": line_fb}
+        del x, w1, b1, w2, b2, dy, y, yr, gb, gr
+        torch.cuda.empty_cache()
+    return rows["bfloat16"]
+
+
 def main() -> int:
     try:
         import torch
@@ -3219,7 +3861,6 @@ def main() -> int:
     rows["scatter_add2"] = kernel_scatter2(torch, ids, grads)
     # row 8's line is one real batch of the entry path's (rows, cand)
     rows["member"] = member_line(torch, *entry_member[0], "entry path")
-    rows["member_block"] = older_body_row(rows["member"], "block", "block")
     del entry_scatter, entry_member, ids, grads
     profile_entry_path(torch, trainer, train_data, ev, eval_batch, card)
     del trainer, train_data, ev, eval_batch
@@ -3265,6 +3906,13 @@ def main() -> int:
                                                        torch, card)
     timed("mlp_scorer_check", mlp_scorer_check, torch, trainer, card)
     del trainer
+    torch.cuda.empty_cache()
+    # row 8's block body runs on MF's 76 candidates an example alone
+    cf_counts, rows["member_block"] = timed("cf_path", cf_path, torch, card)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        timed("kernel_bst_shape", kernel_bst_shape, torch)
+    rank_counts = timed("rank_path", rank_path, torch, card)
 
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
@@ -3318,7 +3966,8 @@ def main() -> int:
                                    "unirec_tpu/ops/attention.py:44")}
     # the body each line times: rows 1-5q and 12 list their tensor-core body
     # ("mma") and their CUDA-core body, row 6 its sorted-tile body and its
-    # per-row body, row 8 its warp body and its block body, the older body's
+    # per-row body, row 8 its warp body (the entry path's ids) and its block
+    # body (cf_path MF's, the one path that takes it), the older body's
     # launches the rest of the kernel's; rows 9-11 and 13 name the body their
     # path shape takes; row 7 (not wired, as in JAX) launches row 6's kernel
     split = {**{n: ("mma", "cuda_core") for n in ("layer_fwd", "layer_bwd", "lastq_fwd",
@@ -3333,7 +3982,7 @@ def main() -> int:
     paths = {"serving": counts, "training": train_counts, "entry": entry_counts,
              "long": long_counts, "long_serve": serve_counts, "pop_session": pop_counts,
              "seq_family": family_counts, "side_inputs": side_counts,
-             "side_serve": side_serve_counts}
+             "side_serve": side_serve_counts, "cf": cf_counts, "rank": rank_counts}
 
     def launched(name, path):
         for base, (new, old) in split.items():

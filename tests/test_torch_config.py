@@ -75,6 +75,23 @@ def test_every_key_the_sequential_family_reads_has_a_default(model):
         assert cfg[key] == ref[key] and type(cfg[key]) is type(ref[key]), key
 
 
+@pytest.mark.parametrize("model", ["MF", "MultiVAE", "FM", "BST", "AdaRanker"])
+def test_every_key_the_cf_and_ranking_models_read_has_a_default(model):
+    """The CF and ranking models' keys, and the base keys they read, come out
+    of a freshly parsed config as from the JAX package's YAMLs."""
+    cfg = torch_config.parse_arguments({"model": model}, argv=[], device="cpu")
+    ref = jax_config.parse_arguments({"model": model}, argv=[])
+    for key in sorted(set(_yaml("model", f"{model}.yaml"))
+                      | {"embedding_size", "max_seq_len", "dropout_prob", "has_user_emb",
+                         "group_size", "score_clip_value", "loss_type", "use_pallas",
+                         "use_fused_ffn", "init_std"}):
+        assert cfg[key] == ref[key] and type(cfg[key]) is type(ref[key]), key
+    for key in ("aerec_max_hist", "n_feats", "eval_reparameter_sampling_times",
+                "total_anneal_steps", "anneal_cap", "seq_decay", "train_type",
+                "base_model", "ada_reference_init", "use_fused_attention", "hidden_size"):
+        assert cfg.get(key) == ref.get(key), key
+
+
 def test_merge_matches_jax_with_dataset_and_cli(synth_dataset):
     root, _ = synth_dataset
     args = {"model": "SASRec", "dataset_path": root, "n_heads": 2}

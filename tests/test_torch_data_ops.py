@@ -294,9 +294,21 @@ def test_raw_batcher_matches_jax_order():
 
 
 def test_unported_sampling_options_raise():
+    """AERec rows are ported (they equal the JAX package's,
+    tests/test_torch_cf.py); MoRec's objective-aware training, which
+    samples from its own signal batches, is not and raises naming its
+    ROADMAP item."""
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.models.cf import MF
     items, lens = _history()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceAugmenter(_cfg(), UserHistory(items, lens), aerec=True, device="cpu")
+    aug = DeviceAugmenter(_cfg(), UserHistory(items, lens), aerec=True, device="cpu")
+    raw = {"user_id": torch.tensor([1, 2]), "item_id": torch.zeros(2, dtype=torch.int32),
+           "weight": torch.ones(2)}
+    out = aug.augment(raw, torch.Generator().manual_seed(0))
+    assert torch.equal(out["item_seq"], torch.from_numpy(items[[1, 2]]))
+    cfg = dict(_cfg(), n_users=30, enable_morec=1)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Trainer(cfg, MF(cfg), device="cpu")
 
 
 # ---------------------------------------------------- popularity negatives

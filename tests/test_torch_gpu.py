@@ -1662,3 +1662,120 @@ def test_side_inputs_launch_the_training_kernels(cuda):
         with torch.no_grad():
             ref, _ = model(batch, train=False)
     assert abs(float(loss.detach()) - float(ref)) <= 2e-3 * abs(float(ref))
+
+
+# ------------------------------------------------- the CF and ranking models
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_at_bst_width_matches_plain(cuda, dtype, p):
+    """Rows 10 and 11 at BST's shape: 4 heads of 16, L = 21 (the history of
+    20 and the candidate), the bidirectional key-padding mask [N, 1, 1, L];
+    bf16 on the tensor-core bodies (L and hd padded to 16 inside them)."""
+    from unirec_tpu_torch.models.modules import causal_attention_mask
+    from unirec_tpu_torch.ops import attention as AT
+    g = torch.Generator(device=cuda).manual_seed(13)
+    N, H, L, hd = 512, 4, 21, 16
+    q, k, v = (torch.randn(N, H, L, hd, generator=g, device=cuda).to(dtype) for _ in range(3))
+    seq = torch.randint(0, 3, (N, L), generator=g, device=cuda)
+    seq[:, -1] = 1                                   # the candidate is always a key
+    mask = causal_attention_mask(seq, bidirectional=True)
+    assert mask.shape == (N, 1, 1, L) and AT.fused_supported(q, mask)
+    drop = LY.drop_params(p, 0.0, True, 77)
+    mma = AT.fused_attention.launches_mma, AT.fused_attention_bwd.launches_mma
+    out = AT._fwd_cuda(q, k, v, mask, drop)
+    assert _rel(out, AT._fwd_plain(q, k, v, mask, drop)) <= ATT_TOL[dtype]
+    do = torch.randn_like(q.float()).to(dtype)
+    got = AT.fused_attention_bwd(q, k, v, mask, do, drop)
+    for a, b in zip(got, AT._bwd_plain(q, k, v, mask, do, drop)):
+        assert _rel(a, b) <= ATT_TOL[dtype]
+    bf16 = int(dtype == torch.bfloat16)
+    assert (AT.fused_attention.launches_mma, AT.fused_attention_bwd.launches_mma) == \
+        (mma[0] + bf16, mma[1] + bf16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_at_bst_width_matches_plain(cuda, dtype):
+    """Rows 12 and 13 at BST's shape: d = 64, inner 128, swish, 21 rows an
+    example."""
+    from unirec_tpu_torch.ops import ffn as FF
+    g = torch.Generator(device=cuda).manual_seed(14)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=cuda) * std).to(dtype)  # noqa: E731
+    T = 512 * 21
+    x, w1, b1, w2, b2, dy = (rn(T, 64), rn(64, 128, std=0.2), rn(128, std=0.1),
+                             rn(128, 64, std=0.2), rn(64, std=0.1), rn(T, 64))
+    assert _rel(FF._fwd_cuda(x, w1, b1, w2, b2, "swish"),
+                FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[dtype]
+    for a, b in zip(FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish"),
+                    FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")):
+        assert _rel(a, b) <= ATT_TOL[dtype]
+
+
+CF_RANK_MODELS = {
+    "MF": dict(loss_type="bpr", has_user_emb=True),
+    "MultiVAE": dict(encoder_dims=[48], decoder_dims=[48], eval_reparameter_sampling_times=0),
+    "FM": dict(loss_type="bce", n_feats=300),
+    "BST": dict(loss_type="bce", n_layers=2, n_heads=4, inner_size=128, hidden_act="swish",
+                use_fused_attention=1, use_fused_ffn=1, max_seq_len=20),
+    "AdaRanker-GRU": dict(loss_type="bce", base_model="GRU", train_type="Ada-Ranker"),
+    "AdaRanker-SASRec": dict(loss_type="bce", base_model="SASRec", train_type="Ada-Ranker",
+                             n_layers=1, n_heads=2, inner_size=128, use_fused_attention=1,
+                             use_fused_ffn=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CF_RANK_MODELS))
+def test_cf_and_rank_models_on_the_card_match_the_cpu(cuda, name):
+    """Each model with the same weights and batch on the card (its kernels:
+    row 6 under every masked gather, rows 10-13 in BST and the SASRec
+    AdaRanker) and on the CPU (the plain versions), f32, dropout 0:
+    predict, the loss at train=False and every gradient, each within 1e-4
+    of its leaf's largest (a leaf whose exact gradient is zero of its
+    partner's: a key bias of its query bias, FiLM's shift under the SASRec
+    base's LayerNorm of FiLM's scale); the row 6 launches rise (FM's
+    none)."""
+    from unirec_tpu_torch import config as torch_config
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    from unirec_tpu_torch.utils.registry import get_model_class
+    model_name = name.split("-")[0]
+    args = dict(dict(n_users=200, n_items=500, embedding_size=64, max_seq_len=10,
+                     compute_dtype="float32", vmem_embedding_grad=1, hidden_dropout_prob=0.0,
+                     attn_dropout_prob=0.0, dropout_prob=0.0, model=model_name),
+                **CF_RANK_MODELS[name])
+    cfg = torch_config.parse_arguments(args, argv=[], device="cpu")
+    rng = np.random.default_rng(0)
+    B, G, L = 64, 21, int(cfg["max_seq_len"])
+    seq = rng.integers(1, 500, (B, L))
+    seq[:8, :L // 2] = 0
+    label = np.zeros((B, G), np.float32)
+    label[:, 0] = 1.0
+    batch = {"user_id": rng.integers(1, 200, B), "item_id": rng.integers(1, 500, (B, G)),
+             "label": label, "weight": np.ones(B, np.float32), "item_seq": seq,
+             "item_seq_len": (seq != 0).sum(1), "index_list": rng.integers(0, 300, (B, G, 5)),
+             "value_list": rng.random((B, G, 5)).astype(np.float32)}
+    if model_name == "MultiVAE":
+        batch["item_id"] = batch["item_id"][:, 0]
+    models, outs = [], []
+    for dev in ("cpu", cuda):
+        m = get_model_class(model_name)(cfg)
+        m.init_weights(torch.Generator().manual_seed(3))
+        m.to(dev)
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        n0 = SA.scatter_add_rows.launches
+        with torch.no_grad():
+            pred = m.predict(tb).float().cpu()
+        loss, _ = m(tb, train=False)
+        params = list(m.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        outs.append((pred, float(loss.detach()), [g.float().cpu() for g in grads],
+                     SA.scatter_add_rows.launches - n0))
+    (p0, l0, g0, s0), (p1, l1, g1, s1) = outs
+    assert s0 == 0 and (s1 == 0 if model_name == "FM" else s1 > 0)
+    assert _rel(p1, p0) <= 1e-4
+    assert abs(l1 - l0) <= 1e-4 * max(1.0, abs(l0))
+    names = [n for n, _ in m.named_parameters()]
+    scale = {n: float(g.abs().max()) for n, g in zip(names, g0)}
+    for n, a, b in zip(names, g1, g0):
+        ref = scale[n.replace("key.bias", "query.bias").replace(
+            "film_affine_emb_bias", "film_affine_emb_scale")]
+        assert float((a - b).abs().max()) <= 1e-4 * max(ref, 1e-6), n

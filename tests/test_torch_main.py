@@ -60,6 +60,16 @@ SLICE = dict(model="SASRec", dataloader="SeqRecDataset", embedding_size=16, hidd
              neg_membership_pallas=1, hidden_dropout_prob=0.1, attn_dropout_prob=0.1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op torch thread: six xdist workers with eight-thread teams
+    each stall small ops by orders of magnitude (tests/test_torch_seq_family.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trained(synth_dataset, tmp_path_factory):
     """One port training run: (config args, result, output dir, the losses)."""

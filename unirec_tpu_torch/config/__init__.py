@@ -146,6 +146,39 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         "seq_merge": False,
         "init_ratio": 0.005,
     },
+    "MF": {"embedding_size": 64, "has_user_emb": True},
+    "MultiVAE": {
+        "embedding_size": 400,
+        "encoder_dims": [200],
+        "decoder_dims": [200],
+        "anneal_cap": 0.2,
+        "total_anneal_steps": 2000000,
+        "has_user_emb": False,
+        "eval_reparameter_sampling_times": 5,
+    },
+    "FM": {"linear_mode": "gather"},
+    "BST": {
+        "n_layers": 2,
+        "n_heads": 16,
+        "inner_size": 512,
+        "hidden_dropout_prob": 0.5,
+        "attn_dropout_prob": 0.5,
+        "hidden_act": "swish",
+        "layer_norm_eps": "1e-10",
+        "seq_decay": -0.3,
+    },
+    "AdaRanker": {
+        "train_type": "Ada-Ranker",
+        "base_model": "GRU",
+        "n_layers": 2,
+        "n_heads": 2,
+        "inner_size": 256,
+        "hidden_dropout_prob": 0.5,
+        "attn_dropout_prob": 0.5,
+        "hidden_act": "gelu",
+        "layer_norm_eps": "1e-12",
+        "ada_reference_init": 0,
+    },
 }
 
 

@@ -8,8 +8,11 @@ widths, so batch assembly is slicing and vectorized ops (basedataset.py):
     (T6 also its padded ``time_seq_raw``);
   - rows with label 0 are dropped for the one_vs_all / one_vs_k protocols
     on T2/T2_1 (basedataset.py:48-54);
+  - T7 (libFM) rows keep their padded ``index_list`` / ``value_list`` and
+    their lengths (``feat_len``);
   - unlabeled formats get an implicit positive label at batch assembly.
-The other dataset classes of the JAX package are not ported yet and raise.
+AERecDataset groups the training split per user (one deduplicated history
+row each); RankDataset folds ``group_size`` consecutive rows into one.
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ from unirec_tpu_torch.constants import DataFormat, EvalProtocol
 from unirec_tpu_torch.utils import file_io
 
 _DATASETS: Dict[str, type] = {}
-_NOT_PORTED = {"AERecDataset": "Queue 1 item 7", "RankDataset": "Queue 1 item 8"}
 
 
 def register_dataset(name: str):
@@ -33,9 +35,6 @@ def register_dataset(name: str):
 
 
 def get_dataset_class(name: str) -> type:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md "
-                                  f"{_NOT_PORTED[name]})")
     if name not in _DATASETS:
         raise ValueError(f"unknown dataset class '{name}'. Registered: {sorted(_DATASETS)}")
     return _DATASETS[name]
@@ -81,8 +80,10 @@ class BaseDataset:
                 if fmt == DataFormat.T6.value and "time_seq" in df:
                     cols["time_seq_raw"] = _pad_group(df["time_seq"].tolist(), np.int64)
         elif fmt == DataFormat.T7.value:
-            raise NotImplementedError("T7 (libFM) rows are not ported yet "
-                                      "(ROADMAP.md Queue 1 item 8)")
+            cols["label"] = df["label"].to_numpy(np.float32)
+            cols["index_list"] = _pad_group(df["index_list"].tolist(), np.int64)
+            cols["value_list"] = _pad_group(df["value_list"].tolist(), np.float32)
+            cols["feat_len"] = np.asarray([len(a) for a in df["index_list"]], np.int32)
         elif fmt == DataFormat.T4.value:
             cols["user_id"] = df["user_id"].to_numpy(np.int64)
             cols["item_id"] = _pad_group(df["item_id_list"].tolist(), np.int64)
@@ -116,3 +117,63 @@ class SeqRecDataset(BaseDataset):
     from the packed UserHistory)."""
 
     is_sequential = True
+
+
+@register_dataset("AERecDataset")
+class AERecDataset(SeqRecDataset):
+    """Autoencoder training rows (aerecdataset.py:17-60): the training split
+    grouped per user into ``user_id``, a right-padded deduplicated (sorted)
+    ``hist`` matrix and ``hist_len``, format ``aerec-train``; T4 groups are
+    exploded first and T2/T2_1 rows with label 0 dropped. Evaluation splits
+    are SeqRecDataset's. (The JAX package's packed text reader bypasses
+    this grouping for .tsv/.csv/.txt tables, unirec_tpu/data/datasets.py:
+    59-61; the port groups every table.)"""
+
+    def _normalize(self, df):
+        if self.task != "train":
+            super()._normalize(df)
+            return
+        fmt = self.fmt
+        if fmt == DataFormat.T4.value:
+            df = df.explode(["item_id_list", "label_list"]).rename(
+                columns={"item_id_list": "item_id", "label_list": "label"})
+            fmt = DataFormat.T2.value
+        if fmt in (DataFormat.T2.value, DataFormat.T2_1.value):
+            df = df[df["label"] > 0]
+        if fmt in (DataFormat.T1.value, DataFormat.T1_1.value, DataFormat.T2.value,
+                   DataFormat.T2_1.value, DataFormat.T3.value):
+            grouped = df.groupby("user_id")["item_id"].apply(
+                lambda x: np.unique(np.asarray(x, dtype=np.int64)))
+            users = grouped.index.to_numpy(np.int64)
+            hists = grouped.tolist()
+        elif fmt in (DataFormat.T5.value, DataFormat.T6.value):
+            users = df["user_id"].to_numpy(np.int64)
+            hists = [np.unique(np.asarray(s, dtype=np.int64)) for s in df["item_seq"]]
+        else:
+            raise NotImplementedError(f"AERecDataset does not support format {fmt}")
+        self.cols = {"user_id": users, "hist": _pad_group(hists, np.int64),
+                     "hist_len": np.asarray([len(h) for h in hists], np.int32)}
+        self.n_rows = len(users)
+        self.fmt = "aerec-train"
+
+
+@register_dataset("RankDataset")
+class RankDataset(BaseDataset):
+    """Folds ``group_size`` consecutive rows into one sample
+    (rankdataset.py:25-52), for T7 (libFM) and the labeled formats; the
+    rows past the last whole group are dropped, and user_id / session_id
+    keep the group's first value (the whole group under ``<key>_group``)."""
+
+    def _normalize(self, df):
+        super()._normalize(df)
+        g = int(self.config.get("group_size", -1))
+        if g <= 1:
+            return
+        n = (self.n_rows // g) * g
+        cols = {k: v[:n].reshape(n // g, g, *v.shape[1:]) for k, v in self.cols.items()}
+        for k in ("user_id", "session_id"):
+            if k in cols:
+                cols[k + "_group"] = cols[k]
+                cols[k] = cols[k][:, 0]
+        self.cols = cols
+        self.n_rows = n // g

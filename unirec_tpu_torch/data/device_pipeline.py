@@ -13,7 +13,9 @@ unorder / autoregressive truncation rules, ``seq_last`` and an explicit
 per-row ``max_len`` (:162-216); the item-feature table kept on the device
 and gathered at the candidates and at the history window
 (``item_features``, ``item_seq_features``), and the T6 time rows windowed
-with the items (``time_seq``) (:61, 164, 244, 278-288).
+with the items (``time_seq``) (:61, 164, 244, 278-288). With ``aerec`` the
+rows are AERec training rows: the user's history table row (the training
+split's deduplicated items), cut at ``aerec_max_hist``, as ``item_seq``.
 
 Randomness comes from an explicit ``torch.Generator`` on the state's device
 (the JAX package's ``key``); the two frameworks draw different numbers from
@@ -45,9 +47,8 @@ class DeviceAugmenter:
                  features: Optional[np.ndarray] = None, aerec: bool = False,
                  device=None):
         c = config
-        if aerec:
-            raise NotImplementedError("AERec training rows are not ported yet "
-                                      "(ROADMAP.md Queue 1 item 7)")
+        self.aerec = bool(aerec)
+        self.aerec_cap = int(c.get("aerec_max_hist", 0) or 0)
         self.device = torch.device(device or "cuda")
         self.n_items = int(c["n_items"])
         self.n_neg = int(c.get("n_sample_neg_train", 0) or 0)
@@ -164,6 +165,15 @@ class DeviceAugmenter:
         rows = state["hist_items"][uid]
         lens = state["hist_lens"][uid]
         batch = {"user_id": raw["user_id"], "weight": raw["weight"]}
+        if self.aerec:
+            # AERec rows (:237-256): the user's own deduplicated history is
+            # the input and the reconstruction target
+            cap = self.aerec_cap or rows.shape[1]
+            batch["item_seq"] = rows[:, :cap]
+            batch["item_seq_len"] = torch.clamp(lens, max=cap)
+            if self.use_features:
+                batch["item_seq_features"] = state["features"][batch["item_seq"].long()]
+            return batch
         pos = raw["item_id"].to(torch.int32)
         pos2d = pos if pos.dim() == 2 else pos[:, None]
         in_label = raw.get("label")

@@ -5,9 +5,13 @@ prefetch thread): dicts of fixed-shape numpy arrays, with negative
 sampling, history windows (and their T6 time windows under ``time_seq``),
 the item-feature gathers and padding vectorized per batch; the
 final partial batch is padded to the full batch size and flagged by a
-per-row ``weight`` (1 real, 0 pad). Training runs on the device pipeline
-(data/device_pipeline.py): ``make_train_batcher`` returns the raw id
-batcher and the augmenter that the train step applies.
+per-row ``weight`` (1 real, 0 pad). T7 (libFM) rows pass their index,
+value and label columns through; AERec training rows (``aerec-train``)
+are the user's own history, cut at ``aerec_max_hist`` (pipeline.py:90-98).
+Training runs on the device pipeline (data/device_pipeline.py):
+``make_train_batcher`` returns the raw id batcher and the augmenter that
+the train step applies, except for T7 rows, which have no device table to
+gather from and train on shuffled host batches (main.py:326-343).
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ class Batcher:
                  history: Optional[UserHistory] = None,
                  sampler: Optional[NegativeSampler] = None,
                  batch_size: Optional[int] = None, seed: int = 2022,
-                 features: Optional[np.ndarray] = None):
+                 features: Optional[np.ndarray] = None, shuffle: bool = False):
         self.ds = dataset
+        self.shuffle = shuffle
         self.features = features
         self.config = config
         self.history = history
@@ -50,12 +55,17 @@ class Batcher:
             return 0
         return -(-n // b) if self.pad_incomplete or n < b else n // b
 
+    def set_epoch(self, epoch: int):
+        """Fast-forward the per-epoch rng (auto_resume)."""
+        self._epoch = int(epoch)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         rng = np.random.default_rng([self.seed, self._epoch])
         self._epoch += 1
         n, b = len(self.ds), self.batch_size
+        order = rng.permutation(n) if self.shuffle else np.arange(n)
         for start in range(0, n, b):
-            idx = np.arange(start, min(start + b, n))
+            idx = order[start:start + b]
             pad = b - len(idx)
             weight = np.ones(b, dtype=np.float32)
             if pad > 0:
@@ -68,6 +78,22 @@ class Batcher:
     def _assemble(self, idx: np.ndarray, weight: np.ndarray,
                   rng: np.random.Generator) -> Dict[str, np.ndarray]:
         cols = self.ds.cols
+        if self.ds.fmt == "aerec-train":
+            hist = cols["hist"][idx]
+            cap = int(self.config.get("aerec_max_hist", hist.shape[1]) or hist.shape[1])
+            batch = {"weight": weight, "user_id": cols["user_id"][idx].astype(np.int32),
+                     "item_seq": hist[:, :cap].astype(np.int32),
+                     "item_seq_len": np.minimum(cols["hist_len"][idx], cap).astype(np.int32)}
+            if self.features is not None:
+                batch["item_seq_features"] = self.features[batch["item_seq"]]
+            return batch
+        if "index_list" in cols:        # T7 libFM rows
+            batch = {"weight": weight, **{k: cols[k][idx] for k in
+                                          ("index_list", "value_list", "label")}}
+            batch["label"] = batch["label"].astype(np.float32)
+            if "session_id" in cols:
+                batch["session_id"] = cols["session_id"][idx].astype(np.int64)
+            return batch
         user_id = cols["user_id"][idx].astype(np.int64)
         item_id = cols["item_id"][idx]
         label = cols.get("label")
@@ -111,20 +137,37 @@ class Batcher:
         return batch
 
 
-def make_train_batcher(dataset: BaseDataset, config: Dict[str, Any], history: UserHistory,
-                       item_popularity=None, device=None, features=None
-                       ) -> Tuple[RawIdBatcher, DeviceAugmenter]:
-    """(raw id batcher, augmenter): the host yields the dataset's (user,
-    item) id columns; negative sampling and history windows run on the
-    device in the train step (``Trainer.set_device_augmenter``)."""
+def make_train_batcher(dataset: BaseDataset, config: Dict[str, Any],
+                       history: Optional[UserHistory], item_popularity=None, device=None,
+                       features=None) -> Tuple[Any, Optional[DeviceAugmenter]]:
+    """(batcher, augmenter). On the device pipeline the host yields the
+    dataset's (user, item) id columns and negative sampling and history
+    windows run on the device in the train step
+    (``Trainer.set_device_augmenter``); AERec rows read the training
+    split's own deduplicated histories, scattered into a user-indexed
+    matrix (main.py:220-245). T7 rows: shuffled host batches and no
+    augmenter."""
     cols = dataset.cols
-    batcher = RawIdBatcher(cols["user_id"], cols["item_id"],
-                           int(config.get("batch_size", 256)),
-                           seed=int(config.get("seed", 2022)),
-                           shuffle=bool(config.get("shuffle_train", 0)),
+    seed, bs = int(config.get("seed", 2022)), int(config.get("batch_size", 256))
+    shuffle = bool(config.get("shuffle_train", 0))
+    if "index_list" in cols:
+        return Batcher(dataset, config, batch_size=bs, seed=seed, shuffle=shuffle), None
+    aerec = dataset.fmt == "aerec-train"
+    if aerec:
+        n_users = int(config["n_users"])
+        mat = np.zeros((n_users, cols["hist"].shape[1]), np.int32)
+        lens = np.zeros(n_users, np.int32)
+        mat[cols["user_id"]] = cols["hist"]
+        lens[cols["user_id"]] = cols["hist_len"]
+        history = UserHistory(mat, lens)
+    elif history is None:
+        raise ValueError("training needs the user histories (user_history_filename)")
+    batcher = RawIdBatcher(cols["user_id"],
+                           np.zeros_like(cols["user_id"]) if aerec else cols["item_id"], bs,
+                           seed=seed, shuffle=shuffle,
                            extra={k: cols[k] for k in ("label", "max_len") if k in cols})
     return batcher, DeviceAugmenter(config, history, item_popularity, features=features,
-                                    device=device)
+                                    aerec=aerec, device=device)
 
 
 def make_eval_batcher(dataset: BaseDataset, config: Dict[str, Any],

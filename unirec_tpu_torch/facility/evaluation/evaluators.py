@@ -51,6 +51,14 @@ class _EvaluatorBase:
         if morec:
             raise NotImplementedError(f"the MoRec metrics {morec} are not ported yet "
                                       "(ROADMAP.md Queue 1 item 11)")
+        self._batches = 0
+
+    def _to_device(self, batch) -> Dict[str, Any]:
+        """The batch on the device, with ``reparam_seed``: a host int that
+        counts this evaluator's batches (evaluators.py:54-61), from which
+        MultiVAE seeds its evaluation noise, fresh each batch."""
+        self._batches += 1
+        return dict(to_device(batch, self.device), reparam_seed=self._batches)
 
     @torch.no_grad()
     def predict_scores(self, batcher) -> np.ndarray:
@@ -58,7 +66,7 @@ class _EvaluatorBase:
         without negatives, [rows, 1 + negatives] with them."""
         pending, keeps = [], []
         for batch in batcher:
-            pending.append(self.model.predict(to_device(batch, self.device)))
+            pending.append(self.model.predict(self._to_device(batch)))
             keeps.append(np.asarray(batch["weight"]) > 0)
         return np.concatenate([s.float().cpu().numpy()[k] for s, k in zip(pending, keeps)])
 
@@ -92,7 +100,7 @@ class OnePositiveEvaluator(_EvaluatorBase):
         group = int(self.config.get("group_size", -1) or -1)
         for batch in batcher:
             w = np.asarray(batch["weight"])
-            scores = self.model.predict(to_device(batch, self.device))
+            scores = self.model.predict(self._to_device(batch))
             if scores.dim() == 1:
                 scores = scores.reshape(-1, group) if group > 0 else scores.reshape(len(w), -1)
             noisy = M.add_tie_noise(scores, gen)
@@ -139,7 +147,7 @@ class OnePositiveEvaluator(_EvaluatorBase):
         gen = self._generator(seed_offset)
         weights, pending = [], []
         for batch in batcher:
-            jb = to_device(batch, self.device)
+            jb = self._to_device(batch)
             hist_items, hist_len = history.gather(np.asarray(batch["user_id"]))
             h = to_device({"items": hist_items, "len": hist_len}, self.device)
             scores = full_catalog_scores(self.model, jb, item_emb, tau)
@@ -179,7 +187,7 @@ class SessionWiseEvaluator(_EvaluatorBase):
         pending, labels, sessions = [], [], []
         for batch in batcher:
             w = np.asarray(batch["weight"])
-            pending.append((w, self.model.predict(to_device(batch, self.device))))
+            pending.append((w, self.model.predict(self._to_device(batch))))
             labels.append(np.asarray(batch["label"]).reshape(-1))
             sessions.append(np.asarray(batch["session_id"] if "session_id" in batch
                                        else batch["user_id"]).reshape(-1))

@@ -2,9 +2,10 @@
 
 One train step: the per-step randomness as a function of (seed,
 global_step), the JAX package's ``fold_in``; device-side augmentation
-(data/device_pipeline.py); forward and backward through the model, whose
-fused layers and embedding gathers run the port's CUDA kernels on the
-card; the optimizer update (core/optim.py) under the NaN guard, a
+(data/device_pipeline.py), or a host batch as it comes (T7 rows); with
+``total_anneal_steps`` > 0 the batch's MultiVAE KL factor ``kl_anneal``;
+forward and backward through the model, whose fused layers and embedding
+gathers run the port's CUDA kernels on the card; the optimizer update (core/optim.py) under the NaN guard, a
 ``torch.where`` on ``isfinite(loss)`` that keeps the step on the device.
 ``fit`` runs the epoch loop in the reference's order: validate (early
 stopping, best checkpoint, LR plateau step), then train, with the losses
@@ -55,6 +56,14 @@ def step_seeds(seed: int, step: int):
     return int(a), int(b)
 
 
+def kl_anneal(step: int, cap: float, total_steps: float) -> float:
+    """MultiVAE's KL factor at 0-based global step ``step`` (trainer.py:
+    63-70): the reference bumps it by 1/total_anneal_steps after each
+    forward up to anneal_cap (multivae.py:25,106-109), so step k uses
+    min(cap, k / total)."""
+    return min(float(cap), step / float(total_steps))
+
+
 def early_stopping(value, best, cur_step, max_step=4, bigger=True):
     """The reference's Trainer.early_stopping (trainer.py:188-233), with its
     >/>= asymmetry between the two modes: (best, cur_step, stop, update)."""
@@ -101,6 +110,11 @@ class Trainer:
         self.evaluator = None
         self._eval_protocol = None
         self._loaded = None          # per parameter: loaded by load_model
+        # MultiVAE's KL anneal schedule (trainer.py:131-141), fed per step
+        # as the batch's ``anneal``; global_step is checkpointed, so the
+        # schedule survives a resume
+        total = float(config.get("total_anneal_steps", 0) or 0)
+        self._anneal_sched = (float(config.get("anneal_cap", 0.2)), total) if total > 0 else None
         self._tb = self._wandb = None
         if int(config.get("use_tensorboard", 0) or 0):
             try:
@@ -158,6 +172,8 @@ class Trainer:
         if self._augmenter is not None:
             gen = torch.Generator(device=self.device).manual_seed(aug_seed)
             batch = self._augmenter.augment(batch, gen)
+        if self._anneal_sched is not None:     # after augment, which rebuilds the keys
+            batch = dict(batch, anneal=kl_anneal(self._global_step, *self._anneal_sched))
         loss, _ = self.model(batch, train=True, rng=DropoutRNG(drop_seed, self.device))
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         frozen = self._frozen

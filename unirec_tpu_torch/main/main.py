@@ -6,9 +6,13 @@ train/valid/test tables, builds the model by registry name and the
 Trainer, and runs the task:
 
   - train: ``Trainer.fit`` on the device pipeline (raw id columns, negative
-    sampling and history windows on the device), validating before every
-    epoch when a valid table exists; then the test table from the best
-    checkpoint. The checkpoint goes to
+    sampling and history windows on the device; AERec rows from the
+    training split's own histories; T7 libFM rows on shuffled host
+    batches), validating before every epoch when a valid table exists;
+    then the test table from the best checkpoint. With
+    ``load_pretrained_model`` the run starts from ``model_file``'s
+    parameters, merged by path and shape (AdaRanker fine-tuned from a Base
+    checkpoint). The checkpoint goes to
     ``<output_path>/checkpoint/<exp_name>.pkl``.
   - test: the test table from ``model_file``.
   - infer: the model's scores of the test table's real rows from
@@ -59,11 +63,12 @@ _TABLE_EXTS = (".ftr", ".pkl", ".tsv", ".csv", ".txt")
 
 
 def need_user_history(config) -> bool:
-    """(reference main.py:206-216)"""
+    """(reference main.py:206-216; the JAX package's main.py:141-143 adds
+    the AERec loader, whose evaluation windows read the histories)"""
     return (int(config.get("n_sample_neg_train", 0) or 0) > 0
             or EvalProtocol.ONE_VS_ALL.value in (config.get("test_protocol"),
                                                  config.get("valid_protocol"))
-            or config.get("dataloader") == "SeqRecDataset")
+            or config.get("dataloader") in ("SeqRecDataset", "AERecDataset"))
 
 
 def load_user_history(config) -> UserHistory:
@@ -180,10 +185,8 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
         config["_text_emb"] = _padded_emb(file_io.load_pre_item_emb(config["text_emb_path"]))
     if config.get("use_pre_item_emb") and config.get("item_emb_path"):
         config["_pre_item_emb"] = _padded_emb(file_io.load_pre_item_emb(config["item_emb_path"]))
+    # the registry refuses the closed-form solver models (Queue 1 item 9)
     model = get_model_class(config["model"])(config)
-    if not getattr(model, "optimized_by_sgd", True):
-        raise NotImplementedError("closed-form solver models are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9)")
     trainer = Trainer(config, model, device=dev)
     if history is not None:
         trainer.set_user_history(history)
@@ -197,8 +200,6 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
 
     result = None
     if task == TaskType.TRAIN.value:
-        if history is None:
-            raise ValueError("training needs the user histories (user_history_filename)")
         tcfg = _task_config(config, "train")
         train_batcher, augmenter = make_train_batcher(
             ds_cls(tcfg, dpath, config.get("data_train_name", "train")), tcfg, history,

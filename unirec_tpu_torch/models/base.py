@@ -50,6 +50,8 @@ def features_shape(cfg: Dict[str, Any]) -> list:
 
 class BaseRecommender(nn.Module):
     is_seqrec = False
+    # FM replaces the item table with a feature table (fm.py:84)
+    use_item_emb = True
 
     def __init__(self, cfg: Dict[str, Any]):
         super().__init__()
@@ -60,7 +62,8 @@ class BaseRecommender(nn.Module):
                                           "ported yet (ROADMAP.md Queue 1 item 13)")
         if cfg.get("has_user_emb"):
             self.user_embedding = nn.Embedding(self.n_users, self.emb_dim)
-        self.item_embedding = nn.Embedding(self.n_items, self.emb_dim)
+        if self.use_item_emb:
+            self.item_embedding = nn.Embedding(self.n_items, self.emb_dim)
         if cfg.get("has_user_bias"):
             self.user_bias = nn.Parameter(torch.zeros(self.n_users))
         if cfg.get("has_item_bias"):
@@ -114,7 +117,7 @@ class BaseRecommender(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.item_embedding.weight.device
+        return next(self.parameters()).device
 
     # ------------------------------------------------------- initialization
     def init_weights(self, generator: torch.Generator) -> None:

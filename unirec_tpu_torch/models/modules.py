@@ -4,7 +4,9 @@ other sequential models' blocks.
 Counterpart of unirec_tpu/models/modules.py, in eval and train mode, plus
 the blocks unirec_tpu/models/sequential.py defines for its models: the
 MLP scorer, attention pooling (AttHist), flax's GRU cell and its scan
-(GRU), ConvFormer's FFN and its depthwise and spectral token mixers. These
+(GRU, AdaRanker), ConvFormer's FFN and its depthwise and spectral token
+mixers, and AdaRanker's set encoder, parameter memory and patched linear
+layer. These
 are XLA in the JAX package, not Pallas, so they are plain torch ops here;
 each computes in the dtype flax's ``dtype=None`` promotion gives (f32
 against the f32 parameters) and draws its JAX initializers in
@@ -602,3 +604,121 @@ class SpectralConvLayer(nn.Module):
         h = torch.fft.irfft(xf * wf, n=L, dim=1, norm="ortho").to(x.dtype)
         h = apply_dropout(h, self.p, train, rng)
         return layer_norm(self.LayerNorm_0, h + x, None)
+
+
+# ------------------------------------------------------- AdaRanker blocks
+def torch_linear_(w: torch.Tensor, generator: torch.Generator, fan_in: int) -> None:
+    """U(+-1/sqrt(fan_in)): torch.nn.Linear's default draw, the JAX
+    package's ``torch_linear_kernel_init`` (variance_scaling(1/3, fan_in,
+    uniform)) and ``torch_linear_bias_init``."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    nn.init.uniform_(w, -bound, bound, generator=generator)
+
+
+def torch_linear_kernel_(lin: nn.Linear, generator: torch.Generator) -> None:
+    """A Linear's kernel from ``torch_linear_kernel_init``, its bias zero."""
+    torch_linear_(lin.weight, generator, lin.in_features)
+    if lin.bias is not None:
+        lin.bias.zero_()
+
+
+class NeuProcessEncoder(nn.Module):
+    """Neural-process set encoder (modules.py:842-885): ``input_hidden``,
+    dropout, relu, ``input_out``, the mean over the set, relu of
+    ``z_to_hidden``, then ``hidden_to_mu`` and ``hidden_to_logsigma``; in
+    training z = mu + eps exp(log_sigma / 2), eps from the step's dropout
+    generator, else z = mu. Kernels from torch's Linear draw, zero biases,
+    the log-sigma bias -8 unless ``reference_init`` (then torch's draw)."""
+
+    def __init__(self, input_size: int, hidden_size: int, output_size: int,
+                 dropout_prob: float, reference_init: bool = False):
+        super().__init__()
+        self.p, self.reference_init = float(dropout_prob), reference_init
+        self.input_hidden = nn.Linear(input_size, hidden_size)
+        self.input_out = nn.Linear(hidden_size, output_size)
+        self.z_to_hidden = nn.Linear(output_size, hidden_size)
+        self.hidden_to_mu = nn.Linear(hidden_size, output_size)
+        self.hidden_to_logsigma = nn.Linear(hidden_size, output_size)
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        for lin in (self.input_hidden, self.input_out, self.z_to_hidden, self.hidden_to_mu,
+                    self.hidden_to_logsigma):
+            torch_linear_kernel_(lin, generator)
+        if self.reference_init:
+            torch_linear_(self.hidden_to_logsigma.bias, generator,
+                          self.hidden_to_logsigma.in_features)
+        else:
+            self.hidden_to_logsigma.bias.fill_(-8.0)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        h = apply_dropout(dense(self.input_hidden, x, None), self.p, train, rng)
+        h = dense(self.input_out, torch.relu(h), None)
+        h2 = torch.relu(dense(self.z_to_hidden, h.mean(-2), None))
+        mu = dense(self.hidden_to_mu, h2, None)
+        if not train:
+            return mu
+        log_sigma = dense(self.hidden_to_logsigma, h2, None)
+        eps = torch.randn(mu.shape, generator=_need_rng(rng).generator, device=mu.device)
+        return mu + eps * torch.exp(0.5 * log_sigma)
+
+
+class MemoryUnit(nn.Module):
+    """Parameter memory (modules.py:888-918): ``clusters_k`` parameter
+    blocks ``array`` [K, in * out] mixed by softmax(z index^T); returns
+    [B, out, in] patches. ``init_center``: 'one' (1 + normal(0.05), the
+    weight patches), 'zero' (normal(0.05), the bias patches) or 'xavier'
+    (glorot-uniform, the reference's); ``index`` is glorot-uniform."""
+
+    def __init__(self, input_size: int, output_size: int, emb_size: int,
+                 clusters_k: int = 10, init_center: str = "one"):
+        super().__init__()
+        self.input_size, self.output_size, self.init_center = input_size, output_size, init_center
+        self.array = nn.Parameter(torch.empty(clusters_k, input_size * output_size))
+        self.index = nn.Parameter(torch.empty(clusters_k, emb_size))
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        # flax's glorot_uniform on [K, n]: fan_in K, fan_out n
+        if self.init_center == "one":
+            nn.init.normal_(self.array, 1.0, 0.05, generator=generator)
+        elif self.init_center == "zero":
+            nn.init.normal_(self.array, 0.0, 0.05, generator=generator)
+        else:
+            _glorot_uniform_(self.array, generator)
+        _glorot_uniform_(self.index, generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        att = torch.softmax(z @ self.index.T, dim=-1)
+        return (att @ self.array).reshape(-1, self.output_size, self.input_size)
+
+
+def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's glorot_uniform on a 2-D [fan_in, fan_out] parameter."""
+    bound = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+    nn.init.uniform_(w, -bound, bound, generator=generator)
+
+
+class AdaLinear(nn.Module):
+    """Linear layer under per-request patches (modules.py:921-945):
+    ``weight`` [in, out] (the flax layout), ``bias`` [out]; with patches
+    the weight is mem_w^T * weight a request and the bias bias + mem_b."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        torch_linear_(self.weight, generator, self.weight.shape[0])
+        torch_linear_(self.bias, generator, self.weight.shape[0])
+
+    def forward(self, x: torch.Tensor, mem_w: torch.Tensor | None = None,
+                mem_b: torch.Tensor | None = None) -> torch.Tensor:
+        if mem_w is None:
+            return x @ self.weight + self.bias
+        w_new = mem_w.transpose(1, 2) * self.weight[None]          # [B, in, out]
+        out = torch.einsum("b...i,bio->b...o", x, w_new)
+        b_new = self.bias[None]
+        if mem_b is not None:
+            b_new = b_new + mem_b[..., 0]                          # [B, out]
+        return out + b_new[:, None, :] if out.dim() == 3 else out + b_new

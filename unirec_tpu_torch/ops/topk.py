@@ -38,8 +38,11 @@ _MMA_MAX_D = 128  # csrc/blockmax.cu::kMmaMaxD
 def full_catalog_scores(model, batch, item_emb: torch.Tensor,
                         tau: float = 1.0) -> torch.Tensor:
     """User emb x item table + bias terms, / tau (reference
-    recommender.py:46-96 semantics)."""
-    scores = model.user_emb(batch) @ item_emb.T
+    recommender.py:46-96 semantics), in the promoted dtype (MultiVAE's f32
+    user embeddings against a bf16 table score in f32, as in JAX)."""
+    user = model.user_emb(batch)
+    dt = torch.promote_types(user.dtype, item_emb.dtype)
+    scores = user.to(dt) @ item_emb.to(dt).T
     ub, ib = model.bias_terms()
     if ib is not None:
         scores = scores + ib[None, :]
