@@ -177,11 +177,26 @@ Phases, each of which must pass:
      validation auc at least 0.65), a step
      against the plain versions (rank_path_check) and a traced step
      (rank_path_profile); row 6 launches in AdaRanker and BST, rows 10-13
-     (tensor-core bodies) in BST's training and infer, no kernel in FM.
+     (tensor-core bodies) in BST's training and infer, no kernel in FM;
+ 17. the closed-form solvers (solver_path; no kernel, plain torch ops and
+     torch.linalg in full f32): synthetic splits at gowalla.yaml's size
+     (29,859 users, 40,982 items) through the port's convert-adjacency, one
+     text table through fastio and pandas (equal frames), then EASE (the
+     blocked inverse tier), AdmmSLIM (5 of its 100 iterations), SLIM (its
+     active set, K = 256), SAR and UserCF through main.run at
+     train_cf_model.sh's options, each timed by part against its f32 flop
+     bound, best validation hit@10 at least ten times chance; task=test
+     from EASE's and UserCF's .solver.pkl equal; |G P - I| on 256 of
+     EASE's columns; EASE's LU tier on 8,000 items against the blocked
+     one, SLIM's full descent on 2,000 items (10 of its 30 sweeps) and one
+     sweep timed on 4,096
+     (solver_tiers); the card against the port's CPU run on a cut of 8,192
+     users and 2,000 items (solver_path_check); then cli sweep of SAR's
+     edge_norm; no kernel launches.
 Every launch of rows 5, 5q and 8 on the serving, training, entry, long
 and long-serving paths must be on the new bodies (NEW_BODIES), and of rows
 5 and 5q on the CF path. Then it
-prints its wall time (and each of phases 9-16), the card, one
+prints its wall time (and each of phases 9-17), the card, one
 {"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
@@ -3780,6 +3795,433 @@ def kernel_bst_shape(torch):
     return rows["bfloat16"]
 
 
+# ---------------------------------------------------------- the solver models
+# gowalla.yaml's CF benchmark at its published size: 29,859 users and 40,982
+# items once convert-adjacency has shifted the 0-based ids of the split files
+# up by one. Synthetic walks (seed SEED + 14) of SOLVER_ITEMS[0]..[1]-1 items a
+# user through groups of SOLVER_GROUP consecutive ids (WALK_NOISE of them
+# uniform), about 27 training items a user as gowalla's ~810k training
+# interactions, split 8:1:1 per user in order as run_prepare_data-CF_8_1_1.sh
+# splits them and written as train.txt / val.txt / test.txt "user item item
+# ..." lines. The users' groups are drawn by a Zipf law (SOLVER_ZIPF_S), as
+# check-ins concentrate on popular places: SLIM.yaml's l1 keeps a weight only
+# where two items co-occur more than n l1 = 119 times (n the users), and over
+# uniform groups no pair does (about 20 at most), so every SLIM weight is 0,
+# in both packages. Each solver trains through main.run at train_cf_model.sh's
+# options. Depth cuts, to keep the phase near 150 s: AdmmSLIM runs ADMM_ITERS
+# of its 100 iterations (each one f32 [N, N] @ [N, N], at least 2.1 s at 67
+# TFLOP/s), SLIM's full descent on SOLVER_CUT items SLIM_FULL_SWEEPS of its 30.
+GOWALLA_USERS, GOWALLA_ITEMS = 29_859, 40_982
+SOLVER_ITEMS, SOLVER_GROUP, SOLVER_ZIPF_S = (20, 49), 200, 1.0
+SOLVERS = ("EASE", "AdmmSLIM", "SLIM", "SAR", "UserCF")
+ADMM_ITERS, SLIM_FULL_SWEEPS = 5, 10
+# the cross-check of the card against the port's CPU run: the first
+# SOLVER_CUT items of the first SOLVER_CUT_USERS users; EASE's LU tier on the
+# first LU_CUT items; one full SLIM sweep timed at SLIM_SWEEP_N items
+SOLVER_CUT, SOLVER_CUT_USERS, LU_CUT, SLIM_SWEEP_N, SLIM_K = 2000, 8192, 8000, 4096, 256
+# card against CPU, each matrix's largest difference over its largest entry:
+# f32 on both sides, summed in another order (the Gram products and the
+# inverse), with the iterations of AdmmSLIM and SLIM carrying the roundings
+SOLVER_TOL = {"EASE": 1e-4, "SAR": 1e-4, "UserCF": 1e-4, "AdmmSLIM": 1e-3, "SLIM": 1e-3,
+              "SLIM_active_set": 1e-3, "EASE_lu_vs_blocked": 1e-4}
+EASE_RESIDUAL_TOL = 1e-3          # |G P[:, S] - I[:, S]|_max, 256 sampled columns S
+
+
+def write_gowalla_splits(raw: Path) -> dict:
+    """train.txt / val.txt / test.txt of 0-based "user item item ..." lines:
+    every user walks its group (drawn with probability 1 / rank^SOLVER_ZIPF_S)
+    one id up at each step from a random start, wrapping inside the group;
+    repeats are dropped in order;
+    the first 80% of a user's items train, the next 10% validate, the rest
+    test. The catalog's last id is the last user's last test item."""
+    rng = np.random.default_rng(SEED + 14)
+    n_users, n_items = GOWALLA_USERS - 1, GOWALLA_ITEMS - 1
+    n = rng.integers(*SOLVER_ITEMS, size=n_users)
+    owner = np.repeat(np.arange(n_users), n)
+    starts = np.concatenate([[0], np.cumsum(n)[:-1]])
+    pos = np.arange(len(owner)) - np.repeat(starts, n)
+    start = np.repeat(rng.integers(0, SOLVER_GROUP, n_users), n)
+    p = 1.0 / np.arange(1, n_items // SOLVER_GROUP + 1) ** SOLVER_ZIPF_S
+    group = np.repeat(rng.choice(len(p), n_users, p=p / p.sum()), n)
+    items = group * SOLVER_GROUP + (start + pos) % SOLVER_GROUP
+    items = np.where(rng.random(len(owner)) < WALK_NOISE,
+                     rng.integers(0, n_items, len(owner)), items)
+    items[-1] = n_items - 1
+    raw.mkdir(parents=True, exist_ok=True)
+    counts = {"train": 0, "valid": 0, "test": 0}
+    with open(raw / "train.txt", "w") as ft, open(raw / "val.txt", "w") as fv, \
+            open(raw / "test.txt", "w") as fs:
+        for u, seq in enumerate(np.split(items, starts[1:])):
+            seq = list(dict.fromkeys(seq.tolist()))
+            k = len(seq)
+            a = int(round(0.8 * k))
+            b = a + max(1, int(round(0.1 * k)))
+            for f, part, key in ((ft, seq[:a], "train"), (fv, seq[a:b], "valid"),
+                                 (fs, seq[b:], "test")):
+                f.write(f"{u} {' '.join(map(str, part))}\n")
+                counts[key] += len(part)
+    return {"users": n_users, **counts, "valid_positives_per_user": counts["valid"] / n_users}
+
+
+def check_fastio(data: Path, card: str):
+    """One text table (the training histories as "user_id, item_seq" rows)
+    read by the native parser and by pandas: equal frames, both timed."""
+    import os
+
+    import pandas as pd
+
+    from unirec_tpu_torch.utils import fastio, file_io
+    hist = pd.read_pickle(data / "user_history.pkl")
+    path = data / "train_seq.tsv"
+    with open(path, "w") as f:
+        f.write("user_id\titem_seq\n")
+        f.writelines(f"{u}\t{','.join(map(str, s))}\n"
+                     for u, s in zip(hist["user_id"], hist["item_seq"]))
+    t0 = time.perf_counter()
+    fastio.get_lib()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = fastio.load_txt_table_native(str(path), file_io._LIST_INT_COLS,
+                                          file_io._LIST_FLOAT_COLS)
+    native_s = time.perf_counter() - t0
+    with mock.patch.dict(os.environ, {"UNIREC_FASTIO": "0"}):
+        t0 = time.perf_counter()
+        ref = file_io.load_txt_table(str(path))
+        pandas_s = time.perf_counter() - t0
+    same = native is not None and list(native.columns) == list(ref.columns) \
+        and np.array_equal(native["user_id"].to_numpy(), ref["user_id"].to_numpy()) \
+        and native["user_id"].dtype == ref["user_id"].dtype \
+        and all(np.array_equal(x, y) and x.dtype == y.dtype
+                for x, y in zip(native["item_seq"], ref["item_seq"]))
+    emit({"phase": "solver_fastio", "rows": len(ref), "bytes": path.stat().st_size,
+          "build_s": build_s, "native_s": native_s, "pandas_s": pandas_s, "equal": bool(same),
+          "library": fastio.library_path().name, "card": card})
+    if not same:
+        raise AssertionError("solver_fastio: the native parser's frame differs from pandas'")
+
+
+def solver_args(name: str, data: Path, out: Path, **over):
+    """examples/training/train_cf_model.sh for a solver model: AERecDataset,
+    no sampled negatives, one-vs-all validation and test, hit and ndcg at 5,
+    10 and 20 (the SGD options it also passes are read by no solver);
+    AdmmSLIM at ADMM_ITERS iterations."""
+    return {"task": "train", "model": name, "dataloader": "AERecDataset",
+            "dataset_path": str(data), "output_path": str(out / name), "exp_name": name,
+            "seed": SEED, "learning_rate": 1e-3, "early_stop": 10, "batch_size": 1024,
+            "epochs": ADMM_ITERS if name == "AdmmSLIM" else 100, "embedding_size": 64,
+            "test_protocol": "one_vs_all", "valid_protocol": "one_vs_all",
+            "metrics": "['hit@5;10;20', 'ndcg@5;10;20']", "key_metric": "ndcg@5",
+            "user_history_filename": "user_history", "n_sample_neg_train": 0, **over}
+
+
+@contextmanager
+def solver_spies(torch, seen, keep_cols=None):
+    """Time main.run's solver parts (each synced on both sides) into
+    ``seen``: the solve, the Gram products, the inverse, SLIM's candidates
+    and descent, each evaluation (seconds and rows) and the save (seconds
+    and bytes); with ``keep_cols`` (column ids), keep those columns of the
+    inverse P as it leaves ``_regularized_inverse``."""
+    from unirec_tpu_torch.facility.solver import Solver
+    from unirec_tpu_torch.models import solvers as SV
+    seen.setdefault("parts", {})
+    seen.setdefault("evals", [])
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seen["parts"][name] = seen["parts"].get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    inverse, fit, evaluate, save = (SV._regularized_inverse, Solver.fit, Solver.evaluate,
+                                    Solver.save_model)
+
+    def spy_inverse(G, cfg, spd=True):
+        P = inverse(G, cfg, spd)
+        if keep_cols is not None:
+            seen["P_cols"] = P[:, keep_cols].clone()
+        return P
+
+    def spy_fit(self, graph, valid_data=None, **kw):
+        seen["graph"], seen["l2_coef"] = graph, self.config.get("l2_coef")
+        self.model.solve = timed("solve", self.model.solve)
+        try:
+            return fit(self, graph, valid_data, **kw)
+        finally:
+            del self.model.solve
+
+    def spy_eval(self, data, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate(self, data, *args, **kw)
+        torch.cuda.synchronize()
+        seen["evals"].append((res, time.perf_counter() - t0, len(data.ds)))
+        return res
+
+    def spy_save(self, filename):
+        t0 = time.perf_counter()
+        save(self, filename)
+        seen["save_s"] = time.perf_counter() - t0
+        seen["pkl_bytes"] = Path(filename).stat().st_size
+
+    with mock.patch.object(SV, "_gram", timed("gram", SV._gram)), \
+            mock.patch.object(SV, "_regularized_inverse", timed("inverse", spy_inverse)), \
+            mock.patch.object(SV.SLIM, "_candidates",
+                              staticmethod(timed("candidates", SV.SLIM._candidates))), \
+            mock.patch.object(SV.SLIM, "_solve_active_set",
+                              staticmethod(timed("descent", SV.SLIM._solve_active_set))), \
+            mock.patch.object(SV.SLIM, "_solve_full",
+                              staticmethod(timed("descent", SV.SLIM._solve_full))), \
+            mock.patch.object(Solver, "fit", spy_fit), \
+            mock.patch.object(Solver, "evaluate", spy_eval), \
+            mock.patch.object(Solver, "save_model", spy_save):
+        yield seen
+
+
+def solver_flops(name, U, N):
+    """Each part's least operations: the Gram products 2 U N^2 (UserCF's
+    A A^T 2 U^2 N), an SPD inverse N^3 (Cholesky, triangular inverse and
+    X^T X, a third each; the blocked tier does 5/3 N^3, its X^T X slabs N^3),
+    an LU inverse 2 N^3, ADMM 2 N^3 an iteration plus P X^T X, SLIM's
+    active-set descent 2 N K^2 a sweep."""
+    gram = 2 * U * U * N if name == "UserCF" else 2 * U * N * N
+    out = {"gram": gram}
+    if name in ("EASE", "AdmmSLIM"):
+        out["inverse"] = N ** 3 if N > 12_000 else 2 * N ** 3
+    if name == "AdmmSLIM":
+        out["iterations"] = 2 * N ** 3 * (ADMM_ITERS + 1)
+    if name == "SLIM":
+        out["descent"] = 2 * N * SLIM_K * SLIM_K * 30
+    return out
+
+
+def run_solver(torch, args, chance, card, keep_cols=None):
+    """main.run(args) of one solver under solver_spies; gates: every metric
+    finite, the best (only) validation hit@10 at least ten times ``chance``.
+    Returns (seen, the line)."""
+    from unirec_tpu_torch.main import main as main_mod
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seen = {}
+    with solver_spies(torch, seen, keep_cols):
+        t0 = time.perf_counter()
+        seen["result"] = main_mod.run(dict(args))
+        torch.cuda.synchronize()
+        seen["run_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts(list(_counters()))
+    name = args["model"]
+    U, N = seen["graph"].shape
+    parts = dict(seen["parts"])
+    rest = parts["solve"] - sum(v for k, v in parts.items() if k != "solve")
+    parts["iterations" if name == "AdmmSLIM" else "finish"] = rest
+    flops = solver_flops(name, U, N)
+    (valid, valid_s, valid_rows), (test, test_s, test_rows) = seen["evals"]
+    line = {"phase": "solver_path", "model": name, "users": U, "items": N,
+            "graph_nnz": int(seen["graph"].nnz), "solve_s": parts.pop("solve"),
+            "parts_s": parts,
+            "parts_flops": flops,
+            "parts_bound_s": {k: v / PEAK_FLOPS["float32"] for k, v in flops.items()},
+            "valid": valid, "valid_s": valid_s, "valid_users_per_s": valid_rows / valid_s,
+            "test": test, "test_s": test_s, "save_s": seen["save_s"],
+            "pkl_bytes": seen["pkl_bytes"], "run_s": seen["run_s"], "peak_mem_bytes": peak,
+            "chance_hit10": chance, "launches": sum(counts.values()), "card": card}
+    emit(line)
+    if not all(np.isfinite(v) for r in (valid, test) for v in r.values()):
+        raise AssertionError(f"solver_path {name}: a metric is not finite: {line}")
+    if not valid["hit@10"] >= 10 * chance:
+        raise AssertionError(f"solver_path {name}: validation hit@10 {valid['hit@10']} "
+                             f"< 10x chance {chance}")
+    if any(counts.values()):
+        raise AssertionError(f"solver_path {name}: a kernel launched: {counts}")
+    return seen, line
+
+
+def solver_cross_check(torch, graph, card):
+    """Every solver on the cut graph on the card and on the CPU (the port's
+    plain torch ops there), each matrix against the CPU's by its largest
+    entry (SOLVER_TOL); SLIM's full descent at 2 sweeps, its active set at
+    K = SLIM_K on the candidates the card chose, given to both."""
+    from unirec_tpu_torch.models import solvers as SV
+    cut = graph[:SOLVER_CUT_USERS, :SOLVER_CUT].tocsr()
+    U, N = cut.shape
+    rows, bad = {}, []
+    for name in SOLVERS:
+        cfg = {"n_users": U, "n_items": N, "epochs": ADMM_ITERS if name == "AdmmSLIM" else 2}
+        mats, secs = [], []
+        for dev in ("cuda", "cpu"):
+            model = getattr(SV, name)(dict(cfg)).to(dev)
+            t0 = time.perf_counter()
+            model.solve(cut)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            mats.append((model.user_similarity if name == "UserCF"
+                         else model.item_similarity).float().cpu())
+        rows[name] = (mats, secs)
+    G = SV._gram(cut, "cuda")
+    cand = SV.SLIM._candidates(G, SLIM_K)
+    mats, secs = [], []
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        mats.append(SV.SLIM._solve_active_set(G.to(dev), float(U), 0.004, 0.098, 30,
+                                              cand.to(dev)).cpu())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    rows["SLIM_active_set"] = (mats, secs)
+    del G
+    out = {}
+    for name, ((card_m, cpu_m), (card_s, cpu_s)) in rows.items():
+        rel = float((card_m - cpu_m).abs().max() / cpu_m.abs().max().clamp_min(1e-30))
+        out[name] = {"rel_max_diff": rel, "tol": SOLVER_TOL[name], "card_s": card_s,
+                     "cpu_s": cpu_s, "nonzero": int((cpu_m != 0).sum())}
+        if not rel <= SOLVER_TOL[name]:
+            bad.append(name)
+    emit({"phase": "solver_path_check", "users": U, "items": N, "solvers": out,
+          "cpu_threads": torch.get_num_threads(), "card": card})
+    if bad:
+        raise AssertionError(f"solver_path_check: the card disagrees with the CPU for {bad}")
+
+
+def solver_tiers(torch, graph, card):
+    """EASE on the first LU_CUT items (N <= 12,000: the LU tier) against the
+    blocked tier on the same graph; SLIM's full descent (SLIM_FULL_SWEEPS) on the
+    first SOLVER_CUT items; one sweep timed at SLIM_SWEEP_N items."""
+    from unirec_tpu_torch.models import solvers as SV
+    U = graph.shape[0]
+    lu_graph = graph[:, :LU_CUT].tocsr()
+    mats, secs = [], []
+    for over in ({}, {"solver_device_inverse_max": 4096}):
+        model = SV.EASE({"n_users": U, "n_items": LU_CUT, **over}).to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.solve(lu_graph)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mats.append(model.item_similarity)
+    rel = float((mats[0] - mats[1]).abs().max() / mats[1].abs().max())
+    del mats, model
+    slim = SV.SLIM({"n_users": U, "n_items": SOLVER_CUT, "epochs": SLIM_FULL_SWEEPS}).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slim.solve(graph[:, :SOLVER_CUT].tocsr())
+    torch.cuda.synchronize()
+    slim_s = time.perf_counter() - t0
+    nz = int((slim.item_similarity > 0).sum())
+    del slim
+    G = SV._gram(graph[:, :SLIM_SWEEP_N].tocsr(), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    SV.SLIM._solve_full(G, float(U), 0.004, 0.098, 1)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    del G
+    line = {"phase": "solver_tiers", "ease_items": LU_CUT, "ease_lu_s": secs[0],
+            "ease_blocked_s": secs[1], "ease_lu_vs_blocked": rel,
+            "tol": SOLVER_TOL["EASE_lu_vs_blocked"], "slim_full_items": SOLVER_CUT,
+            "slim_full_sweeps": SLIM_FULL_SWEEPS, "slim_full_s": slim_s, "slim_full_nonzero": nz,
+            "slim_one_sweep_items": SLIM_SWEEP_N, "slim_one_sweep_s": sweep_s, "card": card}
+    emit(line)
+    if not rel <= SOLVER_TOL["EASE_lu_vs_blocked"] or nz == 0:
+        raise AssertionError(f"solver_tiers: {line}")
+
+
+def solver_path(torch, card: str):
+    """gowalla-width splits through the port's convert-adjacency, one text
+    table through fastio and pandas, each solver through main.run (EASE's
+    blocked inverse tier, AdmmSLIM, SLIM's active set, SAR, UserCF) with its
+    gates, task=test from EASE's and UserCF's .solver.pkl, EASE's inverse
+    against the Gram on sampled columns, the tiers (solver_tiers), the card
+    against the CPU on a cut (solver_cross_check), then cli sweep of SAR's
+    edge_norm. Every model's output directory goes once its checks pass.
+    Returns the launches (none)."""
+    import pandas as pd
+
+    from unirec_tpu_torch import cli
+    from unirec_tpu_torch.main import main as main_mod
+    from unirec_tpu_torch.models import solvers as SV
+    from unirec_tpu_torch.ops.linalg import full_f32
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    raw, data, out = root / "gowalla_raw", root / "gowalla_data", root / "solvers"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(data, ignore_errors=True)
+    splits = write_gowalla_splits(raw)
+    t1 = time.perf_counter()
+    if cli.main(["convert-adjacency", "--split_dir", str(raw), "--out_dir", str(data)]) != 0:
+        raise AssertionError("convert-adjacency failed")
+    info = json.loads((data / "data.info").read_text())
+    emit({"phase": "solver_data", **splits, "info": info,
+          "convert_adjacency_s": time.perf_counter() - t1,
+          "seconds": time.perf_counter() - t0})
+    if (info["n_users"], info["n_items"]) != (GOWALLA_USERS, GOWALLA_ITEMS):
+        raise AssertionError(f"convert-adjacency: {info}")
+    check_fastio(data, card)
+    valid = pd.read_pickle(data / "valid.pkl")
+    chance = 10 * float(np.mean([len(s) for s in valid["item_seq"]])) / GOWALLA_ITEMS
+    lines = {}
+    for name in SOLVERS:
+        args = solver_args(name, data, out)
+        cols = np.sort(np.random.default_rng(SEED + 15).choice(GOWALLA_ITEMS, 256, False)) \
+            if name == "EASE" else None
+        seen, lines[name] = run_solver(torch, args, chance, card, keep_cols=None if cols is None
+                                       else torch.tensor(cols, device="cuda"))
+        if name in ("EASE", "UserCF"):
+            pkl = Path(args["output_path"]) / "checkpoint" / f"{name}.solver.pkl"
+            t1 = time.perf_counter()
+            again = main_mod.run({"task": "test", "model_file": str(pkl),
+                                  "dataset_path": str(data),
+                                  "output_path": str(Path(args["output_path"]) / "test")})
+            emit({"phase": "solver_path_test", "model": name, "equal": again == seen["result"],
+                  "test_from_pkl_s": time.perf_counter() - t1, "card": card})
+            if again != seen["result"]:
+                raise AssertionError(f"solver_path {name}: test from {pkl.name} {again} != "
+                                     f"the run's {seen['result']}")
+        if name == "EASE":
+            G = SV._gram(seen["graph"], "cuda")
+            G.diagonal().add_(float(seen["l2_coef"]))
+            eye = torch.zeros(GOWALLA_ITEMS, len(cols), device="cuda")
+            eye[torch.tensor(cols, device="cuda"), torch.arange(len(cols), device="cuda")] = 1.0
+            with full_f32():
+                resid = float((G @ seen["P_cols"] - eye).abs().max())
+            del G, eye
+            emit({"phase": "solver_path_residual", "model": name, "columns": len(cols),
+                  "max_abs": resid, "tol": EASE_RESIDUAL_TOL, "card": card})
+            if not resid <= EASE_RESIDUAL_TOL:
+                raise AssertionError(f"solver_path EASE: |G P - I| = {resid}")
+        graph = seen["graph"]
+        del seen
+        shutil.rmtree(out / name, ignore_errors=True)
+        torch.cuda.empty_cache()
+    solver_tiers(torch, graph, card)
+    torch.cuda.empty_cache()
+    solver_cross_check(torch, graph, card)
+    torch.cuda.empty_cache()
+    sweep = out / "sweep"
+    sweep.mkdir(parents=True, exist_ok=True)
+    (sweep / "sweep.yaml").write_text("method: grid\nmetric: {name: ndcg@5, goal: maximize}\n"
+                                      "parameters:\n  edge_norm: {values: [sqrt_degree, none]}\n")
+    t1 = time.perf_counter()
+    argv = ["sweep", "--sweep_file", str(sweep / "sweep.yaml")]
+    for k, v in solver_args("SAR", data, sweep, exp_name="sar_sweep").items():
+        if k not in ("task", "output_path"):
+            argv += [f"--{k}", str(v)]
+    if cli.main(argv + ["--output_path", str(sweep)]) != 0:
+        raise AssertionError("cli sweep failed")
+    tsv = pd.read_csv(sweep / "sweep_results.tsv", sep="\t")
+    emit({"phase": "solver_sweep", "trials": tsv.to_dict("records"),
+          "seconds": time.perf_counter() - t1, "card": card})
+    if list(tsv["edge_norm"]) != ["sqrt_degree", "none"] or not np.isfinite(tsv["ndcg@5"]).all():
+        raise AssertionError(f"solver_sweep: {tsv}")
+    shutil.rmtree(out, ignore_errors=True)
+    counts = launch_counts(list(_counters()))
+    emit({"phase": "solver_path_launches", **counts, "seconds": time.perf_counter() - t0})
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3913,6 +4355,8 @@ def main() -> int:
     with torch.no_grad():
         timed("kernel_bst_shape", kernel_bst_shape, torch)
     rank_counts = timed("rank_path", rank_path, torch, card)
+    torch.cuda.empty_cache()
+    solver_counts = timed("solver_path", solver_path, torch, card)
 
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
@@ -3982,7 +4426,8 @@ def main() -> int:
     paths = {"serving": counts, "training": train_counts, "entry": entry_counts,
              "long": long_counts, "long_serve": serve_counts, "pop_session": pop_counts,
              "seq_family": family_counts, "side_inputs": side_counts,
-             "side_serve": side_serve_counts, "cf": cf_counts, "rank": rank_counts}
+             "side_serve": side_serve_counts, "cf": cf_counts, "rank": rank_counts,
+             "solver": solver_counts}
 
     def launched(name, path):
         for base, (new, old) in split.items():

@@ -92,6 +92,22 @@ def test_every_key_the_cf_and_ranking_models_read_has_a_default(model):
         assert cfg.get(key) == ref.get(key), key
 
 
+@pytest.mark.parametrize("model", ["EASE", "SLIM", "AdmmSLIM", "SAR", "UserCF"])
+def test_every_key_the_solvers_read_has_a_default(model):
+    """The solvers' yaml keys come out of a freshly parsed config as from
+    the JAX package's YAMLs; the keys they read with a default in the
+    source (solver_device_inverse_max, solver_inverse_block,
+    slim_max_sweeps, slim_active_set_k, slim_active_set_threshold) are in
+    neither."""
+    cfg = torch_config.parse_arguments({"model": model}, argv=[], device="cpu")
+    ref = jax_config.parse_arguments({"model": model}, argv=[])
+    for key in sorted(set(_yaml("model", f"{model}.yaml")) | {"epochs", "edge_norm"}):
+        assert cfg.get(key) == ref.get(key) and type(cfg.get(key)) is type(ref.get(key)), key
+    for key in ("solver_device_inverse_max", "solver_inverse_block", "slim_max_sweeps",
+                "slim_active_set_k", "slim_active_set_threshold"):
+        assert key not in cfg and key not in ref, key
+
+
 def test_merge_matches_jax_with_dataset_and_cli(synth_dataset):
     root, _ = synth_dataset
     args = {"model": "SASRec", "dataset_path": root, "n_heads": 2}

@@ -216,12 +216,11 @@ def test_unported_protocols_and_metrics_raise(pair):
                             "user-item-label-session", "cpu")
     with pytest.raises(ValueError):
         build_evaluator(tcfg, tmodel, "bogus", None, "cpu")
-    # RankDataset is ported; the solvers (evaluated from their closed-form
-    # scores) are not
+    # RankDataset and the solvers (evaluated from their closed-form scores,
+    # tests/test_torch_solvers.py) are ported
     assert get_dataset_class("RankDataset").__name__ == "RankDataset"
     from unirec_tpu_torch.utils.registry import get_model_class
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_model_class("EASE")
+    assert get_model_class("EASE").optimized_by_sgd is False
 
 
 def test_predict_matches_jax(pair):

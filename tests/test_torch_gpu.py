@@ -1779,3 +1779,66 @@ def test_cf_and_rank_models_on_the_card_match_the_cpu(cuda, name):
         ref = scale[n.replace("key.bias", "query.bias").replace(
             "film_affine_emb_bias", "film_affine_emb_scale")]
         assert float((a - b).abs().max()) <= 1e-4 * max(ref, 1e-6), n
+
+
+# ------------------------------------------------------- the solver models
+SOLVER_CARD_TOL = {"EASE": 1e-4, "SAR": 1e-4, "UserCF": 1e-4, "AdmmSLIM": 1e-3, "SLIM": 1e-3}
+
+
+def _solver_graph(U=600, N=300, density=0.05, seed=0):
+    import scipy.sparse as ssp
+    rng = np.random.default_rng(seed)
+    return ssp.csr_matrix((rng.random((U, N)) < density).astype(np.float64))
+
+
+def _solved_matrix(name, graph, device, **over):
+    from unirec_tpu_torch.models import solvers as SV
+    model = getattr(SV, name)({"n_users": graph.shape[0], "n_items": graph.shape[1],
+                               "epochs": 10, **over}).to(device)
+    model.solve(graph)
+    return model, (model.user_similarity if name == "UserCF" else model.item_similarity)
+
+
+@pytest.mark.parametrize("over", [{}, {"solver_device_inverse_max": 64,
+                                       "solver_inverse_block": 48}], ids=["lu", "blocked"])
+@pytest.mark.parametrize("name", sorted(SOLVER_CARD_TOL))
+def test_solvers_on_the_card_match_the_cpu(cuda, name, over):
+    """Each solver's matrix on the card against the port's CPU run, by its
+    largest entry (f32 both; the iterations of AdmmSLIM and SLIM carry the
+    roundings of another summation order); its scores too."""
+    graph = _solver_graph()
+    model, got = _solved_matrix(name, graph, cuda, **over)
+    _, want = _solved_matrix(name, graph, "cpu", **over)
+    assert got.device.type == "cuda"
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert rel <= SOLVER_CARD_TOL[name], rel
+    batch = {"user_id": torch.arange(20, device=cuda),
+             "item_id": torch.arange(60, device=cuda).reshape(20, 3)}
+    assert model.predict(batch).shape == (20, 3)
+
+
+def test_solvers_run_in_full_f32_under_tf32(cuda):
+    """With TF32 on in the caller's process, EASE's Gram, inverse and finish
+    still run in f32 (the result equals the TF32-off one to 1e-5 of its
+    largest entry), and the caller's setting is back after the solve."""
+    graph = _solver_graph(U=2000, N=600, density=0.1)
+    _, ref = _solved_matrix("EASE", graph, cuda, solver_device_inverse_max=256,
+                            solver_inverse_block=128)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, got = _solved_matrix("EASE", graph, cuda, solver_device_inverse_max=256,
+                                solver_inverse_block=128)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+def test_solver_user_rows_on_the_card_are_the_graphs(cuda):
+    from unirec_tpu_torch.models import solvers as SV
+    graph = _solver_graph()
+    rows = SV._DeviceCSR(graph, cuda)
+    ids = torch.tensor([0, 5, 5, 599, 17], device=cuda)
+    np.testing.assert_array_equal(rows.gather(ids).cpu().numpy(),
+                                  graph[ids.cpu().numpy()].toarray())
+    np.testing.assert_array_equal(rows.dense(3, 40).cpu().numpy(), graph[3:40].toarray())

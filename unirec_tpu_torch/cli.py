@@ -7,11 +7,19 @@
     python -m unirec_tpu_torch.cli infer-embedding --model_file ckpt.pkl --node_type user ...
     python -m unirec_tpu_torch.cli prepare-adaranker --infile raw.txt --item2cate_file cates.json \
         --out_dir data/ [--n_neg_k 19 --pretrain_item_emb 1 --embedding_size 64]
+    python -m unirec_tpu_torch.cli prepare-data --raw_file log.tsv --out_dir data/ [--time_col ts]
+    python -m unirec_tpu_torch.cli download-data --dataset ml-100k --out_dir splits/ [--cache dir]
+    python -m unirec_tpu_torch.cli convert-splits --split_dir splits/ --out_dir data/
+    python -m unirec_tpu_torch.cli convert-adjacency --split_dir gowalla/ --out_dir data/
+    python -m unirec_tpu_torch.cli sweep --sweep_file sweep.yaml --n_trials 20 [train flags]
 
-Counterpart of unirec_tpu/cli.py for the ported commands. Every
-``--key value`` flag flows into the config dict; ``--device cpu`` runs on
-the CPU (the default is the CUDA card). Checkpoints written by the JAX
-package load directly.
+Counterpart of unirec_tpu/cli.py for the ported commands (all but
+``export``). Every ``--key value`` flag flows into the config dict or the
+command's keyword arguments; ``--device cpu`` runs on the CPU (the default
+is the CUDA card). Checkpoints written by the JAX package load directly.
+``download-data`` fetches the dataset into ``cache`` (default
+``~/.unirec/dataset``) unless its archive is there already, and needs the
+network only then.
 """
 from __future__ import annotations
 
@@ -19,7 +27,9 @@ import sys
 
 from unirec_tpu_torch import config as config_mod
 
-COMMANDS = ("train", "test", "infer", "infer-embedding", "reco-topk", "prepare-adaranker")
+COMMANDS = ("train", "test", "infer", "infer-embedding", "reco-topk", "prepare-data",
+            "download-data", "convert-splits", "convert-adjacency", "prepare-adaranker",
+            "sweep")
 
 
 def main(argv=None) -> int:
@@ -40,12 +50,52 @@ def main(argv=None) -> int:
         return 0
     if cmd == "prepare-adaranker":
         return _prepare_adaranker(args)
+    if cmd == "prepare-data":
+        from unirec_tpu_torch.data.prepare import prepare_data
+        print(prepare_data(args.pop("raw_file"), args.pop("out_dir"), **args))
+        return 0
+    if cmd == "download-data":
+        return _download_data(args)
+    if cmd == "convert-splits":
+        from unirec_tpu_torch.data.prepare import convert_splits
+        print(convert_splits(args.pop("split_dir"), args.pop("out_dir"), **args))
+        return 0
+    if cmd == "convert-adjacency":
+        # the CF benchmark splits ("user item item ..." lines of yelp2018,
+        # gowalla, amazon-book): run_prepare_data-CF_8_1_1.sh's role
+        from unirec_tpu_torch.data.prepare import convert_adjacency
+        print(convert_adjacency(args.pop("split_dir"), args.pop("out_dir"), **args))
+        return 0
+    if cmd == "sweep":
+        from unirec_tpu_torch.facility.sweep import run_sweep
+        best, _ = run_sweep(args.pop("sweep_file"), args, n_trials=int(args.pop("n_trials", 20)))
+        print("best trial:", best)
+        return 0
     if cmd == "infer-embedding":
         from unirec_tpu_torch.main import infer_embedding
         infer_embedding.run(args)
         return 0
     from unirec_tpu_torch.main import reco_topk
     reco_topk.do_topk_reco(args)
+    return 0
+
+
+def _download_data(kw) -> int:
+    """The reference's download_split_*.py (unirec_tpu/cli.py:54-70):
+    ml-100k, ml-10m or amazon-<category> into split files under
+    ``out_dir``."""
+    from unirec_tpu_torch.data import downloaders as DL
+    name = kw.pop("dataset", "ml-100k")
+    out = kw.pop("out_dir")
+    if name == "ml-100k":
+        info = DL.prepare_ml100k(out, **kw)
+    elif name == "ml-10m":
+        info = DL.prepare_ml10m(out, **kw)
+    elif name.startswith("amazon-"):
+        info = DL.prepare_amazon(name.split("-", 1)[1], out, **kw)
+    else:
+        raise SystemExit(f"unknown dataset '{name}' (ml-100k, ml-10m, amazon-<category>)")
+    print(info)
     return 0
 
 

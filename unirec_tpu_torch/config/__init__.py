@@ -156,6 +156,12 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         "has_user_emb": False,
         "eval_reparameter_sampling_times": 5,
     },
+    "EASE": {"l2_coef": 200, "has_user_bias": 0, "has_item_bias": 0},
+    "SLIM": {"l1_coef": 0.004, "l2_coef": 0.098, "epochs": 100},
+    "AdmmSLIM": {"l1_coef": 3.0, "l2_coef": 400.0, "item_spec_reg": 0.5,
+                 "admm_penalty": 4000.0, "epochs": 100},
+    "SAR": {"edge_norm": "sqrt_degree"},
+    "UserCF": {"edge_norm": "sqrt_degree"},
     "FM": {"linear_mode": "gather"},
     "BST": {
         "n_layers": 2,

@@ -51,6 +51,13 @@ class LossType(str, enum.Enum):
     FULLSOFTMAX = "fullsoftmax"
 
 
+class EdgeNormType(str, enum.Enum):
+    """Edge weights of SAR and UserCF's co-occurrence graph (sar.py:20-33)."""
+
+    NONE = "none"
+    SQRT_DEGREE = "sqrt_degree"
+
+
 class DistanceType(str, enum.Enum):
     DOT = "dot"
     COSINE = "cosine"

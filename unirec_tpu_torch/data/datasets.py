@@ -1,5 +1,4 @@
-"""Column-oriented datasets (copy of unirec_tpu/data/datasets.py, the pandas
-path of BaseDataset and SeqRecDataset).
+"""Column-oriented datasets (copy of unirec_tpu/data/datasets.py).
 
 Interactions are normalized at load time into numpy columns with static
 widths, so batch assembly is slicing and vectorized ops (basedataset.py):
@@ -12,7 +11,14 @@ widths, so batch assembly is slicing and vectorized ops (basedataset.py):
     their lengths (``feat_len``);
   - unlabeled formats get an implicit positive label at batch assembly.
 AERecDataset groups the training split per user (one deduplicated history
-row each); RankDataset folds ``group_size`` consecutive rows into one.
+row each) and gives the solvers its graph; RankDataset folds ``group_size``
+consecutive rows into one. Text tables are read by the native parser into
+packed arrays and normalized from those without per-row Python
+(``_normalize_packed``, as in the JAX package); binary tables and text the
+parser declines go through a DataFrame (``_normalize``). Both give the same
+columns, and both regroup for AERecDataset and RankDataset (the JAX
+package's packed path skips those two regroupings: ROADMAP.md Queue 3
+item 8).
 """
 from __future__ import annotations
 
@@ -61,7 +67,53 @@ class BaseDataset:
         self.task = config.get("data_loader_task", "train")
         self.eval_protocol = config.get("eval_protocol")
         self.fmt = config["data_format"]
-        self._normalize(file_io.load_table(os.path.join(path, filename)))
+        packed = file_io.load_table_packed(os.path.join(path, filename))
+        if packed is not None:
+            self._normalize_packed(packed)
+        else:
+            self._normalize(file_io.load_table(os.path.join(path, filename)))
+
+    def _normalize_packed(self, packed):
+        """``_normalize`` on the native parser's packed columns, vectorized
+        (unirec_tpu/data/datasets.py:66-119)."""
+        from unirec_tpu_torch.utils.fastio import pad_packed
+        fmt = self.fmt
+        sc, ls = packed["scalars"], packed["lists"]
+        cols: Dict[str, np.ndarray] = {}
+        if fmt in (DataFormat.T5.value, DataFormat.T6.value):
+            flat, lens = ls["item_seq"]
+            if self.task == "train" or self.eval_protocol == EvalProtocol.ONE_VS_K.value:
+                cols["user_id"] = np.repeat(sc["user_id"], lens).astype(np.int64)
+                cols["item_id"] = flat.astype(np.int64)
+                self.fmt = DataFormat.T1.value
+            else:
+                cols["user_id"] = sc["user_id"].astype(np.int64)
+                cols["item_id"] = pad_packed(flat, lens, np.int64)
+                if fmt == DataFormat.T6.value and "time_seq" in ls:
+                    cols["time_seq_raw"] = pad_packed(*ls["time_seq"], np.int64)
+        elif fmt == DataFormat.T7.value:
+            cols["label"] = sc["label"].astype(np.float32)
+            fi, li = ls["index_list"]
+            cols["index_list"] = pad_packed(fi, li, np.int64)
+            cols["value_list"] = pad_packed(*ls["value_list"], np.float32)
+            cols["feat_len"] = li.astype(np.int32)
+        elif fmt == DataFormat.T4.value:
+            cols["user_id"] = sc["user_id"].astype(np.int64)
+            cols["item_id"] = pad_packed(*ls["item_id_list"], np.int64)
+            fl, ll = ls["label_list"]
+            cols["label"] = pad_packed(fl.astype(np.float32), ll, np.float32)
+        else:
+            cols["user_id"] = sc["user_id"].astype(np.int64)
+            cols["item_id"] = sc["item_id"].astype(np.int64)
+            if fmt in (DataFormat.T2.value, DataFormat.T2_1.value) and "label" in sc:
+                cols["label"] = sc["label"].astype(np.float32)
+            if fmt == DataFormat.T2_1.value and "session_id" in sc:
+                cols["session_id"] = sc["session_id"].astype(np.int64)
+            if fmt == DataFormat.T3.value and "rating" in sc:
+                cols["rating"] = sc["rating"].astype(np.float32)
+            if fmt == DataFormat.T1_1.value and "max_len" in sc:
+                cols["max_len"] = sc["max_len"].astype(np.int64)
+        self._finish(cols)
 
     def _normalize(self, df):
         fmt = self.fmt
@@ -99,6 +151,11 @@ class BaseDataset:
                 cols["rating"] = df["rating"].to_numpy(np.float32)
             if fmt == DataFormat.T1_1.value and "max_len" in df:
                 cols["max_len"] = df["max_len"].to_numpy(np.int64)
+        self._finish(cols)
+
+    def _finish(self, cols: Dict[str, np.ndarray]) -> None:
+        """Drop label-0 rows for the one_vs_all / one_vs_k protocols on
+        T2/T2_1 and keep the columns."""
         if self.eval_protocol in (EvalProtocol.ONE_VS_ALL.value, EvalProtocol.ONE_VS_K.value) \
                 and "label" in cols and cols["label"].ndim == 1 \
                 and self.fmt in (DataFormat.T2.value, DataFormat.T2_1.value):
@@ -129,6 +186,13 @@ class AERecDataset(SeqRecDataset):
     this grouping for .tsv/.csv/.txt tables, unirec_tpu/data/datasets.py:
     59-61; the port groups every table.)"""
 
+    def _normalize_packed(self, packed):
+        if self.task != "train":
+            super()._normalize_packed(packed)
+            return
+        from unirec_tpu_torch.utils.fastio import packed_frame
+        self._normalize(packed_frame(packed))
+
     def _normalize(self, df):
         if self.task != "train":
             super()._normalize(df)
@@ -156,6 +220,20 @@ class AERecDataset(SeqRecDataset):
         self.n_rows = len(users)
         self.fmt = "aerec-train"
 
+    def get_graph(self):
+        """The training split's user-item graph as a scipy CSR [n_users,
+        n_items] of float64 ones (aerecdataset.py:85-117); duplicate pairs
+        are summed."""
+        import scipy.sparse as ssp
+
+        if self.fmt != "aerec-train":
+            raise ValueError("graph is only available for the training split")
+        users = np.repeat(self.cols["user_id"], self.cols["hist_len"].astype(np.int64))
+        mask = np.arange(self.cols["hist"].shape[1])[None, :] < self.cols["hist_len"][:, None]
+        items = self.cols["hist"][mask]
+        return ssp.csr_matrix((np.ones(len(users)), (users, items)),
+                              shape=(int(self.config["n_users"]), int(self.config["n_items"])))
+
 
 @register_dataset("RankDataset")
 class RankDataset(BaseDataset):
@@ -166,6 +244,13 @@ class RankDataset(BaseDataset):
 
     def _normalize(self, df):
         super()._normalize(df)
+        self._group()
+
+    def _normalize_packed(self, packed):
+        super()._normalize_packed(packed)
+        self._group()
+
+    def _group(self):
         g = int(self.config.get("group_size", -1))
         if g <= 1:
             return

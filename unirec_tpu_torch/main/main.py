@@ -14,6 +14,11 @@ Trainer, and runs the task:
     parameters, merged by path and shape (AdaRanker fine-tuned from a Base
     checkpoint). The checkpoint goes to
     ``<output_path>/checkpoint/<exp_name>.pkl``.
+  The closed-form models (EASE, AdmmSLIM, SLIM, SAR, UserCF:
+    ``optimized_by_sgd`` False) go to ``facility/solver.py::Solver``
+    instead (main.py:183-185): solved once on the training split's graph
+    (``AERecDataset.get_graph``), validated, saved as
+    ``<output_path>/checkpoint/<exp_name>.solver.pkl`` and tested.
   - test: the test table from ``model_file``.
   - infer: the model's scores of the test table's real rows from
     ``model_file`` (one_vs_k unless a test protocol is set), one row per
@@ -35,8 +40,8 @@ Chrome-trace format where the JAX package writes an xplane; it stops when
 ``run`` raises too. It runs on the CUDA card unless the caller passes
 ``device='cpu'`` (or another device), and never falls back to the CPU. Not
 ported yet, and raising NotImplementedError naming their ROADMAP.md item:
-closed-form solver models (item 9), MoRec (item 11), a mesh of more than
-one device and ``checkpoint_backend=orbax`` (item 12).
+MoRec (item 11), a mesh of more than one device and
+``checkpoint_backend=orbax`` (item 12).
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ from unirec_tpu_torch.data import construct_item_popularity
 from unirec_tpu_torch.data.datasets import get_dataset_class
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.data.pipeline import make_eval_batcher, make_train_batcher
+from unirec_tpu_torch.facility.solver import Solver
 from unirec_tpu_torch.facility.trainer import Trainer
 from unirec_tpu_torch.models.base import features_shape
 from unirec_tpu_torch.utils import file_io, resolve_device
@@ -185,48 +191,52 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
         config["_text_emb"] = _padded_emb(file_io.load_pre_item_emb(config["text_emb_path"]))
     if config.get("use_pre_item_emb") and config.get("item_emb_path"):
         config["_pre_item_emb"] = _padded_emb(file_io.load_pre_item_emb(config["item_emb_path"]))
-    # the registry refuses the closed-form solver models (Queue 1 item 9)
     model = get_model_class(config["model"])(config)
-    trainer = Trainer(config, model, device=dev)
+    sgd = getattr(model, "optimized_by_sgd", True)
+    runner = (Trainer if sgd else Solver)(config, model, device=dev)
     if history is not None:
-        trainer.set_user_history(history)
+        runner.set_user_history(history)
 
     def eval_batcher(task_name: str, default_protocol: Optional[str] = None):
         tcfg = _task_config(config, task_name)
         ds = ds_cls(tcfg, dpath, config.get(f"data_{task_name}_name", task_name))
-        trainer.reset_evaluator(tcfg["data_format"], tcfg["eval_protocol"] or default_protocol)
+        runner.reset_evaluator(tcfg["data_format"], tcfg["eval_protocol"] or default_protocol)
         return make_eval_batcher(ds, tcfg, history, task=task_name,
                                  item_popularity=item_pop, features=features)
 
     result = None
     if task == TaskType.TRAIN.value:
         tcfg = _task_config(config, "train")
-        train_batcher, augmenter = make_train_batcher(
-            ds_cls(tcfg, dpath, config.get("data_train_name", "train")), tcfg, history,
-            item_pop, device=dev, features=features)
-        trainer.set_device_augmenter(augmenter)
+        train_ds = ds_cls(tcfg, dpath, config.get("data_train_name", "train"))
+        if sgd:
+            train_data, augmenter = make_train_batcher(train_ds, tcfg, history, item_pop,
+                                                       device=dev, features=features)
+            runner.set_device_augmenter(augmenter)
+            fit_kw = dict(load_pretrained_model=bool(config.get("load_pretrained_model")),
+                          model_file=config.get("model_file"),
+                          verbose=int(config.get("verbose", 1)))
+        else:
+            train_data, fit_kw = train_ds.get_graph(), {}
         valid = eval_batcher("valid") if _exists_any(
             dpath, config.get("data_valid_name", "valid")) else None
         try:
-            trainer.fit(train_batcher, valid,
-                        load_pretrained_model=bool(config.get("load_pretrained_model")),
-                        model_file=config.get("model_file"),
-                        verbose=int(config.get("verbose", 1)))
+            runner.fit(train_data, valid, **fit_kw)
         except KeyboardInterrupt:
             # reference main.py:376-377: Ctrl-C still evaluates the test set
             logger.info("Keyboard interrupt: stopping the training and start "
                         "evaluating on the test set.")
         if _exists_any(dpath, config.get("data_test_name", "test")):
-            result = trainer.evaluate(eval_batcher("test"), load_best_model=valid is not None)
+            result = runner.evaluate(eval_batcher("test"),
+                                     load_best_model=sgd and valid is not None)
     else:
         if config.get("model_file"):
-            trainer.load_model(config["model_file"])
+            runner.load_model(config["model_file"])
         if task == TaskType.TEST.value:
-            result = trainer.evaluate(eval_batcher("test"), load_best_model=False)
+            result = runner.evaluate(eval_batcher("test"), load_best_model=False)
         else:
             # reference main.py:293-309: raw scores of the test table
-            scores = trainer.evaluate(eval_batcher("test", EvalProtocol.ONE_VS_K.value),
-                                      load_best_model=False, predict_only=True)
+            scores = runner.evaluate(eval_batcher("test", EvalProtocol.ONE_VS_K.value),
+                                     load_best_model=False, predict_only=True)
             out_file = os.path.join(out_path, f"{exp_name}.infer.txt")
             np.savetxt(out_file, scores.reshape(len(scores), -1), fmt="%.6f")
             logger.info("wrote inference scores to %s", out_file)

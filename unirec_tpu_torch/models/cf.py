@@ -1,8 +1,7 @@
 """Collaborative-filtering retrieval models trained by SGD: MF, MultiVAE.
 
 Counterpart of unirec_tpu/models/cf.py. The closed-form solver models
-(EASE, SLIM, AdmmSLIM, SAR, UserCF) are not ported yet (ROADMAP.md Queue 1
-item 9).
+(EASE, SLIM, AdmmSLIM, SAR, UserCF) are in models/solvers.py.
 """
 from __future__ import annotations
 

@@ -1,15 +1,18 @@
 """Table readers for the formats the port consumes, the pretrained
 item-embedding reader and the item-feature reader (subset of
-unirec_tpu/utils/file_io.py). pandas is imported only inside the readers
-that build DataFrames, so the card path needs it only when it reads one;
+unirec_tpu/utils/file_io.py). Text tables go through the native parser
+(utils/fastio.py) first, as in the JAX package, and through pandas where it
+declines. pandas is imported only inside the readers that build
+DataFrames, so the card path needs it only when it reads one;
 ``load_features`` reads text files with the csv module alone."""
 from __future__ import annotations
 
 import ast
 import csv
+import json
 import os
 import pickle
-from typing import Any, List
+from typing import Any, Dict, List
 
 import numpy as np
 
@@ -31,9 +34,15 @@ def _parse_list(cell: Any, dtype) -> np.ndarray:
 
 
 def load_txt_table(path: str):
-    """A headered tsv/csv table with its list columns parsed."""
+    """A headered tsv/csv table with its list columns parsed: the native
+    parser's frame, or where it declines (bracket lists, string columns,
+    missing cells) or ``UNIREC_FASTIO=0``, pandas' (the same frame)."""
     import pandas as pd
 
+    from unirec_tpu_torch.utils.fastio import load_txt_table_native
+    native = load_txt_table_native(path, _LIST_INT_COLS, _LIST_FLOAT_COLS)
+    if native is not None:
+        return native
     sep = "\t" if path.endswith((".tsv", ".txt")) else ","
     df = pd.read_csv(path, sep=sep)
     for col in df.columns:
@@ -42,6 +51,23 @@ def load_txt_table(path: str):
         elif col in _LIST_FLOAT_COLS:
             df[col] = df[col].apply(lambda c: _parse_list(c, np.float32))
     return df
+
+
+def load_table_packed(path_prefix: str):
+    """The native parser's packed arrays of the TEXT table
+    ``<prefix>.{tsv,csv,txt}``; None for binary tables (``load_table``'s
+    first match wins: a ``.ftr`` or ``.pkl`` beside the text file is the
+    data) or where the parser declines."""
+    from unirec_tpu_torch.utils.fastio import load_txt_table_packed
+
+    if os.path.exists(path_prefix + ".ftr") or os.path.exists(path_prefix + ".pkl"):
+        return None
+    for ext in (".tsv", ".csv", ".txt"):
+        if os.path.exists(path_prefix + ext):
+            return load_txt_table_packed(path_prefix + ext, _LIST_INT_COLS, _LIST_FLOAT_COLS)
+    if os.path.exists(path_prefix) and path_prefix.endswith((".tsv", ".csv", ".txt")):
+        return load_txt_table_packed(path_prefix, _LIST_INT_COLS, _LIST_FLOAT_COLS)
+    return None
 
 
 def load_table(path_prefix: str):
@@ -59,6 +85,13 @@ def load_table(path_prefix: str):
         if os.path.exists(path_prefix + ext):
             return load_txt_table(path_prefix + ext)
     raise FileNotFoundError(f"no data file found for prefix: {path_prefix}")
+
+
+def save_data_info(dataset_path: str, info: Dict[str, Any]) -> None:
+    """Write ``<dataset_path>/data.info``, the JSON the config loader reads."""
+    os.makedirs(dataset_path, exist_ok=True)
+    with open(os.path.join(dataset_path, "data.info"), "w") as f:
+        json.dump(info, f, indent=2)
 
 
 def load_pre_item_emb(path: str) -> np.ndarray:
