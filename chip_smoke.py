@@ -178,7 +178,23 @@ Phases, each of which must pass:
      against the plain versions (rank_path_check) and a traced step
      (rank_path_profile); row 6 launches in AdaRanker and BST, rows 10-13
      (tensor-core bodies) in BST's training and infer, no kernel in FM;
- 17. the closed-form solvers (solver_path; no kernel, plain torch ops and
+ 17. approx_topk: reco-topk of 4,096 users from the serving checkpoint over
+     the entry data's histories, exact and with topk_recall_target 0.95:
+     the two CSVs equal byte for byte (exact selection; recall 1.0), row 5
+     launched;
+ 18. MoRec (morec_path): MF at amazon-electronics.yaml's width (103,317
+     users, 39,575 items) on synthetic walks with an item_meta_morec.csv
+     and an align_dist file from the seed; a base by run_base_model.sh
+     (BPR; the family's gates), then run_morec_electronics.sh's fine-tune
+     (the PI gains and beta band, fairness, alignment and revenue) once with
+     PID and once with Pareto (MGDA): finite losses, beta inside its band,
+     the sampler's block weights summing to 1 and moving between epochs,
+     task=test from the best checkpoint equal, hit@10 at least ten times
+     chance, row 6 launched exactly once a table in each objective's
+     backward (one a PID step, four an MGDA step); morec_check: one batch's
+     loss vector and Gram kernels against plain (1e-4 of the largest
+     entry) and an MGDA step's parts timed; a traced step of each;
+ 19. the closed-form solvers (solver_path; no kernel, plain torch ops and
      torch.linalg in full f32): synthetic splits at gowalla.yaml's size
      (29,859 users, 40,982 items) through the port's convert-adjacency, one
      text table through fastio and pandas (equal frames), then EASE (the
@@ -192,11 +208,24 @@ Phases, each of which must pass:
      sweep timed on 4,096
      (solver_tiers); the card against the port's CPU run on a cut of 8,192
      users and 2,000 items (solver_path_check); then cli sweep of SAR's
-     edge_norm; no kernel launches.
+     edge_norm on a cut of 8,192 users and items; no kernel launches. The
+     export of phase 20 compiles in a process of its own meanwhile;
+ 20. the serving export (export_path): the serving checkpoint's user_emb,
+     item_emb and score through torch.export (a symbolic batch), each .pt2
+     program on the card against the live model through the kernels and
+     through the plain versions (emb_tol), rows 1 and 3 recorded as
+     unirec::layer_fwd and unirec::lastq_fwd and launched; score's
+     AOTInductor package at batch 256 served by the C++ client (g++ against
+     the installed libtorch, built from the script's first minute), whose
+     output equals the program's and whose printed launches of rows 1 and 3
+     are one a call each on their tensor-core bodies; users/s of the
+     client, the program and the package in Python at batch 256 beside
+     reco-topk's; then the entry path's checkpoint exported, rows 10 and 12
+     recorded and launched, held the same way.
 Every launch of rows 5, 5q and 8 on the serving, training, entry, long
 and long-serving paths must be on the new bodies (NEW_BODIES), and of rows
 5 and 5q on the CF path. Then it
-prints its wall time (and each of phases 9-17), the card, one
+prints its wall time (and each of phases 9-20), the card, one
 {"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
@@ -3795,6 +3824,524 @@ def kernel_bst_shape(torch):
     return rows["bfloat16"]
 
 
+# --------------------------------------------------------- serving export
+# export_path: the serving checkpoint main_path wrote (bench.py's widths,
+# fused_layer and fused_lastq, bf16) through torch.export on the card, each
+# .pt2 function held against the live model through the kernels and through
+# the plain versions; its ``score`` as an AOTInductor package at batch 256,
+# served by the C++ client, whose launches of rows 1 and 3 it prints; then
+# the entry path's best checkpoint (use_fused_attention, use_fused_ffn) as
+# .pt2 programs, rows 10 and 12 recorded and launched. Two builds run in the
+# background, their seconds reported as measured there: the client's g++ in
+# a thread from the script's first minute (beside the kernels' nvcc), and
+# the export with its AOTInductor compile (some 90 s of host compilation for
+# any graph on the card's machine) in a process started before solver_path,
+# whose work is on the card (export_path runs after it).
+EXPORT_ATOL = 2.0 ** -4     # the exporter's own check, artifact against live model (bf16)
+EXPORT_REPEAT = 50          # timed calls of each serving form at batch 256
+EXPORT_CANDIDATES = 32
+EXPORT_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma",
+                  "fused_attention", "fused_attention_mma", "fused_ffn", "fused_ffn_mma")
+
+
+def start_client_build():
+    """g++ of serving/cpp/unirec_serve.cc in a thread: it runs while the
+    kernels build and the first phases run. Returns the box client_build
+    waits on."""
+    import threading
+
+    from unirec_tpu_torch.serving.cpp import build as CB
+    box = {}
+
+    def run():
+        try:
+            box["build"] = CB.build_client()
+        except BaseException as e:     # noqa: BLE001 (re-raised by client_build)
+            box["error"] = e
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def client_build(box):
+    box["thread"].join()
+    if "error" in box:
+        raise box["error"]
+    return box["build"]
+
+
+def start_export_compile():
+    """Export main_path's checkpoint with its score package (export_model,
+    which checks every artifact against the live model) in a process of its
+    own. Returns the box export_path waits on."""
+    out = ROOT / "build" / "chip_smoke" / "export"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from unirec_tpu_torch.serving.export import export_model; "
+            "export_model(sys.argv[2], sys.argv[3], aoti=['score'], aoti_batch=int(sys.argv[4]), "
+            "atol=float(sys.argv[5]), device='cuda')")
+    log = open(out / "export.log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
+                             str(ROOT / "build" / "chip_smoke" / "sasrec_bench.pkl"),
+                             str(out / "bench"), str(BATCH), str(EXPORT_ATOL)],
+                            stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "t0": time.perf_counter(), "out": out}
+
+
+def export_done(box) -> float:
+    """Wait for the export process; raise with its log if it failed.
+    Returns its wall seconds."""
+    rc = box["proc"].wait()
+    box["log"].close()
+    if rc != 0:
+        raise AssertionError(f"export_path: the export process failed ({rc}):\n"
+                             + (box["out"] / "export.log").read_text()[-6000:])
+    return time.perf_counter() - box["t0"]
+
+
+def stop_background(background) -> None:
+    """Wait for the client's g++; end the export process if it still runs
+    (a failed phase): no process outlives the script."""
+    if "client" in background:
+        background["client"]["thread"].join()
+    box = background.get("export")
+    if box is not None and box["proc"].poll() is None:
+        box["proc"].terminate()
+        box["proc"].wait()
+
+
+def export_inputs(history):
+    """Batch-256 serving requests: users 1..256 with their history windows,
+    32 random candidates each."""
+    users = np.arange(1, BATCH + 1, dtype=np.int32)
+    seq, lens = history.window(users, SEQ_LEN)
+    cands = np.random.default_rng(SEED + 150).integers(1, N_ITEMS, (BATCH, EXPORT_CANDIDATES))
+    seq, lens, cands = (a.astype(np.int32) for a in (seq, lens, cands))
+    return {"user_emb": (users, seq, lens), "item_emb": (users,),
+            "score": (users, seq, lens, cands)}
+
+
+def hold_artifact(torch, serve, model, name, args, want=()):
+    """One function of an exported artifact on the card: its launches
+    (each of ``want`` above 0), its output against the live model through
+    the kernels and through the plain versions, each within emb_tol of the
+    reference. Returns (line, the artifact's output)."""
+    from unirec_tpu_torch.serving.export import ServeFunction
+    module = ServeFunction(model, name)
+    ids = [torch.as_tensor(a, device="cuda") for a in args]
+    torch.cuda.synchronize()
+    reset_counts()
+    got = torch.as_tensor(getattr(serve, name)(*args))
+    counts = launch_counts(EXPORT_KERNELS)
+    with torch.no_grad():
+        live = module(*ids).float().cpu()
+        with plain_versions():
+            plain = module(*ids).float().cpu()
+    line = {"function": name, "shape": list(got.shape), "launches": counts,
+            "max_abs_diff_live": float((got - live).abs().max()), "tol_live": emb_tol(live),
+            "max_abs_diff_plain": float((got - plain).abs().max()), "tol_plain": emb_tol(plain),
+            "finite": bool(torch.isfinite(got).all())}
+    bad = [k for k in want if counts[k] <= 0]
+    if bad or not (line["finite"] and line["max_abs_diff_live"] <= line["tol_live"]
+                   and line["max_abs_diff_plain"] <= line["tol_plain"]):
+        raise AssertionError(f"export_path: {name} disagrees or missed {bad}: {line}")
+    return line, got
+
+
+def timed_calls(torch, fn, n=EXPORT_REPEAT):
+    """Seconds a call of fn over n calls after one, synced on both sides."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def export_path(torch, card: str, background):
+    """The serving export on the card (module comment above). Returns
+    (the Python artifacts' launches, the client's launches)."""
+    from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
+    from unirec_tpu_torch.serving.cpp import build as CB
+    from unirec_tpu_torch.serving.export import ServingModel, export_model
+    from unirec_tpu_torch.utils.checkpoint import load_model_freely
+    t_phase = time.perf_counter()
+    export_all_s = export_done(background["export"])
+    out = background["export"]["out"]
+    ckpt = ROOT / "build" / "chip_smoke" / "sasrec_bench.pkl"
+    man = json.loads((out / "bench" / "manifest.json").read_text())
+    fns = man["functions"]
+    want = ["unirec::lastq_fwd", "unirec::layer_fwd"]
+    if fns["user_emb"]["custom_ops"] != want or fns["score"]["aoti"]["custom_ops"] != want:
+        raise AssertionError(f"export_path: the graphs call {fns}, not {want}")
+    history = synthetic_history()
+    reqs = export_inputs(history)
+    model, cfg = load_model_freely(str(ckpt), "cuda")
+    serve = ServingModel(str(out / "bench"))
+    total = dict.fromkeys(EXPORT_KERNELS, 0)
+    lines, outs = [], {}
+    for name in ("user_emb", "item_emb", "score"):
+        line, outs[name] = hold_artifact(
+            torch, serve, model, name, reqs[name],
+            want=() if name == "item_emb" else ("layer_fwd_mma", "lastq_fwd_mma"))
+        add_counts(total, line["launches"])
+        lines.append(line)
+    # the C++ client on the AOTInductor package, rows 1 and 3 from its shims
+    build = client_build(background["client"])
+    pkg = out / "bench" / "score.aoti.pt2"
+    client = CB.run_client(build["binary"], pkg, reqs["score"], libs=CB.kernel_libs(),
+                           repeat=EXPORT_REPEAT, timeout=600)
+    c_out = torch.as_tensor(client["outputs"][0])
+    with torch.no_grad(), plain_versions():
+        from unirec_tpu_torch.serving.export import ServeFunction
+        plain = ServeFunction(model, "score")(
+            *[torch.as_tensor(a, device="cuda") for a in reqs["score"]]).float().cpu()
+    calls = client["calls"]
+    client_line = {
+        "device": client["device"], "calls": calls, "launches": client["launches"],
+        "launches_mma": client["launches_mma"],
+        "max_abs_diff_artifact": float((c_out - outs["score"]).abs().max()),
+        "tol_artifact": emb_tol(outs["score"]),
+        "max_abs_diff_plain": float((c_out - plain).abs().max()), "tol_plain": emb_tol(plain)}
+    bad = [op for op in want if client["launches"].get(op) != calls
+           or client["launches_mma"].get(op) != calls]
+    if client["device"] != "cuda" or bad or not (
+            client_line["max_abs_diff_artifact"] <= client_line["tol_artifact"]
+            and client_line["max_abs_diff_plain"] <= client_line["tol_plain"]):
+        raise AssertionError(f"export_path: the C++ client disagrees or missed {bad}: "
+                             f"{client_line}")
+    # users/s at batch 256: the client, the .pt2 program and the package in
+    # Python (inputs on the card), and reco-topk's top-100 over the catalog
+    ids = [torch.as_tensor(a, device="cuda") for a in reqs["score"]]
+    pt2 = serve._fns["score"]
+    aoti = torch._inductor.aoti_load_package(str(pkg))
+    with torch.no_grad():
+        s_pt2 = timed_calls(torch, lambda: pt2(*ids))
+        s_aoti = timed_calls(torch, lambda: aoti(*ids))
+    users = np.arange(1, SERVE_USERS + 1, dtype=np.int64)
+    get_topk_recommendations(cfg, model, users[:BATCH], history, TOPK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    get_topk_recommendations(cfg, model, users, history, TOPK)
+    torch.cuda.synchronize()
+    topk_s = time.perf_counter() - t0
+    # the entry path's fused attention / FFN checkpoint: .pt2 programs
+    entry = ROOT / "build" / "chip_smoke" / "slice" / "checkpoint" / "sasrec_fusedattn_ffn.pkl"
+    t0 = time.perf_counter()
+    man2 = export_model(str(entry), str(out / "entry"), atol=EXPORT_ATOL, device="cuda")
+    entry_export_s = time.perf_counter() - t0
+    want2 = ["unirec::attention_fwd", "unirec::ffn_fwd"]
+    if man2["functions"]["user_emb"]["custom_ops"] != want2:
+        raise AssertionError(f"export_path: the entry checkpoint's graph calls "
+                             f"{man2['functions']['user_emb']['custom_ops']}, not {want2}")
+    entry_model, _ = load_model_freely(str(entry), "cuda")
+    entry_line, _ = hold_artifact(torch, ServingModel(str(out / "entry")), entry_model,
+                                  "user_emb", reqs["user_emb"],
+                                  want=("fused_attention_mma", "fused_ffn_mma"))
+    add_counts(total, entry_line["launches"])
+    emit({"phase": "export_path", "functions": lines, "batch": BATCH,
+          "export_s": {k: v["export_s"] for k, v in fns.items()},
+          "export_process_s": export_all_s, "aoti_cxx": fns["score"]["aoti"]["cxx"],
+          "aoti_compile_s": fns["score"]["aoti"]["compile_s"],
+          "client_build_s": build["seconds"], "client": client_line,
+          "score_users_per_s": {"cpp_client": BATCH / client["seconds_per_call"],
+                                "pt2_python": BATCH / s_pt2, "aoti_python": BATCH / s_aoti},
+          "score_ms_per_batch": {"cpp_client": client["seconds_per_call"] * 1e3,
+                                 "pt2_python": s_pt2 * 1e3, "aoti_python": s_aoti * 1e3},
+          "reco_topk_users_per_s": SERVE_USERS / topk_s,
+          "fused_attention_ffn": {"export_s": {k: v["export_s"]
+                                               for k, v in man2["functions"].items()},
+                                  "export_with_checks_s": entry_export_s, **entry_line},
+          "launches": total, "seconds": time.perf_counter() - t_phase, "card": card})
+    client_counts = {"layer_fwd": client["launches"]["unirec::layer_fwd"],
+                     "layer_fwd_mma": client["launches_mma"]["unirec::layer_fwd"],
+                     "lastq_fwd": client["launches"]["unirec::lastq_fwd"],
+                     "lastq_fwd_mma": client["launches_mma"]["unirec::lastq_fwd"]}
+    return total, client_counts
+
+
+def approx_topk(torch, card: str):
+    """reco-topk (do_topk_reco) of 4,096 users from the serving checkpoint
+    over the entry data's histories, exact and then with
+    topk_recall_target 0.95: the two CSVs must be equal byte for byte (the
+    port selects exactly; recall 1.0) and row 5 must launch. Returns the
+    approximate run's launches."""
+    from unirec_tpu_torch.main.reco_topk import do_topk_reco
+    out = ROOT / "build" / "chip_smoke" / "approx"
+    out.mkdir(parents=True, exist_ok=True)
+    users = np.arange(1, SERVE_USERS + 1, dtype=np.int64)
+    np.savetxt(out / "users.txt", users, fmt="%d")
+    conf = {"model_file": str(ROOT / "build" / "chip_smoke" / "sasrec_bench.pkl"),
+            "dataset_path": str(ROOT / "build" / "chip_smoke" / "slice_data"),
+            "dataset_name": str(out / "users.txt"), "topk": TOPK, "test_batch_size": BATCH,
+            "user_history_filename": "user_history",
+            "user_history_file_format": "user-item_seq"}
+    secs, counts = {}, {}
+    for name, extra in (("exact", {}), ("approx", {"topk_recall_target": 0.95})):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        do_topk_reco(dict(conf, output_path=str(out / f"{name}.csv"), **extra))
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = launch_counts(SERVING_KERNELS)
+    same = (out / "exact.csv").read_bytes() == (out / "approx.csv").read_bytes()
+    emit({"phase": "approx_topk", "users": SERVE_USERS, "topk": TOPK, "batch": BATCH,
+          "recall_target": 0.95, "csv_equal": same, "recall": 1.0 if same else None,
+          "entry_users_per_s": {k: SERVE_USERS / v for k, v in secs.items()},
+          "launches": counts["approx"], "card": card})
+    if not same or counts["approx"]["blockmax_mma"] <= 0:
+        raise AssertionError(f"approx_topk: CSV equal {same}, launches {counts['approx']}")
+    return counts["approx"]
+
+
+# -------------------------------------------------------------------- MoRec
+# MF at amazon-electronics.yaml's width (103,317 users, 39,575 items) on
+# synthetic walks (cf_path's recipe, groups of 200 ids; 4,096 validation and
+# test users) with an item_meta_morec.csv from the seed: prices uniform in
+# [1, 50], fair groups the walk group mod 10 (plus 1), align groups the
+# training popularity's deciles, and an align_dist file (the deciles'
+# square-root-flattened shares). run_base_model.sh's base (9 negatives, the
+# user table, lr 1e-3; BPR, as tests/test_morec.py's pretrain and the
+# fine-tune, where the script names BCE) for MOREC_BASE_EPOCHS epochs of
+# 100 batches of 2,048, then run_morec_electronics.sh's fine-tune (BPR, the
+# PI gains and beta band, [0.1, 0.1, 0.8] inner weights, objectives
+# fairness, alignment and revenue with morec_ngroup [10, 10, -1]) for
+# MOREC_EPOCHS epochs of MOREC_STEPS MoRec batches (4 blocks of MOREC_BATCH
+# rows), once with PID (the fused PI step) and once with Pareto (MGDA: the
+# Gram from 4 backward passes). Cuts: 6 and 2 epochs in place of 100 and 30,
+# the training table cut to the steps, no TensorBoard.
+MOREC_USERS, MOREC_ITEMS, MOREC_BATCH, MOREC_STEPS = 103_317, 39_575, 1024, 50
+MOREC_BASE_EPOCHS, MOREC_EPOCHS = 6, 2
+MOREC_METRICS = "['hit@10', 'ndcg@10', 'rhit@10', 'rndcg@10', 'pop-kl@10', 'least-misery']"
+MOREC_MIN_HIT10 = 10 * 10 / MOREC_ITEMS          # ten times chance
+MOREC_TOL = 1e-4     # loss vector and Gram, kernels against plain, of the largest entry
+
+
+def write_morec_data(root: Path) -> dict:
+    import pandas as pd
+    rng = np.random.default_rng(SEED + 170)
+    users, n, starts, owner, items, is_train = slice_walks(
+        rng, CF_HIST, CF_GROUP, 2, n_users=MOREC_USERS, n_items=MOREC_ITEMS)
+    write_train_tables(root, rng, users, n, owner, items, is_train, CF_STEPS * MF_BATCH,
+                       ("user-item", "user-item"), n_users=MOREC_USERS, n_items=MOREC_ITEMS)
+    pd.read_pickle(root / "train.pkl").iloc[:MOREC_STEPS * MOREC_BATCH].to_pickle(
+        root / "train_morec.pkl")
+    for name, off in (("valid", 0), ("test", 1)):
+        who = np.sort(rng.choice(len(users), CF_EVAL_USERS, replace=False))
+        pd.DataFrame({"user_id": users[who],
+                      "item_id": items[starts[who] + n[who] + off]}).to_pickle(root / f"{name}.pkl")
+    ids = np.arange(1, MOREC_ITEMS)
+    pop = np.bincount(items[is_train], minlength=MOREC_ITEMS)[1:]
+    align = np.empty(len(ids), np.int64)
+    for g, bucket in enumerate(np.array_split(np.argsort(-pop, kind="stable"), 10), start=1):
+        align[bucket] = g
+    pd.DataFrame({"item_id": ids, "weight": np.round(rng.uniform(1.0, 50.0, len(ids)), 2),
+                  "fair_group": (ids - 1) // CF_GROUP % 10 + 1,
+                  "align_group": align}).to_csv(root / "item_meta_morec.csv", index=False)
+    share = np.sqrt(np.array([pop[align == g].sum() for g in range(1, 11)], np.float64))
+    pd.DataFrame({"group_id": np.arange(10), "proportion": share / share.sum()}).to_csv(
+        root / "align_dist.tsv", index=False)
+    return {"users": len(users), "train_pairs": int(is_train.sum())}
+
+
+def morec_args(data: Path, out: Path, controller=None, base_ckpt=None):
+    """run_base_model.sh's base, or with ``controller``
+    run_morec_electronics.sh's fine-tune from ``base_ckpt``."""
+    common = {"task": "train", "model": "MF", "dataloader": "BaseDataset",
+              "dataset_path": str(data), "seed": SEED, "has_user_emb": 1,
+              "user_history_filename": "user_history", "valid_protocol": "one_vs_all",
+              "test_protocol": "one_vs_all", "test_batch_size": EVAL_BATCH,
+              "learning_rate": 1e-3, "metrics": MOREC_METRICS, "key_metric": "ndcg@10",
+              "item_meta_morec_filename": "item_meta_morec.csv", "shuffle_train": 1}
+    if controller is None:
+        return {**common, "output_path": str(out / "base"), "exp_name": "morec-base",
+                "loss_type": "bpr", "n_sample_neg_train": 9, "batch_size": MF_BATCH,
+                "epochs": MOREC_BASE_EPOCHS, "early_stop": 10, "embedding_size": 64,
+                "neg_membership_pallas": 1}
+    return {**common, "output_path": str(out / controller), "exp_name": f"morec-{controller}",
+            "load_pretrained_model": 1, "model_file": str(base_ckpt), "enable_morec": 1,
+            "data_train_name": "train_morec", "morec_objective_controller": controller,
+            "morec_objectives": ["fairness", "alignment", "revenue"],
+            "morec_ngroup": [10, 10, -1], "morec_alpha": 0.01, "morec_lambda": 0.2,
+            "morec_expect_loss": 0.25, "morec_beta_min": 0.1, "morec_beta_max": 1.5,
+            "morec_K_p": 0.05, "morec_K_i": 0.001, "morec_objective_weights": "[0.1,0.1,0.8]",
+            "align_dist_filename": "align_dist.tsv", "loss_type": "bpr",
+            "batch_size": MOREC_BATCH, "epochs": MOREC_EPOCHS, "early_stop": -1}
+
+
+def morec_check(torch, trainer, batch, card):
+    """One MoRec batch at the trained weights: the loss vector and the Gram
+    of its 4 per-objective gradients through the kernels and through the
+    plain versions (MOREC_TOL of each's largest entry), row 6 launched once
+    for each gathered table in each objective's backward; then the
+    breakdown of one MGDA step (forward, the 4 backward passes, the Gram,
+    the update) synced part by part, and a traced step."""
+    from unirec_tpu_torch.facility.morec import integration as TI
+    n_blocks = trainer._morec_sampler.n_blocks
+
+    def vec_and_gram():
+        vec = TI.loss_vector(trainer, batch, SEED + 93, n_blocks)
+        return vec.detach(), TI.gram(TI.objective_grads(trainer.params, vec))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    vec_k, gram_k = vec_and_gram()
+    scatter = launch_counts(("scatter_add", "scatter_add_sorted"))
+    with plain_versions():
+        vec_p, gram_p = vec_and_gram()
+    # one plain backward of the same batch: the tables a backward scatters into
+    reset_counts()
+    torch.autograd.grad(TI.loss_vector(trainer, batch, SEED + 93, n_blocks).sum(),
+                        trainer.params, allow_unused=True)
+    tables = launch_counts(("scatter_add",))["scatter_add"]
+    line = {"phase": "morec_check", "rows": int(batch["weight"].shape[0]), "blocks": n_blocks,
+            "loss_vector": vec_k.cpu().tolist(),
+            "loss_max_rel_diff": float((vec_k - vec_p).abs().max() / vec_p.abs().max()),
+            "gram_max_rel_diff": float((gram_k - gram_p).abs().max() / gram_p.abs().max()),
+            "tol": MOREC_TOL, "scatter_launches": scatter, "tables_per_backward": tables}
+    torch.cuda.synchronize()
+    parts = {}
+    t0 = time.perf_counter()
+    vec = TI.loss_vector(trainer, batch, SEED + 94, n_blocks)
+    torch.cuda.synchronize()
+    parts["forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = TI.objective_grads(trainer.params, vec)
+    torch.cuda.synchronize()
+    parts["backward_x4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    G = TI.gram(rows).cpu()
+    parts["gram"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.apply_update(vec.detach().sum(), TI.combine(rows, [0.25] * n_blocks))
+    torch.cuda.synchronize()
+    parts["update"] = time.perf_counter() - t0
+    step = sum(parts.values())
+    line.update(step_ms_parts={k: v * 1e3 for k, v in parts.items()}, step_ms=step * 1e3,
+                gram_share=parts["gram"] / step,
+                gram_and_backwards_share=(parts["gram"] + parts["backward_x4"]) / step,
+                gram_finite=bool(torch.isfinite(G).all()), card=card)
+    emit(line)
+    if not (line["loss_max_rel_diff"] <= MOREC_TOL and line["gram_max_rel_diff"] <= MOREC_TOL
+            and scatter["scatter_add"] == n_blocks * tables and tables > 0
+            and scatter["scatter_add_sorted"] == scatter["scatter_add"]):
+        raise AssertionError(f"morec_check: kernels disagree with the plain versions or row 6 "
+                             f"did not launch once a table in each objective's backward: {line}")
+
+
+def morec_path(torch, card: str):
+    """The MoRec path (module comment above): the base through run_and_gate;
+    each fine-tune through run_spied with the beta band (PID), the
+    sampler's weights (summing to 1 and moving between epochs), finite
+    losses, task=test from the best checkpoint equal, best validation
+    hit@10 at least ten times chance, and row 6's launches exactly once a
+    table in each backward (PID one a step, MGDA four); morec_check on an
+    MGDA batch; ms a step and a traced step of each. Returns the launches."""
+    from unirec_tpu_torch.facility.morec import integration as TI
+    from unirec_tpu_torch.facility.morec.sampler import MoRecBatcher
+    from unirec_tpu_torch.main import main as main_mod
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    data, out = root / "morec_data", root / "morec"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    emit({"phase": "morec_data", **write_morec_data(data), "seconds": time.perf_counter() - t0})
+    total = {}
+    seen, counts = run_and_gate(torch, morec_args(data, out), "morec_base", CF_STEPS,
+                                MOREC_MIN_HIT10, card, want=("scatter_add", "member"))
+    add_counts(total, counts)
+    del seen
+    base_ckpt = out / "base" / "checkpoint" / "morec-base.pkl"
+    tables = 2                          # MF's gathers: the user and the item table
+    for controller, backwards in (("PID", 1), ("Pareto", 4)):
+        args = morec_args(data, out, controller, base_ckpt)
+        betas, weights, batches = [], [], []
+        pi, refresh, assemble = TI.pi_update, MoRecBatcher.refresh_weights, \
+            MoRecBatcher._assemble
+
+        def spy_pi(state, acc, cfg):
+            beta, new = pi(state, acc, cfg)
+            betas.append(beta)
+            return beta, new
+
+        def spy_refresh(self):
+            refresh(self)
+            weights.append({k: v.copy() for k, v in self.group2weights.items()})
+
+        def spy_assemble(self, idx, weight, rng):
+            b = assemble(self, idx, weight, rng)
+            if not batches:
+                batches.append(b)
+            return b
+
+        with mock.patch.object(TI, "pi_update", spy_pi), \
+                mock.patch.object(MoRecBatcher, "refresh_weights", spy_refresh), \
+                mock.patch.object(MoRecBatcher, "_assemble", spy_assemble):
+            seen = run_spied(torch, args)
+        counts = launch_counts(sorted(set(CF_KERNELS + RANK_KERNELS)))
+        add_counts(total, counts)
+        loss, valid = seen["loss"], seen["evals"][:-1]
+        again = main_mod.run({"task": "test", "model_file": str(
+            Path(args["output_path"]) / "checkpoint" / f"{args['exp_name']}.pkl"),
+            "dataset_path": args["dataset_path"],
+            "output_path": str(Path(args["output_path"]) / "test")})
+        beta = torch.stack(betas).float().cpu().numpy() if betas else np.zeros(0)
+        # weights[0]: the peek at fit's start (no parameters yet: unchanged);
+        # then one refresh an epoch
+        moved = {k: [float(np.abs(b[k] - a[k]).sum()) for a, b in zip(weights, weights[1:])]
+                 for k in weights[0]}
+        sums = {k: [float(w[k].sum()) for w in weights] for k in weights[0]}
+        last_s = seen["marks"][-2] - seen["marks"][-3]
+        line = {"phase": "morec_path", "controller": controller, "steps": len(loss),
+                "epochs": MOREC_EPOCHS, "rows_per_step": 4 * MOREC_BATCH,
+                "ms_per_step": last_s * 1e3 / MOREC_STEPS,
+                "examples_per_s": 4 * MOREC_BATCH * MOREC_STEPS / last_s,
+                "first_losses": loss[:3].tolist(), "last_losses": loss[-3:].tolist(),
+                "beta_min_max": [float(beta.min()), float(beta.max())] if len(beta) else None,
+                "weight_sums": sums, "weight_moves": moved,
+                "valid": [{"result": r, "seconds": s} for r, s, _ in valid],
+                "test": seen["result"], "test_from_checkpoint_equal": again == seen["result"],
+                "launches": counts, "run_s": seen["run_s"], "card": card}
+        emit(line)
+        want_scatter = len(loss) * backwards * tables
+        errors = []
+        if len(loss) != MOREC_STEPS * MOREC_EPOCHS or not np.isfinite(loss).all():
+            errors.append(f"losses {loss.tolist()}")
+        if controller == "PID" and not (len(beta) == len(loss) and beta.min() >= 0.1
+                                        and beta.max() <= 1.5):
+            errors.append(f"beta left [0.1, 1.5]: {beta.tolist()}")
+        if not all(abs(s - 1.0) < 1e-6 for v in sums.values() for s in v) or \
+                not any(m > 0 for k in ("fairness", "alignment") for m in moved[k][1:]):
+            errors.append(f"sampler weights: sums {sums}, moves {moved}")
+        if again != seen["result"]:
+            errors.append(f"test from the checkpoint {again} != {seen['result']}")
+        if not max(r["hit@10"] for r, _, _ in valid) >= MOREC_MIN_HIT10:
+            errors.append(f"validations {valid}")
+        if counts["scatter_add"] != want_scatter or \
+                counts["scatter_add_sorted"] != want_scatter:
+            errors.append(f"row 6 launched {counts['scatter_add']} times, not {want_scatter} "
+                          f"({backwards} backward(s) a step, {tables} tables)")
+        if errors:
+            raise AssertionError(f"morec_path {controller}: " + "; ".join(errors))
+        from unirec_tpu_torch.utils import to_device
+        batch = to_device(batches[0], "cuda")
+        trainer = seen["trainer"]
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        emit({"phase": "morec_profile", "controller": controller, "what": "one train step",
+              **device_profile(torch, lambda: trainer.train_step(batch)), "card": card})
+        if controller == "Pareto":
+            morec_check(torch, trainer, batch, card)
+        del seen, trainer, batch, batches
+        torch.cuda.empty_cache()
+    emit({"phase": "morec_path_launches", **total, "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 # ---------------------------------------------------------- the solver models
 # gowalla.yaml's CF benchmark at its published size: 29,859 users and 40,982
 # items once convert-adjacency has shifted the 0-based ids of the split files
@@ -3815,6 +4362,7 @@ GOWALLA_USERS, GOWALLA_ITEMS = 29_859, 40_982
 SOLVER_ITEMS, SOLVER_GROUP, SOLVER_ZIPF_S = (20, 49), 200, 1.0
 SOLVERS = ("EASE", "AdmmSLIM", "SLIM", "SAR", "UserCF")
 ADMM_ITERS, SLIM_FULL_SWEEPS = 5, 10
+SWEEP_SIZE = 8_192       # users and items of the cli sweep's cut
 # the cross-check of the card against the port's CPU run: the first
 # SOLVER_CUT items of the first SOLVER_CUT_USERS users; EASE's LU tier on the
 # first LU_CUT items; one full SLIM sweep timed at SLIM_SWEEP_N items
@@ -3827,15 +4375,17 @@ SOLVER_TOL = {"EASE": 1e-4, "SAR": 1e-4, "UserCF": 1e-4, "AdmmSLIM": 1e-3, "SLIM
 EASE_RESIDUAL_TOL = 1e-3          # |G P[:, S] - I[:, S]|_max, 256 sampled columns S
 
 
-def write_gowalla_splits(raw: Path) -> dict:
-    """train.txt / val.txt / test.txt of 0-based "user item item ..." lines:
+def write_gowalla_splits(raw: Path, users: int = GOWALLA_USERS,
+                         catalog: int = GOWALLA_ITEMS) -> dict:
+    """train.txt / val.txt / test.txt of 0-based "user item item ..." lines
+    (gowalla's width unless ``users`` and ``catalog`` say otherwise):
     every user walks its group (drawn with probability 1 / rank^SOLVER_ZIPF_S)
     one id up at each step from a random start, wrapping inside the group;
     repeats are dropped in order;
     the first 80% of a user's items train, the next 10% validate, the rest
     test. The catalog's last id is the last user's last test item."""
     rng = np.random.default_rng(SEED + 14)
-    n_users, n_items = GOWALLA_USERS - 1, GOWALLA_ITEMS - 1
+    n_users, n_items = users - 1, catalog - 1
     n = rng.integers(*SOLVER_ITEMS, size=n_users)
     owner = np.repeat(np.arange(n_users), n)
     starts = np.concatenate([[0], np.cumsum(n)[:-1]])
@@ -4200,20 +4750,27 @@ def solver_path(torch, card: str):
     torch.cuda.empty_cache()
     solver_cross_check(torch, graph, card)
     torch.cuda.empty_cache()
+    # the sweep's two SAR trials on a cut of SWEEP_SIZE users and items (at
+    # gowalla's width each trial writes a 6.7 GB pickle)
     sweep = out / "sweep"
     sweep.mkdir(parents=True, exist_ok=True)
+    t1 = time.perf_counter()
+    write_gowalla_splits(root / "sweep_raw", SWEEP_SIZE, SWEEP_SIZE)
+    shutil.rmtree(root / "sweep_data", ignore_errors=True)
+    if cli.main(["convert-adjacency", "--split_dir", str(root / "sweep_raw"),
+                 "--out_dir", str(root / "sweep_data")]) != 0:
+        raise AssertionError("convert-adjacency failed on the sweep's cut")
     (sweep / "sweep.yaml").write_text("method: grid\nmetric: {name: ndcg@5, goal: maximize}\n"
                                       "parameters:\n  edge_norm: {values: [sqrt_degree, none]}\n")
-    t1 = time.perf_counter()
     argv = ["sweep", "--sweep_file", str(sweep / "sweep.yaml")]
-    for k, v in solver_args("SAR", data, sweep, exp_name="sar_sweep").items():
+    for k, v in solver_args("SAR", root / "sweep_data", sweep, exp_name="sar_sweep").items():
         if k not in ("task", "output_path"):
             argv += [f"--{k}", str(v)]
     if cli.main(argv + ["--output_path", str(sweep)]) != 0:
         raise AssertionError("cli sweep failed")
     tsv = pd.read_csv(sweep / "sweep_results.tsv", sep="\t")
-    emit({"phase": "solver_sweep", "trials": tsv.to_dict("records"),
-          "seconds": time.perf_counter() - t1, "card": card})
+    emit({"phase": "solver_sweep", "users_and_items": SWEEP_SIZE,
+          "trials": tsv.to_dict("records"), "seconds": time.perf_counter() - t1, "card": card})
     if list(tsv["edge_norm"]) != ["sqrt_degree", "none"] or not np.isfinite(tsv["ndcg@5"]).all():
         raise AssertionError(f"solver_sweep: {tsv}")
     shutil.rmtree(out, ignore_errors=True)
@@ -4244,7 +4801,14 @@ def main() -> int:
     t_start = time.perf_counter()
     card = smi_line()
     print(card, flush=True)
+    background = {"client": start_client_build()}   # g++ of the C++ client beside nvcc
+    try:
+        return run_phases(torch, _build, card, background, t_start)
+    finally:
+        stop_background(background)
 
+
+def run_phases(torch, _build, card: str, background, t_start: float) -> int:
     t0 = time.perf_counter()
     logs = _build.build(ptxas_verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4356,7 +4920,13 @@ def main() -> int:
         timed("kernel_bst_shape", kernel_bst_shape, torch)
     rank_counts = timed("rank_path", rank_path, torch, card)
     torch.cuda.empty_cache()
+    approx_counts = timed("approx_topk", approx_topk, torch, card)
+    morec_counts = timed("morec_path", morec_path, torch, card)
+    torch.cuda.empty_cache()
+    background["export"] = start_export_compile()   # its host compilation beside the solvers
     solver_counts = timed("solver_path", solver_path, torch, card)
+    torch.cuda.empty_cache()
+    export_counts, client_counts = timed("export_path", export_path, torch, card, background)
 
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
@@ -4427,7 +4997,8 @@ def main() -> int:
              "long": long_counts, "long_serve": serve_counts, "pop_session": pop_counts,
              "seq_family": family_counts, "side_inputs": side_counts,
              "side_serve": side_serve_counts, "cf": cf_counts, "rank": rank_counts,
-             "solver": solver_counts}
+             "export": export_counts, "cpp_client": client_counts, "approx_topk": approx_counts,
+             "morec": morec_counts, "solver": solver_counts}
 
     def launched(name, path):
         for base, (new, old) in split.items():

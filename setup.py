@@ -8,7 +8,8 @@ setup(
     package_data={"unirec_tpu": ["config/*.yaml", "config/model/*.yaml",
                                  "config/dataset/*.yaml",
                                  "native/*.cc"],
-                  "unirec_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cc"]},
+                  "unirec_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cc",
+                                       "serving/cpp/*.cc"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "pandas", "pyyaml"],
     entry_points={"console_scripts": ["unirec-tpu = unirec_tpu.cli:main"]},

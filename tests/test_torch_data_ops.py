@@ -295,9 +295,9 @@ def test_raw_batcher_matches_jax_order():
 
 def test_unported_sampling_options_raise():
     """AERec rows are ported (they equal the JAX package's,
-    tests/test_torch_cf.py); MoRec's objective-aware training, which
-    samples from its own signal batches, is not and raises naming its
-    ROADMAP item."""
+    tests/test_torch_cf.py); so is MoRec's objective-aware training
+    (tests/test_torch_morec.py): a Trainer with enable_morec builds, and
+    trains through the MoRec step once build_morec gives it a controller."""
     from unirec_tpu_torch.facility.trainer import Trainer
     from unirec_tpu_torch.models.cf import MF
     items, lens = _history()
@@ -307,8 +307,8 @@ def test_unported_sampling_options_raise():
     out = aug.augment(raw, torch.Generator().manual_seed(0))
     assert torch.equal(out["item_seq"], torch.from_numpy(items[[1, 2]]))
     cfg = dict(_cfg(), n_users=30, enable_morec=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(cfg, MF(cfg), device="cpu")
+    tr = Trainer(cfg, MF(cfg), device="cpu")
+    assert tr.objective_controller is None and tr._morec_sampler is None
 
 
 # ---------------------------------------------------- popularity negatives

@@ -207,13 +207,17 @@ def test_evaluation_repeats_exactly(pair):
 
 
 def test_unported_protocols_and_metrics_raise(pair):
+    """The MoRec metrics are ported (tests/test_torch_morec.py): one-vs-all
+    takes them as its MoRec family, the session protocol its price-weighted
+    ones; an unknown protocol still raises."""
     tcfg, tmodel, *_ = pair
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_evaluator(dict(tcfg, metrics="['rhit@5']"), tmodel, "one_vs_all", None, "cpu")
+    ev = build_evaluator(dict(tcfg, metrics="['hit@5', 'rhit@5', 'pop-kl@5', 'rndcg']"),
+                         tmodel, "one_vs_all", None, "cpu")
+    assert ev.morec_names == ["rhit@5", "pop-kl@5"] and ev.base_names == ["hit@5"]
     for m in ("rhit@5", "rrecall@5", "rndcg"):   # the price-weighted session metrics
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build_evaluator(dict(tcfg, metrics=f"['{m}']"), tmodel, "session_aware",
-                            "user-item-label-session", "cpu")
+        ev = build_evaluator(dict(tcfg, metrics=f"['{m}']"), tmodel, "session_aware",
+                             "user-item-label-session", "cpu")
+        assert isinstance(ev, SessionWiseEvaluator) and ev._need_prices
     with pytest.raises(ValueError):
         build_evaluator(tcfg, tmodel, "bogus", None, "cpu")
     # RankDataset and the solvers (evaluated from their closed-form scores,

@@ -1842,3 +1842,177 @@ def test_solver_user_rows_on_the_card_are_the_graphs(cuda):
     np.testing.assert_array_equal(rows.gather(ids).cpu().numpy(),
                                   graph[ids.cpu().numpy()].toarray())
     np.testing.assert_array_equal(rows.dense(3, 40).cpu().numpy(), graph[3:40].toarray())
+
+
+# --------------------------------------------------- the unirec::* operators
+def _op_case(dev, name, dtype):
+    """(operator arguments, the plain version's output(s)) on ``dev``."""
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import ffn as FF
+    g = torch.Generator(device=dev).manual_seed(7)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    if name in ("layer_fwd", "lastq_fwd"):
+        x, madd, params = _layer_case(dev, dtype, seed=3)
+        xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
+        if name == "layer_fwd":
+            flat = LY._layer_weights(params, dtype)
+            act = LY.SUPPORTED_ACTS.index("swish")
+            return ((xp, mp, list(flat), 2, act, True, 1e-10, *LY.NO_DROP),
+                    LY._layer_fwd_plain(xp, mp, flat, 2, "swish", 1e-10, True))
+        flat = LY._lastq_weights(params, dtype)
+        act = LY.SUPPORTED_ACTS.index("gelu")
+        return ((xp, mp, list(flat), 8, 2, act, 1e-10, *LY.NO_DROP),
+                LY._lastq_fwd_plain(xp, mp, flat, 8, 2, "gelu", 1e-10))
+    if name == "ffn_fwd":
+        x, w1, w2 = rn(300, 64).to(dtype), (rn(64, 128) * 0.1).to(dtype), \
+            (rn(128, 64) * 0.1).to(dtype)
+        b1, b2 = (rn(128) * 0.1).to(dtype), (rn(64) * 0.1).to(dtype)
+        return ((x, w1, b1, w2, b2, FF.ACTS.index("swish")),
+                FF._fwd_plain(x, w1, b1, w2, b2, "swish"))
+    L = 256 if name == "flash_fwd" else 40
+    q, k, v = (rn(4, 2, L, 32).to(dtype) for _ in range(3))
+    mask = torch.where(rn(4, 1, L, L) > 1.5, -1e4, 0.0)
+    if name == "flash_fwd":
+        return (q, k, v, mask), AT._flash_fwd_plain(q, k, v, mask)
+    return (q, k, v, mask, 0, 0, 1.0), AT._fwd_plain(q, k, v, mask)
+
+
+OP_COUNTERS = {"layer_fwd": ("fused_transformer_layer", LY), "lastq_fwd":
+               ("fused_last_query_layer", LY), "attention_fwd": ("fused_attention", None),
+               "flash_fwd": ("flash_attention", None), "ffn_fwd": ("fused_ffn", None)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(OP_COUNTERS))
+def test_unirec_operator_cuda_launches_its_kernel(cuda, name, dtype):
+    """Each operator's CUDA implementation is its kernel's launch (the
+    wrapper's counter rises by one) and agrees with the plain version."""
+    from unirec_tpu_torch.ops import attention as AT
+    from unirec_tpu_torch.ops import ffn as FF
+    counter = getattr({"fused_attention": AT, "flash_attention": AT, "fused_ffn": FF}.get(
+        OP_COUNTERS[name][0], LY), OP_COUNTERS[name][0])
+    args, ref = _op_case(cuda, name, dtype)
+    before = counter.launches
+    got = getattr(torch.ops.unirec, name)(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    outs, refs = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    for o, r in zip(outs, refs):
+        tol = TOL[dtype] if o.dtype == dtype else 1e-3   # flash's lse is f32
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert float((o.float() - r.float()).abs().max()) <= tol * max(1.0, float(
+            r.float().abs().max()) if name == "ffn_fwd" else 1.0)
+
+
+def _port_checkpoint(path, **over):
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.utils.checkpoint import save_checkpoint
+    from unirec_tpu_torch.utils.flax_bridge import to_flax_params
+    from unirec_tpu_torch.utils.registry import get_model_class
+    cfg = config_mod.parse_arguments(dict(dict(
+        model="SASRec", n_users=500, n_items=1000, max_seq_len=50, embedding_size=64,
+        hidden_size=64, inner_size=128, n_heads=2, n_layers=2, dataloader="SeqRecDataset",
+        hidden_act="swish", compute_dtype="bfloat16", last_query_only=1, fused_layer=1,
+        fused_lastq=1), **over), argv=[], device="cuda")
+    model = get_model_class("SASRec")(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    save_checkpoint(str(path), {"config": cfg, "params": to_flax_params(model)})
+    return str(path)
+
+
+def _serving_ids(B, L=50, n_items=1000, seed=5):
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(1, n_items, size=(B, L)).astype(np.int32)
+    seq[0, :30] = 0
+    return (np.arange(1, B + 1, dtype=np.int32), seq, (seq != 0).sum(1).astype(np.int32))
+
+
+def test_exported_fused_program_on_the_card(cuda, tmp_path):
+    """A fused_layer/fused_lastq checkpoint's user_emb.pt2 on the card: rows
+    1 and 3 launch on their tensor-core bodies, and the output agrees with
+    the live model and with the plain versions (two bf16 ulps)."""
+    from unittest import mock
+
+    from unirec_tpu_torch.serving.export import ServeFunction, ServingModel, export_model
+    from unirec_tpu_torch.utils.checkpoint import load_model_freely
+    ckpt = _port_checkpoint(tmp_path / "ck.pkl")
+    man = export_model(ckpt, str(tmp_path / "art"), atol=2.0 ** -4, device="cuda")
+    assert man["functions"]["user_emb"]["custom_ops"] == ["unirec::lastq_fwd",
+                                                         "unirec::layer_fwd"]
+    serve = ServingModel(str(tmp_path / "art"))
+    ids = _serving_ids(64)
+    n0 = (LY.fused_transformer_layer.launches_mma, LY.fused_last_query_layer.launches_mma)
+    got = torch.as_tensor(serve.user_emb(*ids))
+    assert (LY.fused_transformer_layer.launches_mma, LY.fused_last_query_layer.launches_mma) \
+        == (n0[0] + 1, n0[1] + 1)
+    model, _ = load_model_freely(ckpt, "cuda")
+    t = [torch.as_tensor(a, device=cuda) for a in ids]
+    with torch.no_grad():
+        live = ServeFunction(model, "user_emb")(*t).float().cpu()
+        with mock.patch.object(LY, "_layer_fwd_cuda", LY._layer_fwd_plain), \
+                mock.patch.object(LY, "_lastq_fwd_cuda", LY._lastq_fwd_plain):
+            plain = ServeFunction(model, "user_emb")(*t).float().cpu()
+    tol = max(3e-2, 2.0 ** -6 * float(plain.abs().max()))
+    assert float((got - live).abs().max()) <= tol
+    assert float((got - plain).abs().max()) <= tol
+
+
+def test_cpp_client_serves_rows_1_and_3_on_the_card(cuda, tmp_path):
+    """The C++ client (built against the installed libtorch with CUDA) on an
+    AOTInductor package of the fused checkpoint's user_emb at batch 16:
+    its shims launch rows 1 and 3 (tensor-core bodies) once a call each, and
+    its output equals the .pt2 program's."""
+    from unirec_tpu_torch.serving.cpp import build as CB
+    from unirec_tpu_torch.serving.export import ServingModel, export_model
+    ckpt = _port_checkpoint(tmp_path / "ck.pkl")
+    export_model(ckpt, str(tmp_path / "art"), aoti=["user_emb"], aoti_batch=16,
+                 atol=2.0 ** -4, device="cuda")
+    build = CB.build_client()
+    assert build["cuda"]
+    ids = _serving_ids(16)
+    res = CB.run_client(build["binary"], tmp_path / "art" / "user_emb.aoti.pt2", ids,
+                        libs=CB.kernel_libs(), repeat=2)
+    assert res["device"] == "cuda" and res["calls"] == 3
+    for op in ("unirec::layer_fwd", "unirec::lastq_fwd"):
+        assert res["launches"][op] == 3 and res["launches_mma"][op] == 3
+    ref = ServingModel(str(tmp_path / "art")).user_emb(*ids)
+    assert float(np.abs(res["outputs"][0] - ref).max()) <= max(3e-2, 2.0 ** -6 * np.abs(ref).max())
+
+
+def test_morec_gram_on_the_card_matches_the_cpu(cuda):
+    """MoRec's loss vector and the Gram of its 4 per-objective gradients
+    (4 backward passes) for MF on the card against the CPU, 1e-4 of the
+    largest entry; row 6 launches once for each table in each backward."""
+    from types import SimpleNamespace
+
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.facility.morec import integration as TI
+    from unirec_tpu_torch.ops import scatter_accum as SA
+    from unirec_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params
+    from unirec_tpu_torch.utils.registry import get_model_class
+    cfg = config_mod.parse_arguments(dict(model="MF", n_users=300, n_items=500,
+                                          embedding_size=64, has_user_emb=1, loss_type="bpr",
+                                          compute_dtype="float32"), argv=[], device="cuda")
+    rng = np.random.default_rng(3)
+    batch = {"user_id": rng.integers(1, 300, 256).astype(np.int32),
+             "item_id": rng.integers(1, 500, (256, 10)).astype(np.int32),
+             "label": np.tile(np.eye(1, 10, dtype=np.float32), (256, 1)),
+             "weight": np.ones(256, np.float32)}
+    out = {}
+    cpu_model = get_model_class("MF")(cfg)
+    cpu_model.init_weights(torch.Generator().manual_seed(1))
+    for dev in ("cpu", "cuda"):
+        model = get_model_class("MF")(cfg)
+        load_flax_params(model, to_flax_params(cpu_model))
+        model.to(dev)
+        tr = SimpleNamespace(model=model, device=torch.device(dev))
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        before = SA.scatter_add_rows.launches
+        vec = TI.loss_vector(tr, b, 0, 4)
+        G = TI.gram(TI.objective_grads(list(model.parameters()), vec))
+        torch.cuda.synchronize()
+        out[dev] = (vec.detach().cpu(), G.cpu(), SA.scatter_add_rows.launches - before)
+    (vc, gc, _), (vg, gg, launched) = out["cpu"], out["cuda"]
+    assert float((vg - vc).abs().max()) <= 1e-4 * float(vc.abs().max())
+    assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+    assert launched == 4 * 2

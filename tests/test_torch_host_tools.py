@@ -514,9 +514,10 @@ def test_cli_prepare_convert_commands_match_jax(tmp_path, capsys):
 
 
 def test_cli_lists_every_jax_command_but_export():
+    """Every JAX command, export included since the serving export is
+    ported (tests/test_torch_serving.py::test_cli_export)."""
     from unirec_tpu import cli as jax_cli
-    assert set(jax_cli.COMMANDS) - set(cli.COMMANDS) == {"export"}
-    assert set(cli.COMMANDS) <= set(jax_cli.COMMANDS)
+    assert set(jax_cli.COMMANDS) == set(cli.COMMANDS)
 
 
 # ----------------------------------------------------------------- sweep

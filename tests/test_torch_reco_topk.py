@@ -125,11 +125,17 @@ def test_cli_reco_topk_on_cpu(served, interpret):
 
 
 def test_unported_serving_paths_raise(served):
+    """Row-sharded serving raises naming its ROADMAP item; approximate
+    selection (topk_recall_target) is ported as exact selection, the same
+    ids as the exact run's."""
     base, out = served
-    for extra in (dict(mesh_model=2), dict(topk_recall_target=0.9)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_reco.do_topk_reco(dict(base, output_path=str(out / "x.csv"),
-                                         **extra), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_reco.do_topk_reco(dict(base, output_path=str(out / "x.csv"), mesh_model=2),
+                                device="cpu")
+    exact = torch_reco.do_topk_reco(dict(base, output_path=str(out / "x.csv")), device="cpu")
+    approx = torch_reco.do_topk_reco(dict(base, output_path=str(out / "x.csv"),
+                                          topk_recall_target=0.9), device="cpu")
+    np.testing.assert_array_equal(approx, exact)
 
 
 def test_cuda_without_a_card_raises(served):

@@ -216,13 +216,15 @@ def test_checkpoint_serves_and_loads_into_jax(tmp_path, interpret):
 
 
 def test_unported_trainer_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _trainer(tmp_path, enable_morec=1)
+    """A mesh of more than one device raises naming its ROADMAP item; MoRec
+    (enable_morec, the price-weighted session metrics) is ported."""
+    tr, _ = _trainer(tmp_path, enable_morec=1)
+    assert tr.objective_controller is None
     with pytest.raises(NotImplementedError, match="item 12"):
         _trainer(tmp_path, mesh_data=2)
     tr, _ = _trainer(tmp_path, metrics="['rhit@5']")   # a price-weighted session metric
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tr.reset_evaluator("user-item-label-session", "session_aware")
+    tr.reset_evaluator("user-item-label-session", "session_aware")
+    assert tr.evaluator._need_prices
 
 
 @pytest.mark.parametrize("bits8", [False, True])

@@ -12,9 +12,10 @@
     python -m unirec_tpu_torch.cli convert-splits --split_dir splits/ --out_dir data/
     python -m unirec_tpu_torch.cli convert-adjacency --split_dir gowalla/ --out_dir data/
     python -m unirec_tpu_torch.cli sweep --sweep_file sweep.yaml --n_trials 20 [train flags]
+    python -m unirec_tpu_torch.cli export --model_file ckpt.pkl --out_dir art/ \
+        [--batch_size 0 --n_candidates 32 --aoti user_emb,score --aoti_batch 256]
 
-Counterpart of unirec_tpu/cli.py for the ported commands (all but
-``export``). Every ``--key value`` flag flows into the config dict or the
+Counterpart of unirec_tpu/cli.py, every command of it. Every ``--key value`` flag flows into the config dict or the
 command's keyword arguments; ``--device cpu`` runs on the CPU (the default
 is the CUDA card). Checkpoints written by the JAX package load directly.
 ``download-data`` fetches the dataset into ``cache`` (default
@@ -29,7 +30,7 @@ from unirec_tpu_torch import config as config_mod
 
 COMMANDS = ("train", "test", "infer", "infer-embedding", "reco-topk", "prepare-data",
             "download-data", "convert-splits", "convert-adjacency", "prepare-adaranker",
-            "sweep")
+            "sweep", "export")
 
 
 def main(argv=None) -> int:
@@ -70,6 +71,11 @@ def main(argv=None) -> int:
         from unirec_tpu_torch.facility.sweep import run_sweep
         best, _ = run_sweep(args.pop("sweep_file"), args, n_trials=int(args.pop("n_trials", 20)))
         print("best trial:", best)
+        return 0
+    if cmd == "export":
+        # torch.export programs, and AOTInductor packages for the C++ client
+        from unirec_tpu_torch.serving.export import export_model
+        print(export_model(args.pop("model_file"), args.pop("out_dir"), **args))
         return 0
     if cmd == "infer-embedding":
         from unirec_tpu_torch.main import infer_embedding

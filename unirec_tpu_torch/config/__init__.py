@@ -68,6 +68,18 @@ BASE_DEFAULTS: Dict[str, Any] = {
     "scheduler_factor": 0.1,
     "auto_resume": 0,
     "enable_morec": 0,
+    # MoRec (facility/morec): objectives, controller, sampler, PI gains
+    "morec_objectives": ["fairness", "alignment", "revenue"],
+    "morec_objective_controller": "PID",   # PID, Static, Pareto (MGDA), PIX, ParetoMTL, EPO
+    "morec_ngroup": [10, 10, -1],
+    "morec_alpha": 0.1,
+    "morec_lambda": 0.2,
+    "morec_expect_loss": 0.2,
+    "morec_beta_min": 0.6,
+    "morec_beta_max": 1.3,
+    "morec_K_p": 0.01,
+    "morec_K_i": 0.001,
+    "morec_objective_weights": "[0.3,0.3,0.4]",
     "mesh_data": -1,
     "dataloader": "BaseDataset",
     "history_mask_mode": "unorder",

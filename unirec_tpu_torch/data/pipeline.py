@@ -19,7 +19,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from unirec_tpu_torch.constants import EvalProtocol, HistoryMaskMode
+from unirec_tpu_torch.constants import EvalProtocol, HistoryMaskMode, LossType
 from unirec_tpu_torch.data.datasets import BaseDataset
 from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter, RawIdBatcher
 from unirec_tpu_torch.data.history import UserHistory
@@ -59,9 +59,14 @@ class Batcher:
         """Fast-forward the per-epoch rng (auto_resume)."""
         self._epoch = int(epoch)
 
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+    def _next_rng(self) -> np.random.Generator:
+        """This pass's generator, of (seed, epoch), and the next epoch."""
         rng = np.random.default_rng([self.seed, self._epoch])
         self._epoch += 1
+        return rng
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = self._next_rng()
         n, b = len(self.ds), self.batch_size
         order = rng.permutation(n) if self.shuffle else np.arange(n)
         for start in range(0, n, b):
@@ -168,6 +173,36 @@ def make_train_batcher(dataset: BaseDataset, config: Dict[str, Any],
                            extra={k: cols[k] for k in ("label", "max_len") if k in cols})
     return batcher, DeviceAugmenter(config, history, item_popularity, features=features,
                                     aerec=aerec, device=device)
+
+
+def make_negative_sampler(config: Dict[str, Any], history: Optional[UserHistory],
+                          item_popularity=None, task: str = "train") -> Optional[NegativeSampler]:
+    """The host sampler of ``n_sample_neg_{task}`` negatives a row (none for
+    a full-softmax training loss), popularity-drawn under
+    ``neg_by_pop_alpha`` (pipeline.py:240-253)."""
+    n_neg = int(config.get(f"n_sample_neg_{task}", 0) or 0)
+    if task == "train" and config.get("loss_type") == LossType.FULLSOFTMAX.value:
+        n_neg = 0
+    if n_neg <= 0:
+        return None
+    pop = item_popularity if float(config.get("neg_by_pop_alpha", 0) or 0) > 0 else None
+    return NegativeSampler(config["n_items"], n_neg, user_history=history,
+                           item_popularity=pop,
+                           neg_by_pop_alpha=float(config.get("neg_by_pop_alpha", 1.0) or 1.0),
+                           oversample_factor=int(config.get("neg_oversample_factor", 4)))
+
+
+def make_host_train_batcher(dataset: BaseDataset, config: Dict[str, Any],
+                            history: Optional[UserHistory], item_popularity=None,
+                            features=None) -> Batcher:
+    """Training rows as host batches with host-drawn negatives (the JAX
+    package's make_train_batcher, pipeline.py:256-266, without its prefetch
+    thread): MoRec's signal sweeps read the validation split through it."""
+    return Batcher(dataset, config, history=history,
+                   sampler=make_negative_sampler(config, history, item_popularity, "train"),
+                   batch_size=config.get("batch_size"),
+                   shuffle=bool(config.get("shuffle_train", 0)),
+                   seed=int(config.get("seed", 2022)), features=features)
 
 
 def make_eval_batcher(dataset: BaseDataset, config: Dict[str, Any],

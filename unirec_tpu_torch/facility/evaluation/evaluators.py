@@ -21,13 +21,24 @@ session protocol draws its noise from numpy at seed + 404, as JAX does.
 Metrics are weighted means over the real rows (``weight`` > 0) and match
 onepos.py, multipos.py and sessionwise.py. ``predict_scores`` serves the
 infer task under every protocol: ``model.predict`` of every batch, the real
-rows kept, fetched once after the sweep. The MoRec metric family, the
-session protocol's price-weighted rhit/rrecall/rndcg among them, is not
-ported yet and raises NotImplementedError naming ROADMAP.md Queue 1 item 11.
+rows kept, fetched once after the sweep.
+
+The MoRec metric family (evaluators.py:135-345, :421-530) reads the item
+meta (``_item_meta_morec``: price ``weight``, ``fair_group``,
+``align_group``) and the alignment distribution that main.run loads. Under
+one_vs_all: ``rhit@k``/``rrecall@k`` (the positive's price when it ranks in
+the top k), ``rndcg@k`` (its price times the ndcg), ``pop-kl@k`` (KL of the
+alignment distribution to the align-group frequency of the top-k lists,
+which the device sweep returns beside the ranks) and ``least-misery``
+(``min-<metric>``: the smallest mean over the positives' fair groups of each
+per-row metric); the host reduction is numpy, as in the JAX package. Under
+one_vs_k they are skipped, as there. Under session_aware: the
+price-weighted ``rhit@k`` (the largest price among hit positives),
+``rrecall@k`` (their price mass) and ``rndcg[@k]`` (sessionwise.py:39-83).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -37,7 +48,7 @@ from unirec_tpu_torch.ops import metrics as M
 from unirec_tpu_torch.ops.topk import full_catalog_scores
 from unirec_tpu_torch.utils import to_device
 
-_MOREC_PREFIXES = ("rhit", "rndcg", "rrecall", "pop-kl", "least-misery")
+_MOREC_PREFIXES = ("rhit", "rndcg", "rrecall", "pop-kl")
 
 
 class _EvaluatorBase:
@@ -47,10 +58,8 @@ class _EvaluatorBase:
         self.device = torch.device(device) if device is not None else model.device
         self.metric_names = M.parse_metrics(config.get("metrics", "['group_auc']"))
         self.seed = int(config.get("seed", 2022))
-        morec = [m for m in self.metric_names if m.split("@")[0] in _MOREC_PREFIXES]
-        if morec:
-            raise NotImplementedError(f"the MoRec metrics {morec} are not ported yet "
-                                      "(ROADMAP.md Queue 1 item 11)")
+        self.item_meta = config.get("_item_meta_morec")
+        self.align_dist = config.get("_alignment_dist")
         self._batches = 0
 
     def _to_device(self, batch) -> Dict[str, Any]:
@@ -77,9 +86,19 @@ class OnePositiveEvaluator(_EvaluatorBase):
 
     def __init__(self, config: Dict[str, Any], model, device=None):
         super().__init__(config, model, device)
+        # bare (no-@k) r-metrics are session-wise only (sessionwise.py:
+        # 171-173): dropped here, as in the JAX package
+        session_only = [m for m in self.metric_names
+                        if "@" not in m and m in ("rhit", "rndcg", "rrecall")]
+        self.morec_names = [m for m in self.metric_names
+                            if (m.split("@")[0] in _MOREC_PREFIXES or m == "least-misery")
+                            and m not in session_only]
         # 'auc' is one global ROC-AUC over every (score, label) pair of the
         # one-vs-k sweep (onepos.py:136-137)
-        self.base_names = [m for m in self.metric_names if m != "auc"]
+        self.base_names = [m for m in self.metric_names if m != "auc"
+                           and m not in self.morec_names and m not in session_only]
+        pop_ks = [int(m.split("@")[1]) for m in self.morec_names if m.startswith("pop-kl@")]
+        self._popkl_k = max(pop_ks) if pop_ks else 0
 
     def _generator(self, offset: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.seed + offset)
@@ -130,18 +149,74 @@ class OnePositiveEvaluator(_EvaluatorBase):
         def metrics(scores, pos, hist_items, hist_len, gen):
             if pos.dim() == 2:
                 pos = pos[:, 0]
-            rank = M.onepos_rank_full_catalog(scores, pos, hist_items, hist_len, gen)
-            return M.onepos_metrics(rank, n_items, self.base_names)
+            rank, topk = M.onepos_rank_and_topk(scores, pos, hist_items, hist_len, gen,
+                                                self._popkl_k)
+            vals = M.onepos_metrics(rank, n_items, self.base_names)
+            if self.morec_names:
+                vals.update(_rank=rank, _pos=pos, **({} if topk is None else {"_topk": topk}))
+            return vals
 
-        return self._full_sweep(batcher, history, 202, self.base_names, metrics)
+        fetched, weights = self._sweep(batcher, history, 202, metrics)
+        rows = {m: [vals[m] for vals in fetched] for m in self.base_names}
+        if not self.morec_names:
+            return self.merge(rows, weights)
+        return self._morec_metrics(rows, fetched, weights)
+
+    def _morec_metrics(self, rows, fetched, weights) -> Dict[str, float]:
+        """The base metrics' means and the MoRec family's, from the sweep's
+        ranks, top-k lists and positives (the JAX package's host reduction,
+        evaluators.py:300-355)."""
+        meta = self.item_meta
+        per_row = self.base_names + [m for m in self.morec_names
+                                     if not m.startswith("pop-kl") and m != "least-misery"]
+        popkl = {m: None for m in self.morec_names if m.startswith("pop-kl")}
+        group_ids = []
+        for m in per_row[len(self.base_names):]:
+            rows[m] = []
+        for w, vals in zip(weights, fetched):
+            rank, pos, keep = vals["_rank"], vals["_pos"], w > 0
+            prices = meta["weight"][pos] if meta is not None and "weight" in meta \
+                else np.ones_like(pos, np.float64)
+            for m in self.morec_names:
+                name = m.split("@")[0]
+                if name in ("rhit", "rrecall"):
+                    rows[m].append((rank < int(m.split("@")[1])).astype(np.float64) * prices)
+                elif name == "rndcg":
+                    k = int(m.split("@")[1])
+                    rows[m].append((rank < k) / np.log2(rank + 2.0) * prices)
+                elif name == "pop-kl":
+                    i2g = meta["align_group"]
+                    ids = vals["_topk"][keep][:, :int(m.split("@")[1])].reshape(-1)
+                    counts = np.bincount(i2g[ids], minlength=int(i2g.max()) + 1)
+                    popkl[m] = counts.astype(np.float64) if popkl[m] is None \
+                        else popkl[m] + counts
+            if "least-misery" in self.morec_names and meta is not None:
+                group_ids.append(meta["fair_group"][pos])
+        out = self.merge(rows, weights)
+        # pop-kl@k: KL(alignment_dist || top-k group frequency) (onepos.py:53-68)
+        for m, counts in popkl.items():
+            freq = counts[1:] / max(counts[1:].sum(), 1e-10)
+            tgt = np.asarray(self.align_dist, np.float64)
+            out[m] = float(np.sum((tgt + 1e-10) * (np.log(tgt + 1e-10) - np.log(freq + 1e-10))))
+        # least-misery: the smallest fair-group mean of each per-row metric
+        # (onepos.py:206-217)
+        if group_ids:
+            gid = np.concatenate(group_ids)
+            w = np.concatenate(weights) > 0
+            for m in per_row:
+                v = np.concatenate(rows[m])
+                vv, gg = v[w[: len(v)]], gid[w[: len(gid)]]
+                mins = [vv[gg == g].mean() for g in np.unique(gg) if g > 0 and (gg == g).any()]
+                if mins:
+                    out[f"min-{m}"] = float(min(mins))
+        return out
 
     @torch.no_grad()
-    def _full_sweep(self, batcher, history, seed_offset: int, names,
-                    metrics) -> Dict[str, float]:
+    def _sweep(self, batcher, history, seed_offset: int, metrics):
         """Score each batch against the whole catalog and reduce it to
-        per-row metrics with ``metrics(scores, pos, hist_items, hist_len,
+        per-row results with ``metrics(scores, pos, hist_items, hist_len,
         gen)``, all on the device; the per-batch results are fetched once,
-        after the sweep."""
+        after the sweep. Returns ([{name: numpy array}], [weights])."""
         item_emb = self.model.all_item_emb()
         tau = float(self.config.get("tau", 1.0))
         gen = self._generator(seed_offset)
@@ -153,8 +228,13 @@ class OnePositiveEvaluator(_EvaluatorBase):
             scores = full_catalog_scores(self.model, jb, item_emb, tau)
             pending.append(metrics(scores, jb["item_id"], h["items"], h["len"], gen))
             weights.append(np.asarray(batch["weight"]))
-        rows = {m: [vals[m].cpu().numpy() for vals in pending] for m in names}
-        return self.merge(rows, weights)
+        return [{k: v.cpu().numpy() for k, v in vals.items()} for vals in pending], weights
+
+    def _full_sweep(self, batcher, history, seed_offset: int, names,
+                    metrics) -> Dict[str, float]:
+        """``_sweep``'s weighted means of ``names``."""
+        fetched, weights = self._sweep(batcher, history, seed_offset, metrics)
+        return self.merge({m: [vals[m] for vals in fetched] for m in names}, weights)
 
 
 class MultiPositiveEvaluator(OnePositiveEvaluator):
@@ -180,36 +260,67 @@ class SessionWiseEvaluator(_EvaluatorBase):
     ``model.predict`` on the device, fetched once after the sweep, then
     grouped by ``session_id`` (``user_id`` when the table has none) and
     reduced per session on the host. Sessions that are all positive or all
-    negative are dropped (sessionwise.py:104-115)."""
+    negative are dropped (sessionwise.py:104-115). The price-weighted
+    rhit/rrecall/rndcg take each row's price from the MoRec item meta's
+    ``weight`` by item id (evaluator_abc.py:145-169), 1 without it."""
+
+    PRICE_PREFIXES = ("rndcg", "rhit", "rrecall")
+
+    def __init__(self, config, model, device=None):
+        super().__init__(config, model, device)
+        self._need_prices = any(m.split("@")[0] in self.PRICE_PREFIXES
+                                for m in self.metric_names)
 
     @torch.no_grad()
     def evaluate(self, batcher) -> Dict[str, float]:
-        pending, labels, sessions = [], [], []
+        pending, labels, sessions, item_ids = [], [], [], []
         for batch in batcher:
             w = np.asarray(batch["weight"])
             pending.append((w, self.model.predict(self._to_device(batch))))
             labels.append(np.asarray(batch["label"]).reshape(-1))
             sessions.append(np.asarray(batch["session_id"] if "session_id" in batch
                                        else batch["user_id"]).reshape(-1))
+            if self._need_prices:
+                item_ids.append(np.asarray(batch["item_id"]).reshape(-1))
         scores = []
         for i, (w, s_dev) in enumerate(pending):
             s = s_dev.float().cpu().numpy().reshape(-1)
             keep = np.repeat(w > 0, s.shape[0] // len(w))
             scores.append(s[keep])
             labels[i], sessions[i] = labels[i][keep], sessions[i][keep]
+            if self._need_prices:
+                item_ids[i] = item_ids[i][keep]
+        prices = None
+        if self._need_prices:
+            ids = np.concatenate(item_ids)
+            meta = self.item_meta
+            prices = (meta["weight"][ids] if meta is not None and "weight" in meta
+                      else np.ones(len(ids), np.float64))
         return self.evaluate_with_scores(np.concatenate(scores), np.concatenate(labels),
-                                         np.concatenate(sessions))
+                                         np.concatenate(sessions), prices=prices)
 
     def evaluate_with_scores(self, scores: np.ndarray, labels: np.ndarray,
-                             session_ids: np.ndarray) -> Dict[str, float]:
+                             session_ids: np.ndarray,
+                             prices: Optional[np.ndarray] = None) -> Dict[str, float]:
         """Per-session metrics averaged over the sessions (the JAX package's
-        ``evaluate_with_scores`` without its price-weighted metrics)."""
+        ``evaluate_with_scores``, numpy, the same noise from the same seed)."""
         rng = np.random.default_rng(self.seed + 404)
         scores = scores + rng.uniform(-1e-8, 1e-8, size=scores.shape)
         order = np.argsort(session_ids, kind="stable")
         s, l, g = scores[order], labels[order], session_ids[order]
+        p = prices[order] if prices is not None else None
         bounds = np.flatnonzero(np.r_[True, g[1:] != g[:-1], True])
         res: Dict[str, List[float]] = {m: [] for m in self.metric_names}
+
+        def rndcg(k, ranks, ndcg_w, rank_prices):
+            # sessionwise.py:44-50: each hit positive's discount times its
+            # price, over the largest discounts paired with the largest prices
+            n = min(k, len(ranks))
+            hit = ranks < k
+            num = (ndcg_w[ranks[hit]] * rank_prices[hit]).sum()
+            den = (ndcg_w[:n] * np.sort(rank_prices)[::-1][:n]).sum() + 1e-8
+            return num / den
+
         for a, b in zip(bounds[:-1], bounds[1:]):
             gs, gl = s[a:b], l[a:b]
             n_pos = gl.sum()
@@ -217,7 +328,11 @@ class SessionWiseEvaluator(_EvaluatorBase):
                 continue
             ranks_full = np.empty(len(gs), dtype=np.int64)
             ranks_full[np.argsort(-gs, kind="stable")] = np.arange(len(gs))
-            ranks = np.sort(ranks_full[gl > 0])
+            pos_ranks = ranks_full[gl > 0]
+            rank_order = np.argsort(pos_ranks)
+            ranks = pos_ranks[rank_order]
+            # the positives' prices in rank order (sessionwise.py:160-162)
+            rank_prices = p[a:b][gl > 0][rank_order] if p is not None else None
             n = len(gs)
             ndcg_w = 1.0 / np.log2(np.arange(2, n + 2))
             mrr_w = 1.0 / np.arange(1, n + 1)
@@ -226,6 +341,8 @@ class SessionWiseEvaluator(_EvaluatorBase):
                     res[m].append(M.roc_auc(gl, gs))
                 elif m == "ndcg":
                     res[m].append(ndcg_w[ranks].sum() / ndcg_w[: len(ranks)].sum())
+                elif m == "rndcg":      # k = inf (sessionwise.py:172)
+                    res[m].append(rndcg(np.inf, ranks, ndcg_w, rank_prices))
                 elif m == "mrr":
                     res[m].append(mrr_w[ranks].sum() / len(ranks))
                 elif "@" in m:
@@ -234,10 +351,16 @@ class SessionWiseEvaluator(_EvaluatorBase):
                     if name == "ndcg":
                         res[m].append(ndcg_w[ranks[ranks < k]].sum()
                                       / ndcg_w[:min(k, len(ranks))].sum())
+                    elif name == "rndcg":
+                        res[m].append(rndcg(k, ranks, ndcg_w, rank_prices))
                     elif name == "hit":
                         res[m].append(1.0 if ranks[0] < k else 0.0)
+                    elif name == "rhit":        # the largest hit price (sessionwise.py:63-65)
+                        res[m].append(float(((ranks < k) * rank_prices).max()))
                     elif name == "recall":
                         res[m].append((ranks < k).sum() / len(ranks))
+                    elif name == "rrecall":     # the hit price mass (sessionwise.py:81-83)
+                        res[m].append(float(((ranks < k) * rank_prices).sum()))
                     elif name == "mrr":
                         res[m].append(mrr_w[ranks[ranks < k]].sum() / min(k, len(ranks)))
         return {m: float(np.mean(v)) if v else 0.0 for m, v in res.items()}

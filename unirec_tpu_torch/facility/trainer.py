@@ -26,8 +26,12 @@ step epoch + 1 and ``valid/<metric>`` at the epoch index through
 ``use_wandb`` logs the same when ``wandb`` imports; either warns and stays
 off when its package does not import.
 
-Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-item: MoRec (Queue 1 item 11) and a mesh of more than one device (item 12).
+MoRec (reference trainer.py:461-538): with an objective controller
+(``add_objective_controller``, wired by facility/morec's ``build_morec``)
+each step is facility/morec/integration.py's ``morec_train_step`` on the
+host batches of the MoRec sampler, ending in the same update.
+Not ported yet, and raising NotImplementedError naming its ROADMAP.md
+item: a mesh of more than one device (Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -78,9 +82,6 @@ def early_stopping(value, best, cur_step, max_step=4, bigger=True):
 
 class Trainer:
     def __init__(self, config: Dict[str, Any], model, device=None):
-        if int(config.get("enable_morec", 0) or 0):
-            raise NotImplementedError("MoRec training is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 11)")
         if int(config.get("mesh_data", -1)) > 1 or int(config.get("mesh_model", 1)) > 1:
             raise NotImplementedError("a mesh of more than one device is not "
                                       "ported yet (ROADMAP.md Queue 1 item 12)")
@@ -110,6 +111,9 @@ class Trainer:
         self.evaluator = None
         self._eval_protocol = None
         self._loaded = None          # per parameter: loaded by load_model
+        self.objective_controller = None   # MoRec (facility/morec)
+        self._morec_sampler = None
+        self._morec_pi_state = None
         # MultiVAE's KL anneal schedule (trainer.py:131-141), fed per step
         # as the batch's ``anneal``; global_step is checkpointed, so the
         # schedule survives a resume
@@ -146,6 +150,11 @@ class Trainer:
                                          data_format, self.device)
         self._eval_protocol = eval_protocol
 
+    def add_objective_controller(self, controller):
+        """MoRec: every step then weighs the per-objective losses through
+        ``controller`` (facility/morec/integration.py)."""
+        self.objective_controller = controller
+
     def set_device_augmenter(self, augmenter):
         """Fuse negative sampling and history windowing into the train step;
         the batcher then yields raw id pairs."""
@@ -169,27 +178,35 @@ class Trainer:
         """One optimizer step on a device batch (raw ids when an augmenter
         is set); returns the loss as a 0-d device tensor, no host sync."""
         aug_seed, drop_seed = step_seeds(self.seed, self._global_step)
+        if self.objective_controller is not None:
+            from unirec_tpu_torch.facility.morec.integration import morec_train_step
+            loss = morec_train_step(self, batch, drop_seed)
+            self._global_step += 1
+            return loss
         if self._augmenter is not None:
             gen = torch.Generator(device=self.device).manual_seed(aug_seed)
             batch = self._augmenter.augment(batch, gen)
         if self._anneal_sched is not None:     # after augment, which rebuilds the keys
             batch = dict(batch, anneal=kl_anneal(self._global_step, *self._anneal_sched))
         loss, _ = self.model(batch, train=True, rng=DropoutRNG(drop_seed, self.device))
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        frozen = self._frozen
+        self.apply_update(loss, torch.autograd.grad(loss, self.params, allow_unused=True))
+        self._global_step += 1
+        return loss.detach()
+
+    def apply_update(self, loss: torch.Tensor, grads):
+        """The optimizer update from ``grads`` (None for a parameter the
+        loss does not reach), frozen parameters at zero gradient, under the
+        NaN guard (trainer.py:229-237): params and state stay when the loss
+        is not finite."""
         grads = [torch.zeros_like(p) if g is None or f else g
-                 for g, p, f in zip(grads, self.params, frozen)]
+                 for g, p, f in zip(grads, self.params, self._frozen)]
         with torch.no_grad():
-            # NaN guard (trainer.py:229-237): keep params and state when the
-            # loss is not finite
             finite = torch.isfinite(loss)
             updates, new_state = self.tx.update(grads, self.opt_state, self.params)
             for p, u in zip(self.params, updates):
                 p.copy_(torch.where(finite, p + u, p))
             self.opt_state = {k: _where(finite, v, self.opt_state[k])
                               for k, v in new_state.items()}
-        self._global_step += 1
-        return loss.detach()
 
     @property
     def _frozen(self):

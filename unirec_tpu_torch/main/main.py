@@ -40,8 +40,14 @@ Chrome-trace format where the JAX package writes an xplane; it stops when
 ``run`` raises too. It runs on the CUDA card unless the caller passes
 ``device='cpu'`` (or another device), and never falls back to the CPU. Not
 ported yet, and raising NotImplementedError naming their ROADMAP.md item:
-MoRec (item 11), a mesh of more than one device and
-``checkpoint_backend=orbax`` (item 12).
+a mesh of more than one device and ``checkpoint_backend=orbax`` (item 12).
+
+MoRec (main.py:146-167, 207-216): with ``enable_morec`` or a MoRec metric
+(rhit, rndcg, rrecall, pop-kl, least-misery) the item meta
+(``item_meta_morec_filename``) and the alignment distribution load into the
+config for the sampler and the evaluators; ``enable_morec`` trains on the
+MoRec sampler's host batches (facility/morec's ``build_morec``), its
+signals swept over the validation split read as training rows.
 """
 from __future__ import annotations
 
@@ -57,7 +63,8 @@ from unirec_tpu_torch.constants import EvalProtocol, TaskType
 from unirec_tpu_torch.data import construct_item_popularity
 from unirec_tpu_torch.data.datasets import get_dataset_class
 from unirec_tpu_torch.data.history import UserHistory
-from unirec_tpu_torch.data.pipeline import make_eval_batcher, make_train_batcher
+from unirec_tpu_torch.data.pipeline import (make_eval_batcher, make_host_train_batcher,
+                                            make_negative_sampler, make_train_batcher)
 from unirec_tpu_torch.facility.solver import Solver
 from unirec_tpu_torch.facility.trainer import Trainer
 from unirec_tpu_torch.models.base import features_shape
@@ -74,7 +81,15 @@ def need_user_history(config) -> bool:
     return (int(config.get("n_sample_neg_train", 0) or 0) > 0
             or EvalProtocol.ONE_VS_ALL.value in (config.get("test_protocol"),
                                                  config.get("valid_protocol"))
-            or config.get("dataloader") in ("SeqRecDataset", "AERecDataset"))
+            or config.get("dataloader") in ("SeqRecDataset", "AERecDataset")
+            or _morec_on(config))
+
+
+_MOREC_METRICS = ("pop-kl", "least-misery", "rhit", "rndcg", "rrecall")
+
+
+def _morec_on(config) -> bool:
+    return int(config.get("enable_morec", 0) or 0) > 0
 
 
 def load_user_history(config) -> UserHistory:
@@ -112,11 +127,27 @@ def _exists_any(path, prefix) -> bool:
 def _refuse_unported(config, task: str):
     if task not in (TaskType.TRAIN.value, TaskType.TEST.value, TaskType.INFER.value):
         raise ValueError(f"unknown task: {task}")
-    if int(config.get("enable_morec", 0) or 0):
-        raise NotImplementedError("MoRec is not ported yet (ROADMAP.md Queue 1 item 11)")
     if config.get("checkpoint_backend", "pickle") == "orbax":
         raise NotImplementedError("checkpoint_backend=orbax is not ported yet "
                                   "(ROADMAP.md Queue 1 item 12)")
+
+
+def _load_morec_meta(config, item_pop) -> None:
+    """The MoRec item meta and alignment distribution into the config
+    (``_item_meta_morec``, ``_alignment_dist``), when the meta file exists."""
+    from unirec_tpu_torch.facility.morec import (load_alignment_distribution,
+                                                 load_morec_meta_data)
+    meta_file = os.path.join(config["dataset_path"],
+                             config.get("item_meta_morec_filename", "item_meta_morec.csv"))
+    if not os.path.exists(meta_file):
+        return
+    objectives = list(config.get("morec_objectives", ["fairness", "alignment", "revenue"]))
+    item_meta = load_morec_meta_data(int(config["n_items"]), meta_file, objectives)
+    align_file = config.get("align_dist_filename")
+    config["_item_meta_morec"] = item_meta
+    config["_alignment_dist"] = load_alignment_distribution(
+        item_meta, item_pop,
+        os.path.join(config["dataset_path"], align_file) if align_file else None)
 
 
 def _padded_emb(emb: np.ndarray) -> np.ndarray:
@@ -182,8 +213,12 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
     dpath = config["dataset_path"]
     history = load_user_history(config) if need_user_history(config) else None
     item_pop = None
-    if float(config.get("neg_by_pop_alpha", 0) or 0) > 0 and history is not None:
+    if (float(config.get("neg_by_pop_alpha", 0) or 0) > 0
+            or "pop-kl" in str(config.get("metrics", "")) or _morec_on(config)) \
+            and history is not None:
         item_pop = construct_item_popularity(history, int(config["n_items"]))
+    if _morec_on(config) or any(t in str(config.get("metrics", "")) for t in _MOREC_METRICS):
+        _load_morec_meta(config, item_pop)
     features = load_item_features(config)
     if features is not None:
         config["_item2features"] = features
@@ -208,10 +243,20 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
     if task == TaskType.TRAIN.value:
         tcfg = _task_config(config, "train")
         train_ds = ds_cls(tcfg, dpath, config.get("data_train_name", "train"))
-        if sgd:
+        if sgd and _morec_on(config):
+            from unirec_tpu_torch.facility.morec import build_morec
+            # the signal sweeps read the valid split as training rows
+            # (reference main.py:168-177)
+            sig_ds = ds_cls(tcfg, dpath, config.get("data_valid_name", "valid"))
+            signal = make_host_train_batcher(sig_ds, tcfg, history, item_pop, features)
+            train_data = build_morec(runner, tcfg, train_ds, signal, history, item_pop,
+                                     features, item_sampler=make_negative_sampler(
+                                         tcfg, history, item_pop))
+        elif sgd:
             train_data, augmenter = make_train_batcher(train_ds, tcfg, history, item_pop,
                                                        device=dev, features=features)
             runner.set_device_augmenter(augmenter)
+        if sgd:
             fit_kw = dict(load_pretrained_model=bool(config.get("load_pretrained_model")),
                           model_file=config.get("model_file"),
                           verbose=int(config.get("verbose", 1)))

@@ -15,8 +15,13 @@ Score paths, as in the JAX package:
 The catalog's item side takes the model's constants (the feature table and
 the text rows the checkpoint carries); the user side reads the history
 windows alone, as the JAX package's does.
-The row-sharded path (``mesh_model > 1``) and approximate selection
-(``topk_recall_target``) are not ported yet and raise.
+``topk_recall_target`` in (0, 1) asks the JAX package for
+``lax.approx_max_k``, a TPU PartialReduce op that XLA lowers to exact top-k
+everywhere else; the port honours the target with exact selection (the
+fused path's blockmax kernel at its catalog sizes, ``torch.topk`` below
+them), whose recall is 1.0, and keeps the JAX rule that ``last_item`` > 0
+forces exact selection with a warning (ROADMAP.md, deliberate differences).
+The row-sharded path (``mesh_model > 1``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -47,14 +52,14 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
     tau = float(config.get("tau", 1.0))
     recall_target = float(config.get("topk_recall_target", 0) or 0)
     if 0.0 < recall_target < 1.0:
+        # exact selection meets any recall target (module docstring)
         if last_item > 0:
             logging.getLogger("unirec_tpu_torch").warning(
                 "topk_recall_target ignored under last_item>0 (evaluation "
                 "requires exact selection)")
         else:
-            raise NotImplementedError(
-                "topk_recall_target (approximate top-k, lax.approx_max_k) is "
-                "not ported yet (ROADMAP.md Queue 1 item 10)")
+            logging.getLogger("unirec_tpu_torch").info(
+                "topk_recall_target %g: exact selection (recall 1.0)", recall_target)
     if int(config.get("mesh_model", 1) or 1) > 1:
         raise NotImplementedError("row-sharded serving (mesh_model > 1) is not "
                                   "ported yet (ROADMAP.md Queue 1 item 12)")

@@ -37,7 +37,7 @@ def _nvcc() -> str:
                        "unirec_tpu_torch are built from csrc/ on the card's machine")
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
@@ -53,7 +53,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, out = {}, {}
     for name in names:
-        lib = _library_path(name)
+        lib = library_path(name)
         if lib.exists():
             out[name] = {"seconds": 0.0, "log": ""}
             continue
@@ -80,7 +80,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     build([name])
-    return ctypes.CDLL(str(_library_path(name)))
+    return ctypes.CDLL(str(library_path(name)))
 
 
 def check(err: int, what: str) -> None:

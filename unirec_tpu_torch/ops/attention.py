@@ -50,6 +50,11 @@ flash attention where ``flash_supported`` (the JAX device gate: L >= 256,
 L and hd multiples of 8) takes the shape, else ``xla_attention``.
 ``flash_attention.launches`` counts kernel launches.
 
+Both forward kernels are ``torch.library`` operators as ops/layer.py's are,
+``unirec::attention_fwd`` and ``unirec::flash_fwd`` (ops/op_schemas.py),
+whose outputs keep the kernels' [B, L, H, hd] memory layout on either
+device.
+
 ``xla_attention`` and ``xla_attention_probs`` are the JAX package's plain
 helpers. When ``fused_supported`` declines a shape, the caller
 (models/modules.py::MultiHeadAttention) runs its own plain attention, as
@@ -67,7 +72,8 @@ import torch
 
 from unirec_tpu_torch.ops import _build
 from unirec_tpu_torch.ops.layer import (_DTYPES, _SMEM_LIMIT, NO_DROP, Drop, _dispatch,
-                                        _ptr, drop_params, keep_mask)
+                                        _ptr, define_op, drop_params, keep_mask,
+                                        needs_grad)
 
 MASK_VALUE = -1e4           # the reference additive mask (sasrec.py:56)
 MAX_FUSED_SEQ_LEN = 512     # unirec_tpu/ops/attention.py:179
@@ -303,7 +309,7 @@ class _FusedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, mask, drop):
         ctx.save_for_backward(q, k, v, mask)
         ctx.drop = drop
-        return _dispatch(q, _fwd_cuda, _fwd_plain, "fused attention")(q, k, v, mask, drop)
+        return _attention_fwd_op(q, k, v, mask, drop)
 
     @staticmethod
     def backward(ctx, do):
@@ -318,7 +324,9 @@ def fused_attention(q, k, v, mask, p_drop: float = 0.0,
     q, k, v: [B, H, L, hd] in float32 or bfloat16; mask: additive [B, 1 or
     H, L or 1, L]. Returns [B, H, L, hd] in q's dtype."""
     drop = drop_params(float(p_drop), 0.0, True, seed)
-    return _FusedAttention.apply(q, k, v, mask, drop)
+    if needs_grad(q, k, v):
+        return _FusedAttention.apply(q, k, v, mask, drop)
+    return _attention_fwd_op(q, k, v, mask, drop)
 
 
 fused_attention.launches = 0
@@ -458,8 +466,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
-        out, lse = _dispatch(q, _flash_fwd_cuda, _flash_fwd_plain, "flash attention")(
-            q, k, v, mask)
+        out, lse = FLASH_FWD_OP(q, k, v, mask)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         return out
 
@@ -473,10 +480,52 @@ def flash_attention(q, k, v, mask) -> torch.Tensor:
     """Differentiable masked attention for long sequences. q, k, v: [B, H,
     L, hd] in float32 or bfloat16; mask: additive f32 [B, 1 or H, L or 1,
     L]. Returns [B, H, L, hd] in q's dtype."""
-    return _FlashAttention.apply(q, k, v, mask)
+    if needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, mask)
+    return FLASH_FWD_OP(q, k, v, mask)[0]
 
 
 flash_attention.launches = 0
+
+
+# -------------------------------------------------------- custom operators
+# unirec::attention_fwd (row 10) and unirec::flash_fwd (row 9), ops/op_schemas.py:
+# q, k, v [B, H, L, hd] as the caller gives them, the additive mask, dropout
+# as (seed, keep threshold, 1/(1-p)) of the probabilities. The outputs keep
+# the kernels' layout ([B, L, H, hd] in memory) on either device, so an
+# exported graph has one layout. Each implementation looks its function up
+# by name at the call (chip_smoke.py's plain_versions patches them).
+def _in_out_layout(q: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    o = _empty_out(q)
+    if out.stride() == o.stride():
+        return out
+    return o.copy_(out)
+
+
+def _attention_op(fn: str):
+    def impl(q, k, v, mask, seed, t_attn, inv_attn):
+        return _in_out_layout(q, globals()[fn](q, k, v, mask,
+                                               Drop(seed, t_attn, 0, inv_attn, 1.0)))
+    return impl
+
+
+def _flash_op(fn: str):
+    def impl(q, k, v, mask):
+        out, lse = globals()[fn](q, k, v, mask)
+        return _in_out_layout(q, out), lse.contiguous()
+    return impl
+
+
+ATTENTION_FWD_OP = define_op("attention_fwd", _attention_op("_fwd_plain"),
+                             _attention_op("_fwd_cuda"),
+                             lambda q, k, v, mask, *a: _empty_out(q))
+FLASH_FWD_OP = define_op("flash_fwd", _flash_op("_flash_fwd_plain"), _flash_op("_flash_fwd_cuda"),
+                         lambda q, k, v, mask: (_empty_out(q), q.new_empty(q.shape[:3],
+                                                                          dtype=torch.float32)))
+
+
+def _attention_fwd_op(q, k, v, mask, drop: Drop = NO_DROP) -> torch.Tensor:
+    return ATTENTION_FWD_OP(q, k, v, mask, drop.seed, drop.t_attn, float(drop.inv_attn))
 
 
 def causal_attention(q, k, v, mask, use_pallas: bool = True) -> torch.Tensor:

@@ -15,6 +15,9 @@ gradients summed in f32 and cast to each weight's dtype
 (ffn.py:62-101, :201-202). ``fused_ffn.launches`` and
 ``fused_ffn_bwd.launches`` count kernel launches.
 
+The forward kernel is the ``torch.library`` operator ``unirec::ffn_fwd``
+(ops/op_schemas.py), as ops/layer.py's kernels are.
+
 Bodies. Both directions in f32 or at widths the tensor cores do not take
 run on the CUDA cores; they hold at most 128 columns of F at once and a row
 tile that shrinks as D grows (``_rows``), so every D <= 2048 launches at any
@@ -33,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from unirec_tpu_torch.ops import _build
-from unirec_tpu_torch.ops.layer import _DTYPES, _SMEM_LIMIT, _aligned16, _dispatch, _ptr
+from unirec_tpu_torch.ops.layer import (_DTYPES, _SMEM_LIMIT, _aligned16, _dispatch, _ptr,
+                                        define_op, needs_grad)
 
 # activation codes of csrc/common.cuh (gelu is the erf form; leakyrelu's
 # slope is 0.01, as jax.nn.leaky_relu)
@@ -263,7 +267,7 @@ class _FusedFFN(torch.autograd.Function):
     def forward(ctx, x, w1, b1, w2, b2, act):
         ctx.save_for_backward(x, w1, b1, w2, b2)
         ctx.act = act
-        return _dispatch(x, _fwd_cuda, _fwd_plain, "fused ffn")(x, w1, b1, w2, b2, act)
+        return FFN_FWD_OP(x, w1, b1, w2, b2, ACTS.index(act))
 
     @staticmethod
     def backward(ctx, dy):
@@ -275,9 +279,26 @@ def fused_ffn(x, w1, b1, w2, b2, act: str = "swish") -> torch.Tensor:
     """y = act(x @ w1 + b1) @ w2 + b2, differentiable in every tensor.
     x: [T, D]; w1: [D, F]; b1: [F]; w2: [F, D]; b2: [D]; one dtype
     (float32 or bfloat16). Returns [T, D] in x's dtype."""
-    return _FusedFFN.apply(x, w1, b1, w2, b2, act)
+    if needs_grad(x, w1, b1, w2, b2):
+        return _FusedFFN.apply(x, w1, b1, w2, b2, act)
+    return FFN_FWD_OP(x, w1, b1, w2, b2, ACTS.index(act))
 
 
 fused_ffn.launches = 0
 fused_ffn.launches_mma = 0   # of those, the bf16 tensor-core body's
 
+
+
+# -------------------------------------------------------- custom operator
+# unirec::ffn_fwd (row 12, ops/op_schemas.py): x [T, D] and the flax-layout
+# weights, the activation's index in ACTS; a contiguous [T, D] on either
+# device. The implementation looks its function up by name at the call
+# (chip_smoke.py's plain_versions patches it).
+def _ffn_op(fn: str):
+    def impl(x, w1, b1, w2, b2, act):
+        return globals()[fn](x, w1, b1, w2, b2, ACTS[act]).contiguous()
+    return impl
+
+
+FFN_FWD_OP = define_op("ffn_fwd", _ffn_op("_fwd_plain"), _ffn_op("_fwd_cuda"),
+                       lambda x, *a: x.new_empty(x.shape))

@@ -41,6 +41,15 @@ on. A kept hidden value is scaled by 1/(1-p) in f32 and rounded to the
 input dtype (the JAX kernels multiply a bf16 value by a weak-typed scalar,
 which rounds 1/(1-p) to bf16 first).
 
+Operators. Both forward kernels are ``torch.library`` operators,
+``unirec::layer_fwd`` and ``unirec::lastq_fwd`` (ops/op_schemas.py): their
+arguments are the C launchers' (x padded, madd built, the weights
+flattened, the activation's index, dropout's fields), CPU tensors run the
+plain version and CUDA tensors the launch. The autograd Functions call them
+in their forward, and a call that autograd does not record (evaluation,
+torch.export) calls them directly, so an exported graph holds the kernels
+as nodes that the C++ client (serving/cpp) implements too.
+
 Parameters use the JAX package's tuple, with flax kernels in [in, out]:
 ((wq,bq),(wk,bk),(wv,bv),(wo,bo),(g1,c1),(w1,b1),(w2,b2),(g2,c2)). The
 weights enter the Functions cast to the compute dtype, so, as in
@@ -57,7 +66,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from unirec_tpu_torch.ops import _build
+from unirec_tpu_torch.ops import _build, op_schemas
 
 MASK_VALUE = -1e4  # reference additive mask (sasrec.py:56)
 PAD_MASK = -1e30   # hard ban on Lp-padding keys
@@ -641,9 +650,28 @@ layer_bwd.launches = 0
 layer_bwd.launches_mma = 0   # of those, the bf16 tensor-core body's
 
 
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``ts``: the training paths go
+    through the autograd.Functions, every other call straight to the
+    operator, which is what torch.export records."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def define_op(name: str, cpu, cuda, fake):
+    """Define ``unirec::<name>`` from ops/op_schemas.py's table, with the
+    plain version for CPU tensors, the kernel launch for CUDA tensors (no
+    fallback: the launch raises on what it does not take) and the fake
+    implementation torch.export traces with. Returns the operator."""
+    q = op_schemas.qualname(name)
+    torch.library.define(q, op_schemas.SCHEMAS[name])
+    torch.library.impl(q, "cpu")(cpu)
+    torch.library.impl(q, "cuda")(cuda)
+    torch.library.register_fake(q)(fake)
+    return getattr(getattr(torch.ops, op_schemas.NAMESPACE), name).default
+
+
 class _Fused(torch.autograd.Function):
-    """A fused layer on pre-padded x: ``fwd`` (a kernel or its plain
-    version) forward, ``bwd`` (layer_bwd or lastq_bwd) backward; only x,
+    """A fused layer on pre-padded x: ``fwd`` (its operator) forward, ``bwd`` (layer_bwd or lastq_bwd) backward; only x,
     madd, the weights and the dropout seed are saved."""
 
     @staticmethod
@@ -676,9 +704,11 @@ def fused_transformer_layer(x, madd, params, *, n_heads: int, inner_size: int,
     xp, mp, _ = _pad_L(x, madd, L)
     flat = _layer_weights(params, x.dtype)
     static = (n_heads, hidden_act, float(layer_norm_eps), bool(causal))
-    fwd = _dispatch(x, _layer_fwd_cuda, _layer_fwd_plain, "layer_fwd")
-    y = _Fused.apply(fwd, layer_bwd, xp, mp, static,
-                     drop_params(p_attn, p_hidden, train, seed), *flat)
+    drop = drop_params(p_attn, p_hidden, train, seed)
+    if needs_grad(xp, *flat):
+        y = _Fused.apply(_layer_fwd_op, layer_bwd, xp, mp, static, drop, *flat)
+    else:
+        y = _layer_fwd_op(xp, mp, flat, *static, drop)
     return y[:, :L]
 
 
@@ -870,10 +900,53 @@ def fused_last_query_layer(x, madd, params, *, n_heads: int, inner_size: int,
     xp, mp, _ = _pad_L(x, madd, L)
     flat = _lastq_weights(params, x.dtype)
     static = (qi, n_heads, hidden_act, float(layer_norm_eps))
-    fwd = _dispatch(x, _lastq_fwd_cuda, _lastq_fwd_plain, "lastq_fwd")
-    return _Fused.apply(fwd, lastq_bwd, xp, mp, static,
-                        drop_params(p_attn, p_hidden, train, seed), *flat)
+    drop = drop_params(p_attn, p_hidden, train, seed)
+    if needs_grad(xp, *flat):
+        return _Fused.apply(_lastq_fwd_op, lastq_bwd, xp, mp, static, drop, *flat)
+    return _lastq_fwd_op(xp, mp, flat, *static, drop)
 
 
 fused_last_query_layer.launches = 0
 fused_last_query_layer.launches_mma = 0   # of those, the bf16 tensor-core body's
+
+
+# -------------------------------------------------------- custom operators
+# unirec::layer_fwd and unirec::lastq_fwd (ops/op_schemas.py): the launcher's
+# contract, x padded to Lp, madd the f32 key-pad row, the weights flattened as
+# _layer_weights / _lastq_weights give them, the activation's index in
+# SUPPORTED_ACTS, dropout as Drop's fields. Each implementation looks its
+# function up by name at the call, so a test that patches the module's
+# launcher with the plain version (chip_smoke.py's plain_versions) reroutes
+# the operator too.
+def _layer_op(fn: str):
+    def impl(x, madd, flat, nh, act, causal, eps, *drop):
+        return globals()[fn](x, madd, tuple(flat), nh, SUPPORTED_ACTS[act], eps, causal,
+                             Drop(*drop))
+    return impl
+
+
+def _lastq_op(fn: str):
+    def impl(x, madd, flat, qi, nh, act, eps, *drop):
+        return globals()[fn](x, madd, tuple(flat), qi, nh, SUPPORTED_ACTS[act], eps,
+                             Drop(*drop))
+    return impl
+
+
+LAYER_FWD_OP = define_op("layer_fwd", _layer_op("_layer_fwd_plain"),
+                         _layer_op("_layer_fwd_cuda"),
+                         lambda x, madd, flat, *a: x.new_empty(x.shape))
+LASTQ_FWD_OP = define_op("lastq_fwd", _lastq_op("_lastq_fwd_plain"),
+                         _lastq_op("_lastq_fwd_cuda"),
+                         lambda x, madd, flat, *a: x.new_empty((x.shape[0], x.shape[2])))
+
+
+def _layer_fwd_op(x, madd, flat, nh: int, act: str, eps: float, causal: bool,
+                  drop: Drop = NO_DROP) -> torch.Tensor:
+    return LAYER_FWD_OP(x, madd, list(flat), nh, SUPPORTED_ACTS.index(act), bool(causal),
+                        float(eps), *drop)
+
+
+def _lastq_fwd_op(x, madd, flat, qi: int, nh: int, act: str, eps: float,
+                  drop: Drop = NO_DROP) -> torch.Tensor:
+    return LASTQ_FWD_OP(x, madd, list(flat), int(qi), nh, SUPPORTED_ACTS.index(act),
+                        float(eps), *drop)

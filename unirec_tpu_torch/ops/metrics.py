@@ -75,14 +75,29 @@ def onepos_rank_full_catalog(scores: torch.Tensor, pos_items: torch.Tensor,
 
     scores [B, n_items]; pos_items [B]; hist_items/hist_len the packed
     history rows of the batch's users."""
+    return onepos_rank_and_topk(scores, pos_items, hist_items, hist_len, gen, 0)[0]
+
+
+def onepos_rank_and_topk(scores: torch.Tensor, pos_items: torch.Tensor,
+                         hist_items: torch.Tensor, hist_len: torch.Tensor,
+                         gen: torch.Generator, topk: int):
+    """(rank of the positive as ``onepos_rank_full_catalog``, and with
+    ``topk`` > 0 the [B, topk] recommendation list over the same masked,
+    noisy scores with the positive competing at its own score, else None;
+    JAX's onepos_rank_full_catalog(..., topk), the pop-kl metric's list)."""
     scores = add_tie_noise(scores, gen)
     rows = torch.arange(scores.shape[0], device=scores.device)
     pos = pos_items.long()
     pos_score = scores[rows, pos]
     masked = scores.scatter(1, _history_cols(hist_items, hist_len), NINF_SCORE)
     masked[:, 0] = NINF_SCORE
+    topk_ids = None
+    if topk > 0:
+        with_pos = masked.clone()
+        with_pos[rows, pos] = pos_score
+        topk_ids = torch.topk(with_pos, topk).indices
     masked[rows, pos] = NINF_SCORE
-    return (masked > pos_score[:, None]).sum(-1).to(torch.int32)
+    return (masked > pos_score[:, None]).sum(-1).to(torch.int32), topk_ids
 
 
 def onepos_metrics(rank: torch.Tensor, n_scores: int,
