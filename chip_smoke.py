@@ -221,11 +221,28 @@ Phases, each of which must pass:
      are one a call each on their tensor-core bodies; users/s of the
      client, the program and the package in Python at batch 256 beside
      reco-topk's; then the entry path's checkpoint exported, rows 10 and 12
-     recorded and launched, held the same way.
+     recorded and launched, held the same way;
+ 21. distribution (dist_path): main.run(task=train) at bench.py's training
+     configuration (dropout 0, the steps of phase 6) first without a
+     process group, then inside an NCCL group of one that the script brings
+     up, at mesh_data=1 (the port's distributed branch: one all-reduce of
+     the gradients and the loss, global loss denominators, dropout keyed
+     by global example): every step's loss and the rolling checkpoint
+     equal (BWD_TOL), rows 1-4, 6 and 8 on their new bodies, examples/s
+     beside phase 6's; two gloo ranks on the one card (subprocesses of
+     this script, ``--dist-rank``) at mesh_model=2 with shard_embeddings
+     (batch 8,192, 3 steps; the item table row-sharded, its lookups summed
+     over the ranks and its backward through row 6) against the same steps
+     on one rank, their .dcp checkpoint reloaded in this process; then
+     reco-topk of 4,096 users from a 50,002-item checkpoint over 4 logical
+     shards (local_shard_topk + merge_shard_candidates; 2 padded rows in
+     the last shard), bf16 and int8, rows 5 and 5q once a shard a batch,
+     the ids against the unsharded run and the dense plain top-k, and the
+     same at 1M items timed beside the unsharded top-k.
 Every launch of rows 5, 5q and 8 on the serving, training, entry, long
 and long-serving paths must be on the new bodies (NEW_BODIES), and of rows
 5 and 5q on the CF path. Then it
-prints its wall time (and each of phases 9-20), the card, one
+prints its wall time (and each of phases 9-21), the card, one
 {"kernels": [...]} line and, last, {"ok": true, ...}.
 It exits non-zero, without the "ok" line, when any phase fails, when no CUDA
 card is visible, or when run outside a checkout of the repository.
@@ -703,13 +720,13 @@ def synthetic_history(rng=None):
     return UserHistory(items, lens)
 
 
-def write_checkpoint(torch, path: Path):
+def write_checkpoint(torch, path: Path, n_items: int = N_ITEMS):
     from unirec_tpu_torch import config as config_mod
     from unirec_tpu_torch.utils.checkpoint import save_checkpoint
     from unirec_tpu_torch.utils.flax_bridge import to_flax_params
     from unirec_tpu_torch.utils.registry import get_model_class
     cfg = config_mod.parse_arguments({
-        "model": "SASRec", "n_users": N_USERS, "n_items": N_ITEMS,
+        "model": "SASRec", "n_users": N_USERS, "n_items": n_items,
         "max_seq_len": SEQ_LEN, "embedding_size": EMB, "hidden_size": EMB,
         "inner_size": 2 * EMB, "n_layers": 2, "n_heads": 2,
         "dataloader": "SeqRecDataset", "compute_dtype": "bfloat16",
@@ -4779,6 +4796,427 @@ def solver_path(torch, card: str):
     return counts
 
 
+# --------------------------------------------------- distribution (dist_path)
+DIST_GLOO_BATCH, DIST_GLOO_STEPS, DIST_SHARDS = 8192, 3, 4
+DIST_ITEMS = N_ITEMS + 2          # 4 shards of 12,501 rows: 2 padded rows in the last
+DIST_RANK_TIMEOUT = 300           # seconds, each gloo rank
+# the gloo ranks' per-step losses against the one rank's, relative: the same
+# batches and weights, the sums taken in another order (1.7e-7 measured on
+# an NVIDIA H100 80GB HBM3 at 700 W)
+DIST_LOSS_TOL = 1e-5
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def write_dist_data(slice_data: Path, root: Path) -> None:
+    """The entry path's histories with a training table of the steps
+    train_path takes (no valid or test table: main.run only trains)."""
+    import pandas as pd
+    root.mkdir(parents=True, exist_ok=True)
+    for name in ("user_history.pkl", "data.info"):
+        shutil.copyfile(slice_data / name, root / name)
+    rows = TRAIN_BATCH * (WARMUP_STEPS + TIMED_STEPS)
+    pd.read_pickle(slice_data / "train.pkl").iloc[:rows].to_pickle(root / "train.pkl")
+
+
+def dist_args(data: Path, out: Path):
+    """bench.py's training configuration (``train_config``) through main.run
+    at dropout 0, one epoch, with auto_resume's rolling checkpoint."""
+    return {"task": "train", "model": "SASRec", "dataloader": "SeqRecDataset",
+            "dataset_path": str(data), "output_path": str(out), "exp_name": "sasrec_dist",
+            "user_history_filename": "user_history", "max_seq_len": SEQ_LEN,
+            "embedding_size": EMB, "hidden_size": EMB, "inner_size": 2 * EMB, "n_layers": 2,
+            "n_heads": 2, "hidden_act": "swish", "loss_type": "bce",
+            "n_sample_neg_train": N_NEG, "history_mask_mode": "autoregressive",
+            "hidden_dropout_prob": 0.0, "attn_dropout_prob": 0.0, "dropout_bits": 8,
+            "compute_dtype": "bfloat16", "last_query_only": 1, "fused_layer": 1,
+            "fused_lastq": 1, "vmem_embedding_grad": 1, "neg_membership_pallas": 1,
+            "batch_size": TRAIN_BATCH, "epochs": 1, "learning_rate": 1e-3, "seed": SEED,
+            "shuffle_train": 1, "auto_resume": 1}
+
+
+def spied_train_run(torch, args):
+    """main.run(args) on the card: (each step's loss, seconds of the timed
+    steps: from a sync before step 4 to a sync after the last)."""
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.main import main as main_mod
+    losses, marks, step = [], {}, Trainer.train_step
+
+    def spy(self, batch):
+        if len(losses) == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            marks["t0"] = time.perf_counter()
+        losses.append(step(self, batch))
+        if len(losses) == WARMUP_STEPS + TIMED_STEPS:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+        return losses[-1]
+
+    with mock.patch.object(Trainer, "train_step", spy):
+        main_mod.run(dict(args), device="cuda")
+    return torch.stack(losses).float().cpu().numpy(), marks["t1"] - marks["t0"]
+
+
+def tree_errs(torch, got, ref):
+    """Each parameter's error over its reference's largest magnitude, a key
+    bias over its query bias's (``leaf_errs``): {flax path: error}."""
+    flat_g, flat_r = dict(flat_tree(got)), dict(flat_tree(ref))
+    names = sorted(flat_r)
+    if sorted(flat_g) != names:
+        raise AssertionError(f"parameter trees differ: {sorted(flat_g)} / {names}")
+    zero_sum = {i: names.index(n.replace("key/bias", "query/bias"))
+                for i, n in enumerate(names) if n.endswith("key/bias")}
+    errs, _ = leaf_errs([torch.from_numpy(np.asarray(flat_g[n], np.float32)) for n in names],
+                        [torch.from_numpy(np.asarray(flat_r[n], np.float32)) for n in names],
+                        zero_sum)
+    return dict(zip(names, errs))
+
+
+def flat_tree(tree, prefix=()):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from flat_tree(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), v
+
+
+def gloo_train(torch, out: Path, n_model: int):
+    """DIST_GLOO_STEPS steps of bench.py's training configuration at batch
+    DIST_GLOO_BATCH (dropout 0) on a 1 x ``n_model`` mesh of the process
+    group that is up, the item table row-sharded over ``model``
+    (shard_embeddings); with n_model > 1 the .dcp checkpoint is written.
+    Returns {losses, params (whole), ms_per_step of steps 2-3, launches,
+    item_grad: (first row, step 1's item-table gradient rows as the
+    optimizer receives them: this rank's shard, or the whole table)}."""
+    from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter, RawIdBatcher
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.flax_bridge import to_flax_params
+    from unirec_tpu_torch.utils.registry import get_model_class
+    rng = np.random.default_rng(SEED + 16)
+    history = synthetic_history(rng)
+    cfg = dict(train_config(torch), hidden_dropout_prob=0.0, attn_dropout_prob=0.0,
+               shard_embeddings=1, mesh_data=1, mesh_model=n_model,
+               output_path=str(out), exp_name=f"gloo{n_model}")
+    trainer = Trainer(cfg, get_model_class("SASRec")(cfg), device="cuda")
+    trainer.set_device_augmenter(DeviceAugmenter(cfg, history, device="cuda"))
+    trainer.init_params()
+    item = dict(trainer.model.named_parameters())["item_embedding.weight"]
+    at = next(i for i, p in enumerate(trainer.params) if p is item)
+    apply, seen = trainer.apply_update, {}
+
+    def spy(loss, grads):
+        if not seen:
+            shard = getattr(item, "row_shard", None)
+            seen["item_grad"] = (shard.offset if shard is not None else 0,
+                                 grads[at].float().cpu().numpy())
+        return apply(loss, grads)
+
+    trainer.apply_update = spy
+    rows = DIST_GLOO_BATCH * DIST_GLOO_STEPS
+    raw = RawIdBatcher(rng.integers(1, N_USERS, rows), rng.integers(1, N_ITEMS, rows),
+                       DIST_GLOO_BATCH, shuffle=False)
+    reset_counts()
+    losses = []
+    for i, b in enumerate(raw):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(to_device(trainer.mesh.pad_batch(b), "cuda"))))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (DIST_GLOO_STEPS - 1)
+    trainer.apply_update = apply
+    counts = launch_counts(TRAINING_KERNELS)
+    params = to_flax_params(trainer.model)
+    sharded = sorted(n for n, p in trainer.model.named_parameters()
+                     if getattr(p, "row_shard", None) is not None)
+    if n_model > 1:
+        trainer.config["checkpoint_backend"] = "orbax"
+        trainer.save_model(str(out / "gloo.pkl"), quiet=True)
+    return {"losses": losses, "params": params, "ms_per_step": ms, "launches": counts,
+            "sharded": sharded, "item_grad": seen["item_grad"]}
+
+
+def dist_rank_main(rank: int, out: str) -> int:
+    """One gloo rank of dist_path (``chip_smoke.py --dist-rank R OUT``):
+    the script brings gloo up itself (RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT from the environment), the port's initialize_distributed
+    takes that group, and the rank trains on cuda:0 beside the other."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from unirec_tpu_torch.core.distributed import GROUP_TIMEOUT, initialize_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", timeout=GROUP_TIMEOUT)
+    if not initialize_distributed({}, "cuda") or dist.get_backend() != "gloo":
+        raise AssertionError("the port did not take the gloo group")
+    res = gloo_train(torch, Path(out), 2)
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_gloo_ranks(out: Path):
+    """The two gloo ranks on the one card (NCCL takes one rank a device),
+    each a subprocess with its own timeout; raises with a rank's output
+    tail when it fails (a collective gloo refuses on CUDA tensors among
+    them)."""
+    import os
+    import pickle
+    port = free_port()
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="2", LOCAL_RANK="0")
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+                               str(r), str(out)], env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}: {log[-3000:]}")
+    res = []
+    for r in range(2):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def sharded_serving(torch, card: str):
+    """reco-topk of SERVE_USERS users (batch 256, top-100) through
+    DIST_SHARDS logical shards of one table (local_shard_topk +
+    merge_shard_candidates), bf16 and int8, from a checkpoint of DIST_ITEMS
+    items (2 padded rows in the last shard) and one of 1,000,002: the ids
+    against the unsharded run's and the dense plain top-k's (topk_agrees),
+    ms a batch sharded and unsharded in turns. A shard fetches k + C + 1 =
+    301 candidates (C the history's 200), so at 12,501 rows a shard
+    fused_catalog_topk scores it densely (its rule N <= 4 k 16, the JAX
+    package's too) and at 250,001 through rows 5 and 5q, once a shard a
+    batch; the history-free top-100 over the 50,002 items launches them
+    once a shard. Returns the launches."""
+    from unirec_tpu_torch.main.infer_embedding import iter_infer_batches
+    from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
+    from unirec_tpu_torch.ops import topk as TK
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.checkpoint import load_model_freely
+    history = synthetic_history()
+    users = np.arange(1, SERVE_USERS + 1, dtype=np.int64)
+    n_batches = -(-SERVE_USERS // BATCH)
+    total = {}
+    for n_items in (DIST_ITEMS, 1_000_002):
+        ckpt = ROOT / "build" / "chip_smoke" / f"sasrec_dist_serve_{n_items}.pkl"
+        write_checkpoint(torch, ckpt, n_items)
+        model, cfg = load_model_freely(str(ckpt), "cuda")
+        with torch.no_grad():
+            item_emb = model.all_item_emb()
+            q, qs = TK.quantize_catalog(item_emb)
+            catalogs = {"bf16": item_emb, "int8": (q, qs)}
+            for name, extra in (("bf16", {}), ("int8", {"catalog_int8": 1})):
+                c = dict(cfg, **extra)
+
+                def serve(shards=None, c=c):
+                    out = get_topk_recommendations(c, model, users, history, TOPK,
+                                                   n_shards=shards)
+                    torch.cuda.synchronize()
+                    return out
+
+                serve(DIST_SHARDS), serve()                  # warm-up
+                ms = {"sharded": [], "unsharded": []}
+                for order in (("sharded", "unsharded"), ("unsharded", "sharded")):
+                    for kind in order:
+                        if kind == "sharded":
+                            reset_counts()
+                        t0 = time.perf_counter()
+                        res = serve(DIST_SHARDS if kind == "sharded" else None)
+                        ms[kind].append((time.perf_counter() - t0) * 1e3 / n_batches)
+                        if kind == "sharded":
+                            got, counts = res, launch_counts(SERVING_KERNELS)
+                        else:
+                            ref = res
+                add_counts(total, counts)
+                valid, same, same_unsharded = True, 0, 0
+                for start, batch in zip(range(0, SERVE_USERS, BATCH),
+                                        iter_infer_batches(cfg, users, history, True)):
+                    n = batch.pop("n_real")
+                    u = model.user_emb(to_device(batch, "cuda", torch.int64))[:n].float()
+                    hist, hlen = history.gather(batch["user_id"][:n])
+                    h = torch.from_numpy(np.where(np.arange(hist.shape[1])[None] < hlen[:, None],
+                                                  hist, 0).astype(np.int64)).cuda()
+                    items = catalogs[name] if name == "bf16" \
+                        else catalogs[name][0].float() * catalogs[name][1][:, None]
+                    scores = (u @ items.float().T).scatter(1, h, float("-inf"))
+                    scores[:, 0] = float("-inf")
+                    ids = torch.from_numpy(got[start:start + n]).cuda()
+                    ok, rows = topk_agrees(ids, scores, TOPK, 1e-3 * float(
+                        scores[torch.isfinite(scores)].abs().max()))
+                    valid &= ok
+                    same += rows
+                    same_unsharded += int((np.sort(got[start:start + n], 1)
+                                           == np.sort(ref[start:start + n], 1)).all(1).sum())
+                    del scores
+                key = "blockmax_mma" if name == "bf16" else "blockmax_int8_mma"
+                want = DIST_SHARDS * n_batches if n_items > 4 * (TOPK + HIST_CAP + 1) * 16 \
+                    * DIST_SHARDS else 0
+                line = {"phase": "dist_serve", "catalog": name, "items": n_items,
+                        "shards": DIST_SHARDS, "users": SERVE_USERS, "batch": BATCH,
+                        "topk": TOPK, "ms_per_batch_sharded": ms["sharded"],
+                        "ms_per_batch_unsharded": ms["unsharded"], "launches": counts,
+                        "blockmax_launches_expected": want, "rows_valid": valid,
+                        "rows_identical_to_dense": same,
+                        "rows_identical_to_unsharded": same_unsharded, "card": card}
+                emit(line)
+                if not valid or counts[key] != want \
+                        or counts["blockmax"] + counts["blockmax_int8"] != counts[key]:
+                    raise AssertionError(f"sharded serving failed: {line}")
+            if n_items == DIST_ITEMS:
+                # the history-free top-100 of one batch: row 5 once a shard
+                u = model.user_emb(to_device(next(iter(iter_infer_batches(
+                    cfg, users, history, True))), "cuda", torch.int64))
+                padded, _ = TK.place_item_table(item_emb, DIST_SHARDS)
+                reset_counts()
+                _, ids = TK.sharded_catalog_topk(u, padded, TOPK, n_real=n_items,
+                                                 n_shards=DIST_SHARDS)
+                counts = launch_counts(SERVING_KERNELS)
+                add_counts(total, counts)
+                _, whole = TK.fused_catalog_topk(u, item_emb, TOPK)
+                same = int((ids.sort(1).values == whole.sort(1).values).all(1).sum())
+                line = {"phase": "dist_serve", "catalog": "bf16", "items": n_items,
+                        "shards": DIST_SHARDS, "users": BATCH, "topk": TOPK,
+                        "history": False, "launches": counts,
+                        "rows_identical_to_unsharded": same, "card": card}
+                emit(line)
+                if counts["blockmax_mma"] != DIST_SHARDS or same != BATCH:
+                    raise AssertionError(f"sharded top-k without history failed: {line}")
+        del model, item_emb, q, qs, catalogs
+        torch.cuda.empty_cache()
+    return total
+
+
+def dist_path(torch, card: str, train_examples_per_s: float):
+    """Distribution on the card. (1) main.run(task=train) at bench.py's
+    training configuration (dropout 0, batch 32,768, the steps train_path
+    takes) without a process group, then inside an NCCL group of one at
+    mesh_data=1: the same loss at every step (BWD_TOL), rows 1-4, 6 and 8
+    on their new bodies, the same rolling checkpoint, examples/s beside
+    train_path's (``train_examples_per_s``, dropout 0.1 there). (2) Two
+    gloo ranks on the card at mesh_model=2 with shard_embeddings (batch
+    8,192, 3 steps; the item table row-sharded, its lookup summed and its
+    backward through row 6) against the same 3 steps at 1 x 1 in the NCCL
+    group; the .dcp checkpoint reloaded in this process. (3)
+    sharded_serving. The group is destroyed at the end. Returns the
+    launches of (1) and (3)."""
+    import torch.distributed as dist
+
+    from unirec_tpu_torch.core.distributed import GROUP_TIMEOUT
+    from unirec_tpu_torch.utils.checkpoint import load_checkpoint
+    base = ROOT / "build" / "chip_smoke"
+    data = base / "dist_data"
+    write_dist_data(base / "slice_data", data)
+    args = dist_args(data, base / "dist_one")
+    for d in ("dist_one", "dist_group", "dist_gloo"):
+        shutil.rmtree(base / d, ignore_errors=True)
+    one, one_s = spied_train_run(torch, args)
+    dist.init_process_group("cuda:nccl,cpu:gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1, timeout=GROUP_TIMEOUT)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        group, group_s = spied_train_run(torch, dict(args, output_path=str(base / "dist_group"),
+                                                      mesh_data=1))
+        counts = launch_counts(TRAINING_KERNELS)
+        loss_err = float(np.abs(group - one).max() / np.abs(one).max())
+        ck = {n: load_checkpoint(str(base / n / "checkpoint" / "sasrec_dist.pkl.last"))
+              for n in ("dist_one", "dist_group")}
+        errs = tree_errs(torch, ck["dist_group"]["params"], ck["dist_one"]["params"])
+        worst = max(errs, key=errs.get)
+        line = {"phase": "dist_path", "world_size": 1, "backend": dist.get_backend(),
+                "batch": TRAIN_BATCH, "steps": len(group), "timed_steps": TIMED_STEPS,
+                "examples_per_s": TRAIN_BATCH * TIMED_STEPS / group_s,
+                "ms_per_step": group_s * 1e3 / TIMED_STEPS,
+                "examples_per_s_without_group": TRAIN_BATCH * TIMED_STEPS / one_s,
+                "train_path_examples_per_s": train_examples_per_s,
+                "loss_max_rel_diff": loss_err, "checkpoint_max_rel_err": errs[worst],
+                "checkpoint_worst_leaf": worst, "tol": BWD_TOL,
+                "first_loss": float(group[0]), "last_loss": float(group[-1]), "card": card}
+        emit(line)
+        emit({"phase": "dist_path_launches", **counts})
+        missing = [k for k, v in counts.items() if v <= 0]
+        if len(group) != len(one) or not loss_err <= BWD_TOL or not errs[worst] <= BWD_TOL \
+                or missing:
+            raise AssertionError(f"world size 1 disagrees with one process: {line}, "
+                                 f"never launched {missing}")
+        on_new_bodies("dist path", counts, POP_BODIES)
+
+        out = base / "dist_gloo"
+        out.mkdir(parents=True)
+        ref = gloo_train(torch, out, 1)
+        t0 = time.perf_counter()
+        ranks = run_gloo_ranks(out)
+        gloo_s = time.perf_counter() - t0
+        dcp = load_checkpoint(str(out / "gloo.pkl"))
+        errs = {r: tree_errs(torch, res["params"], ref["params"]) for r, res in enumerate(ranks)}
+        worst = {r: max(e, key=e.get) for r, e in errs.items()}
+        dcp_same = all(np.array_equal(np.asarray(a), np.asarray(b)) for (_, a), (_, b) in zip(
+            flat_tree(dcp["params"]), flat_tree(ranks[0]["params"])))
+        # the ranks are replicas: the same losses and parameters, bit for bit
+        ranks_equal = ranks[0]["losses"] == ranks[1]["losses"] and all(
+            np.array_equal(np.asarray(a), np.asarray(b)) for (_, a), (_, b) in zip(
+                flat_tree(ranks[0]["params"]), flat_tree(ranks[1]["params"])))
+        loss_err = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["losses"], ref["losses"]))
+        # step 1's item-table gradient, the shards' rows put together, against
+        # the one rank's: a gradient scaled by the lookup's backward (an
+        # all-reduce there multiplies it by n_model) would be off by 100%,
+        # which Adam's scale-free update would hide from the parameters
+        shards = sorted(r["item_grad"] for r in ranks)
+        grad = np.concatenate([g for _, g in shards])
+        want = ref["item_grad"][1]
+        grad_err = float(np.abs(grad - want).max() / np.abs(want).max()) \
+            if grad.shape == want.shape and [o for o, _ in shards] == [0, len(shards[0][1])] \
+            else float("inf")
+        line = {"phase": "dist_gloo", "ranks": 2, "backend": "gloo", "mesh": "1x2",
+                "batch": DIST_GLOO_BATCH, "steps": DIST_GLOO_STEPS,
+                "sharded": ranks[0]["sharded"],
+                "ms_per_step": [r["ms_per_step"] for r in ranks],
+                "ms_per_step_one_rank": ref["ms_per_step"],
+                "losses": [r["losses"] for r in ranks], "losses_one_rank": ref["losses"],
+                "loss_max_rel_diff": loss_err, "loss_tol": DIST_LOSS_TOL,
+                "item_grad_step1_max_rel_err": grad_err, "ranks_bit_equal": ranks_equal,
+                "max_rel_err": [errs[r][worst[r]] for r in errs],
+                "worst_leaf": [worst[r] for r in worst], "tol": BWD_TOL,
+                "dcp_reload_equal": dcp_same, "launches": [r["launches"] for r in ranks],
+                "seconds_with_start": gloo_s, "card": card}
+        emit(line)
+        idle = [k for r in ranks for k, v in r["launches"].items() if v <= 0]
+        for r, res in enumerate(ranks):
+            on_new_bodies(f"gloo rank {r}", res["launches"], POP_BODIES)
+        if ranks[0]["sharded"] != ["item_embedding.weight"] or not dcp_same or idle \
+                or max(line["max_rel_err"]) > BWD_TOL or not ranks_equal \
+                or not loss_err <= DIST_LOSS_TOL or not grad_err <= BWD_TOL:
+            raise AssertionError(f"two gloo ranks disagree with one: {line}")
+        add_counts(counts, sharded_serving(torch, card))
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4845,7 +5283,7 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
     kernel_scatter(torch)
     kernel_member(torch)
     torch.cuda.empty_cache()
-    train_counts, _, trainer, raw, aug = train_path(torch, card)
+    train_counts, train_line, trainer, raw, aug = train_path(torch, card)
     check_train_path(torch, trainer, raw, aug)
     profile_train_path(torch, trainer, raw, card)
     del trainer, raw, aug
@@ -4927,6 +5365,8 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
     solver_counts = timed("solver_path", solver_path, torch, card)
     torch.cuda.empty_cache()
     export_counts, client_counts = timed("export_path", export_path, torch, card, background)
+    torch.cuda.empty_cache()
+    dist_counts = timed("dist_path", dist_path, torch, card, train_line["examples_per_s"])
 
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
@@ -4998,7 +5438,7 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
              "seq_family": family_counts, "side_inputs": side_counts,
              "side_serve": side_serve_counts, "cf": cf_counts, "rank": rank_counts,
              "export": export_counts, "cpp_client": client_counts, "approx_topk": approx_counts,
-             "morec": morec_counts, "solver": solver_counts}
+             "morec": morec_counts, "solver": solver_counts, "dist": dist_counts}
 
     def launched(name, path):
         for base, (new, old) in split.items():
@@ -5029,4 +5469,6 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

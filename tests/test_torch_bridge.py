@@ -26,7 +26,7 @@ REPO = Path(__file__).resolve().parents[1]
 ARGS = dict(model="SASRec", n_users=20, n_items=60, embedding_size=16,
             n_heads=2, inner_size=32, n_layers=2, max_seq_len=8,
             compute_dtype="float32", has_item_bias=1)
-BANNED = ("jax", "jaxlib", "flax", "optax", "unirec_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "unirec_tpu")
 
 
 def _jax_model():

@@ -2016,3 +2016,157 @@ def test_morec_gram_on_the_card_matches_the_cpu(cuda):
     assert float((vg - vc).abs().max()) <= 1e-4 * float(vc.abs().max())
     assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
     assert launched == 4 * 2
+
+
+# ------------------------------------------------------------- distribution
+@pytest.mark.parametrize("which", ["layer", "lastq"])
+def test_dropout_is_keyed_by_the_global_example(cuda, which):
+    """A data-parallel rank's rows [16, 32) launched with b0 = 16 draw the
+    masks rows 16-31 draw in the whole batch's launch (rows 1-4, bf16 on
+    the tensor cores, dropout 0.1), forward and backward, bit for bit; the
+    plain version, keyed alike, agrees within _ln_tol."""
+    x, madd, params = _layer_case(cuda, torch.bfloat16, B=32, L=50, D=64, F=128, seed=7)
+    xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
+    drop = _drop(0.1, 4242)
+    part = drop._replace(b0=16)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dy_full = torch.randn(xp.shape if which == "layer" else (32, 64), generator=g,
+                          device=cuda).to(torch.bfloat16)
+    if which == "layer":
+        flat = LY._layer_weights(params, torch.bfloat16)
+        args = (2, "swish", 1e-10, True)
+        fwd, bwd, plain = LY._layer_fwd_cuda, LY._layer_bwd_cuda, LY._layer_fwd_plain
+    else:
+        flat = LY._lastq_weights(params, torch.bfloat16)
+        args = (49, 2, "swish", 1e-10)
+        fwd, bwd, plain = LY._lastq_fwd_cuda, LY._lastq_bwd_cuda, LY._lastq_fwd_plain
+    whole = fwd(xp, mp, flat, *args, drop)
+    rows = fwd(xp[16:].contiguous(), mp[16:].contiguous(), flat, *args, part)
+    assert torch.equal(rows, whole[16:])
+    ref = plain(xp[16:].contiguous(), mp[16:].contiguous(), flat, *args, part)
+    assert float((rows.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    other = fwd(xp[16:].contiguous(), mp[16:].contiguous(), flat, *args, drop)
+    assert not torch.equal(other, whole[16:])      # b0 = 0 draws rows 0-15's masks
+    dx_whole = bwd(xp, mp, flat, dy_full, *args, drop)[0]
+    dx_rows = bwd(xp[16:].contiguous(), mp[16:].contiguous(), flat,
+                  dy_full[16:].contiguous(), *args, part)[0]
+    assert torch.equal(dx_rows, dx_whole[16:])
+
+
+@pytest.mark.parametrize("dtype,L", [(torch.bfloat16, 50), (torch.float32, 50),
+                                     (torch.float32, 300)])
+def test_fused_attention_dropout_is_keyed_by_the_global_example(cuda, dtype, L):
+    """Rows 10 and 11 (the tensor-core, whole and tiled bodies): a rank's
+    examples [3, 6) launched with b0 = 3 draw the masks they draw in the
+    whole batch's launch, forward and backward, bit for bit; b0 = 0 draws
+    examples 0-2's."""
+    from unirec_tpu_torch.ops import attention as AT
+    q, k, v, mask = _att_case(cuda, dtype, B=6, L=L, seed=5)
+    drop = LY.drop_params(0.2, 0.0, True, 4343)
+    part = drop._replace(b0=3)
+    do = torch.randn_like(q.float()).to(dtype)
+    rows = lambda t: t[3:].contiguous()  # noqa: E731
+    whole = AT._fwd_cuda(q, k, v, mask, drop)
+    got = AT._fwd_cuda(rows(q), rows(k), rows(v), rows(mask), part)
+    assert torch.equal(got, whole[3:])
+    assert not torch.equal(AT._fwd_cuda(rows(q), rows(k), rows(v), rows(mask), drop),
+                           whole[3:])
+    for a, b in zip(AT._bwd_cuda(rows(q), rows(k), rows(v), rows(mask), rows(do), part),
+                    AT._bwd_cuda(q, k, v, mask, do, drop)):
+        assert torch.equal(a, b[3:])
+
+
+def test_sharded_topk_launches_blockmax_per_shard_and_matches_plain(cuda):
+    """4 logical shards of a 50,002-item bf16 catalog (2 padded rows in the
+    last): one blockmax launch a shard on the tensor-core body, the same
+    ids as through the plain version and as the unsharded fused top-k."""
+    from unittest import mock
+    g = torch.Generator(device=cuda).manual_seed(5)
+    u = torch.randn(256, 64, generator=g, device=cuda).to(torch.bfloat16)
+    items = (torch.randn(50_002, 64, generator=g, device=cuda) * 0.05).to(torch.bfloat16)
+    table, _ = TK.place_item_table(items, 4)
+    before = TK.catalog_blockmax.launches_mma
+    v, ids = TK.sharded_catalog_topk(u, table, 100, n_real=50_002, n_shards=4)
+    assert TK.catalog_blockmax.launches_mma == before + 4
+    with mock.patch.object(TK, "_blockmax_cuda", TK._blockmax_plain):
+        pv, pids = TK.sharded_catalog_topk(u, table, 100, n_real=50_002, n_shards=4)
+    assert torch.equal(ids.sort(1).values, pids.sort(1).values)
+    whole = TK.fused_catalog_topk(u, items, 100)[1]
+    assert torch.equal(ids.sort(1).values, whole.sort(1).values)
+    assert int(ids.max()) < 50_002
+
+
+def test_world_size_one_train_step_matches_plain(cuda, tmp_path):
+    """A train step in an NCCL group of one at mesh_data=1 (the
+    distributed branch: the all-reduce of gradients and loss, global
+    denominators, the row offset) launches rows 1-4, 6 and 8, and its loss
+    and updated weights agree with the same step through the plain
+    versions (BWD_TOL, bf16)."""
+    import datetime
+    import socket
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter
+    from unirec_tpu_torch.data.history import UserHistory
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.ops import member as MB, scatter_accum as SA
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.registry import get_model_class
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("cuda:nccl,cpu:gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        rng = np.random.default_rng(0)
+        lens = rng.integers(5, 40, 500).astype(np.int32)
+        hist = np.zeros((500, 40), np.int32)
+        m = np.arange(40)[None] < lens[:, None]
+        hist[m] = rng.integers(1, 2000, int(m.sum()))
+        cfg = config_mod.parse_arguments(dict(
+            model="SASRec", n_users=500, n_items=2000, max_seq_len=50, embedding_size=64,
+            hidden_size=64, inner_size=128, n_layers=2, n_heads=2, loss_type="bce",
+            n_sample_neg_train=9, dataloader="SeqRecDataset",
+            history_mask_mode="autoregressive", compute_dtype="bfloat16",
+            last_query_only=1, fused_layer=1, fused_lastq=1, vmem_embedding_grad=1,
+            neg_membership_pallas=1, hidden_dropout_prob=0.1, attn_dropout_prob=0.1,
+            mesh_data=1, output_path=str(tmp_path)), argv=[], device="cuda")
+        raw = to_device({"user_id": rng.integers(1, 500, 512).astype(np.int32),
+                         "item_id": rng.integers(1, 2000, 512).astype(np.int32),
+                         "weight": np.ones(512, np.float32)}, cuda)
+        out = {}
+        for kind in ("kernels", "plain"):
+            tr = Trainer(cfg, get_model_class("SASRec")(cfg), device="cuda")
+            assert tr.mesh.distributed and tr.mesh.n_data == 1
+            tr.set_device_augmenter(DeviceAugmenter(cfg, UserHistory(hist, lens),
+                                                    device="cuda"))
+            tr.init_params()
+            counts = (LY.layer_bwd.launches, LY.lastq_bwd.launches,
+                      SA.scatter_add_rows.launches, MB.member_mask.launches)
+            patches = [mock.patch.object(LY, f"_{n}_cuda", getattr(LY, f"_{n}_plain"))
+                       for n in ("layer_fwd", "lastq_fwd", "layer_bwd", "lastq_bwd")] + [
+                mock.patch.object(SA, "_scatter_cuda", SA._scatter_plain),
+                mock.patch.object(MB, "_member_cuda", MB._member_plain)] \
+                if kind == "plain" else []
+            for p in patches:
+                p.start()
+            try:
+                loss = float(tr.train_step(raw))
+            finally:
+                for p in patches:
+                    p.stop()
+            launched = [a - b for a, b in zip((LY.layer_bwd.launches, LY.lastq_bwd.launches,
+                                               SA.scatter_add_rows.launches,
+                                               MB.member_mask.launches), counts)]
+            out[kind] = (loss, [p.detach().float().clone() for p in tr.params], launched)
+        (lk, pk, nk), (lp, pp, npl) = out["kernels"], out["plain"]
+        assert all(n > 0 for n in nk) and not any(npl)
+        assert abs(lk - lp) <= BWD_TOL[torch.bfloat16] * abs(lp)
+        for a, b in zip(pk, pp):
+            assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
+    finally:
+        dist.destroy_process_group()

@@ -369,10 +369,23 @@ def test_pre_item_emb_starts_the_item_table_from_the_file(synth_dataset, tmp_pat
 
 
 def test_orbax_checkpoints_are_refused(synth_dataset, tmp_path):
+    """checkpoint_backend=orbax writes the port's torch.distributed.checkpoint
+    directory <file>.dcp (utils/checkpoint.py), which task=test reads back
+    to the same metrics; a JAX .orbax directory is refused by name."""
     root, _ = synth_dataset
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main.run(dict(BASE_CONF, **SLICE, dataset_path=root, output_path=str(tmp_path),
-                      checkpoint_backend="orbax", device="cpu"))
+    out = tmp_path / "run"
+    res = main.run(dict(BASE_CONF, **SLICE, dataset_path=root, output_path=str(out),
+                        checkpoint_backend="orbax", epochs=1, device="cpu"))
+    ckpt = out / "checkpoint" / f"{BASE_CONF['exp_name']}.pkl"
+    assert (out / "checkpoint" / f"{ckpt.name}.dcp" / "side.pkl").exists()
+    assert not ckpt.exists()
+    again = main.run(dict(task="test", model_file=str(ckpt), dataset_path=root,
+                          output_path=str(tmp_path / "test"), device="cpu"))
+    assert again == res
+    (tmp_path / "jax.pkl.orbax").mkdir()
+    with pytest.raises(ValueError, match="JAX orbax checkpoint"):
+        main.run(dict(task="test", model_file=str(tmp_path / "jax.pkl"), dataset_path=root,
+                      output_path=str(tmp_path / "test"), device="cpu"))
 
 
 # ----------------------------------------------------------- observability

@@ -125,11 +125,12 @@ def test_cli_reco_topk_on_cpu(served, interpret):
 
 
 def test_unported_serving_paths_raise(served):
-    """Row-sharded serving raises naming its ROADMAP item; approximate
-    selection (topk_recall_target) is ported as exact selection, the same
-    ids as the exact run's."""
+    """Row-sharded serving over 2 model ranks needs 2 processes
+    (tests/test_torch_sharded_topk.py runs them); approximate selection
+    (topk_recall_target) is ported as exact selection, the same ids as the
+    exact run's."""
     base, out = served
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 processes, have 1"):
         torch_reco.do_topk_reco(dict(base, output_path=str(out / "x.csv"), mesh_model=2),
                                 device="cpu")
     exact = torch_reco.do_topk_reco(dict(base, output_path=str(out / "x.csv")), device="cpu")

@@ -216,11 +216,12 @@ def test_checkpoint_serves_and_loads_into_jax(tmp_path, interpret):
 
 
 def test_unported_trainer_options_raise(tmp_path):
-    """A mesh of more than one device raises naming its ROADMAP item; MoRec
+    """A mesh of more than one device needs as many processes (one process
+    drives one device; tests/test_torch_distributed.py runs them); MoRec
     (enable_morec, the price-weighted session metrics) is ported."""
     tr, _ = _trainer(tmp_path, enable_morec=1)
     assert tr.objective_controller is None
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="needs 2 processes, have 1"):
         _trainer(tmp_path, mesh_data=2)
     tr, _ = _trainer(tmp_path, metrics="['rhit@5']")   # a price-weighted session metric
     tr.reset_evaluator("user-item-label-session", "session_aware")

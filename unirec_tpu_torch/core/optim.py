@@ -22,10 +22,27 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
+from unirec_tpu_torch.core.mesh import all_reduce_
+
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8      # optax.scale_by_adam defaults
 _RMS_DECAY, _RMS_EPS = 0.9, 1e-8            # optax.scale_by_rms defaults
 _RSS_EPS = 1e-7                             # optax.scale_by_rss default
 _KINDS = ("adam", "sgd", "adagrad", "rmsprop", "adamw", "sparse_adam")
+
+
+def global_sq_norm(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor]
+                   ) -> torch.Tensor:
+    """The squared global norm of ``grads``: each replicated parameter's
+    squares once, a row-sharded table's (``row_shard``, core/mesh.py)
+    summed over its ``model`` ranks."""
+    shards = [(g, p.row_shard) for g, p in zip(grads, params)
+              if getattr(p, "row_shard", None) is not None]
+    total = sum((g.float() ** 2).sum() for g, p in zip(grads, params)
+                if getattr(p, "row_shard", None) is None)
+    if shards:
+        local = sum((g.float() ** 2).sum() for g, _ in shards).reshape(1)
+        total = total + all_reduce_(local, shards[0][1].group)[0]
+    return total
 
 
 class Optimizer:
@@ -61,7 +78,7 @@ class Optimizer:
         u = list(grads)
         new = dict(state)
         if self.clip > 0:
-            g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in u))
+            g_norm = torch.sqrt(global_sq_norm(u, params))
             trigger = g_norm < self.clip
             u = [torch.where(trigger, g, g / g_norm * self.clip) for g in u]
         if self.wd > 0 and self.kind != "adamw":

@@ -22,9 +22,9 @@
 //
 // Dropout: the TPU draws on its hardware PRNG per grid program; here an
 // element (query row i, key j) of head h of example b is kept iff
-// philox_bits(seed, h, b, i * L + j) >= thresh (common.cuh), which depends
-// on no launch shape, so the backward replays the forward's mask without
-// storing it.
+// philox_bits(seed, h, b0 + b, i * L + j) >= thresh (common.cuh), b0 the
+// global index of the call's first example; it depends on no launch shape,
+// so the backward replays the forward's mask without storing it.
 //
 // Bound on an H100 (B=32,768, H=2, L=50, hd=32, bf16, mask [B,1,L,L] f32):
 // the forward reads q, k, v (0.63 GB) and the 0.33 GB mask and writes 0.21
@@ -167,7 +167,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, Strides sin,
                 const float* __restrict__ mask, int Hm, T* __restrict__ out,
                 Strides sout, int H, int L, int hd, float scale,
-                uint32_t seed, uint32_t thresh, float inv) {
+                uint32_t seed, uint32_t thresh, float inv, uint32_t b0) {
   extern __shared__ float smem[];
   const int ldh = hd + 1, lds = L + 1;
   float* K = smem;              // [L, hd]
@@ -188,7 +188,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = w / L, j = w % L;
       const float y = S[i * lds + j];
       S[i * lds + j] =
-          rnd<T>(kept(seed, thresh, h, b, (r0 + i) * L + j) ? y * inv : 0.0f);
+          rnd<T>(kept(seed, thresh, h, b0 + b, (r0 + i) * L + j) ? y * inv : 0.0f);
     }
     __syncthreads();
     for (int w = threadIdx.x; w < n * hd; w += blockDim.x) {
@@ -209,7 +209,7 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ dout, Strides sdo, T* __restrict__ dq,
                 T* __restrict__ dk, T* __restrict__ dv, Strides sout, int H,
                 int L, int hd, float scale, uint32_t seed, uint32_t thresh,
-                float inv) {
+                float inv, uint32_t b0) {
   extern __shared__ float smem[];
   const int ldh = hd + 1, lds = L + 1;
   float* K = smem;                // [L, hd]
@@ -247,14 +247,14 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float* g = G + i * lds;
         float t = 0.0f;
         for (int j = lane; j < L; j += 32) {
-          const bool keep = kept(seed, thresh, h, b, (r0 + i) * L + j);
+          const bool keep = kept(seed, thresh, h, b0 + b, (r0 + i) * L + j);
           const float dy = keep ? g[j] * inv : 0.0f;
           g[j] = dy;
           t = fmaf(dy, y[j], t);
         }
         t = warp_sum(t);
         for (int j = lane; j < L; j += 32) {
-          const bool keep = kept(seed, thresh, h, b, (r0 + i) * L + j);
+          const bool keep = kept(seed, thresh, h, b0 + b, (r0 + i) * L + j);
           const float yj = y[j];
           g[j] = rnd<T>(yj * (g[j] - t));
           y[j] = rnd<T>(keep ? yj * inv : 0.0f);
@@ -299,7 +299,7 @@ attn_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, Strides sin,
                       const float* __restrict__ mask, int Hm, T* __restrict__ out,
                       Strides sout, int H, int L, int hd, float scale,
-                      uint32_t seed, uint32_t thresh, float inv) {
+                      uint32_t seed, uint32_t thresh, float inv, uint32_t b0) {
   extern __shared__ float smem[];
   const int ldh = cols(hd) + 1, lds = L + 1, nch = (hd + kDc - 1) / kDc;
   float* Qt = smem;              // [kRows, dc]  a column chunk of the tile's queries
@@ -340,7 +340,7 @@ attn_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = w / L, j = w % L;
       const float y = S[i * lds + j];
       S[i * lds + j] =
-          rnd<T>(kept(seed, thresh, h, b, (r0 + i) * L + j) ? y * inv : 0.0f);
+          rnd<T>(kept(seed, thresh, h, b0 + b, (r0 + i) * L + j) ? y * inv : 0.0f);
     }
     // one output column chunk at a time; each thread owns the same (i, d)
     // outputs in every loop of a chunk
@@ -378,7 +378,7 @@ attn_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ dout, Strides sdo, T* __restrict__ dq,
                       T* __restrict__ dk, T* __restrict__ dv, Strides sout,
                       float* __restrict__ scratch, int B, int H, int L, int hd,
-                      float scale, uint32_t seed, uint32_t thresh, float inv) {
+                      float scale, uint32_t seed, uint32_t thresh, float inv, uint32_t b0) {
   extern __shared__ float smem[];
   const int ldh = cols(hd) + 1, lds = L + 1, nch = (hd + kDc - 1) / kDc;
   float* Qt = smem;                // [kRows, dc]
@@ -439,14 +439,14 @@ attn_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float* g = G + i * lds;
         float t = 0.0f;
         for (int j = lane; j < L; j += 32) {
-          const bool keep = kept(seed, thresh, h, b, (r0 + i) * L + j);
+          const bool keep = kept(seed, thresh, h, b0 + b, (r0 + i) * L + j);
           const float dy = keep ? g[j] * inv : 0.0f;
           g[j] = dy;
           t = fmaf(dy, y[j], t);
         }
         t = warp_sum(t);
         for (int j = lane; j < L; j += 32) {
-          const bool keep = kept(seed, thresh, h, b, (r0 + i) * L + j);
+          const bool keep = kept(seed, thresh, h, b0 + b, (r0 + i) * L + j);
           const float yj = y[j];
           g[j] = rnd<T>(yj * (g[j] - t));
           y[j] = rnd<T>(keep ? yj * inv : 0.0f);
@@ -595,7 +595,7 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     const __nv_bfloat16* __restrict__ v, Strides sin,
                     const float* __restrict__ mask, int Hm, __nv_bfloat16* __restrict__ out,
                     Strides sout, int H, int L, int hd, float scale, uint32_t seed,
-                    uint32_t thresh, float inv, int G, int nwork, int flags) {
+                    uint32_t thresh, float inv, uint32_t b0, int G, int nwork, int flags) {
   constexpr int HDP = HD16 * 16, LDH = HDP + 8, NDT = HD16 * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Lp = (L + 15) / 16 * 16, ntile = Lp / 8, nstrip = Lp / 16;
@@ -640,7 +640,7 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       strip_abt<HD16>(s, Qh, LDH, Ops(st) + (G + hh) * opnd, LDH, i0, ntile, lane);
       const float* Mh = Ms(st) + (Hm > 1 ? hh : 0) * mask_floats;
       strip_softmax(s, [&](int i, int j) { return Mh[i * L + j]; }, i0, L, ntile, scale, lane);
-      const uint32_t keep = strip_keep(seed, thresh, h, b, i0, L, ntile, lane);
+      const uint32_t keep = strip_keep(seed, thresh, h, b0 + b, i0, L, ntile, lane);
       float o[NDT][4];
 #pragma unroll
       for (int d = 0; d < NDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
@@ -691,7 +691,8 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ dout, Strides sdo,
                     __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, Strides sout, int H, int L, int hd,
-                    float scale, uint32_t seed, uint32_t thresh, float inv, int flags) {
+                    float scale, uint32_t seed, uint32_t thresh, float inv, uint32_t b0,
+                    int flags) {
   constexpr int LDH = HD16 * 16 + 8, NDT = HD16 * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Lp = (L + 15) / 16 * 16, ldz = Lp + 8, ntile = Lp / 8;
@@ -736,7 +737,7 @@ attn_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     strip_abt<HD16>(dz, DOs, LDH, Vs, LDH, i0, ntile, lane);
     strip_softmax(s, [&](int i, int j) { return Ms[i * L + j]; }, i0, L, ntile, scale, lane);
     // dy = dropout(dZ) with the forward's keep bits, t = sum dy y
-    const uint32_t keep = strip_keep(seed, thresh, h, b, i0, L, ntile, lane);
+    const uint32_t keep = strip_keep(seed, thresh, h, b0 + b, i0, L, ntile, lane);
     float tsum[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
@@ -826,8 +827,8 @@ int mask_flag(const float* mask, int L) {
 template <int HD16>
 int launch_fwd_mma_hd(const void* q, const void* k, const void* v, Strides sin,
                       const float* mask, int Hm, void* out, Strides sout, int B, int H, int L,
-                      int hd, float scale, uint32_t seed, uint32_t thresh, float inv, int flags,
-                      cudaStream_t stream) {
+                      int hd, float scale, uint32_t seed, uint32_t thresh, float inv,
+                      uint32_t b0, int flags, cudaStream_t stream) {
   const int G = mma_fwd_group(L, hd, H, Hm > 1);
   const int smem = mma_fwd_smem_bytes(L, hd, H, Hm > 1);
   const int Lp = (L + 15) / 16 * 16, threads = 32 * min(kMmaWarps, G * Lp / 16);
@@ -847,13 +848,14 @@ int launch_fwd_mma_hd(const void* q, const void* k, const void* v, Strides sin,
   const int grid = (int)(nwork < resident ? nwork : resident);
   attn_fwd_mma_kernel<HD16><<<grid, threads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, sin, mask, Hm,
-      (__nv_bfloat16*)out, sout, H, L, hd, scale, seed, thresh, inv, G, (int)nwork, flags);
+      (__nv_bfloat16*)out, sout, H, L, hd, scale, seed, thresh, inv, b0, G, (int)nwork, flags);
   return (int)cudaGetLastError();
 }
 
 int launch_fwd_mma(const void* q, const void* k, const void* v, Strides sin, const float* mask,
                    int Hm, void* out, Strides sout, int B, int H, int L, int hd, float scale,
-                   uint32_t seed, uint32_t thresh, float inv, cudaStream_t stream) {
+                   uint32_t seed, uint32_t thresh, float inv, uint32_t b0,
+                   cudaStream_t stream) {
   const int flags =
       (hd % 8 == 0 && rows16(q, sin) && rows16(k, sin) && rows16(v, sin) ? kVecOperands : 0) |
       mask_flag(mask, L) | (hd % 8 == 0 && rows16(out, sout) ? kVecOut : 0);
@@ -861,7 +863,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, Strides sin, con
 #define UNIREC_FWD_HD(n)                                                                      \
   case n:                                                                                     \
     return launch_fwd_mma_hd<n>(q, k, v, sin, mask, Hm, out, sout, B, H, L, hd, scale, seed, \
-                                thresh, inv, flags, stream);
+                                thresh, inv, b0, flags, stream);
     UNIREC_FWD_HD(1) UNIREC_FWD_HD(2) UNIREC_FWD_HD(3) UNIREC_FWD_HD(4)
 #undef UNIREC_FWD_HD
   }
@@ -872,8 +874,8 @@ template <int HD16>
 int launch_bwd_mma_hd(const void* q, const void* k, const void* v, Strides sin,
                       const float* mask, int Hm, const void* dout, Strides sdo, void* dq,
                       void* dk, void* dv, Strides sout, int B, int H, int L, int hd,
-                      float scale, uint32_t seed, uint32_t thresh, float inv, int flags,
-                      cudaStream_t stream) {
+                      float scale, uint32_t seed, uint32_t thresh, float inv, uint32_t b0,
+                      int flags, cudaStream_t stream) {
   const int smem = mma_bwd_smem_bytes(L, hd);
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_mma_kernel<HD16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -881,14 +883,14 @@ int launch_bwd_mma_hd(const void* q, const void* k, const void* v, Strides sin,
   attn_bwd_mma_kernel<HD16><<<B * H, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, sin, mask,
       Hm, (const __nv_bfloat16*)dout, sdo, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, sout, H, L, hd, scale, seed, thresh, inv, flags);
+      (__nv_bfloat16*)dv, sout, H, L, hd, scale, seed, thresh, inv, b0, flags);
   return (int)cudaGetLastError();
 }
 
 int launch_bwd_mma(const void* q, const void* k, const void* v, Strides sin,
                    const float* mask, int Hm, const void* dout, Strides sdo, void* dq,
                    void* dk, void* dv, Strides sout, int B, int H, int L, int hd,
-                   float scale, uint32_t seed, uint32_t thresh, float inv,
+                   float scale, uint32_t seed, uint32_t thresh, float inv, uint32_t b0,
                    cudaStream_t stream) {
   const int flags =
       (hd % 8 == 0 && rows16(q, sin) && rows16(k, sin) && rows16(v, sin) && rows16(dout, sdo)
@@ -900,7 +902,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, Strides sin,
 #define UNIREC_BWD_HD(n)                                                                  \
   case n:                                                                                 \
     return launch_bwd_mma_hd<n>(q, k, v, sin, mask, Hm, dout, sdo, dq, dk, dv, sout, B, H, \
-                                L, hd, scale, seed, thresh, inv, flags, stream);
+                                L, hd, scale, seed, thresh, inv, b0, flags, stream);
     UNIREC_BWD_HD(1) UNIREC_BWD_HD(2) UNIREC_BWD_HD(3) UNIREC_BWD_HD(4)
 #undef UNIREC_BWD_HD
   }
@@ -911,7 +913,7 @@ template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, Strides sin,
                const float* mask, int Hm, void* out, Strides sout, int B, int H,
                int L, int hd, float scale, uint32_t seed, uint32_t thresh,
-               float inv, int tiled, cudaStream_t stream) {
+               float inv, uint32_t b0, int tiled, cudaStream_t stream) {
   auto kern = tiled ? &attn_fwd_tiled_kernel<T> : &attn_fwd_kernel<T>;
   const size_t smem = sizeof(float) * (tiled ? fwd_tiled_smem_floats(L, hd)
                                              : fwd_smem_floats(L, hd));
@@ -920,7 +922,7 @@ int launch_fwd(const void* q, const void* k, const void* v, Strides sin,
   if (err != cudaSuccess) return (int)err;
   kern<<<B * H, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, sin,
                                           mask, Hm, (T*)out, sout, H, L, hd, scale,
-                                          seed, thresh, inv);
+                                          seed, thresh, inv, b0);
   return (int)cudaGetLastError();
 }
 
@@ -929,7 +931,7 @@ int launch_bwd(const void* q, const void* k, const void* v, Strides sin,
                const float* mask, int Hm, const void* dout, Strides sdo,
                void* dq, void* dk, void* dv, Strides sout, float* scratch, int B,
                int H, int L, int hd, float scale, uint32_t seed, uint32_t thresh,
-               float inv, cudaStream_t stream) {
+               float inv, uint32_t b0, cudaStream_t stream) {
   if (scratch == nullptr) {
     const size_t smem = sizeof(float) * bwd_smem_floats(L, hd);
     cudaError_t err = cudaFuncSetAttribute(
@@ -937,7 +939,7 @@ int launch_bwd(const void* q, const void* k, const void* v, Strides sin,
     if (err != cudaSuccess) return (int)err;
     attn_bwd_kernel<T><<<B * H, kThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, sin, mask, Hm, (const T*)dout, sdo,
-        (T*)dq, (T*)dk, (T*)dv, sout, H, L, hd, scale, seed, thresh, inv);
+        (T*)dq, (T*)dk, (T*)dv, sout, H, L, hd, scale, seed, thresh, inv, b0);
     return (int)cudaGetLastError();
   }
   const size_t smem = sizeof(float) * bwd_tiled_smem_floats(L, hd);
@@ -946,7 +948,7 @@ int launch_bwd(const void* q, const void* k, const void* v, Strides sin,
   if (err != cudaSuccess) return (int)err;
   attn_bwd_tiled_kernel<T><<<B * H, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, sin, mask, Hm, (const T*)dout, sdo,
-      (T*)dq, (T*)dk, (T*)dv, sout, scratch, B, H, L, hd, scale, seed, thresh, inv);
+      (T*)dq, (T*)dk, (T*)dv, sout, scratch, B, H, L, hd, scale, seed, thresh, inv, b0);
   return (int)cudaGetLastError();
 }
 
@@ -976,7 +978,8 @@ int unirec_attention_bwd_tiled_smem_bytes(int L, int hd) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). s_*: element strides
 // (batch, head, row) of q/k/v (shared) and of out; the last axis is
 // contiguous. mask: [B, Hm, L, L] f32, contiguous. Dropout: seed, keep
-// threshold round(p * 2^32) (0: none) and 1/(1-p). The bf16 tensor-core
+// threshold round(p * 2^32) (0: none), 1/(1-p), and b0, the global index of
+// the first example, by which the masks are keyed (common.cuh::Drop). The bf16 tensor-core
 // body runs where unirec_attention_bwd_mma_takes says so (and ignores
 // tiled); otherwise tiled: 1 runs the tiled kernel. Returns a cudaError_t.
 int unirec_attention_fwd(int dtype, const void* q, const void* k, const void* v,
@@ -984,18 +987,18 @@ int unirec_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                          const float* mask, int Hm, void* out, long long sob,
                          long long soh, long long sor, int B, int H, int L,
                          int hd, float scale, unsigned seed, unsigned thresh,
-                         float inv, int tiled, void* stream) {
+                         float inv, unsigned b0, int tiled, void* stream) {
   const Strides sin{sib, sih, sir}, sout{sob, soh, sor};
   cudaStream_t s = (cudaStream_t)stream;
   if (mma_takes(dtype, L, hd))
     return launch_fwd_mma(q, k, v, sin, mask, Hm, out, sout, B, H, L, hd, scale, seed, thresh,
-                          inv, s);
+                          inv, b0, s);
   if (dtype == 0)
     return launch_fwd<float>(q, k, v, sin, mask, Hm, out, sout, B, H, L, hd,
-                             scale, seed, thresh, inv, tiled, s);
+                             scale, seed, thresh, inv, b0, tiled, s);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(q, k, v, sin, mask, Hm, out, sout, B, H, L,
-                                     hd, scale, seed, thresh, inv, tiled, s);
+                                     hd, scale, seed, thresh, inv, b0, tiled, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1025,19 +1028,19 @@ int unirec_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                          void* dk, void* dv, long long sob, long long soh,
                          long long sor, float* scratch, int B, int H, int L, int hd,
                          float scale, unsigned seed, unsigned thresh, float inv,
-                         void* stream) {
+                         unsigned b0, void* stream) {
   const Strides sin{sib, sih, sir}, sdo{sdb, sdh, sdr}, sout{sob, soh, sor};
   cudaStream_t s = (cudaStream_t)stream;
   if (mma_takes(dtype, L, hd))
     return launch_bwd_mma(q, k, v, sin, mask, Hm, dout, sdo, dq, dk, dv, sout, B, H, L, hd,
-                          scale, seed, thresh, inv, s);
+                          scale, seed, thresh, inv, b0, s);
   if (dtype == 0)
     return launch_bwd<float>(q, k, v, sin, mask, Hm, dout, sdo, dq, dk, dv, sout,
-                             scratch, B, H, L, hd, scale, seed, thresh, inv, s);
+                             scratch, B, H, L, hd, scale, seed, thresh, inv, b0, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(q, k, v, sin, mask, Hm, dout, sdo, dq, dk,
                                      dv, sout, scratch, B, H, L, hd, scale, seed,
-                                     thresh, inv, s);
+                                     thresh, inv, b0, s);
   return (int)cudaErrorInvalidValue;
 }
 

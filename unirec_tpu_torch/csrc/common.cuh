@@ -144,10 +144,14 @@ __device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t site,
 // Dropout parameters of one kernel call. thresh = round(p * 2^32): an
 // element is kept iff its bits are >= thresh (the JAX package's 32-bit rule,
 // unirec_tpu/ops/common.py::keep_mask); thresh 0 keeps everything and draws
-// no bits. inv = 1 / (1 - p).
+// no bits. inv = 1 / (1 - p). b0 is the global index of the call's
+// first example: a rank of a data-parallel run holds rows [b0, b0 + B) of
+// the global batch and keys its masks by b0 + b, so that its examples draw
+// the masks they draw in a one-process run (rows 1-4; 0 elsewhere).
 struct Drop {
   uint32_t seed, t_attn, t_hidden;
   float inv_attn, inv_hidden;
+  uint32_t b0 = 0u;
 };
 
 __device__ __forceinline__ bool kept(uint32_t seed, uint32_t thresh, int site,
@@ -161,7 +165,7 @@ __device__ __forceinline__ bool kept(uint32_t seed, uint32_t thresh, int site,
 template <typename T>
 __device__ __forceinline__ float drop_hidden(float v, const Drop& dr, int site,
                                              int b, int elem) {
-  return kept(dr.seed, dr.t_hidden, site, b, elem) ? rnd<T>(v * dr.inv_hidden) : 0.0f;
+  return kept(dr.seed, dr.t_hidden, site, dr.b0 + b, elem) ? rnd<T>(v * dr.inv_hidden) : 0.0f;
 }
 
 // In place softmax over each of `rows` rows of length n (leading dim ld),

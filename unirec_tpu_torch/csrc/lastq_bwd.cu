@@ -149,7 +149,7 @@ lastq_bwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
     softmax_rows(P, Lp, nh, Lp);
     __syncthreads();
     for (int w = threadIdx.x; w < nh * Lp; w += blockDim.x)
-      if (!kept(dr.seed, dr.t_attn, w / Lp, b, w % Lp)) P[w] = -P[w];
+      if (!kept(dr.seed, dr.t_attn, w / Lp, dr.b0 + b, w % Lp)) P[w] = -P[w];
     __syncthreads();
     for (int c = threadIdx.x; c < D; c += blockDim.x) {
       const int h = c / hd;
@@ -192,7 +192,7 @@ lastq_bwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
     ln_bwd_rows(r, D, xh2, D, rs + 1, 1, D, g2);
     __syncthreads();
     for (int c = threadIdx.x; c < D; c += blockDim.x)
-      dh[c] = rnd<T>(kept(dr.seed, dr.t_hidden, nh + 1, b, c) ? r[c] * dr.inv_hidden : 0.0f);
+      dh[c] = rnd<T>(kept(dr.seed, dr.t_hidden, nh + 1, dr.b0 + b, c) ? r[c] * dr.inv_hidden : 0.0f);
     __syncthreads();
     wgrad([&](int, int k) { return hm[k]; }, F, dh, 0, D, 1, slab + o_w2);
     colsum([&](int, int n) { return dh[n]; }, D, 1, slab + o_b2);
@@ -212,7 +212,7 @@ lastq_bwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
     ln_bwd_rows(r, D, xh1, D, rs, 1, D, g1);
     __syncthreads();
     for (int c = threadIdx.x; c < D; c += blockDim.x)
-      dh[c] = rnd<T>(kept(dr.seed, dr.t_hidden, nh, b, c) ? r[c] * dr.inv_hidden : 0.0f);
+      dh[c] = rnd<T>(kept(dr.seed, dr.t_hidden, nh, dr.b0 + b, c) ? r[c] * dr.inv_hidden : 0.0f);
     __syncthreads();
     wgrad([&](int, int k) { return ctx[k]; }, D, dh, 0, D, 1, slab + o_wo);
     colsum([&](int, int n) { return dh[n]; }, D, 1, slab + o_bo);
@@ -598,7 +598,7 @@ lastq_bwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
       for (int rr = 0; rr < 2; ++rr) {
         const int j = lane + 32 * rr;
         p[rr] /= sum;
-        kp[rr] = j < Lp && kept(dr.seed, dr.t_attn, h, b, j);
+        kp[rr] = j < Lp && kept(dr.seed, dr.t_attn, h, dr.b0 + b, j);
         Z[h * kMmaRows + j] = kp[rr] ? rb(p[rr] * dr.inv_attn) : 0.0f;
       }
       __syncwarp();
@@ -615,7 +615,7 @@ lastq_bwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
     // ---- the row's out-proj, dropout (site nh), + x[qi], LN1, FFN, LN2
     row_mm(ctx, D, Wo, LDD, D, [&](int c, float a) {
       float o = rb(rb(a) + bfv(bo + c));
-      const bool k = kept(dr.seed, dr.t_hidden, NH, b, c);
+      const bool k = kept(dr.seed, dr.t_hidden, NH, dr.b0 + b, c);
       ko[c] = k ? 1.0f : 0.0f;
       o = k ? rb(o * dr.inv_hidden) : 0.0f;
       xh1[c] = rb(o + bfv(X + qi * LDD + c));
@@ -642,7 +642,7 @@ lastq_bwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
     __syncthreads();
     row_mm(hm, F, W2, LDD, D, [&](int c, float a) {
       float h2 = rb(rb(a) + bfv(b2 + c));
-      const bool k = kept(dr.seed, dr.t_hidden, NH + 1, b, c);
+      const bool k = kept(dr.seed, dr.t_hidden, NH + 1, dr.b0 + b, c);
       k2[c] = k ? 1.0f : 0.0f;
       h2 = k ? rb(h2 * dr.inv_hidden) : 0.0f;
       xh2[c] = rb(h2 + x1[c]);
@@ -953,9 +953,9 @@ int unirec_lastq_bwd(int dtype, const void* x, const float* madd,
                      int nblocks, int B, int Lp, int D, int F, int nh, int qi,
                      int act, int mma, float eps, unsigned seed, unsigned t_attn,
                      unsigned t_hidden, float inv_attn, float inv_hidden,
-                     void* stream) {
+                     unsigned b0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden};
+  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden, b0};
   const void* w[18] = {wq, bq, wk, bk, wv, bv, wo, bo, w1, b1, w2, b2,
                        wqT, wkT, wvT, woT, w1T, w2T};
   const float* ln[4] = {g1, c1, g2, c2};

@@ -117,7 +117,7 @@ lastq_fwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
   __syncthreads();
   for (int w = threadIdx.x; w < nh * Lp; w += blockDim.x) {
     const float p = P[w];
-    P[w] = rnd<T>(!kDrop || kept(dr.seed, dr.t_attn, w / Lp, b, w % Lp)
+    P[w] = rnd<T>(!kDrop || kept(dr.seed, dr.t_attn, w / Lp, dr.b0 + b, w % Lp)
                       ? p * dr.inv_attn : 0.0f);
   }
   __syncthreads();
@@ -318,7 +318,7 @@ lastq_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
         for (int e = 0; e < 4; ++e) {
           const int i = g + (e >> 1) * 8, c = c0 + n2 * 8 + 2 * t + (e & 1);
           float o = rb(rb(acc[n2][e]) + bfv(bias + c));
-          if (i < n) o = kept(dr.seed, dr.t_hidden, site, exb[i], c) ? rb(o * dr.inv_hidden) : 0.0f;
+          if (i < n) o = kept(dr.seed, dr.t_hidden, site, dr.b0 + exb[i], c) ? rb(o * dr.inv_hidden) : 0.0f;
           Vr[i * D + c] = rb(o + bfv(res + i * LDD + c));
         }
     };
@@ -458,7 +458,7 @@ lastq_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int j = lane + 32 * rr;
-        const bool kp = j < Lp && kept(dr.seed, dr.t_attn, h, b, j);
+        const bool kp = j < Lp && kept(dr.seed, dr.t_attn, h, dr.b0 + b, j);
         zh[j] = kp ? rb(p[rr] / sum * dr.inv_attn) : 0.0f;
       }
       __syncwarp();
@@ -559,9 +559,9 @@ int unirec_lastq_fwd(int dtype, const void* x, const float* madd,
                      const float* c2, void* y, int B, int Lp, int D, int F,
                      int nh, int qi, int act, int mma, float eps, unsigned seed,
                      unsigned t_attn, unsigned t_hidden, float inv_attn,
-                     float inv_hidden, void* stream) {
+                     float inv_hidden, unsigned b0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden};
+  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden, b0};
   if (qi < 0 || qi >= Lp) return (int)cudaErrorInvalidValue;
   if (mma) {
     if (!mma_takes(dtype, Lp, D, F, nh)) return (int)cudaErrorInvalidValue;

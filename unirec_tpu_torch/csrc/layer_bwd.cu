@@ -193,7 +193,7 @@ layer_bwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
       __syncthreads();
       for (int w = threadIdx.x; w < Lp * Lp; w += blockDim.x) {
         float* e = Ph + (w / Lp) * lds + w % Lp;
-        if (!kept(dr.seed, dr.t_attn, h, b, w)) *e = -*e;  // -0.0 for 0: sign bit set
+        if (!kept(dr.seed, dr.t_attn, h, dr.b0 + b, w)) *e = -*e;  // -0.0 for 0: sign bit set
       }
       __syncthreads();
       for (int w = threadIdx.x; w < Lp * hd; w += blockDim.x) {
@@ -242,7 +242,7 @@ layer_bwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
     __syncthreads();
     for (int i = threadIdx.x; i < Lp * D; i += blockDim.x) {
       const int o = (i / D) * ldx + i % D;
-      DH[o] = rnd<T>(kept(dr.seed, dr.t_hidden, nh + 1, b, i) ? R[o] * dr.inv_hidden : 0.0f);
+      DH[o] = rnd<T>(kept(dr.seed, dr.t_hidden, nh + 1, dr.b0 + b, i) ? R[o] * dr.inv_hidden : 0.0f);
     }
     __syncthreads();
     wgrad([&](int r, int k) { return U[r * ldu + k]; }, F, DH, ldx, D, Lp, slab + o_w2);
@@ -272,7 +272,7 @@ layer_bwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
     __syncthreads();
     for (int i = threadIdx.x; i < Lp * D; i += blockDim.x) {
       const int o = (i / D) * ldx + i % D;
-      DH[o] = rnd<T>(kept(dr.seed, dr.t_hidden, nh, b, i) ? R[o] * dr.inv_hidden : 0.0f);
+      DH[o] = rnd<T>(kept(dr.seed, dr.t_hidden, nh, dr.b0 + b, i) ? R[o] * dr.inv_hidden : 0.0f);
     }
     __syncthreads();
     wgrad([&](int r, int k) { return CTX[r * ldx + k]; }, D, DH, ldx, D, Lp, slab + o_wo);
@@ -525,7 +525,7 @@ layer_bwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
         float s[kNT][4];
         strip_abt<HD16>(s, QKV + h * HD, LDQ, QKV + D + h * HD, LDQ, i0, ntile, lane);
         strip_softmax(s, mask(M), i0, Lp, ntile, scale, lane);
-        const uint32_t keep = strip_keep(dr.seed, dr.t_attn, h, b, i0, Lp, ntile, lane);
+        const uint32_t keep = strip_keep(dr.seed, dr.t_attn, h, dr.b0 + b, i0, Lp, ntile, lane);
         keep_a[k] = keep;
         float o[NHT][4];
 #pragma unroll
@@ -555,7 +555,7 @@ layer_bwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
             const int i = i0 + g + (e >> 1) * 8, c = dc0 + n * 8 + 2 * t + (e & 1);
             float o = rb(rb(xh1[n][e]) + bfv(bo + c));
             if (i < Lp) {
-              const bool kp = kept(dr.seed, dr.t_hidden, NH, b, i * D + c);
+              const bool kp = kept(dr.seed, dr.t_hidden, NH, dr.b0 + b, i * D + c);
               keep_o |= (uint32_t)kp << (n * 4 + e);
               o = kp ? rb(o * dr.inv_hidden) : 0.0f;
             }
@@ -609,7 +609,7 @@ layer_bwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
             const int i = i0 + g + (e >> 1) * 8, c = dc0 + n * 8 + 2 * t + (e & 1);
             float h2 = rb(rb(xh2[n][e]) + bfv(b2 + c));
             if (i < Lp) {
-              const bool kp = kept(dr.seed, dr.t_hidden, NH + 1, b, i * D + c);
+              const bool kp = kept(dr.seed, dr.t_hidden, NH + 1, dr.b0 + b, i * D + c);
               keep_2 |= (uint32_t)kp << (n * 4 + e);
               h2 = kp ? rb(h2 * dr.inv_hidden) : 0.0f;
             }
@@ -992,9 +992,9 @@ int unirec_layer_bwd(int dtype, const void* x, const float* madd,
                      int Lp, int D, int F, int nh, int act, int causal,
                      int mma, float eps, unsigned seed, unsigned t_attn,
                      unsigned t_hidden, float inv_attn, float inv_hidden,
-                     void* stream) {
+                     unsigned b0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden};
+  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden, b0};
   const void* w[12] = {wqkv, bqkv, wo, bo, w1, b1, w2, b2, wqkvT, woT, w1T, w2T};
   const float* ln[4] = {g1, c1, g2, c2};
   if (nblocks <= 0) return (int)cudaErrorInvalidValue;

@@ -123,7 +123,7 @@ layer_fwd_kernel(const T* __restrict__ x, const float* __restrict__ madd,
     for (int w = threadIdx.x; w < Lp * Lp; w += blockDim.x) {
       const int i = w / Lp, j = w % Lp;
       const float p = S[i * lds + j];
-      S[i * lds + j] = rnd<T>(kept(dr.seed, dr.t_attn, h, b, w) ? p * dr.inv_attn : 0.0f);
+      S[i * lds + j] = rnd<T>(kept(dr.seed, dr.t_attn, h, dr.b0 + b, w) ? p * dr.inv_attn : 0.0f);
     }
     __syncthreads();
     for (int w = threadIdx.x; w < Lp * hd; w += blockDim.x) {
@@ -335,7 +335,7 @@ layer_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
         float s[kNT][4];
         strip_abt<HD16>(s, QKV + h * HD, LDQ, QKV + D + h * HD, LDQ, i0, ntile, lane);
         strip_softmax(s, mask, i0, Lp, ntile, scale, lane);
-        const uint32_t keep = strip_keep(dr.seed, dr.t_attn, h, b, i0, Lp, ntile, lane);
+        const uint32_t keep = strip_keep(dr.seed, dr.t_attn, h, dr.b0 + b, i0, Lp, ntile, lane);
         float o[NHT][4];
 #pragma unroll
         for (int d = 0; d < NHT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
@@ -367,7 +367,7 @@ layer_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
           for (int e = 0; e < 4; ++e) {
             const int i = i0 + g + (e >> 1) * 8, c = dc0 + n * 8 + 2 * t + (e & 1);
             float o = rb(rb(xh[n][e]) + bfv(bo + c));
-            if (i < Lp) o = kept(dr.seed, dr.t_hidden, NH, b, i * D + c) ? rb(o * dr.inv_hidden) : 0.0f;
+            if (i < Lp) o = kept(dr.seed, dr.t_hidden, NH, dr.b0 + b, i * D + c) ? rb(o * dr.inv_hidden) : 0.0f;
             xh[n][e] = rb(o + bfv(X + i * LDD + c));
           }
       strip_ln<NTH>(xh, nd, rs, eps, inv_d, xch, sid, half, lane);
@@ -463,7 +463,7 @@ layer_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ madd,
             const int i = i0 + g + (e >> 1) * 8, c = dc0 + n * 8 + 2 * t + (e & 1);
             float h2 = rb(rb(xh[n][e]) + bfv(b2 + c));
             if (i < Lp)
-              h2 = kept(dr.seed, dr.t_hidden, NH + 1, b, i * D + c) ? rb(h2 * dr.inv_hidden) : 0.0f;
+              h2 = kept(dr.seed, dr.t_hidden, NH + 1, dr.b0 + b, i * D + c) ? rb(h2 * dr.inv_hidden) : 0.0f;
             xh[n][e] = rb(h2 + bfv(X1 + i * LDD + c));
           }
       strip_ln<NTH>(xh, nd, rs, eps, inv_d, xch, sid, half, lane);
@@ -550,7 +550,9 @@ int unirec_layer_fwd_mma_smem_bytes(int D, int F) { return fwd_mma_smem_bytes(D,
 // which takes only what unirec_layer_fwd_mma_takes admits, with x, madd and
 // the four matmul weights 16-byte aligned; mma 0 the CUDA-core body.
 // Dropout: seed, the keep thresholds round(p * 2^32) of the attention and
-// hidden sites (0: no dropout) and their 1/(1-p). Returns a cudaError_t.
+// hidden sites (0: no dropout), their 1/(1-p), and b0, the global index of
+// x's first example (a data-parallel rank's row offset; common.cuh::Drop).
+// Returns a cudaError_t.
 int unirec_layer_fwd(int dtype, const void* x, const float* madd,
                      const void* wqkv, const void* bqkv, const void* wo,
                      const void* bo, const float* g1, const float* c1,
@@ -559,9 +561,9 @@ int unirec_layer_fwd(int dtype, const void* x, const float* madd,
                      int B, int Lp, int D, int F, int nh, int act, int causal,
                      int mma, float eps, unsigned seed, unsigned t_attn,
                      unsigned t_hidden, float inv_attn, float inv_hidden,
-                     void* stream) {
+                     unsigned b0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden};
+  const Drop dr{seed, t_attn, t_hidden, inv_attn, inv_hidden, b0};
   if (mma) {
     if (!fwd_mma_takes(dtype, Lp, D, F, nh)) return (int)cudaErrorInvalidValue;
     const void* w[8] = {wqkv, bqkv, wo, bo, w1, b1, w2, b2};

@@ -18,7 +18,8 @@ rows are AERec training rows: the user's history table row (the training
 split's deduplicated items), cut at ``aerec_max_hist``, as ``item_seq``.
 
 Randomness comes from an explicit ``torch.Generator`` on the state's device
-(the JAX package's ``key``); the two frameworks draw different numbers from
+(the JAX package's ``key``), drawn at the global batch's shape when a
+data-parallel rank augments its rows (core/mesh.py::RowSlice); the two frameworks draw different numbers from
 one seed, so tests hold sampled batches to their invariants and the
 deterministic parts (windowing, membership) to exact equality.
 
@@ -34,6 +35,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from unirec_tpu_torch.core.mesh import RowSlice, rand_rows, randint_rows
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.data.sampler import AliasTable
 from unirec_tpu_torch.ops import member as member_ops
@@ -84,13 +86,13 @@ class DeviceAugmenter:
                                                         device=self.device)
 
     # ------------------------------------------------------------------
-    def _draw(self, gen: torch.Generator, shape) -> torch.Tensor:
+    def _draw(self, gen, shape) -> torch.Tensor:
+        """Negative proposals; ``gen`` a generator or a RowSlice."""
         if not self.use_alias:
-            return torch.randint(1, self.n_items, shape, generator=gen,
-                                 device=self.device, dtype=torch.int32)
+            return randint_rows(gen, 1, self.n_items, shape, self.device, torch.int32)
         thresh, alias = self.state["alias_thresh"], self.state["alias_alias"]
-        idx = torch.randint(0, thresh.shape[0], shape, generator=gen, device=self.device)
-        frac = torch.rand(shape, generator=gen, device=self.device)
+        idx = randint_rows(gen, 0, thresh.shape[0], shape, self.device)
+        frac = rand_rows(gen, shape, self.device)
         return torch.where(frac < thresh[idx], idx.to(torch.int32), alias[idx])
 
     def _membership(self, rows, cand) -> torch.Tensor:
@@ -137,7 +139,7 @@ class DeviceAugmenter:
                 n = torch.where(counts > 0, rev, lens)
             else:
                 hi = counts.clamp(min=1)
-                u = torch.rand(B, generator=gen, device=rows.device)
+                u = rand_rows(gen, (B,), rows.device)
                 r = torch.minimum((u * hi).long(), hi - 1)
                 sel = (valid_pos.long().cumsum(-1) > r[:, None]) & valid_pos
                 n = torch.where(counts > 0, sel.to(torch.int8).argmax(-1), lens)
@@ -156,11 +158,21 @@ class DeviceAugmenter:
         out["_aug"] = self.state
         return out
 
-    def augment(self, raw: Dict[str, Any], gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    def augment(self, raw: Dict[str, Any], gen: torch.Generator,
+                rows=None) -> Dict[str, torch.Tensor]:
         """raw: {user_id [B], item_id [B] or [B, P], weight [B], label?,
-        max_len? [B]} as device tensors -> the full train batch."""
+        max_len? [B]} as device tensors -> the full train batch. ``rows``
+        (lo, hi): augment only rows [lo, hi) of the (global) raw batch, a
+        data-parallel rank's, with every random draw taken at the global
+        batch's shape and sliced, so they are the rows a one-process run
+        makes; membership (row 8) runs on these rows alone."""
         raw = dict(raw)
         state = raw.pop("_aug", self.state)
+        if rows is not None:
+            lo, hi = rows
+            gen = RowSlice(gen, lo, hi - lo, len(raw["user_id"]))
+            raw = {k: v[lo:hi] if torch.is_tensor(v) and v.dim() else v
+                   for k, v in raw.items()}
         uid = raw["user_id"].long()
         rows = state["hist_items"][uid]
         lens = state["hist_lens"][uid]

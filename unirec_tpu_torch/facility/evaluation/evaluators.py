@@ -35,6 +35,13 @@ per-row metric); the host reduction is numpy, as in the JAX package. Under
 one_vs_k they are skipped, as there. Under session_aware: the
 price-weighted ``rhit@k`` (the largest price among hit positives),
 ``rrecall@k`` (their price mass) and ``rndcg[@k]`` (sessionwise.py:39-83).
+
+On a mesh (a process group up, evaluators.py:47-99) every rank holds the
+same host batch and scores its rows of it (``_to_device``: padded to a
+multiple of ``n_data``, the rank's slice); the tie noise is drawn at the
+global batch's shape and sliced, and the per-row results are gathered over
+``data`` before the host reduction, so every rank returns the one-process
+metrics. The per-batch ``reparam_seed`` counts the same on every rank.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from unirec_tpu_torch.constants import DataFormat, EvalProtocol
+from unirec_tpu_torch.core.mesh import MeshContext
 from unirec_tpu_torch.ops import metrics as M
 from unirec_tpu_torch.ops.topk import full_catalog_scores
 from unirec_tpu_torch.utils import to_device
@@ -52,10 +60,12 @@ _MOREC_PREFIXES = ("rhit", "rndcg", "rrecall", "pop-kl")
 
 
 class _EvaluatorBase:
-    def __init__(self, config: Dict[str, Any], model, device=None):
+    def __init__(self, config: Dict[str, Any], model, device=None,
+                 mesh: Optional[MeshContext] = None):
         self.config = config
         self.model = model
         self.device = torch.device(device) if device is not None else model.device
+        self.mesh = mesh if mesh is not None else MeshContext()
         self.metric_names = M.parse_metrics(config.get("metrics", "['group_auc']"))
         self.seed = int(config.get("seed", 2022))
         self.item_meta = config.get("_item_meta_morec")
@@ -63,11 +73,26 @@ class _EvaluatorBase:
         self._batches = 0
 
     def _to_device(self, batch) -> Dict[str, Any]:
-        """The batch on the device, with ``reparam_seed``: a host int that
-        counts this evaluator's batches (evaluators.py:54-61), from which
-        MultiVAE seeds its evaluation noise, fresh each batch."""
+        """This rank's rows of the (padded) batch on the device, with
+        ``reparam_seed``: a host int that counts this evaluator's batches
+        (evaluators.py:54-61), from which MultiVAE seeds its evaluation
+        noise, fresh each batch; and ``reparam_rows`` (lo, n, total), the
+        rows' place in the global batch, at whose shape it draws."""
         self._batches += 1
-        return dict(to_device(batch, self.device), reparam_seed=self._batches)
+        batch = self.mesh.pad_batch(batch)
+        total = len(batch["weight"])
+        lo, hi = self.mesh.row_range(total)
+        return dict(to_device(self.mesh.shard_batch(batch), self.device),
+                    reparam_seed=self._batches, reparam_rows=(lo, hi - lo, total))
+
+    def _host(self, batch) -> Dict[str, Any]:
+        """The host batch as every rank holds it: padded to a multiple of
+        n_data rows, the rows ``_gather`` returns."""
+        return self.mesh.pad_batch(batch)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of a per-row result, in batch order."""
+        return self.mesh.all_gather_rows(t, "data")
 
     @torch.no_grad()
     def predict_scores(self, batcher) -> np.ndarray:
@@ -75,8 +100,8 @@ class _EvaluatorBase:
         without negatives, [rows, 1 + negatives] with them."""
         pending, keeps = [], []
         for batch in batcher:
-            pending.append(self.model.predict(self._to_device(batch)))
-            keeps.append(np.asarray(batch["weight"]) > 0)
+            pending.append(self._gather(self.model.predict(self._to_device(batch))))
+            keeps.append(np.asarray(self._host(batch)["weight"]) > 0)
         return np.concatenate([s.float().cpu().numpy()[k] for s, k in zip(pending, keeps)])
 
 
@@ -84,8 +109,9 @@ class OnePositiveEvaluator(_EvaluatorBase):
     """One positive per row: one-vs-k (grouped scores) and one-vs-all (full
     catalog)."""
 
-    def __init__(self, config: Dict[str, Any], model, device=None):
-        super().__init__(config, model, device)
+    def __init__(self, config: Dict[str, Any], model, device=None,
+                 mesh: Optional[MeshContext] = None):
+        super().__init__(config, model, device, mesh)
         # bare (no-@k) r-metrics are session-wise only (sessionwise.py:
         # 171-173): dropped here, as in the JAX package
         session_only = [m for m in self.metric_names
@@ -118,13 +144,19 @@ class OnePositiveEvaluator(_EvaluatorBase):
         gen = self._generator(101)
         group = int(self.config.get("group_size", -1) or -1)
         for batch in batcher:
+            batch = self._host(batch)
             w = np.asarray(batch["weight"])
-            scores = self.model.predict(self._to_device(batch))
+            jb = self._to_device(batch)
+            scores = self.model.predict(jb)
             if scores.dim() == 1:
-                scores = scores.reshape(-1, group) if group > 0 else scores.reshape(len(w), -1)
-            noisy = M.add_tie_noise(scores, gen)
-            vals = M.onepos_metrics(M.onepos_rank_from_group(noisy), scores.shape[1],
-                                    self.base_names)
+                scores = scores.reshape(-1, group) if group > 0 \
+                    else scores.reshape(len(jb["weight"]), -1)
+            per = scores.shape[0] // len(jb["weight"])   # score rows a batch row
+            noisy = M.add_tie_noise(scores, self.mesh.row_slice(gen, scores.shape[0],
+                                                                len(w) * per))
+            vals = {m: self._gather(v) for m, v in M.onepos_metrics(
+                M.onepos_rank_from_group(noisy), scores.shape[1], self.base_names).items()}
+            scores = self._gather(scores)
             need_auc = want_auc and "label" in batch
             pending.append((vals, scores if need_auc else None, w))
             if need_auc:
@@ -222,11 +254,15 @@ class OnePositiveEvaluator(_EvaluatorBase):
         gen = self._generator(seed_offset)
         weights, pending = [], []
         for batch in batcher:
+            batch = self._host(batch)
             jb = self._to_device(batch)
-            hist_items, hist_len = history.gather(np.asarray(batch["user_id"]))
+            local = self.mesh.shard_batch(batch)
+            hist_items, hist_len = history.gather(np.asarray(local["user_id"]))
             h = to_device({"items": hist_items, "len": hist_len}, self.device)
             scores = full_catalog_scores(self.model, jb, item_emb, tau)
-            pending.append(metrics(scores, jb["item_id"], h["items"], h["len"], gen))
+            vals = metrics(scores, jb["item_id"], h["items"], h["len"],
+                           self.mesh.row_slice(gen, scores.shape[0], len(batch["weight"])))
+            pending.append({k: self._gather(v) for k, v in vals.items()})
             weights.append(np.asarray(batch["weight"]))
         return [{k: v.cpu().numpy() for k, v in vals.items()} for vals in pending], weights
 
@@ -241,8 +277,8 @@ class MultiPositiveEvaluator(OnePositiveEvaluator):
     """One-vs-all with several positives per user (T5/T6 rows): the @k
     metrics and the per-row group_auc (multipos.py:184-191)."""
 
-    def __init__(self, config, model, device=None):
-        super().__init__(config, model, device)
+    def __init__(self, config, model, device=None, mesh=None):
+        super().__init__(config, model, device, mesh)
         self.base_names = [m for m in self.metric_names if "@" in m or m == "group_auc"]
         ks = [int(m.split("@")[1]) for m in self.metric_names if "@" in m]
         self.max_k = max(ks) if ks else 10
@@ -266,8 +302,8 @@ class SessionWiseEvaluator(_EvaluatorBase):
 
     PRICE_PREFIXES = ("rndcg", "rhit", "rrecall")
 
-    def __init__(self, config, model, device=None):
-        super().__init__(config, model, device)
+    def __init__(self, config, model, device=None, mesh=None):
+        super().__init__(config, model, device, mesh)
         self._need_prices = any(m.split("@")[0] in self.PRICE_PREFIXES
                                 for m in self.metric_names)
 
@@ -275,8 +311,9 @@ class SessionWiseEvaluator(_EvaluatorBase):
     def evaluate(self, batcher) -> Dict[str, float]:
         pending, labels, sessions, item_ids = [], [], [], []
         for batch in batcher:
+            batch = self._host(batch)
             w = np.asarray(batch["weight"])
-            pending.append((w, self.model.predict(self._to_device(batch))))
+            pending.append((w, self._gather(self.model.predict(self._to_device(batch)))))
             labels.append(np.asarray(batch["label"]).reshape(-1))
             sessions.append(np.asarray(batch["session_id"] if "session_id" in batch
                                        else batch["user_id"]).reshape(-1))
@@ -367,14 +404,14 @@ class SessionWiseEvaluator(_EvaluatorBase):
 
 
 def build_evaluator(config: Dict[str, Any], model, protocol: str,
-                    data_format=None, device=None):
+                    data_format=None, device=None, mesh: Optional[MeshContext] = None):
     """Protocol x format dispatch (trainer.py:100-131)."""
     if protocol == EvalProtocol.SESSION_AWARE.value:
-        return SessionWiseEvaluator(config, model, device)
+        return SessionWiseEvaluator(config, model, device, mesh)
     if protocol == EvalProtocol.ONE_VS_ALL.value and data_format in (
             DataFormat.T5.value, DataFormat.T6.value):
-        return MultiPositiveEvaluator(config, model, device)
+        return MultiPositiveEvaluator(config, model, device, mesh)
     if protocol in (EvalProtocol.ONE_VS_ALL.value, EvalProtocol.ONE_VS_K.value,
                     EvalProtocol.LABEL_AWARE.value):
-        return OnePositiveEvaluator(config, model, device)
+        return OnePositiveEvaluator(config, model, device, mesh)
     raise ValueError(f"protocol/format mismatch: {protocol} / {data_format}")

@@ -2,7 +2,10 @@
 unirec_tpu/facility/solver.py; reference facility/solver.py:10-39): solve
 once on the training graph, validate, and save the solved model to
 ``<output_path>/<checkpoint_dir>/<exp_name>.solver.pkl``, a pickle of
-{config, state} that the JAX package reads too.
+{config, state} that the JAX package reads too. Under a process group
+every rank solves the whole model (it is replicated), evaluation splits
+its batches over the mesh's ``data`` ranks (solver.py:35) and rank 0
+writes the file.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from unirec_tpu_torch.constants import EvalProtocol
+from unirec_tpu_torch.core.distributed import barrier, is_main_process
+from unirec_tpu_torch.core.mesh import MeshContext, create_mesh
 from unirec_tpu_torch.facility.evaluation import build_evaluator
 from unirec_tpu_torch.utils import resolve_device
 from unirec_tpu_torch.utils.checkpoint import load_checkpoint
@@ -21,9 +26,11 @@ from unirec_tpu_torch.utils.logger import setup_logger
 
 
 class Solver:
-    def __init__(self, config: Dict[str, Any], model, device=None):
+    def __init__(self, config: Dict[str, Any], model, device=None,
+                 mesh: Optional[MeshContext] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else create_mesh(config, device=self.device)
         self.model = model.to(self.device)
         self.exp_name = config.get("exp_name", "unirec_tpu")
         self.logger = setup_logger(self.exp_name, config.get("output_path"))
@@ -40,7 +47,7 @@ class Solver:
 
     def reset_evaluator(self, data_format=None, eval_protocol=None):
         self.evaluator = build_evaluator(self.config, self.model, eval_protocol,
-                                         data_format, self.device)
+                                         data_format, self.device, self.mesh)
         self._eval_protocol = eval_protocol
 
     def fit(self, graph, valid_data=None, save_model: bool = True, **kwargs):
@@ -77,6 +84,9 @@ class Solver:
         return self.evaluator.evaluate(eval_data)
 
     def save_model(self, filename: str):
+        if not is_main_process():
+            barrier()
+            return
         os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
         cfg = {k: v for k, v in self.config.items() if not k.startswith("_")}
         tmp = f"{filename}.{os.getpid()}.tmp"
@@ -85,6 +95,7 @@ class Solver:
                         protocol=pickle.HIGHEST_PROTOCOL)
         os.replace(tmp, filename)
         self.logger.info("Saved solver model to %s", filename)
+        barrier()
 
     def load_model(self, filename: str):
         self.model.load_state_dict(load_checkpoint(filename)["state"])

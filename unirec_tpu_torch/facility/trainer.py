@@ -30,8 +30,27 @@ MoRec (reference trainer.py:461-538): with an objective controller
 (``add_objective_controller``, wired by facility/morec's ``build_morec``)
 each step is facility/morec/integration.py's ``morec_train_step`` on the
 host batches of the MoRec sampler, ending in the same update.
-Not ported yet, and raising NotImplementedError naming its ROADMAP.md
-item: a mesh of more than one device (Queue 1 item 12).
+
+Distribution (trainer.py:74-176, :380-420): the trainer runs on the
+('data', 'model') mesh of core/mesh.py, whose collectives are identities
+without a process group, so one process takes the same step. Every rank
+holds the same global batch, pads it to a multiple of ``n_data`` and
+augments its own rows; every random draw (negatives, history windows,
+dropout, MultiVAE's noise) is taken at the global shape and sliced, and the
+fused kernels key their dropout by global example. The losses
+divide by the global batch's denominators (ops/losses.py), so the ranks'
+gradients, summed over ``data`` in one all-reduce with the loss, are the
+one-process gradients of the whole batch. Parameters are placed by
+``MeshContext.shard_params``: under ``shard_embeddings`` with ``n_model`` >
+1 an embedding table keeps this rank's rows (models/base.py's sharded
+lookup). Every rank applies the same update; the NaN guard reads the
+summed loss, so one rank's non-finite loss skips the step on every rank;
+``grad_clip_value`` takes the global norm (a sharded table's squares
+summed over ``model``, each replicated parameter counted once).
+TensorBoard, W&B, the log file and checkpoint files are written by rank 0
+alone. MoRec under ``mesh_data`` > 1 is not ported yet and raises naming
+ROADMAP.md Queue 1 item 12 (its per-objective losses and Grams would sum
+over ranks).
 """
 from __future__ import annotations
 
@@ -43,10 +62,13 @@ import numpy as np
 import torch
 
 from unirec_tpu_torch.constants import EvalProtocol
+from unirec_tpu_torch.core.distributed import is_main_process
+from unirec_tpu_torch.core.mesh import MeshContext, create_mesh
 from unirec_tpu_torch.core.optim import (build_optimizer, build_scheduler,
                                          get_learning_rate, set_learning_rate)
 from unirec_tpu_torch.facility.evaluation import build_evaluator
 from unirec_tpu_torch.models.modules import DropoutRNG
+from unirec_tpu_torch.ops import losses as L
 from unirec_tpu_torch.utils import checkpoint as ckpt_util
 from unirec_tpu_torch.utils import resolve_device, to_device
 from unirec_tpu_torch.utils.flax_bridge import load_flax_params, loaded_mask, to_flax_params
@@ -81,12 +103,11 @@ def early_stopping(value, best, cur_step, max_step=4, bigger=True):
 
 
 class Trainer:
-    def __init__(self, config: Dict[str, Any], model, device=None):
-        if int(config.get("mesh_data", -1)) > 1 or int(config.get("mesh_model", 1)) > 1:
-            raise NotImplementedError("a mesh of more than one device is not "
-                                      "ported yet (ROADMAP.md Queue 1 item 12)")
+    def __init__(self, config: Dict[str, Any], model, device=None,
+                 mesh: Optional[MeshContext] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else create_mesh(config, device=self.device)
         self.model = model.to(self.device)
         self.exp_name = config.get("exp_name", "unirec_tpu")
         self.logger = setup_logger(self.exp_name, config.get("output_path"))
@@ -120,7 +141,8 @@ class Trainer:
         total = float(config.get("total_anneal_steps", 0) or 0)
         self._anneal_sched = (float(config.get("anneal_cap", 0.2)), total) if total > 0 else None
         self._tb = self._wandb = None
-        if int(config.get("use_tensorboard", 0) or 0):
+        main = is_main_process()
+        if int(config.get("use_tensorboard", 0) or 0) and main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -128,7 +150,7 @@ class Trainer:
             else:
                 self._tb = SummaryWriter(os.path.join(config.get("output_path", "."),
                                                       "tensorboard"))
-        if int(config.get("use_wandb", 0) or 0):
+        if int(config.get("use_wandb", 0) or 0) and main:
             try:
                 import wandb
             except ImportError:
@@ -147,12 +169,17 @@ class Trainer:
 
     def reset_evaluator(self, data_format=None, eval_protocol=None):
         self.evaluator = build_evaluator(self.config, self.model, eval_protocol,
-                                         data_format, self.device)
+                                         data_format, self.device, self.mesh)
         self._eval_protocol = eval_protocol
 
     def add_objective_controller(self, controller):
         """MoRec: every step then weighs the per-objective losses through
         ``controller`` (facility/morec/integration.py)."""
+        if self.mesh.n_data > 1:
+            raise NotImplementedError(
+                "MoRec under data parallelism (mesh_data > 1) is not ported yet: its "
+                "per-objective loss vectors and Grams would be summed over the ranks "
+                "(ROADMAP.md Queue 1 item 12)")
         self.objective_controller = controller
 
     def set_device_augmenter(self, augmenter):
@@ -166,8 +193,14 @@ class Trainer:
         if self.params is not None:
             return
         # drawn on the CPU from a CPU generator: the same weights on any device
+        # and every rank
         self.model.to("cpu").init_weights(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device)
+        if self.config.get("shard_embeddings") and self.mesh.n_model > 1:
+            rule = self.mesh.shard_params(self.model,
+                                          int(self.config.get("shard_min_rows", 1024)))
+            self.logger.info("row-sharded over model: %s",
+                             sorted(k for k, v in rule.items() if v))
         self.params = list(self.model.parameters())
         self.opt_state = self.tx.init(self.params)
         n = sum(p.numel() for p in self.params)
@@ -183,15 +216,27 @@ class Trainer:
             loss = morec_train_step(self, batch, drop_seed)
             self._global_step += 1
             return loss
+        n = next(len(v) for v in batch.values() if torch.is_tensor(v) and v.dim())
+        lo, hi = self.mesh.row_range(n)
         if self._augmenter is not None:
             gen = torch.Generator(device=self.device).manual_seed(aug_seed)
-            batch = self._augmenter.augment(batch, gen)
+            batch = self._augmenter.augment(batch, gen, rows=(lo, hi))
+        else:
+            batch = {k: v[lo:hi] if torch.is_tensor(v) and v.dim() else v
+                     for k, v in batch.items()}
         if self._anneal_sched is not None:     # after augment, which rebuilds the keys
             batch = dict(batch, anneal=kl_anneal(self._global_step, *self._anneal_sched))
-        loss, _ = self.model(batch, train=True, rng=DropoutRNG(drop_seed, self.device))
-        self.apply_update(loss, torch.autograd.grad(loss, self.params, allow_unused=True))
+        with L.global_denominators(lambda x: self.mesh.all_reduce_(x.clone(), "data")):
+            loss, _ = self.model(batch, train=True,
+                                 rng=DropoutRNG(drop_seed, self.device, (lo, hi - lo, n)))
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+        # the global loss and gradients: summed over the data ranks in one
+        # all-reduce
+        loss, *grads = self.mesh.all_reduce_flat([loss.detach()] + grads, "data")
+        self.apply_update(loss, grads)
         self._global_step += 1
-        return loss.detach()
+        return loss
 
     def apply_update(self, loss: torch.Tensor, grads):
         """The optimizer update from ``grads`` (None for a parameter the
@@ -242,7 +287,7 @@ class Trainer:
                                  sum(self._frozen), len(self.params))
         auto_resume = bool(int(self.config.get("auto_resume", 0) or 0))
         last_file = self.saved_model_file + ".last" if auto_resume else None
-        if auto_resume and os.path.exists(last_file):
+        if auto_resume and ckpt_util.checkpoint_exists(last_file):
             self.resume(last_file)
             if hasattr(train_data, "set_epoch"):
                 train_data.set_epoch(self.cur_epoch + 1)
@@ -251,7 +296,10 @@ class Trainer:
                                                          save_model, verbose):
                 break
             t0 = time.time()
-            losses = [self.train_step(to_device(b, self.device)) for b in train_data]
+            # every rank holds the whole host batch, padded to a multiple of
+            # n_data rows; train_step takes this rank's rows
+            losses = [self.train_step(to_device(self.mesh.pad_batch(b), self.device))
+                      for b in train_data]
             # losses stay on the device until the epoch ends: one fetch
             total_loss = float(torch.stack(losses).double().sum()) if losses else 0.0
             self.logger.info("epoch %d training [time: %.2fs, train loss: %.4f]",
@@ -321,7 +369,11 @@ class Trainer:
     # ------------------------------------------------------------ checkpoint
     def save_model(self, filename: str, cur_epoch: int = -1,
                    valid_result: Optional[dict] = None, quiet: bool = False):
-        ckpt_util.save_checkpoint(filename, {
+        """The checkpoint at ``filename``: the JAX package's pickle, or with
+        ``checkpoint_backend=orbax`` the ``<filename>.dcp`` directory
+        (utils/checkpoint.py). Every rank calls it (the tables' rows are
+        gathered, or each rank writes its own); rank 0 writes the files."""
+        state = {
             "config": self.config,
             "cur_epoch": cur_epoch,
             "cur_step": self.cur_step,
@@ -331,10 +383,15 @@ class Trainer:
             "global_step": self._global_step,
             "scheduler_state": (self.scheduler.state_dict()
                                 if self.scheduler is not None else None),
-            "params": to_flax_params(self.model),
             "constants": self.model.constants(),
-            "opt_state": ckpt_util.opt_state_to_numpy(self.model, self.opt_state),
-        })
+        }
+        if self.config.get("checkpoint_backend", "pickle") == "orbax":
+            filename = ckpt_util.save_checkpoint_dcp(filename, state, self.model,
+                                                     self.opt_state, self.mesh)
+        else:
+            ckpt_util.save_checkpoint(filename, dict(
+                state, params=to_flax_params(self.model),
+                opt_state=ckpt_util.opt_state_to_numpy(self.model, self.opt_state)))
         if not quiet:
             self.logger.info("Saved model at epoch %d to %s", cur_epoch, filename)
 

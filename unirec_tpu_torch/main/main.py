@@ -38,9 +38,19 @@ activities) runs from the parsed config to every return of ``run`` and is
 written as ``<output_path>/profile/<exp_name>.pt.trace.json``, torch's
 Chrome-trace format where the JAX package writes an xplane; it stops when
 ``run`` raises too. It runs on the CUDA card unless the caller passes
-``device='cpu'`` (or another device), and never falls back to the CPU. Not
-ported yet, and raising NotImplementedError naming their ROADMAP.md item:
-a mesh of more than one device and ``checkpoint_backend=orbax`` (item 12).
+``device='cpu'`` (or another device), and never falls back to the CPU.
+
+Distribution (main.py:104-131): ``initialize_distributed`` joins the
+process group first (the config's ``coordinator_address``,
+``num_processes``, ``process_id``, or torchrun's environment; a group the
+caller brought up is used as it is), then the logger starts, and the
+('data', 'model') mesh of ``mesh_data`` x ``mesh_model`` is built once,
+logged and handed to the Trainer or the Solver. Each rank runs on
+``cuda:LOCAL_RANK`` unless the caller names the CPU. Every rank returns the
+same metrics; rank 0 alone writes the result, infer and log files.
+``checkpoint_backend=orbax`` writes the ``.dcp`` directory of
+utils/checkpoint.py. So ``torchrun --nproc_per_node N -m
+unirec_tpu_torch.cli train --mesh_data N ...`` trains data-parallel.
 
 MoRec (main.py:146-167, 207-216): with ``enable_morec`` or a MoRec metric
 (rhit, rndcg, rrecall, pop-kl, least-misery) the item meta
@@ -57,9 +67,13 @@ from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from unirec_tpu_torch import config as config_mod
 from unirec_tpu_torch.constants import EvalProtocol, TaskType
+from unirec_tpu_torch.core.distributed import (initialize_distributed, is_main_process,
+                                               rank_device)
+from unirec_tpu_torch.core.mesh import create_mesh
 from unirec_tpu_torch.data import construct_item_popularity
 from unirec_tpu_torch.data.datasets import get_dataset_class
 from unirec_tpu_torch.data.history import UserHistory
@@ -68,7 +82,7 @@ from unirec_tpu_torch.data.pipeline import (make_eval_batcher, make_host_train_b
 from unirec_tpu_torch.facility.solver import Solver
 from unirec_tpu_torch.facility.trainer import Trainer
 from unirec_tpu_torch.models.base import features_shape
-from unirec_tpu_torch.utils import file_io, resolve_device
+from unirec_tpu_torch.utils import file_io
 from unirec_tpu_torch.utils.logger import setup_logger
 from unirec_tpu_torch.utils.registry import get_model_class
 
@@ -127,9 +141,6 @@ def _exists_any(path, prefix) -> bool:
 def _refuse_unported(config, task: str):
     if task not in (TaskType.TRAIN.value, TaskType.TEST.value, TaskType.INFER.value):
         raise ValueError(f"unknown task: {task}")
-    if config.get("checkpoint_backend", "pickle") == "orbax":
-        raise NotImplementedError("checkpoint_backend=orbax is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 12)")
 
 
 def _load_morec_meta(config, item_pop) -> None:
@@ -182,8 +193,12 @@ def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str
     """Run ``args['task']`` (train, test or infer); returns the test
     metrics (None for infer)."""
     args = dict(args)
-    dev = resolve_device(device or args.pop("device", None))
-    config = config_mod.parse_arguments(args, argv=[], device=dev.type)
+    device = device or args.pop("device", None)
+    config = config_mod.parse_arguments(args, argv=[],
+                                        device=torch.device(device or "cuda").type)
+    # the rendezvous precedes the logger (rank 0 alone writes its file)
+    initialize_distributed(config, device)
+    dev = rank_device(device)
     task = config.get("task", TaskType.TRAIN.value)
     # test/infer from a checkpoint: its config defines the model, and the
     # caller's args go on top (reference main.py:304-306, 332-334)
@@ -202,12 +217,15 @@ def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str
     logger = setup_logger(exp_name, out_path, config.get("state", "INFO"))
     logger.info("task=%s model=%s dataset=%s device=%s", task, config["model"],
                 config.get("dataset"), dev)
+    mesh = create_mesh(config, device=dev)
+    logger.info("mesh: data=%d model=%d (%s)", mesh.n_data, mesh.n_model,
+                "distributed" if mesh.distributed else "one process")
     np.random.seed(int(config.get("seed", 2022)))
     with _run_trace(config, dev, logger):
-        return _run_task(config, task, dev, logger)
+        return _run_task(config, task, dev, logger, mesh)
 
 
-def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
+def _run_task(config, task: str, dev, logger, mesh) -> Optional[Dict[str, float]]:
     exp_name, out_path = config["exp_name"], config["output_path"]
     ds_cls = get_dataset_class(config.get("dataloader", "BaseDataset"))
     dpath = config["dataset_path"]
@@ -228,7 +246,7 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
         config["_pre_item_emb"] = _padded_emb(file_io.load_pre_item_emb(config["item_emb_path"]))
     model = get_model_class(config["model"])(config)
     sgd = getattr(model, "optimized_by_sgd", True)
-    runner = (Trainer if sgd else Solver)(config, model, device=dev)
+    runner = (Trainer if sgd else Solver)(config, model, device=dev, mesh=mesh)
     if history is not None:
         runner.set_user_history(history)
 
@@ -283,11 +301,12 @@ def _run_task(config, task: str, dev, logger) -> Optional[Dict[str, float]]:
             scores = runner.evaluate(eval_batcher("test", EvalProtocol.ONE_VS_K.value),
                                      load_best_model=False, predict_only=True)
             out_file = os.path.join(out_path, f"{exp_name}.infer.txt")
-            np.savetxt(out_file, scores.reshape(len(scores), -1), fmt="%.6f")
-            logger.info("wrote inference scores to %s", out_file)
+            if is_main_process():     # one writer on a shared filesystem
+                np.savetxt(out_file, scores.reshape(len(scores), -1), fmt="%.6f")
+                logger.info("wrote inference scores to %s", out_file)
             return None
     logger.info("test result: %s", result)
-    if result is not None:
+    if result is not None and is_main_process():
         with open(os.path.join(out_path, f"{exp_name}.result.tsv"), "w") as f:
             f.write("\t".join(result.keys()) + "\n")
             f.write("\t".join(f"{v:.6f}" for v in result.values()) + "\n")

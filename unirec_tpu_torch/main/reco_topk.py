@@ -21,7 +21,15 @@ everywhere else; the port honours the target with exact selection (the
 fused path's blockmax kernel at its catalog sizes, ``torch.topk`` below
 them), whose recall is 1.0, and keeps the JAX rule that ``last_item`` > 0
 forces exact selection with a warning (ROADMAP.md, deliberate differences).
-The row-sharded path (``mesh_model > 1``) is not ported yet and raises.
+
+Row-sharded serving (reco_topk.py:146-217): on a mesh with ``mesh_model``
+> 1 (``torchrun --nproc_per_node N``) the catalog (bf16, or int8 with its
+scales sharded alike) is placed row-sharded over the ``model`` ranks and
+each batch runs ops/topk.py's ``masked_sharded_topk``; the user embeddings
+are computed on every rank (replicated over ``model``), and rank 0 alone
+writes the CSV. ``n_shards`` runs the same path over that many logical
+shards of one table in one process. As in the JAX package it serves
+``last_item`` <= 0 without an approximate target.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ import numpy as np
 import torch
 
 from unirec_tpu_torch import config as config_mod
+from unirec_tpu_torch.core.distributed import (initialize_distributed, is_main_process,
+                                               rank_device)
+from unirec_tpu_torch.core.mesh import create_mesh
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.main.infer_embedding import iter_infer_batches
 from unirec_tpu_torch.ops import topk as topk_ops
@@ -44,14 +55,17 @@ from unirec_tpu_torch.utils.logger import setup_logger
 
 @torch.no_grad()
 def get_topk_recommendations(config, model, user_ids: np.ndarray,
-                             history: UserHistory, topk: int):
+                             history: UserHistory, topk: int, mesh=None,
+                             n_shards: Optional[int] = None):
     """[n_users, topk] recommended item ids, or the score lines in
-    ``item_file`` mode. Runs on the model's device."""
+    ``item_file`` mode. Runs on the model's device; row-sharded on a
+    ``mesh`` with n_model > 1, or over ``n_shards`` logical shards."""
     dev = model.device
     last_item = int(config.get("last_item", 0))
     tau = float(config.get("tau", 1.0))
     recall_target = float(config.get("topk_recall_target", 0) or 0)
-    if 0.0 < recall_target < 1.0:
+    approx = 0.0 < recall_target < 1.0
+    if approx:
         # exact selection meets any recall target (module docstring)
         if last_item > 0:
             logging.getLogger("unirec_tpu_torch").warning(
@@ -60,18 +74,28 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
         else:
             logging.getLogger("unirec_tpu_torch").info(
                 "topk_recall_target %g: exact selection (recall 1.0)", recall_target)
-    if int(config.get("mesh_model", 1) or 1) > 1:
-        raise NotImplementedError("row-sharded serving (mesh_model > 1) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12)")
-
     item_emb = model.all_item_emb()
+    _, item_bias = model.bias_terms()
+    item_file = config.get("item_file") or ""
+    distributed = mesh is not None and mesh.distributed and mesh.n_model > 1
+    sharded = (distributed or int(n_shards or 1) > 1) and not item_file \
+        and last_item <= 0 and not approx
+    if sharded:
+        shards = mesh.n_model if distributed else int(n_shards)
+        rank = mesh.rank("model") if distributed else None
+        n_items_real = item_emb.shape[0]
+        table, scale = item_emb, None
+        if int(config.get("catalog_int8", 0) or 0):
+            table, scale = topk_ops.quantize_catalog(table)   # per shard, half the bytes
+            scale = topk_ops.place_item_table(scale, shards, rank)[0]
+        table = topk_ops.place_item_table(table, shards, rank)[0]
+        bias = None if item_bias is None else \
+            topk_ops.place_item_table(item_bias.float(), shards, rank)[0]
     fused_flag = config.get("use_fused_topk")
     if fused_flag is None:  # default: on for CUDA serving-scale catalogs
         fused_flag = dev.type == "cuda" and item_emb.shape[0] >= 16384
-    item_file = config.get("item_file") or ""
-    fused = not item_file and last_item <= 0 and bool(int(fused_flag))
+    fused = not item_file and last_item <= 0 and bool(int(fused_flag)) and not sharded
     item_scale = None
-    _, item_bias = model.bias_terms()
     if fused:
         item_aug = item_emb
         if item_bias is not None:
@@ -102,6 +126,14 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
                        "target": target}, dev, torch.int64)
         if item_file:
             pending.append(topk_ops.full_catalog_scores(model, tb, item_emb, tau))
+        elif sharded:
+            # the per-user bias and tau shift/scale whole rows and cannot
+            # change the ranking; the item bias goes to each shard
+            _, ids = topk_ops.masked_sharded_topk(
+                model.user_emb(tb), table, h["items"], h["len"], topk,
+                mesh if distributed else None, n_real=n_items_real, n_shards=shards,
+                item_bias=bias, item_scale=scale)
+            pending.append(ids)
         elif fused:
             # the per-user bias and tau shift/scale whole rows and cannot
             # change the ranking; the item bias is the extra factor column
@@ -150,11 +182,14 @@ def _dense_topk(model, tb, item_emb, h, tau: float, topk: int,
 def do_topk_reco(config: Dict, device: Optional[str] = None):
     config = dict(config)
     device = device or config.pop("device", None)
+    initialize_distributed(config, device)
+    dev = rank_device(device)
     out_path = config.get("output_path", "topk_reco.csv")
     logger = setup_logger(config.get("exp_name", "reco_topk"),
                           os.path.dirname(os.path.abspath(out_path)))
-    model, ckpt_cfg = load_model_freely(config["model_file"], device)
+    model, ckpt_cfg = load_model_freely(config["model_file"], dev)
     config = {**ckpt_cfg, **config}
+    mesh = create_mesh(config, device=dev)
 
     dpath = config["dataset_path"]
     user_ids = np.loadtxt(os.path.join(dpath, config["dataset_name"]),
@@ -165,7 +200,9 @@ def do_topk_reco(config: Dict, device: Optional[str] = None):
     history = UserHistory.load(os.path.join(dpath, fname),
                                int(config["n_users"]), fmt)
     res = get_topk_recommendations(config, model, user_ids, history,
-                                   int(config.get("topk", 100)))
+                                   int(config.get("topk", 100)), mesh=mesh)
+    if not is_main_process():       # one writer on a shared filesystem
+        return res
     if config.get("item_file"):
         with open(out_path, "w") as f:
             f.writelines(res)

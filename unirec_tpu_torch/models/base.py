@@ -41,6 +41,53 @@ _PADDED_TABLES = ("user_embedding", "item_embedding", "item_dst_embedding",
                   "features_embedding", "time_embedding")
 
 
+class _ShardedLookup(torch.autograd.Function):
+    """Rows ``ids`` of a table row-sharded over ``model`` (RowShard): each
+    rank gathers the ids it owns, zero for the rest, in ``dtype``, and the
+    ranks' rows are summed over ``model``. The backward is the identity
+    through that sum: the gradient downstream is already the same on every
+    model rank (an all-reduce there would multiply it by n_model). It
+    scatters into the local rows through row 6 (ops/scatter_accum.py) with
+    local ids, other ranks' rows at zero weight, in ``dtype`` as
+    gather_vmem's. The JAX package leaves this scatter to XLA on a sharded
+    table (unirec_tpu/models/base.py:177-183); row 6 computes exactly this
+    function on a shard, so the port keeps it (ROADMAP.md, deliberate
+    differences)."""
+
+    @staticmethod
+    def forward(ctx, shard_rows, ids, shard, dtype):
+        local = ids.long() - shard.offset
+        owned = (local >= 0) & (local < shard.n_local)
+        local = torch.where(owned, local, 0)
+        out = shard_rows[local].to(dtype) * owned[..., None]
+        from unirec_tpu_torch.core.mesh import all_reduce_
+        all_reduce_(out, shard.group)
+        ctx.save_for_backward(local, owned)
+        ctx.shard, ctx.dtype, ctx.rows_dtype = shard, dtype, shard_rows.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        local, owned = ctx.saved_tensors
+        g = (g * owned[..., None]).reshape(-1, g.shape[-1]).to(ctx.dtype)
+        grad = SA.scatter_add_rows(local.reshape(-1), g, ctx.shard.n_local)
+        return grad.to(ctx.rows_dtype), None, None, None
+
+
+class _ShardedFull(torch.autograd.Function):
+    """The whole of a row-sharded table, gathered over ``model``; the
+    backward keeps this rank's rows of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, shard_rows, shard):
+        ctx.shard = shard
+        return shard.gather(shard_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.shard.rows].contiguous(), None
+
+
 def features_shape(cfg: Dict[str, Any]) -> list:
     """``features_shape`` as a list (checkpoint and CLI configs may hold
     its string form)."""
@@ -172,22 +219,50 @@ class BaseRecommender(nn.Module):
 
     def _gather(self, weight: torch.Tensor, ids: torch.Tensor, cast: bool = True) -> torch.Tensor:
         """``weight``'s rows at ``ids``, in the compute dtype unless not
-        ``cast``."""
+        ``cast``; a row-sharded table (``row_shard``) through
+        ``_ShardedLookup``."""
         cast_fn = self._cast if cast else (lambda t: t)
+        shard = getattr(weight, "row_shard", None)
+        if shard is not None:
+            dtype = self.compute_dtype if cast and self.compute_dtype else weight.dtype
+            return _ShardedLookup.apply(weight, ids, shard, dtype)
         if torch.is_grad_enabled() and self.cfg.get("vmem_embedding_grad") \
                 and not self.cfg.get("shard_embeddings"):
             # the table in the compute dtype, gathered; the backward runs
-            # the scatter-add kernel (ops/scatter_accum.py). Row-sharded
-            # tables keep the plain gather, as at models/base.py:177-178.
-            # Without autograd no backward runs, and gathering before the
-            # cast gives the same values without casting the whole table.
+            # the scatter-add kernel (ops/scatter_accum.py). Tables that
+            # shard_embeddings leaves whole keep the plain gather, as at
+            # models/base.py:177-178. Without autograd no backward runs, and
+            # gathering before the cast gives the same values without
+            # casting the whole table.
             table = cast_fn(weight)
             if SA.scatter_supported(*table.shape, table.dtype):
                 return SA.gather_vmem(table, ids)
         return cast_fn(weight[ids])
 
-    def _masked_gather(self, emb: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    def _masked_gather(self, emb: nn.Embedding, ids: torch.Tensor,
+                       all_rows: bool = False) -> torch.Tensor:
+        """Rows ``ids`` with the padding id's zeroed; ``all_rows``: ``ids``
+        is the whole table's arange, which a row-sharded table serves by
+        gathering its rows (``_ShardedFull``)."""
+        shard = getattr(emb.weight, "row_shard", None)
+        if all_rows and shard is not None:
+            rows = _ShardedFull.apply(self._cast(emb.weight), shard)
+            return rows * (ids != 0)[..., None]
         return self._gather(emb.weight, ids) * (ids != 0)[..., None]
+
+    def _table(self, emb: nn.Embedding) -> torch.Tensor:
+        """The whole table (its rows gathered when row-sharded), for the
+        tables read by slice (position embeddings)."""
+        shard = getattr(emb.weight, "row_shard", None)
+        return emb.weight if shard is None else _ShardedFull.apply(emb.weight, shard)
+
+    def _lookup(self, emb: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+        """Plain ``emb.weight[ids]`` (no kernel, no cast), row-sharded
+        tables through ``_ShardedLookup``."""
+        shard = getattr(emb.weight, "row_shard", None)
+        if shard is None:
+            return emb.weight[ids]
+        return _ShardedLookup.apply(emb.weight, ids, shard, emb.weight.dtype)
 
     def _text_emb(self, items: torch.Tensor) -> torch.Tensor:
         """The frozen text rows of ``items`` (zero for the padding id)
@@ -211,8 +286,9 @@ class BaseRecommender(nn.Module):
         return self._gather(self.features_embedding.weight, feats).sum(-2)
 
     def forward_item_emb(self, items: torch.Tensor,
-                         item_features: Optional[torch.Tensor] = None) -> torch.Tensor:
-        e = self._masked_gather(self.item_embedding, items)
+                         item_features: Optional[torch.Tensor] = None,
+                         all_rows: bool = False) -> torch.Tensor:
+        e = self._masked_gather(self.item_embedding, items, all_rows)
         if self.cfg.get("use_features") and item_features is not None:
             e = e + self._features_emb(item_features)
         if self.cfg.get("use_text_emb"):
@@ -314,7 +390,8 @@ class BaseRecommender(nn.Module):
         """Full-catalog item encodings [n_items, D] (recommender.py:108-128),
         the features from the ``item2features`` constant."""
         feats = self.item2features if self.cfg.get("use_features") else None
-        return self.forward_item_emb(torch.arange(self.n_items, device=self.device), feats)
+        return self.forward_item_emb(torch.arange(self.n_items, device=self.device), feats,
+                                     all_rows=True)
 
     # -------------------------------------------------------------- constants
     def constants(self) -> Optional[Dict[str, np.ndarray]]:

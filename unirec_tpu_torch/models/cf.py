@@ -9,8 +9,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from unirec_tpu_torch.core.mesh import RowSlice, randn_rows
 from unirec_tpu_torch.models.base import BaseRecommender
 from unirec_tpu_torch.models.modules import apply_dropout, dense
+from unirec_tpu_torch.ops import losses as L
 from unirec_tpu_torch.utils.registry import register_model
 
 
@@ -40,7 +42,8 @@ class MultiVAE(BaseRecommender):
     (seed, the batch's ``reparam_seed``), which the evaluators set to a
     fresh counter each batch (cf.py:84-103): every evaluation draws fresh,
     seeded noise, as the reference's global torch RNG does; the streams are
-    not JAX's. S = 0 takes z = mu.
+    not JAX's. S = 0 takes z = mu. A data-parallel rank draws both at the
+    global batch's shape and keeps its rows (core/mesh.py::RowSlice).
     """
 
     is_seqrec = True
@@ -76,24 +79,27 @@ class MultiVAE(BaseRecommender):
         return self.forward_user_emb(item_seq=batch.get("item_seq"),
                                      item_seq_features=batch.get("item_seq_features"),
                                      time_seq=batch.get("time_seq"), train=train, rng=rng,
-                                     reparam_seed=batch.get("reparam_seed"))
+                                     reparam_seed=batch.get("reparam_seed"),
+                                     reparam_rows=batch.get("reparam_rows"))
 
-    def _eval_eps(self, mu: torch.Tensor, reparam_seed) -> torch.Tensor:
+    def _eval_eps(self, mu: torch.Tensor, reparam_seed, rows=None) -> torch.Tensor:
         st = int(self.cfg.get("eval_reparameter_sampling_times", 0) or 0)
         seed = int(self.cfg.get("seed", 2022))
         if reparam_seed is not None:
             seed = int(np.random.SeedSequence([seed, int(reparam_seed)]).generate_state(1)[0])
         gen = torch.Generator(device=mu.device).manual_seed(seed)
-        return torch.randn((*mu.shape, st), generator=gen, device=mu.device).mean(-1)
+        if rows is not None:    # a data-parallel rank's rows of the batch
+            gen = RowSlice(gen, *rows)
+        return randn_rows(gen, (*mu.shape, st), mu.device).mean(-1)
 
     def forward_user_emb(self, user_id=None, item_seq=None, item_seq_len=None,
                          item_seq_features=None, time_seq=None, train: bool = False,
-                         rng=None, reparam_seed=None):
+                         rng=None, reparam_seed=None, reparam_rows=None):
         mu, logvar = self._encode(item_seq, item_seq_features, time_seq, train, rng)
         if train:
-            eps = torch.randn(mu.shape, generator=rng.generator, device=mu.device)
+            eps = randn_rows(rng.rows, mu.shape, mu.device)
         elif int(self.cfg.get("eval_reparameter_sampling_times", 0) or 0) > 0:
-            eps = self._eval_eps(mu, reparam_seed)
+            eps = self._eval_eps(mu, reparam_seed, reparam_rows)
         else:
             return self._mlp("decoder", self.n_dec, mu)
         return self._mlp("decoder", self.n_dec, mu + eps * torch.exp(0.5 * logvar))
@@ -107,8 +113,7 @@ class MultiVAE(BaseRecommender):
                                   batch.get("time_seq"), train, rng)
         z = mu
         if train:
-            z = mu + torch.randn(mu.shape, generator=rng.generator,
-                                 device=mu.device) * torch.exp(0.5 * logvar)
+            z = mu + randn_rows(rng.rows, mu.shape, mu.device) * torch.exp(0.5 * logvar)
         user_emb = self._mlp("decoder", self.n_dec, z)
         items = self.all_item_emb()
         dt = torch.promote_types(user_emb.dtype, items.dtype)
@@ -118,9 +123,9 @@ class MultiVAE(BaseRecommender):
         pos = all_scores.gather(-1, item_seq.long())
         lse = torch.logsumexp(all_scores, dim=-1, keepdim=True)
         nll = (lse - pos) * real
-        softmax_loss = nll.sum() / torch.clamp(real.sum(), min=1.0)
+        softmax_loss = nll.sum() / torch.clamp(L.denominator(real.sum()), min=1.0)
         per_row_kl = -0.5 * torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar), dim=1)
-        kl = (per_row_kl * weight).sum() / torch.clamp(weight.sum(), min=1.0)
+        kl = (per_row_kl * weight).sum() / torch.clamp(L.denominator(weight.sum()), min=1.0)
         anneal = batch.get("anneal")
         if anneal is None:
             anneal = float(self.cfg.get("anneal_cap", 0.2))

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unirec_tpu_torch.core.mesh import RowSlice, rand_rows, randint_rows, randn_rows
 from unirec_tpu_torch.ops import attention as attn_ops
 from unirec_tpu_torch.ops import ffn as ffn_ops
 from unirec_tpu_torch.ops import layer as layer_ops
@@ -61,13 +62,30 @@ MASK_VALUE = -10000.0
 
 class DropoutRNG:
     """The dropout randomness of one training step. ``generator`` lives on
-    the activations' device and draws the plain sites' masks; ``seed()``
-    draws a host int for each fused-kernel call from a CPU generator, so
-    handing a seed to a kernel never waits on the device."""
+    the activations' device; ``rows`` draws the plain sites' masks and
+    noise from it; ``seed()`` draws a host int for each fused-kernel call
+    from a CPU generator, so handing a seed to a kernel never waits on the
+    device.
 
-    def __init__(self, seed: int, device):
+    ``rows`` (lo, n, total): the batch is rows [lo, lo + n) of a global
+    batch of ``total`` (a data-parallel rank's share). Plain draws are then
+    taken at the global shape and sliced (core/mesh.py::RowSlice), and the
+    fused kernels key their masks by global example (``row_offset``), so a
+    rank's examples draw what they draw in a one-process run."""
+
+    def __init__(self, seed: int, device, rows=None):
         self.generator = torch.Generator(device=torch.device(device)).manual_seed(seed)
         self._host = torch.Generator().manual_seed(seed)
+        self.rows = RowSlice(self.generator, *rows) if rows is not None else self.generator
+
+    def row_offset(self, n: int) -> int:
+        """The global index of the first of a kernel call's ``n`` examples:
+        m * lo when they are the batch's rows with m entries each (BST's
+        candidates), 0 outside a data-parallel step."""
+        r = self.rows
+        if not isinstance(r, RowSlice) or r.n == 0 or n % r.n:
+            return 0
+        return n // r.n * r.lo
 
     def seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self._host))
@@ -88,20 +106,19 @@ def apply_dropout(x: torch.Tensor, rate: float, train: bool,
     keep with probability 1-rate."""
     if not train or rate <= 0.0:
         return x
-    gen = _need_rng(rng).generator
+    gen = _need_rng(rng).rows
     if bits8:
         thr = int(round(rate * 256.0))
         if thr <= 0:
             return x
         if thr >= 256:
             return torch.zeros_like(x)
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, generator=gen,
-                             device=x.device)
+        bits = randint_rows(gen, 0, 256, x.shape, x.device, torch.uint8)
         return torch.where(bits >= thr, x * (1.0 / (1.0 - thr / 256.0)),
                            torch.zeros_like(x))
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    keep = rand_rows(gen, x.shape, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -294,13 +311,15 @@ class TransformerLayer(nn.Module):
                     hidden_act=self.hidden_act,
                     layer_norm_eps=float(self.layer_norm_eps))
 
-    def drop_kwargs(self, train: bool, rng: DropoutRNG | None):
-        """Dropout arguments of one fused-kernel call: the rates, and a
-        fresh seed from ``rng`` when dropout is on (one draw per layer, as
-        the JAX layers each call make_rng)."""
+    def drop_kwargs(self, train: bool, rng: DropoutRNG | None, n: int):
+        """Dropout arguments of one fused-kernel call on ``n`` examples: the
+        rates, and when dropout is on a fresh seed from ``rng`` (one draw
+        per layer, as the JAX layers each call make_rng) and the first
+        example's global index."""
         on = train and (self.p_attn > 0.0 or self.p_hidden > 0.0)
         return dict(p_attn=self.p_attn, p_hidden=self.p_hidden, train=train,
-                    seed=_need_rng(rng).seed() if on else None)
+                    seed=_need_rng(rng).seed() if on else None,
+                    row_offset=rng.row_offset(n) if on else 0)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor, train: bool = False,
                 rng: DropoutRNG | None = None) -> torch.Tensor:
@@ -313,14 +332,14 @@ class TransformerLayer(nn.Module):
             madd = attn_mask[:, 0, -1, :].float()
             y = layer_ops.fused_last_query_layer(
                 x, madd, self.kernel_params(), **self.kernel_kwargs(),
-                **self.drop_kwargs(train, rng))
+                **self.drop_kwargs(train, rng, x.shape[0]))
             return y[:, None, :]
         if self.fused_layer and not (self.last_query or self.head_stacked) \
                 and gate:
             madd = attn_mask[:, 0, -1, :].float()
             return layer_ops.fused_transformer_layer(
                 x, madd, self.kernel_params(), causal=self.fused_causal,
-                **self.kernel_kwargs(), **self.drop_kwargs(train, rng))
+                **self.kernel_kwargs(), **self.drop_kwargs(train, rng, x.shape[0]))
         h = self.multi_head_attention(x, attn_mask, train, rng)
         return self.feed_forward(h, train, rng)
 
@@ -371,10 +390,10 @@ class TransformerEncoder(nn.Module):
             for layer in body:
                 xp = layer_ops.fused_transformer_layer(
                     xp, mp, layer.kernel_params(), causal=self.fused_causal,
-                    **layer.kernel_kwargs(), **layer.drop_kwargs(train, rng))
+                    **layer.kernel_kwargs(), **layer.drop_kwargs(train, rng, B))
             y = layer_ops.fused_last_query_layer(
                 xp, mp, last.kernel_params(), q_index=L - 1,
-                **last.kernel_kwargs(), **last.drop_kwargs(train, rng))
+                **last.kernel_kwargs(), **last.drop_kwargs(train, rng, B))
             return y[:, None, :]
         for layer in self.layers():
             x = layer(x, attn_mask, train, rng)
@@ -659,7 +678,7 @@ class NeuProcessEncoder(nn.Module):
         if not train:
             return mu
         log_sigma = dense(self.hidden_to_logsigma, h2, None)
-        eps = torch.randn(mu.shape, generator=_need_rng(rng).generator, device=mu.device)
+        eps = randn_rows(_need_rng(rng).rows, mu.shape, mu.device)
         return mu + eps * torch.exp(0.5 * log_sigma)
 
 

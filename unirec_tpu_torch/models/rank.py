@@ -81,7 +81,7 @@ class FM(RankerBase):
             B, G, F_ = index_list.shape
             index_list, value_list = index_list.reshape(B * G, F_), value_list.reshape(B * G, F_)
         linear = (self.fm_linear_weight[index_list] * value_list).sum(-1) + self.fm_linear_bias[0]
-        emb = self.fm_embedding.weight[index_list] * (index_list != 0)[..., None]
+        emb = self._lookup(self.fm_embedding, index_list) * (index_list != 0)[..., None]
         prod = emb * value_list[..., None]                         # [N, F, D]
         second = 0.5 * (prod.sum(1) ** 2 - (prod ** 2).sum(1)).sum(-1)
         scores = linear + second
@@ -168,7 +168,7 @@ class BST(RankerBase):
         seq_emb = self.item_embedding_for_user(item_seq, item_seq_features)
         x = torch.cat([seq_emb, item_emb[:, None, :]], dim=1)            # [N, L+1, D]
         new_seq = torch.cat([item_seq, item_id[:, None]], dim=1)
-        x = x + self._cast(self.position_embedding.weight[:new_seq.shape[1]])[None]
+        x = x + self._cast(self._table(self.position_embedding)[:new_seq.shape[1]])[None]
         # flax LayerNorm(dtype=None): f32 out of f32 parameters
         x = modules.layer_norm(self.LayerNorm, x, None)
         x = modules.apply_dropout(x, float(self.cfg.get("hidden_dropout_prob", 0.5)), train,
@@ -270,7 +270,7 @@ class AdaRanker(RankerBase):
             return modules.dense(self.dense, self.gru_layers(h)[:, -1], None)
         x = seq_emb
         if self.use_pos_emb:
-            x = x + self._cast(self.position_embedding.weight[:item_seq.shape[1]])[None]
+            x = x + self._cast(self._table(self.position_embedding)[:item_seq.shape[1]])[None]
         x = modules.layer_norm(self.LayerNorm, x, None)
         x = modules.apply_dropout(x, float(self.cfg.get("hidden_dropout_prob", 0.5)), train, rng,
                                   _bits8(self.cfg))

@@ -68,7 +68,7 @@ class SASRec(SeqRecBase):
         x = self.item_embedding_for_user(item_seq, item_seq_features, time_seq)
         if self.use_pos_emb:
             L = item_seq.shape[1]
-            x = x + self._cast(self.position_embedding.weight[:L])[None]
+            x = x + self._cast(self._table(self.position_embedding)[:L])[None]
         x = modules.layer_norm(self.LayerNorm, x, self.compute_dtype)
         x = modules.apply_dropout(x, float(self.cfg.get("hidden_dropout_prob", 0.5)),
                                   train, rng, self.bits8)
@@ -203,7 +203,7 @@ class _ConvFormerBase(SeqRecBase):
         c = self.cfg
         p = float(c.get("hidden_dropout_prob", 0.5))
         x = self.item_embedding_for_user(item_seq, item_seq_features, time_seq)
-        x = x + self._cast(self.position_embedding.weight[:item_seq.shape[1]])[None]
+        x = x + self._cast(self._table(self.position_embedding)[:item_seq.shape[1]])[None]
         x = modules.apply_dropout(modules.layer_norm(self.LayerNorm, x, None), p, train, rng)
         for i in range(self.n_layers):
             x = getattr(self, f"mixer_{i}")(x, train, rng)

@@ -31,9 +31,10 @@ stays, so a row whose keys are all masked attends uniformly over the real
 keys.
 
 Dropout: the TPU kernels draw on the TPU's hardware PRNG. Here the element
-(row i, key j) of head h of example b is kept iff ``philox_bits(seed, h, b,
-i * L + j) >= round(p * 2^32)`` (ops/layer.py), in the kernels and in the
-plain versions alike, so the card holds kernel against plain version with
+(row i, key j) of head h of example b is kept iff ``philox_bits(seed, h, b0
++ b, i * L + j) >= round(p * 2^32)`` (ops/layer.py; b0 the global index of
+the first example, a data-parallel rank's row offset), in the kernels and
+in the plain versions alike, so the card holds kernel against plain version with
 dropout on and the backward replays the forward's mask.
 
 Flash attention. ``flash_attention(q, k, v, mask)`` is the TPU's
@@ -160,7 +161,7 @@ def _keep(drop: Drop, B: int, H: int, L: int, device) -> Optional[torch.Tensor]:
     """[B, H, L, L] keep mask (site h for head h), or None without dropout."""
     if drop.t_attn == 0:
         return None
-    return torch.stack([keep_mask(drop.seed, drop.t_attn, h, B, (L, L), device)
+    return torch.stack([keep_mask(drop.seed, drop.t_attn, h, B, (L, L), device, drop.b0)
                         for h in range(H)], dim=1)
 
 
@@ -233,7 +234,8 @@ def _empty_out(q: torch.Tensor) -> torch.Tensor:
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _QKV = [_P] * 3 + [_LL] * 3            # q, k, v and their shared strides
-_TAIL = [_I] * 4 + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+_TAIL = [_I] * 4 + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                    ctypes.c_uint32]
 
 
 @functools.cache
@@ -256,7 +258,7 @@ def _fwd_cuda(q, k, v, mask, drop: Drop = NO_DROP) -> torch.Tensor:
     err = _entry("fwd")(_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), *_strides(q),
                         _ptr(mask), mask.shape[1], _ptr(out), *_strides(out),
                         B, H, L, hd, 1.0 / math.sqrt(hd), drop.seed, drop.t_attn,
-                        float(drop.inv_attn), int(_tiled(L, hd)),
+                        float(drop.inv_attn), drop.b0, int(_tiled(L, hd)),
                         _build.stream_handle(q.device))
     _build.check(err, "attention forward launch")
     fused_attention.launches += 1
@@ -283,7 +285,7 @@ def _bwd_cuda(q, k, v, mask, do, drop: Drop = NO_DROP):
                         _ptr(dq), _ptr(dk), _ptr(dv), *_strides(dq),
                         None if scratch is None else _ptr(scratch),
                         B, H, L, hd, 1.0 / math.sqrt(hd), drop.seed, drop.t_attn,
-                        float(drop.inv_attn), _build.stream_handle(q.device))
+                        float(drop.inv_attn), drop.b0, _build.stream_handle(q.device))
     _build.check(err, "attention backward launch")
     fused_attention_bwd.launches += 1
     fused_attention_bwd.launches_mma += body == "mma"
@@ -318,12 +320,13 @@ class _FusedAttention(torch.autograd.Function):
 
 
 def fused_attention(q, k, v, mask, p_drop: float = 0.0,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    seed: Optional[int] = None, row_offset: int = 0) -> torch.Tensor:
     """Differentiable masked attention with dropout rate ``p_drop`` on the
-    probabilities (drawn from the host-int ``seed``; none without one).
-    q, k, v: [B, H, L, hd] in float32 or bfloat16; mask: additive [B, 1 or
-    H, L or 1, L]. Returns [B, H, L, hd] in q's dtype."""
-    drop = drop_params(float(p_drop), 0.0, True, seed)
+    probabilities (drawn from the host-int ``seed``; none without one),
+    keyed by global example ``row_offset`` + b. q, k, v: [B, H, L, hd] in
+    float32 or bfloat16; mask: additive [B, 1 or H, L or 1, L]. Returns
+    [B, H, L, hd] in q's dtype."""
+    drop = drop_params(float(p_drop), 0.0, True, seed, row_offset)
     if needs_grad(q, k, v):
         return _FusedAttention.apply(q, k, v, mask, drop)
     return _attention_fwd_op(q, k, v, mask, drop)
@@ -338,8 +341,10 @@ def short_attention(q, k, v, mask, p_drop: float = 0.0, rng=None,
     """The JAX package's ``short_attention`` on a shape that
     ``fused_supported`` takes: the fused kernels, with dropout (one seed
     from the layer's ``DropoutRNG``) in train mode."""
-    drop = float(p_drop) if train and rng is not None else 0.0
-    return fused_attention(q, k, v, mask, drop, rng.seed() if drop > 0.0 else None)
+    if not (train and rng is not None and p_drop > 0.0):
+        return fused_attention(q, k, v, mask)
+    return fused_attention(q, k, v, mask, float(p_drop), rng.seed(),
+                           rng.row_offset(q.shape[0]))
 
 
 # ------------------------------------------------------------ flash attention
@@ -491,7 +496,8 @@ flash_attention.launches = 0
 # -------------------------------------------------------- custom operators
 # unirec::attention_fwd (row 10) and unirec::flash_fwd (row 9), ops/op_schemas.py:
 # q, k, v [B, H, L, hd] as the caller gives them, the additive mask, dropout
-# as (seed, keep threshold, 1/(1-p)) of the probabilities. The outputs keep
+# as (seed, keep threshold, 1/(1-p), first example's global index) of the
+# probabilities. The outputs keep
 # the kernels' layout ([B, L, H, hd] in memory) on either device, so an
 # exported graph has one layout. Each implementation looks its function up
 # by name at the call (chip_smoke.py's plain_versions patches them).
@@ -503,9 +509,9 @@ def _in_out_layout(q: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_op(fn: str):
-    def impl(q, k, v, mask, seed, t_attn, inv_attn):
+    def impl(q, k, v, mask, seed, t_attn, inv_attn, b0=0):
         return _in_out_layout(q, globals()[fn](q, k, v, mask,
-                                               Drop(seed, t_attn, 0, inv_attn, 1.0)))
+                                               Drop(seed, t_attn, 0, inv_attn, 1.0, b0)))
     return impl
 
 
@@ -525,7 +531,8 @@ FLASH_FWD_OP = define_op("flash_fwd", _flash_op("_flash_fwd_plain"), _flash_op("
 
 
 def _attention_fwd_op(q, k, v, mask, drop: Drop = NO_DROP) -> torch.Tensor:
-    return ATTENTION_FWD_OP(q, k, v, mask, drop.seed, drop.t_attn, float(drop.inv_attn))
+    return ATTENTION_FWD_OP(q, k, v, mask, drop.seed, drop.t_attn, float(drop.inv_attn),
+                            drop.b0)
 
 
 def causal_attention(q, k, v, mask, use_pallas: bool = True) -> torch.Tensor:

@@ -116,6 +116,7 @@ class Drop(NamedTuple):
     t_hidden: int
     inv_attn: float
     inv_hidden: float
+    b0: int = 0      # the global index of the call's first example
 
 
 NO_DROP = Drop(0, 0, 0, 1.0, 1.0)
@@ -126,14 +127,16 @@ def _thresh(p: float) -> int:
 
 
 def drop_params(p_attn: float, p_hidden: float, train: bool,
-                seed: Optional[int]) -> Drop:
+                seed: Optional[int], row_offset: int = 0) -> Drop:
     """As the JAX wrappers' ``drop_on`` (layer.py:883-894, :933-945):
-    dropout only in train mode with a seed, else both rates are 0."""
+    dropout only in train mode with a seed, else both rates are 0.
+    ``row_offset``: the global index of the batch's first example (a
+    data-parallel rank's first row), by which the masks are keyed."""
     if not (train and (p_attn > 0.0 or p_hidden > 0.0) and seed is not None):
         return NO_DROP
     inv = lambda p: 1.0 / (1.0 - p) if p > 0.0 else 1.0  # noqa: E731
     return Drop(int(seed) & _U32, _thresh(p_attn), _thresh(p_hidden),
-                inv(p_attn), inv(p_hidden))
+                inv(p_attn), inv(p_hidden), int(row_offset))
 
 
 def _mulhilo(m: int, c: torch.Tensor):
@@ -164,19 +167,21 @@ def philox_bits(seed: int, site: int, b: torch.Tensor,
 
 
 def keep_mask(seed: int, thresh: int, site: int, B: int, shape,
-              device) -> Optional[torch.Tensor]:
+              device, b0: int = 0) -> Optional[torch.Tensor]:
     """[B, *shape] keep mask of one dropout site (element index = the
-    row-major index within one example), or None when nothing is dropped."""
+    row-major index within one example, example index b0 + b), or None
+    when nothing is dropped."""
     if thresh == 0:
         return None
     n = math.prod(shape)
     elem = torch.arange(n, device=device).view(1, *shape)
-    b = torch.arange(B, device=device).view(B, *([1] * len(shape)))
+    b = torch.arange(b0, b0 + B, device=device).view(B, *([1] * len(shape)))
     return philox_bits(seed, site, b, elem) >= thresh
 
 
 def _drop_hidden(v: torch.Tensor, drop: Drop, site: int) -> torch.Tensor:
-    keep = keep_mask(drop.seed, drop.t_hidden, site, v.shape[0], v.shape[1:], v.device)
+    keep = keep_mask(drop.seed, drop.t_hidden, site, v.shape[0], v.shape[1:], v.device,
+                     drop.b0)
     if keep is None:
         return v
     return torch.where(keep, (v.float() * drop.inv_hidden).to(v.dtype),
@@ -185,7 +190,8 @@ def _drop_hidden(v: torch.Tensor, drop: Drop, site: int) -> torch.Tensor:
 
 def _drop_grad(g: torch.Tensor, drop: Drop, site: int) -> torch.Tensor:
     """The hidden-site mask applied to an f32 gradient (scaled by 1/(1-p))."""
-    keep = keep_mask(drop.seed, drop.t_hidden, site, g.shape[0], g.shape[1:], g.device)
+    keep = keep_mask(drop.seed, drop.t_hidden, site, g.shape[0], g.shape[1:], g.device,
+                     drop.b0)
     return g if keep is None else torch.where(keep, g * drop.inv_hidden, 0.0)
 
 
@@ -399,16 +405,17 @@ def _opt_ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
 
 def _drop_args(drop: Drop):
     return (drop.seed, drop.t_attn, drop.t_hidden, float(drop.inv_attn),
-            float(drop.inv_hidden))
+            float(drop.inv_hidden), drop.b0)
 
 
-_DROP_ARGTYPES = [ctypes.c_uint32] * 3 + [ctypes.c_float] * 2
+_DROP_ARGTYPES = [ctypes.c_uint32] * 3 + [ctypes.c_float] * 2 + [ctypes.c_uint32]
 
 
 @functools.cache
 def _entry(name: str, n_ptr: int, n_int: int):
     """The C entry point unirec_<name> of csrc/<name>.cu: (dtype, n_ptr
-    pointers, n_int ints, eps, the dropout arguments, stream)."""
+    pointers, n_int ints, eps, the dropout arguments with the first
+    example's global index, stream)."""
     fn = getattr(_build.library(name), f"unirec_{name}")
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_float] + _DROP_ARGTYPES + [ctypes.c_void_p])
@@ -512,7 +519,7 @@ def _layer_forward_parts(x, madd, flat, nh: int, act: str, eps: float,
         k = qkv[..., D + h * hd:D + (h + 1) * hd].float()
         v = qkv[..., 2 * D + h * hd:2 * D + (h + 1) * hd].float()
         p = torch.softmax(q @ k.transpose(1, 2) * scale + mfull, dim=-1)
-        keep = keep_mask(drop.seed, drop.t_attn, h, B, (Lp, Lp), x.device)
+        keep = keep_mask(drop.seed, drop.t_attn, h, B, (Lp, Lp), x.device, drop.b0)
         heads.append((_drop_probs(p, keep, drop).to(dt).float() @ v).to(dt))
         probs.append(p)
         keeps.append(keep)
@@ -691,20 +698,22 @@ def fused_transformer_layer(x, madd, params, *, n_heads: int, inner_size: int,
                             hidden_act: str, layer_norm_eps: float,
                             causal: bool, p_attn: float = 0.0,
                             p_hidden: float = 0.0, train: bool = False,
-                            seed: Optional[int] = None) -> torch.Tensor:
+                            seed: Optional[int] = None,
+                            row_offset: int = 0) -> torch.Tensor:
     """One whole post-LN transformer layer, differentiable.
 
     x: [B, L, D] (compute dtype); madd: [B, L] additive key-pad row
     (0 / -10000, or -1e30 on padding); params: the flax parameter tuple
     (module docstring). Dropout runs when ``train`` and a host-int ``seed``
-    is given (the JAX wrapper's ``dropout_rng``). Returns [B, L, D] in x's
+    is given (the JAX wrapper's ``dropout_rng``), its masks keyed by the
+    global example index ``row_offset`` + b. Returns [B, L, D] in x's
     dtype."""
     del inner_size  # read from the weights
     B, L, D = x.shape
     xp, mp, _ = _pad_L(x, madd, L)
     flat = _layer_weights(params, x.dtype)
     static = (n_heads, hidden_act, float(layer_norm_eps), bool(causal))
-    drop = drop_params(p_attn, p_hidden, train, seed)
+    drop = drop_params(p_attn, p_hidden, train, seed, row_offset)
     if needs_grad(xp, *flat):
         y = _Fused.apply(_layer_fwd_op, layer_bwd, xp, mp, static, drop, *flat)
     else:
@@ -743,7 +752,7 @@ def _lastq_forward_parts(x, madd, flat, qi: int, nh: int, act: str,
         sl = slice(h * hd, (h + 1) * hd)
         s = torch.einsum("bd,bld->bl", q[:, sl].float(), k[..., sl].float())
         p = torch.softmax(s * scale + mrow, dim=-1)
-        keep = keep_mask(drop.seed, drop.t_attn, h, B, (Lp,), x.device)
+        keep = keep_mask(drop.seed, drop.t_attn, h, B, (Lp,), x.device, drop.b0)
         heads.append(torch.einsum("bl,bld->bd", _drop_probs(p, keep, drop).to(dt).float(),
                                   v[..., sl].float()).to(dt))
         probs.append(p)
@@ -889,7 +898,8 @@ def fused_last_query_layer(x, madd, params, *, n_heads: int, inner_size: int,
                            hidden_act: str, layer_norm_eps: float,
                            q_index: int | None = None, p_attn: float = 0.0,
                            p_hidden: float = 0.0, train: bool = False,
-                           seed: Optional[int] = None) -> torch.Tensor:
+                           seed: Optional[int] = None,
+                           row_offset: int = 0) -> torch.Tensor:
     """The layer for query row ``q_index`` only (default L-1; callers on
     pre-padded inputs pass the last REAL row), differentiable. Same
     parameter tuple and dropout arguments as fused_transformer_layer.
@@ -900,7 +910,7 @@ def fused_last_query_layer(x, madd, params, *, n_heads: int, inner_size: int,
     xp, mp, _ = _pad_L(x, madd, L)
     flat = _lastq_weights(params, x.dtype)
     static = (qi, n_heads, hidden_act, float(layer_norm_eps))
-    drop = drop_params(p_attn, p_hidden, train, seed)
+    drop = drop_params(p_attn, p_hidden, train, seed, row_offset)
     if needs_grad(xp, *flat):
         return _Fused.apply(_lastq_fwd_op, lastq_bwd, xp, mp, static, drop, *flat)
     return _lastq_fwd_op(xp, mp, flat, *static, drop)

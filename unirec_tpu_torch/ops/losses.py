@@ -4,18 +4,49 @@ Counterpart of unirec_tpu/ops/losses.py (reference reco_abc.py:220-272,
 modules.py:15-35), with row weights so padded batch rows contribute
 nothing. Every function returns (scalar_loss, per_row_loss [B]); losses
 run in f32 whatever the towers computed in.
+
+Data parallelism: a rank computes its rows' share of the loss, its sum
+divided by the global batch's denominator (``denominator``: the weight sum,
+or the positives' or the history's count, summed over the ``data`` ranks by
+the reducer that ``global_denominators`` installs around a train step).
+The ranks' shares and their gradients then sum to the one-process loss and
+gradients of the whole batch, for every normalization a loss uses.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
 from unirec_tpu_torch.constants import EPS, LossType
 
+_DENOMINATOR_SUM = contextvars.ContextVar("loss_denominator_sum", default=None)
+
+
+@contextlib.contextmanager
+def global_denominators(reduce_sum):
+    """Within the block, ``denominator(x)`` is ``reduce_sum(x)``: the sum of
+    a rank's local denominator over the data-parallel ranks."""
+    token = _DENOMINATOR_SUM.set(reduce_sum)
+    try:
+        yield
+    finally:
+        _DENOMINATOR_SUM.reset(token)
+
+
+def denominator(local_sum: torch.Tensor) -> torch.Tensor:
+    """A loss's normalizer over the global batch from this rank's sum of
+    it (the sum itself outside a data-parallel step); no gradient flows
+    through it, as none flows through weights and counts."""
+    reduce_sum = _DENOMINATOR_SUM.get()
+    return local_sum if reduce_sum is None else reduce_sum(local_sum.detach())
+
 
 def _weighted_mean(per_row: torch.Tensor, weight: torch.Tensor):
     w = weight.to(per_row.dtype)
-    return (per_row * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (per_row * w).sum() / torch.clamp(denominator(w.sum()), min=1.0)
 
 
 def bce_loss(scores, labels, weight):
@@ -58,7 +89,8 @@ def sampled_softmax_loss(scores, labels, weight):
     pos = (labels > 0).to(scores.dtype)
     per_row = (nll * pos).sum(-1) / torch.clamp(pos.sum(-1), min=1.0)
     row_w = weight * pos.sum(-1)
-    loss = (nll * pos * weight[:, None]).sum() / torch.clamp(row_w.sum(), min=1.0)
+    loss = (nll * pos * weight[:, None]).sum() / torch.clamp(denominator(row_w.sum()),
+                                                            min=1.0)
     return loss, per_row
 
 

@@ -47,8 +47,12 @@ def parse_metrics(metrics_str_or_list) -> List[str]:
     return flat
 
 
-def add_tie_noise(scores: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    u = torch.rand(scores.shape, generator=gen, device=scores.device)
+def add_tie_noise(scores: torch.Tensor, gen) -> torch.Tensor:
+    """``gen``: a generator, or a RowSlice (core/mesh.py) when a
+    data-parallel rank scores its rows of the batch: the noise is drawn at
+    the global batch's shape and sliced, as a one-process run draws it."""
+    from unirec_tpu_torch.core.mesh import rand_rows
+    u = rand_rows(gen, scores.shape, scores.device)
     return scores + (u * (2 * TIE_NOISE) - TIE_NOISE).to(scores.dtype)
 
 

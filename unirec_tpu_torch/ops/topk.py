@@ -15,9 +15,16 @@ most 128 on the tensor cores, over a grid sized by the card, not by N
 (``launches_mma`` and ``launches_int8_mma`` count it); "cuda", the CUDA-core
 body, for f32 users or items and wider factors, at most 65,535 x 256 items.
 
-The row-sharded paths (``sharded_catalog_topk``, ``masked_sharded_topk``)
-and approximate selection (``lax.approx_max_k``) are not ported yet
-(ROADMAP.md Queue 1 items 10 and 12).
+Row-sharded serving (unirec_tpu/ops/topk.py:43-160): the catalog lives
+row-sharded over the mesh's ``model`` ranks (``place_item_table`` pads it
+with zero rows to a multiple of the shard count); each shard takes its
+local top-k (``local_shard_topk``: bias-free through ``fused_catalog_topk``,
+whose blockmax launch is row 5/5q once a shard, its padded tail rows banned
+by ``invalid_from``; with a bias densely), the candidates are all-gathered
+over ``model`` and ``merge_shard_candidates`` takes the final top-k.
+``sharded_catalog_topk`` and ``masked_sharded_topk`` run that on a
+distributed mesh, or over ``n_shards`` logical shards of one table in one
+process through the very same two functions.
 """
 from __future__ import annotations
 
@@ -168,6 +175,8 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
                        hist_len: Optional[torch.Tensor] = None,
                        keep_ids: Optional[torch.Tensor] = None,
                        exclude_pad_item: bool = False,
+                       invalid_from: Optional[int] = None,
+                       max_invalid: int = 0,
                        item_scale: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k straight from the factors (user_emb [B, D], item_emb
@@ -179,13 +188,17 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     ragged chunk, the padding item and banned history) and selects.
     ``hist_items``/``hist_len`` exclude each user's history,
     ``keep_ids`` [B] exempts one id per user, ``exclude_pad_item`` bans
-    id 0; with ``item_scale`` the int8 items are scored dequantized.
+    id 0, ``invalid_from`` bans every row id from it on (a shard's padded
+    tail), of which there are at most ``max_invalid``: each ban buys its
+    overfetch of chunks, so the result stays exact (topk.py:308-371); with
+    ``item_scale`` the int8 items are scored dequantized.
     Returns (values [B, k] f32, ids [B, k] int64)."""
     B, D = user_emb.shape
     N = item_emb.shape[0]
     dev = user_emb.device
     hcap = 0 if hist_items is None else int(hist_items.shape[1])
-    kp = k + (chunk if N % chunk else 0) + (1 if exclude_pad_item else 0) + hcap
+    icap = (-(-max_invalid // chunk) + 1) if invalid_from is not None else 0
+    kp = k + (chunk if N % chunk else 0) + (1 if exclude_pad_item else 0) + hcap + icap
     nb_real = -(-N // chunk)
 
     banned_sorted = None
@@ -198,6 +211,8 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
 
     def mask_candidates(sc, iid):
         sc = torch.where(iid < N, sc, float("-inf"))
+        if invalid_from is not None:
+            sc = torch.where(iid >= invalid_from, float("-inf"), sc)
         if exclude_pad_item:
             sc = torch.where(iid == 0, float("-inf"), sc)
         if banned_sorted is not None:
@@ -228,3 +243,119 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
         sc = sc * item_scale[rows]
     v, ci = fast_topk(mask_candidates(sc, iid), k)
     return v, iid.gather(1, ci)
+
+
+# ------------------------------------------------------------ row-sharded
+def place_item_table(item_emb: torch.Tensor, n_shards: int, rank: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, int]:
+    """The [N, D] table (or an [N] column: scales, biases) zero-padded to a
+    multiple of ``n_shards`` rows (topk.py:148-158); with ``rank``, only that
+    shard's rows. Returns (rows, padded N)."""
+    N = item_emb.shape[0]
+    pad = (-N) % n_shards
+    if pad:
+        item_emb = torch.cat([item_emb, item_emb.new_zeros((pad, *item_emb.shape[1:]))])
+    if rank is None:
+        return item_emb, N + pad
+    n_local = (N + pad) // n_shards
+    return item_emb[rank * n_local:(rank + 1) * n_local].contiguous(), N + pad
+
+
+def local_shard_topk(u: torch.Tensor, shard: torch.Tensor, offset: int, n_real: int,
+                     k_local: int, bias: Optional[torch.Tensor] = None,
+                     scale: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's top-``k_local`` (values, global ids) of user_emb ``u``
+    [B, D] against its rows ``shard`` [n_local, D], the global rows
+    [offset, offset + n_local); rows at or past ``n_real`` are padding.
+    Bias-free: ``fused_catalog_topk`` (row 5/5q), the padding banned by
+    ``invalid_from``; with ``bias`` [n_local]: dense f32 scores (int8 rows
+    dequantized by ``scale``), the padding at -inf, ``fast_topk``."""
+    n_local = shard.shape[0]
+    valid = min(max(n_real - offset, 0), n_local)
+    if bias is None:
+        v, i = fused_catalog_topk(u, shard, k_local, invalid_from=valid,
+                                  max_invalid=n_local - valid, item_scale=scale)
+    else:
+        local = u.float() @ shard.float().T
+        if scale is not None:
+            local = local * scale[None, :]
+        local = local + bias[None, :]
+        local[:, valid:] = float("-inf")
+        v, i = fast_topk(local, k_local)
+    return v, i + offset
+
+
+def merge_shard_candidates(vals: torch.Tensor, ids: torch.Tensor, k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final top-k of the shards' candidates, vals and global ids
+    [B, S * k_local]."""
+    v, sel = fast_topk(vals, k)
+    return v, ids.gather(1, sel)
+
+
+def sharded_catalog_topk(user_emb: torch.Tensor, item_shard: torch.Tensor, k: int,
+                         mesh=None, *, n_real: int, n_shards: Optional[int] = None,
+                         item_bias: Optional[torch.Tensor] = None,
+                         item_scale: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values [B, k], global ids [B, k]) over a row-sharded catalog
+    (topk.py:43-114). On a distributed ``mesh`` ``item_shard`` (and the
+    bias and scale) are this model rank's rows and the candidates are
+    all-gathered over ``model``; without one, ``item_shard`` is the whole
+    padded table, taken as ``n_shards`` logical shards in this process.
+    ``n_real``: the unpadded item count."""
+    if k > n_real:
+        raise ValueError(f"top-{k} requested from a {n_real}-item catalog")
+    distributed = mesh is not None and mesh.distributed
+    S = mesh.n_model if distributed else int(n_shards or 1)
+    n_local = item_shard.shape[0] if distributed else item_shard.shape[0] // S
+    if not distributed and item_shard.shape[0] != S * n_local:
+        raise ValueError(f"a padded table of {item_shard.shape[0]} rows does not split "
+                         f"into {S} shards")
+    k_local = min(k, n_local)   # a shard contributes at most n_local items
+    if distributed:
+        from unirec_tpu_torch.core.mesh import all_gather_rows
+        m = mesh.rank("model")
+        v, i = local_shard_topk(user_emb, item_shard, m * n_local, n_real, k_local,
+                                item_bias, item_scale)
+        group = mesh.group("model")
+        B = user_emb.shape[0]
+        # k_local candidates a shard cross the ranks: [S * B, kl] -> [B, S * kl]
+        vals = all_gather_rows(v, group).view(S, B, k_local).transpose(0, 1).reshape(B, -1)
+        ids = all_gather_rows(i, group).view(S, B, k_local).transpose(0, 1).reshape(B, -1)
+    else:
+        parts = []
+        for s in range(S):
+            rows = slice(s * n_local, (s + 1) * n_local)
+            parts.append(local_shard_topk(
+                user_emb, item_shard[rows], s * n_local, n_real, k_local,
+                None if item_bias is None else item_bias[rows],
+                None if item_scale is None else item_scale[rows]))
+        vals = torch.cat([p[0] for p in parts], 1)
+        ids = torch.cat([p[1] for p in parts], 1)
+    return merge_shard_candidates(vals, ids, k)
+
+
+def masked_sharded_topk(user_emb: torch.Tensor, item_shard: torch.Tensor,
+                        hist_items: torch.Tensor, hist_len: torch.Tensor, k: int,
+                        mesh=None, *, n_real: int, n_shards: Optional[int] = None,
+                        item_bias: Optional[torch.Tensor] = None,
+                        item_scale: Optional[torch.Tensor] = None,
+                        exclude_pad_item: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a row-sharded catalog with each user's history
+    excluded (topk.py:117-145): at most C history ids (and the padding
+    item) can be banned, so fetching k + C (+1) sharded candidates and
+    filtering afterwards leaves at least k. Returns (values, ids) [B, k]."""
+    C = hist_items.shape[1]
+    fetch = min(k + C + (1 if exclude_pad_item else 0), int(n_real))
+    vals, ids = sharded_catalog_topk(user_emb, item_shard, fetch, mesh, n_real=n_real,
+                                     n_shards=n_shards, item_bias=item_bias,
+                                     item_scale=item_scale)
+    valid = torch.arange(C, device=ids.device)[None, :] < hist_len[:, None]
+    hcols = torch.where(valid, hist_items.long(), -1)
+    banned = (ids[:, :, None] == hcols[:, None, :]).any(-1)
+    if exclude_pad_item:
+        banned |= ids == 0
+    return merge_shard_candidates(torch.where(banned, float("-inf"), vals), ids, k)

@@ -167,7 +167,7 @@ void CheckLaunch(int err, const char* what) {
 at::Tensor LayerFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::TensorList flat0,
                         int64_t nh, int64_t act, bool causal, double eps, int64_t seed,
                         int64_t t_attn, int64_t t_hidden, double inv_attn,
-                        double inv_hidden) {
+                        double inv_hidden, int64_t b0) {
   TORCH_CHECK(x0.dim() == 3 && flat0.size() == 12, "unirec_serve: layer_fwd operands");
   const int dtype = DtypeCode(x0);
   const int B = x0.size(0), Lp = x0.size(1), D = x0.size(2), F = flat0[6].size(1);
@@ -191,7 +191,7 @@ at::Tensor LayerFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::Tenso
                      const void*, const void*, const void*, const void*, const void*,
                      const void*, const void*, const void*, const void*, void*, int, int, int,
                      int, int, int, int, int, float, unsigned, unsigned, unsigned, float,
-                     float, void*);
+                     float, unsigned, void*);
   auto fn = reinterpret_cast<Fn>(Symbol("layer_fwd", "unirec_layer_fwd"));
   void* stream = c10::cuda::getCurrentCUDAStream(x.device().index()).stream();
   CheckLaunch(fn(dtype, Ptr(x), Ptr(madd), Ptr(flat[0]), Ptr(flat[1]), Ptr(flat[2]),
@@ -200,7 +200,8 @@ at::Tensor LayerFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::Tenso
                  F, static_cast<int>(nh), static_cast<int>(act), causal ? 1 : 0, mma ? 1 : 0,
                  static_cast<float>(eps), static_cast<unsigned>(seed),
                  static_cast<unsigned>(t_attn), static_cast<unsigned>(t_hidden),
-                 static_cast<float>(inv_attn), static_cast<float>(inv_hidden), stream),
+                 static_cast<float>(inv_attn), static_cast<float>(inv_hidden),
+                 static_cast<unsigned>(b0), stream),
               "layer_fwd");
   Launches()["unirec::layer_fwd"] += 1;
   if (mma) Launches()["unirec::layer_fwd (mma)"] += 1;
@@ -212,7 +213,7 @@ at::Tensor LayerFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::Tenso
 at::Tensor LastqFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::TensorList flat0,
                         int64_t qi, int64_t nh, int64_t act, double eps, int64_t seed,
                         int64_t t_attn, int64_t t_hidden, double inv_attn,
-                        double inv_hidden) {
+                        double inv_hidden, int64_t b0) {
   TORCH_CHECK(x0.dim() == 3 && flat0.size() == 16, "unirec_serve: lastq_fwd operands");
   const int dtype = DtypeCode(x0);
   const int B = x0.size(0), Lp = x0.size(1), D = x0.size(2), F = flat0[10].size(1);
@@ -237,7 +238,8 @@ at::Tensor LastqFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::Tenso
                      const void*, const void*, const void*, const void*, const void*,
                      const void*, const void*, const void*, const void*, const void*,
                      const void*, const void*, const void*, void*, int, int, int, int, int,
-                     int, int, int, float, unsigned, unsigned, unsigned, float, float, void*);
+                     int, int, int, float, unsigned, unsigned, unsigned, float, float,
+                     unsigned, void*);
   auto fn = reinterpret_cast<Fn>(Symbol("lastq_fwd", "unirec_lastq_fwd"));
   void* stream = c10::cuda::getCurrentCUDAStream(x.device().index()).stream();
   CheckLaunch(fn(dtype, Ptr(x), Ptr(madd), Ptr(flat[0]), Ptr(flat[1]), Ptr(flat[2]),
@@ -247,7 +249,8 @@ at::Tensor LastqFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::Tenso
                  static_cast<int>(nh), static_cast<int>(qi), static_cast<int>(act),
                  mma ? 1 : 0, static_cast<float>(eps), static_cast<unsigned>(seed),
                  static_cast<unsigned>(t_attn), static_cast<unsigned>(t_hidden),
-                 static_cast<float>(inv_attn), static_cast<float>(inv_hidden), stream),
+                 static_cast<float>(inv_attn), static_cast<float>(inv_hidden),
+                 static_cast<unsigned>(b0), stream),
               "lastq_fwd");
   Launches()["unirec::lastq_fwd"] += 1;
   if (mma) Launches()["unirec::lastq_fwd (mma)"] += 1;

@@ -13,7 +13,10 @@ path is its module path plus a leaf name fixed by the module type:
 
 The fused and unfused layer paths of the JAX package share one parameter
 tree (unirec_tpu/models/modules.py:414-491), so this one mapping covers
-both. Values are copied bit for bit; a round trip is exact.
+both. Values are copied bit for bit; a round trip is exact. A table
+row-sharded over the mesh's ``model`` ranks (``row_shard``, core/mesh.py)
+is written whole, its rows gathered from every rank (a collective: every
+rank builds the tree), and loads its own rows of a whole table.
 """
 from __future__ import annotations
 
@@ -38,6 +41,12 @@ def _leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], nn.Parameter, b
             yield prefix + (renames.get(pname, pname),), p, transposed
 
 
+def named_flax_params(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """{"item_embedding/embedding": parameter, ...}: each parameter by its
+    flax path, in ``model.parameters()`` order."""
+    return {"/".join(path): p for path, p, _ in _leaves(model)}
+
+
 def to_flax_params(model: nn.Module) -> Dict:
     """The flax ``params`` tree (nested dicts of numpy arrays) of ``model``."""
     return to_flax_tree(model, list(model.parameters()))
@@ -50,7 +59,11 @@ def to_flax_tree(model: nn.Module, values: Sequence[torch.Tensor]) -> Dict:
     index = {id(p): i for i, p in enumerate(model.parameters())}
     tree: Dict = {}
     for path, p, transposed in _leaves(model):
-        value = values[index[id(p)]].detach().cpu()
+        value = values[index[id(p)]].detach()
+        shard = getattr(p, "row_shard", None)
+        if shard is not None:        # a row-sharded table: every rank's rows
+            value = shard.gather(value)
+        value = value.cpu()
         value = value.t() if transposed else value
         node = tree
         for key in path[:-1]:
@@ -65,7 +78,10 @@ def from_flax_tree(model: nn.Module, tree: Dict) -> List[torch.Tensor]:
     out: List = [None] * len(index)
     for path, p, transposed in _leaves(model):
         value = torch.from_numpy(np.array(_node(tree, path), copy=True))
-        out[index[id(p)]] = value.t().contiguous() if transposed else value
+        value = value.t().contiguous() if transposed else value
+        shard = getattr(p, "row_shard", None)
+        out[index[id(p)]] = value[shard.rows].clone() if shard is not None \
+            and value.shape[0] == shard.n_rows else value
     return out
 
 
@@ -95,6 +111,9 @@ def load_flax_params(model: nn.Module, params: Dict, strict: bool = True) -> Non
                 continue
             value = torch.from_numpy(np.array(node, copy=True))
             value = value.t() if transposed else value
+            shard = getattr(p, "row_shard", None)
+            if shard is not None and value.shape[0] == shard.n_rows:
+                value = value[shard.rows]      # this rank's rows of the table
             if tuple(value.shape) != tuple(p.shape):
                 if not strict:
                     continue

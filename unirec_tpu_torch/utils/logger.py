@@ -1,5 +1,5 @@
 """Experiment logger: per-experiment file + console handlers (copy of
-unirec_tpu/utils/logger.py)."""
+unirec_tpu/utils/logger.py, rank 0 alone writing the file)."""
 from __future__ import annotations
 
 import logging
@@ -9,6 +9,8 @@ import string
 import time
 from typing import Optional
 
+from unirec_tpu_torch.core.distributed import is_main_process
+
 
 def rand_token(n: int = 6) -> str:
     return "".join(random.choice(string.ascii_lowercase + string.digits)
@@ -17,6 +19,9 @@ def rand_token(n: int = 6) -> str:
 
 def setup_logger(exp_name: str, out_dir: Optional[str] = None,
                  level: str = "INFO") -> logging.Logger:
+    """The experiment's logger. Under a process group only rank 0 writes
+    the log file; the other ranks log warnings and errors to the console."""
+    main = is_main_process()
     logger = logging.getLogger(exp_name)
     logger.setLevel(getattr(logging, level.upper(), logging.INFO))
     logger.propagate = False
@@ -25,8 +30,9 @@ def setup_logger(exp_name: str, out_dir: Optional[str] = None,
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
+    sh.setLevel(logging.INFO if main else logging.WARNING)
     logger.addHandler(sh)
-    if out_dir:
+    if out_dir and main:
         os.makedirs(out_dir, exist_ok=True)
         time_str = time.strftime("%Y%m%d_%H%M%S")
         fh = logging.FileHandler(os.path.join(
