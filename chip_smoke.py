@@ -50,6 +50,14 @@ Phases, each of which must pass:
      Then one step from the
      same weights, batch and seeds through the kernels and through the plain
      versions, loss and every gradient compared; then two traced steps;
+     then the JAX package's opt-in XLA variants (opt_in_variants): one step
+     of the same configuration under each embedding-gradient path
+     (scan_embedding_grad, sorted_embedding_grad, expand_embedding_grad=4,
+     embedding_grad_f32) against the default step through the plain
+     versions, qkv_packed against its own step through the plain versions,
+     and remat_attention against the step without it (the gradients equal
+     within f32 atomics' order; rows 1 and 3 launched twice, the forward
+     and the backward's recompute with the forward's dropout seeds);
   7. the fused attention kernels (forward, backward) at B=32,768, H=2, L=50,
      head dim 32, bf16, at dropout 0 and 0.1, and with a per-head mask (the
      backward in its bf16 tensor-core body, whose dropout mask is also held
@@ -88,7 +96,7 @@ Phases, each of which must pass:
  10. the long path: main.run(task=train) on sasrec_long256_flash (the entry
      path's widths at max_seq_len 256 with use_pallas, attention dropout 0,
      batch 8,192) over synthetic data with 64-767 training items per user,
-     2 epochs of 300 steps with one-vs-all validation before each: the best
+     2 epochs of 200 steps with one-vs-all validation before each: the best
      validation's hit@10 must reach 0.1, task=test from the best checkpoint
      must repeat the metrics, task=infer must write one finite score per
      test row that agrees with model.predict through the plain versions, and
@@ -214,14 +222,19 @@ Phases, each of which must pass:
      item_emb and score through torch.export (a symbolic batch), each .pt2
      program on the card against the live model through the kernels and
      through the plain versions (emb_tol), rows 1 and 3 recorded as
-     unirec::layer_fwd and unirec::lastq_fwd and launched; score's
-     AOTInductor package at batch 256 served by the C++ client (g++ against
-     the installed libtorch, built from the script's first minute), whose
-     output equals the program's and whose printed launches of rows 1 and 3
-     are one a call each on their tensor-core bodies; users/s of the
-     client, the program and the package in Python at batch 256 beside
-     reco-topk's; then the entry path's checkpoint exported, rows 10 and 12
-     recorded and launched, held the same way;
+     unirec::layer_fwd and unirec::lastq_fwd and launched; the score
+     functions of the serving, entry (sasrec_fusedattn_ffn: rows 10 and 12)
+     and long (sasrec_long256_flash, L=256: rows 9 and 12) checkpoints as
+     AOTInductor packages at batch 256 (three export processes started
+     beside phase 19), each served by the C++ client (g++ against the
+     installed libtorch, built from the script's first minute), whose
+     output equals the program's and the plain versions' (emb_tol) and
+     whose printed launches are, a call, one of rows 1, 3, 9 and 10 and two
+     of row 12 (one an FFN layer), on the tensor-core bodies the Python
+     launchers pick; users/s of the client, the program and the package in
+     Python at batch 256 beside reco-topk's; the entry checkpoint's
+     user_emb program, rows 10 and 12 recorded and launched, held the same
+     way;
  21. distribution (dist_path): main.run(task=train) at bench.py's training
      configuration (dropout 0, the steps of phase 6) first without a
      process group, then inside an NCCL group of one that the script brings
@@ -233,8 +246,14 @@ Phases, each of which must pass:
      this script, ``--dist-rank``) at mesh_model=2 with shard_embeddings
      (batch 8,192, 3 steps; the item table row-sharded, its lookups summed
      over the ranks and its backward through row 6) against the same steps
-     on one rank, their .dcp checkpoint reloaded in this process; then
-     reco-topk of 4,096 users from a 50,002-item checkpoint over 4 logical
+     on one rank, their .dcp checkpoint reloaded in this process; MoRec
+     at mesh_data=2 (dist_morec): two gloo ranks each run main.run of
+     phase 18's base (BPR through the device pipeline: rows 6 and 8) and
+     of its PID and MGDA fine-tunes from its base checkpoint, 3 steps each
+     (batch_size 1,023 rounded up to 1,024 so no objective block is split)
+     against one rank: step 1's loss vector and Gram (summed over the
+     ranks) within 1e-4 of their largest entry, each step's loss within
+     1e-4, both ranks bit-equal; then reco-topk of 4,096 users from a 50,002-item checkpoint over 4 logical
      shards (local_shard_topk + merge_shard_candidates; 2 padded rows in
      the last shard), bf16 and int8, rows 5 and 5q once a shard a batch,
      the ids against the unsharded run and the dense plain top-k, and the
@@ -1446,6 +1465,116 @@ def check_train_path(torch, trainer, raw, aug):
         raise AssertionError(f"train path disagrees with the plain versions: {line}")
 
 
+# The JAX package's opt-in XLA variants at bench.py's training configuration
+# (train_config): the four embedding-gradient paths (ops/embedding.py, plain
+# torch ops as XLA in JAX; the flags below them in the JAX precedence turn
+# vmem_embedding_grad off), qkv_packed and remat_attention
+OPT_IN = {"scan_embedding_grad": dict(scan_embedding_grad=1),
+          "sorted_embedding_grad": dict(sorted_embedding_grad=1, vmem_embedding_grad=0),
+          "expand_embedding_grad": dict(expand_embedding_grad=4, vmem_embedding_grad=0),
+          "embedding_grad_f32": dict(embedding_grad_f32=1, vmem_embedding_grad=0),
+          "qkv_packed": dict(qkv_packed=1)}
+# remat against no remat, both through the kernels: every gradient leaf bit
+# for bit, except the tables row 6 scatters into, whose f32 atomics sum in
+# another order from run to run and whose sums are rounded to the table's
+# bf16: one bf16 ulp of the leaf's largest entry
+REMAT_TOL = 2.0 ** -8
+
+
+def opt_in_variants(torch, card: str):
+    """One training step at bench.py's configuration (batch 32,768, dropout
+    0.1, bf16; the weights from SEED, one augmented batch, the same dropout
+    seed) under each of OPT_IN: its loss and every gradient through the
+    kernels against a plain counterpart (STEP_TOL bf16, each leaf to its own
+    largest, a key bias to its query bias's): for an embedding-gradient
+    variant the default step (vmem_embedding_grad) through the plain
+    versions, its row-6 scatter an f32 index_add; for qkv_packed its own
+    step through the plain versions. Then remat_attention: the step with
+    each layer checkpointed against the step without, both through the
+    kernels, every gradient within REMAT_TOL of its leaf's largest, the
+    forward kernels of rows 1 and 3 launched twice (the forward and the
+    backward's recompute, with the forward's dropout seeds), rows 2 and 4
+    once; every leaf that row 6 does not scatter into equal bit for bit.
+    Returns the launches of the kernel steps."""
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.registry import get_model_class
+    t_phase = time.perf_counter()
+    trainer, raw, aug = train_setup(torch)
+    base = dict(trainer.config)
+    del trainer
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    batch = aug.augment(to_device(next(iter(raw)), "cuda"), gen)
+
+    def step(over, plain=False):
+        cfg = dict(base, **over)
+        model = get_model_class("SASRec")(cfg)
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        model.to("cuda")
+        params = list(model.parameters())
+        with plain_versions() if plain else nullcontext():
+            loss, _ = model(batch, train=True, rng=DropoutRNG(SEED + 23, "cuda"))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        names = [n for n, _ in model.named_parameters()]
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for g, p in zip(grads, params)], names
+
+    def compare(got, ref, tol):
+        (loss_k, grads_k, names), (loss_p, grads_p, _) = got, ref
+        zero_sum = {i: names.index(n.replace("key.bias", "query.bias"))
+                    for i, n in enumerate(names) if n.endswith("key.bias")
+                    and n.replace("key.bias", "query.bias") in names}
+        errs, zeros = leaf_errs(grads_k, grads_p, zero_sum)
+        errs = dict(zip(names, errs))
+        worst = max(errs, key=errs.get)
+        return {"loss": float(loss_k), "loss_ref": float(loss_p),
+                "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+                "grad_max_rel_err": errs[worst], "grad_worst_leaf": worst, "grad_tol": tol,
+                "unequal_leaves": [n for n, a, b in zip(names, grads_k, grads_p)
+                                   if not torch.equal(a, b)],
+                "leaves": len(errs), "zeros_ok": zero_sum_ok(zeros)}
+
+    loss_tol, grad_tol = STEP_TOL["bfloat16"]
+    lines, total, bad = {}, {}, []
+    default_plain = step({}, plain=True)
+    for name, over in OPT_IN.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        got = step(over)
+        counts = launch_counts(TRAINING_KERNELS)
+        add_counts(total, counts)
+        ref = default_plain if name != "qkv_packed" else step(over, plain=True)
+        line = compare(got, ref, grad_tol)
+        line.update(launches={k: v for k, v in counts.items() if v})
+        lines[name] = line
+        # qkv_packed turns the fused layers off (as at modules.py:620, :634);
+        # the embedding variants replace row 6
+        off = ("layer_fwd", "layer_bwd") if name == "qkv_packed" else ("scatter_add",)
+        if not (line["loss_rel_diff"] <= loss_tol and line["grad_max_rel_err"] <= grad_tol
+                and line["zeros_ok"]) or any(counts[k] for k in off):
+            bad.append(name)
+    no_remat = step({})
+    torch.cuda.synchronize()
+    reset_counts()
+    remat = step(dict(remat_attention=1))
+    counts = launch_counts(TRAINING_KERNELS)
+    add_counts(total, counts)
+    line = compare(remat, no_remat, REMAT_TOL)
+    line.update(launches={k: v for k, v in counts.items() if v})
+    lines["remat_attention"] = line
+    twice = {k: counts[k] for k in ("layer_fwd", "lastq_fwd", "layer_bwd", "lastq_bwd")}
+    if not (line["loss_rel_diff"] == 0.0 and line["grad_max_rel_err"] <= REMAT_TOL) \
+            or twice != {"layer_fwd": 2, "lastq_fwd": 2, "layer_bwd": 1, "lastq_bwd": 1} \
+            or set(line["unequal_leaves"]) - {"item_embedding.weight"}:
+        bad.append("remat_attention")
+    emit({"phase": "opt_in_variants", "batch": TRAIN_BATCH, "dropout": P_DROP,
+          "variants": lines, "loss_tol": loss_tol, "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    if bad:
+        raise AssertionError(f"opt_in_variants: {bad} disagree with their counterparts")
+    return total
+
+
 def device_profile(torch, fn):
     """Run fn under torch.profiler: (wall ms, device busy ms, top device ops,
     the port's kernels among them)."""
@@ -2302,7 +2431,10 @@ def profile_entry_path(torch, trainer, train_data, ev, eval_batch, card,
 
 
 # ---------------------------------------------------------------- long path
-LONG_HIST, LONG_GROUP, LONG_STEPS, LONG_EPOCHS = (64, 768), 800, 300, 2
+# 200 steps an epoch, a depth cut that keeps the script's wall time near
+# 1,000 s with the opt-in variants, the client packages and MoRec on the
+# data mesh added (hit@10 passes 0.1 within the first epoch)
+LONG_HIST, LONG_GROUP, LONG_STEPS, LONG_EPOCHS = (64, 768), 800, 200, 2
 
 
 def long_args(data: Path, out: Path):
@@ -3845,20 +3977,30 @@ def kernel_bst_shape(torch):
 # export_path: the serving checkpoint main_path wrote (bench.py's widths,
 # fused_layer and fused_lastq, bf16) through torch.export on the card, each
 # .pt2 function held against the live model through the kernels and through
-# the plain versions; its ``score`` as an AOTInductor package at batch 256,
-# served by the C++ client, whose launches of rows 1 and 3 it prints; then
-# the entry path's best checkpoint (use_fused_attention, use_fused_ffn) as
-# .pt2 programs, rows 10 and 12 recorded and launched. Two builds run in the
-# background, their seconds reported as measured there: the client's g++ in
-# a thread from the script's first minute (beside the kernels' nvcc), and
-# the export with its AOTInductor compile (some 90 s of host compilation for
-# any graph on the card's machine) in a process started before solver_path,
-# whose work is on the card (export_path runs after it).
+# the plain versions; the ``score`` functions of that checkpoint, of the
+# entry path's best checkpoint (use_fused_attention, use_fused_ffn) and of
+# the long path's (use_pallas at L=256) as AOTInductor packages at batch
+# 256, each served by the C++ client, whose launches of rows 1 and 3, 10
+# and 12, 9 and 12 it prints; the entry checkpoint's user_emb program, rows
+# 10 and 12 recorded and launched. Two builds run in the background, their
+# seconds reported as measured there: the client's g++ in a thread from the
+# script's first minute (beside the kernels' nvcc), and the three exports
+# with their AOTInductor compiles (some 90 s of host compilation each on
+# the card's machine) in processes started before solver_path, whose work
+# is on the card (export_path runs after it).
 EXPORT_ATOL = 2.0 ** -4     # the exporter's own check, artifact against live model (bf16)
 EXPORT_REPEAT = 50          # timed calls of each serving form at batch 256
 EXPORT_CANDIDATES = 32
 EXPORT_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma",
                   "fused_attention", "fused_attention_mma", "fused_ffn", "fused_ffn_mma")
+# the operators each package's graph calls (sorted, as export_model lists them)
+CLIENT_OPS = {"bench": ["unirec::lastq_fwd", "unirec::layer_fwd"],
+              "entry": ["unirec::attention_fwd", "unirec::ffn_fwd"],
+              "long": ["unirec::ffn_fwd", "unirec::flash_fwd"]}
+# the client's operator names -> the kernels' counter names
+CLIENT_COUNTERS = (("unirec::layer_fwd", "layer_fwd"), ("unirec::lastq_fwd", "lastq_fwd"),
+                   ("unirec::attention_fwd", "fused_attention"),
+                   ("unirec::ffn_fwd", "fused_ffn"), ("unirec::flash_fwd", "flash_attention"))
 
 
 def start_client_build():
@@ -3888,10 +4030,18 @@ def client_build(box):
     return box["build"]
 
 
+# the checkpoints export_path exports, each to a score package served by the
+# C++ client: main_path's (rows 1, 3), entry_path's (rows 10, 12) and
+# long_path's (rows 9, 12)
+EXPORTS = {"bench": ("sasrec_bench.pkl", SEQ_LEN),
+           "entry": ("slice/checkpoint/sasrec_fusedattn_ffn.pkl", SEQ_LEN),
+           "long": ("long/checkpoint/sasrec_long256_flash.pkl", LONG_LEN)}
+
+
 def start_export_compile():
-    """Export main_path's checkpoint with its score package (export_model,
-    which checks every artifact against the live model) in a process of its
-    own. Returns the box export_path waits on."""
+    """Export each checkpoint of EXPORTS with its score package
+    (export_model, which checks every artifact against the live model), one
+    process each, all at once. Returns the box export_path waits on."""
     out = ROOT / "build" / "chip_smoke" / "export"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -3899,41 +4049,48 @@ def start_export_compile():
             "from unirec_tpu_torch.serving.export import export_model; "
             "export_model(sys.argv[2], sys.argv[3], aoti=['score'], aoti_batch=int(sys.argv[4]), "
             "atol=float(sys.argv[5]), device='cuda')")
-    log = open(out / "export.log", "w")
-    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
-                             str(ROOT / "build" / "chip_smoke" / "sasrec_bench.pkl"),
-                             str(out / "bench"), str(BATCH), str(EXPORT_ATOL)],
-                            stdout=log, stderr=subprocess.STDOUT)
-    return {"proc": proc, "log": log, "t0": time.perf_counter(), "out": out}
+    procs = {}
+    for name, (ckpt, _) in EXPORTS.items():
+        log = open(out / f"export_{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", code, str(ROOT),
+             str(ROOT / "build" / "chip_smoke" / ckpt), str(out / name), str(BATCH),
+             str(EXPORT_ATOL)], stdout=log, stderr=subprocess.STDOUT), log)
+    return {"procs": procs, "t0": time.perf_counter(), "out": out}
 
 
-def export_done(box) -> float:
-    """Wait for the export process; raise with its log if it failed.
-    Returns its wall seconds."""
-    rc = box["proc"].wait()
-    box["log"].close()
-    if rc != 0:
-        raise AssertionError(f"export_path: the export process failed ({rc}):\n"
-                             + (box["out"] / "export.log").read_text()[-6000:])
+def export_done(box) -> dict:
+    """Wait for the export processes; raise with a log if one failed.
+    Returns the wall seconds until the last ended."""
+    failed = []
+    for name, (proc, log) in box["procs"].items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name} ({rc}):\n"
+                          + (box["out"] / f"export_{name}.log").read_text()[-6000:])
+    if failed:
+        raise AssertionError("export_path: an export process failed: " + "\n".join(failed))
     return time.perf_counter() - box["t0"]
 
 
 def stop_background(background) -> None:
-    """Wait for the client's g++; end the export process if it still runs
+    """Wait for the client's g++; end the export processes that still run
     (a failed phase): no process outlives the script."""
     if "client" in background:
         background["client"]["thread"].join()
     box = background.get("export")
-    if box is not None and box["proc"].poll() is None:
-        box["proc"].terminate()
-        box["proc"].wait()
+    for proc, _ in (box or {}).get("procs", {}).values():
+        if proc.poll() is None:
+            proc.terminate()
+            proc.wait()
 
 
-def export_inputs(history):
-    """Batch-256 serving requests: users 1..256 with their history windows,
-    32 random candidates each."""
+def export_inputs(history, L=SEQ_LEN):
+    """Batch-256 serving requests: users 1..256 with their history windows
+    of length L, 32 random candidates each."""
     users = np.arange(1, BATCH + 1, dtype=np.int32)
-    seq, lens = history.window(users, SEQ_LEN)
+    seq, lens = history.window(users, L)
     cands = np.random.default_rng(SEED + 150).integers(1, N_ITEMS, (BATCH, EXPORT_CANDIDATES))
     seq, lens, cands = (a.astype(np.int32) for a in (seq, lens, cands))
     return {"user_emb": (users, seq, lens), "item_emb": (users,),
@@ -3983,7 +4140,7 @@ def export_path(torch, card: str, background):
     (the Python artifacts' launches, the client's launches)."""
     from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
     from unirec_tpu_torch.serving.cpp import build as CB
-    from unirec_tpu_torch.serving.export import ServingModel, export_model
+    from unirec_tpu_torch.serving.export import ServingModel
     from unirec_tpu_torch.utils.checkpoint import load_model_freely
     t_phase = time.perf_counter()
     export_all_s = export_done(background["export"])
@@ -4006,32 +4163,62 @@ def export_path(torch, card: str, background):
             want=() if name == "item_emb" else ("layer_fwd_mma", "lastq_fwd_mma"))
         add_counts(total, line["launches"])
         lines.append(line)
-    # the C++ client on the AOTInductor package, rows 1 and 3 from its shims
+    # the C++ client on each AOTInductor package: rows 1 and 3 (bench), 10
+    # and 12 (entry), 9 and 12 (long) from its shims
     build = client_build(background["client"])
-    pkg = out / "bench" / "score.aoti.pt2"
-    client = CB.run_client(build["binary"], pkg, reqs["score"], libs=CB.kernel_libs(),
-                           repeat=EXPORT_REPEAT, timeout=600)
-    c_out = torch.as_tensor(client["outputs"][0])
-    with torch.no_grad(), plain_versions():
-        from unirec_tpu_torch.serving.export import ServeFunction
-        plain = ServeFunction(model, "score")(
-            *[torch.as_tensor(a, device="cuda") for a in reqs["score"]]).float().cpu()
-    calls = client["calls"]
-    client_line = {
-        "device": client["device"], "calls": calls, "launches": client["launches"],
-        "launches_mma": client["launches_mma"],
-        "max_abs_diff_artifact": float((c_out - outs["score"]).abs().max()),
-        "tol_artifact": emb_tol(outs["score"]),
-        "max_abs_diff_plain": float((c_out - plain).abs().max()), "tol_plain": emb_tol(plain)}
-    bad = [op for op in want if client["launches"].get(op) != calls
-           or client["launches_mma"].get(op) != calls]
-    if client["device"] != "cuda" or bad or not (
-            client_line["max_abs_diff_artifact"] <= client_line["tol_artifact"]
-            and client_line["max_abs_diff_plain"] <= client_line["tol_plain"]):
-        raise AssertionError(f"export_path: the C++ client disagrees or missed {bad}: "
-                             f"{client_line}")
+    libs = CB.kernel_libs()
+    clients, client, entry_line = {}, None, None
+    for name, (ckpt_name, L) in EXPORTS.items():
+        man_n = json.loads((out / name / "manifest.json").read_text())
+        want_n = CLIENT_OPS[name]
+        if man_n["functions"]["score"]["aoti"]["custom_ops"] != want_n:
+            raise AssertionError(f"export_path: the {name} package calls "
+                                 f"{man_n['functions']['score']['aoti']['custom_ops']}, "
+                                 f"not {want_n}")
+        model_n = model if name == "bench" else load_model_freely(
+            str(ROOT / "build" / "chip_smoke" / ckpt_name), "cuda")[0]
+        serve_n = serve if name == "bench" else ServingModel(str(out / name))
+        req = reqs if name == "bench" else export_inputs(history, L)
+        if name == "entry":
+            # the program's user_emb on the card, rows 10 and 12 recorded
+            entry_line, _ = hold_artifact(torch, serve_n, model_n, "user_emb", req["user_emb"],
+                                          want=("fused_attention_mma", "fused_ffn_mma"))
+            add_counts(total, entry_line["launches"])
+        score = outs["score"] if name == "bench" else torch.as_tensor(
+            serve_n.score(*req["score"]))
+        res = CB.run_client(build["binary"], out / name / "score.aoti.pt2", req["score"],
+                            libs=libs, repeat=EXPORT_REPEAT, timeout=600)
+        c_out = torch.as_tensor(res["outputs"][0])
+        with torch.no_grad(), plain_versions():
+            from unirec_tpu_torch.serving.export import ServeFunction
+            plain = ServeFunction(model_n, "score")(
+                *[torch.as_tensor(a, device="cuda") for a in req["score"]]).float().cpu()
+        calls = res["calls"]
+        line = {"package": name, "max_seq_len": L, "device": res["device"], "calls": calls,
+                "launches": res["launches"], "launches_mma": res["launches_mma"],
+                "max_abs_diff_artifact": float((c_out - score).abs().max()),
+                "tol_artifact": emb_tol(score),
+                "max_abs_diff_plain": float((c_out - plain).abs().max()),
+                "tol_plain": emb_tol(plain), "ms_per_call": res["seconds_per_call"] * 1e3}
+        # each row once a layer that runs it, a call: the last-query layer's
+        # attention is plain, the FFN runs in both layers
+        per_call = {op: 2 if op == "unirec::ffn_fwd" else 1 for op in want_n}
+        bad = [op for op in want_n if res["launches"].get(op) != per_call[op] * calls
+               or res["launches_mma"].get(op) != per_call[op] * calls]
+        if res["device"] != "cuda" or bad or not (
+                line["max_abs_diff_artifact"] <= line["tol_artifact"]
+                and line["max_abs_diff_plain"] <= line["tol_plain"]):
+            raise AssertionError(f"export_path: the C++ client disagrees on the {name} "
+                                 f"package or missed {bad}: {line}")
+        clients[name] = line
+        if name == "bench":
+            client = res
+        else:
+            del model_n
+    client_line = clients.pop("bench")
     # users/s at batch 256: the client, the .pt2 program and the package in
     # Python (inputs on the card), and reco-topk's top-100 over the catalog
+    pkg = out / "bench" / "score.aoti.pt2"
     ids = [torch.as_tensor(a, device="cuda") for a in reqs["score"]]
     pt2 = serve._fns["score"]
     aoti = torch._inductor.aoti_load_package(str(pkg))
@@ -4045,20 +4232,7 @@ def export_path(torch, card: str, background):
     get_topk_recommendations(cfg, model, users, history, TOPK)
     torch.cuda.synchronize()
     topk_s = time.perf_counter() - t0
-    # the entry path's fused attention / FFN checkpoint: .pt2 programs
-    entry = ROOT / "build" / "chip_smoke" / "slice" / "checkpoint" / "sasrec_fusedattn_ffn.pkl"
-    t0 = time.perf_counter()
-    man2 = export_model(str(entry), str(out / "entry"), atol=EXPORT_ATOL, device="cuda")
-    entry_export_s = time.perf_counter() - t0
-    want2 = ["unirec::attention_fwd", "unirec::ffn_fwd"]
-    if man2["functions"]["user_emb"]["custom_ops"] != want2:
-        raise AssertionError(f"export_path: the entry checkpoint's graph calls "
-                             f"{man2['functions']['user_emb']['custom_ops']}, not {want2}")
-    entry_model, _ = load_model_freely(str(entry), "cuda")
-    entry_line, _ = hold_artifact(torch, ServingModel(str(out / "entry")), entry_model,
-                                  "user_emb", reqs["user_emb"],
-                                  want=("fused_attention_mma", "fused_ffn_mma"))
-    add_counts(total, entry_line["launches"])
+    man2 = json.loads((out / "entry" / "manifest.json").read_text())
     emit({"phase": "export_path", "functions": lines, "batch": BATCH,
           "export_s": {k: v["export_s"] for k, v in fns.items()},
           "export_process_s": export_all_s, "aoti_cxx": fns["score"]["aoti"]["cxx"],
@@ -4071,12 +4245,16 @@ def export_path(torch, card: str, background):
           "reco_topk_users_per_s": SERVE_USERS / topk_s,
           "fused_attention_ffn": {"export_s": {k: v["export_s"]
                                                for k, v in man2["functions"].items()},
-                                  "export_with_checks_s": entry_export_s, **entry_line},
+                                  **entry_line},
+          "client_packages": clients,
           "launches": total, "seconds": time.perf_counter() - t_phase, "card": card})
-    client_counts = {"layer_fwd": client["launches"]["unirec::layer_fwd"],
-                     "layer_fwd_mma": client["launches_mma"]["unirec::layer_fwd"],
-                     "lastq_fwd": client["launches"]["unirec::lastq_fwd"],
-                     "lastq_fwd_mma": client["launches_mma"]["unirec::lastq_fwd"]}
+    # the client's launches of every package, under the kernels' counter names
+    client_counts = {}
+    for res in [client] + [{"launches": v["launches"], "launches_mma": v["launches_mma"]}
+                           for v in clients.values()]:
+        add_counts(client_counts, {c: res["launches"].get(op, 0) for op, c in CLIENT_COUNTERS})
+        add_counts(client_counts, {f"{c}_mma": res["launches_mma"].get(op, 0)
+                                   for op, c in CLIENT_COUNTERS})
     return total, client_counts
 
 
@@ -4944,11 +5122,85 @@ def gloo_train(torch, out: Path, n_model: int):
             "sharded": sharded, "item_grad": seen["item_grad"]}
 
 
-def dist_rank_main(rank: int, out: str) -> int:
-    """One gloo rank of dist_path (``chip_smoke.py --dist-rank R OUT``):
+# MoRec on a data mesh: 3 steps each of morec_path's base (BPR through the
+# device pipeline) and of its PID and MGDA fine-tunes from its base
+# checkpoint, on tables cut to 3 batches; at mesh_data=2 the fine-tunes ask
+# for batch_size MOREC_BATCH - 1, which build_morec rounds up to MOREC_BATCH
+MOREC_DP_STEPS = 3
+MOREC_DP_RUNS = ("base", "PID", "Pareto")
+
+
+def write_morec_dp_tables(data: Path) -> None:
+    """The base's and the fine-tunes' training tables cut to
+    MOREC_DP_STEPS batches."""
+    import pandas as pd
+    for name, rows in (("train", MF_BATCH), ("train_morec", MOREC_BATCH)):
+        pd.read_pickle(data / f"{name}.pkl").iloc[:MOREC_DP_STEPS * rows].to_pickle(
+            data / f"{name}_dp.pkl")
+
+
+def morec_dp_runs(torch, out: Path, n_data: int):
+    """main.run of each of MOREC_DP_RUNS at mesh_data=n_data in the process
+    group that is up (on morec_path's data and base checkpoint). Returns,
+    by run: each step's loss, the parameters after, the test metrics, rows
+    6 and 8's launches and, for the fine-tunes, step 1's global loss vector
+    and Gram (the shares and the per-objective gradients summed over the
+    ranks), the sampler's batch size and its weights after the epoch's
+    refresh."""
+    from unirec_tpu_torch.facility.morec import integration as TI
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.utils.flax_bridge import to_flax_params
+    root = ROOT / "build" / "chip_smoke"
+    data = root / "morec_data"
+    base_ckpt = root / "morec" / "base" / "checkpoint" / "morec-base.pkl"
+    res = {}
+    for name in MOREC_DP_RUNS:
+        if name == "base":
+            args = dict(morec_args(data, out), data_train_name="train_dp",
+                        output_path=str(out / "base"))
+        else:
+            args = dict(morec_args(data, out, name, base_ckpt), data_train_name="train_morec_dp",
+                        batch_size=MOREC_BATCH - 1 if n_data > 1 else MOREC_BATCH)
+        first, step, fit = {}, TI.morec_train_step, Trainer.fit
+
+        def spy(trainer, batch, drop_seed):
+            if "vec" not in first:
+                vec = TI.loss_vector(trainer, batch, drop_seed, trainer._morec_sampler.n_blocks)
+                first["vec"] = TI.global_vector(trainer, vec).cpu().numpy()
+                first["gram"] = TI.gram(TI.objective_grads(trainer.params, vec,
+                                                           TI.data_mesh(trainer))).cpu().numpy()
+            return step(trainer, batch, drop_seed)
+
+        def spy_fit(self, *a, **kw):
+            out_ = fit(self, *a, **kw)
+            # the trained weights: the test that follows loads the best
+            # checkpoint, the validation's before the epoch
+            first["params"] = to_flax_params(self.model)
+            return out_
+
+        with mock.patch.object(TI, "morec_train_step", spy), \
+                mock.patch.object(Trainer, "fit", spy_fit):
+            seen = run_spied(torch, dict(args, epochs=1, mesh_data=n_data))
+        trainer = seen["trainer"]
+        sampler = trainer._morec_sampler
+        res[name] = {"losses": seen["loss"].tolist(), "test": seen["result"], **first,
+                     "launches": launch_counts(("scatter_add", "scatter_add_sorted", "member",
+                                                "member_warp")),
+                     "batch_size": None if sampler is None else sampler.batch_size,
+                     "weights": None if sampler is None else
+                     {k: np.asarray(v).tolist() for k, v in sampler.group2weights.items()}}
+        del seen, trainer, sampler
+        torch.cuda.empty_cache()
+    return res
+
+
+def dist_rank_main(rank: int, out: str, kind: str) -> int:
+    """One gloo rank of dist_path (``chip_smoke.py --dist-rank R OUT KIND``):
     the script brings gloo up itself (RANK, WORLD_SIZE, MASTER_ADDR and
     MASTER_PORT from the environment), the port's initialize_distributed
-    takes that group, and the rank trains on cuda:0 beside the other."""
+    takes that group, and the rank trains on cuda:0 beside the other: KIND
+    "sasrec" gloo_train at mesh_model=2, "morec" morec_dp_runs at
+    mesh_data=2."""
     import pickle
 
     import torch
@@ -4959,14 +5211,15 @@ def dist_rank_main(rank: int, out: str) -> int:
     dist.init_process_group("gloo", timeout=GROUP_TIMEOUT)
     if not initialize_distributed({}, "cuda") or dist.get_backend() != "gloo":
         raise AssertionError("the port did not take the gloo group")
-    res = gloo_train(torch, Path(out), 2)
+    res = gloo_train(torch, Path(out), 2) if kind == "sasrec" else \
+        morec_dp_runs(torch, Path(out), 2)
     with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(res, f)
     dist.destroy_process_group()
     return 0
 
 
-def run_gloo_ranks(out: Path):
+def run_gloo_ranks(out: Path, kind: str = "sasrec"):
     """The two gloo ranks on the one card (NCCL takes one rank a device),
     each a subprocess with its own timeout; raises with a rank's output
     tail when it fails (a collective gloo refuses on CUDA tensors among
@@ -4977,7 +5230,7 @@ def run_gloo_ranks(out: Path):
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                WORLD_SIZE="2", LOCAL_RANK="0")
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
-                               str(r), str(out)], env=dict(env, RANK=str(r)),
+                               str(r), str(out), kind], env=dict(env, RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(2)]
     logs = []
@@ -5109,6 +5362,62 @@ def sharded_serving(torch, card: str):
     return total
 
 
+def morec_dp(torch, base: Path, card: str):
+    """MoRec at mesh_data=2 (dist_path's part 3): morec_dp_runs in two gloo
+    ranks on the card against one rank in this process's NCCL group of
+    one: step 1's loss vector and Gram within MOREC_TOL of their largest
+    entry, every step's loss within MOREC_TOL, the parameters within
+    BWD_TOL, both ranks bit-equal (losses, parameters, sampler weights),
+    the fine-tunes' batch size rounded to MOREC_BATCH, rows 6 and 8
+    launched on each rank. Returns the one rank's launches."""
+    out = base / "dist_morec"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    write_morec_dp_tables(base / "morec_data")
+    t0 = time.perf_counter()
+    ref = morec_dp_runs(torch, out / "one", 1)
+    one_s = time.perf_counter() - t0
+    counts = {k: sum(r["launches"][k] for r in ref.values()) for k in ref["base"]["launches"]}
+    t0 = time.perf_counter()
+    ranks = run_gloo_ranks(out, "morec")
+    gloo_s = time.perf_counter() - t0
+    lines, bad = {}, []
+    for name in MOREC_DP_RUNS:
+        r0, r1, want = ranks[0][name], ranks[1][name], ref[name]
+        errs = {r: tree_errs(torch, res[name]["params"], want["params"])
+                for r, res in enumerate(ranks)}
+        loss_err = max(abs(a - b) / abs(b) for r in (r0, r1)
+                       for a, b in zip(r["losses"], want["losses"]))
+        equal = r0["losses"] == r1["losses"] and r0["weights"] == r1["weights"] and all(
+            np.array_equal(np.asarray(a), np.asarray(b)) for (_, a), (_, b) in zip(
+                flat_tree(r0["params"]), flat_tree(r1["params"])))
+        line = {"losses": [r0["losses"], r1["losses"]], "losses_one_rank": want["losses"],
+                "loss_max_rel_diff": loss_err, "ranks_bit_equal": equal,
+                "params_max_rel_err": max(max(e.values()) for e in errs.values()),
+                "test": [r0["test"], want["test"]],
+                "launches": [r0["launches"], r1["launches"]],
+                "batch_size": [r0["batch_size"], want["batch_size"]]}
+        if name != "base":
+            line.update({f"{k}_max_rel_diff": max(
+                float(np.abs(r[k] - want[k]).max() / np.abs(want[k]).max()) for r in (r0, r1))
+                for k in ("vec", "gram")}, loss_vector=r0["vec"].tolist())
+        lines[name] = line
+        idle = [k for r in (r0, r1) for k in ("scatter_add", "member" if name == "base"
+                                              else "scatter_add") if r["launches"][k] <= 0]
+        if len(want["losses"]) != MOREC_DP_STEPS or not equal or idle \
+                or not loss_err <= MOREC_TOL or line["params_max_rel_err"] > BWD_TOL \
+                or (name != "base" and not (line["vec_max_rel_diff"] <= MOREC_TOL
+                                            and line["gram_max_rel_diff"] <= MOREC_TOL
+                                            and r0["batch_size"] == MOREC_BATCH)):
+            bad.append(name)
+    emit({"phase": "dist_morec", "ranks": 2, "backend": "gloo", "mesh": "2x1",
+          "steps": MOREC_DP_STEPS, "runs": lines, "tol": MOREC_TOL, "params_tol": BWD_TOL,
+          "one_rank_s": one_s, "seconds_with_start": gloo_s, "card": card})
+    if bad:
+        raise AssertionError(f"dist_morec: two gloo ranks disagree with one on {bad}")
+    return counts
+
+
 def dist_path(torch, card: str, train_examples_per_s: float):
     """Distribution on the card. (1) main.run(task=train) at bench.py's
     training configuration (dropout 0, batch 32,768, the steps train_path
@@ -5211,6 +5520,7 @@ def dist_path(torch, card: str, train_examples_per_s: float):
                 or max(line["max_rel_err"]) > BWD_TOL or not ranks_equal \
                 or not loss_err <= DIST_LOSS_TOL or not grad_err <= BWD_TOL:
             raise AssertionError(f"two gloo ranks disagree with one: {line}")
+        add_counts(counts, morec_dp(torch, base, card))
         add_counts(counts, sharded_serving(torch, card))
     finally:
         dist.destroy_process_group()
@@ -5287,6 +5597,8 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
     check_train_path(torch, trainer, raw, aug)
     profile_train_path(torch, trainer, raw, card)
     del trainer, raw, aug
+    torch.cuda.empty_cache()
+    opt_in_counts = opt_in_variants(torch, card)
 
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -5438,7 +5750,8 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
              "seq_family": family_counts, "side_inputs": side_counts,
              "side_serve": side_serve_counts, "cf": cf_counts, "rank": rank_counts,
              "export": export_counts, "cpp_client": client_counts, "approx_topk": approx_counts,
-             "morec": morec_counts, "solver": solver_counts, "dist": dist_counts}
+             "morec": morec_counts, "solver": solver_counts, "dist": dist_counts,
+             "opt_in": opt_in_counts}
 
     def launched(name, path):
         for base, (new, old) in split.items():
@@ -5470,5 +5783,5 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
-        sys.exit(dist_rank_main(int(sys.argv[2]), sys.argv[3]))
+        sys.exit(dist_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

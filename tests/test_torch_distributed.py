@@ -25,8 +25,8 @@ JAX); checkpoints within rel 1e-5 of the one-process tensors.
   writes loads in both packages, its ``.dcp`` directory in one process;
   a JAX ``.orbax`` directory is refused by name, its pickle conversion read;
 - main.run(task=train), then task=test from the checkpoint, at
-  ``mesh_data=2``; the CLI under torchrun;
-- MoRec at ``mesh_data=2`` is refused by name.
+  ``mesh_data=2``; the CLI under torchrun (MoRec at ``mesh_data=2``:
+  tests/test_torch_morec_dp.py).
 """
 import json
 import os
@@ -601,18 +601,6 @@ def test_torchrun_cli_train_then_test_in_one_process(synth_dataset, tmp_path, ca
     assert set(tested) == set(trained[0])
     for k, v in tested.items():
         assert trained[0][k] == pytest.approx(v, abs=1e-6), k
-
-
-def test_morec_at_mesh_data_2_is_refused(tmp_path):
-    from unirec_tpu_torch.core.mesh import MeshContext
-    from unirec_tpu_torch.facility.trainer import Trainer
-    from unirec_tpu_torch import config as torch_config
-    from unirec_tpu_torch.utils.registry import get_model_class
-    cfg = torch_config.parse_arguments(dict(MF, output_path=str(tmp_path)), argv=[],
-                                       device="cpu")
-    tr = Trainer(cfg, get_model_class("MF")(cfg), device="cpu", mesh=MeshContext(2, 1))
-    with pytest.raises(NotImplementedError, match="MoRec under data parallelism"):
-        tr.add_objective_controller(object())
 
 
 if __name__ == "__main__":

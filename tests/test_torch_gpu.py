@@ -1979,6 +1979,91 @@ def test_cpp_client_serves_rows_1_and_3_on_the_card(cuda, tmp_path):
     assert float(np.abs(res["outputs"][0] - ref).max()) <= max(3e-2, 2.0 ** -6 * np.abs(ref).max())
 
 
+# the entry configuration (rows 10 and 12) and the long one (rows 9 and 12)
+CLIENT_PACKAGES = {
+    "entry": (dict(last_query_only=1, fused_layer=0, fused_lastq=0, use_fused_attention=1,
+                   use_fused_ffn=1), 50, ("unirec::attention_fwd", "unirec::ffn_fwd")),
+    "long": (dict(max_seq_len=256, fused_layer=0, fused_lastq=0, use_fused_attention=0,
+                  use_pallas=1, use_fused_ffn=1, attn_dropout_prob=0.0), 256,
+             ("unirec::flash_fwd", "unirec::ffn_fwd")),
+}
+
+
+@pytest.mark.parametrize("which", sorted(CLIENT_PACKAGES))
+def test_cpp_client_serves_the_entry_and_long_packages(cuda, tmp_path, which):
+    """The C++ client on a ``score`` AOTInductor package at batch 16 of the
+    entry checkpoint (fused attention and FFN) and of the long one (flash
+    attention at L=256 and the fused FFN): its shims launch each of the
+    package's rows once a layer a call, on the tensor-core bodies the Python
+    launchers pick, and its output equals the .pt2 program's (two bf16
+    ulps of the largest score, or 0.03)."""
+    from unirec_tpu_torch.serving.cpp import build as CB
+    from unirec_tpu_torch.serving.export import ServingModel, export_model
+    over, L, ops = CLIENT_PACKAGES[which]
+    ckpt = _port_checkpoint(tmp_path / "ck.pkl", **over)
+    man = export_model(ckpt, str(tmp_path / "art"), aoti=["score"], aoti_batch=16,
+                       atol=2.0 ** -4, device="cuda")
+    assert man["functions"]["score"]["aoti"]["custom_ops"] == sorted(ops)
+    build = CB.build_client()
+    users, seq, lens = _serving_ids(16, L=L)
+    cands = np.random.default_rng(7).integers(1, 1000, (16, 32)).astype(np.int32)
+    ids = (users, seq, lens, cands)
+    res = CB.run_client(build["binary"], tmp_path / "art" / "score.aoti.pt2", ids,
+                        libs=CB.kernel_libs(), repeat=2)
+    assert res["device"] == "cuda" and res["calls"] == 3
+    # the last-query layer runs plain attention; the FFN runs in both layers
+    per_call = {"unirec::attention_fwd": 1, "unirec::flash_fwd": 1, "unirec::ffn_fwd": 2}
+    for op in ops:
+        assert res["launches"][op] == 3 * per_call[op], (op, res["launches"])
+        assert res["launches_mma"][op] == res["launches"][op], (op, res["launches_mma"])
+    ref = ServingModel(str(tmp_path / "art")).score(*ids)
+    assert float(np.abs(res["outputs"][0] - ref).max()) <= max(3e-2, 2.0 ** -6 * np.abs(ref).max())
+
+
+def test_flash_body_rule_is_the_library_rule(cuda):
+    """ops/attention.py::_flash_body against csrc/flash_attention.cu's
+    unirec_flash_fwd_mma_takes, which the C++ client's shim reads."""
+    from unirec_tpu_torch.ops import attention as AT
+    fn = _build.library("flash_attention").unirec_flash_fwd_mma_takes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for hd in (8, 32, 64, 128, 136, 256):
+            assert bool(fn(code, hd)) == (AT._flash_body(dtype, hd) == "mma"), (dtype, hd)
+
+
+@pytest.mark.parametrize("variant", ["scan", "sorted", "expand", "cast"])
+def test_embedding_gradient_variant_on_the_card_matches_the_cpu(cuda, variant):
+    """ops/embedding.py's gathers on CUDA tensors (plain torch ops, as XLA in
+    the JAX package): the rows and the table gradient of 1.6M ids (bench.py's
+    item_seq: a fifth padding, whose rows the model's mask zeroes) into a
+    50,000 x 64 table, bf16 compute, against the same function on the CPU:
+    the rows exactly, the gradient within 1e-5 of its largest entry (f32
+    sums in another order) or, for the bf16 sums of ``expand`` (about 7
+    rows a slot, each addition rounded to bf16, in another order on the
+    card), eight bf16 ulps of it."""
+    from unirec_tpu_torch.ops import embedding as E
+    fns = {"scan": lambda t, i: E.gather_scan(t, i, torch.bfloat16),
+           "sorted": lambda t, i: E.gather_sorted(t, i),
+           "expand": lambda t, i: E.gather_expand(t.to(torch.bfloat16), i, 4),
+           "cast": lambda t, i: E.gather_cast(t, i, torch.bfloat16)}
+    rng = np.random.default_rng(9)
+    ids = rng.integers(1, 50_000, (32768, 50))
+    ids[:, :10] = 0
+    table = rng.normal(size=(50_000, 64)).astype(np.float32)
+    g = rng.normal(size=ids.shape + (64,)).astype(np.float32) * (ids != 0)[..., None]
+    out = {}
+    for dev in ("cpu", cuda):
+        t = torch.from_numpy(table).to(dev).requires_grad_(True)
+        rows = fns[variant](t, torch.from_numpy(ids.astype(np.int32)).to(dev))
+        rows.backward(torch.from_numpy(g).to(dev, rows.dtype))
+        out[str(dev)] = (rows.detach().float().cpu(), t.grad.float().cpu())
+    (rc, gc), (rg, gg) = out["cpu"], out["cuda"]
+    assert torch.equal(rc, rg)
+    tol = (2.0 ** -5 if variant == "expand" else 1e-5) * float(gc.abs().max())
+    err = float((gg - gc).abs().max())
+    assert err <= tol, (err, tol)
+
+
 def test_morec_gram_on_the_card_matches_the_cpu(cuda):
     """MoRec's loss vector and the Gram of its 4 per-objective gradients
     (4 backward passes) for MF on the card against the CPU, 1e-4 of the

@@ -95,9 +95,3 @@ def test_layer_norm_eps_string_from_config():
     model = torch_model_class("SASRec")(cfg)
     assert model.LayerNorm.eps == 1e-10
     assert model.trm_encoder.layer_0.feed_forward.LayerNorm.eps == 1e-10
-
-
-def test_unported_options_raise():
-    for extra in (dict(qkv_packed=1), dict(scan_embedding_grad=1)):
-        with pytest.raises(NotImplementedError):
-            torch_model_class("SASRec")(dict(SMALL, **extra))

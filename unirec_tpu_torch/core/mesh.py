@@ -166,6 +166,14 @@ class MeshContext:
         return [part.view_as(t).to(t.dtype)
                 for part, t in zip(flat.split([t.numel() for t in ts]), ts)]
 
+    def broadcast_(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` of ``axis``'s rank 0, in place on every rank of ``axis``
+        (``t`` itself without a group)."""
+        if self.distributed:
+            group = self.group(axis)
+            dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return t
+
     def all_gather_rows(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Every ``axis`` rank's ``t`` stacked along dim 0 (``t`` itself
         without a group)."""

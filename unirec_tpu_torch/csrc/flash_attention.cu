@@ -524,6 +524,11 @@ int unirec_flash_fwd_smem_bytes(int dtype, int hd, int H, int mask_heads) {
                                    : mma_smem_bytes(hd, H, mask_heads != 0);
 }
 
+// 1 when the bf16 tensor-core body runs (dtype 1, head width up to kMaxHd;
+// ops/attention.py::_flash_body holds a copy of the rule): its operands need
+// 16-byte aligned rows
+int unirec_flash_fwd_mma_takes(int dtype, int hd) { return dtype == 1 && hd <= kMaxHd; }
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). s_i*: element strides
 // (batch, head, row) shared by q, k and v; s_m*: the f32 mask's (0 where it
 // broadcasts); s_o*: out's. The last axis of each is contiguous. lse: [B,

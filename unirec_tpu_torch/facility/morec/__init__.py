@@ -94,7 +94,7 @@ def load_alignment_distribution(item_meta: Dict[str, np.ndarray],
     return probs / (probs.sum() + 1e-10)
 
 
-def build_morec(driver, config, train_ds, valid_batcher, history,
+def build_morec(trainer, config, train_ds, valid_batcher, history,
                 item_popularity, features, item_sampler=None) -> MoRecBatcher:
     """Wire the MoRec sampler + controller into a Trainer
     (reference main.py:168-190, 347-364). Returns the train batcher, whose
@@ -117,16 +117,22 @@ def build_morec(driver, config, train_ds, valid_batcher, history,
         config["_item_meta_morec"] = item_meta
         config["_alignment_dist"] = align_dist
 
-    # one device: the JAX package's rounding of batch_size to its mesh's
-    # data axis (so that no padding row lands inside a block) is the
-    # identity here
+    # every objective block must stay whole when the mesh splits the batch
+    # over data: batch_size rounded up to a multiple of n_data, so that
+    # pad_batch appends no padding row (it would land inside the last
+    # block), as the JAX package rounds it
+    n_data = getattr(getattr(trainer, "mesh", None), "n_data", 1)
+    B = int(config.get("batch_size", 256))
+    if B % n_data:
+        config = dict(config)
+        config["batch_size"] = B + (n_data - B % n_data)
     batcher = MoRecBatcher(train_ds, config, history=history,
                            sampler=item_sampler, features=features,
                            item_meta=item_meta, align_dist=align_dist,
                            valid_batcher=valid_batcher)
-    batcher.set_trainer(driver)
-    driver._morec_sampler = batcher
-    driver.add_objective_controller(build_controller(config, len(objectives)))
+    batcher.set_trainer(trainer)
+    trainer._morec_sampler = batcher
+    trainer.add_objective_controller(build_controller(config, len(objectives)))
     return batcher
 
 

@@ -22,6 +22,15 @@ weighted mean per block, the loss vector.
 - Static weights: one forward and one backward of weights . vec.
 
 Each step ends in the Trainer's update with its NaN guard and freeze mask.
+
+Under data parallelism (``mesh_data`` > 1) every rank holds the global
+batch and takes its rows, which may cross blocks: each row carries its
+block's index, and a rank's share of the loss vector is its rows' weighted
+loss sums over the global block weights, so the shares sum to the global
+vector (the JAX package's one program over the sharded batch,
+unirec_tpu/facility/morec/__init__.py:118-127). The controllers read the
+summed vector and Gram; their outputs (beta, the weights) are taken from
+rank 0, so the ranks stay bit-equal.
 ``gather_topk`` (exact top-k over the masked catalog) and
 ``gather_per_row_loss`` sweep the signal batcher between epochs.
 """
@@ -38,12 +47,16 @@ from unirec_tpu_torch.utils import to_device
 
 
 # ----------------------------------------------------------- train stepping
-def block_losses(per_row: torch.Tensor, weight: torch.Tensor, n_blocks: int) -> torch.Tensor:
+def block_losses(per_row: torch.Tensor, weight: torch.Tensor, block: torch.Tensor,
+                 denominators: torch.Tensor) -> torch.Tensor:
     """Mean per-row loss of each equal-size block (trainer.py:331-336
-    tensor_split semantics; the blocks are equal by construction)."""
-    pr = per_row.float().reshape(n_blocks, -1)
-    w = weight.float().reshape(n_blocks, -1)
-    return (pr * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+    tensor_split semantics; the blocks are equal by construction): each
+    row's weighted loss summed into its ``block``, over ``denominators``,
+    each block's weight summed over the global batch. A data rank's rows
+    may cross blocks; the ranks' vectors sum to the global one."""
+    num = torch.zeros(denominators.shape[0], dtype=torch.float32, device=per_row.device)
+    num.index_add_(0, block, per_row.float() * weight.float())
+    return num / torch.clamp(denominators, min=1.0)
 
 
 def pi_update(state: Dict[str, torch.Tensor], acc_loss: torch.Tensor,
@@ -63,21 +76,61 @@ def pi_update(state: Dict[str, torch.Tensor], acc_loss: torch.Tensor,
     return torch.minimum(new_state["beta"], cfg["beta_max"]), new_state
 
 
+def data_mesh(trainer):
+    """The trainer's mesh, or None for one process (a bare namespace)."""
+    mesh = getattr(trainer, "mesh", None)
+    return mesh if mesh is not None and mesh.distributed else None
+
+
 def loss_vector(trainer, batch, drop_seed: int, n_blocks: int) -> torch.Tensor:
-    """The per-block loss vector of one training forward (autograd on)."""
-    _, per_row = trainer.model(batch, train=True, rng=DropoutRNG(drop_seed, trainer.device))
-    return block_losses(per_row, batch["weight"], n_blocks)
+    """The per-block loss vector of one training forward (autograd on) on
+    the global batch ``batch``. Under a data mesh this rank takes its rows
+    (core/mesh.py::MeshContext.row_range; dropout drawn at the global
+    shape) and returns its share: its rows' weighted loss sums over the
+    global block weights, which the ranks' shares sum to
+    (``global_vector``)."""
+    mesh = data_mesh(trainer)
+    n = int(batch["weight"].shape[0])
+    lo, hi = (0, n) if mesh is None else mesh.row_range(n)
+    rows = {k: v[lo:hi] if torch.is_tensor(v) and v.dim() else v for k, v in batch.items()}
+    _, per_row = trainer.model(rows, train=True,
+                               rng=DropoutRNG(drop_seed, trainer.device, (lo, hi - lo, n)))
+    block = torch.arange(lo, hi, device=per_row.device) // (n // n_blocks)
+    den = batch["weight"].float().reshape(n_blocks, -1).sum(-1)
+    return block_losses(per_row, rows["weight"], block, den)
 
 
-def objective_grads(params: List[torch.Tensor], vec: torch.Tensor) -> List[List[torch.Tensor]]:
+def global_vector(trainer, vec: torch.Tensor) -> torch.Tensor:
+    """The global loss vector (detached): the ranks' shares summed over
+    ``data`` (``vec`` itself in one process)."""
+    mesh = data_mesh(trainer)
+    vec = vec.detach()
+    return vec if mesh is None else mesh.all_reduce_(vec.clone(), "data")
+
+
+def objective_grads(params: List[torch.Tensor], vec: torch.Tensor,
+                    mesh=None) -> List[List[torch.Tensor]]:
     """The gradient of each entry of ``vec``, one backward each (the graph
-    kept for the next); a leaf an objective does not reach gets zeros."""
+    kept for the next); a leaf an objective does not reach gets zeros.
+    With a data ``mesh`` each objective's gradient is summed over the ranks
+    (one all-reduce an objective), so the Gram sees the global ones."""
     rows = []
     for i in range(vec.shape[0]):
         g = torch.autograd.grad(vec[i], params, retain_graph=i + 1 < vec.shape[0],
                                 allow_unused=True)
-        rows.append([torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, params)])
+        g = [torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, params)]
+        rows.append(g if mesh is None else mesh.all_reduce_flat(g, "data"))
     return rows
+
+
+def _rank0(trainer, values: np.ndarray) -> np.ndarray:
+    """Rank 0's ``values`` on every data rank: the controllers' numbers are
+    computed on every rank and taken from one, so the ranks stay bit-equal."""
+    mesh = data_mesh(trainer)
+    if mesh is None:
+        return values
+    t = torch.as_tensor(np.ascontiguousarray(values), device=trainer.device)
+    return mesh.broadcast_(t, "data").cpu().numpy()
 
 
 def gram(rows: List[List[torch.Tensor]]) -> torch.Tensor:
@@ -113,19 +166,27 @@ def _pi_state(trainer, controller):
 
 def morec_train_step(trainer, batch, drop_seed: int) -> torch.Tensor:
     """One multi-objective step (trainer._objective_control semantics,
-    trainer.py:461-538) on a device batch; updates the trainer's parameters
-    and returns the weighted loss (a 0-d device tensor)."""
+    trainer.py:461-538) on the global device batch; updates the trainer's
+    parameters and returns the weighted loss (a 0-d device tensor). Under a
+    data mesh (``mesh_data`` > 1) each rank computes its rows' share of the
+    loss vector; PI(D) and static weights take one backward of the weighted
+    share, summed with the loss in the trainer's one all-reduce
+    (``Trainer.reduce_and_update``); a gradient-based controller sums each
+    objective's gradient before the Gram. beta and the weights are rank
+    0's."""
     controller = trainer.objective_controller
     n_blocks = trainer._morec_sampler.n_blocks
     n_rows = int(batch["weight"].shape[0])
     if n_rows % n_blocks:
         raise ValueError(f"MoRec batch has {n_rows} rows, not divisible into {n_blocks} "
-                         "objective blocks")
+                         "objective blocks (a batch_size that a multiple of mesh_data "
+                         "keeps the blocks whole)")
     lam = float(trainer.config.get("morec_lambda", 0.2))
     params = trainer.params
     name = controller.__class__.__name__
     needs_grads = getattr(controller, "needs_grads", False)
     vec = loss_vector(trainer, batch, drop_seed, n_blocks)
+    total = global_vector(trainer, vec)
 
     if name in ("PIXController", "PIController") and not needs_grads:
         # PI beta + static inner weights: one forward and one backward
@@ -134,34 +195,34 @@ def morec_train_step(trainer, batch, drop_seed: int) -> torch.Tensor:
             inner = np.asarray(controller.pareto_solve(None, np.zeros(n_blocks - 1)), np.float32)
         else:
             inner = np.full(n_blocks - 1, 1.0 / (n_blocks - 1), np.float32)
-        beta, trainer._morec_pi_state = pi_update(state, vec[-1].detach(), cfg)
-        inner_t = torch.as_tensor(inner, device=vec.device)
+        beta, trainer._morec_pi_state = pi_update(state, total[-1], cfg)
+        if data_mesh(trainer) is not None:
+            beta = trainer.mesh.broadcast_(beta.reshape(1).clone(), "data")[0]
+        inner_t = torch.as_tensor(_rank0(trainer, inner), device=vec.device)
         loss = lam * (inner_t * vec[:-1]).sum() + beta.detach() * vec[-1]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        trainer.apply_update(loss, grads)
-        return loss.detach()
+        return trainer.reduce_and_update(loss, grads)
 
     if name.endswith("Solver") and not needs_grads:
         weights = np.asarray(controller.solve(None, np.zeros(n_blocks)), np.float32)
-        loss = (torch.as_tensor(weights, device=vec.device) * vec).sum()
+        loss = (torch.as_tensor(_rank0(trainer, weights), device=vec.device) * vec).sum()
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        trainer.apply_update(loss, grads)
-        return loss.detach()
+        return trainer.reduce_and_update(loss, grads)
 
-    rows = objective_grads(params, vec)
+    rows = objective_grads(params, vec, data_mesh(trainer))
+    v = total.cpu().numpy()
     if name.endswith("Solver"):
         G = gram(rows).cpu().numpy()
-        v = vec.detach().cpu().numpy()
         weights = np.asarray(controller.solve(G, v), np.float32)
     elif name == "PIXController":      # a gradient-based inner solver (MGDA)
-        v = vec.detach().cpu().numpy()
         beta = controller.control(v[-1])
         G = gram(rows[:-1]).cpu().numpy()
         w = np.asarray(controller.pareto_solve(G, v[:-1]), np.float64)
         weights = np.concatenate([lam * w, [beta]]).astype(np.float32)
     else:
         raise ValueError(f"unsupported controller {name}")
-    loss = (torch.as_tensor(weights, device=vec.device) * vec.detach()).sum()
+    weights = _rank0(trainer, weights)
+    loss = (torch.as_tensor(weights, device=vec.device) * total).sum()
     trainer.apply_update(loss, combine(rows, weights))
     return loss
 

@@ -185,7 +185,9 @@ class MoRecBatcher(Batcher):
                 w[desc] -= np.minimum(self.alpha, w[desc])
             elif len(asc):
                 w[asc] += self.alpha
-            self.group2weights[obj] = normalize(w)
+            # rank 0's weights on every data rank: the ranks compose the
+            # same global batches
+            self.group2weights[obj] = I._rank0(self.trainer, normalize(w))
 
     def _fair_signal_hit(self, topk_items, target_items) -> np.ndarray:
         i2g = self.item2group["fairness"]

@@ -48,9 +48,9 @@ summed loss, so one rank's non-finite loss skips the step on every rank;
 ``grad_clip_value`` takes the global norm (a sharded table's squares
 summed over ``model``, each replicated parameter counted once).
 TensorBoard, W&B, the log file and checkpoint files are written by rank 0
-alone. MoRec under ``mesh_data`` > 1 is not ported yet and raises naming
-ROADMAP.md Queue 1 item 12 (its per-objective losses and Grams would sum
-over ranks).
+alone. MoRec steps under ``mesh_data`` > 1 take this rank's rows of the
+global MoRec batch and sum their shares of the loss vector, and of each
+objective's gradient, over ``data`` (facility/morec/integration.py).
 """
 from __future__ import annotations
 
@@ -175,11 +175,6 @@ class Trainer:
     def add_objective_controller(self, controller):
         """MoRec: every step then weighs the per-objective losses through
         ``controller`` (facility/morec/integration.py)."""
-        if self.mesh.n_data > 1:
-            raise NotImplementedError(
-                "MoRec under data parallelism (mesh_data > 1) is not ported yet: its "
-                "per-objective loss vectors and Grams would be summed over the ranks "
-                "(ROADMAP.md Queue 1 item 12)")
         self.objective_controller = controller
 
     def set_device_augmenter(self, augmenter):
@@ -230,12 +225,18 @@ class Trainer:
             loss, _ = self.model(batch, train=True,
                                  rng=DropoutRNG(drop_seed, self.device, (lo, hi - lo, n)))
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        loss = self.reduce_and_update(loss, grads)
+        self._global_step += 1
+        return loss
+
+    def reduce_and_update(self, loss: torch.Tensor, grads) -> torch.Tensor:
+        """The update from this rank's loss and gradients (None for a
+        parameter the loss does not reach): the global loss and gradients,
+        summed over the data ranks in one all-reduce, through
+        ``apply_update``. Returns the global loss."""
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
-        # the global loss and gradients: summed over the data ranks in one
-        # all-reduce
         loss, *grads = self.mesh.all_reduce_flat([loss.detach()] + grads, "data")
         self.apply_update(loss, grads)
-        self._global_step += 1
         return loss
 
     def apply_update(self, loss: torch.Tensor, grads):

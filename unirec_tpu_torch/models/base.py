@@ -18,6 +18,12 @@ buckets on the sequence side. ``distance_type=mlp`` scores through an
 ``MLPScorer``. The constants are buffers, not parameters: the optimizer
 never sees them and checkpoints carry them under ``constants`` as the JAX
 package does (``constants()``, ``load_constants``).
+
+The embedding gathers' gradient paths under autograd follow the JAX
+package's precedence (``_masked_gather``): ``scan_embedding_grad``, the
+scatter-add kernel of ``vmem_embedding_grad`` (row 6), then
+``sorted_embedding_grad``, ``expand_embedding_grad`` > 1 and
+``embedding_grad_f32`` (ops/embedding.py, plain torch as XLA in JAX).
 """
 from __future__ import annotations
 
@@ -30,12 +36,10 @@ from torch import nn
 
 from unirec_tpu_torch.constants import DistanceType, LossType
 from unirec_tpu_torch.models import modules
+from unirec_tpu_torch.ops import embedding as E
 from unirec_tpu_torch.ops import losses as L
 from unirec_tpu_torch.ops import scatter_accum as SA
 
-# the JAX package's opt-in XLA gradient variants of the embedding gather
-_GRAD_VARIANTS = ("scan_embedding_grad", "sorted_embedding_grad",
-                  "expand_embedding_grad", "embedding_grad_f32")
 # tables whose row 0 is the padding row, zeroed at initialization
 _PADDED_TABLES = ("user_embedding", "item_embedding", "item_dst_embedding",
                   "features_embedding", "time_embedding")
@@ -103,10 +107,6 @@ class BaseRecommender(nn.Module):
     def __init__(self, cfg: Dict[str, Any]):
         super().__init__()
         self.cfg = cfg
-        for key in _GRAD_VARIANTS:
-            if int(cfg.get(key) or 0) > (1 if key == "expand_embedding_grad" else 0):
-                raise NotImplementedError(f"{key} is an opt-in XLA variant not "
-                                          "ported yet (ROADMAP.md Queue 1 item 13)")
         if cfg.get("has_user_emb"):
             self.user_embedding = nn.Embedding(self.n_users, self.emb_dim)
         if self.use_item_emb:
@@ -243,12 +243,44 @@ class BaseRecommender(nn.Module):
                        all_rows: bool = False) -> torch.Tensor:
         """Rows ``ids`` with the padding id's zeroed; ``all_rows``: ``ids``
         is the whole table's arange, which a row-sharded table serves by
-        gathering its rows (``_ShardedFull``)."""
+        gathering its rows (``_ShardedFull``). Under autograd a whole table
+        takes the first gradient path of the JAX package's precedence
+        (unirec_tpu/models/base.py:168-208) that its config turns on:
+        ``scan_embedding_grad``, then the scatter-add kernel of
+        ``vmem_embedding_grad`` unless ``shard_embeddings``, then
+        ``sorted_embedding_grad``, ``expand_embedding_grad`` > 1 and
+        ``embedding_grad_f32`` (ops/embedding.py), else autograd's own. A
+        row-sharded table always takes its sharded lookup, whose backward
+        is row 6 on the shard."""
         shard = getattr(emb.weight, "row_shard", None)
+        mask = (ids != 0)[..., None]
         if all_rows and shard is not None:
             rows = _ShardedFull.apply(self._cast(emb.weight), shard)
-            return rows * (ids != 0)[..., None]
-        return self._gather(emb.weight, ids) * (ids != 0)[..., None]
+            return rows * mask
+        if shard is None and torch.is_grad_enabled():
+            rows = self._variant_gather(emb.weight, ids, mask)
+            if rows is not None:
+                return rows
+        return self._gather(emb.weight, ids) * mask
+
+    def _variant_gather(self, weight: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor):
+        """The masked rows through the first opt-in gradient path the config
+        turns on before autograd's own (``_masked_gather``), or None; the
+        masks and casts sit where the JAX package puts them."""
+        c, dt = self.cfg, self.compute_dtype
+        if c.get("scan_embedding_grad"):
+            return E.gather_scan(weight, ids, dt) * mask
+        if c.get("vmem_embedding_grad") and not c.get("shard_embeddings") \
+                and SA.scatter_supported(*weight.shape, dt or weight.dtype):
+            return None                 # _gather's scatter-add kernel
+        if c.get("sorted_embedding_grad"):
+            return self._cast(E.gather_sorted(weight, ids) * mask)
+        k = int(c.get("expand_embedding_grad", 0) or 0)
+        if k > 1:
+            return E.gather_expand(self._cast(weight), ids, k) * mask
+        if c.get("embedding_grad_f32") and dt is not None:
+            return E.gather_cast(weight, ids, dt) * mask
+        return None
 
     def _table(self, emb: nn.Embedding) -> torch.Tensor:
         """The whole table (its rows gathered when row-sharded), for the

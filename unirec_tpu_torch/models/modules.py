@@ -24,6 +24,13 @@ generator (``dropout_bits=8`` draws one byte per element, as Dropout8), and
 each fused-kernel call takes a host-int seed from it, from which the kernel
 draws its own Philox masks (ops/layer.py).
 
+The JAX package's opt-in variants: ``qkv_packed`` (one ``qkv`` dense of
+width 3H in each attention path, which turns the fused layer kernels off)
+and ``remat_attention`` (each layer checkpointed, its recompute replaying
+the forward's dropout draws). The four ranking modules the JAX package
+exports but no model uses (``Dice``, ``SequenceAttLayer``,
+``ModulateHidden``, ``MMoEUnit``) close the file.
+
 Kernel dispatch follows the JAX package's flags and gates. ``fused_layer``
 and ``fused_lastq`` call ops/layer.py and ``use_fused_ffn`` ops/ffn.py (the
 six activations of its kernel). In a layer that is neither last-query nor
@@ -89,6 +96,15 @@ class DropoutRNG:
 
     def seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self._host))
+
+    def get_state(self):
+        """Both generators' states: ``set_state`` of them replays every
+        draw made since (a rematerialized layer's recompute)."""
+        return self.generator.get_state(), self._host.get_state()
+
+    def set_state(self, state) -> None:
+        self.generator.set_state(state[0])
+        self._host.set_state(state[1])
 
 
 def _need_rng(rng):
@@ -173,21 +189,40 @@ def causal_attention_mask(item_seq: torch.Tensor,
 
 
 class MultiHeadAttention(nn.Module):
-    """Post-LN self-attention (modules.py:181-351)."""
+    """Post-LN self-attention (modules.py:181-351). ``qkv_packed``: one
+    ``qkv`` dense of width 3H in place of ``query``, ``key`` and ``value``,
+    its output split in three (modules.py:246-250); the last-query path
+    projects every row through it and keeps row L-1 of the queries, as the
+    JAX module does (:321-327)."""
 
     def __init__(self, n_heads: int, hidden_size: int, layer_norm_eps: float,
                  dtype=None, use_flash: bool = False, use_fused: bool = False,
                  last_query: bool = False, hidden_dropout_prob: float = 0.0,
-                 attn_dropout_prob: float = 0.0, bits8: bool = False):
+                 attn_dropout_prob: float = 0.0, bits8: bool = False,
+                 qkv_packed: bool = False):
         super().__init__()
         self.n_heads, self.dtype = n_heads, dtype
         self.p_hidden, self.p_attn, self.bits8 = (float(hidden_dropout_prob),
                                                   float(attn_dropout_prob), bits8)
         self.use_flash, self.use_fused = use_flash, use_fused
-        self.last_query = last_query
-        for name in ("query", "key", "value", "dense"):
+        self.last_query, self.qkv_packed = last_query, qkv_packed
+        if qkv_packed:
+            self.qkv = nn.Linear(hidden_size, 3 * hidden_size)
+            names = ("dense",)
+        else:
+            names = ("query", "key", "value", "dense")
+        for name in names:
             self.add_module(name, nn.Linear(hidden_size, hidden_size))
         self.LayerNorm = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
+
+    def _project(self, x: torch.Tensor, q_rows: slice = slice(None)):
+        """The query, key and value projections of ``x`` [B, L, H], the
+        queries of rows ``q_rows`` only, in the compute dtype."""
+        if self.qkv_packed:
+            qp, kp, vp = dense(self.qkv, x, self.dtype).chunk(3, dim=-1)
+            return qp[:, q_rows], kp, vp
+        return (dense(self.query, x[:, q_rows], self.dtype), dense(self.key, x, self.dtype),
+                dense(self.value, x, self.dtype))
 
     def _split(self, t: torch.Tensor) -> torch.Tensor:
         B, L, H = t.shape
@@ -203,9 +238,7 @@ class MultiHeadAttention(nn.Module):
         B, L, H = x.shape
         hd = H // self.n_heads
         drop_on = train and self.p_attn > 0.0
-        q = self._split(dense(self.query, x, self.dtype))
-        k = self._split(dense(self.key, x, self.dtype))
-        v = self._split(dense(self.value, x, self.dtype))
+        q, k, v = (self._split(t) for t in self._project(x))
         if self.use_fused and attn_ops.fused_supported(q, attn_mask):
             # modules.py:276-286: the kernels, with in-kernel dropout
             ctx = attn_ops.short_attention(q, k, v, attn_mask, self.p_attn,
@@ -226,9 +259,7 @@ class MultiHeadAttention(nn.Module):
         B, L, H = x.shape
         hd = H // self.n_heads
         xq = x[:, L - 1:, :]
-        q = self._split(dense(self.query, xq, self.dtype))
-        k = self._split(dense(self.key, x, self.dtype))
-        v = self._split(dense(self.value, x, self.dtype))
+        q, k, v = (self._split(t) for t in self._project(x, slice(L - 1, None)))
         scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
         # final query row of the additive mask (negative index: a
         # bidirectional mask has a size-1 query dim)
@@ -279,19 +310,19 @@ class TransformerLayer(nn.Module):
                  fused_ffn: bool = False, fused_layer: bool = False,
                  fused_causal: bool = True, fused_lastq: bool = False,
                  hidden_dropout_prob: float = 0.0, attn_dropout_prob: float = 0.0,
-                 bits8: bool = False):
+                 bits8: bool = False, qkv_packed: bool = False):
         super().__init__()
         self.n_heads, self.inner_size = n_heads, inner_size
         self.p_hidden, self.p_attn = float(hidden_dropout_prob), float(attn_dropout_prob)
         self.hidden_act, self.layer_norm_eps = hidden_act, layer_norm_eps
         self.last_query, self.head_stacked = last_query, head_stacked
         self.fused_layer, self.fused_causal = fused_layer, fused_causal
-        self.fused_lastq = fused_lastq
+        self.fused_lastq, self.qkv_packed = fused_lastq, qkv_packed
         special = last_query or head_stacked
         self.multi_head_attention = MultiHeadAttention(
             n_heads, hidden_size, layer_norm_eps, dtype,
             use_flash and not special, use_fused and not special, last_query,
-            hidden_dropout_prob, attn_dropout_prob, bits8)
+            hidden_dropout_prob, attn_dropout_prob, bits8, qkv_packed)
         self.feed_forward = FeedForward(hidden_size, inner_size, hidden_act,
                                         layer_norm_eps, dtype, fused_ffn,
                                         hidden_dropout_prob, bits8)
@@ -323,8 +354,9 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor, train: bool = False,
                 rng: DropoutRNG | None = None) -> torch.Tensor:
-        gate = layer_ops.fused_layer_supported(x, self.hidden_act,
-                                               self.n_heads, self.inner_size)
+        # the layer kernels take the unpacked weights (modules.py:620, :634)
+        gate = not self.qkv_packed and layer_ops.fused_layer_supported(
+            x, self.hidden_act, self.n_heads, self.inner_size)
         # row L-1 of the additive mask is exactly the key-padding row (the
         # causal triangle allows every key there)
         if self.fused_lastq and self.last_query and not self.head_stacked \
@@ -346,7 +378,13 @@ class TransformerLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Stack of post-LN layers (modules.py:659-767); ``last_query_only``
-    runs the final layer for the last position only (output [B, 1, H])."""
+    runs the final layer for the last position only (output [B, 1, H]).
+    ``remat``: each layer's activations are recomputed in the backward
+    (the JAX package's ``nn.remat``, modules.py:752-754) through
+    ``torch.utils.checkpoint``; the recompute replays the forward's dropout
+    (``_rematerialized``). As in JAX, ``remat`` and ``qkv_packed`` turn the
+    padded fused chain off (:712); each layer still takes its own fused
+    kernels where its gates allow."""
 
     def __init__(self, n_layers: int = 2, n_heads: int = 2,
                  hidden_size: int = 64, inner_size: int = 256,
@@ -356,21 +394,22 @@ class TransformerEncoder(nn.Module):
                  last_query_only: bool = False, fused_ffn: bool = False,
                  fused_layer: bool = False, fused_causal: bool = True,
                  fused_lastq: bool = False, hidden_dropout_prob: float = 0.0,
-                 attn_dropout_prob: float = 0.0, bits8: bool = False):
+                 attn_dropout_prob: float = 0.0, bits8: bool = False,
+                 qkv_packed: bool = False):
         super().__init__()
-        self.n_layers = n_layers
+        self.n_layers, self.remat = n_layers, remat
         self.hidden_act, self.n_heads, self.inner_size = hidden_act, n_heads, inner_size
         self.fused_causal = fused_causal
         # the padded fused chain: every layer a kernel (modules.py:711-750)
         self.chain = (fused_layer and fused_lastq and last_query_only
-                      and not (remat or head_stacked or fused_ffn))
+                      and not (remat or head_stacked or qkv_packed or fused_ffn))
         for i in range(n_layers):
             self.add_module(f"layer_{i}", TransformerLayer(
                 n_heads, hidden_size, inner_size, hidden_act, layer_norm_eps,
                 dtype, use_flash, use_fused,
                 last_query_only and i == n_layers - 1, head_stacked,
                 fused_ffn, fused_layer, fused_causal, fused_lastq,
-                hidden_dropout_prob, attn_dropout_prob, bits8))
+                hidden_dropout_prob, attn_dropout_prob, bits8, qkv_packed))
 
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.n_layers)]
@@ -395,9 +434,36 @@ class TransformerEncoder(nn.Module):
                 xp, mp, last.kernel_params(), q_index=L - 1,
                 **last.kernel_kwargs(), **last.drop_kwargs(train, rng, B))
             return y[:, None, :]
+        remat = self.remat and train and torch.is_grad_enabled()
         for layer in self.layers():
-            x = layer(x, attn_mask, train, rng)
+            x = _rematerialized(layer, x, attn_mask, train, rng) if remat \
+                else layer(x, attn_mask, train, rng)
         return x
+
+
+def _rematerialized(layer, x, attn_mask, train, rng):
+    """``layer(x, ...)`` whose activations the backward recomputes
+    (``torch.utils.checkpoint``, non-reentrant). ``rng``'s generators are
+    stateful, so the recompute would draw other dropout masks and kernel
+    seeds: it first puts them back to their state at the layer's start,
+    which replays the forward's draws, and afterwards to where the backward
+    found them."""
+    from torch.utils.checkpoint import checkpoint
+    start = rng.get_state() if rng is not None else None
+    calls = []
+
+    def run(h):
+        if calls and rng is not None:       # the backward's recompute
+            now = rng.get_state()
+            rng.set_state(start)
+            try:
+                return layer(h, attn_mask, train, rng)
+            finally:
+                rng.set_state(now)
+        calls.append(1)
+        return layer(h, attn_mask, train, rng)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 # ------------------------------------------------- scorers and poolers
@@ -741,3 +807,88 @@ class AdaLinear(nn.Module):
         if mem_b is not None:
             b_new = b_new + mem_b[..., 0]                          # [B, out]
         return out + b_new[:, None, :] if out.dim() == 3 else out + b_new
+
+
+# ------------------------------------------- ranking blocks no model uses
+# The JAX package exports these four and tests them (tests/test_kernels.py:
+# 157-200), but no registered model of either package calls them. They
+# carry the flax names, so the bridge maps their parameters.
+class Dice(nn.Module):
+    """Dice activation (modules.py:783-795): f(s) = p s + (1 - p) alpha s
+    with p = sigmoid(s) and ``alpha`` a zero-initialized parameter [D]."""
+
+    def __init__(self, emb_size: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(emb_size))
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        self.alpha.zero_()
+
+    def forward(self, score: torch.Tensor) -> torch.Tensor:
+        p = torch.sigmoid(score)
+        return self.alpha * (1.0 - p) * score + p * score
+
+
+class SequenceAttLayer(nn.Module):
+    """DIN-style target attention over the history (modules.py:798-823):
+    queries [B, T, H] through ``dense_1``, keys [B, L, H] through
+    ``dense_2`` (no biases), their products set to 0.0 at the left-padding
+    keys (l < L - keys_length, the reference's mask value) before a softmax
+    of the products over sqrt(H); returns the weighted sum of the raw keys."""
+
+    def __init__(self, input_size: int, output_size: int):
+        super().__init__()
+        self.dense_1 = nn.Linear(input_size, output_size, bias=False)
+        self.dense_2 = nn.Linear(input_size, output_size, bias=False)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                keys_length: torch.Tensor) -> torch.Tensor:
+        H, L = queries.shape[-1], keys.shape[1]
+        att = torch.einsum("bth,blh->btl", F.linear(queries, self.dense_1.weight),
+                           F.linear(keys, self.dense_2.weight))
+        invalid = torch.arange(L, device=keys.device)[None, :] < (L - keys_length[:, None])
+        att = torch.where(invalid[:, None, :], 0.0, att)
+        att = torch.softmax(att / math.sqrt(float(H)), dim=-1)
+        return torch.einsum("btl,blh->bth", att, keys)
+
+
+class ModulateHidden(nn.Module):
+    """A per-request square weight generated from z, applied to the hidden
+    state (modules.py:948-961): ``gen_para_layer`` maps z to [in, in]."""
+
+    def __init__(self, input_size: int, emb_size: int):
+        super().__init__()
+        self.input_size = input_size
+        self.gen_para_layer = nn.Linear(emb_size, input_size * input_size)
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        torch_linear_kernel_(self.gen_para_layer, generator)
+
+    def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        n = self.input_size
+        w = self.gen_para_layer(z).reshape(-1, n, n)
+        return torch.einsum("b...i,boi->b...o", x, w)
+
+
+class MMoEUnit(nn.Module):
+    """Mixture-of-experts parameter generator (modules.py:964-982): a
+    softmax gate (``gate_net``, no bias) over ``expert_num`` parameter
+    blocks ``weight`` [expert_num, out * in], keyed on z (its first row when
+    z is [B, n, D]); returns [B, out, in]."""
+
+    def __init__(self, input_size: int, output_size: int, emb_size: int,
+                 expert_num: int = 10):
+        super().__init__()
+        self.input_size, self.output_size = input_size, output_size
+        self.weight = nn.Parameter(torch.empty(expert_num, output_size * input_size))
+        self.gate_net = nn.Linear(emb_size, expert_num, bias=False)
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        torch_linear_(self.weight, generator, self.weight.shape[0])
+        torch_linear_kernel_(self.gate_net, generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        if z.dim() == 3:
+            z = z[:, 0]
+        att = torch.softmax(self.gate_net(z), dim=-1)
+        return (att @ self.weight).reshape(-1, self.output_size, self.input_size)

@@ -27,10 +27,6 @@ class SASRec(SeqRecBase):
     def __init__(self, cfg):
         super().__init__(cfg)
         c = cfg
-        if int(c.get("qkv_packed", 0) or 0):
-            raise NotImplementedError("qkv_packed changes the parameter tree "
-                                      "and is not ported yet (ROADMAP.md "
-                                      "Queue 1 item 13)")
         self.use_pos_emb = bool(c.get("use_position_emb", True))
         if self.use_pos_emb:
             # +1 slot for consistency with ranking models (sasrec.py:25)
@@ -56,7 +52,8 @@ class SASRec(SeqRecBase):
             fused_lastq=bool(c.get("fused_lastq", 0)),
             hidden_dropout_prob=float(c.get("hidden_dropout_prob", 0.5)),
             attn_dropout_prob=float(c.get("attn_dropout_prob", 0.5)),
-            bits8=self.bits8)
+            bits8=self.bits8,
+            qkv_packed=bool(c.get("qkv_packed", 0)))
         self.LayerNorm = nn.LayerNorm(self.hidden_size, eps=eps)
 
     @property

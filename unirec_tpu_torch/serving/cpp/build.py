@@ -6,8 +6,8 @@ the client with g++ against the installed torch's libtorch, into
 ``build/unirec_serve-<hash>/`` at the root of the checkout (named by a hash
 of the source, the header and the flags, so an edit rebuilds; built at first
 use, under a per-process temporary name). Where torch is built for CUDA the
-client is built with ``-DUNIREC_WITH_CUDA`` and implements rows 1 and 3 on
-the card; elsewhere it registers the schemas and implements none, so it
+client is built with ``-DUNIREC_WITH_CUDA`` and implements rows 1, 3, 9,
+10 and 12 on the card; elsewhere it registers the schemas and implements none, so it
 serves packages without ``unirec::*`` operators and refuses the others.
 
     python -m unirec_tpu_torch.serving.cpp.build      # prints the binary's path
@@ -33,7 +33,9 @@ from unirec_tpu_torch.ops import _build, op_schemas
 from unirec_tpu_torch.serving.cpp import tensor_io
 
 SOURCE = Path(__file__).with_name("unirec_serve.cc")
-CLIENT_OPS = ("layer_fwd", "lastq_fwd")   # the operators the CUDA build implements
+# the kernel sources whose operators the CUDA build implements (rows 1, 3,
+# 9, 10, 12), by the name the client's --lib takes
+CLIENT_LIBS = ("layer_fwd", "lastq_fwd", "flash_attention", "attention", "ffn")
 
 
 def schema_header() -> str:
@@ -85,8 +87,8 @@ def build_client(cuda: Optional[bool] = None) -> Dict[str, object]:
     return {"binary": binary, "seconds": time.perf_counter() - t0, "cuda": cuda}
 
 
-def kernel_libs(names: Sequence[str] = CLIENT_OPS) -> Dict[str, Path]:
-    """The kernel library of each named operator, built if needed."""
+def kernel_libs(names: Sequence[str] = CLIENT_LIBS) -> Dict[str, Path]:
+    """The kernel library of each named source, built if needed."""
     _build.build(names)
     return {n: _build.library_path(n) for n in names}
 

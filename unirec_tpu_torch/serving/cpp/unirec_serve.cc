@@ -12,15 +12,21 @@
 // The fused kernels are the unirec::* operators (ops/op_schemas.py). This
 // client registers every schema of that table with TORCH_LIBRARY (the
 // strings come from a header its build writes, serving/cpp/build.py) and
-// implements unirec::layer_fwd and unirec::lastq_fwd (rows 1 and 3) on CUDA
-// as thin shims over the C launchers of csrc/layer_fwd.cu and
-// csrc/lastq_fwd.cu: it dlopens the kernel libraries named by --lib, makes
-// the operands contiguous (and 16-byte aligned for the tensor-core bodies,
-// which the library's *_mma_takes admits, as ops/layer.py does) and launches
-// on the current stream. Before loading a package it reads the package's
-// metadata "unirec_ops" and refuses, by name, one that calls an operator it
-// does not implement on the package's device. It counts each operator's
-// launches and prints them.
+// implements all five on CUDA: unirec::layer_fwd and unirec::lastq_fwd
+// (rows 1 and 3), unirec::flash_fwd (row 9), unirec::attention_fwd (row 10)
+// and unirec::ffn_fwd (row 12), as thin shims over the C launchers of
+// csrc/layer_fwd.cu, lastq_fwd.cu, flash_attention.cu, attention.cu and
+// ffn.cu. It dlopens the kernel libraries named by --lib (NAME is the
+// source's name: layer_fwd, lastq_fwd, flash_attention, attention, ffn),
+// prepares the operands as the Python launchers do (ops/layer.py,
+// ops/attention.py, ops/ffn.py: contiguous or shared strides, the mask
+// expanded, 16-byte aligned where a tensor-core body needs it, the body
+// chosen by the library's *_takes and *_smem_bytes rules) and launches on
+// the current stream; a launch error raises. Before loading a package it
+// reads the package's metadata "unirec_ops" and refuses, by name, one that
+// calls an operator it does not implement on the package's device. It
+// counts each operator's launches, and of those its tensor-core body's,
+// and prints them.
 //
 //   usage: unirec_serve <package.pt2> <inputs.bin> <outputs.bin>
 //              [--lib NAME=PATH ...] [--repeat N]
@@ -47,6 +53,7 @@
 
 #include <algorithm>
 #include <chrono>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -55,6 +62,7 @@
 #include <set>
 #include <sstream>
 #include <string>
+#include <tuple>
 #include <vector>
 
 #include "unirec_schemas.h"  // kUnirecSchemas: {name, schema} of ops/op_schemas.py
@@ -146,7 +154,7 @@ using TakesFn = int (*)(int, int, int, int, int);
 int DtypeCode(const at::Tensor& x) {
   if (x.scalar_type() == at::kFloat) return 0;
   if (x.scalar_type() == at::kBFloat16) return 1;
-  TORCH_CHECK(false, "unirec_serve: the layer kernels take float32 or bfloat16, got ",
+  TORCH_CHECK(false, "unirec_serve: the kernels take float32 or bfloat16, got ",
               x.scalar_type());
 }
 
@@ -256,12 +264,180 @@ at::Tensor LastqFwdCuda(const at::Tensor& x0, const at::Tensor& madd0, at::Tenso
   if (mma) Launches()["unirec::lastq_fwd (mma)"] += 1;
   return y;
 }
+
+// strides (batch, head, row) of a [B, H, L, hd] tensor
+struct Strides3 {
+  long long b, h, r;
+};
+Strides3 Str(const at::Tensor& t) { return {t.stride(0), t.stride(1), t.stride(2)}; }
+
+// whether t starts on 16 bytes and its batch, head and row strides are
+// multiples of elems elements: ops/attention.py::_aligned
+bool Aligned(const at::Tensor& t, int64_t elems) {
+  return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0 && t.stride(0) % elems == 0 &&
+         t.stride(1) % elems == 0 && t.stride(2) % elems == 0;
+}
+
+// q, k, v: one dtype of the kernels, one shape; ops/attention.py's checks
+void CheckQkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+              const at::Tensor& mask, const char* what) {
+  TORCH_CHECK(q.scalar_type() == k.scalar_type() && q.scalar_type() == v.scalar_type(),
+              "unirec_serve: ", what, " takes q, k, v of one dtype");
+  TORCH_CHECK(q.dim() == 4 && k.sizes() == q.sizes() && v.sizes() == q.sizes() &&
+                  mask.dim() == 4 && (mask.size(1) == 1 || mask.size(1) == q.size(1)),
+              "unirec_serve: ", what, ": q ", q.sizes(), ", k ", k.sizes(), ", v ", v.sizes(),
+              ", mask ", mask.sizes());
+}
+
+// one [B, H, L, hd] output laid out as [B, L, H, hd] in memory:
+// ops/attention.py::_empty_out
+at::Tensor EmptyOut(const at::Tensor& q) {
+  return at::empty({q.size(0), q.size(2), q.size(1), q.size(3)}, q.options()).transpose(1, 2);
+}
+
+bool SharedStrides(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v) {
+  return q.strides() == k.strides() && q.strides() == v.strides() && q.stride(3) == 1;
+}
+
+// unirec::attention_fwd: csrc/attention.cu's unirec_attention_fwd (row 10),
+// as ops/attention.py::_fwd_cuda launches it: the mask expanded to a
+// contiguous [B, Hm, L, L] f32, the tiled body where one head's operands
+// exceed a block's shared memory (_tiled), the bf16 tensor-core body where
+// the library's rule takes it
+at::Tensor AttentionFwdCuda(const at::Tensor& q0, const at::Tensor& k0, const at::Tensor& v0,
+                            const at::Tensor& mask0, int64_t seed, int64_t t_attn,
+                            double inv_attn, int64_t b0) {
+  CheckQkv(q0, k0, v0, mask0, "attention_fwd");
+  const int dtype = DtypeCode(q0);
+  const int B = q0.size(0), H = q0.size(1), L = q0.size(2), hd = q0.size(3);
+  TORCH_CHECK(L <= 512, "unirec_serve: the fused attention kernels take L <= 512, got ", L);
+  at::Tensor q = q0, k = k0, v = v0;
+  if (!SharedStrides(q, k, v)) {
+    q = q.contiguous();
+    k = k.contiguous();
+    v = v.contiguous();
+  }
+  const int Hm = mask0.size(1);
+  at::Tensor mask = mask0.to(at::kFloat).expand({B, Hm, L, L}).contiguous();
+  using SmemFn = int (*)(int, int);
+  auto fwd_smem = reinterpret_cast<SmemFn>(Symbol("attention", "unirec_attention_fwd_smem_bytes"));
+  auto bwd_smem = reinterpret_cast<SmemFn>(Symbol("attention", "unirec_attention_bwd_smem_bytes"));
+  const bool tiled = std::max(fwd_smem(L, hd), bwd_smem(L, hd)) > kSmemLimit;
+  const bool mma = reinterpret_cast<int (*)(int, int, int)>(
+      Symbol("attention", "unirec_attention_bwd_mma_takes"))(dtype, L, hd) != 0;
+  at::Tensor out = EmptyOut(q);
+  using Fn = int (*)(int, const void*, const void*, const void*, long long, long long,
+                     long long, const float*, int, void*, long long, long long, long long, int,
+                     int, int, int, float, unsigned, unsigned, float, unsigned, int, void*);
+  auto fn = reinterpret_cast<Fn>(Symbol("attention", "unirec_attention_fwd"));
+  const Strides3 si = Str(q), so = Str(out);
+  void* stream = c10::cuda::getCurrentCUDAStream(q.device().index()).stream();
+  CheckLaunch(fn(dtype, Ptr(q), Ptr(k), Ptr(v), si.b, si.h, si.r,
+                 static_cast<const float*>(mask.data_ptr()), Hm, Ptr(out), so.b, so.h, so.r, B,
+                 H, L, hd, static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd))),
+                 static_cast<unsigned>(seed), static_cast<unsigned>(t_attn),
+                 static_cast<float>(inv_attn), static_cast<unsigned>(b0), tiled ? 1 : 0,
+                 stream),
+              "attention_fwd");
+  Launches()["unirec::attention_fwd"] += 1;
+  if (mma) Launches()["unirec::attention_fwd (mma)"] += 1;
+  return out;
+}
+
+// unirec::flash_fwd: csrc/flash_attention.cu's unirec_flash_fwd (row 9), as
+// ops/attention.py::_flash_fwd_cuda launches it: q, k, v and the f32 mask
+// by strides (0 where the mask broadcasts), copied only when they share no
+// stride set or, for the bf16 tensor-core body, lack 16-byte rows
+std::tuple<at::Tensor, at::Tensor> FlashFwdCuda(const at::Tensor& q0, const at::Tensor& k0,
+                                                const at::Tensor& v0,
+                                                const at::Tensor& mask0) {
+  CheckQkv(q0, k0, v0, mask0, "flash_fwd");
+  const int dtype = DtypeCode(q0);
+  const int B = q0.size(0), H = q0.size(1), L = q0.size(2), hd = q0.size(3);
+  TORCH_CHECK(L >= 256 && L % 8 == 0 && hd % 8 == 0 &&
+                  (mask0.size(2) == 1 || mask0.size(2) == L) && mask0.size(3) == L,
+              "unirec_serve: flash attention takes L >= 256 and L, hd multiples of 8, got q ",
+              q0.sizes(), ", mask ", mask0.sizes());
+  const bool mma = reinterpret_cast<int (*)(int, int)>(
+      Symbol("flash_attention", "unirec_flash_fwd_mma_takes"))(dtype, hd) != 0;
+  at::Tensor q = q0, k = k0, v = v0;
+  if (!SharedStrides(q, k, v) || (mma && !(Aligned(q, 8) && Aligned(k, 8) && Aligned(v, 8)))) {
+    q = q.contiguous();
+    k = k.contiguous();
+    v = v.contiguous();
+  }
+  at::Tensor m = mask0.to(at::kFloat);
+  if (m.stride(3) != 1 || (mma && !Aligned(m, 4))) m = m.contiguous();
+  m = m.expand({B, H, L, L});
+  at::Tensor out = EmptyOut(q);
+  at::Tensor lse = at::empty({B, H, L}, q.options().dtype(at::kFloat));
+  using Fn = int (*)(int, const void*, const void*, const void*, long long, long long,
+                     long long, const float*, long long, long long, long long, void*,
+                     long long, long long, long long, float*, int, int, int, int, float, void*);
+  auto fn = reinterpret_cast<Fn>(Symbol("flash_attention", "unirec_flash_fwd"));
+  const Strides3 si = Str(q), sm = Str(m), so = Str(out);
+  void* stream = c10::cuda::getCurrentCUDAStream(q.device().index()).stream();
+  CheckLaunch(fn(dtype, Ptr(q), Ptr(k), Ptr(v), si.b, si.h, si.r,
+                 static_cast<const float*>(m.data_ptr()), sm.b, sm.h, sm.r, Ptr(out), so.b,
+                 so.h, so.r, static_cast<float*>(lse.data_ptr()), B, H, L, hd,
+                 static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd))), stream),
+              "flash_fwd");
+  Launches()["unirec::flash_fwd"] += 1;
+  if (mma) Launches()["unirec::flash_fwd (mma)"] += 1;
+  return {out, lse};
+}
+
+// unirec::ffn_fwd: csrc/ffn.cu's unirec_ffn_fwd (row 12), as
+// ops/ffn.py::_fwd_cuda launches it: the bf16 tensor-core body where the
+// library's rule takes it (x, w1, w2 16-byte aligned), else the CUDA-core
+// body, which refuses a width whose one token row exceeds a block
+at::Tensor FfnFwdCuda(const at::Tensor& x0, const at::Tensor& w10, const at::Tensor& b10,
+                      const at::Tensor& w20, const at::Tensor& b20, int64_t act) {
+  const int dtype = DtypeCode(x0);
+  TORCH_CHECK(x0.dim() == 2 && w10.dim() == 2 && w10.size(0) == x0.size(1) &&
+                  b10.numel() == w10.size(1) && w20.dim() == 2 &&
+                  w20.size(0) == w10.size(1) && w20.size(1) == x0.size(1) &&
+                  b20.numel() == x0.size(1),
+              "unirec_serve: ffn_fwd: x ", x0.sizes(), ", w1 ", w10.sizes(), ", w2 ",
+              w20.sizes());
+  for (const auto* t : {&w10, &b10, &w20, &b20})
+    TORCH_CHECK(t->scalar_type() == x0.scalar_type(),
+                "unirec_serve: ffn_fwd takes operands of one dtype");
+  TORCH_CHECK(act >= 0 && act < 6, "unirec_serve: ffn_fwd: activation index ", act);
+  const int T = x0.size(0), D = x0.size(1), Fi = w10.size(1);
+  const bool mma = reinterpret_cast<int (*)(int, int, int)>(
+      Symbol("ffn", "unirec_ffn_bwd_mma_takes"))(dtype, D, Fi) != 0;
+  if (!mma)
+    TORCH_CHECK(reinterpret_cast<int (*)(int, int, int)>(Symbol("ffn", "unirec_ffn_rows"))(
+                    0, D, Fi) > 0,
+                "unirec_serve: the fused ffn kernels do not take D=", D);
+  at::Tensor x = x0.contiguous(), w1 = w10.contiguous(), b1 = b10.contiguous(),
+             w2 = w20.contiguous(), b2 = b20.contiguous();
+  if (mma) {
+    x = Aligned16(x);
+    w1 = Aligned16(w1);
+    w2 = Aligned16(w2);
+  }
+  at::Tensor y = at::empty_like(x);
+  using Fn = int (*)(int, const void*, const void*, const void*, const void*, const void*,
+                     void*, int, int, int, int, int, void*);
+  auto fn = reinterpret_cast<Fn>(Symbol("ffn", "unirec_ffn_fwd"));
+  void* stream = c10::cuda::getCurrentCUDAStream(x.device().index()).stream();
+  CheckLaunch(fn(dtype, Ptr(x), Ptr(w1), Ptr(b1), Ptr(w2), Ptr(b2), Ptr(y), T, D, Fi,
+                 static_cast<int>(act), mma ? 1 : 0, stream),
+              "ffn_fwd");
+  Launches()["unirec::ffn_fwd"] += 1;
+  if (mma) Launches()["unirec::ffn_fwd (mma)"] += 1;
+  return y;
+}
 #endif  // UNIREC_WITH_CUDA
 
 // the operators this build implements, by the device they run on
 std::set<std::string> Implemented(const std::string& device) {
 #ifdef UNIREC_WITH_CUDA
-  if (device == "cuda") return {"unirec::layer_fwd", "unirec::lastq_fwd"};
+  if (device == "cuda")
+    return {"unirec::layer_fwd", "unirec::lastq_fwd", "unirec::flash_fwd",
+            "unirec::attention_fwd", "unirec::ffn_fwd"};
 #endif
   (void)device;
   return {};
@@ -286,6 +462,9 @@ TORCH_LIBRARY(unirec, m) {
 TORCH_LIBRARY_IMPL(unirec, CUDA, m) {
   m.impl("layer_fwd", &LayerFwdCuda);
   m.impl("lastq_fwd", &LastqFwdCuda);
+  m.impl("flash_fwd", &FlashFwdCuda);
+  m.impl("attention_fwd", &AttentionFwdCuda);
+  m.impl("ffn_fwd", &FfnFwdCuda);
 }
 #endif
 
