@@ -445,11 +445,34 @@ def test_profile_writes_a_trace_and_leaves_no_profiler_running(trained, tmp_path
     assert not torch.autograd._profiler_enabled()
     traces = glob.glob(str(tmp_path / "profile" / "*.pt.trace.json"))
     if outcome == "raises":
-        assert traces == []
+        assert traces == [] and not glob.glob(str(tmp_path / "profile" / "*.counters.json"))
         return
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("addmm" in e.get("name", "") or "matmul" in e.get("name", "") for e in events)
+
+
+def test_profile_writes_the_runs_counters_beside_the_trace(trained, tmp_path, monkeypatch):
+    """profile=1 writes tracing.counters() as <exp_name>.counters.json: every
+    counter, as counted while the run was traced (what the process counted
+    before is not in it); the trace holds the port's spans."""
+    from unirec_tpu_torch.ops import topk as TK
+    from unirec_tpu_torch.utils import tracing
+    args, result, out, _ = trained
+    monkeypatch.setattr(TK.fused_catalog_topk, "users", 7)
+    monkeypatch.setattr(TK.catalog_blockmax, "launches", 5)
+    run = {"task": "test", "model_file": os.path.join(out, "checkpoint", "slice.pkl"),
+           "dataset_path": args["dataset_path"], "output_path": str(tmp_path), "profile": 1,
+           "exp_name": "counted", "device": "cpu"}
+    assert main.run(run) == result
+    with open(tmp_path / "profile" / "counted.counters.json") as f:
+        counted = json.load(f)
+    assert set(counted) == set(tracing.counters())
+    assert counted["topk_users"] == 0 and counted["blockmax"] == 0
+    assert all(isinstance(v, int) and v >= 0 for v in counted.values())
+    with open(tmp_path / "profile" / "counted.pt.trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"data.to_device", "model.user_emb"} <= names
 
 
 # ------------- the slice's path: popularity negatives, T5 validation, sessions

@@ -15,6 +15,10 @@ tensors in ``model.parameters()`` order; the state is a dict of tensors:
     mu, nu         lists      (adam / adamw first and second moments)
     sum_of_squares list       (adagrad)
     nu             list       (rmsprop)
+
+While a profiler runs, ``update`` opens ``optim.update`` and, for the Adam
+kinds, ``optim.moments``, ``optim.bias_correction`` and ``optim.direction``
+(utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 
 from unirec_tpu_torch.core.mesh import all_reduce_
+from unirec_tpu_torch.utils import tracing
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8      # optax.scale_by_adam defaults
 _RMS_DECAY, _RMS_EPS = 0.9, 1e-8            # optax.scale_by_rms defaults
@@ -75,7 +80,10 @@ class Optimizer:
 
     def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
                params: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
-        u = list(grads)
+        with tracing.span("optim.update"):
+            return self._update(list(grads), state, params)
+
+    def _update(self, u, state, params):
         new = dict(state)
         if self.clip > 0:
             g_norm = torch.sqrt(global_sq_norm(u, params))
@@ -84,16 +92,20 @@ class Optimizer:
         if self.wd > 0 and self.kind != "adamw":
             u = torch._foreach_add(u, list(params), alpha=self.wd)
         if self._adam:
-            mu = torch._foreach_add(torch._foreach_mul(u, 1.0 - _B1),
-                                    torch._foreach_mul(state["mu"], _B1))
-            nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(u, u), 1.0 - _B2),
-                                    torch._foreach_mul(state["nu"], _B2))
-            count = state["count"] + 1
-            c1 = 1.0 - torch.pow(torch.tensor(_B1, device=count.device), count.float())
-            c2 = 1.0 - torch.pow(torch.tensor(_B2, device=count.device), count.float())
-            mu_hat = [m / c1 for m in mu]
-            nu_hat = [n / c2 for n in nu]
-            u = [m / (torch.sqrt(n) + _ADAM_EPS) for m, n in zip(mu_hat, nu_hat)]
+            with tracing.span("optim.moments"):
+                mu = torch._foreach_add(torch._foreach_mul(u, 1.0 - _B1),
+                                        torch._foreach_mul(state["mu"], _B1))
+                nu = torch._foreach_add(
+                    torch._foreach_mul(torch._foreach_mul(u, u), 1.0 - _B2),
+                    torch._foreach_mul(state["nu"], _B2))
+            with tracing.span("optim.bias_correction"):
+                count = state["count"] + 1
+                c1 = 1.0 - torch.pow(torch.tensor(_B1, device=count.device), count.float())
+                c2 = 1.0 - torch.pow(torch.tensor(_B2, device=count.device), count.float())
+            with tracing.span("optim.direction"):
+                mu_hat = [m / c1 for m in mu]
+                nu_hat = [n / c2 for n in nu]
+                u = [m / (torch.sqrt(n) + _ADAM_EPS) for m, n in zip(mu_hat, nu_hat)]
             new.update(count=count, mu=list(mu), nu=list(nu))
             if self.kind == "adamw" and self.wd > 0:
                 u = torch._foreach_add(u, list(params), alpha=self.wd)

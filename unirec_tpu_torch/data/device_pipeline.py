@@ -39,6 +39,7 @@ from unirec_tpu_torch.core.mesh import RowSlice, rand_rows, randint_rows
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.data.sampler import AliasTable
 from unirec_tpu_torch.ops import member as member_ops
+from unirec_tpu_torch.utils import tracing
 
 
 class DeviceAugmenter:
@@ -166,6 +167,10 @@ class DeviceAugmenter:
         data-parallel rank's, with every random draw taken at the global
         batch's shape and sliced, so they are the rows a one-process run
         makes; membership (row 8) runs on these rows alone."""
+        with tracing.span("train.augment"):
+            return self._augment(raw, gen, rows)
+
+    def _augment(self, raw, gen, rows):
         raw = dict(raw)
         state = raw.pop("_aug", self.state)
         if rows is not None:

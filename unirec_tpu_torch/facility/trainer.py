@@ -24,7 +24,10 @@ Observability (reference trainer.py:78-84, 284-290, 356-365):
 step epoch + 1 and ``valid/<metric>`` at the epoch index through
 ``torch.utils.tensorboard`` into ``<output_path>/tensorboard``;
 ``use_wandb`` logs the same when ``wandb`` imports; either warns and stays
-off when its package does not import.
+off when its package does not import. While a profiler runs, a step opens
+the spans of utils/tracing.py: ``train.step`` over ``train.augment``,
+``train.forward``, ``train.backward``, ``train.reduce`` and
+``train.update`` (``optim.*``, then ``train.apply``).
 
 MoRec (reference trainer.py:461-538): with an objective controller
 (``add_objective_controller``, wired by facility/morec's ``build_morec``)
@@ -70,7 +73,7 @@ from unirec_tpu_torch.facility.evaluation import build_evaluator
 from unirec_tpu_torch.models.modules import DropoutRNG
 from unirec_tpu_torch.ops import losses as L
 from unirec_tpu_torch.utils import checkpoint as ckpt_util
-from unirec_tpu_torch.utils import resolve_device, to_device
+from unirec_tpu_torch.utils import resolve_device, to_device, tracing
 from unirec_tpu_torch.utils.flax_bridge import load_flax_params, loaded_mask, to_flax_params
 from unirec_tpu_torch.utils.logger import setup_logger
 
@@ -205,29 +208,32 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step on a device batch (raw ids when an augmenter
         is set); returns the loss as a 0-d device tensor, no host sync."""
-        aug_seed, drop_seed = step_seeds(self.seed, self._global_step)
-        if self.objective_controller is not None:
-            from unirec_tpu_torch.facility.morec.integration import morec_train_step
-            loss = morec_train_step(self, batch, drop_seed)
+        with tracing.span("train.step"):
+            aug_seed, drop_seed = step_seeds(self.seed, self._global_step)
+            if self.objective_controller is not None:
+                from unirec_tpu_torch.facility.morec.integration import morec_train_step
+                loss = morec_train_step(self, batch, drop_seed)
+                self._global_step += 1
+                return loss
+            n = next(len(v) for v in batch.values() if torch.is_tensor(v) and v.dim())
+            lo, hi = self.mesh.row_range(n)
+            if self._augmenter is not None:
+                gen = torch.Generator(device=self.device).manual_seed(aug_seed)
+                batch = self._augmenter.augment(batch, gen, rows=(lo, hi))
+            else:
+                batch = {k: v[lo:hi] if torch.is_tensor(v) and v.dim() else v
+                         for k, v in batch.items()}
+            if self._anneal_sched is not None:     # after augment, which rebuilds the keys
+                batch = dict(batch, anneal=kl_anneal(self._global_step, *self._anneal_sched))
+            with tracing.span("train.forward"), L.global_denominators(
+                    lambda x: self.mesh.all_reduce_(x.clone(), "data")):
+                loss, _ = self.model(batch, train=True,
+                                     rng=DropoutRNG(drop_seed, self.device, (lo, hi - lo, n)))
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+            loss = self.reduce_and_update(loss, grads)
             self._global_step += 1
             return loss
-        n = next(len(v) for v in batch.values() if torch.is_tensor(v) and v.dim())
-        lo, hi = self.mesh.row_range(n)
-        if self._augmenter is not None:
-            gen = torch.Generator(device=self.device).manual_seed(aug_seed)
-            batch = self._augmenter.augment(batch, gen, rows=(lo, hi))
-        else:
-            batch = {k: v[lo:hi] if torch.is_tensor(v) and v.dim() else v
-                     for k, v in batch.items()}
-        if self._anneal_sched is not None:     # after augment, which rebuilds the keys
-            batch = dict(batch, anneal=kl_anneal(self._global_step, *self._anneal_sched))
-        with L.global_denominators(lambda x: self.mesh.all_reduce_(x.clone(), "data")):
-            loss, _ = self.model(batch, train=True,
-                                 rng=DropoutRNG(drop_seed, self.device, (lo, hi - lo, n)))
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        loss = self.reduce_and_update(loss, grads)
-        self._global_step += 1
-        return loss
 
     def reduce_and_update(self, loss: torch.Tensor, grads) -> torch.Tensor:
         """The update from this rank's loss and gradients (None for a
@@ -235,7 +241,8 @@ class Trainer:
         summed over the data ranks in one all-reduce, through
         ``apply_update``. Returns the global loss."""
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
-        loss, *grads = self.mesh.all_reduce_flat([loss.detach()] + grads, "data")
+        with tracing.span("train.reduce"):
+            loss, *grads = self.mesh.all_reduce_flat([loss.detach()] + grads, "data")
         self.apply_update(loss, grads)
         return loss
 
@@ -244,15 +251,16 @@ class Trainer:
         loss does not reach), frozen parameters at zero gradient, under the
         NaN guard (trainer.py:229-237): params and state stay when the loss
         is not finite."""
-        grads = [torch.zeros_like(p) if g is None or f else g
-                 for g, p, f in zip(grads, self.params, self._frozen)]
-        with torch.no_grad():
+        with tracing.span("train.update"), torch.no_grad():
+            grads = [torch.zeros_like(p) if g is None or f else g
+                     for g, p, f in zip(grads, self.params, self._frozen)]
             finite = torch.isfinite(loss)
             updates, new_state = self.tx.update(grads, self.opt_state, self.params)
-            for p, u in zip(self.params, updates):
-                p.copy_(torch.where(finite, p + u, p))
-            self.opt_state = {k: _where(finite, v, self.opt_state[k])
-                              for k, v in new_state.items()}
+            with tracing.span("train.apply"):
+                for p, u in zip(self.params, updates):
+                    p.copy_(torch.where(finite, p + u, p))
+                self.opt_state = {k: _where(finite, v, self.opt_state[k])
+                                  for k, v in new_state.items()}
 
     @property
     def _frozen(self):

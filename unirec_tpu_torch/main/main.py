@@ -36,8 +36,12 @@ their time rows. With
 ``profile=1`` a ``torch.profiler`` trace (CPU and, on the card, CUDA
 activities) runs from the parsed config to every return of ``run`` and is
 written as ``<output_path>/profile/<exp_name>.pt.trace.json``, torch's
-Chrome-trace format where the JAX package writes an xplane; it stops when
-``run`` raises too. It runs on the CUDA card unless the caller passes
+Chrome-trace format where the JAX package writes an xplane, with the port's
+spans (utils/tracing.py) among the kernels; beside it
+``<exp_name>.counters.json`` holds what ``tracing.counters()`` counted
+while it ran (kernel launches by body, the fused top-k's users, selected
+and re-scored rows). It stops when ``run`` raises too, and then writes
+neither file. It runs on the CUDA card unless the caller passes
 ``device='cpu'`` (or another device), and never falls back to the CPU.
 
 Distribution (main.py:104-131): ``initialize_distributed`` joins the
@@ -62,6 +66,7 @@ signals swept over the validation split read as training rows.
 from __future__ import annotations
 
 import copy
+import json
 import os
 from contextlib import contextmanager
 from typing import Any, Dict, Optional
@@ -82,7 +87,7 @@ from unirec_tpu_torch.data.pipeline import (make_eval_batcher, make_host_train_b
 from unirec_tpu_torch.facility.solver import Solver
 from unirec_tpu_torch.facility.trainer import Trainer
 from unirec_tpu_torch.models.base import features_shape
-from unirec_tpu_torch.utils import file_io
+from unirec_tpu_torch.utils import file_io, tracing
 from unirec_tpu_torch.utils.logger import setup_logger
 from unirec_tpu_torch.utils.registry import get_model_class
 
@@ -180,6 +185,7 @@ def _run_trace(config, dev, logger):
     trace_dir = os.path.join(config["output_path"], "profile")
     os.makedirs(trace_dir, exist_ok=True)
     prof = profile(activities=acts)
+    before = tracing.counters()
     prof.start()
     logger.info("torch profiler tracing to %s", trace_dir)
     try:
@@ -187,6 +193,9 @@ def _run_trace(config, dev, logger):
     finally:
         prof.stop()
     prof.export_chrome_trace(os.path.join(trace_dir, f"{config['exp_name']}.pt.trace.json"))
+    with open(os.path.join(trace_dir, f"{config['exp_name']}.counters.json"), "w") as f:
+        json.dump({k: v - before.get(k, 0) for k, v in tracing.counters().items()}, f,
+                  indent=1, sort_keys=True)
 
 
 def run(args: Dict[str, Any], device: Optional[str] = None) -> Optional[Dict[str, float]]:

@@ -14,7 +14,11 @@ Score paths, as in the JAX package:
   - ``item_file``: per-(user, item) score lines with a held-out label.
 The catalog's item side takes the model's constants (the feature table and
 the text rows the checkpoint carries); the user side reads the history
-windows alone, as the JAX package's does.
+windows alone, as the JAX package's does. While a profiler runs, a request
+opens the spans of utils/tracing.py: ``serve.request`` over
+``serve.catalog``, then per batch ``serve.windows``,
+``serve.history_gather``, ``serve.to_device``, ``serve.tower`` (the
+sharded and fused paths) and ``serve.topk``, then ``serve.fetch``.
 ``topk_recall_target`` in (0, 1) asks the JAX package for
 ``lax.approx_max_k``, a TPU PartialReduce op that XLA lowers to exact top-k
 everywhere else; the port honours the target with exact selection (the
@@ -48,7 +52,7 @@ from unirec_tpu_torch.core.mesh import create_mesh
 from unirec_tpu_torch.data.history import UserHistory
 from unirec_tpu_torch.main.infer_embedding import iter_infer_batches
 from unirec_tpu_torch.ops import topk as topk_ops
-from unirec_tpu_torch.utils import to_device
+from unirec_tpu_torch.utils import to_device, tracing
 from unirec_tpu_torch.utils.checkpoint import load_model_freely
 from unirec_tpu_torch.utils.logger import setup_logger
 
@@ -60,6 +64,11 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
     """[n_users, topk] recommended item ids, or the score lines in
     ``item_file`` mode. Runs on the model's device; row-sharded on a
     ``mesh`` with n_model > 1, or over ``n_shards`` logical shards."""
+    with tracing.span("serve.request"):
+        return _topk_request(config, model, user_ids, history, topk, mesh, n_shards)
+
+
+def _topk_request(config, model, user_ids, history, topk, mesh, n_shards):
     dev = model.device
     last_item = int(config.get("last_item", 0))
     tau = float(config.get("tau", 1.0))
@@ -74,34 +83,35 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
         else:
             logging.getLogger("unirec_tpu_torch").info(
                 "topk_recall_target %g: exact selection (recall 1.0)", recall_target)
-    item_emb = model.all_item_emb()
-    _, item_bias = model.bias_terms()
     item_file = config.get("item_file") or ""
     distributed = mesh is not None and mesh.distributed and mesh.n_model > 1
     sharded = (distributed or int(n_shards or 1) > 1) and not item_file \
         and last_item <= 0 and not approx
-    if sharded:
-        shards = mesh.n_model if distributed else int(n_shards)
-        rank = mesh.rank("model") if distributed else None
-        n_items_real = item_emb.shape[0]
-        table, scale = item_emb, None
-        if int(config.get("catalog_int8", 0) or 0):
-            table, scale = topk_ops.quantize_catalog(table)   # per shard, half the bytes
-            scale = topk_ops.place_item_table(scale, shards, rank)[0]
-        table = topk_ops.place_item_table(table, shards, rank)[0]
-        bias = None if item_bias is None else \
-            topk_ops.place_item_table(item_bias.float(), shards, rank)[0]
-    fused_flag = config.get("use_fused_topk")
-    if fused_flag is None:  # default: on for CUDA serving-scale catalogs
-        fused_flag = dev.type == "cuda" and item_emb.shape[0] >= 16384
-    fused = not item_file and last_item <= 0 and bool(int(fused_flag)) and not sharded
-    item_scale = None
-    if fused:
-        item_aug = item_emb
-        if item_bias is not None:
-            item_aug = torch.cat([item_emb, item_bias[:, None].to(item_emb.dtype)], 1)
-        if int(config.get("catalog_int8", 0) or 0):
-            item_aug, item_scale = topk_ops.quantize_catalog(item_aug)
+    with tracing.span("serve.catalog"):
+        item_emb = model.all_item_emb()
+        _, item_bias = model.bias_terms()
+        if sharded:
+            shards = mesh.n_model if distributed else int(n_shards)
+            rank = mesh.rank("model") if distributed else None
+            n_items_real = item_emb.shape[0]
+            table, scale = item_emb, None
+            if int(config.get("catalog_int8", 0) or 0):
+                table, scale = topk_ops.quantize_catalog(table)   # per shard, half the bytes
+                scale = topk_ops.place_item_table(scale, shards, rank)[0]
+            table = topk_ops.place_item_table(table, shards, rank)[0]
+            bias = None if item_bias is None else \
+                topk_ops.place_item_table(item_bias.float(), shards, rank)[0]
+        fused_flag = config.get("use_fused_topk")
+        if fused_flag is None:  # default: on for CUDA serving-scale catalogs
+            fused_flag = dev.type == "cuda" and item_emb.shape[0] >= 16384
+        fused = not item_file and last_item <= 0 and bool(int(fused_flag)) and not sharded
+        item_scale = None
+        if fused:
+            item_aug = item_emb
+            if item_bias is not None:
+                item_aug = torch.cat([item_emb, item_bias[:, None].to(item_emb.dtype)], 1)
+            if int(config.get("catalog_int8", 0) or 0):
+                item_aug, item_scale = topk_ops.quantize_catalog(item_aug)
 
     user2items = {}
     if item_file:
@@ -111,44 +121,56 @@ def get_topk_recommendations(config, model, user_ids: np.ndarray,
                 user2items[int(u)] = [int(t) for t in items.split(",")]
 
     pending, reals, metas = [], [], []
-    for batch in iter_infer_batches(config, user_ids, history, model.is_seqrec):
+    batches = iter_infer_batches(config, user_ids, history, model.is_seqrec)
+    while True:
+        with tracing.span("serve.windows"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         n_real = batch.pop("n_real")
-        tb = to_device(batch, dev, torch.int64)
-        hist_items, hist_len = history.gather(batch["user_id"])
-        if last_item > 0:
-            target = hist_items[np.arange(len(hist_len)),
-                                np.maximum(hist_len - last_item, 0)]
-        else:
-            target = np.zeros(len(hist_len), np.int32)
+        with tracing.span("serve.history_gather"):
+            hist_items, hist_len = history.gather(batch["user_id"])
+            if last_item > 0:
+                target = hist_items[np.arange(len(hist_len)),
+                                    np.maximum(hist_len - last_item, 0)]
+            else:
+                target = np.zeros(len(hist_len), np.int32)
         reals.append(n_real)
         metas.append((batch["user_id"][:n_real], target))
-        h = to_device({"items": hist_items, "len": hist_len,
-                       "target": target}, dev, torch.int64)
+        with tracing.span("serve.to_device"):
+            tb = to_device(batch, dev, torch.int64)
+            h = to_device({"items": hist_items, "len": hist_len,
+                           "target": target}, dev, torch.int64)
         if item_file:
             pending.append(topk_ops.full_catalog_scores(model, tb, item_emb, tau))
-        elif sharded:
-            # the per-user bias and tau shift/scale whole rows and cannot
-            # change the ranking; the item bias goes to each shard
-            _, ids = topk_ops.masked_sharded_topk(
-                model.user_emb(tb), table, h["items"], h["len"], topk,
-                mesh if distributed else None, n_real=n_items_real, n_shards=shards,
-                item_bias=bias, item_scale=scale)
-            pending.append(ids)
-        elif fused:
-            # the per-user bias and tau shift/scale whole rows and cannot
-            # change the ranking; the item bias is the extra factor column
-            user_emb = model.user_emb(tb)
-            if item_bias is not None:
-                user_emb = torch.cat([user_emb, torch.ones_like(user_emb[:, :1])], 1)
-            _, ids = topk_ops.fused_catalog_topk(
-                user_emb, item_aug, topk, hist_items=h["items"],
-                hist_len=h["len"], exclude_pad_item=True, item_scale=item_scale)
-            pending.append(ids)
-        else:
-            pending.append(_dense_topk(model, tb, item_emb, h, tau, topk,
-                                       last_item > 0))
-    fetched = [x.float().cpu().numpy()[:n] if item_file else x.cpu().numpy()[:n]
-               for x, n in zip(pending, reals)]
+            continue
+        if sharded or fused:
+            with tracing.span("serve.tower"):
+                user_emb = model.user_emb(tb)
+        with tracing.span("serve.topk"):
+            if sharded:
+                # the per-user bias and tau shift/scale whole rows and cannot
+                # change the ranking; the item bias goes to each shard
+                _, ids = topk_ops.masked_sharded_topk(
+                    user_emb, table, h["items"], h["len"], topk,
+                    mesh if distributed else None, n_real=n_items_real, n_shards=shards,
+                    item_bias=bias, item_scale=scale)
+                pending.append(ids)
+            elif fused:
+                # the per-user bias and tau shift/scale whole rows and cannot
+                # change the ranking; the item bias is the extra factor column
+                if item_bias is not None:
+                    user_emb = torch.cat([user_emb, torch.ones_like(user_emb[:, :1])], 1)
+                _, ids = topk_ops.fused_catalog_topk(
+                    user_emb, item_aug, topk, hist_items=h["items"],
+                    hist_len=h["len"], exclude_pad_item=True, item_scale=item_scale)
+                pending.append(ids)
+            else:
+                pending.append(_dense_topk(model, tb, item_emb, h, tau, topk,
+                                           last_item > 0))
+    with tracing.span("serve.fetch"):
+        fetched = [x.float().cpu().numpy()[:n] if item_file else x.cpu().numpy()[:n]
+                   for x, n in zip(pending, reals)]
 
     if item_file:
         lines = []

@@ -39,6 +39,7 @@ from unirec_tpu_torch.models import modules
 from unirec_tpu_torch.ops import embedding as E
 from unirec_tpu_torch.ops import losses as L
 from unirec_tpu_torch.ops import scatter_accum as SA
+from unirec_tpu_torch.utils import tracing
 
 # tables whose row 0 is the padding row, zeroed at initialization
 _PADDED_TABLES = ("user_embedding", "item_embedding", "item_dst_embedding",
@@ -412,7 +413,8 @@ class BaseRecommender(nn.Module):
                                    batch.get("user_id"), batch["item_id"])
 
     def user_emb(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self._user_emb_from_batch(batch)
+        with tracing.span("model.user_emb"):
+            return self._user_emb_from_batch(batch)
 
     def item_emb(self, items: torch.Tensor,
                  item_features: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -14,6 +14,10 @@ does not admit): "mma", bf16 users against bf16 or int8 items of width at
 most 128 on the tensor cores, over a grid sized by the card, not by N
 (``launches_mma`` and ``launches_int8_mma`` count it); "cuda", the CUDA-core
 body, for f32 users or items and wider factors, at most 65,535 x 256 items.
+While a profiler runs (utils/tracing.py), ``fused_catalog_topk`` opens
+``topk.pass1`` and ``topk.pass2`` and counts its users, the B k ids it
+selects and the catalog rows it re-scores (``users``, ``selected``,
+``rows_rescored``).
 
 Row-sharded serving (unirec_tpu/ops/topk.py:43-160): the catalog lives
 row-sharded over the mesh's ``model`` ranks (``place_item_table`` pads it
@@ -35,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from unirec_tpu_torch.ops import _build
+from unirec_tpu_torch.utils import tracing
 
 CHUNK = 16  # items per block-max chunk (csrc/blockmax.cu::kChunk)
 _USER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -200,14 +205,14 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     icap = (-(-max_invalid // chunk) + 1) if invalid_from is not None else 0
     kp = k + (chunk if N % chunk else 0) + (1 if exclude_pad_item else 0) + hcap + icap
     nb_real = -(-N // chunk)
-
-    banned_sorted = None
-    if hcap:
-        valid = torch.arange(hcap, device=dev)[None, :] < hist_len[:, None]
-        hcols = torch.where(valid, hist_items.long(), -1)
-        if keep_ids is not None:
-            hcols = torch.where(hcols == keep_ids.long()[:, None], -1, hcols)
-        banned_sorted = hcols.sort(dim=1).values
+    quantized = item_scale is not None
+    if quantized and item_emb.dtype != torch.int8:
+        raise TypeError("item_scale requires int8 items")
+    dense = kp >= nb_real or N <= 4 * k * chunk
+    if tracing.profiling():
+        _TOPK.users += B
+        _TOPK.selected += B * k
+        _TOPK.rows_rescored += B * (N if dense else kp * chunk)
 
     def mask_candidates(sc, iid):
         sc = torch.where(iid < N, sc, float("-inf"))
@@ -215,34 +220,45 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
             sc = torch.where(iid >= invalid_from, float("-inf"), sc)
         if exclude_pad_item:
             sc = torch.where(iid == 0, float("-inf"), sc)
-        if banned_sorted is not None:
+        if hcap:
+            valid = torch.arange(hcap, device=dev)[None, :] < hist_len[:, None]
+            hcols = torch.where(valid, hist_items.long(), -1)
+            if keep_ids is not None:
+                hcols = torch.where(hcols == keep_ids.long()[:, None], -1, hcols)
+            banned_sorted = hcols.sort(dim=1).values
             pos = torch.searchsorted(banned_sorted, iid.contiguous()).clamp_(max=hcap - 1)
             banned = banned_sorted.gather(1, pos) == iid
             sc = torch.where(banned, float("-inf"), sc)
         return sc
 
-    quantized = item_scale is not None
-    if quantized and item_emb.dtype != torch.int8:
-        raise TypeError("item_scale requires int8 items")
-
-    if kp >= nb_real or N <= 4 * k * chunk:  # dense at small N
+    if dense:  # dense at small N
         sc = user_emb.float() @ item_emb.float().T
         if quantized:
             sc = sc * item_scale[None, :]
         iid = torch.arange(N, device=dev).expand(B, N)
         return fast_topk(mask_candidates(sc, iid), k)
 
-    bm = catalog_blockmax(user_emb, item_emb, chunk, item_scale)
-    _, blk = fast_topk(bm, kp)                                  # [B, kp]
-    iid = (blk[..., None] * chunk
-           + torch.arange(chunk, device=dev)).reshape(B, kp * chunk)
-    rows = iid.clamp(max=N - 1)
-    cand = item_emb[rows].float()                               # [B, kp*chunk, D]
-    sc = torch.bmm(cand, user_emb.float()[:, :, None])[..., 0]
-    if quantized:
-        sc = sc * item_scale[rows]
-    v, ci = fast_topk(mask_candidates(sc, iid), k)
-    return v, iid.gather(1, ci)
+    with tracing.span("topk.pass1"):
+        bm = catalog_blockmax(user_emb, item_emb, chunk, item_scale)
+        _, blk = fast_topk(bm, kp)                                  # [B, kp]
+    with tracing.span("topk.pass2"):
+        iid = (blk[..., None] * chunk
+               + torch.arange(chunk, device=dev)).reshape(B, kp * chunk)
+        rows = iid.clamp(max=N - 1)
+        cand = item_emb[rows].float()                               # [B, kp*chunk, D]
+        sc = torch.bmm(cand, user_emb.float()[:, :, None])[..., 0]
+        if quantized:
+            sc = sc * item_scale[rows]
+        v, ci = fast_topk(mask_candidates(sc, iid), k)
+        return v, iid.gather(1, ci)
+
+
+fused_catalog_topk.users = 0
+fused_catalog_topk.selected = 0        # B k
+fused_catalog_topk.rows_rescored = 0   # B kp chunk in pass 2, B N on the dense path
+# the counters' owner, bound once: a caller may rebind the module's name to a
+# wrapper of its own (a benchmark's span), which holds no counters
+_TOPK = fused_catalog_topk
 
 
 # ------------------------------------------------------------ row-sharded

@@ -6,6 +6,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from unirec_tpu_torch.utils import tracing
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
@@ -23,6 +25,7 @@ def to_device(batch: Dict[str, Any], device,
     """Host batch (arrays or scalars) -> tensors on ``device``, each cast to
     ``dtype`` when one is given (int64 for the serving path's gather
     indices), else keeping its own."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device=device, dtype=dtype,
-                                                 non_blocking=True)
-            for k, v in batch.items()}
+    with tracing.span("data.to_device"):
+        return {k: torch.as_tensor(np.asarray(v)).to(device=device, dtype=dtype,
+                                                     non_blocking=True)
+                for k, v in batch.items()}
