@@ -20,6 +20,10 @@ Phases, each of which must pass:
      and int8, in its tensor-core body, its CUDA-core body timed in turns
      by the card's clock (traced_kernel_ms: these calls take microseconds,
      where CUDA events read the host's launch pace), at least 1.5x slower;
+     pass 2 of the catalog top-k (csrc/rescore_topk.cu) at a serving
+     request's shape (4,096 users, kp = 301) over 50,000 and 1,000,000
+     items against its plain version (id sets equal apart from ties), beside
+     the gather + bmm + topk it replaced and its L2 and device-memory bounds;
   4. the serving path: a bench-width SASRec (2 layers, d=64, 2 heads, inner
      128, L=50, 50,000 items; random weights from a seed, saved and loaded
      as a checkpoint) serves top-100 to a few thousand users of a synthetic
@@ -727,6 +731,82 @@ def kernel_fused_topk(torch):
         raise AssertionError(f"fused top-k disagrees with the dense plain top-k: {line}")
 
 
+def kernel_rescore_topk(torch, n_items):
+    """Pass 2 (csrc/rescore_topk.cu) at the serving request's shape: 4,096
+    bf16 users, top-100 with 200 history ids and the padding item banned
+    (kp = 301 chunks, 4,816 candidates a user) of pass 1's own chunks,
+    against the plain version on the same inputs: values within 1e-5 of the
+    largest score (another summation order), id sets equal apart from ties
+    at the 100th. Timed by the card's clock; the plain version, and the
+    gather + bmm + topk it replaces without the bans, beside it. Bound:
+    ``bound_ms``, what device memory must carry (users, chunk ids,
+    histories, outputs, the catalog once) at 3.35 TB/s. The candidate rows
+    come from L2 or from L1 (rows several users of an SM read), so no L2
+    floor is counted; ``candidate_tb_per_s`` is the kernel's rate of
+    candidate bytes. ``body``: the one the kernel picked (its
+    ``unirec_rescore_topk_body``)."""
+    import ctypes
+    from unirec_tpu_torch.ops import _build, topk as TK
+    B, D = SERVE_USERS, EMB
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    u = torch.randn(B, D, generator=g, device="cuda").to(torch.bfloat16)
+    it = (torch.randn(n_items, D, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+    hist = torch.randint(1, n_items, (B, HIST_CAP), generator=g, device="cuda")
+    hlen = torch.randint(10, HIST_CAP + 1, (B,), generator=g, device="cuda")
+    bans = dict(hist_items=hist, hist_len=hlen, exclude_pad_item=True)
+    kp = TOPK + (16 if n_items % 16 else 0) + 1 + HIST_CAP
+    _, blk = torch.topk(TK.catalog_blockmax(u, it), kp)
+    rule = _build.library("rescore_topk").unirec_rescore_topk_body
+    rule.argtypes = [ctypes.c_int] * 7
+    body = {1: "scalar", 2: "vector", 3: "spill"}.get(
+        rule(1, D, kp, TOPK, HIST_CAP, n_items, int(it.data_ptr() % 16 == 0)), "refused")
+    before = TK.rescore_topk.launches
+    v, ids = TK.rescore_topk(u, it, blk, TOPK, **bans)
+    torch.cuda.synchronize()
+    launched = TK.rescore_topk.launches - before
+    pv, pids = TK._rescore_topk_plain(u, it, blk, TOPK, **bans)
+    tol = 1e-5 * float(pv.abs().max())
+    err = float((v - pv).abs().max())
+    own = (u.float()[:, None, :] * it[ids].float()).sum(-1)
+    own_err = float((own - v).abs().max())
+    banned = not bool(torch.isfinite(TK._ban_candidates(own, ids, n_items, **bans)).all())
+    differ = (ids.sort(1).values != pids.sort(1).values).any(1)
+    ties_only = all(
+        abs(float(pv[r, -1] - (v[r, (ids[r] == i).nonzero()[0, 0]] if (ids[r] == i).any()
+                               else pv[r, (pids[r] == i).nonzero()[0, 0]]))) <= tol
+        for r in differ.nonzero()[:, 0].tolist()
+        for i in set(ids[r].tolist()) ^ set(pids[r].tolist()))
+
+    def library():
+        iid = (blk[..., None] * 16 + torch.arange(16, device="cuda")).reshape(B, -1)
+        sc = torch.bmm(it[iid.clamp(max=n_items - 1)].float(), u.float()[:, :, None])[..., 0]
+        return torch.topk(sc, TOPK)
+
+    cand_bytes = B * kp * 16 * D * it.element_size()
+    dram = nbytes(u, blk, hist, hlen, v, ids) + min(nbytes(it), cand_bytes)
+    line = {"phase": "kernel", "name": "rescore_topk", "users": B, "items": n_items,
+            "dim": D, "k": TOPK, "kp": kp, "hist_cap": HIST_CAP, "body": body,
+            "launches": launched, "max_abs_err": err, "tol": tol, "own_score_err": own_err,
+            "banned_selected": banned, "rows_differing": int(differ.sum()),
+            "differ_by_ties_only": ties_only,
+            "kernel_ms": traced_kernel_ms(
+                lambda: TK.rescore_topk(u, it, blk, TOPK, **bans), "rescore_topk_kernel",
+                iters=20),
+            "event_ms": cuda_ms(lambda: TK.rescore_topk(u, it, blk, TOPK, **bans)),
+            "plain_ms": cuda_ms(lambda: TK._rescore_topk_plain(u, it, blk, TOPK, **bans),
+                                iters=5),
+            "library_ms": cuda_ms(library, iters=5),
+            "candidate_bytes": cand_bytes, "dram_bytes": dram,
+            "bound_ms": dram / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    line["candidate_tb_per_s"] = cand_bytes / line["kernel_ms"] / 1e9
+    emit(line)
+    ok = (body == "vector" and launched == 1 and err <= tol and own_err <= tol
+          and not banned and ties_only)
+    if not ok:
+        raise AssertionError(f"rescore_topk disagrees with its plain version: {line}")
+    return line
+
+
 # ---------------------------------------------------------------- main path
 def synthetic_history(rng=None):
     """bench.py's recipe: 100,000 users with 10..200 random items each."""
@@ -772,7 +852,8 @@ def plain_versions():
             mock.patch.object(LY, "_lastq_bwd_cuda", LY._lastq_bwd_plain), \
             mock.patch.object(SA, "_scatter_cuda", SA._scatter_plain), \
             mock.patch.object(MB, "_member_cuda", MB._member_plain), \
-            mock.patch.object(TK, "_blockmax_cuda", TK._blockmax_plain):
+            mock.patch.object(TK, "_blockmax_cuda", TK._blockmax_plain), \
+            mock.patch.object(TK, "_rescore_cuda", TK._rescore_topk_plain):
         yield
 
 
@@ -796,6 +877,8 @@ def _counters():
             "blockmax_int8": (TK.catalog_blockmax, "launches_int8"),
             "blockmax_mma": (TK.catalog_blockmax, "launches_mma"),
             "blockmax_int8_mma": (TK.catalog_blockmax, "launches_int8_mma"),
+            "rescore_topk": (TK.rescore_topk, "launches"),
+            "rescore_topk_int8": (TK.rescore_topk, "launches_int8"),
             "layer_bwd": (LY.layer_bwd, "launches"),
             "layer_bwd_mma": (LY.layer_bwd, "launches_mma"),
             "lastq_bwd": (LY.lastq_bwd, "launches"),
@@ -809,7 +892,8 @@ def _counters():
 # *_mma: the bf16 tensor-core bodies of rows 1-5q; scatter_add_sorted: row 6's
 # sorted-tile body; member_warp: row 8's warp body
 SERVING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "blockmax",
-                   "blockmax_int8", "blockmax_mma", "blockmax_int8_mma")
+                   "blockmax_int8", "blockmax_mma", "blockmax_int8_mma", "rescore_topk",
+                   "rescore_topk_int8")
 TRAINING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "layer_bwd",
                     "layer_bwd_mma", "lastq_bwd", "lastq_bwd_mma", "scatter_add",
                     "scatter_add_sorted", "member", "member_warp")
@@ -5586,6 +5670,8 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
             kernel_blockmax(torch, 1_000_000, "bfloat16", int8)
         kernel_blockmax(torch, N_ITEMS, "float32")
         kernel_fused_topk(torch)
+        rows["rescore_topk"] = kernel_rescore_topk(torch, N_ITEMS)
+        kernel_rescore_topk(torch, 1_000_000)
 
     counts = main_path(torch, card)
 
@@ -5729,7 +5815,10 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
                                        "unirec_tpu/ops/layer.py:589"),
                "fused_ffn_bwd": ("unirec_tpu_torch/csrc/ffn.cu", "unirec_tpu/ops/ffn.py:72"),
                "flash_attention": ("unirec_tpu_torch/csrc/flash_attention.cu",
-                                   "unirec_tpu/ops/attention.py:44")}
+                                   "unirec_tpu/ops/attention.py:44"),
+               "rescore_topk": ("unirec_tpu_torch/csrc/rescore_topk.cu",
+                                "none: pass 2 was XLA's gather and top_k "
+                                "(unirec_tpu/ops/topk.py:308)")}
     # the body each line times: rows 1-5q and 12 list their tensor-core body
     # ("mma") and their CUDA-core body, row 6 its sorted-tile body and its
     # per-row body, row 8 its warp body (the entry path's ids) and its block
@@ -5741,7 +5830,7 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
                                                   "blockmax_int8")},
              "scatter_add": ("sorted", "per_row"), "member": ("warp", "block")}
     bodies = {"fused_ffn_bwd": "mma", "fused_attention": "mma", "fused_attention_bwd": "mma",
-              "flash_attention": "mma", "scatter_add2": "sorted",
+              "flash_attention": "mma", "scatter_add2": "sorted", "rescore_topk": "vector",
               **{n: new for n, (new, _) in split.items()},
               **{f"{n}_{old}": "cuda" if old == "cuda_core" else old
                  for n, (_, old) in split.items()}}

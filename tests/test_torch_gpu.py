@@ -200,6 +200,248 @@ def test_fused_topk_equals_dense_top_k(cuda):
     assert torch.allclose(v, ref_v, atol=1e-4)
 
 
+def _pass2_case(dev, B, N, D, k, udt=torch.bfloat16, idt=torch.bfloat16, hcap=0,
+                keep=False, exclude_pad=False, invalid_from=None, max_invalid=0, seed=11):
+    """Pass 2's inputs as fused_catalog_topk builds them: the users, the
+    catalog (scale for int8), pass 1's chunk ids at its kp, and the bans."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn(B, D, generator=g, device=dev).to(udt)
+    items = torch.randn(N, D, generator=g, device=dev) * 0.05
+    scale = None
+    if idt == torch.int8:
+        items, scale = TK.quantize_catalog(items)
+    else:
+        items = items.to(idt)
+    icap = (-(-max_invalid // 16) + 1) if invalid_from is not None else 0
+    kp = k + (16 if N % 16 else 0) + int(exclude_pad) + hcap + icap
+    _, blk = torch.topk(TK.catalog_blockmax(u, items, item_scale=scale), kp)
+    bans = dict(exclude_pad_item=exclude_pad, invalid_from=invalid_from)
+    if hcap:
+        dense = u.float() @ items.float().T
+        hist = torch.randint(1, N, (B, hcap), generator=g, device=dev)
+        hist[:, :4] = torch.topk(dense, 4).indices      # ban each user's best items ...
+        hlen = torch.randint(4, hcap + 1, (B,), generator=g, device=dev)
+        bans.update(hist_items=hist, hist_len=hlen)
+        if keep:
+            bans["keep_ids"] = hist[:, 1].clone()       # ... but exempt the second
+    return u, items, scale, blk, bans
+
+
+def _hold_pass2(v, ids, u, items, scale, blk, k, bans):
+    """The kernel's (values, ids) against the plain version's on the same
+    inputs: values descending and equal within f32 rounding (the kernel sums
+    a row's products in another order: 1e-5 of the largest score), every id
+    scored as its value says and not banned, and the id sets equal apart
+    from ties at the k-th value (an id in one set only scores within the
+    rounding of the k-th)."""
+    pv, pids = TK._rescore_topk_plain(u, items, blk, k, item_scale=scale, **bans)
+    tol = 1e-5 * float(pv.abs().max())
+    assert v.shape == ids.shape == (u.shape[0], k) and ids.dtype == torch.int64
+    assert bool((v[:, 1:] <= v[:, :-1]).all()) and bool(torch.isfinite(v).all())
+    assert float((v - pv).abs().max()) <= tol
+    N = items.shape[0]
+    assert int(ids.min()) >= 0 and int(ids.max()) < N
+    own = (u.float()[:, None, :] * items[ids].float()).sum(-1)
+    if scale is not None:
+        own = own * scale[ids]
+    assert float((own - v).abs().max()) <= tol
+    ok = TK._ban_candidates(own, ids, N, **bans)
+    assert bool(torch.isfinite(ok).all()), "a banned id was selected"
+    srt, psrt = ids.sort(1).values, pids.sort(1).values
+    differ = (srt != psrt).any(1)
+    for r in differ.nonzero()[:, 0].tolist():
+        only = set(ids[r].tolist()) ^ set(pids[r].tolist())
+        for i in only:
+            at = (ids[r] == i).nonzero()
+            val = v[r, at[0, 0]] if len(at) else pv[r, (pids[r] == i).nonzero()[0, 0]]
+            assert abs(float(val - pv[r, -1])) <= tol, (r, i)
+
+
+PASS2_CASES = {   # name: (B, N, D, k, case options)
+    "serve": (4096, 50_000, 64, 100, dict(hcap=200, exclude_pad=True)),
+    "serve_int8": (4096, 50_000, 64, 100, dict(idt=torch.int8, hcap=200, exclude_pad=True)),
+    "item_bias_d65": (512, 50_000, 65, 100, dict(hcap=200, exclude_pad=True)),
+    "int8_d65": (256, 20_000, 65, 50, dict(idt=torch.int8, hcap=30, exclude_pad=True)),
+    "f32_users_bf16_table": (256, 50_000, 64, 100, dict(udt=torch.float32, hcap=200,
+                                                        exclude_pad=True)),
+    "f32_table": (256, 20_000, 64, 50, dict(udt=torch.float32, idt=torch.float32)),
+    "keep_ids_ragged": (256, 20_007, 64, 50, dict(hcap=40, keep=True, exclude_pad=True)),
+    "sharded_invalid_from": (256, 250_000, 64, 301, dict(invalid_from=249_998,
+                                                          max_invalid=2)),
+    "wide_d256": (64, 20_000, 256, 10, dict(hcap=12, exclude_pad=True)),
+    "wide_d512": (64, 20_000, 512, 10, dict(hcap=12, exclude_pad=True)),
+    "wide_d1024": (32, 20_000, 1024, 10, dict(hcap=12, exclude_pad=True)),
+    "f32_d20": (64, 20_000, 20, 10, dict(udt=torch.float32, idt=torch.float32)),
+    # working sets past shared memory: the spill body, more users than its blocks
+    "long_history_spill": (1100, 200_000, 32, 100, dict(hcap=3200, keep=True,
+                                                        exclude_pad=True)),
+    "int8_d65_spill": (64, 100_000, 65, 100, dict(idt=torch.int8, hcap=3200,
+                                                  exclude_pad=True)),
+    "large_k_spill": (64, 1_000_000, 64, 3500, {}),
+}
+BODIES = {0: "refused", 1: "scalar", 2: "vector", 3: "spill"}
+
+
+def _body(items, kp, k, hcap, idt=None):
+    """The body csrc/rescore_topk.cu picks for a call (its own rule)."""
+    rule = _build.library("rescore_topk").unirec_rescore_topk_body
+    rule.argtypes = [ctypes.c_int] * 7
+    code = TK._ITEM_DTYPES[items.dtype] if idt is None else idt
+    return BODIES[rule(code, items.shape[1], kp, k, hcap, items.shape[0],
+                       int(items.data_ptr() % 16 == 0))]
+
+
+@pytest.mark.parametrize("case", sorted(PASS2_CASES))
+def test_rescore_topk_matches_plain(cuda, case):
+    B, N, D, k, opts = PASS2_CASES[case]
+    u, items, scale, blk, bans = _pass2_case(cuda, B, N, D, k, **opts)
+    hcap = 0 if "hist_items" not in bans else bans["hist_items"].shape[1]
+    assert (_body(items, blk.shape[1], k, hcap) == "spill") == case.endswith("_spill")
+    name = "launches_int8" if scale is not None else "launches"
+    before = getattr(TK.rescore_topk, name)
+    v, ids = TK.rescore_topk(u, items, blk, k, item_scale=scale, **bans)
+    torch.cuda.synchronize()
+    assert getattr(TK.rescore_topk, name) == before + 1
+    _hold_pass2(v, ids, u, items, scale, blk, k, bans)
+
+
+def test_rescore_topk_takes_a_misaligned_table_on_the_scalar_body(cuda):
+    u, items, scale, blk, bans = _pass2_case(cuda, 128, 20_000, 64, 50, hcap=20,
+                                             exclude_pad=True)
+    buf = items.new_empty(items.numel() + 1)
+    buf[1:] = items.view(-1)
+    odd = buf[1:].view(items.shape)             # 2 bytes past an aligned address
+    assert odd.data_ptr() % 16 and _body(odd, blk.shape[1], 50, 20) == "scalar"
+    v, ids = TK.rescore_topk(u, odd, blk, 50, **bans)
+    _hold_pass2(v, ids, u, items, scale, blk, 50, bans)
+
+
+@pytest.mark.parametrize("idt,D,kp,k,hcap,N,aligned,body", [
+    (1, 64, 301, 100, 200, 50_000, 1, "vector"),      # the serving shape
+    (2, 64, 301, 100, 200, 50_000, 1, "vector"),      # catalog_int8
+    (1, 65, 301, 100, 200, 50_000, 1, "scalar"),      # the item-bias column
+    (2, 65, 301, 100, 200, 50_000, 1, "scalar"),
+    (0, 64, 301, 100, 200, 50_000, 1, "vector"),
+    (1, 64, 301, 100, 200, 50_000, 0, "scalar"),      # a misaligned view
+    (1, 64, 303, 301, 0, 250_000, 1, "vector"),       # a shard, invalid_from
+    (1, 1024, 10, 10, 0, 50_000, 1, "vector"),        # 128 words a row
+    (1, 1032, 10, 10, 0, 50_000, 1, "scalar"),
+    (1, 64, 3301, 100, 3200, 1_000_000, 1, "spill"),  # a long history
+    (1, 64, 3500, 3500, 0, 1_000_000, 1, "spill"),    # a large k
+    (1, 64, 10, 161, 0, 50_000, 1, "refused"),        # k past kp 16
+    (1, 0, 10, 10, 0, 50_000, 1, "refused"),
+    (3, 64, 10, 10, 0, 50_000, 1, "refused"),         # no such item dtype
+    (1, 64, 10, 10, 0, 2**31 - 17, 1, "vector"),      # the largest catalog
+    (1, 64, 10, 10, 0, 2**31 - 16, 1, "refused")])    # ids past 32 bits
+def test_rescore_body_of_each_path(cuda, idt, D, kp, k, hcap, N, aligned, body):
+    """csrc/rescore_topk.cu's own rule: every path that reaches pass 2 takes
+    a body, and a working set past shared memory spills, with a workspace."""
+    lib = _build.library("rescore_topk")
+    rule, ws = lib.unirec_rescore_topk_body, lib.unirec_rescore_topk_workspace
+    rule.argtypes, ws.argtypes, ws.restype = [ctypes.c_int] * 7, [ctypes.c_int] * 5, \
+        ctypes.c_longlong
+    assert BODIES[rule(idt, D, kp, k, hcap, N, aligned)] == body
+    if body in ("scalar", "vector", "spill"):
+        assert (ws(4096, D, kp, k, hcap) > 0) == (body == "spill")
+
+
+def test_rescore_topk_counts_launches_and_reports_refusals(cuda):
+    """One launch a call on its counter, on every body; an error of the C
+    entry is raised, not skipped; a catalog past 32-bit ids raises with the
+    kernel's capacity."""
+    u, items, scale, blk, bans = _pass2_case(cuda, 64, 20_000, 65, 50, hcap=10,
+                                             exclude_pad=True)
+    before = TK.rescore_topk.launches
+    TK.rescore_topk(u, items, blk, 50, **bans)
+    TK.rescore_topk(u, items, blk, 50, **bans)
+    assert TK.rescore_topk.launches == before + 2
+    launch, _ = TK._rescore_lib()
+    v = torch.empty(64, 50, device=cuda)
+    i = torch.empty(64, 50, dtype=torch.int64, device=cuda)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    err = launch(7, 1, p(u), p(items), None, p(blk), None, None, None, p(v), p(i),
+                 64, 20_000, 65, blk.shape[1], 50, 0, 0, 20_000, None, 0,
+                 _build.stream_handle(cuda))                # no such user dtype
+    with pytest.raises(RuntimeError, match="rescore_topk launch"):
+        _build.check(err, "rescore_topk launch")
+    huge = torch.empty(2**31 - 16, 1, dtype=torch.bfloat16, device=cuda)   # 4 GB
+    with pytest.raises(ValueError, match="capacity"):
+        TK.rescore_topk(torch.ones(2, 1, dtype=torch.bfloat16, device=cuda), huge,
+                        torch.zeros(2, 7, dtype=torch.int64, device=cuda), 5)
+    del huge
+    assert TK.rescore_topk.launches == before + 2
+
+
+@pytest.mark.parametrize("away", ["item_emb", "blk", "hist_items", "hist_len", "keep_ids",
+                                  "item_scale"])
+def test_rescore_topk_refuses_host_tensors(cuda, away):
+    """Every tensor argument must sit on the users' card: a host pointer
+    would fault in the kernel, so the wrapper refuses it first."""
+    u, items, scale, blk, bans = _pass2_case(cuda, 16, 20_000, 64, 10, idt=torch.int8,
+                                             hcap=8, keep=True, exclude_pad=True)
+    args = dict(item_emb=items, blk=blk, item_scale=scale, **bans)
+    args[away] = args[away].cpu()
+    with pytest.raises(ValueError, match=f"{away} not on the users' device"):
+        TK.rescore_topk(u, args.pop("item_emb"), args.pop("blk"), 10, **args)
+
+
+@pytest.mark.parametrize("hcap", [8, 3200])   # the working set in shared memory; spilled
+def test_rescore_topk_takes_tied_candidates_in_candidate_order(cuda, hcap):
+    """Every item the same row, so every score of a user ties: the kernel
+    takes the first k unbanned candidates in pass 1's chunk order, values
+    equal and ids in that order, the same on every call."""
+    B, N, D, k = 64, 100_000, 64, 100
+    g = torch.Generator(device=cuda).manual_seed(23)
+    u = torch.randn(B, D, generator=g, device=cuda).to(torch.bfloat16)
+    items = torch.randn(1, D, generator=g, device=cuda).expand(N, D).to(torch.bfloat16)
+    kp = k + 1 + hcap
+    blk = torch.stack([torch.randperm(N // 16, generator=g, device=cuda)[:kp]
+                       for _ in range(B)])
+    hist = torch.randint(0, N, (B, hcap), generator=g, device=cuda)
+    hlen = torch.randint(0, hcap + 1, (B,), generator=g, device=cuda)
+    bans = dict(hist_items=hist, hist_len=hlen, exclude_pad_item=True)
+    assert _body(items.contiguous(), kp, k, hcap) == ("spill" if hcap > 1000 else "vector")
+    v, ids = TK.rescore_topk(u, items, blk, k, **bans)
+    for _ in range(2):
+        v2, ids2 = TK.rescore_topk(u, items, blk, k, **bans)
+        assert torch.equal(ids, ids2) and torch.equal(v, v2)
+    iid = (blk[..., None] * 16 + torch.arange(16, device=cuda)).reshape(B, -1)
+    for r in range(B):
+        banned = torch.isin(iid[r], hist[r, :hlen[r]]) | (iid[r] == 0)
+        assert torch.equal(ids[r], iid[r][~banned][:k])
+        assert bool((v[r] == v[r, 0]).all())
+
+
+def test_serving_pass2_launches_the_kernel_and_no_plain_pass(cuda, monkeypatch):
+    """fused_catalog_topk at a serving-like shape (bf16 users, history,
+    padding item): one rescore launch a call, no plain pass 2 on the card,
+    and the ids equal the dense top-k apart from ties."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    u = torch.randn(512, 64, generator=g, device=cuda).to(torch.bfloat16)
+    items = (torch.randn(50_000, 64, generator=g, device=cuda) * 0.05).to(torch.bfloat16)
+    hist = torch.randint(1, 50_000, (512, 200), generator=g, device=cuda)
+    hlen = torch.randint(10, 201, (512,), generator=g, device=cuda)
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain pass 2 ran on CUDA tensors")
+
+    monkeypatch.setattr(TK, "_rescore_topk_plain", plain)
+    before = TK.rescore_topk.launches
+    v, ids = TK.fused_catalog_topk(u, items, 100, hist_items=hist, hist_len=hlen,
+                                   exclude_pad_item=True)
+    assert TK.rescore_topk.launches == before + 1
+    dense = u.float() @ items.float().T
+    valid = torch.arange(200, device=cuda)[None] < hlen[:, None]
+    dense = dense.scatter(1, torch.where(valid, hist, 0), float("-inf"))
+    ref_v, ref_ids = torch.topk(dense, 100)
+    tol = 1e-5 * float(ref_v.abs().max())
+    assert float((v - ref_v).abs().max()) <= tol
+    same = (ids.sort(1).values == ref_ids.sort(1).values).all(1)
+    kth = ref_v[:, -1:]
+    near = ((dense - kth).abs() <= tol).sum(1) > 1      # a tie at the k-th
+    assert bool((same | near).all())
+
+
 def test_shared_memory_gate_matches_the_kernels(cuda):
     layer = _build.library("layer_fwd").unirec_layer_fwd_smem_bytes
     lastq = _build.library("lastq_fwd").unirec_lastq_fwd_smem_bytes

@@ -179,3 +179,154 @@ def test_catalog_blockmax_refuses_other_chunks():
     with pytest.raises(ValueError):
         torch_topk.catalog_blockmax(torch.from_numpy(u), torch.from_numpy(items),
                                     chunk=32)
+
+
+# each case's features: history (with keep_ids exempting a banned id, and
+# the padding item banned), id 0 leading but banned, a shard's invalid tail,
+# a ragged last chunk, int8 items
+_PASS2_FEATURES = {
+    "history_keep": {"history", "keep"}, "exclude_pad": {"pad_lead"},
+    "invalid_from": {"invalid"}, "ragged": {"ragged"}, "int8": {"int8"},
+    "history": {"history"}, "history_invalid_from": {"history", "invalid"},
+    "ragged_history_keep": {"ragged", "history", "keep"},
+    "ragged_int8": {"ragged", "int8"}, "int8_history_keep": {"int8", "history", "keep"},
+    "invalid_from_exclude_pad": {"invalid", "pad_lead"},
+}
+
+
+@pytest.mark.parametrize("case", list(_PASS2_FEATURES))
+def test_rescore_topk_plain_equals_jax(case):
+    """Pass 2's plain version, on pass 1's chunks at fused_catalog_topk's
+    kp, equals the JAX package's fused_catalog_topk: ids exactly, values
+    within f32 reassociation."""
+    f = _PASS2_FEATURES[case]
+    k, N = 10, 2000 if "ragged" in f else 2048
+    u, items = _factors(N, seed=17 + len(case))
+    kw = {}
+    if "pad_lead" in f:
+        items[0] = 10 * np.abs(u).mean(0) * np.sign(u.sum(0))   # id 0 would lead
+        kw["exclude_pad_item"] = True
+    dense = u @ items.T
+    if "int8" in f:
+        q, s = jax_topk.quantize_catalog(jnp.asarray(items))
+        items = np.asarray(q)
+        kw["item_scale"] = np.asarray(s)
+        dense = (u @ items.astype(np.float32).T) * kw["item_scale"][None, :]
+    if "history" in f:
+        hist, hlen = _history(N)
+        u_top = np.argsort(-dense, axis=1)
+        hist[:, 0], hist[:, 1] = u_top[:, 0], u_top[:, 1]
+        hlen = np.maximum(hlen, 2)
+        kw.update(hist_items=hist, hist_len=hlen)
+        if "keep" in f:
+            kw.update(keep_ids=u_top[:, 1].astype(np.int32), exclude_pad_item=True)
+    if "invalid" in f:
+        kw.update(invalid_from=N - 40, max_invalid=40)
+    jkw = {a: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for a, v in kw.items()}
+    if "invalid" in f:
+        jkw["invalid_from"] = jnp.asarray(N - 40)
+    v_ref, ids_ref = jax_topk.fused_catalog_topk(jnp.asarray(u), jnp.asarray(items), k,
+                                                 interpret=True, **jkw)
+    tkw = {a: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for a, v in kw.items()}
+    hcap = kw["hist_items"].shape[1] if "hist_items" in kw else 0
+    icap = (-(-40 // 16) + 1) if "invalid" in f else 0
+    kp = k + (16 if N % 16 else 0) + int(kw.get("exclude_pad_item", False)) + hcap + icap
+    ut, it = torch.from_numpy(u), torch.from_numpy(items)
+    scale = tkw.pop("item_scale", None)
+    tkw.pop("max_invalid", None)
+    _, blk = torch_topk.fast_topk(torch_topk.catalog_blockmax(ut, it, item_scale=scale), kp)
+    v, ids = torch_topk._rescore_topk_plain(ut, it, blk, k, item_scale=scale, **tkw)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ids_ref))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-5, atol=1e-6)
+    got = ids.numpy()
+    if "history" in f:
+        assert not (got == hist[:, :1]).any()
+        if "keep" in f:
+            assert (got == u_top[:, 1:2]).any(1).all()
+        else:
+            assert not (got == hist[:, 1:2]).any()
+    if "pad_lead" in f or "keep" in f:
+        assert not (got == 0).any()
+    if "invalid" in f:
+        assert (got < N - 40).all()
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16_items", "bf16_users", "int8", "bans"])
+def test_rescore_topk_runs_the_plain_version_on_the_cpu(case):
+    """On CPU tensors pass 2 is the plain version and no launch counter moves."""
+    u, items = _factors(2048, seed=9)
+    ut, it = torch.from_numpy(u), torch.from_numpy(items)
+    kw = {}
+    if case == "bf16_items":
+        it = it.to(torch.bfloat16)
+    elif case == "bf16_users":
+        ut = ut.to(torch.bfloat16)
+    elif case == "int8":
+        it, kw["item_scale"] = torch_topk.quantize_catalog(it)
+    _, blk = torch_topk.fast_topk(torch_topk.catalog_blockmax(
+        ut, it, item_scale=kw.get("item_scale")), 40)
+    if case == "bans":
+        hist, hlen = _history(2048)
+        kw = dict(hist_items=torch.from_numpy(hist), hist_len=torch.from_numpy(hlen),
+                  keep_ids=torch.from_numpy(hist[:, 0]), exclude_pad_item=True,
+                  invalid_from=2000)
+    before = (torch_topk.rescore_topk.launches, torch_topk.rescore_topk.launches_int8)
+    v, ids = torch_topk.rescore_topk(ut, it, blk, 10, **kw)
+    pv, pids = torch_topk._rescore_topk_plain(ut, it, blk, 10, **kw)
+    assert torch.equal(ids, pids) and torch.equal(v, pv)
+    assert v.dtype == torch.float32 and ids.dtype == torch.int64
+    assert (torch_topk.rescore_topk.launches,
+            torch_topk.rescore_topk.launches_int8) == before
+
+
+def test_rescore_topk_refuses_a_device_without_a_kernel():
+    u = torch.zeros(2, 16, device="meta")
+    with pytest.raises(ValueError, match="no rescore_topk kernel"):
+        torch_topk.rescore_topk(u, torch.zeros(64, 16, device="meta"),
+                                torch.zeros(2, 2, dtype=torch.int64, device="meta"), 4)
+
+
+def _pass2_args(away=None):
+    """A CPU call's arguments, ``away`` of them moved to another device."""
+    args = dict(user_emb=torch.zeros(4, 16), item_emb=torch.zeros(640, 16, dtype=torch.int8),
+                blk=torch.zeros(4, 3, dtype=torch.int64), k=5,
+                hist_items=torch.ones(4, 6, dtype=torch.int64),
+                hist_len=torch.full((4,), 6), keep_ids=torch.ones(4, dtype=torch.int64),
+                item_scale=torch.ones(640))
+    if away:
+        args[away] = args[away].to("meta")
+    return args
+
+
+@pytest.mark.parametrize("away", ["item_emb", "blk", "hist_items", "hist_len", "keep_ids",
+                                  "item_scale"])
+def test_rescore_cuda_refuses_a_tensor_off_the_users_device(away):
+    """The kernel's wrapper names every tensor that is not on the users'
+    device before anything is launched (a host pointer would fault on the
+    card)."""
+    args = _pass2_args(away)
+    with pytest.raises(ValueError, match=f"{away} not on the users' device"):
+        torch_topk._rescore_cuda(args.pop("user_emb"), args.pop("item_emb"),
+                                 args.pop("blk"), args.pop("k"), **args)
+
+
+@pytest.mark.parametrize("bad", ["k_past_candidates", "k_zero", "no_hist_len", "keep_ids",
+                                 "item_scale", "blk_users"])
+def test_rescore_cuda_refuses_mismatched_shapes(bad):
+    """Shapes the kernel would read past are refused before the launch."""
+    args = _pass2_args()
+    if bad == "k_past_candidates":
+        args["k"] = 3 * 16 + 1
+    elif bad == "k_zero":
+        args["k"] = 0
+    elif bad == "no_hist_len":
+        args["hist_len"] = None
+    elif bad == "keep_ids":
+        args["keep_ids"] = torch.ones(3, dtype=torch.int64)
+    elif bad == "item_scale":
+        args["item_scale"] = torch.ones(639)
+    else:
+        args["blk"] = torch.zeros(5, 3, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        torch_topk._rescore_cuda(args.pop("user_emb"), args.pop("item_emb"),
+                                 args.pop("blk"), args.pop("k"), **args)

@@ -177,6 +177,8 @@ def test_counters_hold_the_benchmarks_launch_counters_and_reset(monkeypatch):
             monkeypatch.setattr(fn, attr, 3 + i)     # distinct values, restored afterwards
     ours, theirs = tracing.counters(), program.launch_counters()
     assert theirs and {k: ours[k] for k in theirs} == theirs
-    assert set(ours) - set(theirs) == {"topk_users", "topk_selected", "topk_rows_rescored"}
+    # beyond the benchmark's reader: the work counters and pass 2's kernel
+    assert set(ours) - set(theirs) == {"topk_users", "topk_selected", "topk_rows_rescored",
+                                       "rescore", "rescore_int8"}
     tracing.reset_counters()
     assert set(tracing.counters().values()) == {0}

@@ -19,6 +19,14 @@ While a profiler runs (utils/tracing.py), ``fused_catalog_topk`` opens
 selects and the catalog rows it re-scores (``users``, ``selected``,
 ``rows_rescored``).
 
+Pass 2 is ``rescore_topk``: on CUDA tensors one launch of
+csrc/rescore_topk.cu re-scores each user's kp 16 candidate rows straight
+from the catalog, applies the bans and selects the top k on the card
+(``rescore_topk.launches``, ``launches_int8``), at every shape: the kernel
+picks its body itself, and a working set past shared memory spills to a
+workspace the wrapper allocates; on CPU tensors its plain version gathers,
+scores, bans and selects with tensor code.
+
 Row-sharded serving (unirec_tpu/ops/topk.py:43-160): the catalog lives
 row-sharded over the mesh's ``model`` ranks (``place_item_table`` pads it
 with zero rows to a multiple of the shard count); each shard takes its
@@ -173,6 +181,148 @@ catalog_blockmax.launches_mma = 0        # of launches, the tensor-core body's
 catalog_blockmax.launches_int8_mma = 0   # of launches_int8, the tensor-core body's
 
 
+# ------------------------------------------------------------------ pass 2
+def _ban_candidates(sc, iid, N, *, hist_items=None, hist_len=None, keep_ids=None,
+                    exclude_pad_item=False, invalid_from=None):
+    """Scores ``sc`` [B, C] of candidate ids ``iid`` [B, C] with every
+    banned id at -inf: ids at or past N or ``invalid_from``, id 0 under
+    ``exclude_pad_item``, and each user's valid history but ``keep_ids``."""
+    sc = torch.where(iid < N, sc, float("-inf"))
+    if invalid_from is not None:
+        sc = torch.where(iid >= invalid_from, float("-inf"), sc)
+    if exclude_pad_item:
+        sc = torch.where(iid == 0, float("-inf"), sc)
+    hcap = 0 if hist_items is None else int(hist_items.shape[1])
+    if hcap:
+        valid = torch.arange(hcap, device=sc.device)[None, :] < hist_len[:, None]
+        hcols = torch.where(valid, hist_items.long(), -1)
+        if keep_ids is not None:
+            hcols = torch.where(hcols == keep_ids.long()[:, None], -1, hcols)
+        banned_sorted = hcols.sort(dim=1).values
+        pos = torch.searchsorted(banned_sorted, iid.contiguous()).clamp_(max=hcap - 1)
+        banned = banned_sorted.gather(1, pos) == iid
+        sc = torch.where(banned, float("-inf"), sc)
+    return sc
+
+
+def _rescore_topk_plain(user_emb, item_emb, blk, k, *, item_scale=None, **bans):
+    """Plain PyTorch version of csrc/rescore_topk.cu: the candidate rows
+    gathered, scored in f32, banned (``_ban_candidates``), then selected."""
+    B = user_emb.shape[0]
+    N = item_emb.shape[0]
+    kp = blk.shape[1]
+    iid = (blk[..., None] * CHUNK
+           + torch.arange(CHUNK, device=blk.device)).reshape(B, kp * CHUNK)
+    rows = iid.clamp(max=N - 1)
+    cand = item_emb[rows].float()                               # [B, kp*16, D]
+    sc = torch.bmm(cand, user_emb.float()[:, :, None])[..., 0]
+    if item_scale is not None:
+        sc = sc * item_scale[rows]
+    v, ci = fast_topk(_ban_candidates(sc, iid, N, **bans), k)
+    return v, iid.gather(1, ci)
+
+
+_RESCORE_PAST_CAPACITY = -1   # csrc/rescore_topk.cu::kPastCapacity
+
+
+@functools.cache
+def _rescore_lib():
+    lib = _build.library("rescore_topk")
+    fn = lib.unirec_rescore_topk
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    ws = lib.unirec_rescore_topk_workspace
+    ws.argtypes = [ctypes.c_int] * 5
+    ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
+def _rescore_cuda(user_emb, item_emb, blk, k, *, hist_items=None, hist_len=None,
+                  keep_ids=None, exclude_pad_item=False, invalid_from=None,
+                  item_scale=None):
+    """Launch csrc/rescore_topk.cu, which picks its body; returns (values
+    [B, k] f32, ids [B, k] int64)."""
+    if user_emb.dtype not in _USER_DTYPES or item_emb.dtype not in _ITEM_DTYPES:
+        raise TypeError(f"rescore_topk takes float32/bfloat16 users and float32/"
+                        f"bfloat16/int8 items, got {user_emb.dtype}, {item_emb.dtype}")
+    quantized = item_emb.dtype == torch.int8
+    if quantized != (item_scale is not None):
+        raise ValueError("int8 items need item_scale, and only they take one")
+    dev = user_emb.device
+    args = dict(item_emb=item_emb, blk=blk, hist_items=hist_items, hist_len=hist_len,
+                keep_ids=keep_ids, item_scale=item_scale)
+    away = [n for n, t in args.items() if t is not None and t.device != dev]
+    if away:
+        raise ValueError(f"rescore_topk: {', '.join(away)} not on the users' device {dev}")
+    B, D = user_emb.shape
+    N = item_emb.shape[0]
+    kp = blk.shape[1]
+    hcap = 0 if hist_items is None else int(hist_items.shape[1])
+    if item_emb.shape[1] != D or blk.shape[0] != B:
+        raise ValueError(f"users {tuple(user_emb.shape)}, items {tuple(item_emb.shape)} "
+                         f"and chunks {tuple(blk.shape)} do not match")
+    if hcap and (hist_len is None or hist_items.shape[0] != B or hist_len.numel() != B):
+        raise ValueError(f"hist_items {tuple(hist_items.shape)} needs hist_len of {B} users")
+    if (keep_ids is not None and keep_ids.numel() != B) or \
+            (quantized and item_scale.numel() != N):
+        raise ValueError(f"keep_ids takes one id a user ({B}), item_scale one scale an "
+                         f"item ({N})")
+    if not 1 <= k <= kp * CHUNK:
+        raise ValueError(f"top-{k} of {kp * CHUNK} candidates")
+    u = user_emb.contiguous()
+    it = item_emb.contiguous()
+    as64 = lambda t: None if t is None else t.to(torch.int64).contiguous()  # noqa: E731
+    b64, h, hl, keep = as64(blk), as64(hist_items), as64(hist_len), as64(keep_ids)
+    sc = item_scale.to(torch.float32).contiguous() if quantized else None
+    limit = N if invalid_from is None else max(0, min(N, int(invalid_from)))
+    launch, workspace = _rescore_lib()
+    ws_bytes = workspace(B, D, kp, k, hcap)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
+    v = torch.empty((B, k), dtype=torch.float32, device=dev)
+    i = torch.empty((B, k), dtype=torch.int64, device=dev)
+    ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())  # noqa: E731
+    err = launch(_USER_DTYPES[u.dtype], _ITEM_DTYPES[it.dtype], ptr(u), ptr(it), ptr(sc),
+                 ptr(b64), ptr(h if hcap else None), ptr(hl if hcap else None), ptr(keep),
+                 ptr(v), ptr(i), B, N, D, kp, k, hcap, int(bool(exclude_pad_item)), limit,
+                 ptr(ws), ws_bytes, _build.stream_handle(dev))
+    if err == _RESCORE_PAST_CAPACITY:
+        raise ValueError(f"rescore_topk: {N} items of width {D}, top-{k} of {kp} chunks "
+                         f"with {hcap} history ids, is past the kernel's capacity (ids "
+                         f"and a user's working set in 32 bits)")
+    _build.check(err, "rescore_topk launch")
+    if quantized:
+        rescore_topk.launches_int8 += 1
+    else:
+        rescore_topk.launches += 1
+    return v, i
+
+
+def rescore_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, blk: torch.Tensor,
+                 k: int, *, hist_items: Optional[torch.Tensor] = None,
+                 hist_len: Optional[torch.Tensor] = None,
+                 keep_ids: Optional[torch.Tensor] = None,
+                 exclude_pad_item: bool = False, invalid_from: Optional[int] = None,
+                 item_scale: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 of ``fused_catalog_topk``: the top k (values [B, k] f32,
+    descending, ids [B, k] int64) of the 16 items of each chunk in ``blk``
+    [B, kp] scored against user_emb [B, D], with the bans of
+    ``_ban_candidates``. CUDA tensors launch csrc/rescore_topk.cu, CPU
+    tensors run the plain version."""
+    bans = dict(hist_items=hist_items, hist_len=hist_len, keep_ids=keep_ids,
+                exclude_pad_item=exclude_pad_item, invalid_from=invalid_from)
+    if user_emb.is_cuda:
+        return _rescore_cuda(user_emb, item_emb, blk, k, item_scale=item_scale, **bans)
+    if user_emb.device.type == "cpu":
+        return _rescore_topk_plain(user_emb, item_emb, blk, k, item_scale=item_scale, **bans)
+    raise ValueError(f"no rescore_topk kernel for device {user_emb.device}")
+
+
+rescore_topk.launches = 0
+rescore_topk.launches_int8 = 0
+
+
 # ---------------------------------------------------------- two-pass top-k
 def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
                        *, chunk: int = CHUNK,
@@ -188,9 +338,10 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     [N, D]): the [B, N] score matrix is never written.
 
     Pass 1, ``catalog_blockmax``, streams the catalog once and keeps each
-    16-item chunk's max; pass 2 re-scores the k' chunks with the largest
-    maxima (a proven superset of the true top-k, with headroom for the
-    ragged chunk, the padding item and banned history) and selects.
+    16-item chunk's max; pass 2, ``rescore_topk``, re-scores the k' chunks
+    with the largest maxima (a proven superset of the true top-k, with
+    headroom for the ragged chunk, the padding item and banned history) and
+    selects.
     ``hist_items``/``hist_len`` exclude each user's history,
     ``keep_ids`` [B] exempts one id per user, ``exclude_pad_item`` bans
     id 0, ``invalid_from`` bans every row id from it on (a shard's padded
@@ -213,44 +364,21 @@ def fused_catalog_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
         _TOPK.users += B
         _TOPK.selected += B * k
         _TOPK.rows_rescored += B * (N if dense else kp * chunk)
-
-    def mask_candidates(sc, iid):
-        sc = torch.where(iid < N, sc, float("-inf"))
-        if invalid_from is not None:
-            sc = torch.where(iid >= invalid_from, float("-inf"), sc)
-        if exclude_pad_item:
-            sc = torch.where(iid == 0, float("-inf"), sc)
-        if hcap:
-            valid = torch.arange(hcap, device=dev)[None, :] < hist_len[:, None]
-            hcols = torch.where(valid, hist_items.long(), -1)
-            if keep_ids is not None:
-                hcols = torch.where(hcols == keep_ids.long()[:, None], -1, hcols)
-            banned_sorted = hcols.sort(dim=1).values
-            pos = torch.searchsorted(banned_sorted, iid.contiguous()).clamp_(max=hcap - 1)
-            banned = banned_sorted.gather(1, pos) == iid
-            sc = torch.where(banned, float("-inf"), sc)
-        return sc
+    bans = dict(hist_items=hist_items, hist_len=hist_len, keep_ids=keep_ids,
+                exclude_pad_item=exclude_pad_item, invalid_from=invalid_from)
 
     if dense:  # dense at small N
         sc = user_emb.float() @ item_emb.float().T
         if quantized:
             sc = sc * item_scale[None, :]
         iid = torch.arange(N, device=dev).expand(B, N)
-        return fast_topk(mask_candidates(sc, iid), k)
+        return fast_topk(_ban_candidates(sc, iid, N, **bans), k)
 
     with tracing.span("topk.pass1"):
         bm = catalog_blockmax(user_emb, item_emb, chunk, item_scale)
         _, blk = fast_topk(bm, kp)                                  # [B, kp]
     with tracing.span("topk.pass2"):
-        iid = (blk[..., None] * chunk
-               + torch.arange(chunk, device=dev)).reshape(B, kp * chunk)
-        rows = iid.clamp(max=N - 1)
-        cand = item_emb[rows].float()                               # [B, kp*chunk, D]
-        sc = torch.bmm(cand, user_emb.float()[:, :, None])[..., 0]
-        if quantized:
-            sc = sc * item_scale[rows]
-        v, ci = fast_topk(mask_candidates(sc, iid), k)
-        return v, iid.gather(1, ci)
+        return rescore_topk(user_emb, item_emb, blk, k, item_scale=item_scale, **bans)
 
 
 fused_catalog_topk.users = 0

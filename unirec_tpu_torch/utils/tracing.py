@@ -66,7 +66,7 @@ def _counted() -> Dict[str, object]:
             "flash_attention": AT.flash_attention, "fused_ffn": FF.fused_ffn,
             "fused_ffn_bwd": FF.fused_ffn_bwd, "scatter_add": SA.scatter_add_rows,
             "member": MB.member_mask, "blockmax": TK.catalog_blockmax,
-            "topk": TK.fused_catalog_topk}
+            "rescore": TK.rescore_topk, "topk": TK.fused_catalog_topk}
 
 
 def _counter_attrs(fn):
