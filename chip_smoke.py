@@ -24,6 +24,10 @@ Phases, each of which must pass:
      request's shape (4,096 users, kp = 301) over 50,000 and 1,000,000
      items against its plain version (id sets equal apart from ties), beside
      the gather + bmm + topk it replaced and its L2 and device-memory bounds;
+     HSTU's attention (csrc/hstu_attention.cu) forward and backward at the
+     hstu_large_ml1m cell's shape (B=8,192, L=200, two heads of 25) against
+     its plain version (checked at 1,024 examples), beside a plain-torch
+     bf16 SiLU attention that stores the [B, H, L, L] scores;
   4. the serving path: a bench-width SASRec (2 layers, d=64, 2 heads, inner
      128, L=50, 50,000 items; random weights from a seed, saved and loaded
      as a checkpoint) serves top-100 to a few thousand users of a synthetic
@@ -804,6 +808,115 @@ def kernel_rescore_topk(torch, n_items):
           and not banned and ties_only)
     if not ok:
         raise AssertionError(f"rescore_topk disagrees with its plain version: {line}")
+    return line
+
+
+HSTU_B, HSTU_L, HSTU_H, HSTU_HD = 8192, 200, 2, 25
+
+
+def hstu_inputs(torch, B, L=HSTU_L, H=HSTU_H, hd=HSTU_HD, seed=SEED + 7):
+    """q, k, v [B, L, H, hd] bf16 as the model splits them out of one
+    [B, L, 4 H hd] projection (strided, heads on 2-byte boundaries), the
+    table, the left-padded key mask (one row of padding only) and an output
+    gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    uvqk = torch.nn.functional.silu(
+        torch.randn(B, L, 4 * H * hd, generator=g, device="cuda")).to(torch.bfloat16)
+    _, v, q, k = (t.unflatten(-1, (H, hd)) for t in uvqk.split(H * hd, dim=-1))
+    rab = torch.randn(2 * L - 1, generator=g, device="cuda") * 0.02
+    lens = torch.randint(20, L + 1, (B,), generator=g, device="cuda")
+    lens[0] = 0
+    keys = torch.arange(L, device="cuda")[None, :] >= (L - lens)[:, None]
+    go = torch.randn(B, L, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    return q, k, v, rab, keys, go
+
+
+def kernel_hstu_attention(torch):
+    """HSTU's attention (csrc/hstu_attention.cu) at the hstu_large_ml1m
+    cell's shape, 8,192 examples. Checked against the plain version there
+    (output and dq, dk, dv within BWD_TOL of each one's largest plain value:
+    bf16 operands rounded where the plain version rounds them, sums in
+    another order; the table's gradient, an f32 sum, within 1e-3), and the
+    backward twice for equal bits; timed by the card's clock: the forward
+    kernel, the backward's
+    three kernels (dQ with the table's partials, dK and dV, the table's
+    reduction) by CUDA events over the call, the plain versions (f32, the
+    [B, H, L, L] scores stored) and a plain-torch bf16 SiLU attention's
+    forward and its forward and backward under autograd. Bound: the larger
+    of the causal products (B H L(L+1)/2 pairs, 2 dqk + 2 dv a pair; the
+    backward three times that) at 989 TFLOP/s and the bytes (q, k, v read,
+    o written; the backward q, k, v, g read and dq, dk, dv written; the
+    table) at 3.35 TB/s."""
+    from unirec_tpu_torch.ops import hstu_attention as HA
+    B, L, H, hd = HSTU_B, HSTU_L, HSTU_H, HSTU_HD
+    q, k, v, rab, keys, go = hstu_inputs(torch, B)
+    pairs = B * H * L * (L + 1) // 2
+    ops = pairs * (2 * hd + 2 * hd)
+    io = B * L * H * hd * 2
+    fwd_bytes, bwd_bytes = 4 * io + rab.numel() * 4, 7 * io + rab.numel() * 8   # bf16, f32
+    fwd_bound = max(ops / PEAK_FLOPS["bfloat16"], fwd_bytes / HBM_BYTES_PER_S) * 1e3
+    bwd_bound = max(3 * ops / PEAK_FLOPS["bfloat16"], bwd_bytes / HBM_BYTES_PER_S) * 1e3
+    HA.hstu_attention_bwd(q, k, v, rab, keys, go)      # built, and the workspace sized
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = (HA.hstu_attention.launches_mma, HA.hstu_attention_bwd.launches_mma)
+    out = HA.hstu_attention_fwd(q, k, v, rab, keys)
+    grads = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
+    torch.cuda.synchronize()
+    kernel_peak = torch.cuda.max_memory_allocated() - base - out.numel() * 2
+    launched = (HA.hstu_attention.launches_mma - before[0],
+                HA.hstu_attention_bwd.launches_mma - before[1])
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    errs = {"out": rel(out, HA._fwd_plain(q, k, v, rab, keys))}
+    errs.update(zip(("dq", "dk", "dv", "drab"),
+                    map(rel, grads, HA._bwd_plain(q, k, v, rab, keys, go))))
+    ok_err = all(e <= BWD_TOL for e in errs.values()) and errs["drab"] <= 1e-3
+    twice = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
+    deterministic = all(torch.equal(a, b) for a, b in zip(grads, twice))
+    del out, grads, twice
+    torch.cuda.empty_cache()
+    tri = torch.ones(L, L, dtype=torch.bool, device="cuda").tril()
+    mask = tri[None, None] & keys[:, None, None, :]
+    bias = rab[HA.rel_index(L, "cuda")]
+
+    def library(qq, kk, vv):
+        s = torch.matmul(qq.transpose(1, 2), kk.transpose(1, 2).transpose(-1, -2)) + \
+            bias.to(torch.bfloat16)
+        a = torch.where(mask, torch.nn.functional.silu(s) / L, 0.0)
+        return torch.matmul(a, vv.transpose(1, 2)).transpose(1, 2)
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def library_step():
+        with torch.enable_grad():
+            o = library(*leaves)
+            torch.autograd.grad(o, leaves, go)
+
+    line = {"phase": "kernel", "name": "hstu_attention", "batch": B, "L": L, "heads": H,
+            "head_width": hd, "body": "mma", "launches": launched, "rel_err": errs,
+            "max_abs_err": max(errs.values()), "tol": BWD_TOL,
+            "deterministic": deterministic, "backward_extra_peak_bytes": kernel_peak,
+            "pair_tensor_bytes": B * H * L * L * 4,
+            "kernel_ms": traced_kernel_ms(lambda: HA.hstu_attention_fwd(q, k, v, rab, keys),
+                                          "hstu_fwd_kernel", iters=10),
+            "event_ms": cuda_ms(lambda: HA.hstu_attention_fwd(q, k, v, rab, keys)),
+            "bwd_ms": cuda_ms(lambda: HA.hstu_attention_bwd(q, k, v, rab, keys, go)),
+            "plain_ms": cuda_ms(lambda: HA._fwd_plain(q, k, v, rab, keys), iters=3),
+            "plain_bwd_ms": cuda_ms(lambda: HA._bwd_plain(q, k, v, rab, keys, go), iters=3),
+            "library_ms": cuda_ms(lambda: library(q, k, v), iters=5),
+            "library_fwd_bwd_ms": cuda_ms(library_step, iters=3),
+            "bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+            "bound_by": "bytes" if fwd_bytes / HBM_BYTES_PER_S > ops / PEAK_FLOPS["bfloat16"]
+            else "ops"}
+    line["roofline_pct"] = 100.0 * (fwd_bound + bwd_bound) / (line["kernel_ms"]
+                                                              + line["bwd_ms"])
+    emit(line)
+    if not (ok_err and deterministic and launched == (1, 1)
+            and kernel_peak <= 3 * io + (16 << 20)):   # dq, dk, dv and the partial tables
+        raise AssertionError(f"hstu_attention disagrees with its plain version: {line}")
     return line
 
 
@@ -5672,6 +5785,8 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
         kernel_fused_topk(torch)
         rows["rescore_topk"] = kernel_rescore_topk(torch, N_ITEMS)
         kernel_rescore_topk(torch, 1_000_000)
+        rows["hstu_attention"] = kernel_hstu_attention(torch)
+        torch.cuda.empty_cache()
 
     counts = main_path(torch, card)
 
@@ -5818,7 +5933,9 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
                                    "unirec_tpu/ops/attention.py:44"),
                "rescore_topk": ("unirec_tpu_torch/csrc/rescore_topk.cu",
                                 "none: pass 2 was XLA's gather and top_k "
-                                "(unirec_tpu/ops/topk.py:308)")}
+                                "(unirec_tpu/ops/topk.py:308)"),
+               "hstu_attention": ("unirec_tpu_torch/csrc/hstu_attention.cu",
+                                  "none: the JAX package has no HSTU")}
     # the body each line times: rows 1-5q and 12 list their tensor-core body
     # ("mma") and their CUDA-core body, row 6 its sorted-tile body and its
     # per-row body, row 8 its warp body (the entry path's ids) and its block
@@ -5831,6 +5948,7 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
              "scatter_add": ("sorted", "per_row"), "member": ("warp", "block")}
     bodies = {"fused_ffn_bwd": "mma", "fused_attention": "mma", "fused_attention_bwd": "mma",
               "flash_attention": "mma", "scatter_add2": "sorted", "rescore_topk": "vector",
+              "hstu_attention": "mma",
               **{n: new for n, (new, _) in split.items()},
               **{f"{n}_{old}": "cuda" if old == "cuda_core" else old
                  for n, (_, old) in split.items()}}

@@ -2497,3 +2497,147 @@ def test_world_size_one_train_step_matches_plain(cuda, tmp_path):
             assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------- HSTU's attention
+def _hstu_case(dev, B, L, H, dqk, dv, seed=0):
+    """q, k [B, L, H, dqk], v [B, L, H, dv] split out of one bf16 projection
+    as the model splits them (strided; heads on 2-byte boundaries at odd
+    widths), the table, keys with left padding and one row of padding only,
+    and an output gradient."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    uvqk = torch.nn.functional.silu(torch.randn(B, L, H * (2 * dv + 2 * dqk), generator=g,
+                                                device=dev)).to(torch.bfloat16)
+    _, v, q, k = uvqk.split([H * dv, H * dv, H * dqk, H * dqk], dim=-1)
+    q, k, v = q.unflatten(-1, (H, dqk)), k.unflatten(-1, (H, dqk)), v.unflatten(-1, (H, dv))
+    rab = torch.randn(2 * L - 1, generator=g, device=dev) * 0.5
+    lens = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+    lens[0], lens[-1] = 0, L
+    keys = torch.arange(L, device=dev)[None, :] >= (L - lens)[:, None]
+    go = torch.randn(B, L, H, dv, generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v, rab, keys, go
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("L", [24, 200, 256, 512])
+@pytest.mark.parametrize("dqk,dv", [(25, 25), (32, 32), (64, 64), (32, 16)])
+def test_hstu_attention_matches_plain(cuda, L, dqk, dv):
+    """The tensor-core kernels against the plain versions on the same bf16
+    tensors: the output and dq, dk, dv within 2e-2 of each one's largest
+    plain value (bf16 operands rounded where the plain versions round them,
+    sums in another order, so a rounding may flip), the table's f32
+    gradient within 1e-4; padding rows come out zero."""
+    from unirec_tpu_torch.ops import hstu_attention as HA
+    q, k, v, rab, keys, go = _hstu_case(cuda, 6 if L <= 256 else 3, L, 2, dqk, dv)
+    before = (HA.hstu_attention.launches_mma, HA.hstu_attention_bwd.launches_mma)
+    out = HA.hstu_attention_fwd(q, k, v, rab, keys)
+    dq, dk, dvv, drab = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
+    assert (HA.hstu_attention.launches_mma, HA.hstu_attention_bwd.launches_mma) == \
+        (before[0] + 1, before[1] + 1)
+    want = HA._fwd_plain(q, k, v, rab, keys)
+    wq, wk, wv, wrab = HA._bwd_plain(q, k, v, rab, keys, go)
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    for got, exp in ((out, want), (dq, wq), (dk, wk), (dvv, wv)):
+        assert torch.isfinite(got.float()).all() and _rel(got, exp) <= 2e-2
+    assert _rel(drab, wrab) <= 1e-4
+    assert not out[0].any() and not dq[0].any() and not dk[0].any() and not dvv[0].any()
+
+
+def test_hstu_attention_autograd_and_determinism(cuda):
+    """Through the autograd.Function: gradients equal the direct backward
+    call's bit for bit, twice (sums in a fixed order, no atomics)."""
+    from unirec_tpu_torch.ops import hstu_attention as HA
+    q, k, v, rab, keys, go = _hstu_case(cuda, 16, 200, 2, 25, 25, seed=1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, rab)]
+    for _ in range(2):
+        out = HA.hstu_attention(*leaves, keys)
+        got = torch.autograd.grad(out, leaves, go)
+        want = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_hstu_attention_stores_no_pair_tensor(cuda):
+    """At B = 2,048, L = 200, two heads of 25 the [B, H, L, L] f32 scores
+    would take 655 MB; the forward allocates its output and the backward
+    its three gradients and the per-block partial tables, nothing more."""
+    from unirec_tpu_torch.ops import hstu_attention as HA
+    B, L, H, hd = 2048, 200, 2, 25
+    q, k, v, rab, keys, go = _hstu_case(cuda, B, L, H, hd, hd, seed=2)
+    HA.hstu_attention_bwd(q, k, v, rab, keys, go)       # built, and the workspace sized
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = HA.hstu_attention_fwd(q, k, v, rab, keys)
+    grads = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
+    torch.cuda.synchronize()
+    io = B * L * H * hd * 2
+    assert torch.cuda.max_memory_allocated() - base <= 4 * io + (16 << 20)
+    del out, grads
+
+
+def test_hstu_attention_refuses_what_the_kernels_do_not_take(cuda):
+    """On the card f32 operands, L past 512 and head widths past 64 raise a
+    ValueError, forward and backward, before anything is launched; nothing
+    falls back to the plain version."""
+    from unirec_tpu_torch.ops import hstu_attention as HA
+    before = (HA.hstu_attention.launches_plain, HA.hstu_attention_bwd.launches_plain)
+    q, k, v, rab, keys, go = _hstu_case(cuda, 2, 24, 2, 25, 25)
+    with pytest.raises(ValueError, match="bf16"):
+        HA.hstu_attention_fwd(q.float(), k.float(), v.float(), rab, keys)
+    with pytest.raises(ValueError, match="bf16"):
+        HA.hstu_attention_bwd(q.float(), k.float(), v.float(), rab, keys, go)
+    for L, hd in ((520, 16), (24, 65)):
+        q, k, v, rab, keys, go = _hstu_case(cuda, 1, L, 1, hd, hd)
+        with pytest.raises(ValueError, match="capacity"):
+            HA.hstu_attention_fwd(q, k, v, rab, keys)
+        with pytest.raises(ValueError, match="capacity"):
+            HA.hstu_attention_bwd(q, k, v, rab, keys, go)
+    assert (HA.hstu_attention.launches_plain, HA.hstu_attention_bwd.launches_plain) == before
+
+
+def test_hstu_model_on_the_card_launches_the_kernels_and_refuses_f32(cuda):
+    """A training step of a small HSTU in bf16 on the card runs every layer's
+    attention on the tensor-core kernels (none on the plain version), and
+    its loss agrees with the same model's in f32 on the CPU within bf16's
+    rounding; in f32 on the card the model raises (the kernels take bf16
+    alone, and nothing falls back)."""
+    from unirec_tpu_torch import config
+    from unirec_tpu_torch.models.modules import DropoutRNG
+    from unirec_tpu_torch.ops import hstu_attention as HA
+    from unirec_tpu_torch.utils.registry import get_model_class
+    base = dict(model="HSTU", n_users=100, n_items=500, max_seq_len=200, embedding_size=50,
+                hidden_size=50, n_layers=3, n_heads=2, loss_type="softmax",
+                n_sample_neg_train=16, distance_type="cosine", tau=0.05, hidden_dropout_prob=0.0)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lens = torch.randint(0, 201, (64,), generator=g, device=cuda)
+    seq = torch.randint(1, 500, (64, 200), generator=g, device=cuda) \
+        * (torch.arange(200, device=cuda)[None] >= 200 - lens[:, None])
+    label = torch.zeros(64, 17, device=cuda)
+    label[:, 0] = 1
+    batch = {"item_seq": seq, "item_id": torch.randint(1, 500, (64, 17), generator=g,
+                                                       device=cuda), "label": label}
+
+    def model_on(device, dtype):
+        cfg = config.parse_arguments(dict(base, compute_dtype=dtype), argv=[], device=device)
+        model = get_model_class("HSTU")(cfg)
+        model.init_weights(torch.Generator().manual_seed(0))
+        return model.to(device)
+
+    model = model_on("cuda", "bfloat16")
+    before = (HA.hstu_attention.launches_mma, HA.hstu_attention.launches_plain,
+              HA.hstu_attention_bwd.launches_mma, HA.hstu_attention_bwd.launches_plain)
+    loss, _ = model(batch, train=True, rng=DropoutRNG(0, cuda))
+    loss.backward()
+    after = (HA.hstu_attention.launches_mma, HA.hstu_attention.launches_plain,
+             HA.hstu_attention_bwd.launches_mma, HA.hstu_attention_bwd.launches_plain)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 0, 3, 0)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    cpu = model_on("cpu", "float32")
+    want, _ = cpu({n: t.cpu() for n, t in batch.items()}, train=True,
+                  rng=DropoutRNG(0, "cpu"))
+    assert abs(float(loss) - float(want)) <= 5e-2 * abs(float(want))
+    with pytest.raises(ValueError, match="bf16"):
+        model_on("cuda", "float32")(batch, train=True, rng=DropoutRNG(0, cuda))

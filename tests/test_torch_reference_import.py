@@ -52,6 +52,16 @@ def interpret(monkeypatch):
     monkeypatch.setattr(jax_sa, "_INTERPRET", True)
 
 
+@pytest.fixture(autouse=True)
+def package_loggers_propagate(monkeypatch):
+    """A trainer or solver left at its default name sets up the logger
+    "unirec_tpu" with propagation off (utils/logger.py), and the import
+    warnings counted here come from its children: keep them reaching
+    caplog whatever ran before in the process."""
+    for name in ("unirec_tpu", "unirec_tpu_torch"):
+        monkeypatch.setattr(logging.getLogger(name), "propagate", True)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
     n = torch.get_num_threads()

@@ -8,7 +8,8 @@ Counterpart of unirec_tpu/config/__init__.py. The merge order is the same
 
 The defaults are copies of the keys this package reads from
 unirec_tpu/config/base.yaml and config/model/*.yaml (tests/test_torch_config.py
-holds them equal), so the card path needs no YAML parser. Values keep the
+holds them equal), so the card path needs no YAML parser; the models of
+``PORT_ONLY_MODELS`` have no YAML there. Values keep the
 YAML loader's types: ``layer_norm_eps`` is the string ``'1e-10'`` there, and
 callers coerce with ``float()``/``int()`` at the point of use, exactly as
 checkpoint configs require.
@@ -158,6 +159,20 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         "seq_merge": False,
         "init_ratio": 0.005,
     },
+    # HSTU-large (generative-recommenders' ml-1m
+    # hstu-sampled-softmax-n128-large-final.gin); the port's own model, with
+    # no YAML in the JAX package (PORT_ONLY_MODELS)
+    "HSTU": {
+        "n_layers": 8,
+        "n_heads": 2,
+        "embedding_size": 50,
+        "hidden_size": 50,
+        "max_seq_len": 200,
+        "hidden_dropout_prob": 0.2,
+        "layer_norm_eps": 1e-6,
+        "distance_type": "cosine",
+        "tau": 0.05,
+    },
     "MF": {"embedding_size": 64, "has_user_emb": True},
     "MultiVAE": {
         "embedding_size": 400,
@@ -198,6 +213,10 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
         "ada_reference_init": 0,
     },
 }
+
+
+# models of the port that the JAX package does not have (no config/model YAML)
+PORT_ONLY_MODELS = ("HSTU",)
 
 
 def _load_yaml(path: str) -> Dict[str, Any]:

@@ -29,7 +29,9 @@ width 3H in each attention path, which turns the fused layer kernels off)
 and ``remat_attention`` (each layer checkpointed, its recompute replaying
 the forward's dropout draws). The four ranking modules the JAX package
 exports but no model uses (``Dice``, ``SequenceAttLayer``,
-``ModulateHidden``, ``MMoEUnit``) close the file.
+``ModulateHidden``, ``MMoEUnit``) follow. HSTU's layers, which the JAX
+package does not have, close the file (``HSTUEncoder``, ``HSTULayer``,
+``RelativePositionBias``): their attention is ops/hstu_attention.py.
 
 Kernel dispatch follows the JAX package's flags and gates. ``fused_layer``
 and ``fused_lastq`` call ops/layer.py and ``use_fused_ffn`` ops/ffn.py (the
@@ -53,7 +55,9 @@ from torch import nn
 from unirec_tpu_torch.core.mesh import RowSlice, rand_rows, randint_rows, randn_rows
 from unirec_tpu_torch.ops import attention as attn_ops
 from unirec_tpu_torch.ops import ffn as ffn_ops
+from unirec_tpu_torch.ops import hstu_attention as hstu_ops
 from unirec_tpu_torch.ops import layer as layer_ops
+from unirec_tpu_torch.utils import tracing
 
 ACT2FN = {
     "gelu": F.gelu,  # erf form, as jax.nn.gelu(approximate=False)
@@ -892,3 +896,96 @@ class MMoEUnit(nn.Module):
             z = z[:, 0]
         att = torch.softmax(self.gate_net(z), dim=-1)
         return (att @ self.weight).reshape(-1, self.output_size, self.input_size)
+
+
+# ------------------------------------------------------------------ HSTU
+def plain_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm without affine parameters over the last axis, in f32, as
+    element-wise ops and two row means. torch's layer_norm kernels take
+    their one-block-a-row path where the width is not a multiple of their
+    vector (HSTU's 50): 8.8 ms a call at [1.64M, 50] on an H100, against
+    1.8 ms for these passes (PERF.md §4)."""
+    x = x.float()
+    xc = x - x.mean(-1, keepdim=True)
+    return xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+
+
+class RelativePositionBias(nn.Module):
+    """HSTU's relative-position bias: one learned value for each offset j - i
+    of a key from its query, in (-max_len, max_len), shared by the heads (the
+    position part of RelativeBucketedTimeAndPositionBasedBias in the public
+    code; its timestamp part is not modelled). ``weight`` [2 max_len - 1],
+    drawn from N(0, 0.02) as there."""
+
+    def __init__(self, max_len: int):
+        super().__init__()
+        self.max_len = int(max_len)
+        self.weight = nn.Parameter(torch.zeros(2 * self.max_len - 1))
+
+    def jax_init(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.weight, 0.0, 0.02, generator=generator)
+
+    def table(self, L: int) -> torch.Tensor:
+        """The [2L - 1] entries of offsets -(L - 1) .. L - 1."""
+        c = self.max_len - 1
+        return self.weight[c - (L - 1):c + L]
+
+
+class HSTULayer(nn.Module):
+    """One HSTU layer (Zhai et al., ICML 2024; the public code's
+    SequentialTransductionUnitJagged), for x [B, L, d]:
+
+        U, V, Q, K = split(SiLU(LN(x) W_uvqk))     (W_uvqk without a bias)
+        A_h = SiLU(Q_h K_h^T + rab) / L             (causal, padding keys out)
+        y = x + W_o(Dropout(U * LN(concat_h A_h V_h))) + b_o
+
+    The norms have no affine parameters and run in f32, as does the table;
+    the products, SiLU and the gate in the compute dtype. The attention is
+    ops/hstu_attention.py: its kernels on the card (bf16; past their capacity
+    they raise), its plain versions on the CPU. Dropout draws its mask from
+    the step's ``DropoutRNG``."""
+
+    def __init__(self, hidden_size: int, n_heads: int, dqk: int, dv: int, max_len: int,
+                 dropout_prob: float, layer_norm_eps: float, dtype=None):
+        super().__init__()
+        self.n_heads, self.dqk, self.dv = int(n_heads), int(dqk), int(dv)
+        self.p, self.eps, self.dtype = float(dropout_prob), float(layer_norm_eps), dtype
+        self.uvqk = nn.Linear(hidden_size, self.n_heads * (2 * self.dv + 2 * self.dqk),
+                              bias=False)
+        self.o = nn.Linear(self.n_heads * self.dv, hidden_size)
+        self.rab = RelativePositionBias(max_len)
+
+    def forward(self, x: torch.Tensor, keys: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        H, dqk, dv = self.n_heads, self.dqk, self.dv
+        with tracing.span("hstu.uvqk"):
+            xh = plain_norm(x, self.eps).to(dt)
+            uvqk = F.silu(F.linear(xh, self.uvqk.weight.to(dt)))
+            u, v, q, k = torch.split(uvqk, [H * dv, H * dv, H * dqk, H * dqk], dim=-1)
+        with tracing.span("hstu.attention"):
+            q, k, v = q.unflatten(-1, (H, dqk)), k.unflatten(-1, (H, dqk)), \
+                v.unflatten(-1, (H, dv))
+            o = hstu_ops.hstu_attention(q, k, v, self.rab.table(x.shape[1]), keys).flatten(-2)
+        with tracing.span("hstu.output"):
+            on = plain_norm(o, self.eps).to(dt)
+            h = apply_dropout(u * on, self.p, train, rng)
+            return x + F.linear(h, self.o.weight.to(dt), self.o.bias.to(dt))
+
+
+class HSTUEncoder(nn.Module):
+    """``n_layers`` HSTU layers (``layer_{i}``) under the span
+    ``hstu.encoder``; ``keys`` [B, L] is False at padding."""
+
+    def __init__(self, n_layers: int, **layer):
+        super().__init__()
+        self.n_layers = int(n_layers)
+        for i in range(self.n_layers):
+            self.add_module(f"layer_{i}", HSTULayer(**layer))
+
+    def forward(self, x: torch.Tensor, keys: torch.Tensor, train: bool = False,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        with tracing.span("hstu.encoder"):
+            for i in range(self.n_layers):
+                x = getattr(self, f"layer_{i}")(x, keys, train, rng)
+        return x

@@ -2,7 +2,8 @@
 
 Counterpart of unirec_tpu/models/sequential.py, the whole family: SASRec,
 GRU, AvgHist, AttHist, SVDPlusPlus, ConvFormer and FASTConvFormer,
-registered under the JAX names. Models consume left-padded ``item_seq``
+registered under the JAX names; and HSTU, which the JAX package does not
+have. Models consume left-padded ``item_seq``
 [B, L] (most recent item at position L-1) and emit a user embedding [B, D].
 Every id-table gather goes through ``_masked_gather``, so under
 ``vmem_embedding_grad`` each table's backward (AvgHist's and SVD++'s second
@@ -10,7 +11,10 @@ table too) is the scatter-add kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from unirec_tpu_torch.models import modules
@@ -227,3 +231,53 @@ class FASTConvFormer(_ConvFormerBase):
     (fastconvformer.py)."""
 
     spectral = True
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """x / max(|x|, 1e-6) along the last axis, in f32 (a zero row stays 0)."""
+    return F.normalize(x.float(), dim=-1, eps=1e-6)
+
+
+@register_model("HSTU")
+class HSTU(SeqRecBase):
+    """Hierarchical Sequential Transduction Units (Zhai et al., "Actions
+    Speak Louder than Words", ICML 2024, arXiv:2402.17152; the public code's
+    HSTU encoder): item embedding * sqrt(d) plus a learned position
+    embedding (positions of the left-padded window), dropout, ``n_layers``
+    HSTU layers (models/modules.py::HSTULayer) with ``n_heads`` heads of
+    ``dqk`` and ``dv`` (both hidden_size / n_heads unless set), the last
+    position L2-normalized. Item embeddings are L2-normalized too, so the
+    scores are cosines (``distance_type`` cosine), divided by ``tau``.
+    Dropout keeps each element with probability 1 - rate (32-bit draws;
+    ``dropout_bits`` is not read). The timestamp term of the public code's
+    bias is not modelled."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        c = cfg
+        d, H = self.hidden_size, int(c.get("n_heads", 2))
+        if self.emb_dim != d:
+            raise ValueError(f"HSTU needs embedding_size == hidden_size, got {self.emb_dim} "
+                             f"and {d}")
+        L = int(c["max_seq_len"])
+        self.position_embedding = nn.Embedding(L, d)
+        self.hstu = modules.HSTUEncoder(
+            int(c.get("n_layers", 8)), hidden_size=d, n_heads=H,
+            dqk=int(c.get("dqk") or d // H), dv=int(c.get("dv") or d // H), max_len=L,
+            dropout_prob=float(c.get("hidden_dropout_prob", 0.2)),
+            layer_norm_eps=float(c.get("layer_norm_eps", 1e-6)), dtype=self.compute_dtype)
+
+    def forward_user_emb(self, user_id=None, item_seq=None, item_seq_len=None,
+                         item_seq_features=None, time_seq=None, train: bool = False,
+                         rng=None):
+        L = item_seq.shape[1]
+        x = self.item_embedding_for_user(item_seq, item_seq_features, time_seq) \
+            * math.sqrt(self.hidden_size)
+        x = x + self._cast(self._table(self.position_embedding)[:L])[None]
+        x = modules.apply_dropout(x, float(self.cfg.get("hidden_dropout_prob", 0.2)), train, rng)
+        x = self.hstu(x, item_seq != 0, train, rng)
+        return _l2_normalize(x[:, -1])
+
+    def forward_item_emb(self, items: torch.Tensor, item_features=None,
+                         all_rows: bool = False) -> torch.Tensor:
+        return _l2_normalize(super().forward_item_emb(items, item_features, all_rows))

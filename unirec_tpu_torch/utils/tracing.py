@@ -25,7 +25,9 @@ others nested inside it):
   ``fused_catalog_topk``'s ``topk.pass1`` and ``topk.pass2``), and
   ``serve.fetch``;
 - ``data.to_device`` (every host batch's copies) and ``model.user_emb``
-  (the tower), inside the functions a caller may wrap.
+  (the tower), inside the functions a caller may wrap;
+- ``hstu.encoder`` (HSTU's layers, models/modules.py::HSTUEncoder) over
+  each layer's ``hstu.uvqk``, ``hstu.attention`` and ``hstu.output``.
 
 Counters are attributes of the function that does the work. The kernels'
 ``launches*`` count every launch (tests read them); the work counters,
@@ -57,8 +59,8 @@ def span(name: str):
 
 
 def _counted() -> Dict[str, object]:
-    from unirec_tpu_torch.ops import attention as AT, ffn as FF, layer as LY, \
-        member as MB, scatter_accum as SA, topk as TK
+    from unirec_tpu_torch.ops import attention as AT, ffn as FF, hstu_attention as HS, \
+        layer as LY, member as MB, scatter_accum as SA, topk as TK
     return {"layer_fwd": LY.fused_transformer_layer, "layer_bwd": LY.layer_bwd,
             "lastq_fwd": LY.fused_last_query_layer, "lastq_bwd": LY.lastq_bwd,
             "fused_attention": AT.fused_attention,
@@ -66,7 +68,8 @@ def _counted() -> Dict[str, object]:
             "flash_attention": AT.flash_attention, "fused_ffn": FF.fused_ffn,
             "fused_ffn_bwd": FF.fused_ffn_bwd, "scatter_add": SA.scatter_add_rows,
             "member": MB.member_mask, "blockmax": TK.catalog_blockmax,
-            "rescore": TK.rescore_topk, "topk": TK.fused_catalog_topk}
+            "rescore": TK.rescore_topk, "topk": TK.fused_catalog_topk,
+            "hstu_attention": HS.hstu_attention, "hstu_attention_bwd": HS.hstu_attention_bwd}
 
 
 def _counter_attrs(fn):
