@@ -27,7 +27,12 @@ Phases, each of which must pass:
      HSTU's attention (csrc/hstu_attention.cu) forward and backward at the
      hstu_large_ml1m cell's shape (B=8,192, L=200, two heads of 25) against
      its plain version (checked at 1,024 examples), beside a plain-torch
-     bf16 SiLU attention that stores the [B, H, L, L] scores;
+     bf16 SiLU attention that stores the [B, H, L, L] scores; the Adam
+     update (csrc/adam.cu) over the leaves of the sasrec_d64_l50 and
+     sasrec_d256_steam cells' models, every leaf within 2 f32 ulps of the
+     plain path (Optimizer.update, then the guarded apply), beside its byte
+     bound, the plain chain and torch._fused_adam_ (eps placed otherwise:
+     measured only, never called by the port);
   4. the serving path: a bench-width SASRec (2 layers, d=64, 2 heads, inner
      128, L=50, 50,000 items; random weights from a seed, saved and loaded
      as a checkpoint) serves top-100 to a few thousand users of a synthetic
@@ -811,6 +816,125 @@ def kernel_rescore_topk(torch, n_items):
     return line
 
 
+def cell_leaf_shapes(torch, name):
+    """The leaf shapes of a benchmark configuration's model
+    (portbench/configs/<name>.json), built on the CPU."""
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.utils.registry import get_model_class
+    conf = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())["config"]
+    cfg = config_mod.parse_arguments(dict(conf), argv=[], device="cpu")
+    return [tuple(p.shape) for p in get_model_class(cfg["model"])(cfg).parameters()]
+
+
+def f32_ulps(torch, a, b) -> float:
+    """The largest |a - b| over the elements, in f32 ulps of b."""
+    m = b.abs()
+    spacing = torch.nextafter(m, torch.full_like(m, float("inf"))) - m
+    return float(((a - b).abs() / spacing).max()) if a.numel() else 0.0
+
+
+def traced_device_ms(torch, fn, iters=20, warmup=3) -> float:
+    """The device time of every kernel that one call of fn launches, by the
+    card's clock (fn ``iters`` times under torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(float(e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
+
+
+def kernel_adam(torch, config_name):
+    """The Adam update (csrc/adam.cu, ops/adam.py) over every leaf of a
+    benchmark cell's model, from a state some steps old (moments drawn,
+    count 4), against the plain path on the card from the same state
+    (Optimizer.update, then the trainer's guarded apply): params, mu and nu
+    of every leaf within 2 f32 ulps (``worst_ulps``; ``max_abs_err`` the
+    largest |a - b| over them), count equal, one launch. Timed by the
+    card's clock (``kernel_ms``; ``event_ms`` by CUDA events over
+    back-to-back calls, the host's pace), the plain chain (``plain_ms``,
+    CUDA events), ``torch._fused_adam_`` on the same leaves (``library_ms``,
+    its kernels' device time: it adds eps after dividing the root by the
+    bias correction's root, so it is not the same function; measured only);
+    ``host_us``: the host's time to issue one update, kernel and plain
+    chain. Bound: 28 bytes an element
+    (p, g, mu, nu read; p, mu, nu written) at 3.35 TB/s."""
+    from unirec_tpu_torch.core import optim
+    from unirec_tpu_torch.facility.trainer import _where
+    from unirec_tpu_torch.ops import adam as AD
+    shapes = cell_leaf_shapes(torch, config_name)
+    opt = optim.build_optimizer({"optimizer": "adam", "learning_rate": 1e-3})
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rn = lambda s, std: torch.randn(*s, generator=g, device="cuda") * std  # noqa: E731
+    params = [rn(s, 0.02) for s in shapes]
+    state = opt.init(params)
+    state["mu"] = [rn(s, 1e-3) for s in shapes]
+    state["nu"] = [rn(s, 1e-3) ** 2 for s in shapes]
+    state["count"].fill_(4)
+    grads = [rn(s, 1e-3) for s in shapes]
+    loss = torch.tensor(0.5, device="cuda")
+    pp = [p.clone() for p in params]
+    ps = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+          for k, v in state.items()}
+
+    def plain(params_, state_):
+        finite = torch.isfinite(loss)
+        u, new = opt.update(grads, state_, params_)
+        return ([torch.where(finite, p + d, p) for p, d in zip(params_, u)],
+                {k: _where(finite, v, state_[k]) for k, v in new.items()})
+
+    before = AD.adam_step.launches_fused
+    opt.step_(grads, state, params, loss)
+    pp, ps = plain(pp, ps)
+    torch.cuda.synchronize()
+    launched = AD.adam_step.launches_fused - before
+    pairs = [(a, b) for ks, pl in ((params, pp), (state["mu"], ps["mu"]),
+                                   (state["nu"], ps["nu"])) for a, b in zip(ks, pl)]
+    worst = max(f32_ulps(torch, a, b) for a, b in pairs)
+    abs_err = max(float((a - b).abs().max()) for a, b in pairs if a.numel())
+    n = sum(p.numel() for p in params)
+    step = lambda: opt.step_(grads, state, params, loss)  # noqa: E731
+
+    def host_us(fn, iters=50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e6 / iters
+
+    steps = [torch.full((), 5.0, device="cuda") for _ in params]
+    lib_state = ([p.clone() for p in params], [t.clone() for t in state["mu"]],
+                 [t.clone() for t in state["nu"]])
+
+    def library():
+        torch._fused_adam_(lib_state[0], grads, lib_state[1], lib_state[2], [], steps,
+                           lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+
+    line = {"phase": "kernel", "name": "adam", "config": config_name, "leaves": len(shapes),
+            "elements": n, "launches": launched, "worst_ulps": worst, "tol_ulps": 2.0,
+            "max_abs_err": abs_err, "count": int(state["count"]),
+            "kernel_ms": traced_kernel_ms(step, "adam_kernel"),
+            "event_ms": cuda_ms(step),
+            "plain_ms": cuda_ms(lambda: plain(params, state)),
+            "library_ms": traced_device_ms(torch, library),
+            "host_us": {"kernel": host_us(step), "plain": host_us(lambda: plain(params, state),
+                                                                  iters=10)},
+            "bytes": 28 * n, "bound_ms": 28 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    line["roofline_share"] = line["bound_ms"] / line["kernel_ms"]
+    emit(line)
+    if not (launched == 1 and worst <= 2.0 and line["count"] == int(ps["count"])):
+        raise AssertionError(f"adam disagrees with its plain path: {line}")
+    return line
+
+
 HSTU_B, HSTU_L, HSTU_H, HSTU_HD = 8192, 200, 2, 25
 
 
@@ -971,9 +1095,10 @@ def plain_versions():
 
 
 def _counters():
-    from unirec_tpu_torch.ops import attention as AT, ffn as FF, layer as LY, \
+    from unirec_tpu_torch.ops import adam as AD, attention as AT, ffn as FF, layer as LY, \
         member as MB, scatter_accum as SA, topk as TK
-    return {"flash_attention": (AT.flash_attention, "launches"),
+    return {"adam": (AD.adam_step, "launches_fused"),
+            "flash_attention": (AT.flash_attention, "launches"),
             "fused_attention": (AT.fused_attention, "launches"),
             "fused_attention_mma": (AT.fused_attention, "launches_mma"),
             "fused_attention_bwd": (AT.fused_attention_bwd, "launches"),
@@ -1007,17 +1132,18 @@ def _counters():
 SERVING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "blockmax",
                    "blockmax_int8", "blockmax_mma", "blockmax_int8_mma", "rescore_topk",
                    "rescore_topk_int8")
+# adam: updates through csrc/adam.cu (every Adam update of a trainer on the card)
 TRAINING_KERNELS = ("layer_fwd", "layer_fwd_mma", "lastq_fwd", "lastq_fwd_mma", "layer_bwd",
                     "layer_bwd_mma", "lastq_bwd", "lastq_bwd_mma", "scatter_add",
-                    "scatter_add_sorted", "member", "member_warp")
+                    "scatter_add_sorted", "member", "member_warp", "adam")
 # *_mma: the bf16 tensor-core bodies of rows 10, 11 (L <= 64) and 12, 13 (D <= 64)
 ENTRY_KERNELS = ("fused_attention", "fused_attention_mma", "fused_attention_bwd",
                  "fused_attention_bwd_mma", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
                  "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member",
-                 "member_warp")
+                 "member_warp", "adam")
 LONG_KERNELS = ("flash_attention", "fused_ffn", "fused_ffn_mma", "fused_ffn_bwd",
                 "fused_ffn_bwd_mma", "scatter_add", "scatter_add_sorted", "member",
-                "member_warp")
+                "member_warp", "adam")
 # (kernel, its new body's counter): every launch of rows 5, 5q and 8 on the
 # paths must be on the new body
 NEW_BODIES = (("blockmax", "blockmax_mma"), ("blockmax_int8", "blockmax_int8_mma"),
@@ -5786,6 +5912,8 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
         rows["rescore_topk"] = kernel_rescore_topk(torch, N_ITEMS)
         kernel_rescore_topk(torch, 1_000_000)
         rows["hstu_attention"] = kernel_hstu_attention(torch)
+        rows["adam"] = kernel_adam(torch, "sasrec_d64_l50")
+        kernel_adam(torch, "sasrec_d256_steam")
         torch.cuda.empty_cache()
 
     counts = main_path(torch, card)
@@ -5935,7 +6063,9 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
                                 "none: pass 2 was XLA's gather and top_k "
                                 "(unirec_tpu/ops/topk.py:308)"),
                "hstu_attention": ("unirec_tpu_torch/csrc/hstu_attention.cu",
-                                  "none: the JAX package has no HSTU")}
+                                  "none: the JAX package has no HSTU"),
+               "adam": ("unirec_tpu_torch/csrc/adam.cu",
+                        "none: XLA fused the JAX package's optax chain")}
     # the body each line times: rows 1-5q and 12 list their tensor-core body
     # ("mma") and their CUDA-core body, row 6 its sorted-tile body and its
     # per-row body, row 8 its warp body (the entry path's ids) and its block
@@ -5948,7 +6078,7 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
              "scatter_add": ("sorted", "per_row"), "member": ("warp", "block")}
     bodies = {"fused_ffn_bwd": "mma", "fused_attention": "mma", "fused_attention_bwd": "mma",
               "flash_attention": "mma", "scatter_add2": "sorted", "rescore_topk": "vector",
-              "hstu_attention": "mma",
+              "hstu_attention": "mma", "adam": "fused",
               **{n: new for n, (new, _) in split.items()},
               **{f"{n}_{old}": "cuda" if old == "cuda_core" else old
                  for n, (_, old) in split.items()}}

@@ -12,6 +12,7 @@ largest score. Run on the card with
 machine does not have.)
 """
 import ctypes
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -2641,3 +2642,226 @@ def test_hstu_model_on_the_card_launches_the_kernels_and_refuses_f32(cuda):
     assert abs(float(loss) - float(want)) <= 5e-2 * abs(float(want))
     with pytest.raises(ValueError, match="bf16"):
         model_on("cuda", "float32")(batch, train=True, rng=DropoutRNG(0, cuda))
+
+
+# ------------------------------------------------------- Adam (csrc/adam.cu)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _cell_leaf_shapes(name):
+    """The leaf shapes of a benchmark configuration's model
+    (portbench/configs/<name>.json), built on the CPU."""
+    import json
+
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.utils.registry import get_model_class
+    conf = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())["config"]
+    cfg = config_mod.parse_arguments(dict(conf), argv=[], device="cpu")
+    return [tuple(p.shape) for p in get_model_class(cfg["model"])(cfg).parameters()]
+
+
+def _adam_state(opt, dev, shapes, seed, count=4):
+    """Leaves at the init scale and a state some steps old: moments drawn,
+    count ``count``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda s, std: torch.randn(*s, generator=g, device=dev) * std  # noqa: E731
+    params = [rn(s, 0.02) for s in shapes]
+    state = opt.init(params)
+    state["mu"] = [rn(s, 1e-3) for s in shapes]
+    state["nu"] = [rn(s, 1e-3) ** 2 for s in shapes]
+    state["count"].fill_(count)
+    return params, state
+
+
+def _clone_state(params, state):
+    return [p.clone() for p in params], {k: [t.clone() for t in v] if isinstance(v, list)
+                                         else v.clone() for k, v in state.items()}
+
+
+def _plain_update(opt, grads, state, params, loss):
+    """The plain path on the card: Optimizer.update, then the trainer's
+    guarded apply; (params, state) anew."""
+    from unirec_tpu_torch.facility.trainer import _where
+    finite = torch.isfinite(loss)
+    u, new = opt.update(grads, state, params)
+    return ([torch.where(finite, p + d, p) for p, d in zip(params, u)],
+            {k: _where(finite, v, state[k]) for k, v in new.items()})
+
+
+def _ulps(a, b):
+    """The largest |a - b| over the elements, in f32 ulps of b."""
+    b_abs = b.abs()
+    spacing = torch.nextafter(b_abs, torch.full_like(b_abs, float("inf"))) - b_abs
+    return float(((a - b).abs() / spacing).max()) if a.numel() else 0.0
+
+
+def _bits(ts):
+    return [t.view(torch.int32).clone() for t in ts]
+
+
+ADAM_CASES = [("adam", 0.0, -1.0), ("adam", 0.01, 0.5), ("adamw", 0.01, -1.0),
+              ("sparse_adam", 0.01, 0.05)]
+
+
+@pytest.mark.parametrize("kind,wd,clip", ADAM_CASES)
+def test_adam_kernel_matches_the_plain_path_at_the_sasrec_d64_leaves(cuda, kind, wd, clip):
+    """Three updates of the 36 leaves of sasrec_d64_l50 through the kernel
+    and through the plain path on the card, from one state: every leaf's
+    params, mu and nu within 2 f32 ulps of the plain ones, each leaf on its
+    own (the small ones, biases and LayerNorm scales, among them), and the
+    same count; one launch an update."""
+    from unirec_tpu_torch.core import optim
+    from unirec_tpu_torch.ops import adam as A
+    shapes = _cell_leaf_shapes("sasrec_d64_l50")
+    assert len(shapes) == 36 and len(shapes) <= A.max_leaves()
+    opt = optim.build_optimizer({"optimizer": kind, "learning_rate": 1e-3,
+                                 "weight_decay": wd, "grad_clip_value": clip})
+    kp, ks = _adam_state(opt, cuda, shapes, seed=5)
+    pp, ps = _clone_state(kp, ks)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    before = A.adam_step.launches_fused
+    for step in range(3):
+        grads = [torch.randn(*s, generator=g, device=cuda) * 1e-3 for s in shapes]
+        loss = torch.tensor(0.5, device=cuda)
+        opt.step_(grads, ks, kp, loss)
+        pp, ps = _plain_update(opt, grads, ps, pp, loss)
+    torch.cuda.synchronize()
+    assert A.adam_step.launches_fused == before + 3
+    assert int(ks["count"]) == int(ps["count"]) == 7
+    worst = {}
+    for i, s in enumerate(shapes):
+        for what, a, b in (("p", kp[i], pp[i]), ("mu", ks["mu"][i], ps["mu"][i]),
+                           ("nu", ks["nu"][i], ps["nu"][i])):
+            worst[(i, s, what)] = _ulps(a, b)
+    bad = {k: v for k, v in worst.items() if not v <= 2.0}
+    assert not bad, bad
+
+
+def test_adam_kernel_writes_nothing_when_the_loss_is_not_finite(cuda):
+    """A NaN or infinite loss leaves params, mu, nu and count bit-equal; the
+    next finite update moves them (the ticket is whole again)."""
+    from unirec_tpu_torch.core import optim
+    opt = optim.build_optimizer({"optimizer": "adam", "learning_rate": 1e-3})
+    shapes = _cell_leaf_shapes("sasrec_d64_l50")
+    params, state = _adam_state(opt, cuda, shapes, seed=7)
+    grads = [torch.randn(*s, device=cuda) for s in shapes]
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        old = _bits(params), _bits(state["mu"]), _bits(state["nu"]), int(state["count"])
+        opt.step_(grads, state, params, torch.tensor(bad, device=cuda))
+        torch.cuda.synchronize()
+        for a, b in zip((_bits(params), _bits(state["mu"]), _bits(state["nu"])), old[:3]):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert int(state["count"]) == old[3]
+    opt.step_(grads, state, params, torch.tensor(0.5, device=cuda))
+    assert int(state["count"]) == 5
+    old_p = _bits(params)
+    opt.step_(grads, state, params, torch.tensor(0.5, device=cuda))
+    assert int(state["count"]) == 6
+    assert all(not torch.equal(a, b) for a, b in zip(_bits(params), old_p))
+
+
+def test_adam_kernel_takes_more_leaves_than_a_table_and_ragged_unaligned_leaves(cuda):
+    """More than two tables of leaves (three launches), sizes that are not
+    a multiple of 4 or of a chunk, an empty leaf, and leaves and gradients
+    that start 4 bytes past a 16-byte boundary: the plain path's values
+    within 2 ulps, count bumped once an update."""
+    from unirec_tpu_torch.core import optim
+    from unirec_tpu_torch.ops import adam as A
+    n = 2 * A.max_leaves() + 5
+    shapes = [(4097,), (3,), (1,), (33, 7), (0,), (4096 * 3 + 2,)] + [(64,)] * (n - 6)
+    opt = optim.build_optimizer({"optimizer": "adam", "learning_rate": 1e-3})
+    kp, ks = _adam_state(opt, cuda, shapes, seed=8)
+    buf = torch.zeros(kp[0].numel() + 1, device=cuda)        # leaf 0 on a 4-byte offset
+    buf[1:].copy_(kp[0])
+    kp[0] = buf[1:]
+    assert kp[0].data_ptr() % 16 == 4
+    pp, ps = _clone_state(kp, ks)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    before = A.adam_step.launches_fused
+    for step in range(2):
+        grads = [torch.randn(*s, generator=g, device=cuda) * 1e-3 for s in shapes]
+        gbuf = torch.empty(grads[3].numel() + 1, device=cuda)
+        gbuf[1:].copy_(grads[3].reshape(-1))
+        kgrads = list(grads)
+        kgrads[3] = gbuf[1:].view(shapes[3])                # an unaligned gradient
+        loss = torch.tensor(1.0, device=cuda)
+        opt.step_(kgrads, ks, kp, loss)
+        pp, ps = _plain_update(opt, grads, ps, pp, loss)
+    torch.cuda.synchronize()
+    assert A.adam_step.launches_fused == before + 2 * 3
+    assert int(ks["count"]) == int(ps["count"]) == 6
+    for i in range(n):
+        for a, b in ((kp[i], pp[i]), (ks["mu"][i], ps["mu"][i]), (ks["nu"][i], ps["nu"][i])):
+            assert _ulps(a, b) <= 2.0, (i, shapes[i])
+
+
+def _card_trainer(tmp_path, cuda):
+    """A SASRec trainer at the d=64 cell's widths on a small catalog, with
+    its device pipeline, and a raw device batch."""
+    from unirec_tpu_torch import config as config_mod
+    from unirec_tpu_torch.data.device_pipeline import DeviceAugmenter
+    from unirec_tpu_torch.data.history import UserHistory
+    from unirec_tpu_torch.facility.trainer import Trainer
+    from unirec_tpu_torch.utils import to_device
+    from unirec_tpu_torch.utils.registry import get_model_class
+    rng = np.random.default_rng(0)
+    lens = rng.integers(5, 40, 500).astype(np.int32)
+    hist = np.zeros((500, 40), np.int32)
+    m = np.arange(40)[None] < lens[:, None]
+    hist[m] = rng.integers(1, 2000, int(m.sum()))
+    cfg = config_mod.parse_arguments(dict(
+        model="SASRec", n_users=500, n_items=2000, max_seq_len=50, embedding_size=64,
+        hidden_size=64, inner_size=128, n_layers=2, n_heads=2, loss_type="bce",
+        n_sample_neg_train=9, dataloader="SeqRecDataset",
+        history_mask_mode="autoregressive", compute_dtype="bfloat16",
+        last_query_only=1, fused_layer=1, fused_lastq=1, vmem_embedding_grad=1,
+        neg_membership_pallas=1, hidden_dropout_prob=0.1, attn_dropout_prob=0.1,
+        output_path=str(tmp_path)), argv=[], device="cuda")
+    tr = Trainer(cfg, get_model_class("SASRec")(cfg), device="cuda")
+    tr.set_device_augmenter(DeviceAugmenter(cfg, UserHistory(hist, lens), device="cuda"))
+    tr.init_params()
+    raw = to_device({"user_id": rng.integers(1, 500, 512).astype(np.int32),
+                     "item_id": rng.integers(1, 2000, 512).astype(np.int32),
+                     "weight": np.ones(512, np.float32)}, cuda)
+    return tr, raw
+
+
+def test_a_train_step_makes_no_host_sync(cuda, tmp_path):
+    """Trainer.train_step on a device batch under
+    torch.cuda.set_sync_debug_mode("error"), after two warm-up steps: no
+    synchronising call anywhere in the step, the update included."""
+    tr, raw = _card_trainer(tmp_path, cuda)
+    for _ in range(2):
+        tr.train_step(raw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [tr.train_step(raw) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    assert int(tr.opt_state["count"]) == 5
+
+
+def test_the_adam_counters_count_one_fused_update_a_step(cuda, tmp_path):
+    """tracing.counters(): adam_fused one a step, adam_plain none on the
+    card, adam_leaves 36 a step while a profiler runs and none otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unirec_tpu_torch.utils import tracing
+    tr, raw = _card_trainer(tmp_path, cuda)
+    tr.train_step(raw)
+    before = tracing.counters()
+    for _ in range(3):
+        tr.train_step(raw)
+    mid = tracing.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            tr.train_step(raw)
+        torch.cuda.synchronize()
+    after = tracing.counters()
+    assert mid["adam_fused"] - before["adam_fused"] == 3
+    assert after["adam_fused"] - mid["adam_fused"] == 2
+    assert after["adam_plain"] == before["adam_plain"]
+    assert mid["adam_leaves"] == before["adam_leaves"]
+    assert after["adam_leaves"] - mid["adam_leaves"] == 2 * len(tr.params) == 72

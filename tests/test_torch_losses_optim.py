@@ -1,6 +1,9 @@
 """ops/losses.py against unirec_tpu/ops/losses.py on the same scores (within
 1e-6), and core/optim.py against the JAX package's optax chain: the same
-gradients give the same updates over 3 steps (within 1e-6)."""
+gradients give the same updates over 3 steps (within 1e-6). The Adam kinds'
+in-place step (``Optimizer.step_``: on CPU leaves ops/adam.py's plain
+version, the kernel's arithmetic) equals the functional update followed by
+the trainer's guarded apply, bit for bit."""
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -10,6 +13,8 @@ import torch
 from unirec_tpu.core import optim as jax_optim
 from unirec_tpu.ops import losses as jax_losses
 from unirec_tpu_torch.core import optim
+from unirec_tpu_torch.facility.trainer import _where
+from unirec_tpu_torch.ops import adam as A
 from unirec_tpu_torch.ops import losses
 
 TOL = dict(atol=1e-6, rtol=1e-6)
@@ -103,3 +108,86 @@ def test_injected_learning_rate_and_schedulers_match_jax():
             assert lr_a == lr_b
         assert a.state_dict() == b.state_dict()
     assert optim.build_scheduler({"scheduler": "none"}) is None
+
+
+ADAM_SHAPES = [(5, 3), (3,), (4, 4), (7,)]
+FROZEN = 1                  # this leaf's gradient is zero, as the trainer gives a frozen one
+
+
+@pytest.mark.parametrize("loss2", ["finite", "nan", "inf"])
+@pytest.mark.parametrize("kind,wd,clip", [(k, wd, clip) for k in ("adam", "adamw", "sparse_adam")
+                                          for wd in (0.0, 0.01) for clip in (-1, 0.5)])
+def test_in_place_step_equals_the_functional_update_and_the_guarded_apply(kind, wd, clip, loss2):
+    """Three steps from one state: ``step_`` in place against ``update``,
+    then ``torch.where(finite, p + u, p)`` and the state select. Params,
+    mu, nu and count bit-equal after every step; the second step's loss is
+    ``loss2``, and a loss that is not finite leaves everything as it was."""
+    cfg = {"optimizer": kind, "learning_rate": 3e-3, "weight_decay": wd,
+           "grad_clip_value": clip}
+    opt = optim.build_optimizer(cfg)
+    rng = np.random.default_rng(11)
+    start = [rng.normal(size=s).astype(np.float32) for s in ADAM_SHAPES]
+    fp = [torch.from_numpy(p.copy()) for p in start]
+    ip = [torch.from_numpy(p.copy()) for p in start]
+    fs, ins = opt.init(fp), opt.init(ip)
+    losses_ = [torch.tensor(0.7), torch.tensor(float(loss2) if loss2 != "finite" else 0.6),
+               torch.tensor(0.5)]
+    plain = A.adam_step.launches_plain
+    for step, loss in enumerate(losses_):
+        grads = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ADAM_SHAPES]
+        grads[FROZEN] = torch.zeros(ADAM_SHAPES[FROZEN])
+        before = [p.clone() for p in ip], int(ins["count"])
+        finite = torch.isfinite(loss)
+        u, new = opt.update(grads, fs, fp)
+        fp = [torch.where(finite, p + d, p) for p, d in zip(fp, u)]
+        fs = {k: _where(finite, v, fs[k]) for k, v in new.items()}
+        opt.step_(grads, ins, ip, loss)
+        for a, b in zip(ip, fp):
+            assert torch.equal(a, b)
+        for k in ("mu", "nu"):
+            for a, b in zip(ins[k], fs[k]):
+                assert torch.equal(a, b)
+        assert torch.equal(ins["count"], fs["count"]) and ins["count"].dtype == torch.int32
+        if not bool(finite):
+            assert int(ins["count"]) == before[1]
+            for a, b in zip(ip, before[0]):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if wd == 0:
+            assert torch.equal(ip[FROZEN], torch.from_numpy(start[FROZEN]))
+    assert int(ins["count"]) == (3 if loss2 == "finite" else 2)
+    assert A.adam_step.launches_plain == plain + 3      # one for each step_ on the CPU
+
+
+def test_in_place_step_refuses_what_the_kernel_does_not_take():
+    """ops/adam.py checks what the kernel takes before it asks for the card,
+    so its refusals show on CPU tensors too; leaves that pass them are then
+    refused for the device. ``step_`` on the CPU runs the plain version."""
+    opt = optim.build_optimizer({"optimizer": "adam", "learning_rate": 1e-3})
+    params = [torch.zeros(4, 3), torch.zeros(5)]
+    state = opt.init(params)
+    grads = [torch.ones(4, 3), torch.ones(5)]
+    loss = torch.tensor(1.0)
+
+    def kernel(p=params, g=grads, **kw):
+        A.adam_step(p, g, state["mu"], state["nu"], state["count"], state["learning_rate"],
+                    loss, b1=0.9, b2=0.999, eps=1e-8, **kw)
+
+    with pytest.raises(TypeError, match="float32"):
+        kernel(g=[grads[0], grads[1].bfloat16()])
+    with pytest.raises(ValueError, match="contiguous"):     # written in place
+        kernel(p=[torch.zeros(3, 4).t(), params[1]])
+    with pytest.raises(ValueError, match="one entry per leaf"):
+        kernel(g=grads[:1])
+    with pytest.raises(ValueError, match="shape"):
+        kernel(g=[torch.ones(3, 4), grads[1]])
+    with pytest.raises(ValueError, match="in-place"):
+        optim.build_optimizer({"optimizer": "sgd", "learning_rate": 1e-3}).step_(
+            grads, state, params, loss)
+    with pytest.raises(ValueError, match="gnorm"):          # the kernel reads clip's norm
+        kernel(clip=1.0)
+    # a gradient that is not contiguous passes the checks (the wrapper copies it)
+    with pytest.raises(ValueError, match="no adam kernel for device cpu"):
+        kernel(g=[torch.ones(3, 4).t(), grads[1]])
+    assert int(state["count"]) == 0
+    opt.step_([torch.ones(3, 4).t(), grads[1]], state, params, loss)
+    assert int(state["count"]) == 1 and bool((params[0] < 0).all())

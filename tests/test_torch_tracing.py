@@ -177,10 +177,11 @@ def test_counters_hold_the_benchmarks_launch_counters_and_reset(monkeypatch):
             monkeypatch.setattr(fn, attr, 3 + i)     # distinct values, restored afterwards
     ours, theirs = tracing.counters(), program.launch_counters()
     assert theirs and {k: ours[k] for k in theirs} == theirs
-    # beyond the benchmark's reader: the work counters, pass 2's kernel and
-    # HSTU's attention (its bodies and its backward)
+    # beyond the benchmark's reader: the work counters, pass 2's kernel,
+    # HSTU's attention (its bodies and its backward) and the Adam update
     hstu = {f"hstu_attention{d}{b}" for d in ("", "_bwd") for b in ("", "_mma", "_plain")}
     assert set(ours) - set(theirs) == {"topk_users", "topk_selected", "topk_rows_rescored",
-                                       "rescore", "rescore_int8"} | hstu
+                                       "rescore", "rescore_int8", "adam_fused", "adam_plain",
+                                       "adam_leaves"} | hstu
     tracing.reset_counters()
     assert set(tracing.counters().values()) == {0}

@@ -7,8 +7,11 @@ adamw = adam then decayed weights) -> scale(-1) -> scale(lr). The same
 chain is written here in plain tensor ops, step for step as optax 0.2
 computes it, so an update is the same function of (grads, state, params)
 and the trainer's NaN guard stays on the device (a ``torch.where`` on
-``isfinite(loss)``, no host sync). Parameters and state are lists of
-tensors in ``model.parameters()`` order; the state is a dict of tensors:
+``isfinite(loss)``, no host sync). For the Adam kinds the trainer calls
+``step_``, the update and the guarded apply in place: on CUDA leaves one
+hand-written kernel (ops/adam.py, csrc/adam.cu), on other leaves
+``update`` and the guarded copies. Parameters and state are lists of tensors in
+``model.parameters()`` order; the state is a dict of tensors:
 
     learning_rate  0-d f32    (the injected hyperparameter)
     count          0-d int32  (adam / adamw)
@@ -18,7 +21,11 @@ tensors in ``model.parameters()`` order; the state is a dict of tensors:
 
 While a profiler runs, ``update`` opens ``optim.update`` and, for the Adam
 kinds, ``optim.moments``, ``optim.bias_correction`` and ``optim.direction``
-(utils/tracing.py).
+(utils/tracing.py); ``step_`` on the card opens ``optim.update`` (the
+clip's norm) over ``train.apply`` (the kernel's launches, which write the
+guarded update), elsewhere ``update``'s spans, then ``train.apply`` (the
+guarded copies). ops/adam.py's ``adam_step`` counts the kernel's launches
+(``launches_fused``) and ``step_``'s plain updates (``launches_plain``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 
 from unirec_tpu_torch.core.mesh import all_reduce_
+from unirec_tpu_torch.ops import adam as A
 from unirec_tpu_torch.utils import tracing
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8      # optax.scale_by_adam defaults
@@ -52,7 +60,8 @@ def global_sq_norm(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor]
 
 class Optimizer:
     """``init(params) -> state``; ``update(grads, state, params) ->
-    (updates, new_state)``; apply with ``p + u`` (optax's convention)."""
+    (updates, new_state)``; apply with ``p + u`` (optax's convention). The
+    Adam kinds (``is_adam``) also take ``step_``: update and apply in place."""
 
     def __init__(self, kind: str, learning_rate: float, weight_decay: float = 0.0,
                  clip: float = -1.0):
@@ -60,16 +69,17 @@ class Optimizer:
         self.lr = float(learning_rate)
         self.wd = float(weight_decay or 0.0)
         self.clip = float(clip or -1.0)
+        self._tickets = {}           # device -> the kernel's last-block ticket
 
     @property
-    def _adam(self) -> bool:
+    def is_adam(self) -> bool:
         return self.kind in ("adam", "adamw", "sparse_adam")
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict[str, Any]:
         dev = params[0].device
         state: Dict[str, Any] = {"learning_rate": torch.tensor(self.lr, device=dev)}
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        if self._adam:
+        if self.is_adam:
             state.update(count=torch.zeros((), dtype=torch.int32, device=dev),
                          mu=zeros(), nu=zeros())
         elif self.kind == "adagrad":
@@ -91,7 +101,7 @@ class Optimizer:
             u = [torch.where(trigger, g, g / g_norm * self.clip) for g in u]
         if self.wd > 0 and self.kind != "adamw":
             u = torch._foreach_add(u, list(params), alpha=self.wd)
-        if self._adam:
+        if self.is_adam:
             with tracing.span("optim.moments"):
                 mu = torch._foreach_add(torch._foreach_mul(u, 1.0 - _B1),
                                         torch._foreach_mul(state["mu"], _B1))
@@ -100,8 +110,8 @@ class Optimizer:
                     torch._foreach_mul(state["nu"], _B2))
             with tracing.span("optim.bias_correction"):
                 count = state["count"] + 1
-                c1 = 1.0 - torch.pow(torch.tensor(_B1, device=count.device), count.float())
-                c2 = 1.0 - torch.pow(torch.tensor(_B2, device=count.device), count.float())
+                c1 = 1.0 - _B1 ** count.float()
+                c2 = 1.0 - _B2 ** count.float()
             with tracing.span("optim.direction"):
                 mu_hat = [m / c1 for m in mu]
                 nu_hat = [n / c2 for n in nu]
@@ -121,6 +131,42 @@ class Optimizer:
             new["nu"] = list(nu)
         lr = state["learning_rate"]
         return [(-g) * lr for g in u], new
+
+    def step_(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
+              params: Sequence[torch.Tensor], loss: torch.Tensor) -> None:
+        """The Adam kinds' update and the trainer's guarded apply in one, in
+        place: ``params``, ``state["mu"]``, ``state["nu"]`` and
+        ``state["count"]`` change unless ``loss`` is not finite. CUDA leaves
+        go to the kernel, with no host read; other leaves to its plain
+        version, ``update`` then ``p + u`` and the new state, copied in
+        under ``torch.where`` on ``isfinite(loss)``."""
+        if not self.is_adam:
+            raise ValueError(f"{self.kind} has no in-place step")
+        params = list(params)
+        dev = state["count"].device
+        if dev.type != "cuda":
+            finite = torch.isfinite(loss)
+            updates, new = self.update(grads, state, params)
+            with tracing.span("train.apply"):
+                for p, u in zip(params, updates):
+                    p.copy_(torch.where(finite, p + u, p))
+                for k in ("mu", "nu"):
+                    for old, v in zip(state[k], new[k]):
+                        old.copy_(torch.where(finite, v, old))
+                state["count"].copy_(torch.where(finite, new["count"], state["count"]))
+            A.adam_step.launches_plain += 1
+            return
+        with tracing.span("optim.update"):
+            gnorm = torch.sqrt(global_sq_norm(grads, params)) if self.clip > 0 else None
+            decay = A.NO_DECAY if self.wd <= 0 else (
+                A.DECOUPLED if self.kind == "adamw" else A.L2)
+            if dev not in self._tickets:
+                self._tickets[dev] = A.new_ticket(dev)
+            with tracing.span("train.apply"):
+                A.adam_step(params, list(grads), state["mu"], state["nu"], state["count"],
+                            state["learning_rate"], loss, b1=_B1, b2=_B2, eps=_ADAM_EPS,
+                            wd=self.wd, decay=decay, clip=self.clip, gnorm=gnorm,
+                            ticket=self._tickets[dev])
 
 
 def build_optimizer(config: Dict[str, Any]) -> Optimizer:

@@ -5,8 +5,10 @@ global_step), the JAX package's ``fold_in``; device-side augmentation
 (data/device_pipeline.py), or a host batch as it comes (T7 rows); with
 ``total_anneal_steps`` > 0 the batch's MultiVAE KL factor ``kl_anneal``;
 forward and backward through the model, whose fused layers and embedding
-gathers run the port's CUDA kernels on the card; the optimizer update (core/optim.py) under the NaN guard, a
-``torch.where`` on ``isfinite(loss)`` that keeps the step on the device.
+gathers run the port's CUDA kernels on the card; the optimizer update
+(core/optim.py) under the NaN guard, which keeps the step on the device:
+for the Adam kinds on the card one kernel that writes nothing when the loss
+is not finite (csrc/adam.cu), else a ``torch.where`` on ``isfinite(loss)``.
 ``fit`` runs the epoch loop in the reference's order: validate (early
 stopping, best checkpoint, LR plateau step), then train, with the losses
 kept on the device and fetched once per epoch, and the ``auto_resume``
@@ -27,7 +29,8 @@ step epoch + 1 and ``valid/<metric>`` at the epoch index through
 off when its package does not import. While a profiler runs, a step opens
 the spans of utils/tracing.py: ``train.step`` over ``train.augment``,
 ``train.forward``, ``train.backward``, ``train.reduce`` and
-``train.update`` (``optim.*``, then ``train.apply``).
+``train.update`` (on the card ``optim.update`` over ``train.apply``, the
+kernel's launch; on the CPU ``optim.*``, then ``train.apply``).
 
 MoRec (reference trainer.py:461-538): with an objective controller
 (``add_objective_controller``, wired by facility/morec's ``build_morec``)
@@ -250,10 +253,16 @@ class Trainer:
         """The optimizer update from ``grads`` (None for a parameter the
         loss does not reach), frozen parameters at zero gradient, under the
         NaN guard (trainer.py:229-237): params and state stay when the loss
-        is not finite."""
+        is not finite. The Adam kinds update ``params`` and ``opt_state``'s
+        tensors in place (``Optimizer.step_``: on the card one kernel, with
+        no host read); the others take the functional update, then the
+        guarded copies and a new state."""
         with tracing.span("train.update"), torch.no_grad():
             grads = [torch.zeros_like(p) if g is None or f else g
                      for g, p, f in zip(grads, self.params, self._frozen)]
+            if self.tx.is_adam:
+                self.tx.step_(grads, self.opt_state, self.params, loss)
+                return
             finite = torch.isfinite(loss)
             updates, new_state = self.tx.update(grads, self.opt_state, self.params)
             with tracing.span("train.apply"):

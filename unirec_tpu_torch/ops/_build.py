@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("layer_fwd", "lastq_fwd", "blockmax", "layer_bwd", "lastq_bwd",
                   "scatter_add", "member", "attention", "ffn", "flash_attention",
-                  "rescore_topk", "hstu_attention")
+                  "rescore_topk", "hstu_attention", "adam")
 
 
 def _nvcc() -> str:

@@ -15,10 +15,13 @@ others nested inside it):
 - ``train.step`` (``Trainer.train_step``) over ``train.augment``
   (``DeviceAugmenter.augment``), ``train.forward`` (the model and its
   loss), ``train.backward`` (``torch.autograd.grad``), ``train.reduce``
-  (``all_reduce_flat``) and ``train.update`` (``apply_update``), which holds
-  ``optim.update`` (``Optimizer.update``: ``optim.moments``,
-  ``optim.bias_correction``, ``optim.direction`` for the Adam kinds) and
-  ``train.apply`` (the guarded parameter copies and the state select);
+  (``all_reduce_flat``) and ``train.update`` (``apply_update``). For the
+  Adam kinds on the card that holds ``optim.update`` (``Optimizer.step_``:
+  the clip's norm, the ticket) over ``train.apply`` (csrc/adam.cu's launch,
+  which writes the guarded update); otherwise ``optim.update``
+  (``Optimizer.update``: ``optim.moments``, ``optim.bias_correction``,
+  ``optim.direction`` for the Adam kinds), then ``train.apply`` (the
+  guarded parameter copies and the state select);
 - ``serve.request`` (``get_topk_recommendations``) over ``serve.catalog``,
   then per batch ``serve.windows``, ``serve.history_gather``,
   ``serve.to_device``, ``serve.tower``, ``serve.topk`` (with
@@ -30,10 +33,14 @@ others nested inside it):
   each layer's ``hstu.uvqk``, ``hstu.attention`` and ``hstu.output``.
 
 Counters are attributes of the function that does the work. The kernels'
-``launches*`` count every launch (tests read them); the work counters,
-``fused_catalog_topk.users``, ``.selected`` and ``.rows_rescored``, count
-only while a profiler runs, so in a process whose one profiled stretch is
-a traced window they are that window's. ``counters()`` reads them all.
+``launches*`` count every launch (tests read them); ops/adam.py's
+``adam_step.launches_fused`` counts csrc/adam.cu's launches and
+``launches_plain`` the Adam updates through its plain version
+(``Optimizer.step_`` off the card). The work counters,
+``fused_catalog_topk.users``, ``.selected`` and ``.rows_rescored``, and
+``adam_step.leaves`` (leaves the kernel updated), count only while a
+profiler runs, so in a process whose one profiled stretch is a traced
+window they are that window's. ``counters()`` reads them all.
 """
 from __future__ import annotations
 
@@ -59,8 +66,8 @@ def span(name: str):
 
 
 def _counted() -> Dict[str, object]:
-    from unirec_tpu_torch.ops import attention as AT, ffn as FF, hstu_attention as HS, \
-        layer as LY, member as MB, scatter_accum as SA, topk as TK
+    from unirec_tpu_torch.ops import adam as AD, attention as AT, ffn as FF, \
+        hstu_attention as HS, layer as LY, member as MB, scatter_accum as SA, topk as TK
     return {"layer_fwd": LY.fused_transformer_layer, "layer_bwd": LY.layer_bwd,
             "lastq_fwd": LY.fused_last_query_layer, "lastq_bwd": LY.lastq_bwd,
             "fused_attention": AT.fused_attention,
@@ -69,7 +76,8 @@ def _counted() -> Dict[str, object]:
             "fused_ffn_bwd": FF.fused_ffn_bwd, "scatter_add": SA.scatter_add_rows,
             "member": MB.member_mask, "blockmax": TK.catalog_blockmax,
             "rescore": TK.rescore_topk, "topk": TK.fused_catalog_topk,
-            "hstu_attention": HS.hstu_attention, "hstu_attention_bwd": HS.hstu_attention_bwd}
+            "hstu_attention": HS.hstu_attention, "hstu_attention_bwd": HS.hstu_attention_bwd,
+            "adam": AD.adam_step}
 
 
 def _counter_attrs(fn):
@@ -78,8 +86,9 @@ def _counter_attrs(fn):
 
 def counters() -> Dict[str, int]:
     """Every counter of the port: ``<kernel>`` and ``<kernel>_<body>`` for
-    the launch counters (``launches``, ``launches_<body>``), and
-    ``<name>_<attr>`` for the work counters (``topk_rows_rescored``)."""
+    the launch counters (``launches``, ``launches_<body>``: ``adam_fused``),
+    and ``<name>_<attr>`` for the work counters (``topk_rows_rescored``,
+    ``adam_leaves``)."""
     out = {}
     for name, fn in _counted().items():
         for attr in _counter_attrs(fn):
