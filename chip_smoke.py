@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py
 
+This script holds each kernel against its plain version at the shapes the
+paths run, times it there, and runs the paths; tests/test_torch_gpu.py
+(``pytest -m gpu``) holds the kernels at small shapes, edge cases and
+shapes no path runs. The tolerances, case builders and holders both use
+are card_cases.py's; the card's peaks are the benchmark's
+(portbench/harness/common.py), bar the f32 CUDA-core one.
 Phases, each of which must pass:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of every path from unirec_tpu_torch/csrc
@@ -11,58 +17,63 @@ Phases, each of which must pass:
      the same inputs, with the tolerance stated in its line, and timed:
      kernel, plain version, a PyTorch yardstick where one exists, and the
      least time the card could take (bound); the whole layer in its bf16
-     tensor-core body, with its CUDA-core body timed in turns with it (at
-     least 3x slower) and nn.TransformerEncoderLayer on the same weights
-     and mask as the yardstick (its agreement with the plain version
-     reported); the last-query layer likewise in its tensor-core body, its
-     CUDA-core body timed in turns beside it (no gate at this batch); the
-     catalog block-max (rows 5, 5q) over 50,000 and 1,000,000 items, bf16
-     and int8, in its tensor-core body, its CUDA-core body timed in turns
-     by the card's clock (traced_kernel_ms: these calls take microseconds,
-     where CUDA events read the host's launch pace), at least 1.5x slower;
-     pass 2 of the catalog top-k (csrc/rescore_topk.cu) at a serving
-     request's shape (4,096 users, kp = 301) over 50,000 and 1,000,000
-     items against its plain version (id sets equal apart from ties), beside
-     the gather + bmm + topk it replaced and its L2 and device-memory bounds;
-     HSTU's attention (csrc/hstu_attention.cu) forward and backward at the
-     hstu_large_ml1m cell's shape (B=8,192, L=200, two heads of 25) against
-     its plain version (checked at 1,024 examples), beside a plain-torch
-     bf16 SiLU attention that stores the [B, H, L, L] scores; the Adam
-     update (csrc/adam.cu) over the leaves of the sasrec_d64_l50 and
-     sasrec_d256_steam cells' models, every leaf within 2 f32 ulps of the
-     plain path (Optimizer.update, then the guarded apply), beside its byte
-     bound, the plain chain and torch._fused_adam_ (eps placed otherwise:
-     measured only, never called by the port);
+     tensor-core body, with its CUDA-core body against the plain version
+     and timed in turns with it
+     (at least 3x slower), and nn.TransformerEncoderLayer on the same
+     weights and mask as the yardstick (its agreement with the plain
+     version reported); the last-query layer likewise, its CUDA-core body
+     timed in turns beside it (no gate at this batch); the catalog
+     block-max (rows 5, 5q) over 50,000 and 1,000,000 items, bf16 and
+     int8, in its tensor-core body, its CUDA-core body against the plain
+     version and timed in turns by the card's clock (traced_kernel_ms:
+     these calls take microseconds, where CUDA events read the host's
+     launch pace), at least 1.5x slower; the fused top-k against the dense
+     plain top-k on a bf16 catalog (id sets up to ties); pass 2 of the
+     catalog top-k (csrc/rescore_topk.cu) at a serving request's shape
+     (4,096 users, kp = 301) over 50,000 and 1,000,000 items against its
+     plain version (id sets equal apart from ties), beside the gather + bmm
+     + topk it replaced and its device-memory bound; HSTU's attention
+     (csrc/hstu_attention.cu) forward and backward at the hstu_large_ml1m
+     cell's shape (B=8,192, L=200, two heads of 25) against its plain
+     version, beside a plain-torch bf16 SiLU attention that stores the [B,
+     H, L, L] scores; the Adam update (csrc/adam.cu) over the leaves of the
+     sasrec_d64_l50 and sasrec_d256_steam cells' models, every leaf within
+     2 f32 ulps of the plain path (Optimizer.update, then the guarded
+     apply), beside its byte bound, the plain path and torch._fused_adam_
+     (eps placed otherwise: measured only, never called by the port);
   4. the serving path: a bench-width SASRec (2 layers, d=64, 2 heads, inner
      128, L=50, 50,000 items; random weights from a seed, saved and loaded
      as a checkpoint) serves top-100 to a few thousand users of a synthetic
      100,000-user history through reco_topk.get_topk_recommendations, with
      a bf16 catalog and then an int8 one. Every serving kernel's launch
      count must rise in that run (both layers in their tensor-core bodies),
-     and the ids must agree with the same model
-     run through the plain versions on the card;
+     and the ids must agree with the same model run through the plain
+     versions on the card (its users/s and trace: the
+     sasrec_d64_l50.serve cell);
   5. the training kernels at bench.py's training shapes (B=32,768): the two
      forward layers with dropout 0.1, their backwards, the embedding-grad
      scatter-add (on uniform ids at the paths' four shapes, its sorted-tile
      body timed in turns with its per-row body) and the negative-membership
      test (its warp body against its block body, in turns by the card's
      clock, at least 1.5x faster), each against its plain version with the
-     same inputs and dropout seeds, and timed; both layers' forwards and backwards in their bf16
-     tensor-core bodies, each with its CUDA-core body timed in turns with it
-     (at least 3x slower for the forwards and the last-query backward, 5x
-     for the layer backward), the key biases' zero-sum checks and another seed's
-     masks (which must disagree); nn.TransformerEncoderLayer's train-mode
-     forward, and forward and backward, as the layer's yardsticks;
+     same inputs and dropout seeds, and timed; both layers' forwards and
+     backwards in their bf16 tensor-core bodies, each with its CUDA-core
+     body against the plain version and timed in turns with it (at least 3x
+     slower for the forwards and the last-query backward, 5x for the layer
+     backward), the key biases' zero-sum checks and another seed's masks
+     (which must disagree);
+     nn.TransformerEncoderLayer's train-mode forward, and forward and
+     backward, as the layer's yardsticks;
   6. the training path: bench.py's workload (SASRec as above, BCE with 9
      rejection-sampled negatives, Adam, dropout 0.1, bf16, batch 32,768,
      with neg_membership_pallas on) trained through the port's
-     Trainer.fit, 3 warm-up and 24 timed steps; the loss must stay finite
-     and fall, and every training kernel must launch (both layers' forwards
-     and backwards in their tensor-core bodies, the scatter-add in its
-     sorted-tile body).
-     Then one step from the
+     Trainer.fit for 27 steps; the loss must stay finite and fall, and
+     every training kernel must launch (both layers' forwards and
+     backwards in their tensor-core bodies, the scatter-add in its
+     sorted-tile body; its examples/s and trace: the sasrec_d64_l50
+     training cells). Then one step from the
      same weights, batch and seeds through the kernels and through the plain
-     versions, loss and every gradient compared; then two traced steps;
+     versions, loss and every gradient compared;
      then the JAX package's opt-in XLA variants (opt_in_variants): one step
      of the same configuration under each embedding-gradient path
      (scan_embedding_grad, sorted_embedding_grad, expand_embedding_grad=4,
@@ -72,14 +83,14 @@ Phases, each of which must pass:
      within f32 atomics' order; rows 1 and 3 launched twice, the forward
      and the backward's recompute with the forward's dropout seeds);
   7. the fused attention kernels (forward, backward) at B=32,768, H=2, L=50,
-     head dim 32, bf16, at dropout 0 and 0.1, and with a per-head mask (the
-     backward in its bf16 tensor-core body, whose dropout mask is also held
-     to the forward's keying bit for bit; bf16 runs both directions on the
-     tensor cores); the fused FFN kernels at 1,638,400, 32,768 and
-     2,097,152 tokens (d=64, inner 128, swish; bf16 both ways on the
-     tensor cores, the forward's CUDA-core body timed beside it and the
-     forward faster than addmm -> silu -> addmm at the two large counts)
-     and over all six activations; each against its plain version;
+     head dim 32, bf16, at dropout 0 and 0.1 (bf16 runs both directions on
+     the tensor cores; the backward's dropout mask held to the forward's
+     keying bit for bit), and the tiled pair at L=300 and 512 (timed); the
+     fused FFN kernels at 1,638,400, 32,768 and 2,097,152 tokens (d=64,
+     inner 128, swish; bf16 both ways on the tensor cores, the forward's
+     CUDA-core body timed beside it, and the forward faster than addmm ->
+     silu -> addmm at the two large counts); each against its plain
+     version, beside it and its bound;
   8. the entry path: main.run(task=train) on sasrec_fusedattn_ffn (bench.py's
      widths with use_fused_attention and use_fused_ffn in place of the fused
      layers) over synthetic data at bench.py's scale written under build/,
@@ -99,13 +110,12 @@ Phases, each of which must pass:
      the sorted-tile scatter and the warp membership body must launch there;
   9. flash attention (row 9) at the long path's training shape (B=8,192,
      H=2, L=256, hd=32) in bf16 (the tensor-core body) and f32 (the
-     CUDA-core body), at L=264 and L=1,024, and at the
-     serving shape, against its plain version; the plain backward's time
-     and peak memory; and the fused attention kernels' tiled pair at L=300
-     and L=512 (p=0 and 0.1); then (wide_widths) the widths the earlier
-     kernels refused: flash attention and the fused attention pair at head
-     widths 136 and 256, the fused FFN at (D, F) = (256, 1024) and (64,
-     2048), each against its plain version and timed;
+     CUDA-core body), at L=264 and L=1,024, and at the serving shape,
+     against its plain version and timed; the plain backward's time and
+     peak memory; then (wide_widths)
+     the widths the earlier kernels refused: flash attention and the fused
+     attention pair at head widths 136 and 256, the fused FFN at (D, F) =
+     (256, 1024) and (64, 2048), each timed;
  10. the long path: main.run(task=train) on sasrec_long256_flash (the entry
      path's widths at max_seq_len 256 with use_pallas, attention dropout 0,
      batch 8,192) over synthetic data with 64-767 training items per user,
@@ -185,8 +195,9 @@ Phases, each of which must pass:
      example), 5 and 5q in its serving, 6 in MultiVAE's;
  15. rows 10-13 at BST's shape (8,400 sequences of L = 21, 4 heads of 16,
      the [N, 1, 1, L] key-padding mask; the FFN at d = 64, inner 128) in
-     f32 and bf16 against their plain versions, timed beside their bounds
-     and scaled_dot_product_attention (addmm -> silu -> addmm for row 12);
+     f32 and bf16 against their plain versions, timed beside them, their
+     bounds and scaled_dot_product_attention (addmm -> silu -> addmm for
+     row 12);
  16. the ranking models (rank_path): prepare-adaranker through the port's
      CLI (with item2vec) on a synthetic raw file at ml-10m-adaranker.yaml's
      catalog, then AdaRanker's three stages (Base, Ada-Ranker, Ada-Ranker
@@ -234,14 +245,14 @@ Phases, each of which must pass:
  20. the serving export (export_path): the serving checkpoint's user_emb,
      item_emb and score through torch.export (a symbolic batch), each .pt2
      program on the card against the live model through the kernels and
-     through the plain versions (emb_tol), rows 1 and 3 recorded as
+     through the plain versions (ln_tol), rows 1 and 3 recorded as
      unirec::layer_fwd and unirec::lastq_fwd and launched; the score
      functions of the serving, entry (sasrec_fusedattn_ffn: rows 10 and 12)
      and long (sasrec_long256_flash, L=256: rows 9 and 12) checkpoints as
      AOTInductor packages at batch 256 (three export processes started
      beside phase 19), each served by the C++ client (g++ against the
      installed libtorch, built from the script's first minute), whose
-     output equals the program's and the plain versions' (emb_tol) and
+     output equals the program's and the plain versions' (ln_tol) and
      whose printed launches are, a call, one of rows 1, 3, 9 and 10 and two
      of row 12 (one an FFN layer), on the tensor-core bodies the Python
      launchers pick; users/s of the client, the program and the package in
@@ -255,7 +266,7 @@ Phases, each of which must pass:
      the gradients and the loss, global loss denominators, dropout keyed
      by global example): every step's loss and the rolling checkpoint
      equal (BWD_TOL), rows 1-4, 6 and 8 on their new bodies, examples/s
-     beside phase 6's; two gloo ranks on the one card (subprocesses of
+     with and without the group; two gloo ranks on the one card (subprocesses of
      this script, ``--dist-rank``) at mesh_model=2 with shard_embeddings
      (batch 8,192, 3 steps; the item table row-sharded, its lookups summed
      over the ranks and its backward through row 6) against the same steps
@@ -293,31 +304,22 @@ from unittest import mock
 
 import numpy as np
 
+from card_cases import (ATT_TOL, BWD_TOL, FAMILY, LN_TOL, SOLVER_TOL, SOLVERS, adam_state,
+                        att_case, cell_leaf_shapes, f32_ulps, guarded_update, hold_pass2,
+                        hstu_case, ln_tol, path_layer_case, replayed_mask_mismatches)
+from portbench.harness.common import PEAK_BYTES_PER_S, PEAK_FLOPS_BF16
+
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor cores
+PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float32": 67e12}  # dense; f32 off the tensor cores
 N_USERS, N_ITEMS, HIST_CAP, SEQ_LEN, EMB = 100_000, 50_000, 200, 50, 64
 SERVE_USERS, BATCH, TOPK = 4096, 256, 100
-LN_TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # abs, on O(1) LayerNorm outputs
 TRAIN_BATCH, N_NEG, P_DROP = 32_768, 9, 0.1
 WARMUP_STEPS, TIMED_STEPS = 3, 24
-# backward and gradient checks, relative to each output's largest reference
-# value: the kernels round to bf16 where the plain versions do, but sum in
-# another order, so a rounding can flip and later roundings carry it
-BWD_TOL = 5e-2
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def emb_tol(u) -> float:
-    """Tolerance on bf16 user embeddings (LayerNorm outputs), kernels against
-    plain: LN_TOL or two bf16 ulps of the largest one, whichever is larger. A
-    rounding that flips moves an element by one ulp, and trained LN outputs
-    pass 4, where one ulp is 2^-5 > LN_TOL."""
-    return max(LN_TOL["bfloat16"], 2.0 ** -6 * float(u.abs().max()))
 
 
 def smi_line() -> str:
@@ -392,7 +394,7 @@ def traced_timer(kernels):
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -401,55 +403,53 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts))
 
 
+def agree(line, gots, refs, tol, rel=True, zero_sum=None) -> bool:
+    """The kernel's outputs ``gots`` against the plain version's ``refs`` on
+    the same inputs, into ``line``: the largest difference (``max_abs_err``)
+    and, when ``rel``, each output's over its own largest reference value
+    (leaf_errs, with its ``zero_sum`` outputs held to their scale), which
+    ``tol`` then bounds, and whether every output is finite. True when
+    every output is finite and within ``tol``."""
+    import torch
+    diff = [float((a.float() - b.float()).abs().max()) for a, b in zip(gots, refs)]
+    errs, zeros = leaf_errs(gots, refs, zero_sum) if rel else (diff, {})
+    if rel:
+        line.update(max_rel_err=max(errs), rel_errs=errs, **({"zero_sum": zeros} if zeros else {}))
+    line.update(max_abs_err=max(diff), tol=tol,
+                finite=all(bool(torch.isfinite(t).all()) for t in gots))
+    return line["finite"] and max(errs) <= tol and zero_sum_ok(zeros)
+
+
 # ------------------------------------------------------------------ kernels
-def layer_inputs(torch, dtype, B=BATCH, L=SEQ_LEN, D=EMB, F=2 * EMB, seed=SEED):
-    """Serving-shape layer inputs: LN-scale activations, left-padded key
-    rows of 10..L real items, weights at the model's init scale."""
+def kernel_layer(torch, dtype_name):
+    """Row 1 at the serving batch (eval, swish, causal) against its plain
+    version (bf16: ln_tol, f32: LN_TOL), timed beside it and its bound; in
+    bf16 on the tensor-core body, with the CUDA-core body against the plain
+    version (fwd_bodies) and nn.TransformerEncoderLayer."""
     from unirec_tpu_torch.ops import layer as LY
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    rn = lambda *s, std=1.0: torch.randn(*s, generator=g, device="cuda") * std  # noqa: E731
-    x = rn(B, L, D).to(dtype)
-    lens = torch.randint(10, L + 1, (B,), generator=g, device="cuda")
-    madd = torch.where(torch.arange(L, device="cuda")[None, :] >= L - lens[:, None],
-                       0.0, LY.MASK_VALUE)
-    lin = lambda i, o: (rn(i, o, std=0.1), rn(o, std=0.02))  # noqa: E731
-    ln = lambda: (1.0 + rn(D, std=0.1), rn(D, std=0.1))  # noqa: E731
-    params = (lin(D, D), lin(D, D), lin(D, D), lin(D, D), ln(),
-              lin(D, F), lin(F, D), ln())
-    xp, mp, _ = LY._pad_L(x, madd, L)
-    return xp, mp, params
-
-
-def kernel_layer(torch, dtype_name, act="swish", causal=True, timed=True):
-    from unirec_tpu_torch.ops import layer as LY
-    dt = getattr(torch, dtype_name)
-    xp, mp, params = layer_inputs(torch, dt)
-    flat = LY._layer_weights(params, dt)
-    args = (2, act, 1e-10, causal)
+    xp, mp, params = path_layer_case("cuda", getattr(torch, dtype_name), BATCH, SEED)
+    flat = LY._layer_weights(params, xp.dtype)
+    args = (2, "swish", 1e-10, True)
+    B, Lp, D = xp.shape
     y = LY._layer_fwd_cuda(xp, mp, flat, *args)
     ref = LY._layer_fwd_plain(xp, mp, flat, *args)
-    torch.cuda.synchronize()
-    err = float((y.float() - ref.float()).abs().max())
-    tol = LN_TOL[dtype_name]
-    line = {"phase": "kernel", "name": "layer_fwd", "act": act, "causal": causal,
-            "shape": list(xp.shape), "dtype": dtype_name, "max_abs_err": err,
-            "tol": tol, "finite": bool(torch.isfinite(y).all())}
-    ok = True
-    if timed:
-        B, Lp, D = xp.shape
-        F = flat[6].shape[1]
-        line["kernel_ms"] = cuda_ms(lambda: LY._layer_fwd_cuda(xp, mp, flat, *args))
-        line["plain_ms"] = cuda_ms(lambda: LY._layer_fwd_plain(xp, mp, flat, *args))
-        line["bound_ms"], line["bound_by"] = bound_ms(nbytes(xp, mp, *flat, y),
-                                                      layer_flops(B, Lp, D, F), dtype_name)
-        line["library_ms"] = None
-        if dtype_name == "bfloat16":
-            lib = encoder_layer_yardstick(torch, xp, mp, flat, ref, *args, LY.NO_DROP)
-            line.update(lib)
-            ok, _ = fwd_bodies(torch, "layer", line, xp, mp, flat, args, ref)
+    line = {"phase": "kernel", "name": "layer_fwd", "shape": list(xp.shape), "dtype": dtype_name}
+    ok = agree(line, [y], [ref], ln_tol(ref) if dtype_name == "bfloat16" else LN_TOL["float32"],
+               rel=False)
+    line.update({"kernel_ms": cuda_ms(lambda: LY._layer_fwd_cuda(xp, mp, flat, *args)),
+                 "plain_ms": cuda_ms(lambda: LY._layer_fwd_plain(xp, mp, flat, *args)),
+                 "library_ms": None})
+    line["bound_ms"], line["bound_by"] = bound_ms(
+        nbytes(xp, mp, *flat, y), layer_flops(B, Lp, D, flat[6].shape[1]), dtype_name)
+    if dtype_name == "bfloat16":
+        line.update(encoder_layer_yardstick(torch, xp, mp, flat, ref, *args, LY.NO_DROP))
+        ok_bodies, _ = fwd_bodies(torch, "layer", line, xp, mp, flat, args, ref,
+                                  LN_TOL[dtype_name])
+        ok = ok and ok_bodies and line["body"] == "mma"
     emit(line)
-    if not (err <= tol and line["finite"] and ok):
-        raise AssertionError(f"layer_fwd disagrees with its plain version: {line}")
+    if not ok:
+        raise AssertionError(f"layer_fwd disagrees with its plain version, or its CUDA-core "
+                             f"body disagrees or is not slower: {line}")
     return line
 
 
@@ -479,12 +479,12 @@ def bodies_in_turns(line, selector, run, mma_iters, rounds=3, module=None, other
     return statistics.median(times[other])
 
 
-def fwd_bodies(torch, which, line, xp, mp, flat, args, ref, gate=3):
-    """Rows 1 ("layer") and 3 ("lastq"): the checks beyond the common ones,
-    into the kernel line: which body ran, and the CUDA-core body on the same
-    inputs, against the plain version and timed in this run in turns with it
-    ("cuda_core"), which the tensor-core body must beat ``gate``-fold (no
-    gate when None). Returns (ok, the CUDA-core body's row)."""
+def fwd_bodies(torch, which, line, xp, mp, flat, args, ref, tol, gate=3):
+    """Rows 1 ("layer") and 3 ("lastq"): which body ran, and the CUDA-core
+    body on the same inputs, against the plain version ``ref`` within
+    ``tol`` and timed in this run in turns with the kernel ("cuda_core"),
+    which the tensor-core body must beat ``gate``-fold (no gate when None).
+    Returns (ok, the CUDA-core body's row)."""
     from unirec_tpu_torch.ops import layer as LY
     _, Lp, D = xp.shape
     if which == "layer":
@@ -495,12 +495,13 @@ def fwd_bodies(torch, which, line, xp, mp, flat, args, ref, gate=3):
     with mock.patch.object(LY, selector, lambda *a: "cuda"):
         yc = kernel(xp, mp, flat, *args)
     core = {"body": "cuda", "max_abs_err": float((yc.float() - ref.float()).abs().max()),
+            "tol": tol,
             "kernel_ms": bodies_in_turns(line, selector, lambda: kernel(xp, mp, flat, *args), 20),
             **{k: line[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")}}
     line["cuda_core"] = core
     line["cuda_core_over_mma"] = core["kernel_ms"] / line["kernel_ms"]
     line["gate"] = gate
-    ok = (line["body"] == "mma" and core["max_abs_err"] <= line["tol"]
+    ok = (core["max_abs_err"] <= tol
           and (gate is None or gate * line["kernel_ms"] <= core["kernel_ms"]))
     return ok, core
 
@@ -591,37 +592,36 @@ def lastq_yardstick(torch, xp, mp, flat, fargs):
     return encoder_layer_yardstick(torch, xp, mp, lflat, ref, nh, act, eps, False, drop, row=qi)
 
 
-def kernel_lastq(torch, dtype_name, act="swish", timed=True):
+def kernel_lastq(torch, dtype_name):
+    """Row 3 at the serving batch (eval, swish, the last query) against its
+    plain version (as row 1), timed beside it and its bound; in bf16 on the
+    tensor-core body, with the CUDA-core body (no gate at this batch) and
+    the library call, whose agreement with the plain version must hold."""
     from unirec_tpu_torch.ops import layer as LY
-    dt = getattr(torch, dtype_name)
-    xp, mp, params = layer_inputs(torch, dt, seed=SEED + 1)
-    flat = LY._lastq_weights(params, dt)
-    args = (SEQ_LEN - 1, 2, act, 1e-10)
+    xp, mp, params = path_layer_case("cuda", getattr(torch, dtype_name), BATCH, SEED + 1)
+    flat = LY._lastq_weights(params, xp.dtype)
+    args = (SEQ_LEN - 1, 2, "swish", 1e-10)
+    B, Lp, D = xp.shape
     y = LY._lastq_fwd_cuda(xp, mp, flat, *args)
     ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
-    torch.cuda.synchronize()
-    err = float((y.float() - ref.float()).abs().max())
-    tol = LN_TOL[dtype_name]
-    line = {"phase": "kernel", "name": "lastq_fwd", "act": act,
-            "shape": list(xp.shape), "q_index": SEQ_LEN - 1, "dtype": dtype_name,
-            "max_abs_err": err, "tol": tol, "finite": bool(torch.isfinite(y).all())}
-    if timed:
-        B, Lp, D = xp.shape
-        F = flat[10].shape[1]
-        flops = 2 * B * (Lp * 2 * D * D + 2 * D * D + 2 * D * F) + 4 * B * Lp * D
-        line["kernel_ms"] = cuda_ms(lambda: LY._lastq_fwd_cuda(xp, mp, flat, *args))
-        line["plain_ms"] = cuda_ms(lambda: LY._lastq_fwd_plain(xp, mp, flat, *args))
-        line["library_ms"] = None
-        line["bound_ms"], line["bound_by"] = bound_ms(nbytes(xp, mp, *flat, y), flops,
-                                                      dtype_name)
-    ok = True
-    if timed and dtype_name == "bfloat16":   # no gate at the serving batch
+    line = {"phase": "kernel", "name": "lastq_fwd", "shape": list(xp.shape),
+            "q_index": SEQ_LEN - 1, "dtype": dtype_name}
+    ok = agree(line, [y], [ref], ln_tol(ref) if dtype_name == "bfloat16" else LN_TOL["float32"],
+               rel=False)
+    line.update({"kernel_ms": cuda_ms(lambda: LY._lastq_fwd_cuda(xp, mp, flat, *args)),
+                 "plain_ms": cuda_ms(lambda: LY._lastq_fwd_plain(xp, mp, flat, *args)),
+                 "library_ms": None})
+    line["bound_ms"], line["bound_by"] = bound_ms(
+        nbytes(xp, mp, *flat, y), lastq_flops(B, Lp, D, flat[10].shape[1]), dtype_name)
+    if dtype_name == "bfloat16":
         line.update(lastq_yardstick(torch, xp, mp, flat, args))
-        ok, _ = fwd_bodies(torch, "lastq", line, xp, mp, flat, args, ref, gate=None)
-        ok = ok and line["library_agrees"]
+        ok_bodies, _ = fwd_bodies(torch, "lastq", line, xp, mp, flat, args, ref,
+                                  LN_TOL[dtype_name], gate=None)
+        ok = ok and ok_bodies and line["body"] == "mma" and line["library_agrees"]
     emit(line)
-    if not (err <= tol and line["finite"] and ok):
-        raise AssertionError(f"lastq_fwd disagrees with its plain version: {line}")
+    if not ok:
+        raise AssertionError(f"lastq_fwd, its CUDA-core body or the library disagrees with "
+                             f"the plain version: {line}")
     return line
 
 
@@ -641,9 +641,11 @@ NEW_BODY_GATE = 1.5   # rows 5, 5q and 8: the new body at least this much faster
 
 def kernel_blockmax(torch, n_items, dtype_name, int8=False):
     """Rows 5 and 5q at the serving batch: the body the path takes against
-    the plain version; on bf16 users (the tensor-core body) the CUDA-core
-    body too, both timed by the card's clock in turns (the new body at least
-    NEW_BODY_GATE times faster), the events' time beside them."""
+    the plain version (within 1e-3 of the largest score), timed beside it,
+    u @ items.T + amax and the bound; on bf16 users (the tensor-core body)
+    the CUDA-core body against the plain version too, both timed by the
+    card's clock in turns (the new body at least NEW_BODY_GATE times
+    faster), the events' time beside them."""
     from unirec_tpu_torch.ops import topk as TK
     u, it = catalog(torch, n_items, dtype_name, SEED + 2)
     scale = None
@@ -652,17 +654,10 @@ def kernel_blockmax(torch, n_items, dtype_name, int8=False):
     run = lambda: TK._blockmax_cuda(u, it, scale)  # noqa: E731
     bm = run()
     ref = TK._blockmax_plain(u, it, scale)
-    body = TK._blockmax_body(u.dtype, it.dtype, u.shape[1])
-    old = None
-    if body == "mma":
-        with mock.patch.object(TK, "_blockmax_body", lambda *a: "cuda"):
-            old = run()
-    torch.cuda.synchronize()
-    err = float((bm - ref).abs().max())
     tol = 1e-3 * float(ref.abs().max())
+    body = TK._blockmax_body(u.dtype, it.dtype, u.shape[1])
     name = "blockmax_int8" if int8 else "blockmax"
     B, D = u.shape
-    flops = 2 * B * n_items * D
     if int8:
         lib = lambda: ((u @ it.to(u.dtype).T).float() * scale).view(B, -1, 16).amax(-1)  # noqa: E731
         peak = "bfloat16"  # int8 items enter the products as bf16
@@ -671,19 +666,22 @@ def kernel_blockmax(torch, n_items, dtype_name, int8=False):
         peak = dtype_name
     line = {"phase": "kernel", "name": name, "users": B, "items": n_items, "dim": D,
             "dtype": dtype_name, "item_dtype": str(it.dtype).replace("torch.", ""),
-            "body": body, "max_abs_err": err, "tol": tol,
-            "plain_ms": cuda_ms(lambda: TK._blockmax_plain(u, it, scale)),
-            "library_ms": cuda_ms(lib)}
+            "body": body}
+    ok = agree(line, [bm], [ref], tol, rel=False)
+    line.update(plain_ms=cuda_ms(lambda: TK._blockmax_plain(u, it, scale)),
+                library_ms=cuda_ms(lib))
     line["bound_ms"], line["bound_by"] = bound_ms(
-        nbytes(u, it, bm, *([scale] if int8 else [])), flops, peak)
-    ok = err <= tol
-    if old is None:
+        nbytes(u, it, bm, *([scale] if int8 else [])), 2 * B * n_items * D, peak)
+    if body != "mma":
         line["kernel_ms"] = cuda_ms(run)
     else:
+        with mock.patch.object(TK, "_blockmax_body", lambda *a: "cuda"):
+            old = run()
         line["event_ms"] = cuda_ms(run)
         core = bodies_in_turns(line, "_blockmax_body", run, 50, module=TK, other="cuda",
                                other_iters=20, timer=traced_timer(BLOCKMAX_KERNELS))
-        line["cuda_core"] = {"max_abs_err": float((old - ref).abs().max()), "kernel_ms": core}
+        line["cuda_core"] = {"max_abs_err": float((old - ref).abs().max()), "tol": tol,
+                             "kernel_ms": core}
         line["cuda_core_over_mma"] = core / line["kernel_ms"]
         line["gate"] = NEW_BODY_GATE
         ok = (ok and line["cuda_core"]["max_abs_err"] <= tol
@@ -743,16 +741,17 @@ def kernel_fused_topk(torch):
 def kernel_rescore_topk(torch, n_items):
     """Pass 2 (csrc/rescore_topk.cu) at the serving request's shape: 4,096
     bf16 users, top-100 with 200 history ids and the padding item banned
-    (kp = 301 chunks, 4,816 candidates a user) of pass 1's own chunks,
-    against the plain version on the same inputs: values within 1e-5 of the
-    largest score (another summation order), id sets equal apart from ties
-    at the 100th. Timed by the card's clock; the plain version, and the
+    (kp = 301 chunks, 4,816 candidates a user) of pass 1's own chunks, one
+    launch on its vector body, against the plain version on the same inputs
+    (card_cases.hold_pass2: values within 1e-5 of the largest score, each
+    id scored as its value says and not banned, id sets equal apart from
+    ties at the 100th). Timed by the card's clock; the plain version, and the
     gather + bmm + topk it replaces without the bans, beside it. Bound:
     ``bound_ms``, what device memory must carry (users, chunk ids,
-    histories, outputs, the catalog once) at 3.35 TB/s. The candidate rows
-    come from L2 or from L1 (rows several users of an SM read), so no L2
-    floor is counted; ``candidate_tb_per_s`` is the kernel's rate of
-    candidate bytes. ``body``: the one the kernel picked (its
+    histories, outputs, the catalog once) at the card's bandwidth. The
+    candidate rows come from L2 or from L1 (rows several users of an SM
+    read), so no L2 floor is counted; ``candidate_tb_per_s`` is the kernel's
+    rate of candidate bytes. ``body``: the one the kernel picks (its
     ``unirec_rescore_topk_body``)."""
     import ctypes
     from unirec_tpu_torch.ops import _build, topk as TK
@@ -771,20 +770,8 @@ def kernel_rescore_topk(torch, n_items):
         rule(1, D, kp, TOPK, HIST_CAP, n_items, int(it.data_ptr() % 16 == 0)), "refused")
     before = TK.rescore_topk.launches
     v, ids = TK.rescore_topk(u, it, blk, TOPK, **bans)
-    torch.cuda.synchronize()
     launched = TK.rescore_topk.launches - before
-    pv, pids = TK._rescore_topk_plain(u, it, blk, TOPK, **bans)
-    tol = 1e-5 * float(pv.abs().max())
-    err = float((v - pv).abs().max())
-    own = (u.float()[:, None, :] * it[ids].float()).sum(-1)
-    own_err = float((own - v).abs().max())
-    banned = not bool(torch.isfinite(TK._ban_candidates(own, ids, n_items, **bans)).all())
-    differ = (ids.sort(1).values != pids.sort(1).values).any(1)
-    ties_only = all(
-        abs(float(pv[r, -1] - (v[r, (ids[r] == i).nonzero()[0, 0]] if (ids[r] == i).any()
-                               else pv[r, (pids[r] == i).nonzero()[0, 0]]))) <= tol
-        for r in differ.nonzero()[:, 0].tolist()
-        for i in set(ids[r].tolist()) ^ set(pids[r].tolist()))
+    held = hold_pass2(v, ids, u, it, None, blk, TOPK, bans)
 
     def library():
         iid = (blk[..., None] * 16 + torch.arange(16, device="cuda")).reshape(B, -1)
@@ -795,9 +782,7 @@ def kernel_rescore_topk(torch, n_items):
     dram = nbytes(u, blk, hist, hlen, v, ids) + min(nbytes(it), cand_bytes)
     line = {"phase": "kernel", "name": "rescore_topk", "users": B, "items": n_items,
             "dim": D, "k": TOPK, "kp": kp, "hist_cap": HIST_CAP, "body": body,
-            "launches": launched, "max_abs_err": err, "tol": tol, "own_score_err": own_err,
-            "banned_selected": banned, "rows_differing": int(differ.sum()),
-            "differ_by_ties_only": ties_only,
+            "launches": launched, **held,
             "kernel_ms": traced_kernel_ms(
                 lambda: TK.rescore_topk(u, it, blk, TOPK, **bans), "rescore_topk_kernel",
                 iters=20),
@@ -806,31 +791,12 @@ def kernel_rescore_topk(torch, n_items):
                                 iters=5),
             "library_ms": cuda_ms(library, iters=5),
             "candidate_bytes": cand_bytes, "dram_bytes": dram,
-            "bound_ms": dram / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            "bound_ms": dram / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     line["candidate_tb_per_s"] = cand_bytes / line["kernel_ms"] / 1e9
     emit(line)
-    ok = (body == "vector" and launched == 1 and err <= tol and own_err <= tol
-          and not banned and ties_only)
-    if not ok:
-        raise AssertionError(f"rescore_topk disagrees with its plain version: {line}")
+    if not (body == "vector" and launched == 1):
+        raise AssertionError(f"rescore_topk took another body or launch count: {line}")
     return line
-
-
-def cell_leaf_shapes(torch, name):
-    """The leaf shapes of a benchmark configuration's model
-    (portbench/configs/<name>.json), built on the CPU."""
-    from unirec_tpu_torch import config as config_mod
-    from unirec_tpu_torch.utils.registry import get_model_class
-    conf = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())["config"]
-    cfg = config_mod.parse_arguments(dict(conf), argv=[], device="cpu")
-    return [tuple(p.shape) for p in get_model_class(cfg["model"])(cfg).parameters()]
-
-
-def f32_ulps(torch, a, b) -> float:
-    """The largest |a - b| over the elements, in f32 ulps of b."""
-    m = b.abs()
-    spacing = torch.nextafter(m, torch.full_like(m, float("inf"))) - m
-    return float(((a - b).abs() / spacing).max()) if a.numel() else 0.0
 
 
 def traced_device_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -851,54 +817,43 @@ def traced_device_ms(torch, fn, iters=20, warmup=3) -> float:
 
 def kernel_adam(torch, config_name):
     """The Adam update (csrc/adam.cu, ops/adam.py) over every leaf of a
-    benchmark cell's model, from a state some steps old (moments drawn,
-    count 4), against the plain path on the card from the same state
+    benchmark cell's model, from a state some steps old (card_cases's
+    adam_state), against the plain path on the card from the same state
     (Optimizer.update, then the trainer's guarded apply): params, mu and nu
-    of every leaf within 2 f32 ulps (``worst_ulps``; ``max_abs_err`` the
-    largest |a - b| over them), count equal, one launch. Timed by the
-    card's clock (``kernel_ms``; ``event_ms`` by CUDA events over
-    back-to-back calls, the host's pace), the plain chain (``plain_ms``,
-    CUDA events), ``torch._fused_adam_`` on the same leaves (``library_ms``,
-    its kernels' device time: it adds eps after dividing the root by the
-    bias correction's root, so it is not the same function; measured only);
-    ``host_us``: the host's time to issue one update, kernel and plain
-    chain. Bound: 28 bytes an element
-    (p, g, mu, nu read; p, mu, nu written) at 3.35 TB/s."""
+    of every leaf within 2 f32 ulps (``worst_ulps``), count equal, one
+    launch. Timed by the card's clock (``kernel_ms``;
+    ``event_ms`` by CUDA events over back-to-back calls, the host's pace),
+    the plain path (``plain_ms``, CUDA events: Optimizer.update and the
+    guarded apply), ``torch._fused_adam_`` on the same leaves
+    (``library_ms``, its kernels' device time: it adds eps after dividing
+    the root by the bias correction's root, so it is not the same function;
+    measured only); ``host_us``: the host's time to issue one update,
+    kernel and plain path. Bound: 28 bytes an element (p, g, mu, nu read;
+    p, mu, nu written) at the card's bandwidth."""
     from unirec_tpu_torch.core import optim
-    from unirec_tpu_torch.facility.trainer import _where
     from unirec_tpu_torch.ops import adam as AD
-    shapes = cell_leaf_shapes(torch, config_name)
+    shapes = cell_leaf_shapes(config_name)
     opt = optim.build_optimizer({"optimizer": "adam", "learning_rate": 1e-3})
-    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    rn = lambda s, std: torch.randn(*s, generator=g, device="cuda") * std  # noqa: E731
-    params = [rn(s, 0.02) for s in shapes]
-    state = opt.init(params)
-    state["mu"] = [rn(s, 1e-3) for s in shapes]
-    state["nu"] = [rn(s, 1e-3) ** 2 for s in shapes]
-    state["count"].fill_(4)
-    grads = [rn(s, 1e-3) for s in shapes]
+    params, state = adam_state(opt, "cuda", shapes, SEED + 8)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    grads = [torch.randn(*s, generator=g, device="cuda") * 1e-3 for s in shapes]
     loss = torch.tensor(0.5, device="cuda")
-    pp = [p.clone() for p in params]
-    ps = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
-          for k, v in state.items()}
-
-    def plain(params_, state_):
-        finite = torch.isfinite(loss)
-        u, new = opt.update(grads, state_, params_)
-        return ([torch.where(finite, p + d, p) for p, d in zip(params_, u)],
-                {k: _where(finite, v, state_[k]) for k, v in new.items()})
-
+    pp, ps = guarded_update(opt, grads, state, params, loss)
     before = AD.adam_step.launches_fused
     opt.step_(grads, state, params, loss)
-    pp, ps = plain(pp, ps)
     torch.cuda.synchronize()
     launched = AD.adam_step.launches_fused - before
-    pairs = [(a, b) for ks, pl in ((params, pp), (state["mu"], ps["mu"]),
-                                   (state["nu"], ps["nu"])) for a, b in zip(ks, pl)]
-    worst = max(f32_ulps(torch, a, b) for a, b in pairs)
-    abs_err = max(float((a - b).abs().max()) for a, b in pairs if a.numel())
+    worst = max(f32_ulps(a, b) for ks, pl in ((params, pp), (state["mu"], ps["mu"]),
+                                              (state["nu"], ps["nu"])) for a, b in zip(ks, pl))
+    held = {"launches": launched, "worst_ulps": worst, "tol_ulps": 2.0,
+            "max_abs_err": max(float((a - b).abs().max()) for ks, pl in (
+                (params, pp), (state["mu"], ps["mu"]), (state["nu"], ps["nu"]))
+                for a, b in zip(ks, pl) if a.numel()),
+            "count": int(state["count"]), "plain_count": int(ps["count"])}
+    del pp, ps
     n = sum(p.numel() for p in params)
     step = lambda: opt.step_(grads, state, params, loss)  # noqa: E731
+    plain = lambda: guarded_update(opt, grads, state, params, loss)  # noqa: E731
 
     def host_us(fn, iters=50):
         torch.cuda.synchronize()
@@ -919,18 +874,14 @@ def kernel_adam(torch, config_name):
                            amsgrad=False, maximize=False)
 
     line = {"phase": "kernel", "name": "adam", "config": config_name, "leaves": len(shapes),
-            "elements": n, "launches": launched, "worst_ulps": worst, "tol_ulps": 2.0,
-            "max_abs_err": abs_err, "count": int(state["count"]),
-            "kernel_ms": traced_kernel_ms(step, "adam_kernel"),
-            "event_ms": cuda_ms(step),
-            "plain_ms": cuda_ms(lambda: plain(params, state)),
+            "elements": n, **held, "kernel_ms": traced_kernel_ms(step, "adam_kernel"),
+            "event_ms": cuda_ms(step), "plain_ms": cuda_ms(plain),
             "library_ms": traced_device_ms(torch, library),
-            "host_us": {"kernel": host_us(step), "plain": host_us(lambda: plain(params, state),
-                                                                  iters=10)},
-            "bytes": 28 * n, "bound_ms": 28 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            "host_us": {"kernel": host_us(step), "plain": host_us(plain, iters=10)},
+            "bytes": 28 * n, "bound_ms": 28 * n / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     line["roofline_share"] = line["bound_ms"] / line["kernel_ms"]
     emit(line)
-    if not (launched == 1 and worst <= 2.0 and line["count"] == int(ps["count"])):
+    if not (launched == 1 and worst <= 2.0 and held["count"] == held["plain_count"]):
         raise AssertionError(f"adam disagrees with its plain path: {line}")
     return line
 
@@ -938,48 +889,32 @@ def kernel_adam(torch, config_name):
 HSTU_B, HSTU_L, HSTU_H, HSTU_HD = 8192, 200, 2, 25
 
 
-def hstu_inputs(torch, B, L=HSTU_L, H=HSTU_H, hd=HSTU_HD, seed=SEED + 7):
-    """q, k, v [B, L, H, hd] bf16 as the model splits them out of one
-    [B, L, 4 H hd] projection (strided, heads on 2-byte boundaries), the
-    table, the left-padded key mask (one row of padding only) and an output
-    gradient."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    uvqk = torch.nn.functional.silu(
-        torch.randn(B, L, 4 * H * hd, generator=g, device="cuda")).to(torch.bfloat16)
-    _, v, q, k = (t.unflatten(-1, (H, hd)) for t in uvqk.split(H * hd, dim=-1))
-    rab = torch.randn(2 * L - 1, generator=g, device="cuda") * 0.02
-    lens = torch.randint(20, L + 1, (B,), generator=g, device="cuda")
-    lens[0] = 0
-    keys = torch.arange(L, device="cuda")[None, :] >= (L - lens)[:, None]
-    go = torch.randn(B, L, H, hd, generator=g, device="cuda").to(torch.bfloat16)
-    return q, k, v, rab, keys, go
-
-
 def kernel_hstu_attention(torch):
     """HSTU's attention (csrc/hstu_attention.cu) at the hstu_large_ml1m
     cell's shape, 8,192 examples. Checked against the plain version there
     (output and dq, dk, dv within BWD_TOL of each one's largest plain value:
     bf16 operands rounded where the plain version rounds them, sums in
-    another order; the table's gradient, an f32 sum, within 1e-3), and the
-    backward twice for equal bits; timed by the card's clock: the forward
-    kernel, the backward's
-    three kernels (dQ with the table's partials, dK and dV, the table's
+    another order; the table's gradient, an f32 sum, within 1e-3), one
+    launch each way, the backward twice for equal bits, and no memory
+    beyond dq, dk, dv and the partial tables; timed by the card's clock:
+    the forward kernel, the backward's three
+    kernels (dQ with the table's partials, dK and dV, the table's
     reduction) by CUDA events over the call, the plain versions (f32, the
     [B, H, L, L] scores stored) and a plain-torch bf16 SiLU attention's
     forward and its forward and backward under autograd. Bound: the larger
     of the causal products (B H L(L+1)/2 pairs, 2 dqk + 2 dv a pair; the
-    backward three times that) at 989 TFLOP/s and the bytes (q, k, v read,
-    o written; the backward q, k, v, g read and dq, dk, dv written; the
-    table) at 3.35 TB/s."""
+    backward three times that) at the bf16 peak and the bytes (q, k, v
+    read, o written; the backward q, k, v, g read and dq, dk, dv written;
+    the table) at the card's bandwidth."""
     from unirec_tpu_torch.ops import hstu_attention as HA
     B, L, H, hd = HSTU_B, HSTU_L, HSTU_H, HSTU_HD
-    q, k, v, rab, keys, go = hstu_inputs(torch, B)
+    q, k, v, rab, keys, go = hstu_case("cuda", B, L, H, hd, hd, seed=SEED + 7)
     pairs = B * H * L * (L + 1) // 2
     ops = pairs * (2 * hd + 2 * hd)
     io = B * L * H * hd * 2
     fwd_bytes, bwd_bytes = 4 * io + rab.numel() * 4, 7 * io + rab.numel() * 8   # bf16, f32
-    fwd_bound = max(ops / PEAK_FLOPS["bfloat16"], fwd_bytes / HBM_BYTES_PER_S) * 1e3
-    bwd_bound = max(3 * ops / PEAK_FLOPS["bfloat16"], bwd_bytes / HBM_BYTES_PER_S) * 1e3
+    fwd_bound = max(ops / PEAK_FLOPS["bfloat16"], fwd_bytes / PEAK_BYTES_PER_S) * 1e3
+    bwd_bound = max(3 * ops / PEAK_FLOPS["bfloat16"], bwd_bytes / PEAK_BYTES_PER_S) * 1e3
     HA.hstu_attention_bwd(q, k, v, rab, keys, go)      # built, and the workspace sized
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -988,19 +923,20 @@ def kernel_hstu_attention(torch):
     out = HA.hstu_attention_fwd(q, k, v, rab, keys)
     grads = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
     torch.cuda.synchronize()
-    kernel_peak = torch.cuda.max_memory_allocated() - base - out.numel() * 2
-    launched = (HA.hstu_attention.launches_mma - before[0],
-                HA.hstu_attention_bwd.launches_mma - before[1])
-    def rel(a, b):
-        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
-
-    errs = {"out": rel(out, HA._fwd_plain(q, k, v, rab, keys))}
-    errs.update(zip(("dq", "dk", "dv", "drab"),
-                    map(rel, grads, HA._bwd_plain(q, k, v, rab, keys, go))))
-    ok_err = all(e <= BWD_TOL for e in errs.values()) and errs["drab"] <= 1e-3
-    twice = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
-    deterministic = all(torch.equal(a, b) for a, b in zip(grads, twice))
-    del out, grads, twice
+    held = {"launches": (HA.hstu_attention.launches_mma - before[0],
+                         HA.hstu_attention_bwd.launches_mma - before[1]),
+            "backward_extra_peak_bytes": torch.cuda.max_memory_allocated() - base
+            - out.numel() * 2}
+    want = HA._bwd_plain(q, k, v, rab, keys, go)
+    ok = agree(held, [out, *grads[:3]], [HA._fwd_plain(q, k, v, rab, keys), *want[:3]],
+               BWD_TOL["bfloat16"])
+    held["drab_rel_err"] = leaf_errs(grads[3:], want[3:])[0][0]
+    held["deterministic"] = all(torch.equal(a, b) for a, b in
+                                zip(grads, HA.hstu_attention_bwd(q, k, v, rab, keys, go)))
+    ok = (ok and held["drab_rel_err"] <= 1e-3 and held["deterministic"]
+          and held["launches"] == (1, 1)
+          and held["backward_extra_peak_bytes"] <= 3 * io + (16 << 20))
+    del out, grads, want
     torch.cuda.empty_cache()
     tri = torch.ones(L, L, dtype=torch.bool, device="cuda").tril()
     mask = tri[None, None] & keys[:, None, None, :]
@@ -1020,10 +956,7 @@ def kernel_hstu_attention(torch):
             torch.autograd.grad(o, leaves, go)
 
     line = {"phase": "kernel", "name": "hstu_attention", "batch": B, "L": L, "heads": H,
-            "head_width": hd, "body": "mma", "launches": launched, "rel_err": errs,
-            "max_abs_err": max(errs.values()), "tol": BWD_TOL,
-            "deterministic": deterministic, "backward_extra_peak_bytes": kernel_peak,
-            "pair_tensor_bytes": B * H * L * L * 4,
+            "head_width": hd, "body": "mma", **held, "pair_tensor_bytes": B * H * L * L * 4,
             "kernel_ms": traced_kernel_ms(lambda: HA.hstu_attention_fwd(q, k, v, rab, keys),
                                           "hstu_fwd_kernel", iters=10),
             "event_ms": cuda_ms(lambda: HA.hstu_attention_fwd(q, k, v, rab, keys)),
@@ -1033,13 +966,12 @@ def kernel_hstu_attention(torch):
             "library_ms": cuda_ms(lambda: library(q, k, v), iters=5),
             "library_fwd_bwd_ms": cuda_ms(library_step, iters=3),
             "bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
-            "bound_by": "bytes" if fwd_bytes / HBM_BYTES_PER_S > ops / PEAK_FLOPS["bfloat16"]
+            "bound_by": "bytes" if fwd_bytes / PEAK_BYTES_PER_S > ops / PEAK_FLOPS["bfloat16"]
             else "ops"}
     line["roofline_pct"] = 100.0 * (fwd_bound + bwd_bound) / (line["kernel_ms"]
                                                               + line["bwd_ms"])
     emit(line)
-    if not (ok_err and deterministic and launched == (1, 1)
-            and kernel_peak <= 3 * io + (16 << 20)):   # dq, dk, dv and the partial tables
+    if not ok:
         raise AssertionError(f"hstu_attention disagrees with its plain version: {line}")
     return line
 
@@ -1172,6 +1104,10 @@ def on_new_bodies(path, counts, pairs=NEW_BODIES):
 
 
 def main_path(torch, card: str):
+    """Top-100 of 4,096 users through reco_topk.get_topk_recommendations,
+    bf16 and int8 catalogs: every serving kernel launches (rows 5, 5q on
+    their new bodies) and the ids agree with the plain versions'. Its
+    throughput and traced breakdown are the sasrec_d64_l50.serve cell's."""
     from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
     from unirec_tpu_torch.utils.checkpoint import load_model_freely
 
@@ -1181,27 +1117,10 @@ def main_path(torch, card: str):
     model, cfg = load_model_freely(str(ckpt), "cuda")
     users = np.arange(1, SERVE_USERS + 1, dtype=np.int64)
     modes = {"bf16": dict(cfg), "int8": dict(cfg, catalog_int8=1)}
-
-    for c in modes.values():  # warm-up (cuBLAS handles, caching allocator)
-        get_topk_recommendations(c, model, users[:BATCH], history, TOPK)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    results, seconds = {}, {}
-    for name, c in modes.items():
-        t0 = time.perf_counter()
-        results[name] = get_topk_recommendations(c, model, users, history, TOPK)
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
+    results = {name: get_topk_recommendations(c, model, users, history, TOPK)
+               for name, c in modes.items()}
     counts = launch_counts(SERVING_KERNELS)
-    peak = torch.cuda.max_memory_allocated()
-    n_batches = -(-SERVE_USERS // BATCH)
-    for name in modes:
-        emit({"phase": "main_path", "catalog": name, "users": SERVE_USERS,
-              "items": N_ITEMS, "topk": TOPK, "batch": BATCH,
-              "users_per_s": SERVE_USERS / seconds[name],
-              "ms_per_batch": seconds[name] * 1e3 / n_batches,
-              "peak_mem_bytes": peak, "card": card})
     emit({"phase": "main_path_launches", **counts})
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
@@ -1211,7 +1130,6 @@ def main_path(torch, card: str):
     # correctness: shape/range/history, and agreement with the plain versions
     with torch.no_grad():
         check_main_path(torch, model, cfg, users, history, modes, results)
-    profile_main_path(torch, model, modes["bf16"], users, history, card)
     return counts
 
 
@@ -1238,7 +1156,7 @@ def check_main_path(torch, model, cfg, users, history, modes, results,
         with plain_versions():
             u_p = model.user_emb(tb)[:n].float()
         du = max(du, float((u_k - u_p).abs().max()))
-        du_tol = max(du_tol, emb_tol(u_p))
+        du_tol = max(du_tol, ln_tol(u_p))
         hist, hlen = history.gather(batch["user_id"][:n])
         h = torch.from_numpy(np.where(np.arange(hist.shape[1])[None] < hlen[:, None],
                                       hist, 0).astype(np.int64)).cuda()
@@ -1260,16 +1178,6 @@ def check_main_path(torch, model, cfg, users, history, modes, results,
           "user_emb_tol": du_tol, **checks})
     if du > du_tol or not all(c["valid"] for c in checks.values()):
         raise AssertionError("main path disagrees with the plain versions")
-
-
-def profile_main_path(torch, model, cfg, users, history, card):
-    """One traced serving run (bf16 catalog, 1024 users): device busy time
-    against wall time, and the operations that hold the device longest."""
-    from unirec_tpu_torch.main.reco_topk import get_topk_recommendations
-    n = 4 * BATCH
-    emit({"phase": "main_path_profile", "users": n,
-          **device_profile(torch, lambda: get_topk_recommendations(
-              cfg, model, users[:n], history, TOPK)), "card": card})
 
 
 # ------------------------------------------------------- training kernels
@@ -1304,18 +1212,22 @@ def leaf_errs(gots, refs, zero_sum=None):
 def zero_sum_ok(report) -> bool:
     """The outputs taken as zero in exact arithmetic really are, against
     their scale, in the plain version."""
-    return all(r["ref_max"] <= BWD_TOL * r["scale"] for r in report.values())
+    return all(r["ref_max"] <= BWD_TOL["bfloat16"] * r["scale"] for r in report.values())
 
 
 def kernel_train_layers(torch):
     """Both forward kernels with dropout 0.1 and both backward kernels at the
-    training shapes (bf16), each against its plain version with the same
-    dropout seed. The backward's least work recomputes the forward from x:
-    one forward's products plus two for the gradients."""
+    training shapes (bf16), in their tensor-core bodies, each against its
+    plain version with the same dropout seed (forwards: ln_tol; backwards:
+    BWD_TOL, each output to its own largest value, a key bias to its query
+    bias's) and timed beside it, its bound and the library call; each
+    kernel's CUDA-core body against the plain version and timed in turns
+    with it (fwd_bodies, bwd_bodies). The backward's least work recomputes the
+    forward from x: one forward's products plus two for the gradients."""
     from unirec_tpu_torch.ops import layer as LY
     dt, name = torch.bfloat16, "bfloat16"
     drop = LY.drop_params(P_DROP, P_DROP, True, 12345)
-    xp, mp, params = layer_inputs(torch, dt, B=TRAIN_BATCH, seed=SEED + 10)
+    xp, mp, params = path_layer_case("cuda", dt, TRAIN_BATCH, SEED + 10)
     B, Lp, D = xp.shape
     F = 2 * EMB
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -1328,7 +1240,6 @@ def kernel_train_layers(torch):
             bwd_k, bwd_p = LY._layer_bwd_cuda, LY._layer_bwd_plain
             flops = layer_flops(B, Lp, D, F)
             dy = torch.randn(xp.shape, generator=g, device="cuda").to(dt)
-            zero_sum = {}  # the key bias is a third of bqkv, held with it
         else:
             flat = LY._lastq_weights(params, dt)
             fargs = (SEQ_LEN - 1, 2, "swish", 1e-10, drop)
@@ -1336,53 +1247,34 @@ def kernel_train_layers(torch):
             bwd_k, bwd_p = LY._lastq_bwd_cuda, LY._lastq_bwd_plain
             flops = lastq_flops(B, Lp, D, F)
             dy = torch.randn(B, D, generator=g, device="cuda").to(dt)
-            zero_sum = {4: 2}  # (dx, dwq, dbq, dwk, dbk, ...): dbk takes dbq's scale
         y = fwd_k(xp, mp, flat, *fargs)
         ref = fwd_p(xp, mp, flat, *fargs)
-        torch.cuda.synchronize()
         line = {"phase": "kernel", "name": f"{which}_fwd", "mode": "train",
-                "p_drop": P_DROP, "shape": list(xp.shape), "dtype": name,
-                "max_abs_err": float((y.float() - ref.float()).abs().max()),
-                # over 10^8 outputs some bf16 rounding flips; it moves an output
-                # by one ulp, at most 2^-7 of its magnitude
-                "tol": max(LN_TOL[name], 2.0 ** -6 * float(ref.float().abs().max())),
-                "tol_reason": "two bf16 ulps of the largest LN output",
-                "finite": bool(torch.isfinite(y).all()),
-                "kernel_ms": cuda_ms(lambda: fwd_k(xp, mp, flat, *fargs)),
-                "plain_ms": cuda_ms(lambda: fwd_p(xp, mp, flat, *fargs), iters=3, warmup=1),
-                "library_ms": None}
+                "p_drop": P_DROP, "shape": list(xp.shape), "dtype": name}
+        ok_own = agree(line, [y], [ref], ln_tol(ref), rel=False)
+        line.update({"kernel_ms": cuda_ms(lambda: fwd_k(xp, mp, flat, *fargs)),
+                     "plain_ms": cuda_ms(lambda: fwd_p(xp, mp, flat, *fargs), iters=3,
+                                         warmup=1),
+                     "library_ms": None})
         line["bound_ms"], line["bound_by"] = bound_ms(nbytes(xp, mp, *flat, y), flops, name)
-        ok_fwd = True
         if which == "layer":
             line.update(encoder_layer_yardstick(torch, xp, mp, flat, None, *fargs))
             ok_fwd, rows["layer_fwd_train_cuda_core"] = fwd_bodies(
-                torch, "layer", line, xp, mp, flat, fargs, ref)
+                torch, "layer", line, xp, mp, flat, fargs, ref, ln_tol(ref))
         else:   # the training batch: the tensor-core body at least 3x its CUDA-core one
             line.update(lastq_yardstick(torch, xp, mp, flat, fargs))
             ok_fwd, rows["lastq_fwd_train_cuda_core"] = fwd_bodies(
-                torch, "lastq", line, xp, mp, flat, fargs, ref)
+                torch, "lastq", line, xp, mp, flat, fargs, ref, ln_tol(ref))
             ok_fwd = ok_fwd and line["library_agrees"]
         emit(line)
-        if not (line["max_abs_err"] <= line["tol"] and line["finite"] and ok_fwd):
-            raise AssertionError(f"{which}_fwd (train) disagrees with its plain version")
+        if not (ok_own and ok_fwd and line["body"] == "mma"):
+            raise AssertionError(f"{which}_fwd (train): the kernel, its CUDA-core body or the "
+                                 f"library disagrees, or the kernel is not faster: {line}")
         rows[f"{which}_fwd_train"] = line
         del y, ref
         dx, grads = bwd_k(xp, mp, flat, dy, *fargs)
-        rdx, rgrads = bwd_p(xp, mp, flat, dy, *fargs)
-        torch.cuda.synchronize()
-        errs, zeros = leaf_errs((dx, *grads), (rdx, *rgrads), zero_sum)
         line = {"phase": "kernel", "name": f"{which}_bwd", "p_drop": P_DROP,
                 "shape": list(xp.shape), "dtype": name,
-                "max_abs_err": max(float((a.float() - b.float()).abs().max())
-                                   for a, b in zip((dx, *grads), (rdx, *rgrads))),
-                "max_rel_err": max(errs), "rel_errs": errs, "rel_err_dx": errs[0],
-                "dx_ref_max": float(rdx.float().abs().max()),
-                "key_bias_grad": zeros.get(4), "tol": BWD_TOL,
-                "tol_reason": "each output relative to its own largest value (the key "
-                              "bias, zero in exact arithmetic, to the query bias's); "
-                              "bf16 roundings at the same points, f32 sums in "
-                              "another order",
-                "finite": bool(torch.isfinite(dx).all()),
                 "kernel_ms": cuda_ms(lambda: bwd_k(xp, mp, flat, dy, *fargs), iters=5),
                 "plain_ms": cuda_ms(lambda: bwd_p(xp, mp, flat, dy, *fargs), iters=2,
                                     warmup=1),
@@ -1392,28 +1284,31 @@ def kernel_train_layers(torch):
         if which == "layer":
             line.update(encoder_layer_yardstick(torch, xp, mp, flat, None, *fargs,
                                                 backward=True, dy=dy))
-        ok_extra, rows[f"{which}_bwd_cuda_core"] = bwd_bodies(
-            torch, which, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgrads)
+        ok, rows[f"{which}_bwd_cuda_core"] = bwd_bodies(torch, which, line, xp, mp, flat, dy,
+                                                        fargs, dx, grads)
         emit(line)
-        if not (line["max_rel_err"] <= BWD_TOL and line["finite"] and zero_sum_ok(zeros)
-                and ok_extra):
-            raise AssertionError(f"{which}_bwd disagrees with its plain version")
+        if not ok:
+            raise AssertionError(f"{which}_bwd: the kernel or its CUDA-core body disagrees, "
+                                 f"the masks are not the forward's, or the kernel is not "
+                                 f"faster: {line}")
         rows[f"{which}_bwd"] = line
-        del dx, grads, rdx, rgrads
+        del dx, grads
     return rows
 
 
-def bwd_bodies(torch, which, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgrads):
-    """Rows 2 ("layer") and 4 ("lastq"): the checks beyond the common ones,
-    into the kernel line: which body ran; for row 2 the key bias's gradient
-    (a slice of dbqkv, zero in exact arithmetic) against the query bias's
-    scale (row 4's is a leaf of its own, held so in the common check); the
-    masks (the plain version with another seed must disagree far beyond the
-    tolerance, so the kernel drew the forward's masks); and the CUDA-core
-    body on the same inputs, against the plain version and timed in this
-    run in turns with it, which the tensor-core body must beat fivefold (row
-    2) or threefold (row 4). Returns (ok, the CUDA-core body's row)."""
+def bwd_bodies(torch, which, line, xp, mp, flat, dy, fargs, dx, grads):
+    """Rows 2 ("layer") and 4 ("lastq"): which body ran (the tensor-core
+    one); the kernel's (dx, grads) against the plain version (each output
+    relative to its own largest value, a key bias to its query bias's: row
+    2's is a slice of dbqkv, zero in exact arithmetic, row 4's a leaf of
+    its own); the masks (the plain version with another seed must disagree
+    with the kernel's dx far beyond BWD_TOL, so the kernel drew the
+    forward's masks); and the CUDA-core body on the same inputs, against
+    the plain version and timed in this run in turns with the kernel, which
+    the tensor-core body must beat fivefold (row 2) or threefold (row 4).
+    Returns (ok, the CUDA-core body's row)."""
     from unirec_tpu_torch.ops import layer as LY
+    tol = BWD_TOL["bfloat16"]
     _, Lp, D = xp.shape
     layer = which == "layer"
     body_of = "_layer_bwd_body" if layer else "_lastq_bwd_body"
@@ -1421,7 +1316,8 @@ def bwd_bodies(torch, which, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgra
                      else (LY._lastq_bwd_cuda, LY._lastq_bwd_plain))
     nh, F = (fargs[0], flat[6].shape[1]) if layer else (fargs[1], flat[10].shape[1])
     line["body"] = getattr(LY, body_of)(xp.dtype, Lp, D, F, nh)
-    ok = True
+    rdx, rgrads = plain(xp, mp, flat, dy, *fargs)
+    ok = agree(line, (dx, *grads), (rdx, *rgrads), tol, zero_sum={} if layer else {4: 2})
     if layer:
         dbk, rdbk, rdbq = (t.float() for t in (grads[1][D:2 * D], rgrads[1][D:2 * D],
                                                 rgrads[1][:D]))
@@ -1429,7 +1325,7 @@ def bwd_bodies(torch, which, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgra
         kb = line["key_bias_grad"] = {
             "ref_max": float(rdbk.abs().max()), "kernel_max": float(dbk.abs().max()),
             "scale": scale, "err": float((dbk - rdbk).abs().max()) / max(scale, 1e-30)}
-        ok = kb["ref_max"] <= BWD_TOL * scale and kb["err"] <= BWD_TOL
+        ok = ok and kb["ref_max"] <= tol * scale and kb["err"] <= tol
     other = plain(xp, mp, flat, dy, *fargs[:-1], LY.drop_params(P_DROP, P_DROP, True, 12346))[0]
     peak = float(rdx.float().abs().max())
     line["other_seed_rel_err_dx"] = float((dx.float() - other.float()).abs().max()) / peak
@@ -1437,17 +1333,17 @@ def bwd_bodies(torch, which, line, xp, mp, flat, dy, fargs, dx, grads, rdx, rgra
     with mock.patch.object(LY, body_of, lambda *a: "cuda"):
         cdx, cgrads = kernel(xp, mp, flat, dy, *fargs)
     cerrs, _ = leaf_errs((cdx, *cgrads), (rdx, *rgrads), {} if layer else {4: 2})
-    core = {"body": "cuda", "max_rel_err": max(cerrs),
+    core = {"body": "cuda", "max_rel_err": max(cerrs), "tol": tol,
             "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                for a, b in zip((cdx, *cgrads), (rdx, *rgrads))),
             "kernel_ms": bodies_in_turns(line, body_of,
                                          lambda: kernel(xp, mp, flat, dy, *fargs), 5),
             **{k: line[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")}}
-    del cdx, cgrads
-    line["cuda_core"] = {k: core[k] for k in ("max_rel_err", "kernel_ms")}
+    del cdx, cgrads, rdx, rgrads
+    line["cuda_core"] = {k: core[k] for k in ("max_rel_err", "tol", "kernel_ms")}
     line["cuda_core_over_mma"] = core["kernel_ms"] / line["kernel_ms"]
-    ok = (ok and line["body"] == "mma" and line["other_seed_rel_err_dx"] > 4 * BWD_TOL
-          and core["max_rel_err"] <= BWD_TOL
+    ok = (ok and line["body"] == "mma" and line["other_seed_rel_err_dx"] > 4 * tol
+          and core["max_rel_err"] <= tol
           and (5 if layer else 3) * line["kernel_ms"] <= core["kernel_ms"])
     return ok, core
 
@@ -1710,34 +1606,18 @@ def train_setup(torch):
 
 
 def train_path(torch, card: str):
-    """Trainer.fit over 27 batches; the clock starts on a sync before step 4
-    and stops when fit has fetched the epoch's losses."""
+    """Trainer.fit over 27 batches: the loss stays finite and falls, and
+    every training kernel launches, on its new body. Its throughput and
+    traced breakdown are the sasrec_d64_l50 training cells'."""
     trainer, raw, aug = train_setup(torch)
-    step, losses, marks = trainer.train_step, [], {}
-
-    def timed_step(batch):
-        if len(losses) == WARMUP_STEPS:
-            torch.cuda.synchronize()
-            marks["t0"] = time.perf_counter()
-        losses.append(step(batch))
-        return losses[-1]
-
-    trainer.train_step = timed_step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    step, losses = trainer.train_step, []
+    trainer.train_step = lambda batch: losses.append(step(batch)) or losses[-1]
     reset_counts()
     trainer.fit(raw)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - marks["t0"]
     counts = launch_counts(TRAINING_KERNELS)
     loss = torch.stack(losses).float().cpu().numpy()
-    line = {"phase": "train_path", "batch": TRAIN_BATCH, "steps": len(losses),
-            "timed_steps": TIMED_STEPS,
-            "examples_per_s": TRAIN_BATCH * TIMED_STEPS / seconds,
-            "ms_per_step": seconds * 1e3 / TIMED_STEPS,
-            "first_loss": float(loss[0]), "last_loss": float(loss[-1]),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card}
-    emit(line)
+    emit({"phase": "train_path", "batch": TRAIN_BATCH, "steps": len(losses),
+          "first_loss": float(loss[0]), "last_loss": float(loss[-1]), "card": card})
     emit({"phase": "train_path_launches", **counts})
     if len(losses) != WARMUP_STEPS + TIMED_STEPS or not np.isfinite(loss).all() \
             or not loss[-1] < loss[0]:
@@ -1747,7 +1627,7 @@ def train_path(torch, card: str):
         raise AssertionError(f"train path never launched {missing}: {counts}")
     on_new_bodies("train path", counts)
     trainer.train_step = step
-    return counts, line, trainer, raw, aug
+    return counts, trainer, raw, aug
 
 
 def check_train_path(torch, trainer, raw, aug):
@@ -1776,14 +1656,14 @@ def check_train_path(torch, trainer, raw, aug):
             "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
             "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
             "loss_tol": 2e-3, "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
-            "grad_worst_leaf": worst, "grad_tol": BWD_TOL,
+            "grad_worst_leaf": worst, "grad_tol": BWD_TOL["bfloat16"],
             "key_bias_grads": {names[i]: r for i, r in zeros.items()},
             "tol_reason": "each leaf relative to its own largest value (a key bias, "
                           "zero in exact arithmetic, to its query bias's); bf16 "
                           "roundings at the same points, f32 sums and atomics in "
                           "another order"}
     emit(line)
-    if not (line["loss_rel_diff"] <= 2e-3 and errs[worst] <= BWD_TOL
+    if not (line["loss_rel_diff"] <= 2e-3 and errs[worst] <= BWD_TOL["bfloat16"]
             and len(zeros) == 2 and zero_sum_ok(zeros)):
         raise AssertionError(f"train path disagrees with the plain versions: {line}")
 
@@ -1899,97 +1779,60 @@ def opt_in_variants(torch, card: str):
 
 
 def device_profile(torch, fn):
-    """Run fn under torch.profiler: (wall ms, device busy ms, top device ops,
-    the port's kernels among them)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side entries only (kernels, copies, sets); host ops would
-    # count their kernels a second time
-    ops = sorted(((float(e.self_device_time_total), e.key, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
-    busy = sum(us for us, _, _ in ops) / 1e3
-    # the port's own kernels (csrc/*.cu, in an anonymous namespace), wherever
-    # they fall in the ranking
-    port = [{"op": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in ops
-            if k.startswith("void (anonymous namespace)::")]
-    return {"traced_device_ops": len(ops), "wall_ms": wall * 1e3,
-            "device_busy_ms": busy, "device_idle_share": 1 - busy / (wall * 1e3),
-            "top_device_ops": [{"op": k[:90], "ms": us / 1e3, "calls": c}
-                               for us, k, c in ops[:14]],
-            "port_kernels": port}
-
-
-def profile_train_path(torch, trainer, raw, card):
-    from unirec_tpu_torch.utils import to_device
-    batches = [to_device(b, "cuda") for _, b in zip(range(2), iter(raw))]
+    """Run fn once under torch.profiler inside a window span: the window's
+    length, the device's busy time (the union of its operations' intervals
+    from the Chrome trace, portbench/harness/idle.py's ``union``, so
+    operations that overlap count once) and idle share, the device
+    operations that took most time, and the port's kernels (csrc/*.cu, in
+    an anonymous namespace), each with its time and launches."""
+    import tempfile
+    from portbench.harness.idle import union
+    from torch.profiler import ProfilerActivity, profile, record_function
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
     torch.cuda.synchronize()
-    emit({"phase": "train_path_profile", "steps": 2, "batch": TRAIN_BATCH,
-          **device_profile(torch, lambda: [trainer.train_step(b) for b in batches]),
-          "card": card})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.window"):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+        events = json.loads((Path(tmp) / "trace.json").read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    wall = next(float(e["dur"]) for e in events if e.get("name") == "chip_smoke.window"
+                and e.get("cat") == "user_annotation") / 1e3
+    ops = [(e.get("name", ""), float(e["ts"]), float(e.get("dur", 0.0))) for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e - s for s, e in union((s, s + d) for _, s, d in ops)) / 1e3
+    by_op = {}
+    for name, _, dur in ops:
+        ms, calls = by_op.get(name[:90], (0.0, 0))
+        by_op[name[:90]] = (ms + dur / 1e3, calls + 1)
+    ranked = [{"op": k, "ms": ms, "calls": c}
+              for k, (ms, c) in sorted(by_op.items(), key=lambda kv: -kv[1][0])]
+    return {"traced_device_ops": len(ops), "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall, "top_device_ops": ranked[:14],
+            "port_kernels": [r for r in ranked
+                             if r["op"].startswith("void (anonymous namespace)::")]}
 
 
 # ---------------------------------------- fused attention and FFN kernels
-ATT_TOL = 2.0 ** -6   # bf16 forward outputs: two ulps of the largest output
-
-
-def attention_inputs(torch, B, H=2, L=SEQ_LEN, hd=EMB // 2, mask_heads=1, seed=SEED + 30):
-    """q, k, v [B, H, L, hd] bf16 at unit scale; the model's additive mask
-    [B, mask_heads, L, L] (causal triangle, left padding of 10..L real
-    items per example and head)."""
-    from unirec_tpu_torch.models.modules import causal_attention_mask
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(B, H, L, hd, generator=g, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    masks = []
-    for _ in range(mask_heads):
-        lens = torch.randint(10, L + 1, (B,), generator=g, device="cuda")
-        seq = (torch.arange(L, device="cuda")[None, :] >= L - lens[:, None]).long()
-        masks.append(causal_attention_mask(seq))
-    return q, k, v, torch.cat(masks, dim=1)
-
-
-def bwd_mask_replay(torch, B, L, hd):
-    """Mismatches between the dropout mask the backward applies and the
-    forward's keying (the plain keep mask), at p=0.1: q = k = 0 and no mask
-    make every probability 1/L, and dO rows one-hot (dO[i, i - c0] = 1 for
-    i in [c0, c0 + hd)) make dV[j, i - c0] = z[i, j] = rnd(keep / L / (1 -
-    p)) exactly, so dV shows every kept element."""
-    from unirec_tpu_torch.ops import attention as AT
-    from unirec_tpu_torch.ops import layer as LY
-    drop = LY.drop_params(P_DROP, 0.0, True, 780)
-    z = torch.zeros(B, 2, L, hd, dtype=torch.bfloat16, device="cuda")
-    m = torch.zeros(B, 1, L, L, device="cuda")
-    keep = AT._keep(drop, B, 2, L, "cuda")
-    want = torch.where(keep, torch.full(keep.shape, 1.0 / L, device="cuda") * drop.inv_attn,
-                       0.0).to(torch.bfloat16)
-    bad = 0
-    for c0 in range(0, L, hd):
-        n = min(hd, L - c0)
-        do = torch.zeros_like(z)
-        do[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
-        dv = AT._bwd_cuda(z, z, z, m, do, drop)[2]
-        bad += int((dv[..., :n].transpose(-1, -2) != want[:, :, c0:c0 + n]).sum())
-    return bad, int((~keep).sum())
-
-
 def kernel_fused_attention(torch):
-    """Rows 10 and 11 at the slice's shape (B=32,768, H=2, L=50, hd=32,
-    bf16, mask [B,1,L,L]) at p=0 and p=0.1, each against its plain version
-    with the same dropout seed (both in their bf16 tensor-core bodies; row 11's
-    dropout mask is also held to the forward's keying bit for bit); then a
-    per-head mask at B=64. Library: F.scaled_dot_product_attention at p=0
-    with the same additive mask (forward; forward plus backward for row
-    11, printed beside both of its lines)."""
+    """Rows 10 and 11 at the entry path's training shape (B=32,768, H=2,
+    L=50, hd=32, bf16, mask [B,1,L,L]) at p=0 and p=0.1 (both in their bf16
+    tensor-core bodies), each against its plain version with the same
+    dropout seed (the forward ATT_TOL, the backward BWD_TOL, each output to
+    its own largest value; at p=0.1 the backward's dropout mask is held to
+    the forward's keying bit for bit) and timed beside it and its bound
+    (a per-head mask is tests/test_torch_gpu.py's). Library:
+    F.scaled_dot_product_attention at p=0 with the same additive mask
+    (forward; forward plus backward for row 11, printed beside both of its
+    lines)."""
     import torch.nn.functional as F
     from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.ops import layer as LY
-    q, k, v, mask = attention_inputs(torch, TRAIN_BATCH)
+    q, k, v, mask = att_case("cuda", torch.bfloat16, B=TRAIN_BATCH, L=SEQ_LEN, hd=EMB // 2,
+                             seed=SEED + 30)
     B, H, L, hd = q.shape
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 31),
                      device="cuda").to(torch.bfloat16)
@@ -2007,76 +1850,46 @@ def kernel_fused_attention(torch):
     for p in (0.0, P_DROP):
         drop = LY.drop_params(p, 0.0, True, 777)
         out = AT._fwd_cuda(q, k, v, mask, drop)
-        ref = AT._fwd_plain(q, k, v, mask, drop)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        tol = ATT_TOL * float(ref.float().abs().max())
         line = {"phase": "kernel", "name": "fused_attention", "p_drop": p,
                 "body": AT._fwd_body(q.dtype, L, hd),
-                "shape": [B, H, L, hd], "mask": list(mask.shape), "dtype": "bfloat16",
-                "max_abs_err": err, "tol": tol,
-                "tol_reason": "two bf16 ulps of the largest output",
-                "finite": bool(torch.isfinite(out).all()),
-                "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop)),
-                "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask, drop), iters=3,
-                                    warmup=1)}
+                "shape": [B, H, L, hd], "mask": list(mask.shape), "dtype": "bfloat16"}
+        ok = agree(line, [out], [AT._fwd_plain(q, k, v, mask, drop)], ATT_TOL["bfloat16"])
+        line.update({"kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop)),
+                     "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask, drop), iters=3,
+                                         warmup=1)})
         line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mb)) if p == 0.0 else None
         line["bound_ms"], line["bound_by"] = bound_ms(nbytes(q, k, v, mask, out), flops,
                                                       "bfloat16")
         emit(line)
-        if not (err <= tol and line["finite"]):
+        if not (ok and line["body"] == "mma"):
             raise AssertionError(f"fused_attention disagrees with its plain version: {line}")
-        del out, ref
         got = AT._bwd_cuda(q, k, v, mask, do, drop)
-        ref = AT._bwd_plain(q, k, v, mask, do, drop)
-        torch.cuda.synchronize()
-        errs, _ = leaf_errs(got, ref)
         line_b = {"phase": "kernel", "name": "fused_attention_bwd", "p_drop": p,
                   "shape": [B, H, L, hd], "dtype": "bfloat16",
-                  "body": AT._bwd_body(q.dtype, L, hd),
-                  "max_abs_err": max(float((a.float() - b.float()).abs().max())
-                                     for a, b in zip(got, ref)),
-                  "max_rel_err": max(errs), "rel_errs": errs, "tol": BWD_TOL,
-                  "tol_reason": "dq, dk, dv each relative to its own largest value; "
-                                "bf16 roundings at the same points, f32 sums in "
-                                "another order",
-                  "finite": all(bool(torch.isfinite(t).all()) for t in got),
-                  "kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
-                                       iters=10),
-                  "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do, drop),
-                                      iters=2, warmup=1),
-                  "library_ms": lib_bwd_ms,
-                  "library_note": "scaled_dot_product_attention forward plus backward, "
-                                  "no dropout"}
+                  "body": AT._bwd_body(q.dtype, L, hd)}
+        ok = agree(line_b, got, AT._bwd_plain(q, k, v, mask, do, drop), BWD_TOL["bfloat16"])
         if p > 0.0:
-            line_b["mask_replay_mismatches"], line_b["dropped"] = bwd_mask_replay(
-                torch, B, L, hd)
+            line_b["mask_replay_mismatches"], line_b["dropped"] = replayed_mask_mismatches(
+                "cuda", B, L, hd, p, seed=780)
+            ok = ok and line_b["mask_replay_mismatches"] == 0 and line_b["dropped"] > 0
+        line_b.update({"kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
+                                            iters=10),
+                       "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do, drop),
+                                           iters=2, warmup=1),
+                       "library_ms": lib_bwd_ms,
+                       "library_note": "scaled_dot_product_attention forward plus backward, "
+                                       "no dropout"})
         # the backward recomputes S and reads dO: products QK^T, dO V^T,
         # dV, dQ, dK
         line_b["bound_ms"], line_b["bound_by"] = bound_ms(
             nbytes(q, k, v, mask, do, *got), 5 * flops // 2, "bfloat16")
         emit(line_b)
-        if not (line_b["max_rel_err"] <= BWD_TOL and line_b["finite"]
-                and line_b.get("mask_replay_mismatches", 0) == 0
-                and line_b.get("dropped", 1) > 0):
-            raise AssertionError("fused_attention_bwd disagrees with its plain version")
+        if not (ok and line_b["body"] == "mma"):
+            raise AssertionError(f"fused_attention_bwd disagrees with its plain version: "
+                                 f"{line_b}")
         rows[f"fused_attention_p{p}"], rows[f"fused_attention_bwd_p{p}"] = line, line_b
-        del got, ref
-    # a mask per head (the JAX kernel's other mask layout), small batch
-    q, k, v, mask = attention_inputs(torch, 64, mask_heads=2, seed=SEED + 32)
-    drop = LY.drop_params(P_DROP, 0.0, True, 778)
-    do = torch.randn_like(q.float()).to(torch.bfloat16)
-    e_f = float((AT._fwd_cuda(q, k, v, mask, drop).float()
-                 - AT._fwd_plain(q, k, v, mask, drop).float()).abs().max())
-    e_b, _ = leaf_errs(AT._bwd_cuda(q, k, v, mask, do, drop),
-                       AT._bwd_plain(q, k, v, mask, do, drop))
-    line = {"phase": "kernel", "name": "fused_attention_head_mask", "shape": list(q.shape),
-            "mask": list(mask.shape), "p_drop": P_DROP, "fwd_max_abs_err": e_f,
-            "bwd_max_rel_err": max(e_b), "tol_fwd": ATT_TOL * 4, "tol_bwd": BWD_TOL}
-    emit(line)
-    if not (e_f <= ATT_TOL * 4 and max(e_b) <= BWD_TOL):
-        raise AssertionError(f"per-head-mask attention disagrees: {line}")
+        del out, got
     kernel_fused_attention_long(torch)
     # the kernels line takes p=0, where scaled_dot_product_attention computes
     # the same function
@@ -2086,15 +1899,15 @@ def kernel_fused_attention(torch):
 def kernel_fused_attention_long(torch):
     """Rows 10 and 11 beyond the whole-sequence kernels' shared memory: the
     tiled pair at L=300 and L=512 (H=2, hd=32, bf16, B=256), forward and
-    backward at p=0 and p=0.1, against the plain versions. Tolerances as at
-    L=50, but a fully padded example's rows are held to 2^-10 of their
-    largest value (scores near -1e4 keep f32 steps of 2^-10)."""
+    backward at p=0 and p=0.1, timed beside the plain versions (their
+    agreement is tests/test_torch_gpu.py's)."""
     import torch.nn.functional as F
     from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.ops import layer as LY
     t0 = time.perf_counter()
     for L in (300, 512):
-        q, k, v, mask = attention_inputs(torch, 256, L=L, seed=SEED + 33)
+        q, k, v, mask = att_case("cuda", torch.bfloat16, B=256, L=L, hd=EMB // 2,
+                                 seed=SEED + 33)
         B, H, _, hd = q.shape
         do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(
             SEED + 34), device="cuda").to(torch.bfloat16)
@@ -2103,17 +1916,10 @@ def kernel_fused_attention_long(torch):
         for p in (0.0, P_DROP):
             drop = LY.drop_params(p, 0.0, True, 779)
             out = AT._fwd_cuda(q, k, v, mask, drop)
-            ref = AT._fwd_plain(q, k, v, mask, drop)
             got = AT._bwd_cuda(q, k, v, mask, do, drop)
-            refb = AT._bwd_plain(q, k, v, mask, do, drop)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            tol = ATT_TOL * float(ref.float().abs().max())
-            errs, _ = leaf_errs(got, refb)
             line = {"phase": "kernel", "name": "fused_attention", "tiled": AT._tiled(L, hd),
                     "p_drop": p, "shape": [B, H, L, hd], "mask": list(mask.shape),
-                    "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
-                    "tol_reason": "two bf16 ulps of the largest output",
+                    "dtype": "bfloat16",
                     "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop), iters=10),
                     "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask, drop), iters=2,
                                         warmup=1),
@@ -2124,8 +1930,7 @@ def kernel_fused_attention_long(torch):
             emit(line)
             line_b = {"phase": "kernel", "name": "fused_attention_bwd",
                       "tiled": AT._tiled(L, hd), "p_drop": p, "shape": [B, H, L, hd],
-                      "dtype": "bfloat16", "max_rel_err": max(errs), "rel_errs": errs,
-                      "tol": BWD_TOL,
+                      "dtype": "bfloat16",
                       "kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
                                            iters=5),
                       "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do, drop),
@@ -2134,10 +1939,7 @@ def kernel_fused_attention_long(torch):
             line_b["bound_ms"], line_b["bound_by"] = bound_ms(
                 nbytes(q, k, v, mask, do, *got), 5 * flops // 2, "bfloat16")
             emit(line_b)
-            if not (err <= tol and max(errs) <= BWD_TOL):
-                raise AssertionError(f"tiled fused attention disagrees at L={L}: {line}, "
-                                     f"{line_b}")
-            del out, ref, got, refb
+            del out, got
     emit({"phase": "kernel_fused_attention_long", "seconds": time.perf_counter() - t0})
 
 
@@ -2149,26 +1951,14 @@ FLASH_TOL_REASON = ("bf16: two bf16 ulps of the largest output; f32: 2^-10 of it
 LONG_LEN, LONG_BATCH = 256, 8192
 
 
-def flash_inputs(torch, B, L, dtype, hd=EMB // 2, seed=SEED + 60):
-    """q, k, v [B, 2, L, hd] at unit scale and the model's additive mask [B,
-    1, L, L] f32: causal triangle, left padding of 0..L real items (every
-    64th example all padding)."""
-    from unirec_tpu_torch.models.modules import causal_attention_mask
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(B, 2, L, hd, generator=g, device="cuda").to(dtype)
-               for _ in range(3))
-    lens = torch.randint(1, L + 1, (B,), generator=g, device="cuda")
-    lens[::64] = 0
-    seq = (torch.arange(L, device="cuda")[None, :] >= L - lens[:, None]).long()
-    return q, k, v, causal_attention_mask(seq)
-
-
 def kernel_flash_attention(torch):
-    """Row 9: csrc/flash_attention.cu against its plain version at the long
-    path's training shape (B=8,192, H=2, L=256, hd=32) in bf16 and f32, at
-    L=264 (ragged) and L=1,024 at a smaller batch, at the serving shape
-    (B=256); then the plain backward (torch ops, as the JAX package's XLA
-    backward) at the training shape, its time and peak memory. Library:
+    """Row 9 (csrc/flash_attention.cu) against its plain version (FLASH_TOL
+    of max(1, the largest output); lse within 1e-5 of each row's magnitude)
+    and timed beside it and its bound at the long path's training shape
+    (B=8,192, H=2, L=256, hd=32) in bf16 and f32, at L=264 (ragged) and
+    L=1,024 at a smaller batch, and at the serving shape (B=256). Then the
+    plain backward (torch ops, as the JAX package's XLA backward)
+    at the training shape, its time and peak memory. Library:
     scaled_dot_product_attention with the same float mask."""
     import torch.nn.functional as F
     from unirec_tpu_torch.ops import attention as AT
@@ -2178,23 +1968,21 @@ def kernel_flash_attention(torch):
                      (512, 264, "bfloat16"), (128, 1024, "bfloat16"),
                      (BATCH, LONG_LEN, "bfloat16")):
         dtype = getattr(torch, dt)
-        q, k, v, mask = flash_inputs(torch, B, L, dtype)
+        q, k, v, mask = att_case("cuda", dtype, B=B, L=L, hd=EMB // 2, seed=SEED + 60)
         out, lse = AT._flash_fwd_cuda(q, k, v, mask)
         ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        tol = FLASH_TOL[dt] * max(1.0, float(ref.float().abs().max()))
-        lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
         hd = q.shape[-1]
         line = {"phase": "kernel", "name": "flash_attention", "shape": [B, 2, L, hd],
-                "body": AT._flash_body(dtype, hd),
-                "mask": list(mask.shape), "dtype": dt, "max_abs_err": err, "tol": tol,
-                "tol_reason": FLASH_TOL_REASON, "lse_max_rel_err": lse_err, "lse_tol": 1e-5,
+                "body": AT._flash_body(dtype, hd), "mask": list(mask.shape), "dtype": dt,
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                "tol": FLASH_TOL[dt] * max(1.0, float(ref.float().abs().max())),
+                "tol_reason": FLASH_TOL_REASON, "lse_tol": 1e-5,
+                "lse_max_rel_err": float(((lse - ref_lse).abs()
+                                          / ref_lse.abs().clamp(min=1.0)).max()),
                 "finite": bool(torch.isfinite(out).all()),
                 "kernel_ms": cuda_ms(lambda: AT._flash_fwd_cuda(q, k, v, mask), iters=10),
                 "plain_ms": cuda_ms(lambda: AT._flash_fwd_plain(q, k, v, mask), iters=3,
                                     warmup=1)}
-        del ref, ref_lse
         ml = mask.to(dtype)
         line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=ml), iters=10)
@@ -2202,12 +1990,14 @@ def kernel_flash_attention(torch):
         line["bound_ms"], line["bound_by"] = bound_ms(
             nbytes(q, k, v, mask, out, lse), 4 * B * 2 * L * L * hd, dt)
         emit(line)
-        if not (err <= tol and lse_err <= 1e-5 and line["finite"]):
+        if not (line["max_abs_err"] <= line["tol"] and line["lse_max_rel_err"] <= 1e-5
+                and line["finite"]):
             raise AssertionError(f"flash_attention disagrees with its plain version: {line}")
         rows.setdefault(f"{dt}_{B}_{L}", line)
-        del q, k, v, mask, out, lse, ml
+        del q, k, v, mask, out, lse, ml, ref, ref_lse
     # the plain backward at the training shape: time and peak memory
-    q, k, v, mask = flash_inputs(torch, LONG_BATCH, LONG_LEN, torch.bfloat16)
+    q, k, v, mask = att_case("cuda", torch.bfloat16, B=LONG_BATCH, L=LONG_LEN, hd=EMB // 2,
+                             seed=SEED + 60)
     g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 61),
                     device="cuda").to(torch.bfloat16)
     out, lse = AT._flash_fwd_cuda(q, k, v, mask)
@@ -2242,11 +2032,13 @@ def kernel_flash_attention(torch):
 def kernel_fused_ffn(torch):
     """Rows 12 and 13 at the entry path's two token counts (layer 0's B*L
     and layer 1's B) and the long path's layer 0 (8,192 x 256), D=64,
-    F=128, bf16, swish, against their plain versions (row 13 in its bf16
-    tensor-core body);
-    then all six activations at a small T in f32 and bf16. No single PyTorch
-    call computes the FFN: library_ms is null, and addmm -> act -> addmm is
-    timed beside it for information."""
+    F=128, bf16, swish, on the tensor cores, against their plain versions
+    (the forward ATT_TOL of its largest output, the backward BWD_TOL, each
+    output to its own largest value) and timed beside them and their
+    bounds; the forward's CUDA-core body against the plain version and
+    timed. No single PyTorch
+    call computes the FFN: addmm -> act -> addmm is timed beside it, and
+    the tensor-core forward must beat it at the two large counts."""
     import torch.nn.functional as F
     from unirec_tpu_torch.ops import ffn as FF
     g = torch.Generator(device="cuda").manual_seed(SEED + 40)
@@ -2259,18 +2051,16 @@ def kernel_fused_ffn(torch):
         x, dy = rn(T, D), rn(T, D)
         y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
         ref = FF._fwd_plain(x, w1, b1, w2, b2, "swish")
-        torch.cuda.synchronize()
-        err = float((y.float() - ref.float()).abs().max())
-        tol = ATT_TOL * float(ref.float().abs().max())
+        tol = ATT_TOL["bfloat16"] * float(ref.float().abs().max())
         chain = cuda_ms(lambda: torch.addmm(b2, F.silu(torch.addmm(b1, x, w1)), w2))
         line = {"phase": "kernel", "name": "fused_ffn", "tokens": T, "dims": [D, Fi],
-                "act": "swish", "dtype": "bfloat16", "body": FF._fwd_body(x.dtype, D, Fi),
-                "max_abs_err": err, "tol": tol,
-                "tol_reason": "two bf16 ulps of the largest output",
-                "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish")),
-                "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish")),
-                "library_ms": chain, "library_call": "addmm -> silu -> addmm (three calls)",
-                "addmm_act_addmm_ms": chain}
+                "act": "swish", "dtype": "bfloat16", "body": FF._fwd_body(x.dtype, D, Fi)}
+        ok = agree(line, [y], [ref], tol, rel=False) and line["body"] == "mma"
+        line.update({"kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish")),
+                     "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish")),
+                     "library_ms": chain,
+                     "library_call": "addmm -> silu -> addmm (three calls)",
+                     "addmm_act_addmm_ms": chain})
         line["bound_ms"], line["bound_by"] = bound_ms(nbytes(x, w1, b1, w2, b2, y),
                                                       4 * T * D * Fi, "bfloat16")
         # the CUDA-core body on the same inputs, timed in this run
@@ -2278,124 +2068,80 @@ def kernel_fused_ffn(torch):
             core_err = float((FF._fwd_cuda(x, w1, b1, w2, b2, "swish").float()
                               - ref.float()).abs().max())
             core_ms = cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish"), iters=5)
-        line["cuda_core"] = {"max_abs_err": core_err, "kernel_ms": core_ms}
+        line["cuda_core"] = {"max_abs_err": core_err, "tol": tol, "kernel_ms": core_ms}
         emit(line)
         # the tensor-core body must beat the three-call chain where the paths run it
         slow = T >= TRAIN_BATCH * SEQ_LEN and not line["kernel_ms"] < chain
-        if not (err <= tol and core_err <= tol and line["body"] == "mma") or slow:
-            raise AssertionError(f"fused_ffn disagrees with its plain version or is slow: {line}")
+        if not (ok and core_err <= tol) or slow:
+            raise AssertionError(f"fused_ffn or its CUDA-core body disagrees with the plain "
+                                 f"version, or the kernel is slower than the chain: {line}")
         rows.setdefault("fused_ffn_cuda_core", {
             "body": "cuda", "max_abs_err": core_err, "kernel_ms": core_ms,
             "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": line["bound_by"], "library_ms": chain})
         got = FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish")
-        refb = FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")
-        torch.cuda.synchronize()
-        errs, _ = leaf_errs(got, refb)
         line_b = {"phase": "kernel", "name": "fused_ffn_bwd", "tokens": T, "dims": [D, Fi],
-                  "act": "swish", "dtype": "bfloat16", "body": FF._bwd_body(x.dtype, D, Fi),
-                  "max_abs_err": max(float((a.float() - b.float()).abs().max())
-                                     for a, b in zip(got, refb)),
-                  "max_rel_err": max(errs), "rel_errs": errs, "tol": BWD_TOL,
-                  "tol_reason": "dx, dW1, db1, dW2, db2 each relative to its own largest "
-                                "value; f32 sums in another order",
-                  "kernel_ms": cuda_ms(lambda: FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"),
-                                       iters=10),
-                  "plain_ms": cuda_ms(lambda: FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"),
-                                      iters=5),
-                  "library_ms": None}
+                  "act": "swish", "dtype": "bfloat16", "body": FF._bwd_body(x.dtype, D, Fi)}
+        ok = agree(line_b, got, FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"),
+                   BWD_TOL["bfloat16"])
+        line_b.update({
+            "kernel_ms": cuda_ms(lambda: FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"), iters=10),
+            "plain_ms": cuda_ms(lambda: FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"), iters=5),
+            "library_ms": None})
         # recompute (x W1) plus dh, dx, dW1, dW2: five products of 2*T*D*F
         line_b["bound_ms"], line_b["bound_by"] = bound_ms(
             nbytes(x, dy, w1, b1, w2, b2, *got), 10 * T * D * Fi, "bfloat16")
         emit(line_b)
-        if not line_b["max_rel_err"] <= BWD_TOL:
-            raise AssertionError("fused_ffn_bwd disagrees with its plain version")
+        if not ok:
+            raise AssertionError(f"fused_ffn_bwd disagrees with its plain version: {line_b}")
         rows.setdefault("fused_ffn", line)
         rows.setdefault("fused_ffn_bwd", line_b)
-        del x, dy, y, ref, got, refb
-    worst, fwd = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
-        x, dy = rn(4099, D, dt=dt), rn(4099, D, dt=dt)
-        ws = [t.to(dt) for t in (w1, b1, w2, b2)]
-        for act in FF.ACTS:
-            errs = leaf_errs((FF._fwd_cuda(x, *ws, act), *FF._bwd_cuda(x, *ws, dy, act)),
-                             (FF._fwd_plain(x, *ws, act), *FF._bwd_plain(x, *ws, dy, act)))[0]
-            worst[f"{act}_{str(dt)[6:]}"] = max(errs)
-            fwd[f"{act}_{str(dt)[6:]}"] = errs[0]
-    line = {"phase": "kernel", "name": "fused_ffn_activations", "tokens": 4099,
-            "max_rel_err": worst, "tol": {"float32": 1e-4, "bfloat16": BWD_TOL},
-            "fwd_rel_err": fwd, "fwd_tol_bfloat16": ATT_TOL,
-            "fwd_tol_reason": "the forward (bf16: the tensor-core body) within two bf16 ulps "
-                              "of its largest output"}
-    emit(line)
-    if any(e > (1e-4 if k.endswith("float32") else BWD_TOL) for k, e in worst.items()) or \
-            any(e > ATT_TOL for k, e in fwd.items() if k.endswith("bfloat16")):
-        raise AssertionError(f"fused_ffn disagrees for an activation: {line}")
+        del x, dy, y, ref, got
     return rows["fused_ffn"], rows["fused_ffn_bwd"], rows["fused_ffn_cuda_core"]
 
 
 # ------------------------------------------------------------- wide widths
 def wide_widths(torch):
     """The widths the JAX gates take and the earlier kernels refused, each
-    against its plain version and timed: flash attention at head widths 136
-    and 256 (L=256, B=64, H=2, both dtypes: the CUDA-core body in column
-    chunks of 128); the fused attention pair at head widths 136 and 256, L=50
-    (B=256) and L=512 (B=32), p=0 and 0.1, bf16; the fused FFN at (D, F) =
-    (256, 1024) and (64, 2048), 65,536 tokens, both dtypes (the CUDA-core
-    bodies in F chunks of 128, and the bf16 backward at D=64 on the tensor
-    cores in 16 F chunks). Tolerances as at the paths' shapes."""
+    timed beside its plain version and bound (their agreement is
+    tests/test_torch_gpu.py's): flash attention at head widths 136 and 256
+    (L=256, B=64, H=2, both dtypes: the CUDA-core body in column chunks of
+    128); the fused attention pair at head widths 136 and 256, L=50 (B=256)
+    and L=512 (B=32), p=0 and 0.1, bf16; the fused FFN at (D, F) = (256,
+    1024) and (64, 2048), 65,536 tokens, both dtypes (the CUDA-core bodies
+    in F chunks of 128, and the bf16 backward at D=64 on the tensor cores
+    in 16 F chunks)."""
     from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.ops import ffn as FF
     from unirec_tpu_torch.ops import layer as LY
     t0 = time.perf_counter()
-    bad = []
-
-    def report(line, ok):
-        emit(line)
-        if not ok:
-            bad.append(line)
-
     for hd in (136, 256):
         for dt in ("bfloat16", "float32"):
             dtype = getattr(torch, dt)
-            q, k, v, mask = flash_inputs(torch, 64, LONG_LEN, dtype, hd=hd)
+            q, k, v, mask = att_case("cuda", dtype, B=64, L=LONG_LEN, hd=hd, seed=SEED + 60)
             out, lse = AT._flash_fwd_cuda(q, k, v, mask)
-            ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            tol = FLASH_TOL[dt] * max(1.0, float(ref.float().abs().max()))
-            lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
             B, H, L, _ = q.shape
             line = {"phase": "wide_widths", "name": "flash_attention", "shape": list(q.shape),
-                    "dtype": dt, "body": AT._flash_body(dtype, hd), "max_abs_err": err,
-                    "tol": tol, "lse_max_rel_err": lse_err, "lse_tol": 1e-5,
+                    "dtype": dt, "body": AT._flash_body(dtype, hd),
                     "kernel_ms": cuda_ms(lambda: AT._flash_fwd_cuda(q, k, v, mask), iters=5),
                     "plain_ms": cuda_ms(lambda: AT._flash_fwd_plain(q, k, v, mask), iters=3,
                                         warmup=1)}
             line["bound_ms"], line["bound_by"] = bound_ms(
                 nbytes(q, k, v, mask, out, lse), 4 * B * H * L * L * hd, dt)
-            report(line, err <= tol and lse_err <= 1e-5)
-            del q, k, v, mask, out, lse, ref, ref_lse
+            emit(line)
+            del q, k, v, mask, out, lse
     for hd in (136, 256):
         for L, B in ((SEQ_LEN, 256), (512, 32)):
-            q, k, v, mask = attention_inputs(torch, B, L=L, hd=hd, seed=SEED + 35)
+            q, k, v, mask = att_case("cuda", torch.bfloat16, B=B, L=L, hd=hd, seed=SEED + 35)
             do = torch.randn_like(q.float()).to(torch.bfloat16)
             H = q.shape[1]
             for p in (0.0, P_DROP):
                 drop = LY.drop_params(p, 0.0, True, 781)
                 out = AT._fwd_cuda(q, k, v, mask, drop)
-                ref = AT._fwd_plain(q, k, v, mask, drop)
                 got = AT._bwd_cuda(q, k, v, mask, do, drop)
-                refb = AT._bwd_plain(q, k, v, mask, do, drop)
-                torch.cuda.synchronize()
-                err = float((out.float() - ref.float()).abs().max())
-                tol = ATT_TOL * float(ref.float().abs().max())
-                errs, _ = leaf_errs(got, refb)
                 flops = 4 * B * H * L * L * hd
                 line = {"phase": "wide_widths", "name": "fused_attention", "shape": [B, H, L, hd],
                         "p_drop": p, "dtype": "bfloat16", "body": AT._fwd_body(q.dtype, L, hd),
-                        "max_abs_err": err, "tol": tol, "bwd_max_rel_err": max(errs),
-                        "bwd_tol": BWD_TOL,
                         "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask, drop), iters=5),
                         "bwd_kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do, drop),
                                                  iters=3, warmup=1),
@@ -2407,8 +2153,8 @@ def wide_widths(torch):
                                                               "bfloat16")
                 line["bwd_bound_ms"], _ = bound_ms(nbytes(q, k, v, mask, do, *got),
                                                    5 * flops // 2, "bfloat16")
-                report(line, err <= tol and max(errs) <= BWD_TOL)
-                del out, ref, got, refb
+                emit(line)
+                del out, got
             del q, k, v, mask, do
     g = torch.Generator(device="cuda").manual_seed(SEED + 41)
     T = 65_536
@@ -2421,18 +2167,10 @@ def wide_widths(torch):
             w1, b1 = rn(D, Fi, std=(2 / D) ** 0.5), rn(Fi, std=0.02)
             w2, b2 = rn(Fi, D, std=(1 / Fi) ** 0.5), rn(D, std=0.02)
             y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
-            ref = FF._fwd_plain(x, w1, b1, w2, b2, "swish")
             got = FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish")
-            refb = FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")
-            torch.cuda.synchronize()
-            err = float((y.float() - ref.float()).abs().max())
-            tol = (ATT_TOL if dt == "bfloat16" else 1e-5) * float(ref.float().abs().max())
-            errs, _ = leaf_errs(got, refb)
-            btol = BWD_TOL if dt == "bfloat16" else 1e-4
             line = {"phase": "wide_widths", "name": "fused_ffn", "tokens": T, "dims": [D, Fi],
                     "dtype": dt, "rows": [FF._rows(False, D, Fi), FF._rows(True, D, Fi)],
-                    "bwd_body": FF._bwd_body(dtype, D, Fi), "max_abs_err": err, "tol": tol,
-                    "bwd_max_rel_err": max(errs), "bwd_tol": btol,
+                    "bwd_body": FF._bwd_body(dtype, D, Fi),
                     "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish"),
                                          iters=5),
                     "bwd_kernel_ms": cuda_ms(lambda: FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"),
@@ -2445,11 +2183,9 @@ def wide_widths(torch):
                                                           4 * T * D * Fi, dt)
             line["bwd_bound_ms"], _ = bound_ms(nbytes(x, dy, w1, b1, w2, b2, *got),
                                                10 * T * D * Fi, dt)
-            report(line, err <= tol and max(errs) <= btol)
-            del x, dy, y, ref, got, refb
+            emit(line)
+            del x, dy, y, got
     emit({"phase": "wide_widths", "seconds": time.perf_counter() - t0})
-    if bad:
-        raise AssertionError(f"wide widths disagree with their plain versions: {bad}")
 
 
 # --------------------------------------------------------------- entry path
@@ -2660,13 +2396,13 @@ def check_entry_path(torch, trainer, train_data, phase="entry_path_check"):
             "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
             "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
             "loss_tol": 2e-3, "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
-            "grad_worst_leaf": worst, "grad_tol": BWD_TOL,
+            "grad_worst_leaf": worst, "grad_tol": BWD_TOL["bfloat16"],
             "key_bias_grads": {names[i]: r for i, r in zeros.items()}}
     ev = OnePositiveEvaluator(cfg, model, "cuda")
     eval_batch = next(iter(trainer_test_batcher(trainer)))
     line.update(eval_agreement(torch, trainer, model, ev, eval_batch))
     emit(line)
-    if not (line["loss_rel_diff"] <= 2e-3 and errs[worst] <= BWD_TOL and len(zeros) == 2
+    if not (line["loss_rel_diff"] <= 2e-3 and errs[worst] <= BWD_TOL["bfloat16"] and len(zeros) == 2
             and zero_sum_ok(zeros) and line["user_emb_max_abs_diff"] <= line["user_emb_tol"]
             and line["rank_agree_share"] >= RANK_AGREE_SHARE
             and line["metric_max_rel_diff"] <= METRIC_REL_TOL):
@@ -2676,7 +2412,7 @@ def check_entry_path(torch, trainer, train_data, phase="entry_path_check"):
 
 # one eval batch, kernels against plain versions: a row's rank of the
 # positive agrees when the two differ by at most RANK_SLACK plus
-# RANK_REL_SLACK of the rank (bf16 user embeddings within emb_tol move a
+# RANK_REL_SLACK of the rank (bf16 user embeddings within ln_tol move a
 # score by about 1e-2 of its spread, and with it the items packed around a
 # mid-catalog positive); RANK_AGREE_SHARE of the rows must agree, and each
 # metric must lie within METRIC_REL_TOL of its own plain value
@@ -2713,7 +2449,7 @@ def eval_agreement(torch, trainer, model, ev, eval_batch):
     agree = gap <= RANK_SLACK + RANK_REL_SLACK * r_p
     return {"eval_batch": int(real.sum()),
             "user_emb_max_abs_diff": float((u_k - u_p).abs().max()),
-            "user_emb_tol": emb_tol(u_p),
+            "user_emb_tol": ln_tol(u_p),
             "rank_equal_share": float((gap == 0).float().mean()),
             "rank_agree_share": float(agree.float().mean()),
             "rank_agree_tol": [RANK_SLACK, RANK_REL_SLACK, RANK_AGREE_SHARE],
@@ -3320,7 +3056,8 @@ def learned_and_repeated(seen, args, phase, steps, min_hit10, metric="hit@10"):
 
 # a step through the kernels against the plain versions, (loss, gradient
 # leaf) of each leaf's largest: f32 apart by summation order alone
-STEP_TOL = {"float32": (1e-6, 1e-4), "bfloat16": (2e-3, BWD_TOL)}   # (loss, gradient leaf)
+# (loss, gradient leaf)
+STEP_TOL = {"float32": (1e-6, BWD_TOL["float32"]), "bfloat16": (2e-3, BWD_TOL["bfloat16"])}
 
 
 def check_model_step(torch, phase, trainer, train_data, tables=None, **extra):
@@ -3328,7 +3065,7 @@ def check_model_step(torch, phase, trainer, train_data, tables=None, **extra):
     kernels and through the plain versions: the loss, every gradient leaf
     (STEP_TOL of each leaf's largest; a key bias of its query bias's), and
     the batch's scores (MultiVAE: its user embeddings) within 1e-4 of the
-    largest (f32) or emb_tol (bf16). With ``tables`` (the tables a step's
+    largest (f32) or ln_tol (bf16). With ``tables`` (the tables a step's
     gathers scatter into, in call order), the step's gathers must be those
     and row 6 must scatter once for each. Returns (the line, the kernels'
     scatter calls (ids, rows, n_rows), empty without ``tables``)."""
@@ -3378,7 +3115,7 @@ def check_model_step(torch, phase, trainer, train_data, tables=None, **extra):
     errs = dict(zip(names, errs))
     worst = max(errs, key=errs.get)
     loss_tol, grad_tol = STEP_TOL[dtype]
-    out_tol = emb_tol(out_p) if dtype == "bfloat16" else 1e-4 * float(out_p.abs().max())
+    out_tol = ln_tol(out_p) if dtype == "bfloat16" else 1e-4 * float(out_p.abs().max())
     line = {"phase": phase, **extra, "dtype": dtype, "batch": len(batch["weight"]),
             "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
             "loss_rel_diff": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
@@ -3733,7 +3470,7 @@ def mlp_scorer_check(torch, side_trainer, card: str):
         s_k = trainer.model.predict(batch).float()
         with plain_versions():
             s_p = trainer.model.predict(batch).float()
-    tol = max(LN_TOL["bfloat16"], 2.0 ** -6 * float(s_p.abs().max()))
+    tol = ln_tol(s_p)
     line = {"phase": "mlp_scorer_check", "steps": len(loss), "batch": TRAIN_BATCH,
             "first_losses": loss[:3].tolist(), "last_losses": loss[-3:].tolist(),
             "test": test, "scores": list(s_k.shape),
@@ -4197,8 +3934,9 @@ def kernel_bst_shape(torch):
     8,400 sequences of L = 21 (the history of 20 and the candidate), 4 heads
     of 16, the key-padding mask [N, 1, 1, L]; the FFN over their 176,400
     tokens at d = 64, inner 128, swish; each in f32 and bf16, each against
-    its plain version, timed, with its bound and the library call
-    (scaled_dot_product_attention, forward and forward + backward;
+    its plain version (forwards ATT_TOL, backwards BWD_TOL, each output to
+    its own largest value) and timed beside it, its bound and the library
+    call (scaled_dot_product_attention, forward and forward + backward;
     addmm -> silu -> addmm for row 12). Returns the bf16 lines by row."""
     import torch.nn.functional as F
     from unirec_tpu_torch.models.modules import causal_attention_mask
@@ -4209,10 +3947,9 @@ def kernel_bst_shape(torch):
     seq = torch.randint(0, 4, (N, L), generator=g, device="cuda")
     seq[:, -1] = 1
     mask = causal_attention_mask(seq, bidirectional=True)
-    rows = {}
+    rows, ok = {}, []
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
-        tol = ATT_TOL if dt == "bfloat16" else 1e-5
         q, k, v, do = (torch.randn(N, H, L, hd, generator=g, device="cuda").to(dtype)
                        for _ in range(4))
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -4224,75 +3961,64 @@ def kernel_bst_shape(torch):
 
         with torch.enable_grad():
             lib_bwd = cuda_ms(lib_fwd_bwd, iters=10)
-        out, ref = AT._fwd_cuda(q, k, v, mask), AT._fwd_plain(q, k, v, mask)
+        out = AT._fwd_cuda(q, k, v, mask)
         flops = 4 * N * H * L * L * hd
         line = {"phase": "kernel", "name": "fused_attention", "what": "BST", "dtype": dt,
                 "body": AT._fwd_body(dtype, L, hd), "shape": [N, H, L, hd],
-                "mask": list(mask.shape),
-                "max_abs_err": float((out.float() - ref.float()).abs().max()),
-                "tol": tol * float(ref.float().abs().max()),
-                "kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask)),
-                "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask), iters=5),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=lib_mask))}
+                "mask": list(mask.shape)}
+        ok.append(agree(line, [out], [AT._fwd_plain(q, k, v, mask)], ATT_TOL[dt]))
+        line.update({"kernel_ms": cuda_ms(lambda: AT._fwd_cuda(q, k, v, mask)),
+                     "plain_ms": cuda_ms(lambda: AT._fwd_plain(q, k, v, mask), iters=5),
+                     "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=lib_mask))})
         line["bound_ms"], line["bound_by"] = bound_ms(nbytes(q, k, v, mask, out), flops, dt)
-        got, refb = AT._bwd_cuda(q, k, v, mask, do), AT._bwd_plain(q, k, v, mask, do)
-        errs, _ = leaf_errs(got, refb)
+        got = AT._bwd_cuda(q, k, v, mask, do)
         line_b = {"phase": "kernel", "name": "fused_attention_bwd", "what": "BST", "dtype": dt,
-                  "body": AT._bwd_body(dtype, L, hd), "shape": [N, H, L, hd],
-                  "max_abs_err": max(float((a.float() - b.float()).abs().max())
-                                     for a, b in zip(got, refb)),
-                  "max_rel_err": max(errs), "tol": BWD_TOL if dt == "bfloat16" else 1e-4,
-                  "kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do), iters=10),
-                  "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do), iters=3),
-                  "library_ms": lib_bwd,
-                  "library_note": "scaled_dot_product_attention forward plus backward"}
+                  "body": AT._bwd_body(dtype, L, hd), "shape": [N, H, L, hd]}
+        ok.append(agree(line_b, got, AT._bwd_plain(q, k, v, mask, do), BWD_TOL[dt]))
+        line_b.update({"kernel_ms": cuda_ms(lambda: AT._bwd_cuda(q, k, v, mask, do), iters=10),
+                       "plain_ms": cuda_ms(lambda: AT._bwd_plain(q, k, v, mask, do), iters=3),
+                       "library_ms": lib_bwd,
+                       "library_note": "scaled_dot_product_attention forward plus backward"})
         line_b["bound_ms"], line_b["bound_by"] = bound_ms(nbytes(q, k, v, mask, do, *got),
                                                           5 * flops // 2, dt)
-        del q, k, v, do, qs, ks, vs, out, ref, got, refb
+        del q, k, v, do, qs, ks, vs, out, got
         rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device="cuda") * std).to(dtype)  # noqa: E731
         T = N * L
         x, w1, b1, w2, b2, dy = (rn(T, D), rn(D, Fi, std=0.2), rn(Fi, std=0.1),
                                  rn(Fi, D, std=0.2), rn(D, std=0.1), rn(T, D))
-        y, yr = FF._fwd_cuda(x, w1, b1, w2, b2, "swish"), FF._fwd_plain(x, w1, b1, w2, b2, "swish")
+        y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
         fl = 4 * T * D * Fi
         line_f = {"phase": "kernel", "name": "fused_ffn", "what": "BST", "dtype": dt,
-                  "body": FF._fwd_body(dtype, D, Fi), "tokens": T, "d": D, "inner": Fi,
-                  "max_abs_err": float((y.float() - yr.float()).abs().max()),
-                  "tol": tol * float(yr.float().abs().max()),
-                  "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish")),
-                  "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish"), iters=5),
-                  "library_ms": cuda_ms(lambda: torch.addmm(b2, F.silu(torch.addmm(b1, x, w1)),
-                                                            w2)),
-                  "library_note": "addmm -> silu -> addmm, three calls"}
+                  "body": FF._fwd_body(dtype, D, Fi), "tokens": T, "d": D, "inner": Fi}
+        ok.append(agree(line_f, [y], [FF._fwd_plain(x, w1, b1, w2, b2, "swish")], ATT_TOL[dt]))
+        line_f.update({
+            "kernel_ms": cuda_ms(lambda: FF._fwd_cuda(x, w1, b1, w2, b2, "swish")),
+            "plain_ms": cuda_ms(lambda: FF._fwd_plain(x, w1, b1, w2, b2, "swish"), iters=5),
+            "library_ms": cuda_ms(lambda: torch.addmm(b2, F.silu(torch.addmm(b1, x, w1)), w2)),
+            "library_note": "addmm -> silu -> addmm, three calls"})
         line_f["bound_ms"], line_f["bound_by"] = bound_ms(nbytes(x, w1, b1, w2, b2, y), fl, dt)
-        gb, gr = FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish"), \
-            FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")
-        errs, _ = leaf_errs(gb, gr)
+        gb = FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish")
         line_fb = {"phase": "kernel", "name": "fused_ffn_bwd", "what": "BST", "dtype": dt,
-                   "body": FF._bwd_body(dtype, D, Fi), "tokens": T,
-                   "max_abs_err": max(float((a.float() - b.float()).abs().max())
-                                      for a, b in zip(gb, gr)),
-                   "max_rel_err": max(errs), "tol": BWD_TOL if dt == "bfloat16" else 1e-4,
-                   "kernel_ms": cuda_ms(lambda: FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish"),
-                                        iters=10),
-                   "plain_ms": cuda_ms(lambda: FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"),
-                                       iters=3),
-                   "library_ms": None}
+                   "body": FF._bwd_body(dtype, D, Fi), "tokens": T}
+        ok.append(agree(line_fb, gb, FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"),
+                        BWD_TOL[dt]))
+        line_fb.update({
+            "kernel_ms": cuda_ms(lambda: FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish"),
+                                 iters=10),
+            "plain_ms": cuda_ms(lambda: FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish"), iters=3),
+            "library_ms": None})
         line_fb["bound_ms"], line_fb["bound_by"] = bound_ms(
             nbytes(x, w1, b1, w2, b2, dy, *gb), 3 * fl, dt)
-        bad = []
         for ln in (line, line_b, line_f, line_fb):
             emit(ln)
-            err = ln.get("max_rel_err", ln["max_abs_err"])
-            if not err <= ln["tol"]:
-                bad.append(ln["name"] + " " + dt)
-        if bad:
-            raise AssertionError(f"rows 10-13 at BST's shape disagree: {bad}")
         rows[dt] = {"fused_attention": line, "fused_attention_bwd": line_b,
                     "fused_ffn": line_f, "fused_ffn_bwd": line_fb}
-        del x, w1, b1, w2, b2, dy, y, yr, gb, gr
+        del x, w1, b1, w2, b2, dy, y, gb
         torch.cuda.empty_cache()
+    if not all(ok):
+        raise AssertionError(f"rows 10-13 at BST's shape disagree with their plain versions: "
+                             f"{rows}")
     return rows["bfloat16"]
 
 
@@ -4423,7 +4149,7 @@ def export_inputs(history, L=SEQ_LEN):
 def hold_artifact(torch, serve, model, name, args, want=()):
     """One function of an exported artifact on the card: its launches
     (each of ``want`` above 0), its output against the live model through
-    the kernels and through the plain versions, each within emb_tol of the
+    the kernels and through the plain versions, each within ln_tol of the
     reference. Returns (line, the artifact's output)."""
     from unirec_tpu_torch.serving.export import ServeFunction
     module = ServeFunction(model, name)
@@ -4437,8 +4163,8 @@ def hold_artifact(torch, serve, model, name, args, want=()):
         with plain_versions():
             plain = module(*ids).float().cpu()
     line = {"function": name, "shape": list(got.shape), "launches": counts,
-            "max_abs_diff_live": float((got - live).abs().max()), "tol_live": emb_tol(live),
-            "max_abs_diff_plain": float((got - plain).abs().max()), "tol_plain": emb_tol(plain),
+            "max_abs_diff_live": float((got - live).abs().max()), "tol_live": ln_tol(live),
+            "max_abs_diff_plain": float((got - plain).abs().max()), "tol_plain": ln_tol(plain),
             "finite": bool(torch.isfinite(got).all())}
     bad = [k for k in want if counts[k] <= 0]
     if bad or not (line["finite"] and line["max_abs_diff_live"] <= line["tol_live"]
@@ -4520,9 +4246,9 @@ def export_path(torch, card: str, background):
         line = {"package": name, "max_seq_len": L, "device": res["device"], "calls": calls,
                 "launches": res["launches"], "launches_mma": res["launches_mma"],
                 "max_abs_diff_artifact": float((c_out - score).abs().max()),
-                "tol_artifact": emb_tol(score),
+                "tol_artifact": ln_tol(score),
                 "max_abs_diff_plain": float((c_out - plain).abs().max()),
-                "tol_plain": emb_tol(plain), "ms_per_call": res["seconds_per_call"] * 1e3}
+                "tol_plain": ln_tol(plain), "ms_per_call": res["seconds_per_call"] * 1e3}
         # each row once a layer that runs it, a call: the last-query layer's
         # attention is plain, the FFN runs in both layers
         per_call = {op: 2 if op == "unirec::ffn_fwd" else 1 for op in want_n}
@@ -5728,26 +5454,27 @@ def morec_dp(torch, base: Path, card: str):
         idle = [k for r in (r0, r1) for k in ("scatter_add", "member" if name == "base"
                                               else "scatter_add") if r["launches"][k] <= 0]
         if len(want["losses"]) != MOREC_DP_STEPS or not equal or idle \
-                or not loss_err <= MOREC_TOL or line["params_max_rel_err"] > BWD_TOL \
+                or not loss_err <= MOREC_TOL or line["params_max_rel_err"] > BWD_TOL["bfloat16"] \
                 or (name != "base" and not (line["vec_max_rel_diff"] <= MOREC_TOL
                                             and line["gram_max_rel_diff"] <= MOREC_TOL
                                             and r0["batch_size"] == MOREC_BATCH)):
             bad.append(name)
     emit({"phase": "dist_morec", "ranks": 2, "backend": "gloo", "mesh": "2x1",
-          "steps": MOREC_DP_STEPS, "runs": lines, "tol": MOREC_TOL, "params_tol": BWD_TOL,
+          "steps": MOREC_DP_STEPS, "runs": lines, "tol": MOREC_TOL,
+          "params_tol": BWD_TOL["bfloat16"],
           "one_rank_s": one_s, "seconds_with_start": gloo_s, "card": card})
     if bad:
         raise AssertionError(f"dist_morec: two gloo ranks disagree with one on {bad}")
     return counts
 
 
-def dist_path(torch, card: str, train_examples_per_s: float):
+def dist_path(torch, card: str):
     """Distribution on the card. (1) main.run(task=train) at bench.py's
     training configuration (dropout 0, batch 32,768, the steps train_path
     takes) without a process group, then inside an NCCL group of one at
     mesh_data=1: the same loss at every step (BWD_TOL), rows 1-4, 6 and 8
-    on their new bodies, the same rolling checkpoint, examples/s beside
-    train_path's (``train_examples_per_s``, dropout 0.1 there). (2) Two
+    on their new bodies, the same rolling checkpoint, examples/s with and
+    without the group. (2) Two
     gloo ranks on the card at mesh_model=2 with shard_embeddings (batch
     8,192, 3 steps; the item table row-sharded, its lookup summed and its
     backward through row 6) against the same 3 steps at 1 x 1 in the NCCL
@@ -5783,14 +5510,14 @@ def dist_path(torch, card: str, train_examples_per_s: float):
                 "examples_per_s": TRAIN_BATCH * TIMED_STEPS / group_s,
                 "ms_per_step": group_s * 1e3 / TIMED_STEPS,
                 "examples_per_s_without_group": TRAIN_BATCH * TIMED_STEPS / one_s,
-                "train_path_examples_per_s": train_examples_per_s,
                 "loss_max_rel_diff": loss_err, "checkpoint_max_rel_err": errs[worst],
-                "checkpoint_worst_leaf": worst, "tol": BWD_TOL,
+                "checkpoint_worst_leaf": worst, "tol": BWD_TOL["bfloat16"],
                 "first_loss": float(group[0]), "last_loss": float(group[-1]), "card": card}
         emit(line)
         emit({"phase": "dist_path_launches", **counts})
         missing = [k for k, v in counts.items() if v <= 0]
-        if len(group) != len(one) or not loss_err <= BWD_TOL or not errs[worst] <= BWD_TOL \
+        tol = BWD_TOL["bfloat16"]
+        if len(group) != len(one) or not loss_err <= tol or not errs[worst] <= tol \
                 or missing:
             raise AssertionError(f"world size 1 disagrees with one process: {line}, "
                                  f"never launched {missing}")
@@ -5832,7 +5559,7 @@ def dist_path(torch, card: str, train_examples_per_s: float):
                 "loss_max_rel_diff": loss_err, "loss_tol": DIST_LOSS_TOL,
                 "item_grad_step1_max_rel_err": grad_err, "ranks_bit_equal": ranks_equal,
                 "max_rel_err": [errs[r][worst[r]] for r in errs],
-                "worst_leaf": [worst[r] for r in worst], "tol": BWD_TOL,
+                "worst_leaf": [worst[r] for r in worst], "tol": BWD_TOL["bfloat16"],
                 "dcp_reload_equal": dcp_same, "launches": [r["launches"] for r in ranks],
                 "seconds_with_start": gloo_s, "card": card}
         emit(line)
@@ -5840,8 +5567,8 @@ def dist_path(torch, card: str, train_examples_per_s: float):
         for r, res in enumerate(ranks):
             on_new_bodies(f"gloo rank {r}", res["launches"], POP_BODIES)
         if ranks[0]["sharded"] != ["item_embedding.weight"] or not dcp_same or idle \
-                or max(line["max_rel_err"]) > BWD_TOL or not ranks_equal \
-                or not loss_err <= DIST_LOSS_TOL or not grad_err <= BWD_TOL:
+                or max(line["max_rel_err"]) > BWD_TOL["bfloat16"] or not ranks_equal \
+                or not loss_err <= DIST_LOSS_TOL or not grad_err <= BWD_TOL["bfloat16"]:
             raise AssertionError(f"two gloo ranks disagree with one: {line}")
         add_counts(counts, morec_dp(torch, base, card))
         add_counts(counts, sharded_serving(torch, card))
@@ -5895,14 +5622,9 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
         rows["layer_fwd"] = kernel_layer(torch, "bfloat16")
         rows["layer_fwd_cuda_core"] = rows["layer_fwd"]["cuda_core"]
         kernel_layer(torch, "float32")
-        for act in ("relu", "gelu", "tanh", "sigmoid"):
-            for causal in (True, False):
-                kernel_layer(torch, "float32", act, causal, timed=False)
-        kernel_layer(torch, "bfloat16", "gelu", False, timed=False)
         rows["lastq_fwd"] = kernel_lastq(torch, "bfloat16")
         rows["lastq_fwd_cuda_core"] = rows["lastq_fwd"]["cuda_core"]
         kernel_lastq(torch, "float32")
-        kernel_lastq(torch, "float32", "gelu", timed=False)
         for name, int8 in (("blockmax", False), ("blockmax_int8", True)):
             rows[name] = kernel_blockmax(torch, N_ITEMS, "bfloat16", int8)
             rows[f"{name}_cuda_core"] = older_body_row(rows[name], "cuda_core", "cuda")
@@ -5922,9 +5644,8 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
     kernel_scatter(torch)
     kernel_member(torch)
     torch.cuda.empty_cache()
-    train_counts, train_line, trainer, raw, aug = train_path(torch, card)
+    train_counts, trainer, raw, aug = train_path(torch, card)
     check_train_path(torch, trainer, raw, aug)
-    profile_train_path(torch, trainer, raw, card)
     del trainer, raw, aug
     torch.cuda.empty_cache()
     opt_in_counts = opt_in_variants(torch, card)
@@ -6007,7 +5728,7 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
     torch.cuda.empty_cache()
     export_counts, client_counts = timed("export_path", export_path, torch, card, background)
     torch.cuda.empty_cache()
-    dist_counts = timed("dist_path", dist_path, torch, card, train_line["examples_per_s"])
+    dist_counts = timed("dist_path", dist_path, torch, card)
 
     # row 6's line is the entry path's item_seq ids, its per-row body's the
     # same call's
@@ -6106,7 +5827,7 @@ def run_phases(torch, _build, card: str, background, t_start: float) -> int:
         kernels.append({
             "name": name, "body": bodies.get(name, "cuda"), "route": "cuda", "source": src,
             "replaces": rep, "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "max_abs_err": r.get("max_abs_err"), "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start, "new_phases_s": walls})

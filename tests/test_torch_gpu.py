@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card (marker ``gpu``; skipped without one).
 
 Each kernel against its plain PyTorch version on the same CUDA tensors, in
-the working dtype. Tolerances: f32 outputs 1e-4 abs (summation order
-only); bf16 LayerNorm outputs, which are O(1), 3e-2 abs (a bf16 rounding
-that flips at one point moves later roundings); block maxima 1e-3 of the
+the working dtype, at small shapes and at the shapes the paths run.
+Tolerances, case builders and holders are card_cases.py's (shared with
+chip_smoke.py, which times the kernels); block maxima within 1e-3 of the
 largest score. Run on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -12,18 +12,20 @@ largest score. Run on the card with
 machine does not have.)
 """
 import ctypes
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from card_cases import (ATT_TOL, BWD_TOL, FAMILY, LN_TOL, SOLVER_TOL, SOLVERS, adam_state,
+                        att_case, cell_leaf_shapes, dtype_name, f32_ulps, guarded_update,
+                        hold_pass2, hstu_case, layer_case, ln_tol, path_layer_case,
+                        replayed_mask_mismatches)
 from unirec_tpu_torch.ops import _build
 from unirec_tpu_torch.ops import layer as LY
 from unirec_tpu_torch.ops import topk as TK
 
 pytestmark = pytest.mark.gpu
-TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -34,26 +36,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _layer_case(dev, dtype, B=8, L=10, D=32, F=64, seed=0):
-    g = torch.Generator(device=dev).manual_seed(seed)
-    rn = lambda *s, std=1.0: torch.randn(*s, generator=g, device=dev) * std  # noqa: E731
-    x = rn(B, L, D).to(dtype)
-    seq = torch.randint(0, 3, (B, L), generator=g, device=dev)
-    seq[:, -2:] = 1
-    seq[0] = 0                                    # fully padded row
-    madd = torch.where(seq > 0, 0.0, LY.MASK_VALUE)
-    lin = lambda i, o: (rn(i, o, std=0.2), rn(o, std=0.05))  # noqa: E731
-    ln = lambda: (1.0 + rn(D, std=0.1), rn(D, std=0.1))  # noqa: E731
-    params = (lin(D, D), lin(D, D), lin(D, D), lin(D, D), ln(), lin(D, F),
-              lin(F, D), ln())
-    return x, madd, params
-
-
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("act", LY.SUPPORTED_ACTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_fwd_matches_plain(cuda, dtype, act, causal):
-    x, madd, params = _layer_case(cuda, dtype)
+    x, madd, params = layer_case(cuda, dtype)
     kw = dict(n_heads=2, inner_size=64, hidden_act=act, layer_norm_eps=1e-10)
     before = LY.fused_transformer_layer.launches
     y = LY.fused_transformer_layer(x, madd, params, causal=causal, **kw)
@@ -62,21 +49,23 @@ def test_layer_fwd_matches_plain(cuda, dtype, act, causal):
     ref = LY._layer_fwd_plain(xp, mp, LY._layer_weights(params, dtype), 2, act,
                               1e-10, causal)[:, :x.shape[1]]
     assert y.dtype == dtype and torch.isfinite(y).all()
-    assert float((y.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert float((y.float() - ref.float()).abs().max()) <= LN_TOL[dtype_name(dtype)]
 
 
+# (B, L, D, F): a small case, and the serving path's (B=256, L=50, d=64)
+@pytest.mark.parametrize("B,L,D,F", [(8, 10, 32, 64), (256, 50, 64, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lastq_fwd_matches_plain(cuda, dtype):
-    x, madd, params = _layer_case(cuda, dtype, seed=1)
-    kw = dict(n_heads=2, inner_size=64, hidden_act="gelu", layer_norm_eps=1e-10)
+def test_lastq_fwd_matches_plain(cuda, dtype, B, L, D, F):
+    x, madd, params = layer_case(cuda, dtype, B=B, L=L, D=D, F=F, seed=1)
+    kw = dict(n_heads=2, inner_size=F, hidden_act="gelu", layer_norm_eps=1e-10)
     before = LY.fused_last_query_layer.launches
-    y = LY.fused_last_query_layer(x, madd, params, q_index=8, **kw)
+    y = LY.fused_last_query_layer(x, madd, params, q_index=L - 2, **kw)
     assert LY.fused_last_query_layer.launches == before + 1
     xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
-    ref = LY._lastq_fwd_plain(xp, mp, LY._lastq_weights(params, dtype), 8, 2,
+    ref = LY._lastq_fwd_plain(xp, mp, LY._lastq_weights(params, dtype), L - 2, 2,
                               "gelu", 1e-10)
-    assert y.shape == (8, 32)
-    assert float((y.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert y.shape == (B, D)
+    assert float((y.float() - ref.float()).abs().max()) <= LN_TOL[dtype_name(dtype)]
 
 
 @pytest.mark.parametrize("N", [4096, 1000])       # 1000: ragged last chunk
@@ -228,36 +217,6 @@ def _pass2_case(dev, B, N, D, k, udt=torch.bfloat16, idt=torch.bfloat16, hcap=0,
     return u, items, scale, blk, bans
 
 
-def _hold_pass2(v, ids, u, items, scale, blk, k, bans):
-    """The kernel's (values, ids) against the plain version's on the same
-    inputs: values descending and equal within f32 rounding (the kernel sums
-    a row's products in another order: 1e-5 of the largest score), every id
-    scored as its value says and not banned, and the id sets equal apart
-    from ties at the k-th value (an id in one set only scores within the
-    rounding of the k-th)."""
-    pv, pids = TK._rescore_topk_plain(u, items, blk, k, item_scale=scale, **bans)
-    tol = 1e-5 * float(pv.abs().max())
-    assert v.shape == ids.shape == (u.shape[0], k) and ids.dtype == torch.int64
-    assert bool((v[:, 1:] <= v[:, :-1]).all()) and bool(torch.isfinite(v).all())
-    assert float((v - pv).abs().max()) <= tol
-    N = items.shape[0]
-    assert int(ids.min()) >= 0 and int(ids.max()) < N
-    own = (u.float()[:, None, :] * items[ids].float()).sum(-1)
-    if scale is not None:
-        own = own * scale[ids]
-    assert float((own - v).abs().max()) <= tol
-    ok = TK._ban_candidates(own, ids, N, **bans)
-    assert bool(torch.isfinite(ok).all()), "a banned id was selected"
-    srt, psrt = ids.sort(1).values, pids.sort(1).values
-    differ = (srt != psrt).any(1)
-    for r in differ.nonzero()[:, 0].tolist():
-        only = set(ids[r].tolist()) ^ set(pids[r].tolist())
-        for i in only:
-            at = (ids[r] == i).nonzero()
-            val = v[r, at[0, 0]] if len(at) else pv[r, (pids[r] == i).nonzero()[0, 0]]
-            assert abs(float(val - pv[r, -1])) <= tol, (r, i)
-
-
 PASS2_CASES = {   # name: (B, N, D, k, case options)
     "serve": (4096, 50_000, 64, 100, dict(hcap=200, exclude_pad=True)),
     "serve_int8": (4096, 50_000, 64, 100, dict(idt=torch.int8, hcap=200, exclude_pad=True)),
@@ -303,7 +262,7 @@ def test_rescore_topk_matches_plain(cuda, case):
     v, ids = TK.rescore_topk(u, items, blk, k, item_scale=scale, **bans)
     torch.cuda.synchronize()
     assert getattr(TK.rescore_topk, name) == before + 1
-    _hold_pass2(v, ids, u, items, scale, blk, k, bans)
+    hold_pass2(v, ids, u, items, scale, blk, k, bans)
 
 
 def test_rescore_topk_takes_a_misaligned_table_on_the_scalar_body(cuda):
@@ -314,7 +273,7 @@ def test_rescore_topk_takes_a_misaligned_table_on_the_scalar_body(cuda):
     odd = buf[1:].view(items.shape)             # 2 bytes past an aligned address
     assert odd.data_ptr() % 16 and _body(odd, blk.shape[1], 50, 20) == "scalar"
     v, ids = TK.rescore_topk(u, odd, blk, 50, **bans)
-    _hold_pass2(v, ids, u, items, scale, blk, 50, bans)
+    hold_pass2(v, ids, u, items, scale, blk, 50, bans)
 
 
 @pytest.mark.parametrize("idt,D,kp,k,hcap,N,aligned,body", [
@@ -454,7 +413,7 @@ def test_shared_memory_gate_matches_the_kernels(cuda):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    x, madd, params = _layer_case(cuda, torch.float16)
+    x, madd, params = layer_case(cuda, torch.float16)
     with pytest.raises(TypeError):
         LY.fused_transformer_layer(x, madd, params, n_heads=2, inner_size=64,
                                    hidden_act="swish", layer_norm_eps=1e-10,
@@ -467,7 +426,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_use_pallas_launches_flash_attention_in_both_layers(cuda):
     """use_pallas at L=256 launches flash attention in both layers, and the
     user embeddings agree with the same model through the plain versions
-    within emb_tol (chip_smoke.py): bf16 LayerNorm outputs, 3e-2 or two bf16
+    within ln_tol (card_cases.py): bf16 LayerNorm outputs, 3e-2 or two bf16
     ulps of the largest embedding, since one rounding that flips moves an
     element by one ulp, 2^-5 for an output in [4, 8)."""
     from unittest import mock
@@ -492,7 +451,7 @@ def test_use_pallas_launches_flash_attention_in_both_layers(cuda):
         assert AT.flash_attention.launches == before + 2
         with mock.patch.object(AT, "_flash_fwd_cuda", AT._flash_fwd_plain):
             ref = model.user_emb({"item_seq": seq})
-    tol = max(3e-2, 2.0 ** -6 * float(ref.float().abs().max()))
+    tol = ln_tol(ref)
     assert torch.isfinite(u).all() and float((u.float() - ref.float()).abs().max()) <= tol
 
 
@@ -519,12 +478,6 @@ def test_sasrec_kernels_agree_with_plain_path(cuda):
 
 
 # ------------------------------------------------------------ training slice
-# Backward tolerances are relative to the largest reference gradient: f32
-# 1e-4 (summation order: the kernels sum weight gradients per block, then
-# across blocks); bf16 5e-2 (the kernels and the plain versions round to
-# bf16 at the same points, but a different f32 summation order can flip
-# one rounding, which later roundings carry).
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
 def _rel_err(a, b):
@@ -537,25 +490,25 @@ def _drop(p=0.1, seed=1234):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dropout_forward_kernels_match_plain(cuda, dtype):
-    x, madd, params = _layer_case(cuda, dtype, B=16, seed=4)
+    x, madd, params = layer_case(cuda, dtype, B=16, seed=4)
     xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
     flat = LY._layer_weights(params, dtype)
     y = LY._layer_fwd_cuda(xp, mp, flat, 2, "swish", 1e-10, True, _drop())
     ref = LY._layer_fwd_plain(xp, mp, flat, 2, "swish", 1e-10, True, _drop())
-    assert float((y.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert float((y.float() - ref.float()).abs().max()) <= LN_TOL[dtype_name(dtype)]
     assert float((y.float() - LY._layer_fwd_plain(xp, mp, flat, 2, "swish", 1e-10, True)
-                  .float()).abs().max()) > 10 * TOL[dtype]    # dropout really ran
+                  .float()).abs().max()) > 10 * LN_TOL[dtype_name(dtype)]    # dropout really ran
     fq = LY._lastq_weights(params, dtype)
     yq = LY._lastq_fwd_cuda(xp, mp, fq, 9, 2, "swish", 1e-10, _drop())
     rq = LY._lastq_fwd_plain(xp, mp, fq, 9, 2, "swish", 1e-10, _drop())
-    assert float((yq.float() - rq.float()).abs().max()) <= TOL[dtype]
+    assert float((yq.float() - rq.float()).abs().max()) <= LN_TOL[dtype_name(dtype)]
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("causal,act", [(True, "swish"), (False, "gelu"), (True, "relu")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_bwd_matches_plain(cuda, dtype, causal, act, p):
-    x, madd, params = _layer_case(cuda, dtype, B=40, seed=5)
+    x, madd, params = layer_case(cuda, dtype, B=40, seed=5)
     xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
     flat = LY._layer_weights(params, dtype)
     dy = torch.randn(xp.shape, device=cuda).to(dtype)
@@ -564,16 +517,16 @@ def test_layer_bwd_matches_plain(cuda, dtype, causal, act, p):
     dx, grads = LY.layer_bwd(xp, mp, flat, dy, *args)
     assert LY.layer_bwd.launches == before + 1
     rdx, rgrads = LY._layer_bwd_plain(xp, mp, flat, dy, *args)
-    assert _rel_err(dx, rdx) <= BWD_TOL[dtype]
+    assert _rel_err(dx, rdx) <= BWD_TOL[dtype_name(dtype)]
     for g, r, w in zip(grads, rgrads, flat):
         assert g.dtype == w.dtype and g.shape == w.shape
-        assert _rel_err(g, r) <= BWD_TOL[dtype]
+        assert _rel_err(g, r) <= BWD_TOL[dtype_name(dtype)]
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lastq_bwd_matches_plain(cuda, dtype, p):
-    x, madd, params = _layer_case(cuda, dtype, B=40, seed=6)
+    x, madd, params = layer_case(cuda, dtype, B=40, seed=6)
     xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
     flat = LY._lastq_weights(params, dtype)
     dy = torch.randn(xp.shape[0], xp.shape[2], device=cuda).to(dtype)
@@ -582,9 +535,9 @@ def test_lastq_bwd_matches_plain(cuda, dtype, p):
     dx, grads = LY.lastq_bwd(xp, mp, flat, dy, *args)
     assert LY.lastq_bwd.launches == before + 1
     rdx, rgrads = LY._lastq_bwd_plain(xp, mp, flat, dy, *args)
-    assert _rel_err(dx, rdx) <= BWD_TOL[dtype]
+    assert _rel_err(dx, rdx) <= BWD_TOL[dtype_name(dtype)]
     for g, r in zip(grads, rgrads):
-        assert _rel_err(g, r) <= BWD_TOL[dtype]
+        assert _rel_err(g, r) <= BWD_TOL[dtype_name(dtype)]
 
 
 def test_backward_gates_match_the_kernels(cuda):
@@ -597,7 +550,7 @@ def test_backward_gates_match_the_kernels(cuda):
     for Lp, D, F, nh in ((56, 64, 128, 2), (16, 32, 64, 2)):
         assert lb.unirec_layer_bwd_smem_bytes(Lp, D, F, nh) == LY._layer_bwd_smem_bytes(Lp, D, F, nh)
         assert qb.unirec_lastq_bwd_smem_bytes(Lp, D, F, nh) == LY._lastq_bwd_smem_bytes(Lp, D, F, nh)
-        x, madd, params = _layer_case(cuda, torch.float32, D=D, F=F)
+        x, madd, params = layer_case(cuda, torch.float32, D=D, F=F)
         assert lb.unirec_layer_bwd_slab_floats(D, F) == sum(
             t.numel() for t in LY._layer_weights(params, torch.float32))
         assert qb.unirec_lastq_bwd_slab_floats(D, F) == sum(
@@ -607,11 +560,11 @@ def test_backward_gates_match_the_kernels(cuda):
 def _layer_bwd_path_case(dev, B, seed, causal=True, act="swish", p=0.1, dtype=torch.bfloat16):
     """The training path's layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on B
     examples, with dy on every real row, as the layer backward is called."""
-    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
-    xp, mp, _ = LY._pad_L(x, madd, 50)
+    xp, mp, params = path_layer_case(dev, dtype, B, seed)
     flat = LY._layer_weights(params, dtype)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
-    dy = LY._pad_L(torch.randn(x.shape, generator=g, device=dev).to(dtype), madd, 50)[0]
+    dy = torch.zeros_like(xp)
+    dy[:, :50] = torch.randn(B, 50, 64, generator=g, device=dev).to(dtype)
     return xp, mp, flat, dy, (2, act, 1e-10, causal, _drop(p))
 
 
@@ -619,11 +572,11 @@ def _hold_layer_bwd(got, ref, D=64):
     """Every output within BWD_TOL of its own largest value; the key bias's
     gradient, zero in exact arithmetic, against the query bias's scale."""
     (dx, grads), (rdx, rgrads) = got, ref
-    assert _rel_err(dx, rdx) <= BWD_TOL[torch.bfloat16]
+    assert _rel_err(dx, rdx) <= BWD_TOL["bfloat16"]
     for gr, r in zip(grads, rgrads):
-        assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16]
+        assert _rel_err(gr, r) <= BWD_TOL["bfloat16"]
     dbk, rdbq = grads[1][D:2 * D].float(), rgrads[1][:D].float()
-    assert float(dbk.abs().max()) <= BWD_TOL[torch.bfloat16] * float(rdbq.abs().max())
+    assert float(dbk.abs().max()) <= BWD_TOL["bfloat16"] * float(rdbq.abs().max())
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
@@ -653,7 +606,7 @@ def test_layer_bwd_tensor_core_masks_are_the_forwards(cuda):
     xp, mp, flat, dy, args = _layer_bwd_path_case(cuda, 33, 22)
     dx, _ = LY._layer_bwd_cuda(xp, mp, flat, dy, *args)
     rdx, _ = LY._layer_bwd_plain(xp, mp, flat, dy, *args[:-1], _drop(0.1, seed=4321))
-    assert _rel_err(dx, rdx) > 4 * BWD_TOL[torch.bfloat16]
+    assert _rel_err(dx, rdx) > 4 * BWD_TOL["bfloat16"]
 
 
 def test_layer_bwd_f32_keeps_the_cuda_core_body(cuda):
@@ -664,7 +617,7 @@ def test_layer_bwd_f32_keeps_the_cuda_core_body(cuda):
     assert (LY.layer_bwd.launches, LY.layer_bwd.launches_mma) == (before[0] + 1, before[1])
     rdx, rgrads = LY._layer_bwd_plain(xp, mp, flat, dy, *args)
     for a, r in zip((dx, *grads), (rdx, *rgrads)):
-        assert _rel_err(a, r) <= BWD_TOL[torch.float32]
+        assert _rel_err(a, r) <= BWD_TOL["float32"]
 
 
 @pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
@@ -683,7 +636,7 @@ def test_layer_bwd_body_selector(cuda, Lp, D, F, nh):
     assert smem(D, F, nh) == LY._layer_bwd_mma_smem_bytes(D, F, nh)
     if body != "mma":
         return
-    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=24)
+    x, madd, params = layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=24)
     xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
     flat = LY._layer_weights(params, torch.bfloat16)
     dy = torch.randn(xp.shape, device=cuda).to(torch.bfloat16)
@@ -693,33 +646,26 @@ def test_layer_bwd_body_selector(cuda, Lp, D, F, nh):
     assert LY.layer_bwd.launches_mma == before + 1
     rdx, rgrads = LY._layer_bwd_plain(xp, mp, flat, dy, *args)
     for a, b in zip((dx, *grads), (rdx, *rgrads)):
-        assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
+        assert _rel_err(a, b) <= BWD_TOL["bfloat16"]
 
 
 # ------------------------------------ rows 1 and 4 on the tensor cores
-def _ln_tol(ref):
-    """bf16 LayerNorm outputs: 3e-2, or two bf16 ulps of the largest output
-    where that is more (an output in [4, 8) has ulp 2^-5 > 3e-2), since one
-    rounding that flips moves an output by one ulp."""
-    return max(TOL[torch.bfloat16], 2.0 ** -6 * float(ref.float().abs().max()))
-
-
 def _layer_fwd_path_case(dev, B, seed, causal=True, act="swish", p=0.1, dtype=torch.bfloat16):
     """The paths' whole layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on B
     examples, as fused_transformer_layer calls its forward."""
-    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
-    xp, mp, _ = LY._pad_L(x, madd, 50)
+    xp, mp, params = path_layer_case(dev, dtype, B, seed)
     return xp, mp, LY._layer_weights(params, dtype), (2, act, 1e-10, causal, _drop(p))
 
 
+@pytest.mark.parametrize("B", [33, 256])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("act", ["swish", "gelu"])
-def test_layer_fwd_tensor_core_body_matches_plain(cuda, act, causal, p):
+def test_layer_fwd_tensor_core_body_matches_plain(cuda, act, causal, p, B):
     """Row 1's bf16 tensor-core forward at the paths' widths (B=33: the last
-    block's second group idle), both activations of the paths, both masks,
-    dropout 0 and 0.1."""
-    xp, mp, flat, args = _layer_fwd_path_case(cuda, 33, 30, causal, act, p)
+    block's second group idle; B=256: the serving batch), both activations
+    of the paths, both masks, dropout 0 and 0.1."""
+    xp, mp, flat, args = _layer_fwd_path_case(cuda, B, 30, causal, act, p)
     assert LY._layer_fwd_body(torch.bfloat16, 56, 64, 128, 2) == "mma"
     before = LY.fused_transformer_layer.launches, LY.fused_transformer_layer.launches_mma
     y = LY._layer_fwd_cuda(xp, mp, flat, *args)
@@ -727,7 +673,7 @@ def test_layer_fwd_tensor_core_body_matches_plain(cuda, act, causal, p):
             LY.fused_transformer_layer.launches_mma) == (before[0] + 1, before[1] + 1)
     ref = LY._layer_fwd_plain(xp, mp, flat, *args)
     assert torch.isfinite(y).all()
-    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    assert float((y.float() - ref.float()).abs().max()) <= ln_tol(ref)
 
 
 @pytest.mark.parametrize("B,p", [(1, 0.1), (37, 0.1), (1000, 0.1), (256, 0.0)])
@@ -741,18 +687,23 @@ def test_layer_fwd_tensor_core_ragged_and_serving_batches(cuda, B, p):
     y = LY._layer_fwd_cuda(xp, mp, flat, *args)
     assert LY.fused_transformer_layer.launches_mma == before + 1
     ref = LY._layer_fwd_plain(xp, mp, flat, *args)
-    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    assert float((y.float() - ref.float()).abs().max()) <= ln_tol(ref)
 
 
-def test_layer_fwd_f32_keeps_the_cuda_core_body(cuda):
-    xp, mp, flat, args = _layer_fwd_path_case(cuda, 9, 32, dtype=torch.float32)
+# B=256: the serving batch, every other activation and mask (swish and
+# causal there: chip_smoke.py's f32 row 1 line)
+@pytest.mark.parametrize("B,act,causal", [(9, "swish", True)] + [
+    (256, act, causal) for act in LY.SUPPORTED_ACTS for causal in (True, False)
+    if (act, causal) != ("swish", True)])
+def test_layer_fwd_f32_keeps_the_cuda_core_body(cuda, B, act, causal):
+    xp, mp, flat, args = _layer_fwd_path_case(cuda, B, 32, causal, act, dtype=torch.float32)
     assert LY._layer_fwd_body(torch.float32, 56, 64, 128, 2) == "cuda"
     before = LY.fused_transformer_layer.launches, LY.fused_transformer_layer.launches_mma
     y = LY._layer_fwd_cuda(xp, mp, flat, *args)
     assert (LY.fused_transformer_layer.launches,
             LY.fused_transformer_layer.launches_mma) == (before[0] + 1, before[1])
     ref = LY._layer_fwd_plain(xp, mp, flat, *args)
-    assert float((y - ref).abs().max()) <= TOL[torch.float32]
+    assert float((y - ref).abs().max()) <= LN_TOL["float32"]
 
 
 @pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
@@ -771,7 +722,7 @@ def test_layer_fwd_body_selector(cuda, Lp, D, F, nh):
     assert smem(D, F) == LY._layer_fwd_mma_smem_bytes(D, F)
     if body != "mma":
         return
-    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=33)
+    x, madd, params = layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=33)
     xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
     flat = LY._layer_weights(params, torch.bfloat16)
     args = (nh, "gelu", 1e-10, True, _drop(0.1))
@@ -779,14 +730,13 @@ def test_layer_fwd_body_selector(cuda, Lp, D, F, nh):
     y = LY._layer_fwd_cuda(xp, mp, flat, *args)
     assert LY.fused_transformer_layer.launches_mma == before + 1
     ref = LY._layer_fwd_plain(xp, mp, flat, *args)
-    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    assert float((y.float() - ref.float()).abs().max()) <= ln_tol(ref)
 
 
 def _lastq_bwd_path_case(dev, B, seed, act="swish", p=0.1, qi=49, dtype=torch.bfloat16):
     """The paths' last-query layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on
     B examples, query row qi, as its backward is called."""
-    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
-    xp, mp, _ = LY._pad_L(x, madd, 50)
+    xp, mp, params = path_layer_case(dev, dtype, B, seed)
     flat = LY._lastq_weights(params, dtype)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     dy = torch.randn(B, 64, generator=g, device=dev).to(dtype)
@@ -799,13 +749,13 @@ def _hold_lastq_bwd(got, ref):
     bias's scale (leaf 1)."""
     (dx, grads), (rdx, rgrads) = got, ref
     assert torch.isfinite(dx).all()
-    assert _rel_err(dx, rdx) <= BWD_TOL[torch.bfloat16]
+    assert _rel_err(dx, rdx) <= BWD_TOL["bfloat16"]
     for i, (gr, r) in enumerate(zip(grads, rgrads)):
         if i == 3:
             err = float((gr.float() - r.float()).abs().max())
-            assert err <= BWD_TOL[torch.bfloat16] * float(rgrads[1].float().abs().max())
+            assert err <= BWD_TOL["bfloat16"] * float(rgrads[1].float().abs().max())
         else:
-            assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16]
+            assert _rel_err(gr, r) <= BWD_TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("qi", [49, 20])
@@ -837,7 +787,7 @@ def test_lastq_bwd_tensor_core_masks_are_the_forwards(cuda):
     xp, mp, flat, dy, args = _lastq_bwd_path_case(cuda, 33, 42)
     dx, _ = LY._lastq_bwd_cuda(xp, mp, flat, dy, *args)
     rdx, _ = LY._lastq_bwd_plain(xp, mp, flat, dy, *args[:-1], _drop(0.1, seed=4321))
-    assert _rel_err(dx, rdx) > 4 * BWD_TOL[torch.bfloat16]
+    assert _rel_err(dx, rdx) > 4 * BWD_TOL["bfloat16"]
 
 
 def test_lastq_bwd_f32_keeps_the_cuda_core_body(cuda):
@@ -848,7 +798,7 @@ def test_lastq_bwd_f32_keeps_the_cuda_core_body(cuda):
     assert (LY.lastq_bwd.launches, LY.lastq_bwd.launches_mma) == (before[0] + 1, before[1])
     rdx, rgrads = LY._lastq_bwd_plain(xp, mp, flat, dy, *args)
     for a, r in zip((dx, *grads), (rdx, *rgrads)):
-        assert _rel_err(a, r) <= BWD_TOL[torch.float32]
+        assert _rel_err(a, r) <= BWD_TOL["float32"]
 
 
 @pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
@@ -867,7 +817,7 @@ def test_lastq_bwd_body_selector(cuda, Lp, D, F, nh):
     assert smem(D, F, nh) == LY._lastq_bwd_mma_smem_bytes(D, F, nh)
     if body != "mma":
         return
-    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=44)
+    x, madd, params = layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=44)
     xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
     flat = LY._lastq_weights(params, torch.bfloat16)
     dy = torch.randn(17, D, device=cuda).to(torch.bfloat16)
@@ -877,15 +827,14 @@ def test_lastq_bwd_body_selector(cuda, Lp, D, F, nh):
     assert LY.lastq_bwd.launches_mma == before + 1
     rdx, rgrads = LY._lastq_bwd_plain(xp, mp, flat, dy, *args)
     for a, b in zip((dx, *grads), (rdx, *rgrads)):
-        assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
+        assert _rel_err(a, b) <= BWD_TOL["bfloat16"]
 
 
 # ------------------------------------ row 3 on the tensor cores
 def _lastq_fwd_path_case(dev, B, seed, act="swish", p=0.1, qi=49, dtype=torch.bfloat16):
     """The paths' last-query layer (L=50 -> Lp=56, D=64, 2 heads, F=128) on
     B examples, query row qi, as fused_last_query_layer calls its forward."""
-    x, madd, params = _layer_case(dev, dtype, B=B, L=50, D=64, F=128, seed=seed)
-    xp, mp, _ = LY._pad_L(x, madd, 50)
+    xp, mp, params = path_layer_case(dev, dtype, B, seed)
     return xp, mp, LY._lastq_weights(params, dtype), (qi, 2, act, 1e-10, _drop(p))
 
 
@@ -905,7 +854,7 @@ def test_lastq_fwd_tensor_core_body_matches_plain(cuda, act, p, qi):
             LY.fused_last_query_layer.launches_mma) == (before[0] + 1, before[1] + 1)
     ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
     assert y.shape == (33, 64) and torch.isfinite(y).all()
-    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    assert float((y.float() - ref.float()).abs().max()) <= ln_tol(ref)
 
 
 @pytest.mark.parametrize("B,p", [(1, 0.1), (37, 0.1), (1000, 0.1), (256, 0.0)])
@@ -919,7 +868,7 @@ def test_lastq_fwd_tensor_core_ragged_and_serving_batches(cuda, B, p):
     y = LY._lastq_fwd_cuda(xp, mp, flat, *args)
     assert LY.fused_last_query_layer.launches_mma == before + 1
     ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
-    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    assert float((y.float() - ref.float()).abs().max()) <= ln_tol(ref)
 
 
 def test_lastq_fwd_tensor_core_masks_are_the_backwards(cuda):
@@ -928,7 +877,7 @@ def test_lastq_fwd_tensor_core_masks_are_the_backwards(cuda):
     seed, against the plain forward and backward: the output and every
     gradient agree, and another seed's plain output does not."""
     from unittest import mock
-    x, madd, params = _layer_case(cuda, torch.bfloat16, B=35, L=50, D=64, F=128, seed=62)
+    x, madd, params = layer_case(cuda, torch.bfloat16, B=35, L=50, D=64, F=128, seed=62)
     kw = dict(n_heads=2, inner_size=128, hidden_act="swish", layer_norm_eps=1e-10,
               q_index=49, p_attn=0.1, p_hidden=0.1, train=True)
     dy = torch.randn(35, 64, generator=torch.Generator(device=cuda).manual_seed(63),
@@ -949,14 +898,14 @@ def test_lastq_fwd_tensor_core_masks_are_the_backwards(cuda):
             mock.patch.object(LY, "_lastq_bwd_cuda", LY._lastq_bwd_plain):
         ry, rgrads = run(5)
         other, _ = run(6)
-    assert float((y.float() - ry.float()).abs().max()) <= _ln_tol(ry)
-    assert float((y.float() - other.float()).abs().max()) > 4 * _ln_tol(ry)
+    assert float((y.float() - ry.float()).abs().max()) <= ln_tol(ry)
+    assert float((y.float() - other.float()).abs().max()) > 4 * ln_tol(ry)
     for i, (g, r) in enumerate(zip(grads, rgrads)):
         if i == 4:   # the key bias: zero in exact arithmetic, held to the query bias's scale
             err = float((g.float() - r.float()).abs().max())
-            assert err <= BWD_TOL[torch.bfloat16] * float(rgrads[2].float().abs().max())
+            assert err <= BWD_TOL["bfloat16"] * float(rgrads[2].float().abs().max())
         else:
-            assert _rel_err(g, r) <= BWD_TOL[torch.bfloat16]
+            assert _rel_err(g, r) <= BWD_TOL["bfloat16"]
 
 
 def test_lastq_fwd_f32_keeps_the_cuda_core_body(cuda):
@@ -967,7 +916,7 @@ def test_lastq_fwd_f32_keeps_the_cuda_core_body(cuda):
     assert (LY.fused_last_query_layer.launches,
             LY.fused_last_query_layer.launches_mma) == (before[0] + 1, before[1])
     ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
-    assert float((y - ref).abs().max()) <= TOL[torch.float32]
+    assert float((y - ref).abs().max()) <= LN_TOL["float32"]
 
 
 @pytest.mark.parametrize("Lp,D,F,nh", [(56, 64, 128, 2), (32, 64, 128, 4), (64, 32, 64, 2),
@@ -986,7 +935,7 @@ def test_lastq_fwd_body_selector(cuda, Lp, D, F, nh):
     assert smem(D, F, nh) == LY._lastq_fwd_mma_smem_bytes(D, F, nh)
     if body != "mma":
         return
-    x, madd, params = _layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=65)
+    x, madd, params = layer_case(cuda, torch.bfloat16, B=17, L=Lp - 3, D=D, F=F, seed=65)
     xp, mp, _ = LY._pad_L(x, madd, Lp - 3)
     flat = LY._lastq_weights(params, torch.bfloat16)
     args = (Lp - 4, nh, "gelu", 1e-10, _drop(0.1))
@@ -994,7 +943,7 @@ def test_lastq_fwd_body_selector(cuda, Lp, D, F, nh):
     y = LY._lastq_fwd_cuda(xp, mp, flat, *args)
     assert LY.fused_last_query_layer.launches_mma == before + 1
     ref = LY._lastq_fwd_plain(xp, mp, flat, *args)
-    assert float((y.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    assert float((y.float() - ref.float()).abs().max()) <= ln_tol(ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1200,7 +1149,7 @@ def test_augmenter_membership_launches_the_kernel_at_an_odd_batch(cuda):
 def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from unirec_tpu_torch.ops import member as MB
     from unirec_tpu_torch.ops import scatter_accum as SA
-    x, madd, params = _layer_case(cuda, torch.float16)
+    x, madd, params = layer_case(cuda, torch.float16)
     xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
     flat = LY._layer_weights(params, torch.float16)
     with pytest.raises(TypeError):
@@ -1219,33 +1168,12 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 # ------------------------------------------------ fused attention and FFN
-# Forward and backward against the plain versions on the same CUDA tensors:
-# f32 1e-5 of the largest output (summation order only); bf16 2^-6 of it
-# (two bf16 ulps: the two round at the same points, a sum's order can flip
-# one rounding). With dropout the masks are the same bits.
-ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
-
-
-def _att_case(dev, dtype, B=6, H=2, L=10, hd=32, mask_heads=1, seed=0):
-    from unirec_tpu_torch.models.modules import causal_attention_mask
-    g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(B, H, L, hd, generator=g, device=dev).to(dtype)
-               for _ in range(3))
-    masks = []
-    for _ in range(mask_heads):
-        seq = torch.randint(0, 3, (B, L), generator=g, device=dev)
-        seq[:, -2:] = 1
-        seq[0] = 0                                  # every key masked
-        masks.append(causal_attention_mask(seq))
-    return q, k, v, torch.cat(masks, dim=1)
-
-
-def _rel(a, b):
-    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+# Forward and backward against the plain versions on the same CUDA tensors
+# (ATT_TOL); with dropout the masks are the same bits.
 
 
 def _masked_ok(a, b, tol):
-    """Examples 1.. within tol; example 0 of ``_att_case`` has every key
+    """Examples 1.. within tol; example 0 of ``att_case`` has every key
     masked, so its scores sit near -1e4, where f32 keeps steps of 2^-10: a
     product summed in another order can move one of them, and with it a
     probability, by 2^-10 relative, which is its tolerance. (The L <= 50
@@ -1259,7 +1187,7 @@ def _masked_ok(a, b, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attention_matches_plain(cuda, dtype, L, mask_heads, p):
     from unirec_tpu_torch.ops import attention as AT
-    q, k, v, mask = _att_case(cuda, dtype, L=L, mask_heads=mask_heads)
+    q, k, v, mask = att_case(cuda, dtype, L=L, mask_heads=mask_heads)
     drop = LY.drop_params(p, 0.0, True, 4321)
     before = AT.fused_attention.launches, AT.fused_attention_bwd.launches
     mma = AT.fused_attention.launches_mma
@@ -1268,13 +1196,13 @@ def test_fused_attention_matches_plain(cuda, dtype, L, mask_heads, p):
     # bf16 at these lengths: the tensor-core forward
     assert (AT._fwd_body(dtype, L, 32) == "mma") == (dtype == torch.bfloat16)
     assert AT.fused_attention.launches_mma == mma + (dtype == torch.bfloat16)
-    assert _rel(out, AT._fwd_plain(q, k, v, mask, drop)) <= ATT_TOL[dtype]
+    assert _rel(out, AT._fwd_plain(q, k, v, mask, drop)) <= ATT_TOL[dtype_name(dtype)]
     do = torch.randn_like(q.float()).to(dtype)
     got = AT.fused_attention_bwd(q, k, v, mask, do, drop)
     assert AT.fused_attention_bwd.launches == before[1] + 1
     for a, b in zip(got, AT._bwd_plain(q, k, v, mask, do, drop)):
         assert a.dtype == dtype and a.shape == q.shape
-        assert _rel(a, b) <= ATT_TOL[dtype]
+        assert _rel(a, b) <= ATT_TOL[dtype_name(dtype)]
 
 
 @pytest.mark.parametrize("L,hd,body", [(10, 32, "mma"), (50, 32, "mma"), (64, 64, "mma"),
@@ -1290,7 +1218,7 @@ def test_fused_attention_backward_body_selector(cuda, L, hd, body):
     assert AT._bwd_body(torch.bfloat16, L, hd) == body
     assert bool(takes(1, L, hd)) == (body == "mma")
     assert AT._bwd_body(torch.float32, L, hd) != "mma" and not takes(0, L, hd)
-    q, k, v, mask = _att_case(cuda, torch.bfloat16, B=3, L=L, hd=hd)
+    q, k, v, mask = att_case(cuda, torch.bfloat16, B=3, L=L, hd=hd)
     drop = LY.drop_params(0.1, 0.0, True, 4323)
     do = torch.randn_like(q.float()).to(torch.bfloat16)
     before = AT.fused_attention_bwd.launches, AT.fused_attention_bwd.launches_mma
@@ -1298,7 +1226,7 @@ def test_fused_attention_backward_body_selector(cuda, L, hd, body):
     assert AT.fused_attention_bwd.launches == before[0] + 1
     assert AT.fused_attention_bwd.launches_mma == before[1] + (body == "mma")
     for a, b in zip(got, AT._bwd_plain(q, k, v, mask, do, drop)):
-        assert _masked_ok(a, b, BWD_TOL[torch.bfloat16])
+        assert _masked_ok(a, b, BWD_TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("L,hd,H,mask_heads,body", [
@@ -1315,37 +1243,25 @@ def test_fused_attention_forward_body_selector(cuda, L, hd, H, mask_heads, body)
     takes.argtypes = [ctypes.c_int] * 3
     assert AT._fwd_body(torch.bfloat16, L, hd) == body
     assert bool(takes(1, L, hd)) == (body == "mma")
-    q, k, v, mask = _att_case(cuda, torch.bfloat16, B=5, H=H, L=L, hd=hd,
+    q, k, v, mask = att_case(cuda, torch.bfloat16, B=5, H=H, L=L, hd=hd,
                               mask_heads=mask_heads)
     drop = LY.drop_params(0.1, 0.0, True, 4324)
     before = AT.fused_attention.launches, AT.fused_attention.launches_mma
     out = AT._fwd_cuda(q, k, v, mask, drop)
     assert AT.fused_attention.launches == before[0] + 1
     assert AT.fused_attention.launches_mma == before[1] + (body == "mma")
-    assert _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop), ATT_TOL[torch.bfloat16])
+    assert _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop), ATT_TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("L", [16, 50])
 def test_fused_attention_bwd_replays_the_forward_dropout_mask(cuda, L):
-    """q = k = 0 and no mask make every probability 1/L, and dO with one-hot
-    rows (dO[i, i] = 1) makes dV[j, i] = z[i, j] = rnd(keep[i, j] / L /
-    (1 - p)) exactly: the tensor-core backward's dropout mask is the
-    forward's (the plain keep mask) bit for bit."""
+    """The tensor-core backward's dropout mask is the forward's (the plain
+    keep mask) bit for bit (card_cases.replayed_mask_mismatches)."""
     from unirec_tpu_torch.ops import attention as AT
-    B, H, hd = 3, 2, 64
-    z = torch.zeros(B, H, L, hd, device=cuda, dtype=torch.bfloat16)
-    do = torch.zeros_like(z)
-    do[:, :, torch.arange(L), torch.arange(L)] = 1.0
-    drop = LY.drop_params(0.3, 0.0, True, 97)
-    m = torch.zeros(B, 1, L, L, device=cuda)
     before = AT.fused_attention_bwd.launches_mma
-    _, _, dv = AT._bwd_cuda(z, z, z, m, do, drop)
+    bad, dropped = replayed_mask_mismatches(cuda, 3, L, 64, 0.3)
     assert AT.fused_attention_bwd.launches_mma == before + 1
-    keep = AT._keep(drop, B, H, L, cuda)
-    want = torch.where(keep, torch.full_like(keep, 1.0 / L, dtype=torch.float32)
-                       * drop.inv_attn, 0.0).to(torch.bfloat16)
-    assert torch.equal(dv[..., :L, :L].transpose(-1, -2), want)
-    assert 0 < int((want == 0).sum()) < want.numel()
+    assert bad == 0 and 0 < dropped < 3 * 2 * L * L
 
 
 def test_fused_attention_gate_matches_the_kernels(cuda):
@@ -1397,14 +1313,14 @@ def test_fused_attention_tiled_matches_plain(cuda, dtype, L, p):
     every key masked, as ``_masked_ok`` says)."""
     from unirec_tpu_torch.ops import attention as AT
     assert AT._tiled(L, 32)
-    q, k, v, mask = _att_case(cuda, dtype, B=3, L=L)
+    q, k, v, mask = att_case(cuda, dtype, B=3, L=L)
     drop = LY.drop_params(p, 0.0, True, 4322)
     out = AT._fwd_cuda(q, k, v, mask, drop)
-    assert _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop), ATT_TOL[dtype])
+    assert _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop), ATT_TOL[dtype_name(dtype)])
     do = torch.randn_like(q.float()).to(dtype)
     for a, b in zip(AT._bwd_cuda(q, k, v, mask, do, drop),
                     AT._bwd_plain(q, k, v, mask, do, drop)):
-        assert a.dtype == dtype and _masked_ok(a, b, ATT_TOL[dtype])
+        assert a.dtype == dtype and _masked_ok(a, b, ATT_TOL[dtype_name(dtype)])
 
 
 @pytest.mark.parametrize("L", [300, 512])
@@ -1434,16 +1350,16 @@ def test_fused_attention_wide_heads_match_plain(cuda, dtype, hd, L, p):
     128, both directions against the plain versions with the same dropout
     mask."""
     from unirec_tpu_torch.ops import attention as AT
-    q, k, v, mask = _att_case(cuda, dtype, B=3, L=L, hd=hd)
+    q, k, v, mask = att_case(cuda, dtype, B=3, L=L, hd=hd)
     assert AT._fwd_body(dtype, L, hd) == ("whole" if (L, hd) == (50, 136) else "tiled")
     drop = LY.drop_params(p, 0.0, True, 4325)
+    tol = ATT_TOL[dtype_name(dtype)]
     out = AT._fwd_cuda(q, k, v, mask, drop)
-    assert out.dtype == dtype and _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop),
-                                             ATT_TOL[dtype])
+    assert out.dtype == dtype and _masked_ok(out, AT._fwd_plain(q, k, v, mask, drop), tol)
     do = torch.randn_like(q.float()).to(dtype)
     for a, b in zip(AT._bwd_cuda(q, k, v, mask, do, drop),
                     AT._bwd_plain(q, k, v, mask, do, drop)):
-        assert a.dtype == dtype and a.shape == q.shape and _masked_ok(a, b, ATT_TOL[dtype])
+        assert a.dtype == dtype and a.shape == q.shape and _masked_ok(a, b, tol)
 
 
 # flash attention: out within one bf16 ulp (2^-7) of max(1, the largest
@@ -1459,7 +1375,7 @@ def test_flash_attention_matches_plain(cuda, dtype, L, B, hd, all_masked):
     """all_masked: every key of every row at -1e4 (rows attend uniformly),
     so every example is held as ``_masked_ok`` holds example 0."""
     from unirec_tpu_torch.ops import attention as AT
-    q, k, v, mask = _att_case(cuda, dtype, B=B, L=L, hd=hd)
+    q, k, v, mask = att_case(cuda, dtype, B=B, L=L, hd=hd)
     ok = _masked_ok
     if all_masked:
         mask = torch.full_like(mask, AT.MASK_VALUE)
@@ -1485,13 +1401,13 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     column chunks of 128) and agrees with the plain version; fp16 is
     refused."""
     from unirec_tpu_torch.ops import attention as AT
-    q, k, v, mask = _att_case(cuda, torch.float32, B=2, L=256, hd=136)
+    q, k, v, mask = att_case(cuda, torch.float32, B=2, L=256, hd=136)
     assert AT._flash_body(torch.float32, 136) == AT._flash_body(torch.bfloat16, 136) == "cuda"
     out, lse = AT._flash_fwd_cuda(q, k, v, mask)
     ref, ref_lse = AT._flash_fwd_plain(q, k, v, mask)
     assert _masked_ok(out, ref, 1e-5)
     assert bool(((lse - ref_lse).abs() <= 1e-5 * ref_lse.abs().clamp(min=1.0)).all())
-    q, k, v, mask = _att_case(cuda, torch.float16, B=2, L=256)
+    q, k, v, mask = att_case(cuda, torch.float16, B=2, L=256)
     with pytest.raises(TypeError):
         AT._flash_fwd_cuda(q, k, v, mask)
 
@@ -1522,14 +1438,14 @@ def test_fused_ffn_matches_plain(cuda, dtype, act, T):
     before = FF.fused_ffn.launches, FF.fused_ffn_bwd.launches, FF.fused_ffn_bwd.launches_mma
     y = FF._fwd_cuda(x, w1, b1, w2, b2, act)
     assert FF.fused_ffn.launches == before[0] + 1
-    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, act)) <= ATT_TOL[dtype]
+    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, act)) <= ATT_TOL[dtype_name(dtype)]
     got = FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, act)
     assert FF.fused_ffn_bwd.launches == before[1] + 1
     # bf16: the tensor-core backward (T=33: one ragged tile)
     assert FF.fused_ffn_bwd.launches_mma == before[2] + (dtype == torch.bfloat16)
     for a, b in zip(got, FF._bwd_plain(x, w1, b1, w2, b2, dy, act)):
         assert a.dtype == b.dtype and a.shape == b.shape
-        assert _rel(a, b) <= ATT_TOL[dtype]
+        assert _rel(a, b) <= ATT_TOL[dtype_name(dtype)]
 
 
 @pytest.mark.parametrize("D,Fi", [(64, 128), (64, 512), (32, 48), (16, 2048), (48, 144),
@@ -1564,7 +1480,7 @@ def test_fused_ffn_body_selector(cuda, D, Fi):
     got = FF._bwd_cuda(x, w1, b1, w2, b2, dy, "gelu")
     assert FF.fused_ffn_bwd.launches_mma == before + (body == "mma")
     for a, b in zip(got, FF._bwd_plain(x, w1, b1, w2, b2, dy, "gelu")):
-        assert _rel(a, b) <= ATT_TOL[torch.bfloat16]
+        assert _rel(a, b) <= ATT_TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("T", [1, 33, 32767])
@@ -1589,7 +1505,7 @@ def test_fused_ffn_forward_tensor_core_body_matches_plain(cuda, act, T):
         ref = FF._fwd_plain(*args)
         assert y.dtype == dt and y.shape == (T, 64)
         assert float((y.float() - ref.float()).abs().max()) <= \
-            ATT_TOL[dt] * max(1.0, float(ref.float().abs().max()))
+            ATT_TOL[dtype_name(dt)] * max(1.0, float(ref.float().abs().max()))
 
 
 @pytest.mark.parametrize("D,Fi", [(16, 16), (48, 144), (64, 512), (32, 2048)])
@@ -1610,7 +1526,7 @@ def test_fused_ffn_forward_tensor_core_widths(cuda, D, Fi):
     before = FF.fused_ffn.launches_mma
     y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
     assert FF.fused_ffn.launches_mma == before + 1
-    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[torch.bfloat16]
+    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("D,Fi", [(64, 2048), (256, 1024)])
@@ -1627,11 +1543,11 @@ def test_fused_ffn_wide_matches_plain(cuda, dtype, D, Fi):
     x, w1, b1, w2, b2, dy = (rn(T, D), rn(D, Fi, std=(2 / D) ** 0.5), rn(Fi, std=0.1),
                              rn(Fi, D, std=(1 / Fi) ** 0.5), rn(D, std=0.1), rn(T, D))
     y = FF._fwd_cuda(x, w1, b1, w2, b2, "swish")
-    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[dtype]
+    assert _rel(y, FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[dtype_name(dtype)]
     for a, b in zip(FF._bwd_cuda(x, w1, b1, w2, b2, dy, "swish"),
                     FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")):
         assert a.dtype == b.dtype and a.shape == b.shape
-        assert _rel(a, b) <= ATT_TOL[dtype]
+        assert _rel(a, b) <= ATT_TOL[dtype_name(dtype)]
 
 
 def test_fused_attention_and_ffn_flags_launch_their_kernels(cuda):
@@ -1745,9 +1661,6 @@ def test_multi_positive_metrics_on_the_card_match_the_cpu(cuda):
 
 
 # ------------------------------------- the sequential family, side inputs
-FAMILY = ("GRU", "AvgHist", "AttHist", "SVDPlusPlus", "ConvFormer", "FASTConvFormer")
-
-
 def _family_model(name, dev, **over):
     """A small model of the family at f32, dropout 0, its weights drawn on
     the CPU from seed 0, on ``dev``."""
@@ -1926,11 +1839,11 @@ def test_fused_attention_at_bst_width_matches_plain(cuda, dtype, p):
     drop = LY.drop_params(p, 0.0, True, 77)
     mma = AT.fused_attention.launches_mma, AT.fused_attention_bwd.launches_mma
     out = AT._fwd_cuda(q, k, v, mask, drop)
-    assert _rel(out, AT._fwd_plain(q, k, v, mask, drop)) <= ATT_TOL[dtype]
+    assert _rel(out, AT._fwd_plain(q, k, v, mask, drop)) <= ATT_TOL[dtype_name(dtype)]
     do = torch.randn_like(q.float()).to(dtype)
     got = AT.fused_attention_bwd(q, k, v, mask, do, drop)
     for a, b in zip(got, AT._bwd_plain(q, k, v, mask, do, drop)):
-        assert _rel(a, b) <= ATT_TOL[dtype]
+        assert _rel(a, b) <= ATT_TOL[dtype_name(dtype)]
     bf16 = int(dtype == torch.bfloat16)
     assert (AT.fused_attention.launches_mma, AT.fused_attention_bwd.launches_mma) == \
         (mma[0] + bf16, mma[1] + bf16)
@@ -1947,10 +1860,10 @@ def test_fused_ffn_at_bst_width_matches_plain(cuda, dtype):
     x, w1, b1, w2, b2, dy = (rn(T, 64), rn(64, 128, std=0.2), rn(128, std=0.1),
                              rn(128, 64, std=0.2), rn(64, std=0.1), rn(T, 64))
     assert _rel(FF._fwd_cuda(x, w1, b1, w2, b2, "swish"),
-                FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[dtype]
+                FF._fwd_plain(x, w1, b1, w2, b2, "swish")) <= ATT_TOL[dtype_name(dtype)]
     for a, b in zip(FF.fused_ffn_bwd(x, w1, b1, w2, b2, dy, "swish"),
                     FF._bwd_plain(x, w1, b1, w2, b2, dy, "swish")):
-        assert _rel(a, b) <= ATT_TOL[dtype]
+        assert _rel(a, b) <= ATT_TOL[dtype_name(dtype)]
 
 
 CF_RANK_MODELS = {
@@ -2025,9 +1938,6 @@ def test_cf_and_rank_models_on_the_card_match_the_cpu(cuda, name):
 
 
 # ------------------------------------------------------- the solver models
-SOLVER_CARD_TOL = {"EASE": 1e-4, "SAR": 1e-4, "UserCF": 1e-4, "AdmmSLIM": 1e-3, "SLIM": 1e-3}
-
-
 def _solver_graph(U=600, N=300, density=0.05, seed=0):
     import scipy.sparse as ssp
     rng = np.random.default_rng(seed)
@@ -2044,7 +1954,7 @@ def _solved_matrix(name, graph, device, **over):
 
 @pytest.mark.parametrize("over", [{}, {"solver_device_inverse_max": 64,
                                        "solver_inverse_block": 48}], ids=["lu", "blocked"])
-@pytest.mark.parametrize("name", sorted(SOLVER_CARD_TOL))
+@pytest.mark.parametrize("name", sorted(SOLVERS))
 def test_solvers_on_the_card_match_the_cpu(cuda, name, over):
     """Each solver's matrix on the card against the port's CPU run, by its
     largest entry (f32 both; the iterations of AdmmSLIM and SLIM carry the
@@ -2054,7 +1964,7 @@ def test_solvers_on_the_card_match_the_cpu(cuda, name, over):
     _, want = _solved_matrix(name, graph, "cpu", **over)
     assert got.device.type == "cuda"
     rel = float((got.cpu() - want).abs().max() / want.abs().max())
-    assert rel <= SOLVER_CARD_TOL[name], rel
+    assert rel <= SOLVER_TOL[name], rel
     batch = {"user_id": torch.arange(20, device=cuda),
              "item_id": torch.arange(60, device=cuda).reshape(20, 3)}
     assert model.predict(batch).shape == (20, 3)
@@ -2095,7 +2005,7 @@ def _op_case(dev, name, dtype):
     g = torch.Generator(device=dev).manual_seed(7)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
     if name in ("layer_fwd", "lastq_fwd"):
-        x, madd, params = _layer_case(dev, dtype, seed=3)
+        x, madd, params = layer_case(dev, dtype, seed=3)
         xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
         if name == "layer_fwd":
             flat = LY._layer_weights(params, dtype)
@@ -2141,7 +2051,7 @@ def test_unirec_operator_cuda_launches_its_kernel(cuda, name, dtype):
     assert counter.launches == before + 1
     outs, refs = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
     for o, r in zip(outs, refs):
-        tol = TOL[dtype] if o.dtype == dtype else 1e-3   # flash's lse is f32
+        tol = LN_TOL[dtype_name(dtype)] if o.dtype == dtype else 1e-3   # flash's lse is f32
         assert o.shape == r.shape and o.dtype == r.dtype
         assert float((o.float() - r.float()).abs().max()) <= tol * max(1.0, float(
             r.float().abs().max()) if name == "ffn_fwd" else 1.0)
@@ -2195,7 +2105,7 @@ def test_exported_fused_program_on_the_card(cuda, tmp_path):
         with mock.patch.object(LY, "_layer_fwd_cuda", LY._layer_fwd_plain), \
                 mock.patch.object(LY, "_lastq_fwd_cuda", LY._lastq_fwd_plain):
             plain = ServeFunction(model, "user_emb")(*t).float().cpu()
-    tol = max(3e-2, 2.0 ** -6 * float(plain.abs().max()))
+    tol = ln_tol(plain)
     assert float((got - live).abs().max()) <= tol
     assert float((got - plain).abs().max()) <= tol
 
@@ -2219,7 +2129,7 @@ def test_cpp_client_serves_rows_1_and_3_on_the_card(cuda, tmp_path):
     for op in ("unirec::layer_fwd", "unirec::lastq_fwd"):
         assert res["launches"][op] == 3 and res["launches_mma"][op] == 3
     ref = ServingModel(str(tmp_path / "art")).user_emb(*ids)
-    assert float(np.abs(res["outputs"][0] - ref).max()) <= max(3e-2, 2.0 ** -6 * np.abs(ref).max())
+    assert float(np.abs(res["outputs"][0] - ref).max()) <= ln_tol(torch.as_tensor(ref))
 
 
 # the entry configuration (rows 10 and 12) and the long one (rows 9 and 12)
@@ -2260,7 +2170,7 @@ def test_cpp_client_serves_the_entry_and_long_packages(cuda, tmp_path, which):
         assert res["launches"][op] == 3 * per_call[op], (op, res["launches"])
         assert res["launches_mma"][op] == res["launches"][op], (op, res["launches_mma"])
     ref = ServingModel(str(tmp_path / "art")).score(*ids)
-    assert float(np.abs(res["outputs"][0] - ref).max()) <= max(3e-2, 2.0 ** -6 * np.abs(ref).max())
+    assert float(np.abs(res["outputs"][0] - ref).max()) <= ln_tol(torch.as_tensor(ref))
 
 
 def test_flash_body_rule_is_the_library_rule(cuda):
@@ -2353,7 +2263,7 @@ def test_dropout_is_keyed_by_the_global_example(cuda, which):
     masks rows 16-31 draw in the whole batch's launch (rows 1-4, bf16 on
     the tensor cores, dropout 0.1), forward and backward, bit for bit; the
     plain version, keyed alike, agrees within _ln_tol."""
-    x, madd, params = _layer_case(cuda, torch.bfloat16, B=32, L=50, D=64, F=128, seed=7)
+    x, madd, params = layer_case(cuda, torch.bfloat16, B=32, L=50, D=64, F=128, seed=7)
     xp, mp, _ = LY._pad_L(x, madd, x.shape[1])
     drop = _drop(0.1, 4242)
     part = drop._replace(b0=16)
@@ -2372,7 +2282,7 @@ def test_dropout_is_keyed_by_the_global_example(cuda, which):
     rows = fwd(xp[16:].contiguous(), mp[16:].contiguous(), flat, *args, part)
     assert torch.equal(rows, whole[16:])
     ref = plain(xp[16:].contiguous(), mp[16:].contiguous(), flat, *args, part)
-    assert float((rows.float() - ref.float()).abs().max()) <= _ln_tol(ref)
+    assert float((rows.float() - ref.float()).abs().max()) <= ln_tol(ref)
     other = fwd(xp[16:].contiguous(), mp[16:].contiguous(), flat, *args, drop)
     assert not torch.equal(other, whole[16:])      # b0 = 0 draws rows 0-15's masks
     dx_whole = bwd(xp, mp, flat, dy_full, *args, drop)[0]
@@ -2389,7 +2299,7 @@ def test_fused_attention_dropout_is_keyed_by_the_global_example(cuda, dtype, L):
     whole batch's launch, forward and backward, bit for bit; b0 = 0 draws
     examples 0-2's."""
     from unirec_tpu_torch.ops import attention as AT
-    q, k, v, mask = _att_case(cuda, dtype, B=6, L=L, seed=5)
+    q, k, v, mask = att_case(cuda, dtype, B=6, L=L, seed=5)
     drop = LY.drop_params(0.2, 0.0, True, 4343)
     part = drop._replace(b0=3)
     do = torch.randn_like(q.float()).to(dtype)
@@ -2493,32 +2403,14 @@ def test_world_size_one_train_step_matches_plain(cuda, tmp_path):
             out[kind] = (loss, [p.detach().float().clone() for p in tr.params], launched)
         (lk, pk, nk), (lp, pp, npl) = out["kernels"], out["plain"]
         assert all(n > 0 for n in nk) and not any(npl)
-        assert abs(lk - lp) <= BWD_TOL[torch.bfloat16] * abs(lp)
+        assert abs(lk - lp) <= BWD_TOL["bfloat16"] * abs(lp)
         for a, b in zip(pk, pp):
-            assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16]
+            assert _rel_err(a, b) <= BWD_TOL["bfloat16"]
     finally:
         dist.destroy_process_group()
 
 
 # ------------------------------------------------------- HSTU's attention
-def _hstu_case(dev, B, L, H, dqk, dv, seed=0):
-    """q, k [B, L, H, dqk], v [B, L, H, dv] split out of one bf16 projection
-    as the model splits them (strided; heads on 2-byte boundaries at odd
-    widths), the table, keys with left padding and one row of padding only,
-    and an output gradient."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    uvqk = torch.nn.functional.silu(torch.randn(B, L, H * (2 * dv + 2 * dqk), generator=g,
-                                                device=dev)).to(torch.bfloat16)
-    _, v, q, k = uvqk.split([H * dv, H * dv, H * dqk, H * dqk], dim=-1)
-    q, k, v = q.unflatten(-1, (H, dqk)), k.unflatten(-1, (H, dqk)), v.unflatten(-1, (H, dv))
-    rab = torch.randn(2 * L - 1, generator=g, device=dev) * 0.5
-    lens = torch.randint(1, L + 1, (B,), generator=g, device=dev)
-    lens[0], lens[-1] = 0, L
-    keys = torch.arange(L, device=dev)[None, :] >= (L - lens)[:, None]
-    go = torch.randn(B, L, H, dv, generator=g, device=dev).to(torch.bfloat16)
-    return q, k, v, rab, keys, go
-
-
 def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
 
@@ -2532,7 +2424,7 @@ def test_hstu_attention_matches_plain(cuda, L, dqk, dv):
     sums in another order, so a rounding may flip), the table's f32
     gradient within 1e-4; padding rows come out zero."""
     from unirec_tpu_torch.ops import hstu_attention as HA
-    q, k, v, rab, keys, go = _hstu_case(cuda, 6 if L <= 256 else 3, L, 2, dqk, dv)
+    q, k, v, rab, keys, go = hstu_case(cuda, 6 if L <= 256 else 3, L, 2, dqk, dv)
     before = (HA.hstu_attention.launches_mma, HA.hstu_attention_bwd.launches_mma)
     out = HA.hstu_attention_fwd(q, k, v, rab, keys)
     dq, dk, dvv, drab = HA.hstu_attention_bwd(q, k, v, rab, keys, go)
@@ -2551,7 +2443,7 @@ def test_hstu_attention_autograd_and_determinism(cuda):
     """Through the autograd.Function: gradients equal the direct backward
     call's bit for bit, twice (sums in a fixed order, no atomics)."""
     from unirec_tpu_torch.ops import hstu_attention as HA
-    q, k, v, rab, keys, go = _hstu_case(cuda, 16, 200, 2, 25, 25, seed=1)
+    q, k, v, rab, keys, go = hstu_case(cuda, 16, 200, 2, 25, 25, seed=1)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, rab)]
     for _ in range(2):
         out = HA.hstu_attention(*leaves, keys)
@@ -2566,7 +2458,7 @@ def test_hstu_attention_stores_no_pair_tensor(cuda):
     its three gradients and the per-block partial tables, nothing more."""
     from unirec_tpu_torch.ops import hstu_attention as HA
     B, L, H, hd = 2048, 200, 2, 25
-    q, k, v, rab, keys, go = _hstu_case(cuda, B, L, H, hd, hd, seed=2)
+    q, k, v, rab, keys, go = hstu_case(cuda, B, L, H, hd, hd, seed=2)
     HA.hstu_attention_bwd(q, k, v, rab, keys, go)       # built, and the workspace sized
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2585,13 +2477,13 @@ def test_hstu_attention_refuses_what_the_kernels_do_not_take(cuda):
     falls back to the plain version."""
     from unirec_tpu_torch.ops import hstu_attention as HA
     before = (HA.hstu_attention.launches_plain, HA.hstu_attention_bwd.launches_plain)
-    q, k, v, rab, keys, go = _hstu_case(cuda, 2, 24, 2, 25, 25)
+    q, k, v, rab, keys, go = hstu_case(cuda, 2, 24, 2, 25, 25)
     with pytest.raises(ValueError, match="bf16"):
         HA.hstu_attention_fwd(q.float(), k.float(), v.float(), rab, keys)
     with pytest.raises(ValueError, match="bf16"):
         HA.hstu_attention_bwd(q.float(), k.float(), v.float(), rab, keys, go)
     for L, hd in ((520, 16), (24, 65)):
-        q, k, v, rab, keys, go = _hstu_case(cuda, 1, L, 1, hd, hd)
+        q, k, v, rab, keys, go = hstu_case(cuda, 1, L, 1, hd, hd)
         with pytest.raises(ValueError, match="capacity"):
             HA.hstu_attention_fwd(q, k, v, rab, keys)
         with pytest.raises(ValueError, match="capacity"):
@@ -2645,54 +2537,9 @@ def test_hstu_model_on_the_card_launches_the_kernels_and_refuses_f32(cuda):
 
 
 # ------------------------------------------------------- Adam (csrc/adam.cu)
-ROOT = Path(__file__).resolve().parents[1]
-
-
-def _cell_leaf_shapes(name):
-    """The leaf shapes of a benchmark configuration's model
-    (portbench/configs/<name>.json), built on the CPU."""
-    import json
-
-    from unirec_tpu_torch import config as config_mod
-    from unirec_tpu_torch.utils.registry import get_model_class
-    conf = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())["config"]
-    cfg = config_mod.parse_arguments(dict(conf), argv=[], device="cpu")
-    return [tuple(p.shape) for p in get_model_class(cfg["model"])(cfg).parameters()]
-
-
-def _adam_state(opt, dev, shapes, seed, count=4):
-    """Leaves at the init scale and a state some steps old: moments drawn,
-    count ``count``."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    rn = lambda s, std: torch.randn(*s, generator=g, device=dev) * std  # noqa: E731
-    params = [rn(s, 0.02) for s in shapes]
-    state = opt.init(params)
-    state["mu"] = [rn(s, 1e-3) for s in shapes]
-    state["nu"] = [rn(s, 1e-3) ** 2 for s in shapes]
-    state["count"].fill_(count)
-    return params, state
-
-
 def _clone_state(params, state):
     return [p.clone() for p in params], {k: [t.clone() for t in v] if isinstance(v, list)
                                          else v.clone() for k, v in state.items()}
-
-
-def _plain_update(opt, grads, state, params, loss):
-    """The plain path on the card: Optimizer.update, then the trainer's
-    guarded apply; (params, state) anew."""
-    from unirec_tpu_torch.facility.trainer import _where
-    finite = torch.isfinite(loss)
-    u, new = opt.update(grads, state, params)
-    return ([torch.where(finite, p + d, p) for p, d in zip(params, u)],
-            {k: _where(finite, v, state[k]) for k, v in new.items()})
-
-
-def _ulps(a, b):
-    """The largest |a - b| over the elements, in f32 ulps of b."""
-    b_abs = b.abs()
-    spacing = torch.nextafter(b_abs, torch.full_like(b_abs, float("inf"))) - b_abs
-    return float(((a - b).abs() / spacing).max()) if a.numel() else 0.0
 
 
 def _bits(ts):
@@ -2712,11 +2559,11 @@ def test_adam_kernel_matches_the_plain_path_at_the_sasrec_d64_leaves(cuda, kind,
     same count; one launch an update."""
     from unirec_tpu_torch.core import optim
     from unirec_tpu_torch.ops import adam as A
-    shapes = _cell_leaf_shapes("sasrec_d64_l50")
+    shapes = cell_leaf_shapes("sasrec_d64_l50")
     assert len(shapes) == 36 and len(shapes) <= A.max_leaves()
     opt = optim.build_optimizer({"optimizer": kind, "learning_rate": 1e-3,
                                  "weight_decay": wd, "grad_clip_value": clip})
-    kp, ks = _adam_state(opt, cuda, shapes, seed=5)
+    kp, ks = adam_state(opt, cuda, shapes, seed=5)
     pp, ps = _clone_state(kp, ks)
     g = torch.Generator(device=cuda).manual_seed(6)
     before = A.adam_step.launches_fused
@@ -2724,7 +2571,7 @@ def test_adam_kernel_matches_the_plain_path_at_the_sasrec_d64_leaves(cuda, kind,
         grads = [torch.randn(*s, generator=g, device=cuda) * 1e-3 for s in shapes]
         loss = torch.tensor(0.5, device=cuda)
         opt.step_(grads, ks, kp, loss)
-        pp, ps = _plain_update(opt, grads, ps, pp, loss)
+        pp, ps = guarded_update(opt, grads, ps, pp, loss)
     torch.cuda.synchronize()
     assert A.adam_step.launches_fused == before + 3
     assert int(ks["count"]) == int(ps["count"]) == 7
@@ -2732,7 +2579,7 @@ def test_adam_kernel_matches_the_plain_path_at_the_sasrec_d64_leaves(cuda, kind,
     for i, s in enumerate(shapes):
         for what, a, b in (("p", kp[i], pp[i]), ("mu", ks["mu"][i], ps["mu"][i]),
                            ("nu", ks["nu"][i], ps["nu"][i])):
-            worst[(i, s, what)] = _ulps(a, b)
+            worst[(i, s, what)] = f32_ulps(a, b)
     bad = {k: v for k, v in worst.items() if not v <= 2.0}
     assert not bad, bad
 
@@ -2742,8 +2589,8 @@ def test_adam_kernel_writes_nothing_when_the_loss_is_not_finite(cuda):
     next finite update moves them (the ticket is whole again)."""
     from unirec_tpu_torch.core import optim
     opt = optim.build_optimizer({"optimizer": "adam", "learning_rate": 1e-3})
-    shapes = _cell_leaf_shapes("sasrec_d64_l50")
-    params, state = _adam_state(opt, cuda, shapes, seed=7)
+    shapes = cell_leaf_shapes("sasrec_d64_l50")
+    params, state = adam_state(opt, cuda, shapes, seed=7)
     grads = [torch.randn(*s, device=cuda) for s in shapes]
     for bad in (float("nan"), float("inf"), float("-inf")):
         old = _bits(params), _bits(state["mu"]), _bits(state["nu"]), int(state["count"])
@@ -2770,7 +2617,7 @@ def test_adam_kernel_takes_more_leaves_than_a_table_and_ragged_unaligned_leaves(
     n = 2 * A.max_leaves() + 5
     shapes = [(4097,), (3,), (1,), (33, 7), (0,), (4096 * 3 + 2,)] + [(64,)] * (n - 6)
     opt = optim.build_optimizer({"optimizer": "adam", "learning_rate": 1e-3})
-    kp, ks = _adam_state(opt, cuda, shapes, seed=8)
+    kp, ks = adam_state(opt, cuda, shapes, seed=8)
     buf = torch.zeros(kp[0].numel() + 1, device=cuda)        # leaf 0 on a 4-byte offset
     buf[1:].copy_(kp[0])
     kp[0] = buf[1:]
@@ -2786,13 +2633,13 @@ def test_adam_kernel_takes_more_leaves_than_a_table_and_ragged_unaligned_leaves(
         kgrads[3] = gbuf[1:].view(shapes[3])                # an unaligned gradient
         loss = torch.tensor(1.0, device=cuda)
         opt.step_(kgrads, ks, kp, loss)
-        pp, ps = _plain_update(opt, grads, ps, pp, loss)
+        pp, ps = guarded_update(opt, grads, ps, pp, loss)
     torch.cuda.synchronize()
     assert A.adam_step.launches_fused == before + 2 * 3
     assert int(ks["count"]) == int(ps["count"]) == 6
     for i in range(n):
         for a, b in ((kp[i], pp[i]), (ks["mu"][i], ps["mu"][i]), (ks["nu"][i], ps["nu"][i])):
-            assert _ulps(a, b) <= 2.0, (i, shapes[i])
+            assert f32_ulps(a, b) <= 2.0, (i, shapes[i])
 
 
 def _card_trainer(tmp_path, cuda):

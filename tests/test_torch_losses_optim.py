@@ -1,9 +1,9 @@
 """ops/losses.py against unirec_tpu/ops/losses.py on the same scores (within
 1e-6), and core/optim.py against the JAX package's optax chain: the same
-gradients give the same updates over 3 steps (within 1e-6). The Adam kinds'
-in-place step (``Optimizer.step_``: on CPU leaves ops/adam.py's plain
-version, the kernel's arithmetic) equals the functional update followed by
-the trainer's guarded apply, bit for bit."""
+gradients give the same updates over 3 steps (within 1e-6). Every kind's
+in-place step (``Optimizer.step_``: on CPU leaves the functional update and
+the guarded copies, for Adam the kernel's arithmetic) equals the functional
+update followed by a guarded apply, bit for bit."""
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -11,9 +11,9 @@ import pytest
 import torch
 
 from unirec_tpu.core import optim as jax_optim
+from card_cases import guarded_update
 from unirec_tpu.ops import losses as jax_losses
 from unirec_tpu_torch.core import optim
-from unirec_tpu_torch.facility.trainer import _where
 from unirec_tpu_torch.ops import adam as A
 from unirec_tpu_torch.ops import losses
 
@@ -115,13 +115,15 @@ FROZEN = 1                  # this leaf's gradient is zero, as the trainer gives
 
 
 @pytest.mark.parametrize("loss2", ["finite", "nan", "inf"])
-@pytest.mark.parametrize("kind,wd,clip", [(k, wd, clip) for k in ("adam", "adamw", "sparse_adam")
+@pytest.mark.parametrize("kind,wd,clip", [(k, wd, clip) for k in ("adam", "adamw", "sparse_adam",
+                                                                  "sgd", "adagrad", "rmsprop")
                                           for wd in (0.0, 0.01) for clip in (-1, 0.5)])
 def test_in_place_step_equals_the_functional_update_and_the_guarded_apply(kind, wd, clip, loss2):
     """Three steps from one state: ``step_`` in place against ``update``,
-    then ``torch.where(finite, p + u, p)`` and the state select. Params,
-    mu, nu and count bit-equal after every step; the second step's loss is
-    ``loss2``, and a loss that is not finite leaves everything as it was."""
+    then ``torch.where(finite, p + u, p)`` and the state select. Params and
+    every state tensor of the kind bit-equal after every step, the state
+    the same dict and tensors; the second step's loss is ``loss2``, and a
+    loss that is not finite leaves everything as it was."""
     cfg = {"optimizer": kind, "learning_rate": 3e-3, "weight_decay": wd,
            "grad_clip_value": clip}
     opt = optim.build_optimizer(cfg)
@@ -133,29 +135,33 @@ def test_in_place_step_equals_the_functional_update_and_the_guarded_apply(kind, 
     losses_ = [torch.tensor(0.7), torch.tensor(float(loss2) if loss2 != "finite" else 0.6),
                torch.tensor(0.5)]
     plain = A.adam_step.launches_plain
+    held = dict(ins)
+    tensors = {k: list(v) if isinstance(v, list) else [v] for k, v in ins.items()}
     for step, loss in enumerate(losses_):
         grads = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ADAM_SHAPES]
         grads[FROZEN] = torch.zeros(ADAM_SHAPES[FROZEN])
-        before = [p.clone() for p in ip], int(ins["count"])
-        finite = torch.isfinite(loss)
-        u, new = opt.update(grads, fs, fp)
-        fp = [torch.where(finite, p + d, p) for p, d in zip(fp, u)]
-        fs = {k: _where(finite, v, fs[k]) for k, v in new.items()}
+        before = [p.clone() for p in ip], {k: [t.clone() for t in v] for k, v in tensors.items()}
+        fp, fs = guarded_update(opt, grads, fs, fp, loss)
         opt.step_(grads, ins, ip, loss)
         for a, b in zip(ip, fp):
             assert torch.equal(a, b)
-        for k in ("mu", "nu"):
-            for a, b in zip(ins[k], fs[k]):
-                assert torch.equal(a, b)
-        assert torch.equal(ins["count"], fs["count"]) and ins["count"].dtype == torch.int32
-        if not bool(finite):
-            assert int(ins["count"]) == before[1]
+        assert set(ins) == set(fs) == set(tensors)
+        for k, v in tensors.items():
+            assert ins[k] is held[k] and all(a is b for a, b in zip(
+                ins[k] if isinstance(ins[k], list) else [ins[k]], v))
+            for a, b in zip(v, fs[k] if isinstance(fs[k], list) else [fs[k]]):
+                assert torch.equal(a, b) and a.dtype == b.dtype
+        if not bool(torch.isfinite(loss)):
             for a, b in zip(ip, before[0]):
                 assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for k, v in tensors.items():
+                assert all(torch.equal(a, b) for a, b in zip(v, before[1][k]))
         if wd == 0:
             assert torch.equal(ip[FROZEN], torch.from_numpy(start[FROZEN]))
-    assert int(ins["count"]) == (3 if loss2 == "finite" else 2)
-    assert A.adam_step.launches_plain == plain + 3      # one for each step_ on the CPU
+    if opt.is_adam:
+        assert int(ins["count"]) == (3 if loss2 == "finite" else 2)
+        assert ins["count"].dtype == torch.int32
+        assert A.adam_step.launches_plain == plain + 3      # one for each step_ on the CPU
 
 
 def test_in_place_step_refuses_what_the_kernel_does_not_take():
@@ -180,9 +186,6 @@ def test_in_place_step_refuses_what_the_kernel_does_not_take():
         kernel(g=grads[:1])
     with pytest.raises(ValueError, match="shape"):
         kernel(g=[torch.ones(3, 4), grads[1]])
-    with pytest.raises(ValueError, match="in-place"):
-        optim.build_optimizer({"optimizer": "sgd", "learning_rate": 1e-3}).step_(
-            grads, state, params, loss)
     with pytest.raises(ValueError, match="gnorm"):          # the kernel reads clip's norm
         kernel(clip=1.0)
     # a gradient that is not contiguous passes the checks (the wrapper copies it)

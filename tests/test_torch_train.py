@@ -161,16 +161,26 @@ def test_fit_lowers_the_loss(tmp_path):
     assert tr._global_step == 9 and tr.cur_epoch == 3
 
 
-def test_nan_guard_keeps_params_and_state(tmp_path):
-    tr, data = _trainer(tmp_path)
+@pytest.mark.parametrize("optimizer", ["adam", "rmsprop"])
+def test_nan_guard_keeps_params_and_state(tmp_path, optimizer):
+    """A step whose loss is not finite leaves the parameters and every
+    state tensor as they were; the next, finite step moves them in place:
+    ``opt_state`` stays the same dict for every optimizer kind."""
+    tr, data = _trainer(tmp_path, optimizer=optimizer)
     tr.init_params()
-    before = [p.detach().clone() for p in tr.params]
-    count = tr.opt_state["count"].clone()
+    state = tr.opt_state
+    flat = lambda: [t for v in state.values() for t in (v if isinstance(v, list) else [v])]  # noqa: E731
+    before = [p.detach().clone() for p in tr.params], [t.clone() for t in flat()]
     batch = {k: torch.as_tensor(v) for k, v in next(iter(data)).items()}
-    batch["weight"] = torch.full_like(batch["weight"], float("nan"))
-    assert not torch.isfinite(tr.train_step(batch))
-    assert all(torch.equal(a, b) for a, b in zip(before, tr.params))
-    assert torch.equal(tr.opt_state["count"], count)
+    bad = dict(batch, weight=torch.full_like(batch["weight"], float("nan")))
+    assert not torch.isfinite(tr.train_step(bad))
+    assert tr.opt_state is state
+    assert all(torch.equal(a, b) for a, b in zip(before[0], tr.params))
+    assert all(torch.equal(a, b) for a, b in zip(before[1], flat()))
+    assert torch.isfinite(tr.train_step(batch))
+    assert tr.opt_state is state
+    assert not all(torch.equal(a, b) for a, b in zip(before[0], tr.params))
+    assert not all(torch.equal(a, b) for a, b in zip(before[1], flat()))
 
 
 def test_auto_resume_is_bit_identical(tmp_path):

@@ -294,7 +294,8 @@ def main(argv) -> int:
         print(f"kernel_ablations: sources are {SOURCES}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import layer_inputs, smi_line
+    from card_cases import path_layer_case
+    from chip_smoke import smi_line
     from unirec_tpu_torch.ops import layer as LY
     print(smi_line(), flush=True)
     build_variants(sources)
@@ -306,7 +307,7 @@ def main(argv) -> int:
         ffn_variants(torch)
     if sources & {"layer_bwd", "layer_fwd", "lastq_bwd", "lastq_fwd"}:
         # rows 1-4 at the training path's shape, dropout 0.1 on every site
-        xp, mp, params = layer_inputs(torch, torch.bfloat16, B=32768, seed=10)
+        xp, mp, params = path_layer_case("cuda", torch.bfloat16, 32768, 10)
         fargs = (2, "swish", 1e-10, True, LY.drop_params(0.1, 0.1, True, 12345))
         layer_variants(torch, sources, xp, mp, params, fargs)
     if "scatter_add" in sources:
@@ -319,9 +320,9 @@ def main(argv) -> int:
 
 
 def flash_variants(torch):
-    from chip_smoke import flash_inputs
+    from card_cases import att_case
     from unirec_tpu_torch.ops import attention as AT
-    q, k, v, mask = flash_inputs(torch, 8192, 256, torch.bfloat16)
+    q, k, v, mask = att_case("cuda", torch.bfloat16, B=8192, L=256)
     names = [n for n, src, _ in VARIANTS if src == "flash_attention"]
     line = timed_variants(torch, "flash_attention", AT._flash_entry, names,
                           lambda: AT._flash_fwd_cuda(q, k, v, mask))
@@ -331,10 +332,10 @@ def flash_variants(torch):
 
 
 def attention_variants(torch):
-    from chip_smoke import attention_inputs
+    from card_cases import att_case
     from unirec_tpu_torch.ops import attention as AT
     from unirec_tpu_torch.ops import layer as LY
-    q, k, v, mask = attention_inputs(torch, 32768)
+    q, k, v, mask = att_case("cuda", torch.bfloat16, B=32768, L=50)
     do = torch.randn_like(q.float()).to(torch.bfloat16)
     for kind in ("bwd", "fwd"):
         names = [n for n, src, _ in VARIANTS if src == "attention" and n.startswith(kind)]

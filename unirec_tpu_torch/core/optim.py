@@ -7,10 +7,10 @@ adamw = adam then decayed weights) -> scale(-1) -> scale(lr). The same
 chain is written here in plain tensor ops, step for step as optax 0.2
 computes it, so an update is the same function of (grads, state, params)
 and the trainer's NaN guard stays on the device (a ``torch.where`` on
-``isfinite(loss)``, no host sync). For the Adam kinds the trainer calls
-``step_``, the update and the guarded apply in place: on CUDA leaves one
-hand-written kernel (ops/adam.py, csrc/adam.cu), on other leaves
-``update`` and the guarded copies. Parameters and state are lists of tensors in
+``isfinite(loss)``, no host sync). The trainer calls ``step_``, the
+update and the guarded apply in place: for the Adam kinds on CUDA leaves one
+hand-written kernel (ops/adam.py, csrc/adam.cu), for every other kind or
+device ``update`` and the guarded copies. Parameters and state are lists of tensors in
 ``model.parameters()`` order; the state is a dict of tensors:
 
     learning_rate  0-d f32    (the injected hyperparameter)
@@ -25,7 +25,7 @@ kinds, ``optim.moments``, ``optim.bias_correction`` and ``optim.direction``
 clip's norm) over ``train.apply`` (the kernel's launches, which write the
 guarded update), elsewhere ``update``'s spans, then ``train.apply`` (the
 guarded copies). ops/adam.py's ``adam_step`` counts the kernel's launches
-(``launches_fused``) and ``step_``'s plain updates (``launches_plain``).
+(``launches_fused``) and ``step_``'s plain Adam updates (``launches_plain``).
 """
 from __future__ import annotations
 
@@ -60,8 +60,8 @@ def global_sq_norm(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor]
 
 class Optimizer:
     """``init(params) -> state``; ``update(grads, state, params) ->
-    (updates, new_state)``; apply with ``p + u`` (optax's convention). The
-    Adam kinds (``is_adam``) also take ``step_``: update and apply in place."""
+    (updates, new_state)``; apply with ``p + u`` (optax's convention).
+    ``step_``: update and apply in place, under the NaN guard."""
 
     def __init__(self, kind: str, learning_rate: float, weight_decay: float = 0.0,
                  clip: float = -1.0):
@@ -134,27 +134,28 @@ class Optimizer:
 
     def step_(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
               params: Sequence[torch.Tensor], loss: torch.Tensor) -> None:
-        """The Adam kinds' update and the trainer's guarded apply in one, in
-        place: ``params``, ``state["mu"]``, ``state["nu"]`` and
-        ``state["count"]`` change unless ``loss`` is not finite. CUDA leaves
-        go to the kernel, with no host read; other leaves to its plain
-        version, ``update`` then ``p + u`` and the new state, copied in
+        """The update and the trainer's guarded apply in one, in place:
+        ``params`` and ``state``'s tensors change unless ``loss`` is not
+        finite; ``state`` keeps its dict and tensors. The Adam kinds' CUDA
+        leaves go to the kernel, with no host read; every other kind or
+        device to ``update`` then ``p + u`` and the new state, copied in
         under ``torch.where`` on ``isfinite(loss)``."""
-        if not self.is_adam:
-            raise ValueError(f"{self.kind} has no in-place step")
         params = list(params)
-        dev = state["count"].device
-        if dev.type != "cuda":
+        dev = state["learning_rate"].device
+        if not (self.is_adam and dev.type == "cuda"):
             finite = torch.isfinite(loss)
             updates, new = self.update(grads, state, params)
             with tracing.span("train.apply"):
                 for p, u in zip(params, updates):
-                    p.copy_(torch.where(finite, p + u, p))
-                for k in ("mu", "nu"):
-                    for old, v in zip(state[k], new[k]):
-                        old.copy_(torch.where(finite, v, old))
-                state["count"].copy_(torch.where(finite, new["count"], state["count"]))
-            A.adam_step.launches_plain += 1
+                    torch.where(finite, p + u, p, out=p)
+                for k, v in new.items():
+                    if k == "learning_rate":    # no step changes it
+                        continue
+                    olds, news = (state[k], v) if isinstance(v, list) else ([state[k]], [v])
+                    for old, t in zip(olds, news):
+                        torch.where(finite, t, old, out=old)
+            if self.is_adam:
+                A.adam_step.launches_plain += 1
             return
         with tracing.span("optim.update"):
             gnorm = torch.sqrt(global_sq_norm(grads, params)) if self.clip > 0 else None

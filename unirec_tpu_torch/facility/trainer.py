@@ -253,23 +253,13 @@ class Trainer:
         """The optimizer update from ``grads`` (None for a parameter the
         loss does not reach), frozen parameters at zero gradient, under the
         NaN guard (trainer.py:229-237): params and state stay when the loss
-        is not finite. The Adam kinds update ``params`` and ``opt_state``'s
-        tensors in place (``Optimizer.step_``: on the card one kernel, with
-        no host read); the others take the functional update, then the
-        guarded copies and a new state."""
+        is not finite. ``Optimizer.step_`` updates ``params`` and
+        ``opt_state``'s tensors in place (for Adam on the card one kernel,
+        with no host read)."""
         with tracing.span("train.update"), torch.no_grad():
             grads = [torch.zeros_like(p) if g is None or f else g
                      for g, p, f in zip(grads, self.params, self._frozen)]
-            if self.tx.is_adam:
-                self.tx.step_(grads, self.opt_state, self.params, loss)
-                return
-            finite = torch.isfinite(loss)
-            updates, new_state = self.tx.update(grads, self.opt_state, self.params)
-            with tracing.span("train.apply"):
-                for p, u in zip(self.params, updates):
-                    p.copy_(torch.where(finite, p + u, p))
-                self.opt_state = {k: _where(finite, v, self.opt_state[k])
-                                  for k, v in new_state.items()}
+            self.tx.step_(grads, self.opt_state, self.params, loss)
 
     @property
     def _frozen(self):
@@ -444,8 +434,3 @@ class Trainer:
         self.logger.info("Loaded model from %s (epoch %s)", filename, ckpt.get("cur_epoch"))
         return ckpt
 
-
-def _where(cond, new, old):
-    if isinstance(new, list):
-        return [torch.where(cond, n, o) for n, o in zip(new, old)]
-    return torch.where(cond, new, old)
